@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels for the port's hot ops, each beside its
+plain PyTorch version."""
+
+from tensor2robot_tpu_torch.ops.cem_select import (
+    cem_select_reference,
+    fused_cem_select,
+    select_elites,
+)
+
+__all__ = ["cem_select_reference", "fused_cem_select", "select_elites"]

@@ -1,0 +1,108 @@
+"""Builds and loads the port's CUDA kernels (nvcc → shared lib → ctypes).
+
+Each `csrc/<name>.cu` exposes a plain C interface and is compiled on
+first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
+         -Xcompiler -fPIC
+
+into `tensor2robot_tpu_torch/_build/lib<name>-<hash>.so`, where the hash
+covers the source and the flags: an edited source builds anew, an
+unchanged one loads the library already there. Nothing is built at
+import time. `build(names)` starts one nvcc per source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+_LOCK = threading.Lock()
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+  found = shutil.which("nvcc")
+  if found:
+    return found
+  default = "/usr/local/cuda/bin/nvcc"
+  if os.path.exists(default):
+    return default
+  raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); the "
+                     "CUDA kernels build only where the CUDA toolkit is.")
+
+
+def library_path(name: str) -> Path:
+  source = CSRC_DIR / f"{name}.cu"
+  digest = hashlib.sha256(source.read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+  return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str], ptxas_verbose: bool = False
+          ) -> Dict[str, float]:
+  """Compiles every listed kernel whose library is missing, one nvcc
+  each, all started together. Returns wall seconds per name (0.0 when
+  already built). `ptxas_verbose` prints registers/smem/spills."""
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  started = {}
+  seconds = {}
+  try:
+    for name in names:
+      out = library_path(name)
+      if out.exists():
+        seconds[name] = 0.0
+        continue
+      tmp = out.with_suffix(f".{os.getpid()}.tmp")
+      cmd = [nvcc_path(), *NVCC_FLAGS,
+             *(("-Xptxas", "-v") if ptxas_verbose else ()),
+             "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+      started[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    for name, (proc, tmp, out, t0) in started.items():
+      log, _ = proc.communicate()
+      seconds[name] = time.perf_counter() - t0
+      if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+      if ptxas_verbose and log:
+        print(log, end="")
+      os.replace(tmp, out)  # atomic: a concurrent builder sees old or new
+  finally:
+    for proc, tmp, _, _ in started.values():
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+      if tmp.exists():
+        tmp.unlink()
+  return seconds
+
+
+def load(name: str, argtypes: Dict[str, Sequence] = None) -> ctypes.CDLL:
+  """The kernel library `name`, built if needed; loaded once per process.
+
+  `argtypes` maps C function → (restype, [argtypes...]).
+  """
+  with _LOCK:
+    lib = _LOADED.get(name)
+    if lib is None:
+      build([name])
+      lib = ctypes.CDLL(str(library_path(name)))
+      for fn, (restype, args) in (argtypes or {}).items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = list(args)
+      _LOADED[name] = lib
+    return lib

@@ -1,0 +1,168 @@
+"""Fused CEM iteration tail: q-head scoring + top-E + elite statistics.
+
+Port of `tensor2robot_tpu/ops/cem_select.py`. `fused_cem_select`
+launches the hand-written Hopper kernel `csrc/cem_select.cu` (which
+replaces the Pallas `_cem_select_kernel`) on a CUDA tensor, and takes
+the plain version `cem_select_reference` only because its tensor lies
+on the CPU. There is no fallback: a CUDA tensor launches the kernel or
+raises.
+
+Contract (both versions): pooled population features `[P, B, C]`
+(P-major, compute dtype bf16 or f32), candidate actions `[B, P, A]`,
+q-head `((w [in, out], b [out]), ..., (w [H, 1], b [1]))` in pooled's
+dtype → `(mean, std, best_action)` `[B, A]` f32 and `best_score` `[B]`
+f32. MLP products accumulate in f32 with hidden activations rounded to
+the compute dtype; the optional sigmoid runs before selection; ties go
+to the lower sample index; std uses ddof 0, floored at `min_std`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Sequence, Tuple
+
+import torch
+
+from tensor2robot_tpu_torch.ops import build
+
+_MAX_LAYERS = 8
+_MAX_SMEM = 232448 - 64  # 227 KB, less the kernel's static scratch
+
+_ARGTYPES = {
+    "t2r_cem_select_smem_bytes": (
+        ctypes.c_size_t,
+        [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+         ctypes.c_int]),
+    "t2r_cem_select": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+         ctypes.POINTER(ctypes.c_int),
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+}
+
+Dense = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _mlp_f32(x: torch.Tensor, dense: Dense) -> torch.Tensor:
+  """The q-head MLP with f32 accumulation; x [N, C] → [N] f32."""
+  h = x
+  for i, (w, b) in enumerate(dense):
+    h = h.float() @ w.float() + b.float()
+    if i < len(dense) - 1:
+      h = torch.relu(h).to(x.dtype)
+  return h[:, 0]
+
+
+def select_elites(scores: torch.Tensor, samples: torch.Tensor,
+                  num_elites: int, min_std: float):
+  """[B, P] scores → (mean, std, best_action, best_score) of the top
+  `num_elites` samples. A stable descending sort gives `lax.top_k`'s
+  tie order (`torch.topk` documents none); std uses ddof 0."""
+  b, _, a_dim = samples.shape
+  idx = torch.sort(scores, dim=1, descending=True, stable=True).indices
+  idx = idx[:, :num_elites]
+  elites = torch.gather(samples.float(), 1,
+                        idx[..., None].expand(b, num_elites, a_dim))
+  mean = elites.mean(dim=1)
+  std = ((elites - mean[:, None]) ** 2).mean(dim=1).sqrt()
+  return (mean, std.clamp_min(min_std), elites[:, 0],
+          torch.gather(scores, 1, idx[:, :1])[:, 0])
+
+
+def cem_select_reference(pooled: torch.Tensor, samples: torch.Tensor,
+                         dense: Dense, num_elites: int,
+                         min_std: float = 1e-2, sigmoid: bool = False):
+  """The kernel's contract in plain torch (`cem_select_lax`'s twin);
+  materializes the `[B, P]` scores the kernel never writes."""
+  p, b, c = pooled.shape
+  scores = _mlp_f32(pooled.reshape(p * b, c), dense).reshape(p, b).t()
+  if sigmoid:
+    scores = torch.sigmoid(scores)
+  return select_elites(scores, samples, num_elites, min_std)
+
+
+def _check(pooled, samples, dense, num_elites):
+  """The JAX wrapper's guards; Mosaic-only limits are not carried over."""
+  p, b, _ = pooled.shape
+  if tuple(samples.shape[:2]) != (b, p):
+    raise ValueError(f"samples {tuple(samples.shape)} != [B={b}, P={p}, A]")
+  if num_elites > p:
+    raise ValueError(f"num_elites {num_elites} > population {p}")
+  if dense[-1][0].shape[-1] != 1:
+    raise ValueError("q-head MLP must end at width 1")
+  width = pooled.shape[-1]
+  for i, (w, bias) in enumerate(dense):
+    if w.shape[0] != width or tuple(bias.shape) != (w.shape[1],):
+      raise ValueError(f"q-head layer {i}: w {tuple(w.shape)}, "
+                       f"b {tuple(bias.shape)} do not chain from {width}")
+    width = w.shape[1]
+
+
+def fused_cem_select(pooled: torch.Tensor, samples: torch.Tensor,
+                     dense: Dense, num_elites: int, min_std: float = 1e-2,
+                     sigmoid: bool = False):
+  """Fused CEM iteration tail → (mean, std, best_action, best_score).
+
+  On a CUDA `pooled` this launches `csrc/cem_select.cu` on the current
+  stream (one CTA per state) and adds one to `fused_cem_select.launches`;
+  on a CPU `pooled` it returns `cem_select_reference`.
+  """
+  _check(pooled, samples, dense, num_elites)
+  if pooled.device.type == "cpu":
+    return cem_select_reference(pooled, samples, dense, num_elites,
+                                min_std=min_std, sigmoid=sigmoid)
+  if pooled.device.type != "cuda":
+    raise ValueError(f"fused_cem_select: unsupported device {pooled.device}")
+  return _launch(pooled, samples, dense, num_elites, min_std, sigmoid)
+
+
+fused_cem_select.launches = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def _launch(pooled, samples, dense, num_elites, min_std, sigmoid):
+  dtype = pooled.dtype
+  if dtype not in (torch.bfloat16, torch.float32):
+    raise ValueError(f"pooled dtype {dtype} not in (bfloat16, float32)")
+  if len(dense) > _MAX_LAYERS:
+    raise ValueError(f"q-head has {len(dense)} layers > {_MAX_LAYERS}")
+  tensors = [pooled] + [t for pair in dense for t in pair]
+  for t in tensors:
+    if t.device != pooled.device or t.dtype != dtype:
+      raise ValueError("q-head params must share pooled's device and "
+                       f"dtype ({pooled.device}, {dtype})")
+    if not t.is_contiguous():
+      raise ValueError("fused_cem_select needs contiguous tensors")
+  if samples.device != pooled.device:
+    raise ValueError("samples must be on pooled's device")
+  samples = samples.float().contiguous()
+  p, b, c = pooled.shape
+  a_dim = samples.shape[-1]
+  lib = build.load("cem_select", _ARGTYPES)
+  n = len(dense)
+  dims = (ctypes.c_int * (n + 1))(c, *[w.shape[1] for w, _ in dense])
+  is_bf16 = int(dtype == torch.bfloat16)
+  smem = lib.t2r_cem_select_smem_bytes(n, dims, p, is_bf16)
+  if smem > _MAX_SMEM:
+    raise ValueError(f"fused_cem_select needs {smem} B of shared memory "
+                     f"(P={p}, widths {list(dims)}) > {_MAX_SMEM} B")
+  out = torch.empty((3, b, a_dim), dtype=torch.float32, device=pooled.device)
+  best_score = torch.empty((b,), dtype=torch.float32, device=pooled.device)
+  ws = (ctypes.c_void_p * n)(*[w.data_ptr() for w, _ in dense])
+  bs = (ctypes.c_void_p * n)(*[bias.data_ptr() for _, bias in dense])
+  with torch.cuda.device(pooled.device):
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.t2r_cem_select(
+        pooled.data_ptr(), samples.data_ptr(), n, ws, bs, dims,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        best_score.data_ptr(), p, b, a_dim, num_elites, float(min_std),
+        int(sigmoid), is_bf16, stream)
+  if err != 0:
+    raise RuntimeError(f"cem_select kernel launch failed: CUDA error {err}")
+  with _COUNT_LOCK:
+    fused_cem_select.launches += 1
+  return out[0], out[1], out[2], best_score

@@ -1,0 +1,83 @@
+"""Carries flax variables across into the port's state.
+
+`convert_variables` takes what the JAX package's network holds —
+``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
+arrays (``jax.device_get`` of a flax variables tree) — and returns a
+`TrainState` whose keys are the port network's parameter/buffer names:
+
+  * conv kernel HWIO → torch OIHW ``<name>.weight``;
+  * Dense kernel ``[in, out]`` → Linear ``[out, in]`` ``<name>.weight``;
+  * biases map one to one (a conv has one only without batch norm);
+  * BatchNorm ``scale``/``bias`` params and ``mean``/``var`` stats map
+    one to one (eps 1e-5 is fixed in both networks).
+
+Leaves come out float32 (the port's master dtype). A bfloat16 numpy
+leaf (an `ml_dtypes` array) is read through its uint16 view, so this
+module needs no `ml_dtypes` import.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from tensor2robot_tpu_torch.models.abstract_model import TrainState
+
+
+def to_tensor(leaf: Any) -> torch.Tensor:
+  """numpy (incl. bfloat16) → float32 torch tensor on the CPU."""
+  arr = np.asarray(leaf)
+  if arr.dtype.name == "bfloat16":
+    bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16))
+    return bits.view(torch.bfloat16).float()
+  return torch.from_numpy(np.array(arr, dtype=np.float32))
+
+
+def _walk(tree: Mapping[str, Any], prefix: str = ""):
+  """Yields (dotted module path, {leaf name: array}) per flax module."""
+  leaves = {k: v for k, v in tree.items() if not isinstance(v, Mapping)}
+  if leaves:
+    yield prefix, leaves
+  for key, value in tree.items():
+    if isinstance(value, Mapping):
+      yield from _walk(value, f"{prefix}.{key}" if prefix else key)
+
+
+def convert_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  out = {}
+  for module, leaves in _walk(params):
+    for name, leaf in leaves.items():
+      t = to_tensor(leaf)
+      if name == "kernel":
+        if t.ndim == 4:      # HWIO → OIHW
+          t = t.permute(3, 2, 0, 1)
+        elif t.ndim == 2:    # [in, out] → [out, in]
+          t = t.t()
+        else:
+          raise ValueError(f"{module}.kernel has rank {t.ndim}")
+        name = "weight"
+      elif name not in ("bias", "scale"):
+        raise ValueError(f"unexpected flax param {module}.{name}")
+      out[f"{module}.{name}"] = t.contiguous()
+  return out
+
+
+def convert_batch_stats(stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  out = {}
+  for module, leaves in _walk(stats):
+    for name, leaf in leaves.items():
+      if name not in ("mean", "var"):
+        raise ValueError(f"unexpected flax batch stat {module}.{name}")
+      out[f"{module}.{name}"] = to_tensor(leaf).contiguous()
+  return out
+
+
+def convert_variables(variables: Mapping[str, Any],
+                      step: int = 0) -> TrainState:
+  """flax ``{"params", "batch_stats"}`` (numpy) → port `TrainState`."""
+  return TrainState(
+      step=step,
+      params=convert_params(variables["params"]),
+      batch_stats=convert_batch_stats(variables.get("batch_stats", {})))

@@ -1,0 +1,280 @@
+"""QT-Opt grasping Q-network (port of `research/qtopt/networks.py`).
+
+The bf16/f32 tower: camera image + proposed action (+ extra state
+floats) → grasp-success Q logit, split at the action merge into
+`encode(image)` (action-independent torso, run once per state) and
+`head(encoded, features)`; `score_population` / `pool_population`
+score a whole CEM population through the linearity-split merge
+without tiling the torso map. The int8 tower comes in a later slice.
+
+Layouts follow the JAX package at every public method — NHWC maps,
+P-major `[P, B, C]` pooled features, `[B, P]` scores — so converted
+weights (`convert.py`) give the same numbers. Parameter names are the
+flax names (``torso_conv_0``, ``head_bn_1``, ``q_head.dense_0`` ...).
+
+Numerics mirror flax layer by layer: each layer casts input and f32
+master weights to the compute dtype; batch norm runs in f32 and rounds
+its output to the compute dtype; spatial means accumulate in f32 and
+round once. Convolutions pad SAME the way XLA does ((0, 1) for a 3×3
+stride-2 conv on an even input): torch refuses padding='same' at
+stride 2, and symmetric padding would shift every tap.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tensor2robot_tpu_torch.layers import MLP, dense
+from tensor2robot_tpu_torch.models.critic_model import Q_VALUE
+
+_BN_EPS = 1e-5  # flax nn.BatchNorm default
+
+
+def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
+  """XLA's SAME padding (low, high) for one spatial dim."""
+  total = max((-(-n // s) - 1) * s + k - n, 0)
+  return total // 2, total - total // 2
+
+
+def conv_same(conv: nn.Conv2d, x: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+  """flax `nn.Conv(padding='SAME', dtype=dtype)` on NHWC `x`."""
+  (kh, kw), (sh, sw) = conv.kernel_size, conv.stride
+  ph = _same_pads(x.shape[1], kh, sh)
+  pw = _same_pads(x.shape[2], kw, sw)
+  xt = F.pad(x.to(dtype).permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
+  xt = xt.contiguous(memory_format=torch.channels_last)
+  y = F.conv2d(xt, conv.weight.to(dtype), stride=(sh, sw))
+  y = y.permute(0, 2, 3, 1)
+  if conv.bias is not None:
+    y = y + conv.bias.to(dtype)
+  return y
+
+
+def spatial_mean(x: torch.Tensor) -> torch.Tensor:
+  """`jnp.mean(x, axis=(1, 2))`: f32 accumulation, one rounding."""
+  return x.float().mean(dim=(1, 2)).to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+  """Eval-mode flax `nn.BatchNorm` over the last (channel) axis.
+
+  Parameter/buffer names are flax's: ``scale``/``bias`` params and
+  ``mean``/``var`` batch statistics.
+  """
+
+  def __init__(self, features: int, dtype: torch.dtype):
+    super().__init__()
+    self.dtype = dtype
+    self.scale = nn.Parameter(torch.ones(features))
+    self.bias = nn.Parameter(torch.zeros(features))
+    self.register_buffer("mean", torch.zeros(features))
+    self.register_buffer("var", torch.ones(features))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    # flax `_normalize`: (x − mean) · (rsqrt(var + eps) · scale) + bias,
+    # all in f32, then the cast to the compute dtype.
+    mul = torch.rsqrt(self.var + _BN_EPS) * self.scale
+    return ((x.float() - self.mean) * mul + self.bias).to(self.dtype)
+
+
+def _gather_action_extras(features, dtype: torch.dtype) -> torch.Tensor:
+  """Flattens action + every non-image float feature, sorted by key."""
+  flat = (features.to_flat_dict() if hasattr(features, "to_flat_dict")
+          else dict(features))
+  action = flat["action"]
+  extras = [action.reshape(action.shape[0], -1).to(dtype)]
+  for key in sorted(flat):
+    if key in ("image", "action"):
+      continue
+    value = flat[key]
+    if value.is_floating_point():
+      extras.append(value.reshape(value.shape[0], -1).to(dtype))
+  return torch.cat(extras, dim=-1)
+
+
+class GraspingQNetwork(nn.Module):
+  """Image + action → Q logit, QT-Opt-paper style (eval mode).
+
+  Unlike flax, torch needs input widths up front: `action_dim` and
+  `extra_features_dim` (the flattened width of every float extra state
+  feature) size the action embedding.
+  """
+
+  def __init__(self,
+               action_dim: int,
+               extra_features_dim: int = 0,
+               torso_filters: Sequence[int] = (32, 64),
+               head_filters: Sequence[int] = (64, 64),
+               action_embedding_size: int = 64,
+               dense_sizes: Sequence[int] = (64, 64),
+               use_batch_norm: bool = True,
+               space_to_depth: int = 1,
+               image_channels: int = 3,
+               dtype: torch.dtype = torch.bfloat16):
+    super().__init__()
+    self.torso_filters = tuple(torso_filters)
+    self.head_filters = tuple(head_filters)
+    self.use_batch_norm = use_batch_norm
+    self.space_to_depth = space_to_depth
+    self.dtype = dtype
+    in_c = image_channels * space_to_depth ** 2
+    for i, f in enumerate(self.torso_filters):
+      stride = 1 if i == 0 and space_to_depth > 1 else 2
+      self._add_conv(f"torso_conv_{i}", in_c, f, stride)
+      self._add_bn(f"torso_bn_{i}", f)
+      in_c = f
+    # The merge adds the embedded action onto the torso's output
+    # channels (the raw image channels when the torso is empty).
+    self.merge_channels = in_c if self.torso_filters else image_channels
+    for i, f in enumerate(self.head_filters):
+      self._add_conv(f"head_conv_{i}", in_c, f, 2)
+      self._add_bn(f"head_bn_{i}", f)
+      in_c = f
+    self.action_embed_0 = nn.Linear(action_dim + extra_features_dim,
+                                    action_embedding_size)
+    self.action_embed_1 = nn.Linear(action_embedding_size,
+                                    self.merge_channels)
+    self.q_head = MLP(in_c, dense_sizes, output_size=1, dtype=dtype)
+
+  def _add_conv(self, name: str, in_c: int, out_c: int, stride: int):
+    self.add_module(name, nn.Conv2d(in_c, out_c, 3, stride=stride,
+                                    bias=not self.use_batch_norm))
+
+  def _add_bn(self, name: str, features: int):
+    if self.use_batch_norm:
+      self.add_module(name, BatchNorm(features, self.dtype))
+
+  def _conv_bn_relu(self, kind: str, i: int, x: torch.Tensor):
+    x = conv_same(getattr(self, f"{kind}_conv_{i}"), x, self.dtype)
+    if self.use_batch_norm:
+      x = getattr(self, f"{kind}_bn_{i}")(x)
+    return torch.relu(x)
+
+  def encode(self, image: torch.Tensor) -> torch.Tensor:
+    """Action-independent half: image → torso feature map [B,h,w,C]."""
+    x = image.to(self.dtype) / 255.0
+    s = self.space_to_depth
+    if s > 1:
+      b, h, w, c = x.shape
+      if h % s or w % s:
+        raise ValueError(f"Image {h}x{w} must divide space_to_depth={s}.")
+      x = x.reshape(b, h // s, s, w // s, s, c).permute(
+          0, 1, 3, 2, 4, 5).reshape(b, h // s, w // s, s * s * c)
+    for i in range(len(self.torso_filters)):
+      x = self._conv_bn_relu("torso", i, x)
+    return x
+
+  def head(self, encoded: torch.Tensor, features) -> Dict[str, torch.Tensor]:
+    """Action-dependent half: (torso features, action+extras) → Q."""
+    a = _gather_action_extras(features, self.dtype)
+    a = torch.relu(dense(self.action_embed_0, a, self.dtype))
+    a = dense(self.action_embed_1, a, self.dtype)
+    x = encoded + a[:, None, None, :]
+    for i in range(len(self.head_filters)):
+      x = self._conv_bn_relu("head", i, x)
+    logit = self.q_head(spatial_mean(x))
+    return {Q_VALUE: logit[..., 0].float()}
+
+  def forward(self, features) -> Dict[str, torch.Tensor]:
+    return self.head(self.encode(features["image"]), features)
+
+  def score_population(self, encoded, extras, actions) -> torch.Tensor:
+    """[B, P] Q values of a CEM population (see `pool_population`)."""
+    b, p, _ = actions.shape
+    pooled = self.pool_population(encoded, extras, actions)
+    logit = self.q_head(pooled.reshape(p * b, -1))
+    return logit[..., 0].float().reshape(p, b).t()
+
+  def _population_action_embed(self, extras, actions) -> torch.Tensor:
+    """Action + extras → merge-channel embedding a [B, P, C]."""
+    b, p, _ = actions.shape
+    parts = [actions.to(self.dtype)]
+    for key in sorted(extras):
+      value = extras[key]
+      if value.is_floating_point():
+        tiled = value.reshape(b, 1, -1).to(self.dtype)
+        parts.append(tiled.expand(b, p, tiled.shape[-1]))
+    a = torch.relu(dense(self.action_embed_0, torch.cat(parts, -1),
+                         self.dtype))
+    return dense(self.action_embed_1, a, self.dtype)
+
+  def _population_merge(self, encoded, a) -> torch.Tensor:
+    """The linearity-split merge: relu'd [P·B, h', w', C'] tensor.
+
+    conv0(encoded + broadcast(a)) = conv0(encoded) + Σ_c a_c · V[c],
+    with V the per-position tap sums, computed border-exactly by
+    pushing a one-hot channel basis through conv0. Rows are P-major.
+    """
+    b, p, c = a.shape
+    conv0 = self.head_conv_0
+    enc0 = conv_same(conv0, encoded, self.dtype)   # [B, h', w', C']
+    basis = torch.eye(c, dtype=self.dtype, device=encoded.device)
+    basis = basis[:, None, None, :].expand((c,) + encoded.shape[1:])
+    v = conv_same(conv0, basis, self.dtype)        # [C, h', w', C']
+    if not self.use_batch_norm:  # bias active ⇒ remove from basis rows
+      zero = torch.zeros((1,) + encoded.shape[1:], dtype=self.dtype,
+                         device=encoded.device)
+      v = v - conv_same(conv0, zero, self.dtype)
+    else:
+      # Eval BN is per-channel affine: BN(enc0 + act) = BN(enc0) + s·act,
+      # with s taken as flax does, from BN outputs in the compute dtype.
+      bn0 = self.head_bn_0
+      out_c = v.shape[-1]
+      ones = torch.ones((1, 1, 1, out_c), dtype=self.dtype,
+                        device=encoded.device)
+      shift = bn0(torch.zeros_like(ones))
+      scale = bn0(ones) - shift
+      enc0 = bn0(enc0)
+      v = v * scale
+    h2, w2, oc = v.shape[1:]
+    a_pm = a.transpose(0, 1).reshape(p * b, c)
+    act = (a_pm @ v.reshape(c, -1)).reshape(p, b, h2, w2, oc)
+    # P-major rows make the enc0 addend the axis-0 replication of enc0
+    # (the JAX package concatenates p copies); broadcasting over the
+    # leading P axis adds the same values without materializing them.
+    return torch.relu(act + enc0).reshape(p * b, h2, w2, oc)
+
+  def _population_tail(self, x: torch.Tensor) -> torch.Tensor:
+    """Remaining head convs + spatial pool: [P·B, h', w', C'] →
+    pooled [P·B, C'']."""
+    for i in range(1, len(self.head_filters)):
+      x = self._conv_bn_relu("head", i, x)
+    return spatial_mean(x)
+
+  def pool_population(self, encoded, extras, actions) -> torch.Tensor:
+    """`score_population` minus the q-head MLP: pooled population
+    features in P-major [P, B, C''] — what `ops.fused_cem_select`
+    consumes."""
+    b, p, _ = actions.shape
+    a = self._population_action_embed(extras, actions)
+    if self.head_filters:
+      return self._population_tail(
+          self._population_merge(encoded, a)).reshape(p, b, -1)
+    x = encoded[:, None] + a[:, :, None, None, :]
+    x = x.reshape((b * p,) + x.shape[2:])
+    return spatial_mean(x).reshape(b, p, -1).transpose(0, 1)
+
+
+def _eval_bn_affine(bn: BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Eval-mode BN as per-channel (scale, shift) f32."""
+  scale = bn.scale.float() / torch.sqrt(bn.var.float() + _BN_EPS)
+  shift = bn.bias.float() - bn.mean.float() * scale
+  return scale, shift
+
+
+def q_head_dense_params(network: GraspingQNetwork, dtype=None):
+  """((w [in, out], b [out]), ...) of the q-head MLP in layer order —
+  the fused select kernel's scoring parameters, in flax's `[in, out]`
+  layout and contiguous."""
+  out = []
+  for layer in network.q_head.layers():
+    w, b = layer.weight.t(), layer.bias
+    if dtype is not None:
+      w, b = w.to(dtype), b.to(dtype)
+    out.append((w.contiguous(), b.contiguous()))
+  return tuple(out)
