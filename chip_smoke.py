@@ -6,27 +6,39 @@ CUDA card: the quickest proof that the port still starts on the GPU.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. device: torch's name for card 0, and nvidia-smi's name + power limit;
-  2. build: nvcc of every kernel source in tensor2robot_tpu_torch/csrc,
-     all started together;
-  3. kernels against their plain versions on the card, at the main
-     path's shapes (P=64, C=H=64, A=4, E=6) in bf16 with sigmoid on and
-     off, at P=50, on exactly-tied scores, and in f32;
-  4. the slice end to end at `GraspingQModel()`'s full width (64×64
+  2. build: nvcc of every kernel source in tensor2robot_tpu_torch/csrc
+     (cem_select.cu, flash_attention.cu), all started together;
+  3. kernels against their plain versions on the card. cem_select at
+     the main path's shapes (P=64, C=H=64, A=4, E=6) in bf16 with
+     sigmoid on and off, at P=50, on exactly-tied scores, and in f32.
+     flash_attention (out and lse) causal and not, T = 512, 100, 1,
+     D = 32, 64, B = 1, 16, bf16 and f32, H = 4, plus the main path's
+     strided q/k/v views of one qkv tensor;
+  4. QT-Opt serving end to end at `GraspingQModel()`'s full width (64×64
      images, torso (32, 64), head (64, 64), dense (64, 64), bf16, random
      weights from seed 0): `CEMPolicyServer(max_batch=8)` over
      `QTOptLearner(cem_iterations=2, cem_population=64, cem_elites=6,
      cem_select="fused")` answers requests of 1, 3 and 8 rows and 4
-     concurrent robots, with the kernel's launch count read around that
+     concurrent robots, with cem_select's launch count read around that
      run; then fused-vs-lax actions at B=256 on shared noise (value
      regret), and the card against the CPU on an f32 model at B=8;
-  5. timings with CUDA events (medians): kernel and plain version as
-     device time per call (CUDA-graph replay, no host launch cost) and
-     as eager per-call time, policy per dispatch; then the `kernels`
-     JSON line, the card line, and the result line last.
+  5. the VRGripper transformer policy end to end at the width of
+     `train_vrgripper_transformer.gin` (48×48 images, filters (16, 32),
+     embedding 64, width 128, depth 4, 4 heads, context 512, bf16,
+     attention "auto", random weights from seed 0):
+     `evaluate_gripper_policy` drives its `EpisodeContextPolicy` for 3
+     episodes, with flash_attention's launch count read around that run
+     (4 per policy step); then the card against the CPU on an f32 model;
+  6. timings with CUDA events (medians): each kernel and its plain
+     version (and for flash, SDPA as the library yardstick) as device
+     time per call (CUDA-graph replay, no host launch cost), the CEM
+     policy per dispatch and the context policy per step; then the
+     `kernels` JSON line, the card line, and the result line last.
 
 Exits 2 without a result when CUDA is unavailable.
 """
 
+import itertools
 import json
 import os
 import statistics
@@ -34,13 +46,6 @@ import subprocess
 import sys
 import threading
 import time
-
-# Peaks of one H100 SXM at 700 W (NVIDIA data sheet): HBM3 bytes/s and
-# dense bf16 tensor-core operations/s.
-_HBM_BYTES_PER_S = 3.35e12
-_BF16_OPS_PER_S = 989e12
-_F32_OPS_PER_S = 67e12
-
 
 def _log(*args):
   print(*args, flush=True)
@@ -109,17 +114,13 @@ def _select_inputs(b, p, c, hidden, a_dim, dtype, seed):
 
 
 def _bound(pooled, samples, dense):
-  """Least time (ms) for the select's work on this card, and its limit."""
-  b, a_dim = samples.shape[0], samples.shape[-1]
-  p = pooled.shape[0]
-  nbytes = (pooled.numel() * pooled.element_size() + samples.numel() * 4
-            + sum(t.numel() * t.element_size() for pair in dense
-                  for t in pair)
-            + (3 * b * a_dim + b) * 4)
-  ops = sum(2 * p * b * w.shape[0] * w.shape[1] for w, _ in dense)
-  peak = _BF16_OPS_PER_S if pooled.element_size() == 2 else _F32_OPS_PER_S
-  mem_ms, ops_ms = nbytes / _HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
-  return max(mem_ms, ops_ms), "bytes" if mem_ms >= ops_ms else "operations"
+  """Least time (ms) for the select's work on this card, and its limit
+  (peaks of one H100 SXM at 700 W, `bin/kernel_bounds.py`)."""
+  from tensor2robot_tpu_torch.bin import kernel_bounds
+  p, _, c = pooled.shape
+  widths = (c,) + tuple(w.shape[1] for w, _ in dense)
+  return kernel_bounds.cem_select(p, samples.shape[0], widths,
+                                  samples.shape[-1], pooled.element_size())
 
 
 def check_select(name, pooled, samples, dense, num_elites, sigmoid,
@@ -354,6 +355,216 @@ def phase_timings(learner, state):
          f"({bound_by}) | policy_ms_per_dispatch={policy_ms}")
   return rows
 
+# ---- flash attention (the VRGripper transformer's attention) ----
+
+# The VRGripper transformer at train_vrgripper_transformer.gin's width.
+_GRIPPER_WIDTH = dict(image_size=48, state_dim=3, action_dim=3,
+                      filters=(16, 32), embedding_size=64, width=128,
+                      depth=4, num_heads=4, max_context_length=512,
+                      attention_impl="auto")
+
+# Kernel vs plain version (out, lse). f32: the same arithmetic in
+# another order. bf16: the kernel rounds p to bf16 against each 64-key
+# tile's running max, the plain version against the row max, and out
+# is bf16 (one step is 2^-8 relative below 1); lse has no bf16 rounding.
+_FLASH_TOL = {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (2e-2, 1e-3)}
+
+
+def _flash_inputs(b, t, h, d, dtype, seed):
+  import torch
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  return tuple(torch.randn((b, t, h, d), generator=g,
+                           device="cuda").to(dtype) for _ in range(3))
+
+
+def _flash_bound(q, causal):
+  """Least time (ms) for one forward on this card, and its limit: q, k,
+  v read once, out and lse written once; 4·B·H·T²·D operations, half
+  of them when causal (`bin/kernel_bounds.py`)."""
+  from tensor2robot_tpu_torch.bin import kernel_bounds
+  return kernel_bounds.flash_forward(*q.shape, q.element_size(), causal)
+
+
+def check_flash(name, q, k, v, causal):
+  import torch
+  from tensor2robot_tpu_torch.ops.flash_attention import (
+      flash_attention_reference,
+      flash_attention_with_lse,
+  )
+  out, lse = flash_attention_with_lse(q, k, v, causal=causal)
+  torch.cuda.synchronize()
+  want_out, want_lse = flash_attention_reference(q, k, v, causal=causal)
+  b, t, h, _ = q.shape
+  if (out.shape != want_out.shape or out.dtype != q.dtype
+      or lse.shape != (b, h, t) or lse.dtype != torch.float32):
+    raise AssertionError(f"flash {name}: out {out.shape} {out.dtype}, "
+                         f"lse {lse.shape} {lse.dtype}")
+  if not (bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())):
+    raise AssertionError(f"flash {name}: non-finite output")
+  err_out = (out.float() - want_out.float()).abs().max().item()
+  err_lse = (lse - want_lse).abs().max().item()
+  tol_out, tol_lse = _FLASH_TOL[str(q.dtype)]
+  if err_out > tol_out or err_lse > tol_lse:
+    raise AssertionError(f"flash {name}: out differs by {err_out} (tol "
+                         f"{tol_out}), lse by {err_lse} (tol {tol_lse})")
+  return err_out, err_lse
+
+
+def phase_flash_kernels():
+  import torch
+  worst = {}
+  cases = itertools.product((False, True), (512, 100, 1), (32, 64), (1, 16),
+                            (torch.bfloat16, torch.float32))
+  for i, (causal, t, d, b, dtype) in enumerate(cases):
+    name = f"causal={causal} T={t} D={d} B={b} {dtype}"
+    errs = check_flash(name, *_flash_inputs(b, t, 4, d, dtype, seed=100 + i),
+                       causal=causal)
+    key = str(dtype)
+    worst[key] = tuple(max(x, y) for x, y in zip(worst.get(key, (0, 0)),
+                                                 errs))
+  # The main path's layout: q, k, v are strided views of one qkv tensor.
+  g = torch.Generator(device="cuda").manual_seed(99)
+  qkv = torch.randn((1, 512, 12, 32), generator=g, device="cuda")
+  q, k, v = qkv.to(torch.bfloat16).split(4, dim=2)
+  errs = check_flash("strided qkv views", q, k, v, causal=True)
+  _log(f"kernel check flash_attention: 48 cases + strided views, max_abs_err "
+       f"(out, lse) = {json.dumps(worst)}; strided {errs}; tolerances "
+       f"{json.dumps(_FLASH_TOL)}")
+  return max(e for pair in worst.values() for e in pair[:1])
+
+
+class _Recorder:
+  """Passes a policy through, keeping every action it served."""
+
+  def __init__(self, policy):
+    self.policy = policy
+    self.actions = []
+
+  def reset(self):
+    self.policy.reset()
+
+  def __call__(self, batch):
+    out = self.policy(batch)
+    self.actions.append(out["action"])
+    return out
+
+
+def phase_gripper_slice():
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.ops.flash_attention import flash_attention
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      ACTION,
+      VRGripperEnv,
+      VRGripperTransformerModel,
+      evaluate_gripper_policy,
+  )
+
+  model = VRGripperTransformerModel(**_GRIPPER_WIDTH)
+  state = model.create_inference_state(seed=0)
+  policy = model.make_context_policy(state)
+  recorder = _Recorder(policy)
+
+  # ---- the main path, with the kernel's launch count read around it ----
+  flash_attention.launches = 0
+  t0 = time.perf_counter()
+  metrics = evaluate_gripper_policy(recorder, num_episodes=3,
+                                    image_size=48, seed=1)
+  wall_s = time.perf_counter() - t0
+  launches = flash_attention.launches
+  steps = policy.steps
+  for a in recorder.actions:
+    if a.shape != (1, 3) or not np.all(np.isfinite(a)):
+      raise AssertionError(f"bad action {a.shape}: {a}")
+  if policy.resets != 3 or len(recorder.actions) != steps or steps < 3:
+    raise AssertionError(f"resets {policy.resets}, steps {steps}, "
+                         f"actions {len(recorder.actions)}")
+  if launches != model.depth * steps:
+    raise AssertionError(f"flash launches {launches} != depth "
+                         f"{model.depth} x policy steps {steps}")
+  _log(f"main path (vrgripper transformer): episodes=3 steps={steps} "
+       f"resets={policy.resets} flash_attention_launches={launches} "
+       f"wall_s={wall_s} (first step builds cuDNN/cuBLAS plans) "
+       f"metrics={json.dumps(metrics)}")
+
+  # ---- the card against the CPU: f32 model, same weights and frames ----
+  torch.backends.cudnn.allow_tf32 = False
+  model32 = VRGripperTransformerModel(device_dtype=torch.float32,
+                                      **_GRIPPER_WIDTH)
+  state32 = model32.create_inference_state(seed=0)
+  on_card = model32.make_context_policy(state32)
+  on_cpu = model32.make_context_policy(state32.to("cpu"), device="cpu")
+  env = VRGripperEnv(image_size=48, seed=2)
+  obs = env.reset()
+  diffs = []
+  for _ in range(4):
+    batch = {k: v[None] for k, v in obs.items()}
+    a_card, a_cpu = on_card(batch)[ACTION], on_cpu(batch)[ACTION]
+    diffs.append(float(np.abs(a_card - a_cpu).max()))
+    obs, _, _ = env.step(a_cpu[0])
+  torch.backends.cudnn.allow_tf32 = True
+  _log(f"card vs CPU f32 context policy, 4 steps at T=512: "
+       f"max_action_diff per step={diffs} (tol 1e-4)")
+  if max(diffs) > 1e-4:
+    raise AssertionError("card and CPU context policies differ")
+  return launches, policy
+
+
+def phase_flash_timings(policy):
+  import numpy as np
+  import torch
+  import torch.nn.functional as F
+  from tensor2robot_tpu_torch.ops.flash_attention import (
+      flash_attention_reference,
+      flash_attention_with_lse,
+  )
+  from tensor2robot_tpu_torch.research.vrgripper import VRGripperEnv
+
+  rows = {}
+  for b in (1, 16):
+    q, k, v = _flash_inputs(b, 512, 4, 32, torch.bfloat16, seed=200 + b)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    run_k = lambda: flash_attention_with_lse(q, k, v, causal=True)  # noqa: E731
+    run_p = lambda: flash_attention_reference(q, k, v,  # noqa: E731
+                                              causal=True)
+    run_l = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    # Device time (graph replay) in turns plain, kernel, library,
+    # library, kernel, plain.
+    plain_a, kern_a, lib_a = _graph_ms(run_p), _graph_ms(run_k), \
+        _graph_ms(run_l)
+    lib_b, kern_b, plain_b = _graph_ms(run_l), _graph_ms(run_k), \
+        _graph_ms(run_p)
+    bound_ms, bound_by = _flash_bound(q, causal=True)
+    rows[b] = dict(ms=statistics.median([kern_a, kern_b]),
+                   plain_ms=statistics.median([plain_a, plain_b]),
+                   library_ms=statistics.median([lib_a, lib_b]),
+                   bound_ms=bound_ms, bound_by=bound_by)
+    _log(f"timing flash_attention B={b} T=512 H=4 D=32 bf16 causal: device "
+         f"kernel_ms={kern_a},{kern_b} plain_ms={plain_a},{plain_b} "
+         f"sdpa_ms={lib_a},{lib_b} | bound_ms={bound_ms} ({bound_by})")
+
+  # The context policy's wall time per step (host clock; each call ends
+  # in the action's copy to the host), over one long episode.
+  env = VRGripperEnv(image_size=48, seed=3)
+  obs = env.reset()
+  policy.reset()
+  times = []
+  for i in range(40):
+    batch = {k: v[None] for k, v in obs.items()}
+    t0 = time.perf_counter()
+    action = policy(batch)["action"]
+    times.append((time.perf_counter() - t0) * 1e3)
+    obs, _, done = env.step(action[0])
+    if done:
+      obs = env.reset()
+  steady = times[5:]
+  step_ms = statistics.median(steady)
+  _log(f"timing context policy step (T=512, bf16, depth 4): median_ms="
+       f"{step_ms} p90_ms={float(np.percentile(steady, 90))} over "
+       f"{len(steady)} steps")
+  return rows, step_ms
+
 
 def main():
   import torch
@@ -379,9 +590,13 @@ def main():
   _log(f"build: {json.dumps(per_kernel)} wall_s={time.perf_counter() - t0}")
 
   max_err = phase_kernels()
+  flash_err = phase_flash_kernels()
   launches, learner, state = phase_slice()
+  flash_launches, context_policy = phase_gripper_slice()
   rows = phase_timings(learner, state)
+  flash_rows, _ = phase_flash_timings(context_policy)
   main_row = rows[8]  # the serving path's largest bucket
+  flash_row = flash_rows[1]  # the context policy serves one robot
   kernels = [{
       "name": "cem_select",
       "route": "cuda",
@@ -394,6 +609,18 @@ def main():
       "bound_ms": main_row["bound_ms"],
       "bound_by": main_row["bound_by"],
       "library_ms": None,
+  }, {
+      "name": "flash_attention_fwd",
+      "route": "cuda",
+      "source": "tensor2robot_tpu_torch/csrc/flash_attention.cu",
+      "replaces": "tensor2robot_tpu/ops/flash_attention.py:211",
+      "launches": flash_launches,
+      "max_abs_err": flash_err,
+      "ms": flash_row["ms"],
+      "plain_ms": flash_row["plain_ms"],
+      "bound_ms": flash_row["bound_ms"],
+      "bound_by": flash_row["bound_by"],
+      "library_ms": flash_row["library_ms"],
   }]
   _log(f"total_s={time.perf_counter() - t_start}")
   _log(json.dumps({"kernels": kernels}))

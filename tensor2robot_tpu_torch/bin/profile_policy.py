@@ -1,14 +1,22 @@
-"""Where a CEM policy dispatch spends its time on the card.
+"""Where a policy call spends its time on the card.
 
     python -m tensor2robot_tpu_torch.bin.profile_policy [--batches 8 256]
+    python -m tensor2robot_tpu_torch.bin.profile_policy --model vrgripper_transformer
 
-Runs `QTOptLearner.build_policy()` at `GraspingQModel()`'s full width
-(bf16, random weights from seed 0, CEM 2 × 64 samples, 6 elites,
-cem_select="fused") under `torch.profiler` and prints, per batch size:
-the wall time per dispatch (host clock around synchronized calls), the
-device-busy time per dispatch (sum of kernel times), the device's idle
-share, the number of kernel launches per dispatch, and the kernels
-that take the most device time. Needs a CUDA card.
+`--model qtopt` (the default) runs `QTOptLearner.build_policy()` at
+`GraspingQModel()`'s full width (bf16, random weights from seed 0, CEM
+2 × 64 samples, 6 elites, cem_select="fused") once per batch size.
+`--model vrgripper_transformer` runs the `EpisodeContextPolicy` of
+`VRGripperTransformerModel` at the width of
+`train_vrgripper_transformer.gin` (48×48 images, filters (16, 32),
+embedding 64, width 128, depth 4, 4 heads, context 512, bf16, random
+weights from seed 0) one env step at a time.
+
+Each prints, under `torch.profiler`: the wall time per call (host clock
+around synchronized calls), the device-busy time per call (sum of
+kernel times), the device's idle share, the number of kernel launches
+per call, and the kernels that take the most device time. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from typing import Callable
 
 import torch
 
@@ -31,7 +40,44 @@ def _device_time_us(event) -> float:
   return 0.0
 
 
-def profile(batch: int, dispatches: int = 20, top: int = 8) -> dict:
+def profile_calls(call: Callable[[], None], calls: int = 20,
+                  top: int = 8) -> dict:
+  """Wall and device time per `call()`, over `calls` calls in a row
+  with one synchronize at the end."""
+  for _ in range(5):
+    call()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(calls):
+    call()
+  torch.cuda.synchronize()
+  wall_ms = (time.perf_counter() - t0) / calls * 1e3
+
+  acts = [torch.profiler.ProfilerActivity.CPU,
+          torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=acts) as prof:
+    for _ in range(calls):
+      call()
+    torch.cuda.synchronize()
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+  busy_us = sum(_device_time_us(e) for e in kernels)
+  launches = sum(e.count for e in kernels)
+  ranked = sorted(kernels, key=_device_time_us, reverse=True)[:top]
+  busy_ms = busy_us / calls / 1e3
+  return {
+      "wall_ms_per_call": wall_ms,
+      "device_busy_ms_per_call": busy_ms,
+      "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+      "kernel_launches_per_call": launches / calls,
+      "top_kernels": [{"name": e.key[:80],
+                       "ms_per_call": _device_time_us(e) / calls / 1e3,
+                       "calls_per_call": e.count / calls}
+                      for e in ranked],
+  }
+
+
+def profile_cem(batch: int) -> dict:
   learner = QTOptLearner(GraspingQModel(), cem_iterations=2,
                          cem_population=64, cem_elites=6,
                          cem_select="fused")
@@ -41,50 +87,52 @@ def profile(batch: int, dispatches: int = 20, top: int = 8) -> dict:
       seed=1).to_flat_dict().items()}
   policy = learner.build_policy()
   gen = torch.Generator(device="cuda").manual_seed(0)
-  for _ in range(5):
-    policy(state, obs, generator=gen)
-  torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  for _ in range(dispatches):
-    policy(state, obs, generator=gen)
-  torch.cuda.synchronize()
-  wall_ms = (time.perf_counter() - t0) / dispatches * 1e3
 
-  acts = [torch.profiler.ProfilerActivity.CPU,
-          torch.profiler.ProfilerActivity.CUDA]
-  with torch.profiler.profile(activities=acts) as prof:
-    for _ in range(dispatches):
-      policy(state, obs, generator=gen)
-    torch.cuda.synchronize()
-  kernels = [e for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-  busy_us = sum(_device_time_us(e) for e in kernels)
-  launches = sum(e.count for e in kernels)
-  ranked = sorted(kernels, key=_device_time_us, reverse=True)[:top]
-  busy_ms = busy_us / dispatches / 1e3
-  return {
-      "batch": batch,
-      "wall_ms_per_dispatch": wall_ms,
-      "device_busy_ms_per_dispatch": busy_ms,
-      "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-      "kernel_launches_per_dispatch": launches / dispatches,
-      "top_kernels": [{"name": e.key[:80],
-                       "ms_per_dispatch": _device_time_us(e)
-                       / dispatches / 1e3,
-                       "calls_per_dispatch": e.count / dispatches}
-                      for e in ranked],
-  }
+  def dispatch():
+    policy(state, obs, generator=gen)
+
+  return {"model": "qtopt", "batch": batch, **profile_calls(dispatch)}
+
+
+def profile_context_policy() -> dict:
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      VRGripperEnv,
+      VRGripperTransformerModel,
+  )
+  model = VRGripperTransformerModel(
+      image_size=48, filters=(16, 32), embedding_size=64, width=128,
+      depth=4, num_heads=4, max_context_length=512)
+  policy = model.make_context_policy(model.create_inference_state(seed=0))
+  env = VRGripperEnv(image_size=48, seed=1)
+  obs = env.reset()
+
+  def step():  # the action's copy to the host synchronizes
+    nonlocal obs
+    action = policy({k: v[None] for k, v in obs.items()})["action"]
+    obs, _, done = env.step(action[0])
+    if done:
+      obs = env.reset()
+      policy.reset()
+
+  return {"model": "vrgripper_transformer", "context": 512,
+          **profile_calls(step)}
 
 
 def main():
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-  parser.add_argument("--batches", type=int, nargs="+", default=[8, 256])
+  parser.add_argument("--model", choices=("qtopt", "vrgripper_transformer"),
+                      default="qtopt")
+  parser.add_argument("--batches", type=int, nargs="+", default=[8, 256],
+                      help="CEM batch sizes (--model qtopt)")
   args = parser.parse_args()
   if not torch.cuda.is_available():
     raise SystemExit("profile_policy needs a CUDA card")
   print(f"device: {torch.cuda.get_device_name(0)}")
-  for batch in args.batches:
-    print(json.dumps(profile(batch)), flush=True)
+  if args.model == "qtopt":
+    for batch in args.batches:
+      print(json.dumps(profile_cem(batch)), flush=True)
+  else:
+    print(json.dumps(profile_context_policy()), flush=True)
 
 
 if __name__ == "__main__":

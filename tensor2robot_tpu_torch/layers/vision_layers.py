@@ -1,0 +1,192 @@
+"""Vision building blocks (port of `layers/vision_layers.py`).
+
+Conv towers, spatial-softmax keypoint pooling and the image encoder,
+in the JAX package's NHWC layout at every public function, so
+converted flax weights give the same numbers. Parameter names are the
+flax names (``tower.conv_0``, ``ssoftmax.log_temperature``, ``proj``).
+
+Shared here by every family that convolves: XLA's SAME padding
+(`conv_same`), eval-mode flax batch norm (`BatchNorm`) and the f32
+spatial mean. Convolutions pad SAME the way XLA does ((0, 1) for a 3×3
+stride-2 conv on an even input): torch refuses padding='same' at
+stride 2, and symmetric padding would shift every tap.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tensor2robot_tpu_torch.layers.core import dense
+
+_BN_EPS = 1e-5  # flax nn.BatchNorm default
+
+
+def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
+  """XLA's SAME padding (low, high) for one spatial dim."""
+  total = max((-(-n // s) - 1) * s + k - n, 0)
+  return total // 2, total - total // 2
+
+
+def conv_same(conv: nn.Conv2d, x: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+  """flax `nn.Conv(padding='SAME', dtype=dtype)` on NHWC `x`."""
+  (kh, kw), (sh, sw) = conv.kernel_size, conv.stride
+  ph = _same_pads(x.shape[1], kh, sh)
+  pw = _same_pads(x.shape[2], kw, sw)
+  xt = F.pad(x.to(dtype).permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
+  xt = xt.contiguous(memory_format=torch.channels_last)
+  y = F.conv2d(xt, conv.weight.to(dtype), stride=(sh, sw))
+  y = y.permute(0, 2, 3, 1)
+  if conv.bias is not None:
+    y = y + conv.bias.to(dtype)
+  return y
+
+
+def spatial_mean(x: torch.Tensor) -> torch.Tensor:
+  """`jnp.mean(x, axis=(1, 2))`: f32 accumulation, one rounding."""
+  return x.float().mean(dim=(1, 2)).to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+  """Eval-mode flax `nn.BatchNorm` over the last (channel) axis.
+
+  Parameter/buffer names are flax's: ``scale``/``bias`` params and
+  ``mean``/``var`` batch statistics.
+  """
+
+  def __init__(self, features: int, dtype: torch.dtype):
+    super().__init__()
+    self.dtype = dtype
+    self.scale = nn.Parameter(torch.ones(features))
+    self.bias = nn.Parameter(torch.zeros(features))
+    self.register_buffer("mean", torch.zeros(features))
+    self.register_buffer("var", torch.ones(features))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    # flax `_normalize`: (x − mean) · (rsqrt(var + eps) · scale) + bias,
+    # all in f32, then the cast to the compute dtype.
+    mul = torch.rsqrt(self.var + _BN_EPS) * self.scale
+    return ((x.float() - self.mean) * mul + self.bias).to(self.dtype)
+
+
+class ConvTower(nn.Module):
+  """Stack of 3×3 stride-2 SAME conv (+ eval batch norm) + relu blocks,
+  NHWC (flax's default kernel sizes and strides, the only ones used).
+
+  Without batch norm each conv carries a bias (flax `use_bias=not
+  use_batch_norm`). Torch needs the input channel count up front.
+  """
+
+  def __init__(self, in_channels: int,
+               filters: Sequence[int] = (32, 64, 128),
+               use_batch_norm: bool = True,
+               dtype: torch.dtype = torch.float32):
+    super().__init__()
+    self.filters = tuple(filters)
+    self.use_batch_norm = use_batch_norm
+    self.dtype = dtype
+    for i, f in enumerate(self.filters):
+      self.add_module(f"conv_{i}", nn.Conv2d(in_channels, f, 3, stride=2,
+                                             bias=not use_batch_norm))
+      if use_batch_norm:
+        self.add_module(f"bn_{i}", BatchNorm(f, dtype))
+      in_channels = f
+
+  def forward(self, images: torch.Tensor) -> torch.Tensor:
+    x = images.to(self.dtype)
+    for i in range(len(self.filters)):
+      x = conv_same(getattr(self, f"conv_{i}"), x, self.dtype)
+      if self.use_batch_norm:
+        x = getattr(self, f"bn_{i}")(x)
+      x = torch.relu(x)
+    return x
+
+
+def spatial_softmax(features: torch.Tensor,
+                    temperature: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+  """Soft-argmax keypoints: (B, H, W, C) → (B, 2C) expected (x, y).
+
+  f32 logits, softmax over the H·W positions of each channel; all x
+  coordinates (along W) come first, then all y coordinates (along H),
+  each in [-1, 1].
+  """
+  b, h, w, c = features.shape
+  logits = features.reshape(b, h * w, c).float()
+  if temperature is not None:
+    logits = logits / temperature
+  probs = torch.softmax(logits, dim=1)
+  dev = features.device
+  xs = torch.linspace(-1.0, 1.0, w, device=dev)
+  ys = torch.linspace(-1.0, 1.0, h, device=dev)
+  grid_x = xs[None, :].expand(h, w).reshape(h * w)
+  grid_y = ys[:, None].expand(h, w).reshape(h * w)
+  exp_x = torch.einsum("bpc,p->bc", probs, grid_x)
+  exp_y = torch.einsum("bpc,p->bc", probs, grid_y)
+  return torch.cat([exp_x, exp_y], dim=-1)
+
+
+class SpatialSoftmax(nn.Module):
+  """`spatial_softmax` with a learnable temperature exp(log_temperature)."""
+
+  def __init__(self):
+    super().__init__()
+    self.log_temperature = nn.Parameter(torch.zeros(()))
+
+  def forward(self, features: torch.Tensor) -> torch.Tensor:
+    return spatial_softmax(features, torch.exp(self.log_temperature))
+
+
+class ImageEncoder(nn.Module):
+  """ConvTower → {spatial_softmax | mean | flatten} → dense embedding.
+
+  Returns f32, as the flax module does. `flatten` needs the image size
+  to size the projection (`image_size`).
+  """
+
+  def __init__(self, in_channels: int = 3,
+               filters: Sequence[int] = (32, 64, 128),
+               embedding_size: int = 128,
+               pooling: str = "spatial_softmax",
+               use_batch_norm: bool = True,
+               film: bool = False,
+               image_size: Optional[int] = None,
+               dtype: torch.dtype = torch.float32):
+    super().__init__()
+    if film:
+      raise NotImplementedError(
+          "ImageEncoder(film=True) is not ported yet (ROADMAP A10).")
+    self.pooling = pooling
+    self.dtype = dtype
+    self.tower = ConvTower(in_channels, filters=filters,
+                           use_batch_norm=use_batch_norm, dtype=dtype)
+    channels = self.tower.filters[-1]
+    if pooling == "spatial_softmax":
+      self.ssoftmax = SpatialSoftmax()
+      width = 2 * channels
+    elif pooling == "mean":
+      width = channels
+    elif pooling == "flatten":
+      if image_size is None:
+        raise ValueError("pooling='flatten' needs image_size")
+      side = image_size
+      for _ in self.tower.filters:
+        side = -(-side // 2)
+      width = side * side * channels
+    else:
+      raise ValueError(f"Unknown pooling: {pooling}")
+    self.proj = nn.Linear(width, embedding_size)
+
+  def forward(self, images: torch.Tensor) -> torch.Tensor:
+    x = self.tower(images)
+    if self.pooling == "spatial_softmax":
+      x = self.ssoftmax(x)
+    elif self.pooling == "mean":
+      x = spatial_mean(x)
+    else:
+      x = x.reshape(x.shape[0], -1)
+    return dense(self.proj, x, self.dtype).float()

@@ -2,7 +2,8 @@
 
 This slice ports the inference half: `TrainState` as the holder of a
 network's parameters and batch statistics (no optimizer yet), and the
-model base's `device_dtype` / `create_network`. The JAX package keeps
+model base's `device_dtype` / `create_network` / `predict_step` (the
+JAX default preprocessor is the no-op one, so there is none to port). The JAX package keeps
 params outside its stateless flax modules; the port does the same, so
 a state can be hot-swapped atomically while a dispatch still runs on
 the old one. `AbstractT2RModel.bind(state)` returns a module whose
@@ -21,6 +22,7 @@ import torch
 from torch import nn
 
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
+from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 
 
@@ -64,8 +66,12 @@ class TrainState:
 
 def init_parameters(network: nn.Module, generator: torch.Generator) -> None:
   """flax's default init, drawn from `generator`: lecun-normal
-  (truncated normal, fan-in) conv and dense kernels, zero biases."""
+  (truncated normal, fan-in) conv and dense kernels, zero biases.
+  A module with raw params of its own (learned positions) draws them
+  in its `init_raw_parameters(generator)`."""
   for module in network.modules():
+    if hasattr(module, "init_raw_parameters"):
+      module.init_raw_parameters(generator)
     if isinstance(module, (nn.Conv2d, nn.Linear)):
       fan_in = module.weight[0].numel()
       # 0.8796 = std of a unit normal truncated to [-2, 2].
@@ -104,11 +110,18 @@ class AbstractT2RModel(abc.ABC):
     ...
 
   def create_inference_state(self, seed: int = 0,
-                             device="cpu") -> TrainState:
-    """Fresh params + batch stats from `seed` (no optimizer state)."""
+                             device: DeviceLike = None) -> TrainState:
+    """Fresh params + batch stats from `seed` (no optimizer state), on
+    `device` (None = the CUDA card; raises without one)."""
+    device = resolve_device(device)
     network = self.create_network()
     init_parameters(network, torch.Generator().manual_seed(seed))
     return TrainState.from_network(network).to(device)
+
+  def predict_step(self, state: TrainState, features) -> Any:
+    """The bound network's outputs on `features`, without autograd."""
+    with torch.inference_mode():
+      return self.bind(state)(features)
 
   def bind(self, state: TrainState) -> nn.Module:
     """The network in eval mode over `state`'s own tensors.

@@ -1,15 +1,24 @@
-"""Carries flax variables across into the port's state.
+"""Carries flax variables across into the port's state (every family).
 
 `convert_variables` takes what the JAX package's network holds —
 ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
 arrays (``jax.device_get`` of a flax variables tree) — and returns a
-`TrainState` whose keys are the port network's parameter/buffer names:
+`TrainState` whose keys are the port network's parameter/buffer names.
+Port modules mirror the flax module paths (``trunk.block0.attn.qkv``),
+so the mapping is mechanical:
 
   * conv kernel HWIO → torch OIHW ``<name>.weight``;
   * Dense kernel ``[in, out]`` → Linear ``[out, in]`` ``<name>.weight``;
   * biases map one to one (a conv has one only without batch norm);
-  * BatchNorm ``scale``/``bias`` params and ``mean``/``var`` stats map
-    one to one (eps 1e-5 is fixed in both networks).
+  * ``scale`` of a module with batch statistics (BatchNorm) stays
+    ``scale``, its ``mean``/``var`` stats map one to one (eps 1e-5 in
+    both networks); ``scale`` of any other module (LayerNorm) becomes
+    torch's ``weight``;
+  * raw params (``trunk.positions``, ``...ssoftmax.log_temperature``)
+    are carried as they are.
+
+A name the port network does not have fails when the state is bound
+(`AbstractT2RModel.bind` loads strictly).
 
 Leaves come out float32 (the port's master dtype). A bfloat16 numpy
 leaf (an `ml_dtypes` array) is read through its uint16 view, so this
@@ -18,7 +27,7 @@ module needs no `ml_dtypes` import.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Collection, Dict, Mapping
 
 import numpy as np
 import torch
@@ -45,7 +54,10 @@ def _walk(tree: Mapping[str, Any], prefix: str = ""):
       yield from _walk(value, f"{prefix}.{key}" if prefix else key)
 
 
-def convert_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def convert_params(params: Mapping[str, Any],
+                   stats_modules: Collection[str] = ()
+                   ) -> Dict[str, torch.Tensor]:
+  """`stats_modules`: module paths that hold batch statistics."""
   out = {}
   for module, leaves in _walk(params):
     for name, leaf in leaves.items():
@@ -58,9 +70,10 @@ def convert_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         else:
           raise ValueError(f"{module}.kernel has rank {t.ndim}")
         name = "weight"
-      elif name not in ("bias", "scale"):
-        raise ValueError(f"unexpected flax param {module}.{name}")
-      out[f"{module}.{name}"] = t.contiguous()
+      elif name == "scale" and module not in stats_modules:
+        name = "weight"      # LayerNorm
+      key = f"{module}.{name}" if module else name
+      out[key] = t.contiguous()
   return out
 
 
@@ -77,7 +90,9 @@ def convert_batch_stats(stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def convert_variables(variables: Mapping[str, Any],
                       step: int = 0) -> TrainState:
   """flax ``{"params", "batch_stats"}`` (numpy) → port `TrainState`."""
+  stats = variables.get("batch_stats", {})
   return TrainState(
       step=step,
-      params=convert_params(variables["params"]),
-      batch_stats=convert_batch_stats(variables.get("batch_stats", {})))
+      params=convert_params(variables["params"],
+                            {module for module, _ in _walk(stats)}),
+      batch_stats=convert_batch_stats(stats))

@@ -1,6 +1,6 @@
 """QT-Opt: grasping Q-network, CEM and the learner's acting policy."""
 
-from tensor2robot_tpu_torch.research.qtopt.convert import convert_variables
+from tensor2robot_tpu_torch.models.convert import convert_variables
 from tensor2robot_tpu_torch.research.qtopt.networks import GraspingQNetwork
 from tensor2robot_tpu_torch.research.qtopt.qtopt_learner import (
     QTOptLearner,

@@ -9,15 +9,15 @@ without tiling the torso map. The int8 tower comes in a later slice.
 
 Layouts follow the JAX package at every public method — NHWC maps,
 P-major `[P, B, C]` pooled features, `[B, P]` scores — so converted
-weights (`convert.py`) give the same numbers. Parameter names are the
-flax names (``torso_conv_0``, ``head_bn_1``, ``q_head.dense_0`` ...).
+weights (`models/convert.py`) give the same numbers. Parameter names
+are the flax names (``torso_conv_0``, ``head_bn_1``, ``q_head.dense_0``
+...).
 
 Numerics mirror flax layer by layer: each layer casts input and f32
 master weights to the compute dtype; batch norm runs in f32 and rounds
 its output to the compute dtype; spatial means accumulate in f32 and
-round once. Convolutions pad SAME the way XLA does ((0, 1) for a 3×3
-stride-2 conv on an even input): torch refuses padding='same' at
-stride 2, and symmetric padding would shift every tap.
+round once. SAME padding, batch norm and the spatial mean are the
+shared ones of `layers/vision_layers.py`.
 """
 
 from __future__ import annotations
@@ -25,61 +25,16 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tensor2robot_tpu_torch.layers import MLP, dense
+from tensor2robot_tpu_torch.layers.vision_layers import (
+    _BN_EPS,
+    BatchNorm,
+    conv_same,
+    spatial_mean,
+)
 from tensor2robot_tpu_torch.models.critic_model import Q_VALUE
-
-_BN_EPS = 1e-5  # flax nn.BatchNorm default
-
-
-def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
-  """XLA's SAME padding (low, high) for one spatial dim."""
-  total = max((-(-n // s) - 1) * s + k - n, 0)
-  return total // 2, total - total // 2
-
-
-def conv_same(conv: nn.Conv2d, x: torch.Tensor,
-              dtype: torch.dtype) -> torch.Tensor:
-  """flax `nn.Conv(padding='SAME', dtype=dtype)` on NHWC `x`."""
-  (kh, kw), (sh, sw) = conv.kernel_size, conv.stride
-  ph = _same_pads(x.shape[1], kh, sh)
-  pw = _same_pads(x.shape[2], kw, sw)
-  xt = F.pad(x.to(dtype).permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
-  xt = xt.contiguous(memory_format=torch.channels_last)
-  y = F.conv2d(xt, conv.weight.to(dtype), stride=(sh, sw))
-  y = y.permute(0, 2, 3, 1)
-  if conv.bias is not None:
-    y = y + conv.bias.to(dtype)
-  return y
-
-
-def spatial_mean(x: torch.Tensor) -> torch.Tensor:
-  """`jnp.mean(x, axis=(1, 2))`: f32 accumulation, one rounding."""
-  return x.float().mean(dim=(1, 2)).to(x.dtype)
-
-
-class BatchNorm(nn.Module):
-  """Eval-mode flax `nn.BatchNorm` over the last (channel) axis.
-
-  Parameter/buffer names are flax's: ``scale``/``bias`` params and
-  ``mean``/``var`` batch statistics.
-  """
-
-  def __init__(self, features: int, dtype: torch.dtype):
-    super().__init__()
-    self.dtype = dtype
-    self.scale = nn.Parameter(torch.ones(features))
-    self.bias = nn.Parameter(torch.zeros(features))
-    self.register_buffer("mean", torch.zeros(features))
-    self.register_buffer("var", torch.ones(features))
-
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    # flax `_normalize`: (x − mean) · (rsqrt(var + eps) · scale) + bias,
-    # all in f32, then the cast to the compute dtype.
-    mul = torch.rsqrt(self.var + _BN_EPS) * self.scale
-    return ((x.float() - self.mean) * mul + self.bias).to(self.dtype)
 
 
 def _gather_action_extras(features, dtype: torch.dtype) -> torch.Tensor:

@@ -1,0 +1,220 @@
+"""VRGripper environment (port of `research/vrgripper/vrgripper_env.py`).
+
+The JAX package's dependency-free numpy reach-and-grasp task with its
+scripted expert, copied so the port imports nothing of that package,
+and without the config registry. It draws from its RNG in the same
+order, so the same seed and actions give the same frames.
+
+Task: a gripper (green dot) must reach a block (red square) on a
+table and close. Observation: RGB render + gripper pose
+[x, y, closed]. Action: [dx, dy, close_cmd], all in [-1, 1]. The
+scripted expert walks toward the block and closes on arrival.
+
+This slice ports the env, `collect_expert_episode` and the closed-loop
+`evaluate_gripper_policy`; the TFRecord demo writer and the meta-batch
+samplers come with the data plane (ROADMAP A9, A10).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+
+IMAGE_SIZE = 48
+WORKSPACE_LOW = np.array([-0.4, -0.4], np.float32)
+WORKSPACE_HIGH = np.array([0.4, 0.4], np.float32)
+# World units per unit action: one expert step covers this distance.
+ACTION_SCALE = 0.1
+# Forgiving gripper aperture (a compliant gripper, as real ones are):
+# the expert aims well inside it, a cloned policy succeeds from the
+# whole aperture.
+GRASP_RADIUS = 0.09
+
+
+class VRGripperEnv:
+  """Numpy reach-and-grasp task with a scripted expert."""
+
+  def __init__(self, image_size: int = IMAGE_SIZE, seed: int = 0,
+               max_steps: int = 12, noise: float = 0.02,
+               task_offset_scale: float = 0.0):
+    self._image_size = image_size
+    self._rng = np.random.default_rng(seed)
+    self._max_steps = max_steps
+    self._noise = noise
+    self._task_offset_scale = task_offset_scale
+    self._block: Optional[np.ndarray] = None
+    self._gripper: Optional[np.ndarray] = None
+    self._closed = 0.0
+    self._offset = np.zeros(2, np.float32)
+    self._steps = 0
+
+  @property
+  def image_size(self) -> int:
+    return self._image_size
+
+  @property
+  def max_steps(self) -> int:
+    return self._max_steps
+
+  @property
+  def task_offset(self) -> np.ndarray:
+    return self._offset
+
+  def reset(self, task_offset: Optional[np.ndarray] = None
+            ) -> Dict[str, np.ndarray]:
+    self._block = self._rng.uniform(
+        WORKSPACE_LOW * 0.8, WORKSPACE_HIGH * 0.8).astype(np.float32)
+    self._gripper = self._rng.uniform(
+        WORKSPACE_LOW, WORKSPACE_HIGH).astype(np.float32)
+    if task_offset is not None:
+      self._offset = np.asarray(task_offset, np.float32)
+    elif self._task_offset_scale > 0:
+      self._offset = self._rng.uniform(
+          -self._task_offset_scale, self._task_offset_scale,
+          2).astype(np.float32)
+    else:
+      self._offset = np.zeros(2, np.float32)
+    self._closed = 0.0
+    self._steps = 0
+    return self.observation()
+
+  @property
+  def target(self) -> np.ndarray:
+    """The (latent) point the expert aims for: block + task offset."""
+    return np.clip(self._block + self._offset,
+                   WORKSPACE_LOW, WORKSPACE_HIGH)
+
+  def step(self, action: np.ndarray
+           ) -> Tuple[Dict[str, np.ndarray], float, bool]:
+    """Applies [dx, dy, close]; returns (obs, reward, done)."""
+    action = np.clip(np.asarray(action, np.float32), -1.0, 1.0)
+    self._gripper = np.clip(
+        self._gripper + action[:2] * ACTION_SCALE,
+        WORKSPACE_LOW, WORKSPACE_HIGH).astype(np.float32)
+    self._closed = float(action[2] > 0)
+    self._steps += 1
+    success = self.success()
+    done = success or self._steps >= self._max_steps
+    return self.observation(), float(success), done
+
+  def success(self) -> bool:
+    return (self._closed > 0 and
+            float(np.linalg.norm(self._gripper - self.target))
+            < GRASP_RADIUS)
+
+  def expert_action(self) -> np.ndarray:
+    """Scripted demonstration policy toward the (latent) target."""
+    delta = self.target - self._gripper
+    dist = float(np.linalg.norm(delta))
+    if dist < GRASP_RADIUS * 0.6:
+      return np.array([0.0, 0.0, 1.0], np.float32)
+    move = np.clip(delta / ACTION_SCALE, -1.0, 1.0)
+    return np.array([move[0], move[1], -1.0], np.float32)
+
+  def _world_to_pixel(self, xy: np.ndarray) -> Tuple[int, int]:
+    frac = (xy - WORKSPACE_LOW) / (WORKSPACE_HIGH - WORKSPACE_LOW)
+    px = np.clip((frac * self._image_size).astype(int), 0,
+                 self._image_size - 1)
+    return int(px[0]), int(px[1])
+
+  def observation(self) -> Dict[str, np.ndarray]:
+    size = self._image_size
+    image = np.full((size, size, 3), 96, np.uint8)
+    noise = self._rng.normal(0, 255 * self._noise, (size, size, 3))
+    image = np.clip(image + noise, 0, 255).astype(np.uint8)
+    # Block: red square.
+    bx, by = self._world_to_pixel(self._block)
+    e = max(1, size // 16)
+    image[max(0, by - e):by + e + 1, max(0, bx - e):bx + e + 1] = (
+        np.array([200, 40, 40], np.uint8))
+    # Gripper: green dot (brighter when closed).
+    gx, gy = self._world_to_pixel(self._gripper)
+    g = max(1, size // 24)
+    color = np.array([40, 230 if self._closed else 160, 40], np.uint8)
+    image[max(0, gy - g):gy + g + 1, max(0, gx - g):gx + g + 1] = color
+    return {
+        "image": image,
+        "gripper_pose": np.array(
+            [self._gripper[0], self._gripper[1], self._closed],
+            np.float32),
+    }
+
+
+def collect_expert_episode(env: VRGripperEnv,
+                           task_offset: Optional[np.ndarray] = None,
+                           action_noise: float = 0.0,
+                           min_steps: int = 1,
+                           rng: Optional[np.random.Generator] = None,
+                           ) -> Dict[str, np.ndarray]:
+  """Rolls the scripted expert; returns a [T, ...] episode dict.
+
+  `min_steps` keeps recording hold-in-place grasp steps after success
+  until the episode has at least that many timesteps (capped by the
+  env's max_steps) — consumers that split episodes into condition/
+  inference sets need a guaranteed minimum length.
+  """
+  rng = rng or np.random.default_rng(0)
+  obs = env.reset(task_offset=task_offset)
+  images, poses, actions, rewards = [], [], [], []
+  done = False
+  while not done or len(actions) < min(min_steps, env.max_steps):
+    action = env.expert_action()
+    if action_noise > 0:
+      action = np.clip(
+          action + rng.normal(0, action_noise, 3).astype(np.float32),
+          -1.0, 1.0)
+    images.append(obs["image"])
+    poses.append(obs["gripper_pose"])
+    actions.append(action.astype(np.float32))
+    obs, reward, done = env.step(action)
+    rewards.append(np.array([reward], np.float32))
+    if len(actions) >= env.max_steps:
+      break
+  return {
+      "image": np.stack(images),
+      "gripper_pose": np.stack(poses),
+      "action": np.stack(actions),
+      "reward": np.stack(rewards),
+  }
+
+
+def evaluate_gripper_policy(
+    predict_fn: Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]],
+    num_episodes: int = 50,
+    image_size: int = IMAGE_SIZE,
+    seed: int = 1,
+    task_offset_scale: float = 0.0,
+    action_key: str = "action",
+) -> Dict[str, float]:
+  """Closed-loop policy rollout; returns success rate + final distance.
+
+  `predict_fn` maps a batched feature dict {image, gripper_pose} to an
+  output dict containing the action (the predictor API). Stateful
+  policies (e.g. full-history transformer policies) expose a
+  `.reset()` method, called at each episode boundary.
+  """
+  env = VRGripperEnv(image_size=image_size, seed=seed,
+                     task_offset_scale=task_offset_scale)
+  successes, final_dists = [], []
+  for _ in range(num_episodes):
+    obs = env.reset()
+    if hasattr(predict_fn, "reset"):
+      predict_fn.reset()
+    done = False
+    while not done:
+      batch = {"image": obs["image"][None],
+               "gripper_pose": obs["gripper_pose"][None]}
+      out = predict_fn(batch)
+      value = out.get(action_key, next(iter(out.values())))
+      action = np.asarray(value)[0].reshape(-1)[:3]
+      obs, _, done = env.step(action)
+    successes.append(float(env.success()))
+    final_dists.append(
+        float(np.linalg.norm(
+            obs["gripper_pose"][:2] - env.target)))
+  return {
+      "success_rate": float(np.mean(successes)),
+      "mean_final_distance": float(np.mean(final_dists)),
+      "num_episodes": float(num_episodes),
+  }

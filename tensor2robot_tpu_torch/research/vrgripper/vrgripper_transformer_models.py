@@ -1,0 +1,208 @@
+"""Long-context transformer BC over gripper episodes (port of
+`research/vrgripper/vrgripper_transformer_models.py`).
+
+Every step of every episode goes through the shared `GripperObsEncoder`
+as one conv batch, a causal transformer runs over the steps, and a
+dense head gives each step's action. On the card the trunk's attention
+is the hand-written flash kernel (`attention_impl="auto"`).
+
+This slice serves: the network, the model's specs and
+`EpisodeContextPolicy`, the on-robot loop that feeds the growing
+history. The masked BC loss (`model_train_fn`) comes with the training
+slice; pipelined trunks, MoE and ring attention wait for ROADMAP A11.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
+from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
+from tensor2robot_tpu_torch.layers.core import dense
+from tensor2robot_tpu_torch.layers.transformer import CausalTransformer
+from tensor2robot_tpu_torch.models.abstract_model import (
+    AbstractT2RModel,
+    TrainState,
+)
+from tensor2robot_tpu_torch.models.regression_model import INFERENCE_OUTPUT
+from tensor2robot_tpu_torch.research.vrgripper.vrgripper_models import (
+    ACTION,
+    GripperObsEncoder,
+)
+from tensor2robot_tpu_torch.specs import ExtendedTensorSpec, TensorSpecStruct
+
+
+class _EpisodeTransformerNet(nn.Module):
+  """Per-step obs encoder → causal transformer → per-step actions."""
+
+  def __init__(self, action_dim: int, state_dim: int,
+               filters: Sequence[int], embedding_size: int, width: int,
+               depth: int, num_heads: int, max_len: int,
+               attention_impl: str, dtype: torch.dtype = torch.bfloat16,
+               moe_experts: int = 0, pipeline_stages: int = 0):
+    super().__init__()
+    if pipeline_stages:
+      raise NotImplementedError(
+          f"pipeline_stages={pipeline_stages}: the pipelined trunk is not "
+          "ported yet (ROADMAP A11).")
+    self.dtype = dtype
+    self.obs_encoder = GripperObsEncoder(
+        state_dim, filters=tuple(filters), embedding_size=embedding_size,
+        use_batch_norm=False, dtype=dtype)
+    self.trunk = CausalTransformer(
+        embedding_size, width=width, depth=depth, num_heads=num_heads,
+        max_len=max_len, attention_impl=attention_impl, dtype=dtype,
+        moe_experts=moe_experts)
+    self.action_head = nn.Linear(width, action_dim)
+
+  def forward(self, features) -> Dict[str, torch.Tensor]:
+    flat = (features.to_flat_dict()
+            if hasattr(features, "to_flat_dict") else dict(features))
+    image = flat["image"]
+    pose = flat["gripper_pose"]
+    b, t = image.shape[:2]
+    # All steps of all episodes through ONE conv batch.
+    emb = self.obs_encoder({
+        "image": image.reshape((b * t,) + tuple(image.shape[2:])),
+        "gripper_pose": pose.reshape((b * t,) + tuple(pose.shape[2:])),
+    })
+    trunk = self.trunk(emb.reshape(b, t, -1))
+    action = dense(self.action_head, trunk, self.dtype).float()
+    return {ACTION: action, INFERENCE_OUTPUT: action}
+
+
+class VRGripperTransformerModel(AbstractT2RModel):
+  """Episode-level BC: every action conditioned on the full history."""
+
+  def __init__(self,
+               image_size: int = 48,
+               state_dim: int = 3,
+               action_dim: int = 3,
+               filters: Sequence[int] = (16, 32),
+               embedding_size: int = 64,
+               width: int = 64,
+               depth: int = 2,
+               num_heads: int = 4,
+               max_context_length: int = 512,
+               attention_impl: str = "auto",
+               moe_experts: int = 0,
+               pipeline_stages: int = 0,
+               device_dtype: torch.dtype = torch.bfloat16):
+    super().__init__(device_dtype=device_dtype)
+    self._image_size = image_size
+    self._state_dim = state_dim
+    self._action_dim = action_dim
+    self._filters = tuple(filters)
+    self._embedding_size = embedding_size
+    self._width = width
+    self._depth = depth
+    self._num_heads = num_heads
+    self._max_len = max_context_length
+    self._attention_impl = attention_impl
+    self._moe_experts = moe_experts
+    self._pipeline_stages = pipeline_stages
+    with torch.device("meta"):
+      self.create_network()  # unsupported options raise here, not later
+
+  @property
+  def depth(self) -> int:
+    return self._depth
+
+  def get_feature_specification(self, mode: Mode) -> TensorSpecStruct:
+    st = TensorSpecStruct()
+    st.image = ExtendedTensorSpec(
+        shape=(self._image_size, self._image_size, 3), dtype=np.uint8,
+        name="image", data_format="png", is_sequence=True)
+    st.gripper_pose = ExtendedTensorSpec(
+        shape=(self._state_dim,), dtype=np.float32,
+        name="gripper_pose", is_sequence=True)
+    return st
+
+  def get_label_specification(self, mode: Mode) -> TensorSpecStruct:
+    st = TensorSpecStruct()
+    st.action = ExtendedTensorSpec(
+        shape=(self._action_dim,), dtype=np.float32, name=ACTION,
+        is_sequence=True)
+    return st
+
+  def create_network(self) -> _EpisodeTransformerNet:
+    return _EpisodeTransformerNet(
+        action_dim=self._action_dim,
+        state_dim=self._state_dim,
+        filters=self._filters,
+        embedding_size=self._embedding_size,
+        width=self._width,
+        depth=self._depth,
+        num_heads=self._num_heads,
+        max_len=self._max_len,
+        attention_impl=self._attention_impl,
+        dtype=self.device_dtype,
+        moe_experts=self._moe_experts,
+        pipeline_stages=self._pipeline_stages,
+    )
+
+  def make_context_policy(self, state: TrainState,
+                          context_length: Optional[int] = None,
+                          device: DeviceLike = None
+                          ) -> "EpisodeContextPolicy":
+    """A closed-loop policy that feeds the growing episode history."""
+    return EpisodeContextPolicy(self, state,
+                                context_length or self._max_len, device)
+
+
+class EpisodeContextPolicy:
+  """On-robot wrapper: accumulates history, serves the latest action.
+
+  The control loop calls `policy(single_observation_batch)` per step
+  and `policy.reset()` at episode boundaries (the protocol
+  `evaluate_gripper_policy` speaks). The state and a `[1, T, ...]`
+  history buffer live on `device` (None = the CUDA card): each call
+  writes its observation into the next slot (shifting the window once
+  T steps are held), runs the whole padded context — one fixed shape
+  for every step; causal masking makes the zero padding harmless — and
+  returns the action at the last real slot. `steps` and `resets` count
+  the calls and episode boundaries served.
+  """
+
+  def __init__(self, model: VRGripperTransformerModel, state: TrainState,
+               context_length: int, device: DeviceLike = None):
+    device = resolve_device(device)
+    self._model = model
+    self._state = state.to(device)
+    self._t = context_length
+    spec = model.get_feature_specification(Mode.PREDICT)
+    self._image = torch.zeros((1, context_length) + spec.image.shape,
+                              dtype=torch.uint8, device=device)
+    self._pose = torch.zeros((1, context_length) + spec.gripper_pose.shape,
+                             dtype=torch.float32, device=device)
+    self._held = 0
+    self.steps = 0
+    self.resets = 0
+
+  def reset(self) -> None:
+    self._held = 0
+    self._image.zero_()
+    self._pose.zero_()
+    self.resets += 1
+
+  def __call__(self, features: Dict[str, np.ndarray]
+               ) -> Dict[str, np.ndarray]:
+    image = torch.from_numpy(np.ascontiguousarray(features["image"][0]))
+    pose = torch.from_numpy(
+        np.asarray(features["gripper_pose"][0], np.float32))
+    if self._held == self._t:  # keep the latest T steps
+      self._image[:, :-1] = self._image[:, 1:].clone()
+      self._pose[:, :-1] = self._pose[:, 1:].clone()
+      self._held -= 1
+    self._image[0, self._held].copy_(image)
+    self._pose[0, self._held].copy_(pose)
+    self._held += 1
+    self.steps += 1
+    outputs = self._model.predict_step(
+        self._state, {"image": self._image, "gripper_pose": self._pose})
+    # The CURRENT step's action is at the last real history slot.
+    return {ACTION: outputs[ACTION][:, self._held - 1].cpu().numpy()}

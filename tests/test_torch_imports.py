@@ -1,11 +1,13 @@
 """The PyTorch port imports neither JAX nor anything of the JAX package.
 
 A subprocess imports every module of `tensor2robot_tpu_torch`, then
-lists what landed in `sys.modules`. Note the prefix trap: the port's
-name starts with "tensor2robot_tpu", so the pin matches that package
-exactly and its submodules by the "tensor2robot_tpu." prefix.
+lists what landed in `sys.modules`; `chip_smoke.py`'s own imports are
+read from its source. Note the prefix trap: the port's name starts with
+"tensor2robot_tpu", so the pin matches that package exactly and its
+submodules by the "tensor2robot_tpu." prefix.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -31,8 +33,18 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if forbidden(m))
 print("COUNT=%d" % len(names))
+print("NAMES=" + ",".join(names))
 print("BAD=" + ",".join(bad))
 """
+
+# Modules the walk must find (a rename must not drop one from the pin).
+_EXPECTED = (
+    "ops.cem_select", "ops.flash_attention", "layers.vision_layers",
+    "layers.transformer", "models.convert", "models.regression_model",
+    "parallel.ring_attention", "research.vrgripper.vrgripper_env",
+    "research.vrgripper.vrgripper_models",
+    "research.vrgripper.vrgripper_transformer_models",
+)
 
 
 def test_port_modules_import_no_jax():
@@ -41,8 +53,27 @@ def test_port_modules_import_no_jax():
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
   lines = dict(line.split("=", 1) for line in out.stdout.split())
-  assert int(lines["COUNT"]) >= 20, out.stdout
+  assert int(lines["COUNT"]) >= 40, out.stdout
+  names = set(lines["NAMES"].split(","))
+  missing = [m for m in _EXPECTED if f"tensor2robot_tpu_torch.{m}" not in names]
+  assert not missing, missing
   assert lines["BAD"] == "", f"port imported {lines['BAD']}"
+
+
+def test_chip_smoke_imports_no_jax():
+  """Every import statement in chip_smoke.py, wherever it sits (the
+  script imports inside functions), names no JAX module."""
+  with open(os.path.join(_REPO, "chip_smoke.py")) as f:
+    tree = ast.parse(f.read())
+  imported = set()
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      imported.update(alias.name for alias in node.names)
+    elif isinstance(node, ast.ImportFrom):
+      imported.add(node.module)
+  assert "tensor2robot_tpu_torch.ops.flash_attention" in imported
+  bad = sorted(m for m in imported if forbidden(m))  # noqa: F821
+  assert not bad, bad
 
 
 @pytest.mark.parametrize("name,bad", [

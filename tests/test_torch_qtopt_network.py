@@ -23,7 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from tensor2robot_tpu.research.qtopt.t2r_models import (  # noqa: E402
     GraspingQModel as JaxModel,
 )
-from tensor2robot_tpu_torch.research.qtopt import convert  # noqa: E402
+from tensor2robot_tpu_torch.models import convert  # noqa: E402
 from tensor2robot_tpu_torch.research.qtopt.t2r_models import (  # noqa: E402
     GraspingQModel,
 )
@@ -161,7 +161,7 @@ def test_convert_layouts_and_bf16_leaves():
 def test_same_padding_matches_xla_at_stride_two():
   """XLA pads (0, 1) for a 3×3 stride-2 conv on an even input; odd
   inputs pad (1, 1)."""
-  from tensor2robot_tpu_torch.research.qtopt.networks import _same_pads
+  from tensor2robot_tpu_torch.layers.vision_layers import _same_pads
 
   assert _same_pads(16, 3, 2) == (0, 1)
   assert _same_pads(15, 3, 2) == (1, 1)
