@@ -7,13 +7,15 @@ CUDA card: the quickest proof that the port still starts on the GPU.
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. device: torch's name for card 0, and nvidia-smi's name + power limit;
   2. build: nvcc of every kernel source in tensor2robot_tpu_torch/csrc
-     (cem_select.cu, flash_attention.cu), all started together;
+     (cem_select.cu, flash_attention.cu, flash_attention_bwd.cu), all
+     started together;
   3. kernels against their plain versions on the card. cem_select at
      the main path's shapes (P=64, C=H=64, A=4, E=6) in bf16 with
      sigmoid on and off, at P=50, on exactly-tied scores, and in f32.
-     flash_attention (out and lse) causal and not, T = 512, 100, 1,
-     D = 32, 64, B = 1, 16, bf16 and f32, H = 4, plus the main path's
-     strided q/k/v views of one qkv tensor;
+     flash_attention (out and lse) causal and not, T = 512, 100, 32, 1,
+     D = 32, 64, B = 1, 16, bf16 and f32, H = 4, plus the policy's and
+     the training path's strided q/k/v views of one qkv tensor (B=1,
+     T=512 and B=16, T=32);
   4. QT-Opt serving end to end at `GraspingQModel()`'s full width (64×64
      images, torso (32, 64), head (64, 64), dense (64, 64), bf16, random
      weights from seed 0): `CEMPolicyServer(max_batch=8)` over
@@ -29,11 +31,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `evaluate_gripper_policy` drives its `EpisodeContextPolicy` for 3
      episodes, with flash_attention's launch count read around that run
      (4 per policy step); then the card against the CPU on an f32 model;
-  6. timings with CUDA events (medians): each kernel and its plain
-     version (and for flash, SDPA as the library yardstick) as device
-     time per call (CUDA-graph replay, no host launch cost), the CEM
-     policy per dispatch and the context policy per step; then the
-     `kernels` JSON line, the card line, and the result line last.
+  6. the flash backward kernels (flash_attention_bwd.cu: dK/dV and dQ)
+     against their plain versions on the forward kernel's out and lse
+     (themselves held against the plain forward), and the plain
+     versions against torch.autograd of the plain forward: causal and
+     not, T = 32, 512, 100, 1, D = 32, 64, B = 1, 16, bf16 and f32,
+     H = 4, the lse cotangent zero and random, each gradient's error
+     over its own largest value; plus the training path's strided
+     q/k/v views of one qkv tensor under autograd with a non-contiguous
+     dO;
+  7. VRGripper transformer behaviour-cloning training at the gin width
+     (bf16, Adam at lr 3e-4): `train_eval_model` takes 60 steps over an
+     `EpisodeInputGenerator` of 64 seeded expert episodes (batch 16,
+     sequence_length 32), with the forward, dK/dV and dQ launch counts
+     read around that run (4 each per step); the mse must fall and
+     `metrics_train.jsonl` carry the envelope; the trained state then
+     serves one episode through `make_context_policy`; then one f32
+     train step on the card against the CPU (loss, grad_norm, every
+     gradient and every parameter after the Adam update);
+  8. timings with CUDA events (medians): each kernel and its plain
+     version (and for flash, SDPA as the library yardstick: its forward,
+     and its backward as fwd+bwd minus fwd) as device time per call
+     (CUDA-graph replay, no host launch cost), the CEM policy per
+     dispatch, the context policy per step and the train step (graph
+     replay and eager); then the `kernels` JSON line, the card line, and
+     the result line last.
 
 Exits 2 without a result when CUDA is unavailable.
 """
@@ -357,12 +379,6 @@ def phase_timings(learner, state):
 
 # ---- flash attention (the VRGripper transformer's attention) ----
 
-# The VRGripper transformer at train_vrgripper_transformer.gin's width.
-_GRIPPER_WIDTH = dict(image_size=48, state_dim=3, action_dim=3,
-                      filters=(16, 32), embedding_size=64, width=128,
-                      depth=4, num_heads=4, max_context_length=512,
-                      attention_impl="auto")
-
 # Kernel vs plain version (out, lse). f32: the same arithmetic in
 # another order. bf16: the kernel rounds p to bf16 against each 64-key
 # tile's running max, the plain version against the row max, and out
@@ -413,8 +429,8 @@ def check_flash(name, q, k, v, causal):
 def phase_flash_kernels():
   import torch
   worst = {}
-  cases = itertools.product((False, True), (512, 100, 1), (32, 64), (1, 16),
-                            (torch.bfloat16, torch.float32))
+  cases = list(itertools.product((False, True), (512, 100, 32, 1), (32, 64),
+                                 (1, 16), (torch.bfloat16, torch.float32)))
   for i, (causal, t, d, b, dtype) in enumerate(cases):
     name = f"causal={causal} T={t} D={d} B={b} {dtype}"
     errs = check_flash(name, *_flash_inputs(b, t, 4, d, dtype, seed=100 + i),
@@ -422,14 +438,16 @@ def phase_flash_kernels():
     key = str(dtype)
     worst[key] = tuple(max(x, y) for x, y in zip(worst.get(key, (0, 0)),
                                                  errs))
-  # The main path's layout: q, k, v are strided views of one qkv tensor.
-  g = torch.Generator(device="cuda").manual_seed(99)
-  qkv = torch.randn((1, 512, 12, 32), generator=g, device="cuda")
-  q, k, v = qkv.to(torch.bfloat16).split(4, dim=2)
-  errs = check_flash("strided qkv views", q, k, v, causal=True)
-  _log(f"kernel check flash_attention: 48 cases + strided views, max_abs_err "
-       f"(out, lse) = {json.dumps(worst)}; strided {errs}; tolerances "
-       f"{json.dumps(_FLASH_TOL)}")
+  # The main paths' layout: q, k, v are strided views of one qkv tensor,
+  # at the policy's shape and at the training step's.
+  strided = {}
+  for b, t in ((1, 512), (16, 32)):
+    _, (q, k, v) = _strided_qkv(b, t, 4, 32, torch.bfloat16, seed=99 + b)
+    strided[f"B={b} T={t}"] = check_flash(f"strided qkv views B={b} T={t}",
+                                          q, k, v, causal=True)
+  _log(f"kernel check flash_attention: {len(cases)} cases + strided views, "
+       f"max_abs_err (out, lse) = {json.dumps(worst)}; strided "
+       f"{json.dumps(strided)}; tolerances {json.dumps(_FLASH_TOL)}")
   return max(e for pair in worst.values() for e in pair[:1])
 
 
@@ -456,11 +474,11 @@ def phase_gripper_slice():
   from tensor2robot_tpu_torch.research.vrgripper import (
       ACTION,
       VRGripperEnv,
-      VRGripperTransformerModel,
       evaluate_gripper_policy,
   )
+  from tensor2robot_tpu_torch.research.vrgripper.gin_config import gin_model
 
-  model = VRGripperTransformerModel(**_GRIPPER_WIDTH)
+  model = gin_model()
   state = model.create_inference_state(seed=0)
   policy = model.make_context_policy(state)
   recorder = _Recorder(policy)
@@ -489,8 +507,7 @@ def phase_gripper_slice():
 
   # ---- the card against the CPU: f32 model, same weights and frames ----
   torch.backends.cudnn.allow_tf32 = False
-  model32 = VRGripperTransformerModel(device_dtype=torch.float32,
-                                      **_GRIPPER_WIDTH)
+  model32 = gin_model(torch.float32)
   state32 = model32.create_inference_state(seed=0)
   on_card = model32.make_context_policy(state32)
   on_cpu = model32.make_context_policy(state32.to("cpu"), device="cpu")
@@ -566,6 +583,365 @@ def phase_flash_timings(policy):
   return rows, step_ms
 
 
+# ---- flash attention backward (the VRGripper transformer's training) ----
+
+# Backward checks, as the largest |error| over the largest |value| of
+# the gradient itself (dq, dk and dv peak at ~0.05 to ~5 across the
+# cases). Where a gradient is zero in exact arithmetic (dq and dk at T=1
+# with the lse cotangent zero: a softmax over one key has no slope), both
+# sides hold only the f32 summation noise of dO·vᵀ − δ, and the error is
+# held to _ZERO_GRAD_TOL absolute instead.
+# Kernel vs plain version — f32: the same arithmetic in another order
+# (sums over up to 512 rows); bf16: both round p and ds to bf16 from the
+# same f32 scores, so a rounding may tip to the other neighbour, and the
+# gradients are stored in bf16 (one step is 2^-8 to 2^-7 of the largest
+# value).
+# Plain version vs autograd of the plain forward — f32: another formula
+# for the same derivative; bf16: autograd rounds the cotangent of p to
+# bf16 where the flash backward rounds exp(s - lse) and ds.
+# Worst readings on an H100 (700 W) over these cases: kernel vs plain
+# 2.6e-6 (f32) and 2.5e-3 (bf16), plain vs autograd 1.7e-6 and 8.2e-3.
+_FLASH_BWD_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 1e-2}
+_FLASH_AUTOGRAD_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
+_ZERO_GRAD_TOL = 1e-5
+
+
+def _grad_err(got, want, zero=False):
+  """The error the tolerances read: max |got - want| over max |want|, or
+  for a gradient that is zero in exact arithmetic, max |got - want|."""
+  err = (got.float() - want.float()).abs().max().item()
+  return err if zero else err / want.float().abs().max().item()
+
+
+def check_flash_bwd(name, q, k, v, do, dlse, causal):
+  """The forward kernel's out and lse against the plain forward, the two
+  backward kernels against their plain versions on the kernel's out and
+  lse, and the plain backward against torch.autograd of the plain
+  forward. Returns the raw max abs errors (dk/dv, dq), the worst scaled
+  errors (kernel vs plain, plain vs autograd) and the worst absolute
+  error of a gradient that is zero in exact arithmetic."""
+  import torch
+  from tensor2robot_tpu_torch.ops.flash_attention import (
+      flash_attention_backward,
+      flash_attention_backward_reference,
+      flash_attention_reference,
+      flash_attention_with_lse,
+  )
+  out, lse = flash_attention_with_lse(q, k, v, causal=causal)
+  got = flash_attention_backward(q, k, v, out, lse, do, dlse, causal=causal)
+  torch.cuda.synchronize()
+  leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+  ref_out, ref_lse = flash_attention_reference(*leaves, causal=causal)
+  tol_out, tol_lse = _FLASH_TOL[str(q.dtype)]
+  err_out = (out.float() - ref_out.detach().float()).abs().max().item()
+  err_lse = (lse - ref_lse.detach()).abs().max().item()
+  if err_out > tol_out or err_lse > tol_lse:
+    raise AssertionError(f"flash bwd {name}: forward out differs by "
+                         f"{err_out} (tol {tol_out}), lse by {err_lse} "
+                         f"(tol {tol_lse})")
+  want = flash_attention_backward_reference(q, k, v, out, lse, do, dlse,
+                                            causal=causal)
+  plain = flash_attention_backward_reference(
+      q, k, v, ref_out.detach(), ref_lse.detach(), do, dlse, causal=causal)
+  auto = torch.autograd.grad(
+      (ref_out, ref_lse), leaves,
+      (do, torch.zeros_like(ref_lse) if dlse is None else dlse))
+  raw, scaled, at_zero = [], [0.0, 0.0], 0.0
+  for grad, g, w, p, a in zip(("dq", "dk", "dv"), got, want, plain, auto):
+    if g.shape != q.shape or g.dtype != q.dtype:
+      raise AssertionError(f"flash bwd {name}: {grad} {g.shape} {g.dtype}")
+    if not bool(torch.isfinite(g).all()):
+      raise AssertionError(f"flash bwd {name}: non-finite {grad}")
+    zero = q.shape[1] == 1 and dlse is None and grad != "dv"
+    tol, auto_tol = ((_ZERO_GRAD_TOL, _ZERO_GRAD_TOL) if zero else
+                     (_FLASH_BWD_TOL[str(q.dtype)],
+                      _FLASH_AUTOGRAD_TOL[str(q.dtype)]))
+    err, err_auto = _grad_err(g, w, zero), _grad_err(p, a, zero)
+    if err > tol or err_auto > auto_tol:
+      raise AssertionError(
+          f"flash bwd {name}: {grad} kernel vs plain {err} (tol {tol}), "
+          f"plain vs autograd {err_auto} (tol {auto_tol})"
+          + (" absolute: zero in exact arithmetic" if zero else " scaled"))
+    if zero:
+      at_zero = max(at_zero, err, err_auto)
+    else:
+      scaled = [max(scaled[0], err), max(scaled[1], err_auto)]
+    raw.append((g.float() - w.float()).abs().max().item())
+  return (max(raw[1:]), raw[0]), tuple(scaled), at_zero
+
+
+def _strided_qkv(b, t, h, d, dtype, seed, requires_grad=False):
+  """The training path's layout: q, k, v are views of one qkv tensor."""
+  import torch
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  qkv = torch.randn((b, t, 3 * h, d), generator=g, device="cuda").to(dtype)
+  qkv.requires_grad_(requires_grad)
+  return qkv, qkv.split(h, dim=2)
+
+
+def phase_flash_bwd_kernels():
+  import torch
+  from tensor2robot_tpu_torch.ops.flash_attention import (
+      flash_attention,
+      flash_attention_bwd_dkdv,
+      flash_attention_bwd_dq,
+      flash_attention_reference,
+  )
+  worst, worst_scaled, worst_zero = {}, {}, 0.0
+  cases = itertools.product((False, True), (32, 512, 100, 1), (32, 64),
+                            (1, 16), (torch.bfloat16, torch.float32),
+                            (False, True))
+  n = 0
+  for i, (causal, t, d, b, dtype, with_dlse) in enumerate(cases):
+    q, k, v, do = (_flash_inputs(b, t, 4, d, dtype, seed=300 + i)
+                   + _flash_inputs(b, t, 4, d, dtype, seed=700 + i)[:1])
+    g = torch.Generator(device="cuda").manual_seed(900 + i)
+    dlse = (torch.randn((b, 4, t), generator=g, device="cuda")
+            if with_dlse else None)
+    name = (f"causal={causal} T={t} D={d} B={b} {dtype} "
+            f"dlse={'random' if with_dlse else 'zero'}")
+    errs, scaled, at_zero = check_flash_bwd(name, q, k, v, do, dlse, causal)
+    worst_zero = max(worst_zero, at_zero)
+    key = str(dtype)
+    worst[key] = tuple(max(x, y) for x, y in zip(worst.get(key, (0, 0)),
+                                                 errs))
+    worst_scaled[key] = tuple(max(x, y) for x, y in zip(
+        worst_scaled.get(key, (0, 0)), scaled))
+    n += 1
+  # The training path: strided q/k/v views of one qkv tensor under
+  # autograd, dO non-contiguous (read through its strides, not copied).
+  qkv, (q, k, v) = _strided_qkv(16, 32, 4, 32, torch.bfloat16, seed=98,
+                                requires_grad=True)
+  g = torch.Generator(device="cuda").manual_seed(97)
+  do = torch.randn((16, 4, 32, 32), generator=g, device="cuda").to(
+      torch.bfloat16).transpose(1, 2)
+  before = (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
+  got = torch.autograd.grad(flash_attention(q, k, v, causal=True), qkv, do)[0]
+  torch.cuda.synchronize()
+  after = (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
+  want = torch.autograd.grad(
+      flash_attention_reference(q, k, v, causal=True)[0], qkv, do)[0]
+  err = _grad_err(got, want)
+  if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+    raise AssertionError(f"strided views: backward launches {before} -> "
+                         f"{after}, expected one each")
+  if err > _FLASH_AUTOGRAD_TOL["torch.bfloat16"]:
+    raise AssertionError(f"strided views: d(qkv) differs by {err} scaled")
+  _log(f"kernel check flash_attention backward: {n} cases + strided views, "
+       f"max_abs_err (dk/dv, dq) = {json.dumps(worst)}; worst scaled error "
+       f"(kernel vs plain, plain vs autograd) = {json.dumps(worst_scaled)}; "
+       f"zero gradients {worst_zero} absolute; strided d(qkv) vs autograd "
+       f"of the plain forward {err} scaled; "
+       f"tolerances (scaled) kernel {json.dumps(_FLASH_BWD_TOL)} autograd "
+       f"{json.dumps(_FLASH_AUTOGRAD_TOL)}, zero gradients {_ZERO_GRAD_TOL} "
+       f"absolute")
+  return (max(pair[0] for pair in worst.values()),
+          max(pair[1] for pair in worst.values()))
+
+
+_TRAIN_STEPS = 60
+
+
+def phase_train_slice():
+  import tempfile
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.data import EpisodeInputGenerator, Mode
+  from tensor2robot_tpu_torch.ops.flash_attention import (
+      flash_attention,
+      flash_attention_bwd_dkdv,
+      flash_attention_bwd_dq,
+  )
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      evaluate_gripper_policy,
+      gin_config,
+  )
+  from tensor2robot_tpu_torch.telemetry.records import read_records
+  from tensor2robot_tpu_torch.train_eval import train_eval_model
+
+  # The gin's model and training shape (batch 16, sequence_length 32) over
+  # 64 seeded expert episodes of 24 to 40 steps.
+  model = gin_config.gin_model()
+  episodes = gin_config.expert_episodes(64, seed=11)
+  gen = EpisodeInputGenerator(episodes,
+                              sequence_length=gin_config.GIN_SEQUENCE_LENGTH,
+                              batch_size=gin_config.GIN_BATCH_SIZE, seed=0)
+  lengths = sorted(len(ep["action"]) for ep in episodes)
+
+  # ---- the main path, with the kernels' launch counts read around it ----
+  with tempfile.TemporaryDirectory() as model_dir:
+    counters = (flash_attention, flash_attention_bwd_dkdv,
+                flash_attention_bwd_dq)
+    for fn in counters:
+      fn.launches = 0
+    t0 = time.perf_counter()
+    state = train_eval_model(model, model_dir, gen,
+                             max_train_steps=_TRAIN_STEPS,
+                             batch_size=gin_config.GIN_BATCH_SIZE,
+                             log_every_steps=1, seed=0)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    with open(os.path.join(model_dir, "metrics_train.jsonl")) as f:
+      raw = [json.loads(line) for line in f]
+    records = read_records(os.path.join(model_dir, "metrics_train.jsonl"))
+  want = model.depth * _TRAIN_STEPS
+  if state.step != _TRAIN_STEPS or any(n != want for n in launches.values()):
+    raise AssertionError(f"step {state.step}, launches {launches}: each "
+                         f"should be depth x steps = {want}")
+  if (len(raw) != _TRAIN_STEPS
+      or any(set(r) != {"step", "wall", "role", "payload"} for r in raw)
+      or [r["step"] for r in raw] != list(range(1, _TRAIN_STEPS + 1))):
+    raise AssertionError(f"metrics_train.jsonl lacks the envelope: {raw[:2]}")
+  mse = [r["mse"] for r in records]
+  losses = [r["loss"] for r in records]
+  if not all(np.isfinite(losses + mse + [r["grad_norm"] for r in records])):
+    raise AssertionError(f"non-finite training metrics: {losses}")
+  first, last = float(np.mean(mse[:10])), float(np.mean(mse[-10:]))
+  if not last < first:
+    raise AssertionError(f"mse did not fall: first 10 {first}, last 10 {last}")
+  _log(f"main path (vrgripper transformer training): steps={_TRAIN_STEPS} "
+       f"batch=16 sequence_length=32 episodes=64 (lengths {lengths[0]}-"
+       f"{lengths[-1]}) launches={json.dumps(launches)} wall_s={wall_s} "
+       f"(first step builds cuDNN/cuBLAS plans) mse first10={first} "
+       f"last10={last} loss[0]={losses[0]} loss[-1]={losses[-1]}")
+
+  # ---- the trained state serves one episode ----
+  policy = model.make_context_policy(state)
+  metrics = evaluate_gripper_policy(policy, num_episodes=1, image_size=48,
+                                    seed=5)
+  if policy.steps < 1 or not np.isfinite(metrics["mean_final_distance"]):
+    raise AssertionError(f"trained policy: {policy.steps} steps, {metrics}")
+  _log(f"trained policy served {policy.steps} steps: {json.dumps(metrics)}")
+
+  # ---- the card against the CPU: one f32 train step, same weights/batch ----
+  torch.backends.cudnn.allow_tf32 = False
+  model32 = gin_config.gin_model(torch.float32)
+  features, labels = next(iter(gen.create_dataset(Mode.TRAIN)))
+  results = {}
+  for device in ("cuda", "cpu"):
+    st = model32.create_train_state(seed=0, device=device)
+    f = {k: torch.as_tensor(v).to(device)
+         for k, v in features.to_flat_dict().items()}
+    lab = {k: torch.as_tensor(v).to(device)
+           for k, v in labels.to_flat_dict().items()}
+    grads, stats, m = model32.train_grads(st, f, lab)
+    new = model32.apply_gradients(st, grads, stats)
+    results[device] = ({k: v.item() for k, v in m.items()},
+                       {k: g.cpu() for k, g in grads.items()},
+                       {k: p.cpu() for k, p in new.params.items()})
+  torch.backends.cudnn.allow_tf32 = True
+  (m_card, g_card, p_card), (m_cpu, g_cpu, p_cpu) = (results["cuda"],
+                                                     results["cpu"])
+  # Tolerances. loss and grad_norm: 1e-4 relative (f32 sums over the
+  # batch in other orders). Each gradient: 1e-3 of its leaf's largest
+  # |value|. Parameters after Adam's first step, p - lr·g/(|g| + 1e-8):
+  # 1e-6 where |g| >= 1e-6 (there the step is ±lr to f32 rounding); up to
+  # 2·lr where |g| < 1e-6, since there summation order can flip g's sign.
+  lr = gin_config.GIN_LEARNING_RATE
+  metric_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+                   for k in ("loss", "grad_norm"))
+  grad_err = max((g_card[k] - g_cpu[k]).abs().max().item()
+                 / max(g_cpu[k].abs().max().item(), 1e-12) for k in g_cpu)
+  far, near, n_near = 0.0, 0.0, 0
+  for k in p_cpu:
+    diff = (p_card[k] - p_cpu[k]).abs()
+    small = g_cpu[k].abs() < 1e-6
+    n_near += int(small.sum())
+    if bool((~small).any()):
+      far = max(far, diff[~small].max().item())
+    if bool(small.any()):
+      near = max(near, diff[small].max().item())
+  _log(f"card vs CPU f32 train step (B=16, T=32): loss {m_card['loss']} vs "
+       f"{m_cpu['loss']}, grad_norm {m_card['grad_norm']} vs "
+       f"{m_cpu['grad_norm']}; max rel metric err {metric_err} (tol 1e-4), "
+       f"max per-leaf rel grad err {grad_err} over {len(g_cpu)} leaves "
+       f"(tol 1e-3), param err {far} where |g|>=1e-6 (tol 1e-6), {near} "
+       f"over {n_near} elements where |g|<1e-6 (tol {2 * lr})")
+  if (metric_err > 1e-4 or grad_err > 1e-3 or far > 1e-6
+      or near > 2 * lr):
+    raise AssertionError("card and CPU train steps differ")
+  return launches, model, state, gen
+
+
+def phase_train_timings(model, state, gen):
+  import torch
+  import torch.nn.functional as F
+  from tensor2robot_tpu_torch.data import Mode
+  from tensor2robot_tpu_torch.ops.flash_attention import (
+      _delta,
+      flash_attention_bwd_dkdv,
+      flash_attention_bwd_dkdv_reference,
+      flash_attention_bwd_dq,
+      flash_attention_bwd_dq_reference,
+      flash_attention_reference,
+      flash_attention_with_lse,
+  )
+  from tensor2robot_tpu_torch.bin import kernel_bounds
+
+  # The backward kernels at the training shape, on its layout.
+  b, t, h, d = 16, 32, 4, 32
+  _, (q, k, v) = _strided_qkv(b, t, h, d, torch.bfloat16, seed=400)
+  do = _flash_inputs(b, t, h, d, torch.bfloat16, seed=401)[0]
+  out, lse = flash_attention_with_lse(q, k, v, causal=True)
+  delta = _delta(out, do, None)
+  fwd = [_graph_ms(lambda: flash_attention_with_lse(q, k, v, causal=True))
+         for _ in range(2)]
+  fwd_plain = _graph_ms(lambda: flash_attention_reference(q, k, v,
+                                                          causal=True))
+  _log(f"timing flash_attention_fwd B={b} T={t} H={h} D={d} bf16 causal "
+       f"(training shape): device kernel_ms={fwd[0]},{fwd[1]} plain_ms="
+       f"{fwd_plain} | bound_ms="
+       f"{kernel_bounds.flash_forward(b, t, h, d, 2, True)[0]}")
+  rows = {}
+  for name, kern, plain, bound in (
+      ("flash_attention_bwd_dkdv", flash_attention_bwd_dkdv,
+       flash_attention_bwd_dkdv_reference, kernel_bounds.flash_backward_dkdv),
+      ("flash_attention_bwd_dq", flash_attention_bwd_dq,
+       flash_attention_bwd_dq_reference, kernel_bounds.flash_backward_dq)):
+    run_k = lambda: kern(q, k, v, do, lse, delta, True)  # noqa: E731
+    run_p = lambda: plain(q, k, v, do, lse, delta, True)  # noqa: E731
+    plain_a, kern_a = _graph_ms(run_p), _graph_ms(run_k)
+    kern_b, plain_b = _graph_ms(run_k), _graph_ms(run_p)
+    bound_ms, bound_by = bound(b, t, h, d, 2, True)
+    rows[name] = dict(ms=statistics.median([kern_a, kern_b]),
+                      plain_ms=statistics.median([plain_a, plain_b]),
+                      bound_ms=bound_ms, bound_by=bound_by)
+    _log(f"timing {name} B={b} T={t} H={h} D={d} bf16 causal: device "
+         f"kernel_ms={kern_a},{kern_b} plain_ms={plain_a},{plain_b} | "
+         f"bound_ms={bound_ms} ({bound_by})")
+
+  # SDPA's backward as the library yardstick: fwd+bwd minus fwd, in turns.
+  qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                for x in (q, k, v))
+  dot = do.transpose(1, 2)
+  run_f = lambda: F.scaled_dot_product_attention(  # noqa: E731
+      qt, kt, vt, is_causal=True)
+  run_fb = lambda: torch.autograd.grad(  # noqa: E731
+      F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+      (qt, kt, vt), dot)
+  f_a, fb_a, fb_b, f_b = (_graph_ms(run_f), _graph_ms(run_fb),
+                          _graph_ms(run_fb), _graph_ms(run_f))
+  sdpa_bwd = statistics.median([fb_a, fb_b]) - statistics.median([f_a, f_b])
+  for row in rows.values():
+    row["library_ms"] = sdpa_bwd
+  kernels_sum = sum(r["ms"] for r in rows.values())
+  _log(f"timing SDPA at the same shape: fwd_ms={f_a},{f_b} fwd+bwd_ms="
+       f"{fb_a},{fb_b} -> bwd_ms={sdpa_bwd}; dK/dV + dQ kernels "
+       f"{kernels_sum} ms")
+
+  # The whole train step at the gin shape (B=16, T=32, bf16, depth 4).
+  features, labels = next(iter(gen.create_dataset(Mode.TRAIN)))
+  f = {k: torch.as_tensor(x).cuda() for k, x in features.to_flat_dict().items()}
+  lab = {k: torch.as_tensor(x).cuda() for k, x in labels.to_flat_dict().items()}
+  step = lambda: model.train_step(state, f, lab)  # noqa: E731
+  step_graph = _graph_ms(step, iters=5)
+  step_eager = _median_ms(step, iters=10)
+  _log(f"timing train step (B=16, T=32, bf16, depth 4, Adam): device "
+       f"(graph replay) ms={step_graph}; eager per step ms={step_eager}")
+  return rows, step_graph, step_eager
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -595,6 +971,9 @@ def main():
   flash_launches, context_policy = phase_gripper_slice()
   rows = phase_timings(learner, state)
   flash_rows, _ = phase_flash_timings(context_policy)
+  bwd_errs = phase_flash_bwd_kernels()
+  train_launches, train_model, train_state, gen = phase_train_slice()
+  bwd_rows, _, _ = phase_train_timings(train_model, train_state, gen)
   main_row = rows[8]  # the serving path's largest bucket
   flash_row = flash_rows[1]  # the context policy serves one robot
   kernels = [{
@@ -621,7 +1000,20 @@ def main():
       "bound_ms": flash_row["bound_ms"],
       "bound_by": flash_row["bound_by"],
       "library_ms": flash_row["library_ms"],
-  }]
+  }] + [{
+      "name": name,
+      "route": "cuda",
+      "source": "tensor2robot_tpu_torch/csrc/flash_attention_bwd.cu",
+      "replaces": replaces,
+      "launches": train_launches[name],
+      "max_abs_err": err,
+      **{key: bwd_rows[name][key] for key in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+  } for name, replaces, err in (
+      ("flash_attention_bwd_dkdv",
+       "tensor2robot_tpu/ops/flash_attention.py:404", bwd_errs[0]),
+      ("flash_attention_bwd_dq",
+       "tensor2robot_tpu/ops/flash_attention.py:434", bwd_errs[1]))]
   _log(f"total_s={time.perf_counter() - t_start}")
   _log(json.dumps({"kernels": kernels}))
   _log(smi)

@@ -6,8 +6,9 @@ to find. It imports torch and numpy only — never jax, flax or anything
 of the JAX package (pinned by tests/test_torch_imports.py).
 
 Entry points (`QTOptLearner`, `BucketedServingEngine`,
-`CEMPolicyServer`) run on the CUDA card unless the caller passes
-``device="cpu"``; they raise when CUDA is requested and absent.
+`CEMPolicyServer`, `train_eval.train_eval_model`) run on the CUDA card
+unless the caller passes ``device="cpu"``; they raise when CUDA is
+requested and absent.
 """
 
 from tensor2robot_tpu_torch.device import resolve_device

@@ -102,6 +102,9 @@ def main():
       ("tensor2robot_tpu/ops/flash_attention.py:211",
        "context policy B=1 / B=16, T=512, H=4, D=32, bf16, causal",
        [flash_forward(b, 512, 4, 32, 2, True) for b in (1, 16)]),
+      ("tensor2robot_tpu/ops/flash_attention.py:211",
+       "gin training shape B=16, T=32, H=4, D=32, bf16, causal (forward)",
+       [flash_forward(16, 32, 4, 32, 2, True)]),
       ("tensor2robot_tpu/ops/flash_attention.py:404",
        "gin training shape B=16, T=32, H=4, D=32, bf16, causal (dK, dV)",
        [flash_backward_dkdv(16, 32, 4, 32, 2, True)]),

@@ -2,15 +2,20 @@
 
     python -m tensor2robot_tpu_torch.bin.profile_policy [--batches 8 256]
     python -m tensor2robot_tpu_torch.bin.profile_policy --model vrgripper_transformer
+    python -m tensor2robot_tpu_torch.bin.profile_policy --model vrgripper_train
 
 `--model qtopt` (the default) runs `QTOptLearner.build_policy()` at
 `GraspingQModel()`'s full width (bf16, random weights from seed 0, CEM
 2 × 64 samples, 6 elites, cem_select="fused") once per batch size.
 `--model vrgripper_transformer` runs the `EpisodeContextPolicy` of
 `VRGripperTransformerModel` at the width of
-`train_vrgripper_transformer.gin` (48×48 images, filters (16, 32),
-embedding 64, width 128, depth 4, 4 heads, context 512, bf16, random
-weights from seed 0) one env step at a time.
+`train_vrgripper_transformer.gin` (`research/vrgripper/gin_config.py`:
+48×48 images, filters (16, 32), embedding 64, width 128, depth 4, 4
+heads, context 512, bf16, random weights from seed 0) one env step at a
+time. `--model vrgripper_train` runs `train_step` of the same model
+(Adam at lr 3e-4, the gin's) on the first batch of `chip_smoke.py`'s
+training run: 16 of 64 seeded expert episodes (seed 11) cut to 32
+steps, the gin's training shape.
 
 Each prints, under `torch.profiler`: the wall time per call (host clock
 around synchronized calls), the device-busy time per call (sum of
@@ -95,13 +100,9 @@ def profile_cem(batch: int) -> dict:
 
 
 def profile_context_policy() -> dict:
-  from tensor2robot_tpu_torch.research.vrgripper import (
-      VRGripperEnv,
-      VRGripperTransformerModel,
-  )
-  model = VRGripperTransformerModel(
-      image_size=48, filters=(16, 32), embedding_size=64, width=128,
-      depth=4, num_heads=4, max_context_length=512)
+  from tensor2robot_tpu_torch.research.vrgripper import VRGripperEnv
+  from tensor2robot_tpu_torch.research.vrgripper.gin_config import gin_model
+  model = gin_model()
   policy = model.make_context_policy(model.create_inference_state(seed=0))
   env = VRGripperEnv(image_size=48, seed=1)
   obs = env.reset()
@@ -118,9 +119,35 @@ def profile_context_policy() -> dict:
           **profile_calls(step)}
 
 
+def profile_train_step() -> dict:
+  from tensor2robot_tpu_torch.data import EpisodeInputGenerator, Mode
+  from tensor2robot_tpu_torch.research.vrgripper import gin_config
+  model = gin_config.gin_model()
+  gen = EpisodeInputGenerator(
+      gin_config.expert_episodes(64, seed=11),
+      sequence_length=gin_config.GIN_SEQUENCE_LENGTH,
+      batch_size=gin_config.GIN_BATCH_SIZE, seed=0)
+  gen.set_specification_from_model(model, Mode.TRAIN)
+  features, labels = next(iter(gen.create_dataset(Mode.TRAIN)))
+  to_card = lambda s: {k: torch.as_tensor(v).cuda()  # noqa: E731
+                       for k, v in s.to_flat_dict().items()}
+  features, labels = to_card(features), to_card(labels)
+  state = model.create_train_state(seed=0)
+
+  def step():  # the loss's copy to the host synchronizes, as a log does
+    nonlocal state
+    state, metrics = model.train_step(state, features, labels)
+    metrics["loss"].item()
+
+  return {"model": "vrgripper_train", "batch": gin_config.GIN_BATCH_SIZE,
+          "sequence_length": gin_config.GIN_SEQUENCE_LENGTH,
+          **profile_calls(step)}
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-  parser.add_argument("--model", choices=("qtopt", "vrgripper_transformer"),
+  parser.add_argument("--model", choices=("qtopt", "vrgripper_transformer",
+                                          "vrgripper_train"),
                       default="qtopt")
   parser.add_argument("--batches", type=int, nargs="+", default=[8, 256],
                       help="CEM batch sizes (--model qtopt)")
@@ -131,8 +158,10 @@ def main():
   if args.model == "qtopt":
     for batch in args.batches:
       print(json.dumps(profile_cem(batch)), flush=True)
-  else:
+  elif args.model == "vrgripper_transformer":
     print(json.dumps(profile_context_policy()), flush=True)
+  else:
+    print(json.dumps(profile_train_step()), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,16 @@
-"""Data-side definitions the port needs so far (the `Mode` enum)."""
+"""Input generators: model specs → batched host data streams."""
 
-from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
+from tensor2robot_tpu_torch.data.abstract_input_generator import (
+    AbstractInputGenerator,
+    Mode,
+)
+from tensor2robot_tpu_torch.data.episode_input_generator import (
+    SEQUENCE_LENGTH_KEY,
+    EpisodeInputGenerator,
+)
+from tensor2robot_tpu_torch.data.random_input_generator import (
+    RandomInputGenerator,
+)
 
-__all__ = ["Mode"]
+__all__ = ["AbstractInputGenerator", "EpisodeInputGenerator", "Mode",
+           "RandomInputGenerator", "SEQUENCE_LENGTH_KEY"]

@@ -1,13 +1,22 @@
 """Model base and carried state (port of `models/abstract_model.py`).
 
-This slice ports the inference half: `TrainState` as the holder of a
-network's parameters and batch statistics (no optimizer yet), and the
-model base's `device_dtype` / `create_network` / `predict_step` (the
-JAX default preprocessor is the no-op one, so there is none to port). The JAX package keeps
-params outside its stateless flax modules; the port does the same, so
-a state can be hot-swapped atomically while a dispatch still runs on
-the old one. `AbstractT2RModel.bind(state)` returns a module whose
-tensors ARE the state's (no copy), built once per state object.
+`TrainState` holds a network's parameters, batch statistics and
+optimizer state. The model base has the inference half (`device_dtype`,
+`create_network`, `predict_step`; the JAX default preprocessor is the
+no-op one, so there is none to port) and the train half
+(`create_train_state`, `loss_fn`, `train_grads`, `apply_gradients`,
+`train_step`). The JAX package keeps params outside its stateless flax
+modules; the port does the same, so a state can be hot-swapped
+atomically while a dispatch still runs on the old one.
+`AbstractT2RModel.bind(state)` returns a module whose tensors ARE the
+state's (no copy), built once per state object; training calls one
+meta-device module through `torch.func.functional_call` over the
+state's tensors, and every step returns a new state (nothing is
+updated in place), as the JAX step does.
+
+Not ported yet: `remat_policy` and `axis_name` (ROADMAP A11), auxiliary
+losses sown by the network (MoE, A11) and training a network with batch
+statistics (A4). Each raises where it is asked for.
 """
 
 from __future__ import annotations
@@ -16,14 +25,17 @@ import abc
 import dataclasses
 import math
 import weakref
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
+from tensor2robot_tpu_torch.models import optimizers as opt_lib
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
+
+Metrics = Dict[str, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -51,6 +63,7 @@ class TrainState:
                for t in self.variables.values())
 
   def to(self, device) -> "TrainState":
+    """Params and batch stats on `device` (the optimizer state stays)."""
     move = lambda d: {k: v.to(device) for k, v in d.items()}  # noqa: E731
     return dataclasses.replace(self, params=move(self.params),
                                batch_stats=move(self.batch_stats))
@@ -83,11 +96,33 @@ def init_parameters(network: nn.Module, generator: torch.Generator) -> None:
           module.bias.zero_()
 
 
-class AbstractT2RModel(abc.ABC):
-  """Base class for models: specs + network construction."""
+def _flat(struct) -> Dict[str, Any]:
+  """A TensorSpecStruct or mapping as a flat '/'-keyed dict."""
+  return (struct.to_flat_dict() if hasattr(struct, "to_flat_dict")
+          else dict(struct))
 
-  def __init__(self, device_dtype: torch.dtype = torch.float32):
+
+class AbstractT2RModel(abc.ABC):
+  """Base class for models: specs + network construction + loss.
+
+  Subclasses implement `get_feature_specification(mode)`,
+  `get_label_specification(mode)`, `create_network()` and, to train,
+  `model_train_fn(features, labels, outputs, mode) -> (loss, scalars)`.
+  """
+
+  def __init__(self, device_dtype: torch.dtype = torch.float32,
+               create_optimizer_fn: Callable[
+                   [], opt_lib.GradientTransformation] = (
+                       opt_lib.create_optimizer),
+               remat_policy: Optional[str] = None):
+    if remat_policy not in (None, "none"):
+      raise NotImplementedError(
+          f"remat_policy={remat_policy!r}: rematerialization is not ported "
+          "yet (ROADMAP A11).")
     self._device_dtype = device_dtype
+    self._create_optimizer_fn = create_optimizer_fn
+    self._tx: Optional[opt_lib.GradientTransformation] = None
+    self._train_network: Optional[nn.Module] = None
     self._bound: "weakref.WeakKeyDictionary[TrainState, nn.Module]" = (
         weakref.WeakKeyDictionary())
 
@@ -117,6 +152,101 @@ class AbstractT2RModel(abc.ABC):
     network = self.create_network()
     init_parameters(network, torch.Generator().manual_seed(seed))
     return TrainState.from_network(network).to(device)
+
+  @property
+  def tx(self) -> opt_lib.GradientTransformation:
+    """The optimizer, made once by `create_optimizer_fn()`."""
+    if self._tx is None:
+      self._tx = self._create_optimizer_fn()
+    return self._tx
+
+  def create_train_state(self, seed: int = 0,
+                         device: DeviceLike = None) -> TrainState:
+    """`create_inference_state` plus the optimizer's state."""
+    state = self.create_inference_state(seed=seed, device=device)
+    return dataclasses.replace(state, opt_state=self.tx.init(state.params))
+
+  # ---- training (the JAX package's pure steps, eagerly) ----
+
+  def model_train_fn(self, features: Mapping[str, torch.Tensor],
+                     labels: Optional[Mapping[str, torch.Tensor]],
+                     outputs: Any, mode: Mode
+                     ) -> Tuple[torch.Tensor, Metrics]:
+    """Returns (scalar loss, scalar metrics dict)."""
+    raise NotImplementedError(f"{type(self).__name__} has no training loss")
+
+  def network_inputs_from_labels(self, features, labels, mode: Mode):
+    """Hook: lift label-derived conditioning inputs into the features
+    (train/eval only). Default: unchanged."""
+    del labels, mode
+    return features
+
+  def loss_fn(self, params: Dict[str, torch.Tensor],
+              batch_stats: Dict[str, torch.Tensor], features, labels,
+              mode: Mode) -> Tuple[torch.Tensor, Tuple[Metrics, Dict]]:
+    """(loss, (scalars, new_batch_stats)) of the network over `params`."""
+    if batch_stats:
+      raise NotImplementedError(
+          "training a network with batch statistics is not ported yet "
+          "(ROADMAP A4).")
+    if self._train_network is None:
+      with torch.device("meta"):
+        self._train_network = self.create_network()
+    self._train_network.train(mode == Mode.TRAIN)
+    features = self.network_inputs_from_labels(_flat(features),
+                                               _flat(labels), mode)
+    outputs = torch.func.functional_call(self._train_network, params,
+                                         (features,), strict=True)
+    if isinstance(outputs, Mapping) and "_aux_loss" in outputs:
+      raise NotImplementedError(
+          "auxiliary (MoE) losses are not ported yet (ROADMAP A11).")
+    loss, scalars = self.model_train_fn(features, _flat(labels), outputs,
+                                        mode)
+    return loss, (scalars, batch_stats)
+
+  def train_grads(self, state: TrainState, features, labels,
+                  axis_name: Optional[str] = None
+                  ) -> Tuple[Dict[str, torch.Tensor], Dict, Metrics]:
+    """The forward/backward half of `train_step`: (grads, new batch
+    stats, metrics). Metrics are `loss`, `grad_norm` (optax's
+    `global_norm` of the grads) and the model's scalars, detached."""
+    if axis_name is not None:
+      raise NotImplementedError(
+          f"axis_name={axis_name!r}: data-parallel steps are not ported "
+          "yet (ROADMAP A11).")
+    params = {k: v.detach().requires_grad_() for k, v in
+              state.params.items()}
+    with torch.enable_grad():
+      loss, (scalars, new_stats) = self.loss_fn(
+          params, state.batch_stats, features, labels, Mode.TRAIN)
+      leaves = list(params.values())
+      # A parameter the loss does not reach gets a zero gradient, as
+      # under jax.grad.
+      grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = {k: torch.zeros_like(p) if g is None else g
+             for (k, p), g in zip(params.items(), grads)}
+    metrics = {"loss": loss.detach(),
+               "grad_norm": opt_lib.global_norm(grads),
+               **{k: v.detach() for k, v in scalars.items()}}
+    return grads, new_stats, metrics
+
+  def apply_gradients(self, state: TrainState, grads: Dict[str, torch.Tensor],
+                      new_stats: Dict[str, torch.Tensor]) -> TrainState:
+    """The optimizer half of `train_step`: tx.update, then p + u."""
+    updates, opt_state = self.tx.update(grads, state.opt_state,
+                                        state.params)
+    return TrainState(step=state.step + 1,
+                      params=opt_lib.apply_updates(state.params, updates),
+                      batch_stats=new_stats, opt_state=opt_state)
+
+  def train_step(self, state: TrainState, features, labels,
+                 axis_name: Optional[str] = None
+                 ) -> Tuple[TrainState, Metrics]:
+    """One optimizer step on a batch: (new state, metrics). The port's
+    networks have no stochastic layers yet, so it takes no rng."""
+    grads, new_stats, metrics = self.train_grads(state, features, labels,
+                                                 axis_name=axis_name)
+    return self.apply_gradients(state, grads, new_stats), metrics
 
   def predict_step(self, state: TrainState, features) -> Any:
     """The bound network's outputs on `features`, without autograd."""

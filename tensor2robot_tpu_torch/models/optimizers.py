@@ -1,0 +1,317 @@
+"""Optimizer factory and learning-rate schedules (port of
+`models/optimizers.py`).
+
+The JAX package builds optax chains; the port keeps optax's arithmetic
+and its explicit state rather than `torch.optim`'s, so that a step is
+held against the JAX package's bit for bit in form: a transformation is
+a pair of pure functions, `init(params) -> state` and `update(grads,
+state, params) -> (updates, new_state)`, over flat dicts of tensors, and
+the caller adds the updates to the params (`apply_updates`). Nothing is
+updated in place.
+
+Ported: the schedules (constant, exponential, cosine and linear decay,
+each with a linear warmup), and `create_optimizer` for adam, adamw, sgd
+and momentum with the same chain order (clip by global norm → clip by
+value → decayed weights → optimizer). Adam is optax's `scale_by_adam`:
+bias-corrected moments, eps outside the square root, eps_root 0.
+rmsprop, adagrad and lamb raise: their optax arithmetic is not ported
+yet (ROADMAP A4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+Schedule = Callable[[torch.Tensor], Union[torch.Tensor, float]]
+ScheduleOrFloat = Union[float, Schedule]
+
+
+@dataclasses.dataclass(frozen=True)
+class GradientTransformation:
+  """optax's `GradientTransformation`: `init` and `update`, both pure."""
+
+  init: Callable[[Params], Any]
+  update: Callable[[Params, Any, Optional[Params]], Tuple[Params, Any]]
+
+
+class EmptyState(NamedTuple):
+  pass
+
+
+class ScaleByAdamState(NamedTuple):
+  count: torch.Tensor  # int32 scalar: updates applied so far
+  mu: Params
+  nu: Params
+
+
+class ScaleByScheduleState(NamedTuple):
+  count: torch.Tensor  # int32 scalar
+
+
+class TraceState(NamedTuple):
+  trace: Params
+
+
+def _count(params: Params) -> torch.Tensor:
+  device = next(iter(params.values())).device if params else None
+  return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _zeros(params: Params) -> Params:
+  return {k: torch.zeros_like(v) for k, v in params.items()}
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+  """optax's `global_norm`: sqrt of the sum of every leaf's squares."""
+  return torch.sqrt(sum(torch.sum(g * g) for g in tree.values()))
+
+
+def apply_updates(params: Params, updates: Params) -> Params:
+  """optax's `apply_updates`: p + u, in p's dtype."""
+  return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+  def init(params):
+    return tuple(t.init(params) for t in transforms)
+
+  def update(updates, state, params=None):
+    new_state = []
+    for t, s in zip(transforms, state):
+      updates, s = t.update(updates, s, params)
+      new_state.append(s)
+    return updates, tuple(new_state)
+
+  return GradientTransformation(init, update)
+
+
+def _stateless(fn: Callable[[Params, Optional[Params]], Params]
+               ) -> GradientTransformation:
+  return GradientTransformation(
+      lambda params: EmptyState(),
+      lambda updates, state, params=None: (fn(updates, params), state))
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                  eps_root: float = 0.0) -> GradientTransformation:
+  """mu = (1−b1)·g + b1·mu; nu = (1−b2)·g² + b2·nu; count + 1;
+  update = mu/(1−b1^count) / (sqrt(nu/(1−b2^count) + eps_root) + eps)."""
+
+  def init(params):
+    return ScaleByAdamState(_count(params), _zeros(params), _zeros(params))
+
+  def update(updates, state, params=None):
+    mu = {k: (1 - b1) * g + b1 * state.mu[k] for k, g in updates.items()}
+    nu = {k: (1 - b2) * (g * g) + b2 * state.nu[k]
+          for k, g in updates.items()}
+    count = state.count + 1
+    # As optax: the powers in f32, the division in the moment's dtype.
+    c1 = 1 - torch.pow(b1, count).float()
+    c2 = 1 - torch.pow(b2, count).float()
+    out = {k: (mu[k] / c1) / (torch.sqrt(nu[k] / c2 + eps_root) + eps)
+           for k in updates}
+    return out, ScaleByAdamState(count, mu, nu)
+
+  return GradientTransformation(init, update)
+
+
+def scale(step_size: float) -> GradientTransformation:
+  return _stateless(lambda u, p: {k: step_size * g for k, g in u.items()})
+
+
+def scale_by_schedule(step_size_fn: Schedule) -> GradientTransformation:
+  """Multiplies by `step_size_fn(count)`, count starting at 0."""
+
+  def init(params):
+    return ScaleByScheduleState(_count(params))
+
+  def update(updates, state, params=None):
+    step = step_size_fn(state.count)
+    return ({k: step * g for k, g in updates.items()},
+            ScaleByScheduleState(state.count + 1))
+
+  return GradientTransformation(init, update)
+
+
+def scale_by_learning_rate(learning_rate: ScheduleOrFloat
+                           ) -> GradientTransformation:
+  if callable(learning_rate):
+    return scale_by_schedule(lambda count: -learning_rate(count))
+  return scale(-learning_rate)
+
+
+def trace(decay: float) -> GradientTransformation:
+  """Momentum: trace = g + decay·trace; the update is the new trace."""
+
+  def init(params):
+    return TraceState(_zeros(params))
+
+  def update(updates, state, params=None):
+    new = {k: g + decay * state.trace[k] for k, g in updates.items()}
+    return new, TraceState(new)
+
+  return GradientTransformation(init, update)
+
+
+def add_decayed_weights(weight_decay: float) -> GradientTransformation:
+  return _stateless(
+      lambda u, p: {k: g + weight_decay * p[k] for k, g in u.items()})
+
+
+def clip(max_delta: float) -> GradientTransformation:
+  return _stateless(
+      lambda u, p: {k: g.clamp(-max_delta, max_delta) for k, g in u.items()})
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+  """Unchanged below `max_norm`, else (g / norm) · max_norm."""
+
+  def fn(updates, params):
+    norm = global_norm(updates)
+    trigger = norm < max_norm
+    return {k: torch.where(trigger, g, (g / norm.to(g.dtype)) * max_norm)
+            for k, g in updates.items()}
+
+  return _stateless(fn)
+
+
+# ---- learning-rate schedules (optax's, as functions of a count) ----
+
+
+def _f32(count) -> torch.Tensor:
+  return torch.as_tensor(count).to(torch.float32)
+
+
+def constant_schedule(value: float) -> Schedule:
+  return lambda count: value
+
+
+def exponential_decay(init_value: float, transition_steps: int,
+                      decay_rate: float, staircase: bool = False,
+                      end_value: Optional[float] = None) -> Schedule:
+  def schedule(count):
+    p = _f32(count) / transition_steps
+    if staircase:
+      p = torch.floor(p)
+    decayed = init_value * torch.pow(decay_rate, p)
+    if end_value is not None:
+      decayed = (decayed.clamp(min=end_value) if decay_rate < 1
+                 else decayed.clamp(max=end_value))
+    return decayed
+
+  return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Schedule:
+  def schedule(count):
+    count = torch.clamp(_f32(count), max=decay_steps)
+    cosine = 0.5 * (1 + torch.cos(math.pi * count / decay_steps))
+    return init_value * ((1 - alpha) * cosine + alpha)
+
+  return schedule
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Schedule:
+  def schedule(count):
+    count = torch.clamp(_f32(count), 0, transition_steps)
+    frac = 1 - count / transition_steps
+    return (init_value - end_value) * frac + end_value
+
+  return schedule
+
+
+def join_schedules(schedules, boundaries) -> Schedule:
+  """schedules[i+1] from boundaries[i] on, counted from the boundary."""
+
+  def schedule(count):
+    count = torch.as_tensor(count)
+    out = torch.as_tensor(schedules[0](count), dtype=torch.float32)
+    for boundary, fn in zip(boundaries, schedules[1:]):
+      out = torch.where(count < boundary, out,
+                        torch.as_tensor(fn(count - boundary),
+                                        dtype=torch.float32))
+    return out
+
+  return schedule
+
+
+def create_lr_schedule(learning_rate: float = 1e-4,
+                       schedule: str = "constant",
+                       warmup_steps: int = 0,
+                       decay_steps: int = 100_000,
+                       decay_rate: float = 0.96,
+                       end_learning_rate: float = 0.0,
+                       staircase: bool = False) -> Schedule:
+  """constant, exponential_decay, cosine_decay or linear_decay, each
+  with an optional linear warmup from 0."""
+  if schedule == "constant":
+    base = constant_schedule(learning_rate)
+  elif schedule == "exponential_decay":
+    base = exponential_decay(learning_rate, decay_steps, decay_rate,
+                             staircase=staircase,
+                             end_value=end_learning_rate or None)
+  elif schedule == "cosine_decay":
+    base = cosine_decay_schedule(
+        learning_rate, decay_steps,
+        alpha=end_learning_rate / max(learning_rate, 1e-12))
+  elif schedule == "linear_decay":
+    base = linear_schedule(learning_rate, end_learning_rate, decay_steps)
+  else:
+    raise ValueError(f"Unknown lr schedule: {schedule!r}")
+  if warmup_steps > 0:
+    warmup = linear_schedule(0.0, learning_rate, warmup_steps)
+    return join_schedules([warmup, base], [warmup_steps])
+  return base
+
+
+def create_optimizer(optimizer_name: str = "adam",
+                     learning_rate: ScheduleOrFloat = 1e-4,
+                     momentum: float = 0.9,
+                     beta1: float = 0.9,
+                     beta2: float = 0.999,
+                     epsilon: float = 1e-8,
+                     weight_decay: float = 0.0,
+                     gradient_clip_norm: Optional[float] = None,
+                     gradient_clip_value: Optional[float] = None,
+                     use_lr_schedule: bool = False
+                     ) -> GradientTransformation:
+  """The JAX package's `create_optimizer`, same arguments and chain.
+
+  `use_lr_schedule=True` takes the rate from `create_lr_schedule()`.
+  """
+  lr = create_lr_schedule() if use_lr_schedule else learning_rate
+  name = optimizer_name.lower()
+  if name == "adam":
+    opt = chain(scale_by_adam(beta1, beta2, epsilon),
+                scale_by_learning_rate(lr))
+  elif name == "adamw":
+    opt = chain(scale_by_adam(beta1, beta2, epsilon),
+                add_decayed_weights(weight_decay),
+                scale_by_learning_rate(lr))
+  elif name == "sgd":
+    opt = chain(_stateless(lambda u, p: u), scale_by_learning_rate(lr))
+  elif name == "momentum":
+    opt = chain(trace(momentum), scale_by_learning_rate(lr))
+  elif name in ("rmsprop", "adagrad", "lamb"):
+    raise NotImplementedError(
+        f"optimizer {optimizer_name!r}: optax's arithmetic for it is not "
+        "ported yet, and torch.optim's differs (ROADMAP A4).")
+  else:
+    raise ValueError(f"Unknown optimizer: {optimizer_name!r}")
+
+  parts = []
+  if gradient_clip_norm is not None:
+    parts.append(clip_by_global_norm(gradient_clip_norm))
+  if gradient_clip_value is not None:
+    parts.append(clip(gradient_clip_value))
+  if weight_decay and name != "adamw":
+    parts.append(add_decayed_weights(weight_decay))
+  parts.append(opt)
+  return chain(*parts) if len(parts) > 1 else opt

@@ -8,10 +8,13 @@ from tensor2robot_tpu_torch.ops.cem_select import (
 )
 from tensor2robot_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_reference,
     flash_attention_reference,
     flash_attention_with_lse,
 )
 
 __all__ = ["cem_select_reference", "flash_attention",
+           "flash_attention_backward", "flash_attention_backward_reference",
            "flash_attention_reference", "flash_attention_with_lse",
            "fused_cem_select", "select_elites"]

@@ -1,22 +1,32 @@
-"""Flash attention forward: exact attention with an online softmax.
+"""Flash attention: exact attention with an online softmax, and its
+gradient.
 
-Port of the forward half of `tensor2robot_tpu/ops/flash_attention.py`.
-`flash_attention` / `flash_attention_with_lse` launch the hand-written
-Hopper kernel `csrc/flash_attention.cu` (which replaces the Pallas
-`_flash_kernel`) on a CUDA tensor, and take the plain version
-`flash_attention_reference` only because their tensors lie on the CPU.
-There is no fallback: a CUDA tensor launches the kernel or raises.
+Port of `tensor2robot_tpu/ops/flash_attention.py`. The forward
+(`flash_attention` / `flash_attention_with_lse`) launches the
+hand-written Hopper kernel `csrc/flash_attention.cu` (which replaces the
+Pallas `_flash_kernel`); the backward launches `csrc/flash_attention_bwd.cu`
+(which replaces `_dkdv_kernel` and `_dq_kernel`). Each wrapper takes
+its plain version only because its tensors lie on the CPU. There is no
+fallback: a CUDA tensor launches the kernel or raises.
 
-Contract (both versions): q, k, v `[B, T, H, D]` → out `[B, T, H, D]`
-in q's dtype and lse `[B, H, T]` f32. Scores `(q·k)/√D` in f32, causal
-scores past the diagonal −1e30, probabilities rounded to v's dtype
-before the f32-accumulated PV product, `out = acc / max(l, 1e-30)`,
-`lse = m + log(max(l, 1e-30))`. The kernel runs the softmax online over
-64-key tiles; the plain version in one pass, so in bf16 the two round
-p against different running maxima and agree to bf16 rounding.
+Forward contract (both versions): q, k, v `[B, T, H, D]` → out
+`[B, T, H, D]` in q's dtype and lse `[B, H, T]` f32. Scores `(q·k)/√D`
+in f32, causal scores past the diagonal −1e30, probabilities rounded to
+v's dtype before the f32-accumulated PV product, `out = acc / max(l,
+1e-30)`, `lse = m + log(max(l, 1e-30))`. The kernel runs the softmax
+online over 64-key tiles; the plain version in one pass, so in bf16 the
+two round p against different running maxima and agree to bf16
+rounding.
 
-The backward kernels (dK/dV and dQ) are not ported yet (ROADMAP B3b):
-a CUDA input that requires grad raises instead of running without one.
+Backward contract, the `_flash_lse` custom VJP's: differentiable in
+both outputs. δ = rowsum(dO·O) − dlse (one torch expression over the
+saved `out` in its own dtype; a None dlse counts as zeros), p = exp(s −
+lse) recomputed from the saved lse, ds = p·(dO·vᵀ − δ)/√D; p rounded to
+dO's dtype before dv = pᵀ·dO, ds to q's dtype before dk = dsᵀ·q and to
+k's dtype before dq = ds·k, all accumulated in f32. `flash_attention`
+and `flash_attention_with_lse` go through the `torch.autograd.Function`
+`FlashAttention` whenever autograd records (grad mode on and an input
+requiring grad); otherwise they call the forward alone.
 """
 
 from __future__ import annotations
@@ -24,7 +34,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,6 +43,7 @@ from tensor2robot_tpu_torch.ops import build
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_Y = 65535
+_DTYPES = (torch.bfloat16, torch.float32)
 
 _ARGTYPES = {
     "t2r_flash_attention_fwd": (
@@ -40,6 +51,25 @@ _ARGTYPES = {
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]),
 }
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)  # 16 strides: q, k, v, dO
+_BWD_ARGTYPES = {
+    "t2r_flash_attention_bwd_dkdv": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        + [_STRIDES, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+           ctypes.c_void_p]),
+    "t2r_flash_attention_bwd_dq": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        + [_STRIDES, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+           ctypes.c_void_p]),
+}
+
+Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _causal_mask(t: int, device) -> torch.Tensor:
+  return torch.ones((t, t), dtype=torch.bool, device=device).tril()
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -50,8 +80,7 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
   scale = 1.0 / math.sqrt(q.shape[-1])
   s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
   if causal:
-    t = q.shape[1]
-    mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    mask = _causal_mask(q.shape[1], q.device)
     s = s.masked_fill(~mask, _NEG_INF)
   m = s.amax(dim=-1, keepdim=True)
   p = torch.exp(s - m)
@@ -64,6 +93,66 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
   return out, lse
 
 
+def _probs(q, k, lse, causal):
+  """p = exp(s − lse) [B, H, T, T] f32, as the backward kernels
+  recompute it, and the score scale."""
+  scale = 1.0 / math.sqrt(q.shape[-1])
+  s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+  if causal:
+    mask = _causal_mask(q.shape[1], q.device)
+    s = s.masked_fill(~mask, _NEG_INF)
+  p = torch.exp(s - lse[..., None])
+  if causal:
+    p = p.masked_fill(~mask, 0.0)
+  return p, scale
+
+
+def _ds(p, scale, v, do, delta):
+  dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+  return p * (dp - delta[..., None]) * scale
+
+
+def flash_attention_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                       causal: bool = False
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """`_dkdv_kernel` in plain torch: (dk, dv) in k's and v's dtype."""
+  p, scale = _probs(q, k, lse, causal)
+  dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+  ds = _ds(p, scale, v, do, delta)
+  dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+  return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                     causal: bool = False) -> torch.Tensor:
+  """`_dq_kernel` in plain torch: dq in q's dtype."""
+  p, scale = _probs(q, k, lse, causal)
+  ds = _ds(p, scale, v, do, delta)
+  dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+  return dq.to(q.dtype)
+
+
+def _delta(out: torch.Tensor, do: torch.Tensor,
+           dlse: Optional[torch.Tensor]) -> torch.Tensor:
+  """δ = rowsum(dO·O) − dlse, [B, H, T] f32 (`_flash_bwd_impl`'s row
+  term, over the saved `out` in its own dtype)."""
+  delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2)
+  if dlse is not None:
+    delta = delta - dlse.float()
+  return delta.contiguous()
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, do, dlse=None,
+                                       causal: bool = False) -> Tensors3:
+  """`_flash_bwd_impl` in plain torch: (dq, dk, dv), materializing p
+  from lse with the kernels' roundings."""
+  delta = _delta(out, do, dlse)
+  dk, dv = flash_attention_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                              causal)
+  dq = flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+  return dq, dk, dv
+
+
 def _check(q, k, v):
   if q.dim() != 4:
     raise ValueError(f"q must be [B, T, H, D], got {tuple(q.shape)}")
@@ -74,6 +163,54 @@ def _check(q, k, v):
     raise ValueError("q, k, v must share one device")
 
 
+def _check_launch(*tensors):
+  """What every kernel takes: one dtype of (bf16, f32), D in _HEAD_DIMS,
+  a non-empty problem, B·H within the grid."""
+  dtype = tensors[0].dtype
+  if dtype not in _DTYPES:
+    raise ValueError(f"q dtype {dtype} not in (bfloat16, float32)")
+  if any(t.dtype != dtype for t in tensors):
+    raise ValueError("q, k, v (and dO) must share one dtype")
+  b, t, h, d = tensors[0].shape
+  if d not in _HEAD_DIMS:
+    raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+  if b * t * h == 0:
+    raise ValueError(f"empty attention input {tuple(tensors[0].shape)}")
+  if b * h > _MAX_GRID_Y:
+    raise ValueError(f"B·H = {b * h} > {_MAX_GRID_Y}")
+
+
+def _forward(q, k, v, causal):
+  if q.device.type == "cpu":
+    return flash_attention_reference(q, k, v, causal=causal)
+  if q.device.type != "cuda":
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
+  return _launch(q, k, v, causal)
+
+
+class FlashAttention(torch.autograd.Function):
+  """The `_flash_lse` custom VJP: (out, lse) forward, and a backward in
+  both cotangents (a None one counts as zeros). Saves q, k, v, out and
+  lse; recomputes p in the backward."""
+
+  @staticmethod
+  def forward(ctx, q, k, v, causal):
+    out, lse = _forward(q, k, v, causal)
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal = causal
+    ctx.set_materialize_grads(False)
+    return out, lse
+
+  @staticmethod
+  def backward(ctx, dout, dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    if dout is None:
+      dout = torch.zeros_like(out)
+    dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout, dlse,
+                                          causal=ctx.causal)
+    return dq, dk, dv, None
+
+
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, causal: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,14 +219,13 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
   On CUDA tensors this launches `csrc/flash_attention.cu` on the current
   stream (one CTA per batch·head and 64-row q block) and adds one to
   `flash_attention.launches`; on CPU tensors it returns
-  `flash_attention_reference`.
+  `flash_attention_reference`. Differentiable in both outputs through
+  `FlashAttention` (backward: `flash_attention_backward`).
   """
   _check(q, k, v)
-  if q.device.type == "cpu":
-    return flash_attention_reference(q, k, v, causal=causal)
-  if q.device.type != "cuda":
-    raise ValueError(f"flash_attention: unsupported device {q.device}")
-  return _launch(q, k, v, causal)
+  if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    return FlashAttention.apply(q, k, v, causal)
+  return _forward(q, k, v, causal)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -98,41 +234,67 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   return flash_attention_with_lse(q, k, v, causal=causal)[0]
 
 
+def flash_attention_backward(q, k, v, out, lse, do, dlse=None,
+                             causal: bool = False) -> Tensors3:
+  """(dq, dk, dv) of `flash_attention_with_lse` from its saved out and
+  lse and the cotangents dO (and dlse, None = zeros).
+
+  δ is one torch expression; then `flash_attention_bwd_dkdv` and
+  `flash_attention_bwd_dq` launch their kernels on CUDA tensors (or run
+  their plain versions on CPU tensors).
+  """
+  _check(q, k, v)
+  if do.shape != q.shape or out.shape != q.shape:
+    raise ValueError(f"dO {tuple(do.shape)} and out {tuple(out.shape)} "
+                     f"must be {tuple(q.shape)}")
+  delta = _delta(out, do, dlse)
+  dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal)
+  dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+  return dq, dk, dv
+
+
+def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(dk, dv): on CUDA tensors launches the dK/dV kernel (one CTA per
+  batch·head and 64-key block) and adds one to
+  `flash_attention_bwd_dkdv.launches`; on CPU tensors the plain version."""
+  if q.device.type == "cpu":
+    return flash_attention_bwd_dkdv_reference(q, k, v, do, lse, delta, causal)
+  return _launch_bwd(True, q, k, v, do, lse, delta, causal)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False
+                           ) -> torch.Tensor:
+  """dq: on CUDA tensors launches the dQ kernel (one CTA per batch·head
+  and 64-row q block) and adds one to `flash_attention_bwd_dq.launches`;
+  on CPU tensors the plain version."""
+  if q.device.type == "cpu":
+    return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+  return _launch_bwd(False, q, k, v, do, lse, delta, causal)[0]
+
+
 flash_attention.launches = 0
+flash_attention_bwd_dkdv.launches = 0
+flash_attention_bwd_dq.launches = 0
 _COUNT_LOCK = threading.Lock()
 
 
 def _launch(q, k, v, causal):
-  if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-    raise NotImplementedError(
-        "flash_attention has no backward on CUDA yet: the dK/dV and dQ "
-        "kernels are ROADMAP B3b. Run under torch.inference_mode() or "
-        "torch.no_grad().")
-  dtype = q.dtype
-  if dtype not in (torch.bfloat16, torch.float32):
-    raise ValueError(f"q dtype {dtype} not in (bfloat16, float32)")
-  if k.dtype != dtype or v.dtype != dtype:
-    raise ValueError("q, k, v must share one dtype")
+  _check_launch(q, k, v)
   b, t, h, d = q.shape
-  if d not in _HEAD_DIMS:
-    raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
-  if b * t * h == 0:
-    raise ValueError(f"empty attention input {tuple(q.shape)}")
-  if b * h > _MAX_GRID_Y:
-    raise ValueError(f"B·H = {b * h} > {_MAX_GRID_Y}")
   for name, x in (("q", q), ("k", k), ("v", v)):
     if x.stride(-1) != 1:
       raise ValueError(f"{name} needs a dense last (head_dim) axis, "
                        f"strides {x.stride()}")
   lib = build.load("flash_attention", _ARGTYPES)
-  out = torch.empty((b, t, h, d), dtype=dtype, device=q.device)
+  out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
   lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
   with torch.cuda.device(q.device):
     stream = torch.cuda.current_stream().cuda_stream
     err = lib.t2r_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, t, h, d, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], int(causal), int(dtype == torch.bfloat16),
+        *v.stride()[:3], int(causal), int(q.dtype == torch.bfloat16),
         1.0 / math.sqrt(d), stream)
   if err != 0:
     raise RuntimeError(
@@ -140,3 +302,39 @@ def _launch(q, k, v, causal):
   with _COUNT_LOCK:
     flash_attention.launches += 1
   return out, lse
+
+
+def _launch_bwd(dkdv: bool, q, k, v, do, lse, delta, causal):
+  """Launches the dK/dV (`dkdv`) or the dQ kernel; q, k, v and dO are
+  read through their four strides in place, lse and δ must be dense
+  [B, H, T] f32."""
+  _check_launch(q, k, v, do)
+  b, t, h, d = q.shape
+  for name, x in (("lse", lse), ("delta", delta)):
+    if (x.shape != (b, h, t) or x.dtype != torch.float32
+        or not x.is_contiguous() or x.device != q.device):
+      raise ValueError(f"{name} must be a dense [B, H, T] f32 tensor on "
+                       f"{q.device}, got {tuple(x.shape)} {x.dtype}")
+  if q.device.type != "cuda":
+    raise ValueError(f"flash_attention backward: unsupported device "
+                     f"{q.device}")
+  lib = build.load("flash_attention_bwd", _BWD_ARGTYPES)
+  strides = (ctypes.c_longlong * 16)(
+      *(s for x in (q, k, v, do) for s in x.stride()))
+  fn_name = ("t2r_flash_attention_bwd_dkdv" if dkdv
+             else "t2r_flash_attention_bwd_dq")
+  outs = [torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+          for _ in range(2 if dkdv else 1)]
+  with torch.cuda.device(q.device):
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, fn_name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+        b, t, h, d, strides, int(causal), int(q.dtype == torch.bfloat16),
+        1.0 / math.sqrt(d), stream)
+  if err != 0:
+    raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
+  counter = flash_attention_bwd_dkdv if dkdv else flash_attention_bwd_dq
+  with _COUNT_LOCK:
+    counter.launches += 1
+  return outs

@@ -44,8 +44,11 @@ class GripperObsEncoder(nn.Module):
 
   def forward(self, features) -> torch.Tensor:
     image = features["image"]
-    x = image.to(self.dtype) / torch.tensor(255.0, dtype=self.dtype,
-                                            device=image.device)
+    # A 0-dim device tensor, made by a fill (no host copy, so a CUDA
+    # graph can capture it): a true division, as flax's, where a Python
+    # scalar divisor would become a multiply by its reciprocal on CUDA.
+    x = image.to(self.dtype) / torch.full((), 255.0, dtype=self.dtype,
+                                          device=image.device)
     emb = self.image_encoder(x)
     state = features["gripper_pose"].to(self.dtype)
     joint = torch.cat([emb, state.to(emb.dtype)], dim=-1)

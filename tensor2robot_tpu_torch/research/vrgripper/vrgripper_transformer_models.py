@@ -6,21 +6,24 @@ as one conv batch, a causal transformer runs over the steps, and a
 dense head gives each step's action. On the card the trunk's attention
 is the hand-written flash kernel (`attention_impl="auto"`).
 
-This slice serves: the network, the model's specs and
-`EpisodeContextPolicy`, the on-robot loop that feeds the growing
-history. The masked BC loss (`model_train_fn`) comes with the training
-slice; pipelined trunks, MoE and ring attention wait for ROADMAP A11.
+Ported: the network, the model's specs, the length-masked per-step BC
+loss (`model_train_fn`) that trains it, and `EpisodeContextPolicy`, the
+on-robot loop that feeds the growing history. Pipelined trunks, MoE and
+ring attention wait for ROADMAP A11.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
+from tensor2robot_tpu_torch.data.episode_input_generator import (
+    SEQUENCE_LENGTH_KEY,
+)
 from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
 from tensor2robot_tpu_torch.layers.core import dense
 from tensor2robot_tpu_torch.layers.transformer import CausalTransformer
@@ -91,8 +94,10 @@ class VRGripperTransformerModel(AbstractT2RModel):
                attention_impl: str = "auto",
                moe_experts: int = 0,
                pipeline_stages: int = 0,
-               device_dtype: torch.dtype = torch.bfloat16):
-    super().__init__(device_dtype=device_dtype)
+               device_dtype: torch.dtype = torch.bfloat16,
+               **kwargs):
+    """`kwargs` go to `AbstractT2RModel` (`create_optimizer_fn`)."""
+    super().__init__(device_dtype=device_dtype, **kwargs)
     self._image_size = image_size
     self._state_dim = state_dim
     self._action_dim = action_dim
@@ -144,6 +149,26 @@ class VRGripperTransformerModel(AbstractT2RModel):
         moe_experts=self._moe_experts,
         pipeline_stages=self._pipeline_stages,
     )
+
+  def model_train_fn(self, features, labels, outputs, mode
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Per-step action MSE over the real steps: a step counts when its
+    index is below the episode's `sequence_length` (all steps count
+    when the key is absent), averaged over max(counted steps, 1)."""
+    target = labels[ACTION].float()                  # [B, T, A]
+    predicted = outputs[ACTION].float()
+    b, t = target.shape[:2]
+    if SEQUENCE_LENGTH_KEY in features:
+      lengths = features[SEQUENCE_LENGTH_KEY].reshape(b)
+      mask = (torch.arange(t, device=target.device)[None, :]
+              < lengths[:, None]).float()
+    else:
+      mask = torch.ones((b, t), device=target.device)
+    denom = mask.sum().clamp_min(1.0)
+    diff = predicted - target
+    loss = ((diff * diff).sum(dim=-1) * mask).sum() / denom
+    action_error = (diff.abs().sum(dim=-1) * mask).sum() / denom
+    return loss, {"mse": loss, "action_error": action_error}
 
   def make_context_policy(self, state: TrainState,
                           context_length: Optional[int] = None,

@@ -158,27 +158,18 @@ def test_unknown_impl_raises():
                                   max_len=8, attention_impl="xla")
 
 
-def test_launch_refuses_inputs_that_need_a_gradient():
-  """No backward kernel yet: a CUDA input that requires grad raises
-  rather than running the plain version under autograd."""
-  q, k, v = (x.requires_grad_() for x in _torch(_qkv(16, 8), torch.float32))
-  with pytest.raises(NotImplementedError, match="B3b"):
-    fa._launch(q, k, v, causal=True)
-  with torch.no_grad():  # the guard reads grad mode, then the shape checks
-    with pytest.raises(ValueError, match="head dim"):
-      fa._launch(*_torch(_qkv(16, 8, d=24), torch.float32), causal=True)
-
-
-@pytest.mark.parametrize("bad", ["dtype", "head_dim", "strides"])
+@pytest.mark.parametrize("bad", ["dtype", "head_dim", "head_dim_24",
+                                 "strides"])
 def test_launch_validates_before_building(bad):
   q, k, v = _torch(_qkv(16, seed=9), torch.float32)
   if bad == "dtype":
     q, k, v = (x.half() for x in (q, k, v))
-  elif bad == "head_dim":
-    q, k, v = _torch(_qkv(16, seed=9, d=48), torch.float32)
+  elif bad.startswith("head_dim"):
+    d = 24 if bad == "head_dim_24" else 48
+    q, k, v = _torch(_qkv(16, seed=9, d=d), torch.float32)
   else:
     q = q.transpose(-1, -2).contiguous().transpose(-1, -2)
-  with pytest.raises(ValueError):
+  with pytest.raises(ValueError, match="head dim" if "head" in bad else None):
     fa._launch(q, k, v, causal=False)
 
 

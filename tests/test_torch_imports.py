@@ -44,6 +44,9 @@ _EXPECTED = (
     "parallel.ring_attention", "research.vrgripper.vrgripper_env",
     "research.vrgripper.vrgripper_models",
     "research.vrgripper.vrgripper_transformer_models",
+    "research.vrgripper.gin_config",
+    "data.episode_input_generator", "data.random_input_generator",
+    "models.optimizers", "telemetry.records", "train_eval",
 )
 
 
@@ -71,7 +74,8 @@ def test_chip_smoke_imports_no_jax():
       imported.update(alias.name for alias in node.names)
     elif isinstance(node, ast.ImportFrom):
       imported.add(node.module)
-  assert "tensor2robot_tpu_torch.ops.flash_attention" in imported
+  assert {"tensor2robot_tpu_torch.ops.flash_attention",
+          "tensor2robot_tpu_torch.train_eval"} <= imported
   bad = sorted(m for m in imported if forbidden(m))  # noqa: F821
   assert not bad, bad
 
