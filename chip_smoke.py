@@ -7,8 +7,8 @@ CUDA card: the quickest proof that the port still starts on the GPU.
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. device: torch's name for card 0, and nvidia-smi's name + power limit;
   2. build: nvcc of every kernel source in tensor2robot_tpu_torch/csrc
-     (cem_select.cu, flash_attention.cu, flash_attention_bwd.cu), all
-     started together;
+     (cem_head.cu, cem_select.cu, flash_attention.cu,
+     flash_attention_bwd.cu), all started together;
   3. kernels against their plain versions on the card. cem_select at
      the main path's shapes (P=64, C=H=64, A=4, E=6) in bf16 with
      sigmoid on and off, at P=50, on exactly-tied scores, and in f32.
@@ -54,8 +54,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and its backward as fwd+bwd minus fwd) as device time per call
      (CUDA-graph replay, no host launch cost), the CEM policy per
      dispatch, the context policy per step and the train step (graph
-     replay and eager); then the `kernels` JSON line, the card line, and
-     the result line last.
+     replay and eager);
+  9. fused_cem_head_tail (cem_head.cu) against its plain version: the
+     --verify gate's case (B=4, P=64, 8×8×64 → 64, bf16), B = 1, 3, 256,
+     P = 50, f32, C1 = C2 = 128, a ragged shape and the Q-network's
+     P-major tensor as a transposed view;
+ 10. QT-Opt Bellman training at `GraspingQModel()` width: `train_qtopt`
+     takes 60 steps of batch 256 over a replay buffer of synthetic-bandit
+     transitions (research/qtopt/synthetic_bandit.py), with cem_select's
+     launch count read around the run (2 per step); the loss must fall
+     and Q(a*) beat Q(−a*); a second call resumes at step 60 for 10;
+ 11. the head tail on the Bellman target's own tensors (the trained
+     target network's merge parts, B=256): a 2-iteration CEM through it,
+     its launch count read around that run; Q against the plain version
+     and the unfused `score_population`;
+ 12. one f32 Bellman step on the card against the CPU (bench.py's
+     --verify config); timings of the head tail, its plain version and
+     the unfused torch tail at B=4 and 256, and of the Bellman step
+     (graph replay, eager, profiler); then the `kernels` JSON line, the
+     card line, and the result line last.
 
 Exits 2 without a result when CUDA is unavailable.
 """
@@ -942,6 +959,427 @@ def phase_train_timings(model, state, gen):
   return rows, step_graph, step_eager
 
 
+# ---- the fused CEM head tail (the QT-Opt Q-network's population tail) ----
+
+# Kernel vs plain version, max |ΔQ|. f32: the same arithmetic in another
+# order (9·C1 products per conv output, then the positions' sum). bf16:
+# both round the merged activation, the pooled features and each hidden
+# layer to bf16 from f32 values summed in other orders, so a rounding may
+# tip to the other neighbour (2^-8 of a value); Q itself is not rounded.
+_HEAD_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
+
+
+def _head_inputs(b, p, h, w, c1, c2, hidden, dtype, seed, c=64,
+                 verify=False):
+  """Head-tail inputs on the card, values rounded to `dtype`, act from a
+  merge GEMM a1 [B·P, C] @ v [C, h·w·C1]. `verify`: tests/test_cem_head.py's
+  construction, 0.3·N(0, 1) everywhere. Otherwise the conv taps are
+  0.3·√(64/C1)·N(0, 1), so wider convs sum to the same size, and the
+  dense head N(0, 1/fan_in) with 0.1·N(0, 1) biases, so it does not
+  amplify a rounding of its inputs."""
+  import torch
+  g = torch.Generator(device="cuda").manual_seed(seed)
+
+  def f(*shape, scale=0.3):
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+  a1, enc0, v = f(b * p, c), f(b, h, w, c1), f(c, h * w * c1)
+  ck = f(3, 3, c1, c2, scale=0.3 * (64 / c1) ** 0.5)
+  scale, shift = f(c2).float(), f(c2).float()
+  widths = (c2,) + tuple(hidden) + (1,)
+  dense = tuple((f(i, o, scale=0.3 if verify else i ** -0.5),
+                 f(o, scale=0.3 if verify else 0.1))
+                for i, o in zip(widths[:-1], widths[1:]))
+  act = (a1 @ v).reshape(b, p, h, w, c1)
+  return act, enc0, ck, scale, shift, dense
+
+
+def check_head(name, act, enc0, ck, scale, shift, dense):
+  import torch
+  from tensor2robot_tpu_torch.ops import cem_head
+  got = cem_head.fused_cem_head_tail(act, enc0, ck, scale, shift, dense)
+  torch.cuda.synchronize()
+  want = cem_head.fused_cem_head_tail_reference(act, enc0, ck, scale, shift,
+                                                dense)
+  if got.shape != want.shape or got.dtype != torch.float32:
+    raise AssertionError(f"cem_head {name}: {got.shape} {got.dtype}")
+  if not bool(torch.isfinite(got).all()):
+    raise AssertionError(f"cem_head {name}: non-finite Q")
+  err = (got - want).abs().max().item()
+  tol = _HEAD_TOL[str(act.dtype)]
+  if err > tol:
+    raise AssertionError(f"cem_head {name}: Q differs by {err} > {tol}")
+  plan = cem_head.launch_plan(
+      tuple(act.shape), ck.shape[-1],
+      [ck.shape[-1]] + [w.shape[1] for w, _ in dense], act.dtype)
+  return err, want.abs().max().item(), (
+      "tensor cores" if plan["tensor_cores"] else "CUDA cores")
+
+
+def phase_head_kernels():
+  """fused_cem_head_tail against its plain version: the --verify gate's
+  case (B=4, P=64, 8×8×64 → 64, dense 64-64-1, bf16), then B = 1, 3,
+  256, P = 50, f32, C1 = C2 = 128, a ragged shape (6×10×6 → 10, dense
+  10-8-1: channels not a multiple of 4, h1 ≠ w1), and act as the
+  Q-network's P-major tensor seen through a transposed view."""
+  import torch
+  bf16, f32 = torch.bfloat16, torch.float32
+  cases = [("verify gate B=4 P=64", (4, 64, 8, 8, 64, 64, (64, 64), bf16),
+            True)]
+  cases += [(f"B={b}", (b, 64, 8, 8, 64, 64, (64, 64), bf16), False)
+            for b in (1, 3, 256)]
+  cases += [(name, shape, False) for name, shape in (
+      ("P=50", (4, 50, 8, 8, 64, 64, (64, 64), bf16)),
+      ("f32 B=4", (4, 64, 8, 8, 64, 64, (64, 64), f32)),
+      ("f32 B=256", (256, 64, 8, 8, 64, 64, (64, 64), f32)),
+      ("C=128 bf16", (4, 64, 8, 8, 128, 128, (64, 64), bf16)),
+      ("C=128 f32", (4, 64, 8, 8, 128, 128, (64, 64), f32)),
+      ("ragged f32", (3, 5, 6, 10, 6, 10, (8,), f32)),
+      ("ragged bf16", (3, 5, 6, 10, 6, 10, (8,), bf16)))]
+  worst, lines = {}, []
+  for i, (name, shape, verify) in enumerate(cases):
+    err, q_max, path = check_head(name, *_head_inputs(
+        *shape, seed=500 + i, verify=verify))
+    key = str(shape[-1])
+    worst[key] = max(worst.get(key, 0.0), err)
+    lines.append(f"{name}: {err} (max |Q| {q_max}, {path})")
+  for b in (4, 256):
+    act, *rest = _head_inputs(b, 64, 8, 8, 64, 64, (64, 64), bf16, seed=600)
+    view = act.transpose(0, 1).contiguous().transpose(0, 1)
+    err, _, _ = check_head(f"P-major view B={b}", view, *rest)
+    worst["torch.bfloat16"] = max(worst["torch.bfloat16"], err)
+    lines.append(f"P-major view B={b}: {err}")
+  _log(f"kernel check cem_head_tail: {len(cases) + 2} cases, max_abs_err "
+       f"{json.dumps(worst)} (tolerances {json.dumps(_HEAD_TOL)}); "
+       + "; ".join(lines))
+  return max(worst.values())
+
+
+def _merge_parts(network, encoded, actions):
+  """The Q-network's merge parts for a population: (act as a [B, P, ...]
+  view of the P-major GEMM output, enc0)."""
+  act_pm, enc0 = network._population_merge_parts(
+      encoded, network._population_action_embed({}, actions))
+  return act_pm.transpose(0, 1), enc0
+
+
+def phase_head_bellman(learner, state, replay):
+  """fused_cem_head_tail on the Bellman target's own tensors: the trained
+  target network (target params, online batch statistics) at
+  `GraspingQModel()` width, B=256 next states from the replay buffer,
+  P=64. Its path: a 2-iteration CEM whose scores come from the kernel on
+  the network's merge parts (the count is read around that run). Then
+  its Q against its plain version and against the port's unfused
+  `score_population` on the same actions, max |ΔQ| against the Q spread:
+  they round at other places (enc0 added in bf16, the conv output rounded
+  before batch norm), one bf16 step on the pooled features, so the bound
+  is 2e-2 of max(1, max |Q|)."""
+  import torch
+  from tensor2robot_tpu_torch.models import TrainState
+  from tensor2robot_tpu_torch.ops import cem_head
+  from tensor2robot_tpu_torch.research.qtopt import cem, networks
+  ts = state.train_state
+  network = learner.model.bind(TrainState(
+      step=0, params=state.target_params, batch_stats=ts.batch_stats))
+  image = torch.from_numpy(replay.sample(256).to_flat_dict()["next_image"])
+  g = torch.Generator(device="cuda").manual_seed(8)
+  noise = torch.randn((2, 256, 64, 4), generator=g, device="cuda")
+  with torch.inference_mode():
+    encoded = network.encode(image.cuda())
+    params = networks.head_tail_params(network)
+
+    def score(actions):
+      return cem_head.fused_cem_head_tail(
+          *_merge_parts(network, encoded, actions), *params)
+
+    cem_head.fused_cem_head_tail.launches = 0
+    result = cem.cem_maximize(score, 256, 4, iterations=2, population=64,
+                              num_elites=6, noise=noise)
+    torch.cuda.synchronize()
+    launches = cem_head.fused_cem_head_tail.launches
+    lax = cem.cem_maximize(
+        lambda a: network.score_population(encoded, {}, a), 256, 4,
+        iterations=2, population=64, num_elites=6, noise=noise)
+    actions = (torch.rand((256, 64, 4), generator=g, device="cuda") * 2 - 1)
+    parts = _merge_parts(network, encoded, actions)
+    q_kernel = cem_head.fused_cem_head_tail(*parts, *params)
+    q_plain = cem_head.fused_cem_head_tail_reference(*parts, *params)
+    q_unfused = network.score_population(encoded, {}, actions)
+  if launches != 2 or not bool(torch.isfinite(result.best_score).all()):
+    raise AssertionError(f"head-tail CEM: {launches} launches, best score "
+                         f"{result.best_score[:4]}")
+  err_plain = (q_kernel - q_plain).abs().max().item()
+  err_unfused = (q_kernel - q_unfused).abs().max().item()
+  spread = (q_unfused.max() - q_unfused.min()).item()
+  bound = 2e-2 * max(1.0, q_unfused.abs().max().item())
+  _log(f"cem_head_tail on the Bellman target's tensors (B=256, P=64, "
+       f"8x8x64 -> 64, bf16, trained target network): CEM launches="
+       f"{launches}, best score max |kernel CEM - score_population CEM| "
+       f"{(result.best_score - lax.best_score).abs().max().item()}; Q vs "
+       f"plain {err_plain} (tol 2e-2), vs score_population {err_unfused} "
+       f"(bound {bound}), Q spread {spread}, max |Q| "
+       f"{q_unfused.abs().max().item()}")
+  if err_plain > _HEAD_TOL["torch.bfloat16"] or err_unfused > bound:
+    raise AssertionError("head tail disagrees on the Bellman tensors")
+  return launches, err_plain, network, encoded
+
+
+_QT_STEPS = 60
+
+
+def phase_qtopt_train():
+  """QT-Opt Bellman training at `GraspingQModel()` width (bf16, batch
+  norm, Adam 1e-4; CEM 2 × 64, 6 elites, fused select, γ 0.9, τ 0.05):
+  `train_qtopt` takes 60 steps of batch 256 from a replay buffer of 4,096
+  synthetic-bandit transitions, with cem_select's count read around the
+  run (2 per step); then a second call resumes at step 60 and takes 10."""
+  import tempfile
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.data import Mode
+  from tensor2robot_tpu_torch.hooks import Hook
+  from tensor2robot_tpu_torch.ops import cem_select as select_ops
+  from tensor2robot_tpu_torch.research.qtopt import ReplayBuffer
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
+  from tensor2robot_tpu_torch.research.qtopt.train_qtopt import train_qtopt
+  from tensor2robot_tpu_torch.telemetry.records import read_records
+  from tensor2robot_tpu_torch.utils import checkpoints
+
+  class LossLog(Hook):
+    """Keeps every step's loss (device tensors)."""
+
+    def __init__(self):
+      self.steps, self.losses = [], []
+
+    def after_step(self, step, metrics):
+      self.steps.append(step)
+      self.losses.append(metrics["loss"])
+
+  learner = bandit.bellman_learner()
+  replay = ReplayBuffer(learner.transition_specification(), capacity=4096,
+                        seed=0)
+  fill = bandit.bandit_transitions(learner, 4096, seed=1)
+  replay.add(fill)
+  kwargs = dict(replay_buffer=replay, batch_size=bandit.BATCH_SIZE,
+                save_checkpoints_steps=30, log_every_steps=10)
+  with tempfile.TemporaryDirectory() as model_dir:
+    # ---- the main path, with the kernel's launch count read around it ----
+    log = LossLog()
+    torch.cuda.reset_peak_memory_stats()
+    select_ops.fused_cem_select.launches = 0
+    t0 = time.perf_counter()
+    state = train_qtopt(learner, model_dir, max_train_steps=_QT_STEPS,
+                        hooks=[log], **kwargs)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = select_ops.fused_cem_select.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    path = os.path.join(model_dir, "metrics_train.jsonl")
+    with open(path) as f:
+      raw = [json.loads(line) for line in f]
+    records = read_records(path)
+    saved = checkpoints.list_steps(model_dir)
+    resumed = LossLog()
+    select_ops.fused_cem_select.launches = 0
+    state2 = train_qtopt(learner, model_dir, max_train_steps=_QT_STEPS + 10,
+                         hooks=[resumed], **kwargs)
+    resume_launches = select_ops.fused_cem_select.launches
+  losses = [x.item() for x in log.losses]
+  if (state.step != _QT_STEPS or log.steps != list(range(1, _QT_STEPS + 1))
+      or launches != 2 * _QT_STEPS):
+    raise AssertionError(f"step {state.step}, hook steps {log.steps[:3]}.., "
+                         f"cem_select launches {launches} != 2 x steps")
+  if (len(raw) != _QT_STEPS // 10
+      or any(set(r) != {"step", "wall", "role", "payload"} for r in raw)
+      or [r["step"] for r in raw] != list(range(10, _QT_STEPS + 1, 10))
+      or any(not {"loss", "grad_norm", "q_next_mean", "grad_steps_per_sec",
+                  "input_wait_fraction", "replay_fill"} <= set(r)
+             for r in records)):
+    raise AssertionError(f"metrics_train.jsonl lacks the envelope: {raw[:1]}")
+  if not all(np.isfinite(losses)):
+    raise AssertionError(f"non-finite losses: {losses}")
+  first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+  if not last < first:
+    raise AssertionError(f"loss did not fall: first 10 {first}, last 10 "
+                         f"{last}")
+  if (state2.step != _QT_STEPS + 10
+      or resumed.steps != list(range(_QT_STEPS + 1, _QT_STEPS + 11))
+      or resume_launches != 20 or saved != [30, 60]):
+    raise AssertionError(f"resume: step {state2.step}, steps "
+                         f"{resumed.steps}, launches {resume_launches}, "
+                         f"saved {saved}")
+  # Q(a*) against Q(−a*) (outside the rewarded ball) on fresh states.
+  feats = make_random_tensors_flat(learner.model.get_feature_specification(
+      Mode.PREDICT), 64, seed=7)
+  q = {}
+  for name, a in (("a*", bandit.A_STAR), ("-a*", -bandit.A_STAR)):
+    f = {k: torch.from_numpy(v).cuda() for k, v in feats.items()}
+    f["action"] = torch.from_numpy(np.tile(a, (64, 1))).cuda()
+    q[name] = learner.model.predict_step(state2.train_state,
+                                         f)["q_value"].float().mean().item()
+  _log(f"main path (QT-Opt Bellman training): steps={_QT_STEPS} batch=256 "
+       f"replay=4096 (rewarded {float(fill['reward'].mean())}) "
+       f"cem_select_launches={launches} wall_s={wall_s} (first step builds "
+       f"cuDNN/cuBLAS plans) peak_device_memory_gb={peak_gb} loss first10="
+       f"{first} last10={last} loss[0]={losses[0]} loss[-1]={losses[-1]} "
+       f"q_next_mean[-1]={records[-1]['q_next_mean']} "
+       f"grad_steps_per_sec(last log)={records[-1]['grad_steps_per_sec']} "
+       f"input_wait_fraction={records[-1]['input_wait_fraction']}; resumed "
+       f"at {_QT_STEPS}, took 10 steps ({resume_launches} launches); mean "
+       f"Q(a*)={q['a*']} Q(-a*)={q['-a*']}")
+  if not q["a*"] > q["-a*"]:
+    raise AssertionError("the learner ranks -a* above a*")
+  return launches, learner, state, replay
+
+
+def make_random_tensors_flat(spec, n, seed):
+  from tensor2robot_tpu_torch.specs import make_random_tensors
+  return make_random_tensors(spec, batch_size=n, seed=seed).to_flat_dict()
+
+
+def phase_qtopt_card_vs_cpu():
+  """One f32 Bellman step on the card against the CPU at
+  `bench.py`'s `_verify_qtopt_metrics` configuration (16×16 images, torso
+  (8,), head (8,), dense (16,), action 2, CEM 1 × 8, 2 elites, fused
+  select, batch 8): the same seeded params, batch and CEM noise (drawn on
+  the CPU) on both."""
+  import torch
+  from tensor2robot_tpu_torch.research.qtopt import (
+      GraspingQModel,
+      QTOptLearner,
+  )
+  torch.backends.cudnn.allow_tf32 = False
+  if torch.backends.cuda.matmul.allow_tf32:
+    raise AssertionError("f32 matmuls must not run in TF32 here")
+  model = GraspingQModel(image_size=16, torso_filters=(8,), head_filters=(8,),
+                         dense_sizes=(16,), action_dim=2,
+                         device_dtype=torch.float32)
+  batch = make_random_tensors_flat(
+      QTOptLearner(model, device="cpu").transition_specification(), 8, seed=0)
+  noise = torch.randn((1, 8, 8, 2), generator=torch.Generator().manual_seed(1))
+  results = {}
+  for device in ("cuda", "cpu"):
+    learner = QTOptLearner(model, cem_population=8, cem_iterations=1,
+                           cem_elites=2, cem_select="fused", device=device)
+    st = learner.create_state(seed=0)
+    grads, stats, m = learner.train_grads(
+        st, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+        noise=noise.to(device))
+    new = learner.apply_gradients(st, grads, stats)
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}  # noqa: E731
+    results[device] = ({k: v.item() for k, v in m.items()}, cpu(grads),
+                       cpu(new.train_state.params),
+                       cpu(new.train_state.batch_stats),
+                       cpu(new.target_params))
+  torch.backends.cudnn.allow_tf32 = True
+  (m_card, g_card, p_card, s_card, t_card), (m_cpu, g_cpu, p_cpu, s_cpu,
+                                             t_cpu) = (results["cuda"],
+                                                       results["cpu"])
+  # Tolerances. loss, grad_norm, q_next_mean: 1e-4 relative. Each
+  # gradient and each new batch statistic: 1e-4 / 1e-5 of its leaf's
+  # largest |value|. Parameters after Adam's first step (±lr to f32
+  # rounding where |g| ≥ 1e-6): 1e-6 there, 2·lr where |g| < 1e-6
+  # (summation order can flip g's sign).
+  lr, tau = 1e-4, 0.05
+  tols = {"params": (1e-6, 2 * lr),
+          "target": (tau * 1e-6 + 1.2e-7, tau * 2 * lr + 1.2e-7)}
+  metric_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+                   for k in ("loss", "grad_norm", "q_next_mean"))
+  grad_err = max((g_card[k] - g_cpu[k]).abs().max().item()
+                 / max(g_cpu[k].abs().max().item(), 1e-12) for k in g_cpu)
+  stat_err = max((s_card[k] - s_cpu[k]).abs().max().item()
+                 / s_cpu[k].abs().max().item() for k in s_cpu)
+  # Parameters (scale 1) and the Polyak target old + τ·(new − old), held
+  # to τ times the parameters' limits plus one f32 step of a weight
+  # below 1 (1.2e-7) for the rounding of the add.
+  far, near = {}, {}
+  for k in p_cpu:
+    small = g_cpu[k].abs() < 1e-6
+    for name, got, want in (("params", p_card[k], p_cpu[k]),
+                            ("target", t_card[k], t_cpu[k])):
+      diff = (got - want).abs()
+      if bool((~small).any()):
+        far[name] = max(far.get(name, 0.0), diff[~small].max().item())
+      if bool(small.any()):
+        near[name] = max(near.get(name, 0.0), diff[small].max().item())
+  _log(f"card vs CPU f32 Bellman step (bench verify config, B=8): loss "
+       f"{m_card['loss']} vs {m_cpu['loss']}, grad_norm "
+       f"{m_card['grad_norm']} vs {m_cpu['grad_norm']}, q_next_mean "
+       f"{m_card['q_next_mean']} vs {m_cpu['q_next_mean']}; max rel metric "
+       f"err {metric_err} (tol 1e-4), max per-leaf rel grad err {grad_err} "
+       f"over {len(g_cpu)} leaves (tol 1e-4), batch stats {stat_err} (tol "
+       f"1e-5 of the leaf's largest), where |g|>=1e-6 {json.dumps(far)}, "
+       f"where |g|<1e-6 {json.dumps(near)} (tolerances "
+       f"{json.dumps(tols)})")
+  if (metric_err > 1e-4 or grad_err > 1e-4 or stat_err > 1e-5
+      or any(far.get(k, 0.0) > t[0] or near.get(k, 0.0) > t[1]
+             for k, t in tols.items())):
+    raise AssertionError("card and CPU Bellman steps differ")
+
+
+def phase_qtopt_timings(learner, state, replay, network, encoded):
+  """The head tail, its plain version and the unfused torch tail
+  (`_population_tail` + q-head: cuDNN conv and elementwise passes) on the
+  target network's merge parts at B=4 and B=256; then the Bellman train
+  step at B=256."""
+  import torch
+  from tensor2robot_tpu_torch.bin import kernel_bounds
+  from tensor2robot_tpu_torch.bin.profile_policy import profile_calls
+  from tensor2robot_tpu_torch.ops import cem_head
+  from tensor2robot_tpu_torch.research.qtopt import networks
+  params = networks.head_tail_params(network)
+  rows = {}
+  g = torch.Generator(device="cuda").manual_seed(9)
+  for b in (4, 256):
+    actions = torch.rand((b, 64, 4), generator=g, device="cuda") * 2 - 1
+    with torch.inference_mode():
+      act, enc0 = _merge_parts(network, encoded[:b], actions)
+    run_k = lambda: cem_head.fused_cem_head_tail(act, enc0,  # noqa: E731
+                                                 *params)
+    run_p = lambda: cem_head.fused_cem_head_tail_reference(  # noqa: E731
+        act, enc0, *params)
+
+    def run_u():
+      with torch.inference_mode():
+        merged = torch.relu(act.transpose(0, 1) + enc0)
+        pooled = network._population_tail(merged.reshape((-1,) + act.shape[2:]))
+        return network.q_head(pooled)
+
+    plain_a, kern_a, unf_a = _graph_ms(run_p), _graph_ms(run_k), \
+        _graph_ms(run_u)
+    unf_b, kern_b, plain_b = _graph_ms(run_u), _graph_ms(run_k), \
+        _graph_ms(run_p)
+    bound_ms, bound_by = kernel_bounds.cem_head_tail(
+        b, 64, 8, 8, 64, 64, (64, 64, 64, 1), 2)
+    rows[b] = dict(ms=statistics.median([kern_a, kern_b]),
+                   plain_ms=statistics.median([plain_a, plain_b]),
+                   unfused_ms=statistics.median([unf_a, unf_b]),
+                   bound_ms=bound_ms, bound_by=bound_by)
+    _log(f"timing cem_head_tail B={b} P=64 8x8x64 -> 64 bf16: device "
+         f"kernel_ms={kern_a},{kern_b} plain_ms={plain_a},{plain_b} "
+         f"unfused_torch_tail_ms={unf_a},{unf_b} | bound_ms={bound_ms} "
+         f"({bound_by}) | library_ms=null (no single PyTorch call)")
+
+  # The Bellman train step at B=256: CEM noise given whole, so one CUDA
+  # graph can capture the step.
+  batch = next(replay.as_stream(256)).to_flat_dict()
+  batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+  noise = torch.randn((2, 256, 64, 4), generator=g, device="cuda")
+  step = lambda: learner.train_step(state, batch, noise=noise)  # noqa: E731
+  step_graph = _graph_ms(step, iters=3, repeats=3)
+  step_eager = _median_ms(step, iters=10, repeats=3)
+
+  def logged_step():  # the loss's copy to the host synchronizes
+    learner.train_step(state, batch, noise=noise)[1]["loss"].item()
+
+  prof = profile_calls(logged_step, calls=10)
+  _log(f"timing QT-Opt Bellman train step (B=256, bf16, CEM 2x64 fused): "
+       f"device (graph replay) ms={step_graph}; eager per step ms="
+       f"{step_eager}; profiler over 10 logged steps: "
+       f"{json.dumps(prof)}")
+  return rows, step_graph, step_eager, prof
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -974,7 +1412,15 @@ def main():
   bwd_errs = phase_flash_bwd_kernels()
   train_launches, train_model, train_state, gen = phase_train_slice()
   bwd_rows, _, _ = phase_train_timings(train_model, train_state, gen)
+  head_err = phase_head_kernels()
+  _, qt_learner, qt_state, replay = phase_qtopt_train()
+  head_launches, _, target_net, encoded = phase_head_bellman(
+      qt_learner, qt_state, replay)
+  phase_qtopt_card_vs_cpu()
+  head_rows, _, _, _ = phase_qtopt_timings(qt_learner, qt_state, replay,
+                                           target_net, encoded)
   main_row = rows[8]  # the serving path's largest bucket
+  head_row = head_rows[256]  # the Bellman target's shape
   flash_row = flash_rows[1]  # the context policy serves one robot
   kernels = [{
       "name": "cem_select",
@@ -1013,7 +1459,17 @@ def main():
       ("flash_attention_bwd_dkdv",
        "tensor2robot_tpu/ops/flash_attention.py:404", bwd_errs[0]),
       ("flash_attention_bwd_dq",
-       "tensor2robot_tpu/ops/flash_attention.py:434", bwd_errs[1]))]
+       "tensor2robot_tpu/ops/flash_attention.py:434", bwd_errs[1]))] + [{
+      "name": "cem_head_tail",
+      "route": "cuda",
+      "source": "tensor2robot_tpu_torch/csrc/cem_head.cu",
+      "replaces": "tensor2robot_tpu/ops/cem_head.py:161",
+      "launches": head_launches,
+      "max_abs_err": head_err,
+      **{key: head_row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
+      "library_ms": None,
+  }]
   _log(f"total_s={time.perf_counter() - t_start}")
   _log(json.dumps({"kernels": kernels}))
   _log(smi)

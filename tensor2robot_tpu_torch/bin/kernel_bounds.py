@@ -45,19 +45,19 @@ def cem_select(p: int, b: int, widths: Sequence[int], a_dim: int,
 
 
 def cem_head_tail(b: int, p: int, h1: int, w1: int, c1: int, c2: int,
-                  dense_widths: Sequence[int]) -> Bound:
-  """`fused_cem_head_tail` in bf16: act [B, P, h1, w1, C1], enc0
-  [B, h1, w1, C1], 3×3 taps [3, 3, C1, C2], f32 BN scale/shift [C2] and
-  the dense head (widths C2, ..., 1) in; Q [B, P] f32 out. Operations:
-  the stride-2 SAME conv and the head's products."""
+                  dense_widths: Sequence[int], elem_bytes: int = 2) -> Bound:
+  """`fused_cem_head_tail`: act [B, P, h1, w1, C1], enc0 [B, h1, w1, C1],
+  3×3 taps [3, 3, C1, C2] and the dense head (widths C2, ..., 1) in the
+  compute dtype, f32 BN scale/shift [C2] in; Q [B, P] f32 out.
+  Operations: the stride-2 SAME conv and the head's products."""
   h2, w2 = -(-h1 // 2), -(-w1 // 2)
   pairs = list(zip(dense_widths[:-1], dense_widths[1:]))
-  nbytes = (2 * (b * p * h1 * w1 * c1 + b * h1 * w1 * c1 + 9 * c1 * c2
-                 + sum(i * o + o for i, o in pairs))
+  nbytes = (elem_bytes * (b * p * h1 * w1 * c1 + b * h1 * w1 * c1
+                          + 9 * c1 * c2 + sum(i * o + o for i, o in pairs))
             + 2 * c2 * 4 + b * p * 4)
   ops = (2 * b * p * h2 * w2 * 9 * c1 * c2
          + sum(2 * b * p * i * o for i, o in pairs))
-  return bound(nbytes, ops, 2)
+  return bound(nbytes, ops, elem_bytes)
 
 
 def _qkv_bytes(b, t, h, d, elem_bytes):
@@ -97,8 +97,10 @@ def main():
        "serving bucket B=8 / Bellman B=256, P=64, C=H=64, A=4, bf16",
        [cem_select(64, b, (64, 64, 64, 1), 4, 2) for b in (8, 256)]),
       ("tensor2robot_tpu/ops/cem_head.py:161",
-       "bench.py:1283-1364: B=4, P=64, 8x8x64 -> 64, dense (64, 64, 1)",
-       [cem_head_tail(4, 64, 8, 8, 64, 64, (64, 64, 64, 1))]),
+       "bench.py:1327-1364 B=4 / Bellman target B=256: P=64, 8x8x64 -> 64, "
+       "dense (64, 64, 1), bf16",
+       [cem_head_tail(b, 64, 8, 8, 64, 64, (64, 64, 64, 1))
+        for b in (4, 256)]),
       ("tensor2robot_tpu/ops/flash_attention.py:211",
        "context policy B=1 / B=16, T=512, H=4, D=32, bf16, causal",
        [flash_forward(b, 512, 4, 32, 2, True) for b in (1, 16)]),

@@ -3,6 +3,7 @@
     python -m tensor2robot_tpu_torch.bin.profile_policy [--batches 8 256]
     python -m tensor2robot_tpu_torch.bin.profile_policy --model vrgripper_transformer
     python -m tensor2robot_tpu_torch.bin.profile_policy --model vrgripper_train
+    python -m tensor2robot_tpu_torch.bin.profile_policy --model qtopt_train
 
 `--model qtopt` (the default) runs `QTOptLearner.build_policy()` at
 `GraspingQModel()`'s full width (bf16, random weights from seed 0, CEM
@@ -15,7 +16,11 @@ heads, context 512, bf16, random weights from seed 0) one env step at a
 time. `--model vrgripper_train` runs `train_step` of the same model
 (Adam at lr 3e-4, the gin's) on the first batch of `chip_smoke.py`'s
 training run: 16 of 64 seeded expert episodes (seed 11) cut to 32
-steps, the gin's training shape.
+steps, the gin's training shape. `--model qtopt_train` runs
+`QTOptLearner.train_step` of the Bellman-training configuration in
+`research/qtopt/synthetic_bandit.py` (`GraspingQModel()`, batch 256, CEM
+2 × 64 with the fused select, Adam 1e-4) on one batch of its synthetic
+bandit transitions, each step from the same state.
 
 Each prints, under `torch.profiler`: the wall time per call (host clock
 around synchronized calls), the device-busy time per call (sum of
@@ -144,10 +149,26 @@ def profile_train_step() -> dict:
           **profile_calls(step)}
 
 
+def profile_qtopt_train_step() -> dict:
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
+  learner = bandit.bellman_learner()
+  state = learner.create_state(seed=0)
+  batch = {k: torch.from_numpy(v).cuda() for k, v in
+           bandit.bandit_transitions(learner, bandit.BATCH_SIZE,
+                                     seed=1).items()}
+  gen = torch.Generator(device="cuda").manual_seed(0)
+
+  def step():  # the loss's copy to the host synchronizes, as a log does
+    learner.train_step(state, batch, generator=gen)[1]["loss"].item()
+
+  return {"model": "qtopt_train", "batch": bandit.BATCH_SIZE,
+          **profile_calls(step)}
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--model", choices=("qtopt", "vrgripper_transformer",
-                                          "vrgripper_train"),
+                                          "vrgripper_train", "qtopt_train"),
                       default="qtopt")
   parser.add_argument("--batches", type=int, nargs="+", default=[8, 256],
                       help="CEM batch sizes (--model qtopt)")
@@ -160,6 +181,8 @@ def main():
       print(json.dumps(profile_cem(batch)), flush=True)
   elif args.model == "vrgripper_transformer":
     print(json.dumps(profile_context_policy()), flush=True)
+  elif args.model == "qtopt_train":
+    print(json.dumps(profile_qtopt_train_step()), flush=True)
   else:
     print(json.dumps(profile_train_step()), flush=True)
 

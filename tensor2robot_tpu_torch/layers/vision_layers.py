@@ -6,15 +6,16 @@ converted flax weights give the same numbers. Parameter names are the
 flax names (``tower.conv_0``, ``ssoftmax.log_temperature``, ``proj``).
 
 Shared here by every family that convolves: XLA's SAME padding
-(`conv_same`), eval-mode flax batch norm (`BatchNorm`) and the f32
-spatial mean. Convolutions pad SAME the way XLA does ((0, 1) for a 3×3
-stride-2 conv on an even input): torch refuses padding='same' at
-stride 2, and symmetric padding would shift every tap.
+(`conv_same`), flax batch norm in eval and train mode (`BatchNorm`,
+`collect_batch_stats`) and the f32 spatial mean. Convolutions pad SAME
+the way XLA does ((0, 1) for a 3×3 stride-2 conv on an even input):
+torch refuses padding='same' at stride 2, and symmetric padding would
+shift every tap.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,11 +53,20 @@ def spatial_mean(x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-  """Eval-mode flax `nn.BatchNorm` over the last (channel) axis.
+  """flax `nn.BatchNorm(momentum=0.9)` over the last (channel) axis.
 
   Parameter/buffer names are flax's: ``scale``/``bias`` params and
-  ``mean``/``var`` batch statistics.
+  ``mean``/``var`` batch statistics. In eval mode it normalizes with the
+  running statistics. In train mode (`use_running_average=False`) it
+  normalizes with the batch's own: mean and biased variance over every
+  axis but the last, in f32 from the compute-dtype input, as
+  E[x²] − E[x]² floored at 0 (flax's `use_fast_variance`). The running
+  statistics it would move to, 0.9·old + 0.1·batch in f32, are left in
+  `self.update` (and the buffers are never written): the caller's state
+  stays as it was, as under JAX (`collect_batch_stats`).
   """
+
+  MOMENTUM = 0.9
 
   def __init__(self, features: int, dtype: torch.dtype):
     super().__init__()
@@ -65,16 +75,45 @@ class BatchNorm(nn.Module):
     self.bias = nn.Parameter(torch.zeros(features))
     self.register_buffer("mean", torch.zeros(features))
     self.register_buffer("var", torch.ones(features))
+    self.update: Optional[Dict[str, torch.Tensor]] = None
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    # flax `_normalize`: (x − mean) · (rsqrt(var + eps) · scale) + bias,
-    # all in f32, then the cast to the compute dtype.
-    mul = torch.rsqrt(self.var + _BN_EPS) * self.scale
-    return ((x.float() - self.mean) * mul + self.bias).to(self.dtype)
+    if not self.training:
+      return _normalize(x, self.mean, self.var, self.scale, self.bias,
+                        self.dtype)
+    xf = x.to(self.dtype).float()
+    axes = tuple(range(xf.dim() - 1))
+    mean = xf.mean(dim=axes)
+    var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+    # The running statistics carry no gradient (flax returns them as
+    # mutated state, outside the differentiated loss).
+    m = self.MOMENTUM
+    self.update = {"mean": m * self.mean + (1 - m) * mean.detach(),
+                   "var": m * self.var + (1 - m) * var.detach()}
+    return _normalize(xf, mean, var, self.scale, self.bias, self.dtype)
+
+
+def _normalize(x, mean, var, scale, bias, dtype) -> torch.Tensor:
+  """flax `_normalize`: (x − mean) · (rsqrt(var + eps) · scale) + bias,
+  all in f32, then the cast to the compute dtype."""
+  mul = torch.rsqrt(var + _BN_EPS) * scale
+  return ((x.float() - mean) * mul + bias).to(dtype)
+
+
+def collect_batch_stats(network: nn.Module) -> Dict[str, torch.Tensor]:
+  """The running statistics the last train-mode forward of `network`
+  moved to, keyed like its buffers (``head_bn_0.mean``); clears them."""
+  out = {}
+  for name, module in network.named_modules():
+    if isinstance(module, BatchNorm) and module.update is not None:
+      for key, value in module.update.items():
+        out[f"{name}.{key}"] = value
+      module.update = None
+  return out
 
 
 class ConvTower(nn.Module):
-  """Stack of 3×3 stride-2 SAME conv (+ eval batch norm) + relu blocks,
+  """Stack of 3×3 stride-2 SAME conv (+ batch norm) + relu blocks,
   NHWC (flax's default kernel sizes and strides, the only ones used).
 
   Without batch norm each conv carries a bias (flax `use_bias=not

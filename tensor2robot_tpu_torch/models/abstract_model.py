@@ -14,9 +14,15 @@ meta-device module through `torch.func.functional_call` over the
 state's tensors, and every step returns a new state (nothing is
 updated in place), as the JAX step does.
 
-Not ported yet: `remat_policy` and `axis_name` (ROADMAP A11), auxiliary
-losses sown by the network (MoE, A11) and training a network with batch
-statistics (A4). Each raises where it is asked for.
+A network with batch norm trains on its batch statistics: `loss_fn`
+passes params and running statistics to `functional_call` and returns
+the new running statistics (`mutable=["batch_stats"]` under flax),
+which `apply_gradients` stores; the old state's buffers are never
+written.
+
+Not ported yet: `remat_policy` and `axis_name` (ROADMAP A11) and
+auxiliary losses sown by the network (MoE, A11). Each raises where it
+is asked for.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from torch import nn
 
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
+from tensor2robot_tpu_torch.layers.vision_layers import collect_batch_stats
 from tensor2robot_tpu_torch.models import optimizers as opt_lib
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 
@@ -184,25 +191,29 @@ class AbstractT2RModel(abc.ABC):
   def loss_fn(self, params: Dict[str, torch.Tensor],
               batch_stats: Dict[str, torch.Tensor], features, labels,
               mode: Mode) -> Tuple[torch.Tensor, Tuple[Metrics, Dict]]:
-    """(loss, (scalars, new_batch_stats)) of the network over `params`."""
-    if batch_stats:
-      raise NotImplementedError(
-          "training a network with batch statistics is not ported yet "
-          "(ROADMAP A4).")
+    """(loss, (scalars, new_batch_stats)) of the network over `params`
+    and `batch_stats`. In TRAIN mode batch norm normalizes with the
+    batch's statistics and the new running statistics are returned;
+    otherwise `batch_stats` come back as they were. Neither is written
+    in place."""
     if self._train_network is None:
       with torch.device("meta"):
         self._train_network = self.create_network()
-    self._train_network.train(mode == Mode.TRAIN)
+    train = mode == Mode.TRAIN
+    self._train_network.train(train)
     features = self.network_inputs_from_labels(_flat(features),
                                                _flat(labels), mode)
-    outputs = torch.func.functional_call(self._train_network, params,
-                                         (features,), strict=True)
+    outputs = torch.func.functional_call(
+        self._train_network, {**params, **batch_stats}, (features,),
+        strict=True)
+    new_stats = collect_batch_stats(self._train_network)
     if isinstance(outputs, Mapping) and "_aux_loss" in outputs:
       raise NotImplementedError(
           "auxiliary (MoE) losses are not ported yet (ROADMAP A11).")
     loss, scalars = self.model_train_fn(features, _flat(labels), outputs,
                                         mode)
-    return loss, (scalars, batch_stats)
+    return loss, (scalars, new_stats if train and batch_stats
+                  else batch_stats)
 
   def train_grads(self, state: TrainState, features, labels,
                   axis_name: Optional[str] = None

@@ -5,7 +5,9 @@ floats) → grasp-success Q logit, split at the action merge into
 `encode(image)` (action-independent torso, run once per state) and
 `head(encoded, features)`; `score_population` / `pool_population`
 score a whole CEM population through the linearity-split merge
-without tiling the torso map. The int8 tower comes in a later slice.
+without tiling the torso map, and `head_tail_params` hands the tail
+after the merge to `ops.fused_cem_head_tail`. The int8 tower comes in
+a later slice.
 
 Layouts follow the JAX package at every public method — NHWC maps,
 P-major `[P, B, C]` pooled features, `[B, P]` scores — so converted
@@ -53,8 +55,11 @@ def _gather_action_extras(features, dtype: torch.dtype) -> torch.Tensor:
 
 
 class GraspingQNetwork(nn.Module):
-  """Image + action → Q logit, QT-Opt-paper style (eval mode).
+  """Image + action → Q logit, QT-Opt-paper style.
 
+  `forward` in train mode (`network.train()`, the critic's loss) batch-
+  norms with batch statistics, as flax's `__call__(train=True)`; the
+  population paths are eval-only (running statistics), as in JAX.
   Unlike flax, torch needs input widths up front: `action_dim` and
   `extra_features_dim` (the flattened width of every float extra state
   feature) size the action embedding.
@@ -159,11 +164,25 @@ class GraspingQNetwork(nn.Module):
     return dense(self.action_embed_1, a, self.dtype)
 
   def _population_merge(self, encoded, a) -> torch.Tensor:
-    """The linearity-split merge: relu'd [P·B, h', w', C'] tensor.
+    """The linearity-split merge: relu'd [P·B, h', w', C'] tensor,
+    rows P-major (see `_population_merge_parts`)."""
+    act, enc0 = self._population_merge_parts(encoded, a)
+    p, b = act.shape[:2]
+    # P-major rows make the enc0 addend the axis-0 replication of enc0
+    # (the JAX package concatenates p copies); broadcasting over the
+    # leading P axis adds the same values without materializing them.
+    return torch.relu(act + enc0).reshape((p * b,) + act.shape[2:])
+
+  def _population_merge_parts(self, encoded, a
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The merge before its add: (act [P, B, h', w', C'], enc0
+    [B, h', w', C']), both in the compute dtype and batch-normed (eval),
+    so that the merged tensor is relu(act + enc0) — what
+    `ops.fused_cem_head_tail` takes as `act.transpose(0, 1)` and enc0.
 
     conv0(encoded + broadcast(a)) = conv0(encoded) + Σ_c a_c · V[c],
     with V the per-position tap sums, computed border-exactly by
-    pushing a one-hot channel basis through conv0. Rows are P-major.
+    pushing a one-hot channel basis through conv0.
     """
     b, p, c = a.shape
     conv0 = self.head_conv_0
@@ -188,11 +207,7 @@ class GraspingQNetwork(nn.Module):
       v = v * scale
     h2, w2, oc = v.shape[1:]
     a_pm = a.transpose(0, 1).reshape(p * b, c)
-    act = (a_pm @ v.reshape(c, -1)).reshape(p, b, h2, w2, oc)
-    # P-major rows make the enc0 addend the axis-0 replication of enc0
-    # (the JAX package concatenates p copies); broadcasting over the
-    # leading P axis adds the same values without materializing them.
-    return torch.relu(act + enc0).reshape(p * b, h2, w2, oc)
+    return (a_pm @ v.reshape(c, -1)).reshape(p, b, h2, w2, oc), enc0
 
   def _population_tail(self, x: torch.Tensor) -> torch.Tensor:
     """Remaining head convs + spatial pool: [P·B, h', w', C'] →
@@ -233,3 +248,17 @@ def q_head_dense_params(network: GraspingQNetwork, dtype=None):
       w, b = w.to(dtype), b.to(dtype)
     out.append((w.contiguous(), b.contiguous()))
   return tuple(out)
+
+
+def head_tail_params(network: GraspingQNetwork):
+  """(conv_kernel [3, 3, C1, C2], bn_scale, bn_shift [C2] f32, dense) of
+  the population tail after the merge — `ops.fused_cem_head_tail`'s
+  weights, for a network with batch norm and two head convs. The conv
+  kernel (HWIO) and the q-head are in the compute dtype."""
+  if len(network.head_filters) != 2 or not network.use_batch_norm:
+    raise ValueError("the fused head tail needs batch norm and exactly two "
+                     f"head convs (head_filters={network.head_filters})")
+  kernel = network.head_conv_1.weight.permute(2, 3, 1, 0)
+  scale, shift = _eval_bn_affine(network.head_bn_1)
+  return (kernel.to(network.dtype).contiguous(), scale, shift,
+          q_head_dense_params(network, dtype=network.dtype))

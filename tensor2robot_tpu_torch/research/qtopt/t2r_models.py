@@ -1,5 +1,6 @@
 """QT-Opt grasping critic model (port of `research/qtopt/t2r_models.py`):
-specs + network wiring."""
+specs + network wiring. It trains with `CriticModel`'s sigmoid
+cross-entropy and the default `create_optimizer` (Adam at 1e-4)."""
 
 from __future__ import annotations
 

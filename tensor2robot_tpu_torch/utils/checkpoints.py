@@ -1,0 +1,134 @@
+"""Checkpoints (port of `utils/checkpoints.py`): save, list, restore.
+
+The port's own format, not orbax's: `torch.save` of the state's leaves
+at `<model_dir>/ckpt/<step>/state.pt`, written to a temporary name and
+renamed, so a reader never sees a partial file. A state is stored as
+`{"leaves": {path: leaf}}`, each tensor on the CPU, where a path names
+the leaf's place in the state (dataclass fields, named-tuple fields,
+dict keys and tuple positions joined by "/"); `restore_state` rebuilds
+the structure of a `like` state with the stored leaves, on each `like`
+leaf's device and dtype, and loads with `weights_only=True`. Saves are
+synchronous. The JAX package's separate inference-variables payload
+has no reader in the port yet (predictors, ROADMAP A12), so it is not
+written.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+import shutil
+from typing import Any, Dict, List, Optional
+
+import torch
+
+CKPT_SUBDIR = "ckpt"
+
+
+def _ckpt_root(model_dir: str) -> str:
+  return os.path.join(model_dir, CKPT_SUBDIR)
+
+
+def _fields(node) -> Optional[Dict[str, Any]]:
+  """A container's children by name, or None for a leaf."""
+  if dataclasses.is_dataclass(node) and not isinstance(node, type):
+    return {f.name: getattr(node, f.name) for f in dataclasses.fields(node)}
+  if isinstance(node, tuple) and hasattr(node, "_fields"):
+    return dict(zip(node._fields, node))
+  if isinstance(node, dict):
+    return {str(k): v for k, v in node.items()}
+  if isinstance(node, (tuple, list)):
+    return {str(i): v for i, v in enumerate(node)}
+  return None
+
+
+def flatten_state(state: Any, prefix: str = "") -> Dict[str, Any]:
+  """{path: leaf} of a state; tensors detached and on the CPU."""
+  children = _fields(state)
+  if children is None:
+    if isinstance(state, torch.Tensor):
+      return {prefix: state.detach().cpu()}
+    return {prefix: state}
+  out = {}
+  for name, child in children.items():
+    out.update(flatten_state(child, f"{prefix}/{name}" if prefix else name))
+  return out
+
+
+def _rebuild(like: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
+  children = _fields(like)
+  if children is None:
+    value = leaves[prefix]
+    if isinstance(like, torch.Tensor):
+      return value.to(device=like.device, dtype=like.dtype)
+    return value
+  built = {name: _rebuild(child, leaves,
+                          f"{prefix}/{name}" if prefix else name)
+           for name, child in children.items()}
+  if dataclasses.is_dataclass(like):
+    return dataclasses.replace(like, **built)
+  if isinstance(like, tuple) and hasattr(like, "_fields"):
+    return type(like)(**built)
+  if isinstance(like, dict):
+    return {k: built[str(k)] for k in like}
+  return type(like)(built[str(i)] for i in range(len(like)))
+
+
+def list_steps(model_dir: str) -> List[int]:
+  """Steps whose state has been written."""
+  root = _ckpt_root(model_dir)
+  if not os.path.isdir(root):
+    return []
+  return sorted(int(e) for e in os.listdir(root)
+                if re.fullmatch(r"\d+", e)
+                and os.path.isfile(os.path.join(root, e, "state.pt")))
+
+
+def latest_step(model_dir: str) -> Optional[int]:
+  steps = list_steps(model_dir)
+  return steps[-1] if steps else None
+
+
+def _atomic_save(obj: Any, path: str) -> None:
+  tmp = f"{path}.tmp"
+  torch.save(obj, tmp)
+  os.replace(tmp, path)
+
+
+class CheckpointWriter:
+  """Synchronous writer that keeps the newest `max_to_keep` steps."""
+
+  def __init__(self, model_dir: str, max_to_keep: Optional[int] = 5):
+    self._root = _ckpt_root(model_dir)
+    os.makedirs(self._root, exist_ok=True)
+    self._max_to_keep = max_to_keep
+
+  def save(self, step: int, state: Any) -> None:
+    step_dir = os.path.join(self._root, str(int(step)))
+    os.makedirs(step_dir, exist_ok=True)
+    _atomic_save({"leaves": flatten_state(state)},
+                 os.path.join(step_dir, "state.pt"))
+    self._gc()
+
+  def _gc(self) -> None:
+    if self._max_to_keep is None:
+      return
+    steps = sorted(int(e) for e in os.listdir(self._root)
+                   if re.fullmatch(r"\d+", e))
+    for step in steps[:max(len(steps) - self._max_to_keep, 0)]:
+      shutil.rmtree(os.path.join(self._root, str(step)), ignore_errors=True)
+
+
+def restore_state(model_dir: str, like: Any,
+                  step: Optional[int] = None) -> Any:
+  """The state saved at `step` (default: the latest), in `like`'s
+  structure, each tensor on its `like` leaf's device and dtype."""
+  if step is None:
+    step = latest_step(model_dir)
+    if step is None:
+      raise FileNotFoundError(
+          f"No checkpoints found under {_ckpt_root(model_dir)}")
+  path = os.path.join(_ckpt_root(model_dir), str(int(step)), "state.pt")
+  leaves = torch.load(path, map_location="cpu", weights_only=True)["leaves"]
+  return _rebuild(like, leaves)

@@ -47,6 +47,9 @@ _EXPECTED = (
     "research.vrgripper.gin_config",
     "data.episode_input_generator", "data.random_input_generator",
     "models.optimizers", "telemetry.records", "train_eval",
+    "ops.cem_head", "replay.store", "replay.sampler", "hooks.hook",
+    "data.prefetch", "utils.checkpoints", "research.qtopt.replay_buffer",
+    "research.qtopt.train_qtopt",
 )
 
 
@@ -75,6 +78,7 @@ def test_chip_smoke_imports_no_jax():
     elif isinstance(node, ast.ImportFrom):
       imported.add(node.module)
   assert {"tensor2robot_tpu_torch.ops.flash_attention",
+          "tensor2robot_tpu_torch.research.qtopt.train_qtopt",
           "tensor2robot_tpu_torch.train_eval"} <= imported
   bad = sorted(m for m in imported if forbidden(m))  # noqa: F821
   assert not bad, bad

@@ -175,7 +175,7 @@ def test_eval_bn_affine_is_the_batch_norm_forward():
   )
 
   rng = np.random.default_rng(2)
-  bn = BatchNorm(6, torch.float32)
+  bn = BatchNorm(6, torch.float32).eval()  # running statistics
   with torch.no_grad():
     for t, lo, hi in ((bn.scale, 0.5, 1.5), (bn.bias, -1, 1),
                       (bn.mean, -1, 1), (bn.var, 0.5, 2)):
