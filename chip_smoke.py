@@ -12,10 +12,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   3. kernels against their plain versions on the card. cem_select at
      the main path's shapes (P=64, C=H=64, A=4, E=6) in bf16 with
      sigmoid on and off, at P=50, on exactly-tied scores, and in f32.
-     flash_attention (out and lse) causal and not, T = 512, 100, 32, 1,
-     D = 32, 64, B = 1, 16, bf16 and f32, H = 4, plus the policy's and
-     the training path's strided q/k/v views of one qkv tensor (B=1,
-     T=512 and B=16, T=32);
+     flash_attention (out and lse) causal and not, T = 512, 100, 65, 32,
+     17, 1, D = 32, 64, 128, B = 1, 16, bf16 (tensor cores) and f32 (CUDA
+     cores), H = 4, plus the policy's and the training path's strided
+     q/k/v views of one qkv tensor (B=1, T=512 and B=16, T=32);
   4. QT-Opt serving end to end at `GraspingQModel()`'s full width (64×64
      images, torso (32, 64), head (64, 64), dense (64, 64), bf16, random
      weights from seed 0): `CEMPolicyServer(max_batch=8)` over
@@ -50,8 +50,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      train step on the card against the CPU (loss, grad_norm, every
      gradient and every parameter after the Adam update);
   8. timings with CUDA events (medians): each kernel and its plain
-     version (and for flash, SDPA as the library yardstick: its forward,
-     and its backward as fwd+bwd minus fwd) as device time per call
+     version (and for flash, SDPA as the library yardstick: its forward
+     at all three forward shapes, and its backward as fwd+bwd minus fwd)
+     as device time per call
      (CUDA-graph replay, no host launch cost), the CEM policy per
      dispatch, the context policy per step and the train step (graph
      replay and eager);
@@ -446,8 +447,10 @@ def check_flash(name, q, k, v, causal):
 def phase_flash_kernels():
   import torch
   worst = {}
-  cases = list(itertools.product((False, True), (512, 100, 32, 1), (32, 64),
-                                 (1, 16), (torch.bfloat16, torch.float32)))
+  # T = 65 and 17 are ragged past a 64-row tile and a 16-row fragment.
+  cases = list(itertools.product((False, True), (512, 100, 65, 32, 17, 1),
+                                 (32, 64, 128), (1, 16),
+                                 (torch.bfloat16, torch.float32)))
   for i, (causal, t, d, b, dtype) in enumerate(cases):
     name = f"causal={causal} T={t} D={d} B={b} {dtype}"
     errs = check_flash(name, *_flash_inputs(b, t, 4, d, dtype, seed=100 + i),
@@ -902,13 +905,18 @@ def phase_train_timings(model, state, gen):
   do = _flash_inputs(b, t, h, d, torch.bfloat16, seed=401)[0]
   out, lse = flash_attention_with_lse(q, k, v, causal=True)
   delta = _delta(out, do, None)
-  fwd = [_graph_ms(lambda: flash_attention_with_lse(q, k, v, causal=True))
-         for _ in range(2)]
+  qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+  run_fk = lambda: flash_attention_with_lse(q, k, v, causal=True)  # noqa: E731
+  run_fl = lambda: F.scaled_dot_product_attention(  # noqa: E731
+      qt, kt, vt, is_causal=True)
+  # In turns kernel, library, library, kernel; then the plain version.
+  fwd_a, sdpa_a, sdpa_b, fwd_b = (_graph_ms(run_fk), _graph_ms(run_fl),
+                                  _graph_ms(run_fl), _graph_ms(run_fk))
   fwd_plain = _graph_ms(lambda: flash_attention_reference(q, k, v,
                                                           causal=True))
   _log(f"timing flash_attention_fwd B={b} T={t} H={h} D={d} bf16 causal "
-       f"(training shape): device kernel_ms={fwd[0]},{fwd[1]} plain_ms="
-       f"{fwd_plain} | bound_ms="
+       f"(training shape): device kernel_ms={fwd_a},{fwd_b} plain_ms="
+       f"{fwd_plain} sdpa_ms={sdpa_a},{sdpa_b} | bound_ms="
        f"{kernel_bounds.flash_forward(b, t, h, d, 2, True)[0]}")
   rows = {}
   for name, kern, plain, bound in (

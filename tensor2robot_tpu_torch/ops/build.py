@@ -7,9 +7,10 @@ first use with
          -Xcompiler -fPIC
 
 into `tensor2robot_tpu_torch/_build/lib<name>-<hash>.so`, where the hash
-covers the source and the flags: an edited source builds anew, an
-unchanged one loads the library already there. Nothing is built at
-import time. `build(names)` starts one nvcc per source, all at once.
+covers the source, the headers in `csrc/` and the flags: an edited
+source or header builds anew, an unchanged one loads the library
+already there. Nothing is built at import time. `build(names)` starts
+one nvcc per source, all at once.
 """
 
 from __future__ import annotations
@@ -46,10 +47,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-  source = CSRC_DIR / f"{name}.cu"
-  digest = hashlib.sha256(source.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-  return BUILD_DIR / f"lib{name}-{digest}.so"
+  """Where `csrc/<name>.cu` builds to: named by a hash of the source, of
+  every header in `csrc/` (any may be included) and of the flags."""
+  digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+  for header in sorted(CSRC_DIR.glob("*.cuh")):
+    digest.update(header.name.encode() + header.read_bytes())
+  digest.update(" ".join(NVCC_FLAGS).encode())
+  return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str], ptxas_verbose: bool = False

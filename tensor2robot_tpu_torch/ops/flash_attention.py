@@ -14,9 +14,12 @@ Forward contract (both versions): q, k, v `[B, T, H, D]` → out
 in f32, causal scores past the diagonal −1e30, probabilities rounded to
 v's dtype before the f32-accumulated PV product, `out = acc / max(l,
 1e-30)`, `lse = m + log(max(l, 1e-30))`. The kernel runs the softmax
-online over 64-key tiles; the plain version in one pass, so in bf16 the
-two round p against different running maxima and agree to bf16
-rounding.
+online over 64-key tiles, a running max per tile (bf16: QKᵀ and PV on
+tensor cores, `wgmma`, with K/V tiles brought in by TMA, whose rule of
+16-byte aligned bases and strides the wrapper checks; f32: on CUDA
+cores, which keep the products in full f32); the plain version in one
+pass, so in bf16 the two round p against different running maxima and
+agree to bf16 rounding.
 
 Backward contract, the `_flash_lse` custom VJP's: differentiable in
 both outputs. δ = rowsum(dO·O) − dlse (one torch expression over the
@@ -279,13 +282,33 @@ flash_attention_bwd_dq.launches = 0
 _COUNT_LOCK = threading.Lock()
 
 
+def _view_strides(name, x):
+  """x's batch, time and head strides in elements, as the forward kernel
+  reads them. A dim of size 1 is never stepped along and gets its dense
+  stride. bf16 goes through TMA, which takes a 16-byte aligned base and
+  strides of a multiple of 16 bytes: anything else raises."""
+  if x.stride(-1) != 1:
+    raise ValueError(f"{name} needs a dense last (head_dim) axis, "
+                     f"strides {x.stride()}")
+  _, t, h, d = x.shape
+  strides = tuple(s if n > 1 else dense for s, n, dense in
+                  zip(x.stride()[:3], x.shape[:3], (t * h * d, h * d, d)))
+  if x.dtype == torch.bfloat16:
+    nbytes = x.element_size()
+    if x.data_ptr() % 16 or any(s * nbytes % 16 for s in strides):
+      raise ValueError(
+          f"{name}: the bf16 forward loads by TMA, which needs a 16-byte "
+          f"aligned base and batch, time and head strides of a multiple of "
+          f"16 bytes; got base % 16 = {x.data_ptr() % 16} and strides "
+          f"{x.stride()} of {nbytes}-byte elements")
+  return strides
+
+
 def _launch(q, k, v, causal):
   _check_launch(q, k, v)
   b, t, h, d = q.shape
-  for name, x in (("q", q), ("k", k), ("v", v)):
-    if x.stride(-1) != 1:
-      raise ValueError(f"{name} needs a dense last (head_dim) axis, "
-                       f"strides {x.stride()}")
+  strides = [s for name, x in (("q", q), ("k", k), ("v", v))
+             for s in _view_strides(name, x)]
   lib = build.load("flash_attention", _ARGTYPES)
   out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
   lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -293,8 +316,8 @@ def _launch(q, k, v, causal):
     stream = torch.cuda.current_stream().cuda_stream
     err = lib.t2r_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, t, h, d, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], int(causal), int(q.dtype == torch.bfloat16),
+        lse.data_ptr(), b, t, h, d, *strides, int(causal),
+        int(q.dtype == torch.bfloat16),
         1.0 / math.sqrt(d), stream)
   if err != 0:
     raise RuntimeError(

@@ -158,19 +158,49 @@ def test_unknown_impl_raises():
                                   max_len=8, attention_impl="xla")
 
 
+def _bf16_view(shape, pad):
+  """A bf16 [B, T, H, D] view whose base sits `pad[0]` elements into its
+  buffer and whose rows carry `pad[1]` extra elements."""
+  b, t, h, d = shape
+  flat = torch.zeros(pad[0] + b * t * (h * d + pad[1]), dtype=torch.bfloat16)
+  rows = flat[pad[0]:].view(b, t, h * d + pad[1])
+  return rows[..., :h * d].unflatten(-1, (h, d))
+
+
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "head_dim_24",
-                                 "strides"])
+                                 "strides", "bf16_offset", "bf16_stride"])
 def test_launch_validates_before_building(bad):
   q, k, v = _torch(_qkv(16, seed=9), torch.float32)
+  match = None
   if bad == "dtype":
     q, k, v = (x.half() for x in (q, k, v))
   elif bad.startswith("head_dim"):
     d = 24 if bad == "head_dim_24" else 48
     q, k, v = _torch(_qkv(16, seed=9, d=d), torch.float32)
+    match = "head dim"
+  elif bad.startswith("bf16"):
+    # TMA's rule: a view one element into its buffer (2-byte aligned), or
+    # with rows 8 bytes longer than 16-byte multiples.
+    k, v = (x.to(torch.bfloat16) for x in (k, v))
+    q = _bf16_view(k.shape, (1, 0) if bad == "bf16_offset" else (0, 4))
+    assert q.stride(-1) == 1
+    match = "TMA"
   else:
     q = q.transpose(-1, -2).contiguous().transpose(-1, -2)
-  with pytest.raises(ValueError, match="head dim" if "head" in bad else None):
+  with pytest.raises(ValueError, match=match):
     fa._launch(q, k, v, causal=False)
+
+
+def test_bf16_rule_takes_the_model_views_and_size_one_dims():
+  """The transformer's q, k, v (slices of one [B, T, 3H, D] tensor) and
+  dims of size 1 with odd strides pass TMA's rule; the kernel gets a
+  dense stride for a dim of size 1."""
+  qkv = torch.zeros((2, 5, 3 * _H, _D), dtype=torch.bfloat16)
+  for x in qkv.split(_H, dim=2):
+    assert fa._view_strides("q", x) == x.stride()[:3]
+  one = torch.zeros((1, 1, 1, _D), dtype=torch.bfloat16).as_strided(
+      (1, 1, 1, _D), (3, 5, 7, 1))
+  assert fa._view_strides("q", one) == (_D, _D, _D)
 
 
 def test_shapes_must_agree():
