@@ -13,9 +13,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the main path's shapes (P=64, C=H=64, A=4, E=6) in bf16 with
      sigmoid on and off, at P=50, on exactly-tied scores, and in f32.
      flash_attention (out and lse) causal and not, T = 512, 100, 65, 32,
-     17, 1, D = 32, 64, 128, B = 1, 16, bf16 (tensor cores) and f32 (CUDA
-     cores), H = 4, plus the policy's and the training path's strided
-     q/k/v views of one qkv tensor (B=1, T=512 and B=16, T=32);
+     17, 1, D = 16, 32, 64, 128, B = 1, 16, bf16 (tensor cores) and f32
+     (CUDA cores), H = 4, plus the policy's and the training path's
+     strided q/k/v views of one qkv tensor (B=1, T=512 and B=16, T=32;
+     D = 32 and 16);
   4. QT-Opt serving end to end at `GraspingQModel()`'s full width (64×64
      images, torso (32, 64), head (64, 64), dense (64, 64), bf16, random
      weights from seed 0): `CEMPolicyServer(max_batch=8)` over
@@ -35,11 +36,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      against their plain versions on the forward kernel's out and lse
      (themselves held against the plain forward), and the plain
      versions against torch.autograd of the plain forward: causal and
-     not, T = 32, 512, 100, 1, D = 32, 64, B = 1, 16, bf16 and f32,
-     H = 4, the lse cotangent zero and random, each gradient's error
-     over its own largest value; plus the training path's strided
-     q/k/v views of one qkv tensor under autograd with a non-contiguous
-     dO;
+     not, T = 32, 512, 100, 1, D = 16, 32, 64, 128, B = 1, 16, bf16 (the
+     bf16 kernels run twice, identical bits) and f32, H = 4, the lse
+     cotangent zero and random, each gradient's error over its own
+     largest value; plus the training path's strided q/k/v views of one
+     qkv tensor under autograd (D = 32 and 16) with non-contiguous dO
+     views, two of them outside TMA's rule (copied dense first);
   7. VRGripper transformer behaviour-cloning training at the gin width
      (bf16, Adam at lr 3e-4): `train_eval_model` takes 60 steps over an
      `EpisodeInputGenerator` of 64 seeded expert episodes (batch 16,
@@ -51,11 +53,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      gradient and every parameter after the Adam update);
   8. timings with CUDA events (medians): each kernel and its plain
      version (and for flash, SDPA as the library yardstick: its forward
-     at all three forward shapes, and its backward as fwd+bwd minus fwd)
-     as device time per call
+     at all three forward shapes, and its backward as fwd+bwd minus fwd;
+     the backward pair, δ and SDPA's backward at B=16, H=4 and T=32 with
+     D = 32 and 16, and T = 64 and 512 with D=32) as device time per call
      (CUDA-graph replay, no host launch cost), the CEM policy per
      dispatch, the context policy per step and the train step (graph
-     replay and eager);
+     replay and eager); then `VRGripperTransformerModel()` at its own
+     defaults (width 64, depth 2, 4 heads: head dim 16, context 512,
+     bf16) serves one episode and trains 10 steps (flash launches =
+     depth per policy step; forward, dK/dV and dQ launches = depth per
+     train step), and one f32 train step of it runs on the card against
+     the CPU;
   9. fused_cem_head_tail (cem_head.cu) against its plain version: the
      --verify gate's case (B=4, P=64, 8×8×64 → 64, bf16), B = 1, 3, 256,
      P = 50, f32, C1 = C2 = 128, a ragged shape and the Q-network's
@@ -447,9 +455,10 @@ def check_flash(name, q, k, v, causal):
 def phase_flash_kernels():
   import torch
   worst = {}
-  # T = 65 and 17 are ragged past a 64-row tile and a 16-row fragment.
+  # T = 65 and 17 are ragged past a 64-row tile and a 16-row fragment;
+  # D=16 is the default VRGripper transformer's head dim.
   cases = list(itertools.product((False, True), (512, 100, 65, 32, 17, 1),
-                                 (32, 64, 128), (1, 16),
+                                 (16, 32, 64, 128), (1, 16),
                                  (torch.bfloat16, torch.float32)))
   for i, (causal, t, d, b, dtype) in enumerate(cases):
     name = f"causal={causal} T={t} D={d} B={b} {dtype}"
@@ -461,10 +470,11 @@ def phase_flash_kernels():
   # The main paths' layout: q, k, v are strided views of one qkv tensor,
   # at the policy's shape and at the training step's.
   strided = {}
-  for b, t in ((1, 512), (16, 32)):
-    _, (q, k, v) = _strided_qkv(b, t, 4, 32, torch.bfloat16, seed=99 + b)
-    strided[f"B={b} T={t}"] = check_flash(f"strided qkv views B={b} T={t}",
-                                          q, k, v, causal=True)
+  for b, t, d, seed in ((1, 512, 32, 100), (16, 32, 32, 115),
+                        (1, 512, 16, 1100), (16, 32, 16, 1115)):
+    _, (q, k, v) = _strided_qkv(b, t, 4, d, torch.bfloat16, seed=seed)
+    strided[f"B={b} T={t} D={d}"] = check_flash(
+        f"strided qkv views B={b} T={t} D={d}", q, k, v, causal=True)
   _log(f"kernel check flash_attention: {len(cases)} cases + strided views, "
        f"max_abs_err (out, lse) = {json.dumps(worst)}; strided "
        f"{json.dumps(strided)}; tolerances {json.dumps(_FLASH_TOL)}")
@@ -650,6 +660,11 @@ def check_flash_bwd(name, q, k, v, do, dlse, causal):
   out, lse = flash_attention_with_lse(q, k, v, causal=causal)
   got = flash_attention_backward(q, k, v, out, lse, do, dlse, causal=causal)
   torch.cuda.synchronize()
+  if q.dtype == torch.bfloat16:  # no atomics: a second run, the same bits
+    again = flash_attention_backward(q, k, v, out, lse, do, dlse,
+                                     causal=causal)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+      raise AssertionError(f"flash bwd {name}: two runs differ")
   leaves = [x.detach().requires_grad_() for x in (q, k, v)]
   ref_out, ref_lse = flash_attention_reference(*leaves, causal=causal)
   tol_out, tol_lse = _FLASH_TOL[str(q.dtype)]
@@ -702,15 +717,19 @@ def _strided_qkv(b, t, h, d, dtype, seed, requires_grad=False):
 def phase_flash_bwd_kernels():
   import torch
   from tensor2robot_tpu_torch.ops.flash_attention import (
+      _meets_tma_rule,
       flash_attention,
       flash_attention_bwd_dkdv,
       flash_attention_bwd_dq,
       flash_attention_reference,
   )
   worst, worst_scaled, worst_zero = {}, {}, 0.0
-  cases = itertools.product((False, True), (32, 512, 100, 1), (32, 64),
-                            (1, 16), (torch.bfloat16, torch.float32),
-                            (False, True))
+  grid = lambda dims: itertools.product(  # noqa: E731
+      (False, True), (32, 512, 100, 1), dims, (1, 16),
+      (torch.bfloat16, torch.float32), (False, True))
+  # D = 32, 64 (seeds as before), then D = 16 (the default model's head
+  # dim) and 128.
+  cases = itertools.chain(grid((32, 64)), grid((16, 128)))
   n = 0
   for i, (causal, t, d, b, dtype, with_dlse) in enumerate(cases):
     q, k, v, do = (_flash_inputs(b, t, 4, d, dtype, seed=300 + i)
@@ -729,29 +748,49 @@ def phase_flash_bwd_kernels():
         worst_scaled.get(key, (0, 0)), scaled))
     n += 1
   # The training path: strided q/k/v views of one qkv tensor under
-  # autograd, dO non-contiguous (read through its strides, not copied).
-  qkv, (q, k, v) = _strided_qkv(16, 32, 4, 32, torch.bfloat16, seed=98,
-                                requires_grad=True)
+  # autograd at D = 32 and 16. dO non-contiguous: a transposed view that
+  # TMA reads in place, and (D=16) views TMA cannot read (head dim not
+  # dense; base 2 bytes off 16), which the wrapper copies dense first.
   g = torch.Generator(device="cuda").manual_seed(97)
-  do = torch.randn((16, 4, 32, 32), generator=g, device="cuda").to(
-      torch.bfloat16).transpose(1, 2)
-  before = (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
-  got = torch.autograd.grad(flash_attention(q, k, v, causal=True), qkv, do)[0]
-  torch.cuda.synchronize()
-  after = (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
-  want = torch.autograd.grad(
-      flash_attention_reference(q, k, v, causal=True)[0], qkv, do)[0]
-  err = _grad_err(got, want)
-  if (after[0] - before[0], after[1] - before[1]) != (1, 1):
-    raise AssertionError(f"strided views: backward launches {before} -> "
-                         f"{after}, expected one each")
-  if err > _FLASH_AUTOGRAD_TOL["torch.bfloat16"]:
-    raise AssertionError(f"strided views: d(qkv) differs by {err} scaled")
+  strided = {}
+  for d, layout, seed in ((32, "transposed", 98), (16, "transposed", 96),
+                          (16, "head dim strided", 95),
+                          (16, "base off 16 B", 94)):
+    qkv, (q, k, v) = _strided_qkv(16, 32, 4, d, torch.bfloat16, seed=seed,
+                                  requires_grad=True)
+    do = torch.randn((16, 4, 32, d), generator=g, device="cuda").to(
+        torch.bfloat16).transpose(1, 2)
+    if layout == "head dim strided":
+      do = do.transpose(-1, -2).contiguous().transpose(-1, -2)
+    elif layout == "base off 16 B":
+      do = torch.cat([do.new_zeros(1), do.flatten()])[1:].view(do.shape)
+    tma_ok = _meets_tma_rule(do)
+    if tma_ok != (layout == "transposed"):
+      raise AssertionError(f"strided views: dO {layout} meets TMA's rule: "
+                           f"{tma_ok}")
+    before = (flash_attention_bwd_dkdv.launches,
+              flash_attention_bwd_dq.launches)
+    got = torch.autograd.grad(flash_attention(q, k, v, causal=True), qkv,
+                              do)[0]
+    torch.cuda.synchronize()
+    after = (flash_attention_bwd_dkdv.launches,
+             flash_attention_bwd_dq.launches)
+    want = torch.autograd.grad(
+        flash_attention_reference(q, k, v, causal=True)[0], qkv, do)[0]
+    err = _grad_err(got, want)
+    if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+      raise AssertionError(f"strided views D={d} dO {layout}: backward "
+                           f"launches {before} -> {after}, expected one each")
+    if err > _FLASH_AUTOGRAD_TOL["torch.bfloat16"]:
+      raise AssertionError(f"strided views D={d} dO {layout}: d(qkv) "
+                           f"differs by {err} scaled")
+    strided[f"D={d} dO {layout}"] = err
   _log(f"kernel check flash_attention backward: {n} cases + strided views, "
        f"max_abs_err (dk/dv, dq) = {json.dumps(worst)}; worst scaled error "
        f"(kernel vs plain, plain vs autograd) = {json.dumps(worst_scaled)}; "
        f"zero gradients {worst_zero} absolute; strided d(qkv) vs autograd "
-       f"of the plain forward {err} scaled; "
+       f"of the plain forward (scaled) {json.dumps(strided)}; bf16 kernels "
+       f"run twice per case, identical bits; "
        f"tolerances (scaled) kernel {json.dumps(_FLASH_BWD_TOL)} autograd "
        f"{json.dumps(_FLASH_AUTOGRAD_TOL)}, zero gradients {_ZERO_GRAD_TOL} "
        f"absolute")
@@ -762,11 +801,147 @@ def phase_flash_bwd_kernels():
 _TRAIN_STEPS = 60
 
 
+def train_step_card_vs_cpu(label, model32, gen, lr):
+  """One f32 train step of `model32` on the card and on the CPU from the
+  same seeded weights and the same first batch of `gen`: loss,
+  grad_norm, every gradient and every parameter after the Adam update."""
+  import torch
+  from tensor2robot_tpu_torch.data import Mode
+  torch.backends.cudnn.allow_tf32 = False
+  features, labels = next(iter(gen.create_dataset(Mode.TRAIN)))
+  results = {}
+  for device in ("cuda", "cpu"):
+    st = model32.create_train_state(seed=0, device=device)
+    f = {k: torch.as_tensor(v).to(device)
+         for k, v in features.to_flat_dict().items()}
+    lab = {k: torch.as_tensor(v).to(device)
+           for k, v in labels.to_flat_dict().items()}
+    grads, stats, m = model32.train_grads(st, f, lab)
+    new = model32.apply_gradients(st, grads, stats)
+    results[device] = ({k: v.item() for k, v in m.items()},
+                       {k: g.cpu() for k, g in grads.items()},
+                       {k: p.cpu() for k, p in new.params.items()})
+  torch.backends.cudnn.allow_tf32 = True
+  (m_card, g_card, p_card), (m_cpu, g_cpu, p_cpu) = (results["cuda"],
+                                                     results["cpu"])
+  # Tolerances. loss and grad_norm: 1e-4 relative (f32 sums over the
+  # batch in other orders). Each gradient: 1e-3 of its leaf's largest
+  # |value|. Parameters after Adam's first step, p - lr·g/(|g| + 1e-8):
+  # 1e-6 where |g| >= 1e-6 (there the step is ±lr to f32 rounding); up to
+  # 2·lr where |g| < 1e-6, since there summation order can flip g's sign.
+  metric_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+                   for k in ("loss", "grad_norm"))
+  grad_err = max((g_card[k] - g_cpu[k]).abs().max().item()
+                 / max(g_cpu[k].abs().max().item(), 1e-12) for k in g_cpu)
+  far, near, n_near = 0.0, 0.0, 0
+  for k in p_cpu:
+    diff = (p_card[k] - p_cpu[k]).abs()
+    small = g_cpu[k].abs() < 1e-6
+    n_near += int(small.sum())
+    if bool((~small).any()):
+      far = max(far, diff[~small].max().item())
+    if bool(small.any()):
+      near = max(near, diff[small].max().item())
+  _log(f"card vs CPU f32 train step ({label}, B=16, T=32): loss "
+       f"{m_card['loss']} vs {m_cpu['loss']}, grad_norm "
+       f"{m_card['grad_norm']} vs {m_cpu['grad_norm']}; max rel metric err "
+       f"{metric_err} (tol 1e-4), max per-leaf rel grad err {grad_err} over "
+       f"{len(g_cpu)} leaves (tol 1e-3), param err {far} where |g|>=1e-6 "
+       f"(tol 1e-6), {near} over {n_near} elements where |g|<1e-6 (tol "
+       f"{2 * lr})")
+  if (metric_err > 1e-4 or grad_err > 1e-3 or far > 1e-6
+      or near > 2 * lr):
+    raise AssertionError(f"card and CPU train steps differ ({label})")
+
+
+_DEFAULT_STEPS = 10
+
+
+def phase_default_model():
+  """`VRGripperTransformerModel()` at its own defaults: width 64, depth 2,
+  4 heads (head dim 16), context 512, attention "auto", bf16, Adam at
+  1e-4, random weights from seed 0. It serves one episode through
+  `evaluate_gripper_policy` (flash launches = depth per policy step) and
+  trains 10 steps through `train_eval_model` at the gin's training shape
+  (batch 16, sequence_length 32) over 16 seeded expert episodes (the
+  forward, dK/dV and dQ launches each = depth per step); then one f32
+  train step of that model on the card against the CPU."""
+  import tempfile
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.data import EpisodeInputGenerator
+  from tensor2robot_tpu_torch.ops.flash_attention import (
+      flash_attention,
+      flash_attention_bwd_dkdv,
+      flash_attention_bwd_dq,
+  )
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      VRGripperTransformerModel,
+      evaluate_gripper_policy,
+      gin_config,
+  )
+  from tensor2robot_tpu_torch.telemetry.records import read_records
+  from tensor2robot_tpu_torch.train_eval import train_eval_model
+
+  model = VRGripperTransformerModel()
+  head_dim = model.create_network().trunk.block0.attn.head_dim
+  if head_dim != 16:
+    raise AssertionError(f"the default model's head dim is {head_dim}")
+
+  # ---- serving: one episode, the forward's count read around it ----
+  policy = model.make_context_policy(model.create_inference_state(seed=0))
+  flash_attention.launches = 0
+  metrics = evaluate_gripper_policy(policy, num_episodes=1, image_size=48,
+                                    seed=12)
+  serve_launches = flash_attention.launches
+  if (policy.steps < 1 or serve_launches != model.depth * policy.steps
+      or not np.isfinite(metrics["mean_final_distance"])):
+    raise AssertionError(f"default model served {policy.steps} steps with "
+                         f"{serve_launches} flash launches: {metrics}")
+
+  # ---- training: 10 steps, the three kernels' counts read around it ----
+  episodes = gin_config.expert_episodes(16, seed=13)
+  gen = EpisodeInputGenerator(episodes,
+                              sequence_length=gin_config.GIN_SEQUENCE_LENGTH,
+                              batch_size=gin_config.GIN_BATCH_SIZE, seed=0)
+  counters = (flash_attention, flash_attention_bwd_dkdv,
+              flash_attention_bwd_dq)
+  with tempfile.TemporaryDirectory() as model_dir:
+    for fn in counters:
+      fn.launches = 0
+    state = train_eval_model(model, model_dir, gen,
+                             max_train_steps=_DEFAULT_STEPS,
+                             batch_size=gin_config.GIN_BATCH_SIZE,
+                             log_every_steps=1, seed=0)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    records = read_records(os.path.join(model_dir, "metrics_train.jsonl"))
+  want = model.depth * _DEFAULT_STEPS
+  losses = [r["loss"] for r in records]
+  if state.step != _DEFAULT_STEPS or any(n != want
+                                         for n in launches.values()):
+    raise AssertionError(f"default model: step {state.step}, launches "
+                         f"{launches}: each should be depth x steps = {want}")
+  if len(losses) != _DEFAULT_STEPS or not all(np.isfinite(
+      losses + [r["grad_norm"] for r in records])):
+    raise AssertionError(f"default model: training metrics {records}")
+  _log(f"main path (default VRGripperTransformerModel(): width 64, depth 2, "
+       f"4 heads, head dim 16, context 512, bf16): served {policy.steps} "
+       f"steps (flash_attention launches {serve_launches}) "
+       f"{json.dumps(metrics)}; trained {_DEFAULT_STEPS} steps (batch 16, "
+       f"sequence_length 32) launches={json.dumps(launches)} loss[0]="
+       f"{losses[0]} loss[-1]={losses[-1]}")
+  train_step_card_vs_cpu(
+      "default model, head dim 16",
+      VRGripperTransformerModel(device_dtype=torch.float32), gen, 1e-4)
+  return serve_launches, launches
+
+
 def phase_train_slice():
   import tempfile
   import numpy as np
   import torch
-  from tensor2robot_tpu_torch.data import EpisodeInputGenerator, Mode
+  from tensor2robot_tpu_torch.data import EpisodeInputGenerator
   from tensor2robot_tpu_torch.ops.flash_attention import (
       flash_attention,
       flash_attention_bwd_dkdv,
@@ -835,52 +1010,8 @@ def phase_train_slice():
   _log(f"trained policy served {policy.steps} steps: {json.dumps(metrics)}")
 
   # ---- the card against the CPU: one f32 train step, same weights/batch ----
-  torch.backends.cudnn.allow_tf32 = False
-  model32 = gin_config.gin_model(torch.float32)
-  features, labels = next(iter(gen.create_dataset(Mode.TRAIN)))
-  results = {}
-  for device in ("cuda", "cpu"):
-    st = model32.create_train_state(seed=0, device=device)
-    f = {k: torch.as_tensor(v).to(device)
-         for k, v in features.to_flat_dict().items()}
-    lab = {k: torch.as_tensor(v).to(device)
-           for k, v in labels.to_flat_dict().items()}
-    grads, stats, m = model32.train_grads(st, f, lab)
-    new = model32.apply_gradients(st, grads, stats)
-    results[device] = ({k: v.item() for k, v in m.items()},
-                       {k: g.cpu() for k, g in grads.items()},
-                       {k: p.cpu() for k, p in new.params.items()})
-  torch.backends.cudnn.allow_tf32 = True
-  (m_card, g_card, p_card), (m_cpu, g_cpu, p_cpu) = (results["cuda"],
-                                                     results["cpu"])
-  # Tolerances. loss and grad_norm: 1e-4 relative (f32 sums over the
-  # batch in other orders). Each gradient: 1e-3 of its leaf's largest
-  # |value|. Parameters after Adam's first step, p - lr·g/(|g| + 1e-8):
-  # 1e-6 where |g| >= 1e-6 (there the step is ±lr to f32 rounding); up to
-  # 2·lr where |g| < 1e-6, since there summation order can flip g's sign.
-  lr = gin_config.GIN_LEARNING_RATE
-  metric_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
-                   for k in ("loss", "grad_norm"))
-  grad_err = max((g_card[k] - g_cpu[k]).abs().max().item()
-                 / max(g_cpu[k].abs().max().item(), 1e-12) for k in g_cpu)
-  far, near, n_near = 0.0, 0.0, 0
-  for k in p_cpu:
-    diff = (p_card[k] - p_cpu[k]).abs()
-    small = g_cpu[k].abs() < 1e-6
-    n_near += int(small.sum())
-    if bool((~small).any()):
-      far = max(far, diff[~small].max().item())
-    if bool(small.any()):
-      near = max(near, diff[small].max().item())
-  _log(f"card vs CPU f32 train step (B=16, T=32): loss {m_card['loss']} vs "
-       f"{m_cpu['loss']}, grad_norm {m_card['grad_norm']} vs "
-       f"{m_cpu['grad_norm']}; max rel metric err {metric_err} (tol 1e-4), "
-       f"max per-leaf rel grad err {grad_err} over {len(g_cpu)} leaves "
-       f"(tol 1e-3), param err {far} where |g|>=1e-6 (tol 1e-6), {near} "
-       f"over {n_near} elements where |g|<1e-6 (tol {2 * lr})")
-  if (metric_err > 1e-4 or grad_err > 1e-3 or far > 1e-6
-      or near > 2 * lr):
-    raise AssertionError("card and CPU train steps differ")
+  train_step_card_vs_cpu("gin width", gin_config.gin_model(torch.float32),
+                         gen, gin_config.GIN_LEARNING_RATE)
   return launches, model, state, gen
 
 
@@ -918,42 +1049,64 @@ def phase_train_timings(model, state, gen):
        f"(training shape): device kernel_ms={fwd_a},{fwd_b} plain_ms="
        f"{fwd_plain} sdpa_ms={sdpa_a},{sdpa_b} | bound_ms="
        f"{kernel_bounds.flash_forward(b, t, h, d, 2, True)[0]}")
-  rows = {}
-  for name, kern, plain, bound in (
-      ("flash_attention_bwd_dkdv", flash_attention_bwd_dkdv,
-       flash_attention_bwd_dkdv_reference, kernel_bounds.flash_backward_dkdv),
-      ("flash_attention_bwd_dq", flash_attention_bwd_dq,
-       flash_attention_bwd_dq_reference, kernel_bounds.flash_backward_dq)):
-    run_k = lambda: kern(q, k, v, do, lse, delta, True)  # noqa: E731
-    run_p = lambda: plain(q, k, v, do, lse, delta, True)  # noqa: E731
-    plain_a, kern_a = _graph_ms(run_p), _graph_ms(run_k)
-    kern_b, plain_b = _graph_ms(run_k), _graph_ms(run_p)
-    bound_ms, bound_by = bound(b, t, h, d, 2, True)
-    rows[name] = dict(ms=statistics.median([kern_a, kern_b]),
-                      plain_ms=statistics.median([plain_a, plain_b]),
-                      bound_ms=bound_ms, bound_by=bound_by)
-    _log(f"timing {name} B={b} T={t} H={h} D={d} bf16 causal: device "
-         f"kernel_ms={kern_a},{kern_b} plain_ms={plain_a},{plain_b} | "
-         f"bound_ms={bound_ms} ({bound_by})")
-
-  # SDPA's backward as the library yardstick: fwd+bwd minus fwd, in turns.
-  qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
-                for x in (q, k, v))
-  dot = do.transpose(1, 2)
-  run_f = lambda: F.scaled_dot_product_attention(  # noqa: E731
-      qt, kt, vt, is_causal=True)
-  run_fb = lambda: torch.autograd.grad(  # noqa: E731
-      F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-      (qt, kt, vt), dot)
-  f_a, fb_a, fb_b, f_b = (_graph_ms(run_f), _graph_ms(run_fb),
-                          _graph_ms(run_fb), _graph_ms(run_f))
-  sdpa_bwd = statistics.median([fb_a, fb_b]) - statistics.median([f_a, f_b])
-  for row in rows.values():
-    row["library_ms"] = sdpa_bwd
-  kernels_sum = sum(r["ms"] for r in rows.values())
-  _log(f"timing SDPA at the same shape: fwd_ms={f_a},{f_b} fwd+bwd_ms="
-       f"{fb_a},{fb_b} -> bwd_ms={sdpa_bwd}; dK/dV + dQ kernels "
-       f"{kernels_sum} ms")
+  # The backward pair at the gin's training shape (D=32), at the default
+  # model's head dim (D=16), at T=64 (the tile that T=32 fills half of,
+  # full) and at T=512, where a CTA walks 8 tiles: each
+  # kernel and its plain version in turns (plain, kernel, kernel, plain),
+  # SDPA's backward (fwd+bwd minus fwd, in turns) and δ, the row term the
+  # wrapper computes before the pair (SDPA's backward computes its own, so
+  # pair + δ is the like-for-like sum).
+  by_shape = {}
+  for b, t, h, d in ((16, 32, 4, 32), (16, 32, 4, 16), (16, 64, 4, 32),
+                     (16, 512, 4, 32)):
+    shape = f"B={b} T={t} H={h} D={d}"
+    _, (q, k, v) = _strided_qkv(b, t, h, d, torch.bfloat16,
+                                seed=400 + (d != 32) + 2 * (t != 32)
+                                + 4 * (t == 64))
+    do = _flash_inputs(b, t, h, d, torch.bfloat16, seed=401)[0]
+    out, lse = flash_attention_with_lse(q, k, v, causal=True)
+    delta = _delta(out, do, None)
+    rows = {}
+    for name, kern, plain, bound in (
+        ("flash_attention_bwd_dkdv", flash_attention_bwd_dkdv,
+         flash_attention_bwd_dkdv_reference,
+         kernel_bounds.flash_backward_dkdv),
+        ("flash_attention_bwd_dq", flash_attention_bwd_dq,
+         flash_attention_bwd_dq_reference, kernel_bounds.flash_backward_dq)):
+      run_k = lambda: kern(q, k, v, do, lse, delta, True)  # noqa: E731
+      run_p = lambda: plain(q, k, v, do, lse, delta, True)  # noqa: E731
+      plain_a, kern_a = _graph_ms(run_p), _graph_ms(run_k)
+      kern_b, plain_b = _graph_ms(run_k), _graph_ms(run_p)
+      bound_ms, bound_by = bound(b, t, h, d, 2, True)
+      rows[name] = dict(ms=statistics.median([kern_a, kern_b]),
+                        plain_ms=statistics.median([plain_a, plain_b]),
+                        bound_ms=bound_ms, bound_by=bound_by)
+      _log(f"timing {name} {shape} bf16 causal: device kernel_ms="
+           f"{kern_a},{kern_b} plain_ms={plain_a},{plain_b} | bound_ms="
+           f"{bound_ms} ({bound_by})")
+    delta_ms = _graph_ms(lambda: _delta(out, do, None))
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    run_f = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    run_fb = lambda: torch.autograd.grad(  # noqa: E731
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        (qt, kt, vt), dot)
+    f_a, fb_a, fb_b, f_b = (_graph_ms(run_f), _graph_ms(run_fb),
+                            _graph_ms(run_fb), _graph_ms(run_f))
+    sdpa_bwd = (statistics.median([fb_a, fb_b])
+                - statistics.median([f_a, f_b]))
+    for row in rows.values():
+      row["library_ms"] = sdpa_bwd
+    pair = sum(r["ms"] for r in rows.values())
+    _log(f"timing SDPA {shape}: fwd_ms={f_a},{f_b} fwd+bwd_ms={fb_a},{fb_b} "
+         f"-> bwd_ms={sdpa_bwd}; dK/dV + dQ kernels {pair} ms, delta_ms="
+         f"{delta_ms}, pair + delta {pair + delta_ms} ms, pair / SDPA "
+         f"{pair / sdpa_bwd}, (pair + delta) / SDPA "
+         f"{(pair + delta_ms) / sdpa_bwd}")
+    by_shape[shape] = rows
+  rows = by_shape["B=16 T=32 H=4 D=32"]  # the gin's training shape
 
   # The whole train step at the gin shape (B=16, T=32, bf16, depth 4).
   features, labels = next(iter(gen.create_dataset(Mode.TRAIN)))
@@ -1420,6 +1573,7 @@ def main():
   bwd_errs = phase_flash_bwd_kernels()
   train_launches, train_model, train_state, gen = phase_train_slice()
   bwd_rows, _, _ = phase_train_timings(train_model, train_state, gen)
+  phase_default_model()
   head_err = phase_head_kernels()
   _, qt_learner, qt_state, replay = phase_qtopt_train()
   head_launches, _, target_net, encoded = phase_head_bellman(

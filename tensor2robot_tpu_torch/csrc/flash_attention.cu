@@ -42,11 +42,12 @@
 //    read from shared memory through a transposed (MN-major) descriptor;
 //  - Q once and the K/V tiles as bf16 by TMA: rank-4 tensor maps over the
 //    strided [B, T, H, D] views, boxes of 64 rows × ≤ 128 B (two boxes at
-//    D=128), zero fill past T, the 64 B / 128 B swizzle the descriptors
-//    read. Tiles go into a ring of stages with one mbarrier each, issued
-//    ahead, so later tiles are in flight while this one computes. Tiles
-//    past the diagonal are never loaded; only the diagonal tile and a
-//    ragged last tile pay for the mask;
+//    D=128), zero fill past T, the swizzle the descriptors read (32 B,
+//    64 B or 128 B by row width: D = 16, 32, 64 and up). Tiles go into a
+//    ring of stages with one mbarrier each, issued ahead, so later tiles
+//    are in flight while this one computes. Tiles past the diagonal are
+//    never loaded; only the diagonal tile and a ragged last tile pay for
+//    the mask;
 //  - out goes through shared memory (Q's tile, same swizzle: no bank
 //    conflicts) and leaves with 16-byte stores;
 //  - the grid stays (T/64, B·H), heaviest causal blocks first. At B=1 the
@@ -98,7 +99,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
               float* __restrict__ lse, int num_heads, int seq_len,
               Strides qs, Strides ks, Strides vs, float scale, int causal) {
-  static_assert(D % 32 == 0, "bank mapping assumes D % 32 == 0");
+  // Banks: a row group's four lanes read K rows c .. c+3 at stride D+1 and
+  // a warp's eight row groups read Q rows at stride D+1; D+1 is odd for
+  // every D taken (16, 32, 64, 128), so both hit distinct banks.
+  static_assert(D % 2 == 0 && D % kLanes == 0, "lane and bank mapping");
   constexpr int kCols = D / kLanes;  // output columns per thread
   extern __shared__ float smem[];
   float* q_tile = smem;                             // [kBlockM][D + 1]
@@ -221,7 +225,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
                void* lse, int batch, int seq_len, int num_heads, Strides qs,
                Strides ks, Strides vs, int causal, float scale,
                cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes_f32<D>();  // 42 / 66 / 114 KB
+  constexpr size_t smem = smem_bytes_f32<D>();  // 30 / 42 / 66 / 114 KB
   static bool opted_in = false;  // per D; only above the 48 KB default
   if (smem > 48 * 1024 && !opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -253,19 +257,6 @@ template <int D>                         // Q, the ring, the mbarriers
 constexpr size_t kSmem = 1024 + size_t(1 + 2 * kStages<D>) * Tile<D>::kBytes
                          + 8 * (1 + kStages<D>);
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc_v) {
-  if constexpr (D == 32) {
-    wgmma_rs_n32(o, a, desc_v, 1);
-  } else if constexpr (D == 64) {
-    wgmma_rs_n64(o, a, desc_v, 1);
-  } else {
-    wgmma_rs_n128(o, a, desc_v, 1);
-  }
-}
-
 // One CTA = one warpgroup per (batch·head, 64-row q block). Thread 0
 // issues every TMA load; all 128 threads run the products and softmax.
 // Warp w owns rows 16w .. 16w+15; in each, lane l holds rows r0 = 16w +
@@ -280,7 +271,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   using L = Tile<D>;
   constexpr int S = kStages<D>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
+  uint8_t* smem = align_1024(smem_raw);
   const uint32_t q_s = smem_addr(smem);           // Q, then out
   const uint32_t ring = q_s + L::kBytes;          // stage s: K, then V
   const uint32_t bars = ring + 2 * S * L::kBytes;  // [0] Q, [1 + s] stage s
@@ -336,10 +327,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / L::kKSteps) * L::kBoxBytes
-                           + (kk % L::kKSteps) * 32;
-      wgmma_ss_n64(sc, make_desc(q_s + off, 16, 8 * L::kRowBytes, L::kLayout),
-                   make_desc(k_s + off, 16, 8 * L::kRowBytes, L::kLayout), 1);
+      wgmma_ss_n64(sc, L::k_major(q_s, kk), L::k_major(k_s, kk), 1);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -377,7 +365,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
       const float p0 = masked && dead(i) ? 0.f : exp2f(sc[i] - m[r]);
       const float p1 = masked && dead(i + 1) ? 0.f : exp2f(sc[i + 1] - m[r]);
       l[r] += p0 + p1;
-      pa[i / 8][(i / 4) % 2 * 2 + r] = pack_bf16(p0, p1);
+      a_reg(pa, i) = pack_bf16(p0, p1);
     }
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[i / 2 % 2];
@@ -387,11 +375,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     pin(pa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_pv<D>(o, pa[kk],
-                  make_desc(v_s + kk * 16 * L::kRowBytes, L::kBoxBytes,
-                            8 * L::kRowBytes, L::kLayout));
-    }
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o, pa[kk], L::mn_major(v_s, kk));
     wgmma_commit();
     wgmma_wait_all();
     pin(o);
@@ -424,16 +408,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
         pack_bf16(o[i] / l[r], o[i + 1] / l[r]);
   }
   __syncthreads();
-  constexpr int kChunks = D / 8;  // 16-byte chunks of a row
-  for (int i = tid; i < kRows * kChunks; i += kWgThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const int t = qb * kRows + r;
-    if (t < seq_len) {
-      *reinterpret_cast<uint4*>(
-          out + (((long long)b * seq_len + t) * num_heads + h) * D + 8 * c) =
-          *reinterpret_cast<const uint4*>(smem + L::offset(r, 8 * c));
-    }
-  }
+  copy_out<D>(out, smem, b, h, qb * kRows, seq_len, num_heads, tid);
 }
 
 // The tensor maps are encoded on every call and passed by value as
@@ -453,7 +428,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
     err = encode<D>(&tv, v, batch, seq_len, num_heads, vs.b, vs.t, vs.h);
   }
   if (err != cudaSuccess) return int(err);
-  constexpr size_t smem = kSmem<D>;  // 37 / 73 / 81 KB at D=32/64/128
+  constexpr size_t smem = kSmem<D>;  // 19 / 37 / 73 / 81 KB, D=16 .. 128
   static bool opted_in = false;  // per D; only above the 48 KB default
   if (smem > 48 * 1024 && !opted_in) {
     err = cudaFuncSetAttribute(flash_fwd_bf16<D>,
@@ -501,6 +476,9 @@ int t2r_flash_attention_fwd(const void* q, const void* k, const void* v,
       vs{v_sb, v_st, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 16:
+      return launch<16>(is_bf16, q, k, v, out, lse, batch, seq_len,
+                        num_heads, qs, ks, vs, causal, scale, s);
     case 32:
       return launch<32>(is_bf16, q, k, v, out, lse, batch, seq_len,
                         num_heads, qs, ks, vs, causal, scale, s);

@@ -24,26 +24,56 @@ namespace hopper {
 
 constexpr int kRows = 64;  // rows of a tile (TMA box, wgmma M)
 
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-B units), swizzle layout.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16)
+         | (uint64_t(sbo >> 4) << 32) | (layout << 62);
+}
+
 // A [64, D] bf16 tile in shared memory as TMA writes it: boxes of 64
 // rows × kBoxCols columns (rows of ≤ 128 B; two boxes at D=128), each
-// swizzled with the 128 B pattern (or the 64 B one for 64 B rows). The
-// wgmma descriptors read the same layout; both need 1024-B alignment.
+// swizzled with the pattern of its row width: 128 B, 64 B, or 32 B at
+// D=16. The wgmma descriptors read the same layout (layout type 1, 2 or
+// 3); both need 1024-B alignment.
 template <int D>
 struct Tile {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
   static constexpr int kBoxCols = D > 64 ? 64 : D;
   static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kRowBytes = kBoxCols * 2;          // 64 or 128
-  static constexpr int kBoxBytes = kRows * kRowBytes;     // 4 or 8 KB
+  static constexpr int kRowBytes = kBoxCols * 2;          // 32, 64 or 128
+  static constexpr int kBoxBytes = kRows * kRowBytes;     // 2, 4 or 8 KB
   static constexpr int kBytes = kBoxes * kBoxBytes;
   static constexpr int kKSteps = kRowBytes / 32;          // k16 steps a box
-  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // desc
-  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 7 : 3;
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1
+                                      : kRowBytes == 64 ? 2 : 3;  // desc
+  static constexpr uint32_t kSwizzle = kRowBytes / 16 - 1;  // 7, 3 or 1
+  static constexpr CUtensorMapSwizzle kTmaSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
 
   // Byte offset of element (r, c): 16-B chunks xor address bits 7 up.
   __device__ static uint32_t offset(int r, int c) {
     const uint32_t o = (c / kBoxCols) * kBoxBytes + r * kRowBytes
                        + (c % kBoxCols) * 2;
     return o ^ (((o >> 7) & kSwizzle) << 4);
+  }
+
+  // Descriptor of the tile as a K-major operand (rows along M or N, D
+  // along K) at k16 step kk: the step's 32 B inside the swizzled row.
+  __device__ static uint64_t k_major(uint32_t base, int kk) {
+    return make_desc(base + (kk / kKSteps) * kBoxBytes + (kk % kKSteps) * 32,
+                     16, 8 * kRowBytes, kLayout);
+  }
+
+  // Descriptor of the tile as an MN-major B operand (rows along K, D
+  // along N) at k16 step kk: rows 16kk .. 16kk+15; the leading byte
+  // offset steps to the next box of columns, the stride to 8 more rows.
+  __device__ static uint64_t mn_major(uint32_t base, int kk) {
+    return make_desc(base + kk * 16 * kRowBytes, kBoxBytes, 8 * kRowBytes,
+                     kLayout);
   }
 };
 
@@ -100,14 +130,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
   }
 }
 
-// wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-B units), swizzle layout.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16)
-         | (uint64_t(sbo >> 4) << 32) | (layout << 62);
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -139,6 +161,54 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The register A operand that holds accumulator pair (i, i+1) rounded to
+// bf16: register 2·(n%2) + (i/2)%2 of k16 step n/2, n = i/4 (see
+// Fragments above). `i` must be a compile-time index (unrolled loops).
+template <int K>
+__device__ __forceinline__ uint32_t& a_reg(uint32_t (&a)[K][4], int i) {
+  return a[i / 8][(i / 4) % 2 * 2 + (i / 2) % 2];
+}
+
+// A warpgroup's m64nD accumulator, rounded to bf16, into a [64, D] tile in
+// shared memory at its swizzled offsets (4-byte stores of column pairs).
+template <int D>
+__device__ __forceinline__ void store_acc(uint8_t* tile,
+                                          const float (&acc)[D / 2], int r0,
+                                          int c0) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    *reinterpret_cast<uint32_t*>(
+        tile + Tile<D>::offset(r0 + 8 * ((i / 2) % 2), 8 * (i / 4) + c0)) =
+        pack_bf16(acc[i], acc[i + 1]);
+  }
+}
+
+// Rows t0 .. t0+63 of a [64, D] bf16 tile in shared memory, those below
+// seq_len, to head h of batch b of a dense [B, T, H, D] tensor: one
+// 16-byte store per thread and chunk (D/8 chunks a row), 128 threads.
+template <int D>
+__device__ __forceinline__ void copy_out(__nv_bfloat16* out,
+                                         const uint8_t* tile, int b, int h,
+                                         int t0, int seq_len, int num_heads,
+                                         int tid) {
+  constexpr int kChunks = D / 8;
+  for (int i = tid; i < kRows * kChunks; i += 128) {
+    const int r = i / kChunks, c = i % kChunks;
+    const int t = t0 + r;
+    if (t < seq_len) {
+      *reinterpret_cast<uint4*>(
+          out + (((long long)b * seq_len + t) * num_heads + h) * D + 8 * c) =
+          *reinterpret_cast<const uint4*>(tile + Tile<D>::offset(r, 8 * c));
+    }
+  }
+}
+
+// The first 1024-B aligned byte of dynamic shared memory (the kernels
+// ask for 1 KB more than they use).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* raw) {
+  return raw + (1024 - smem_addr(raw) % 1024) % 1024;
+}
+
 // d[64×64] (+)= A · B, A and B from shared memory, both K-major.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
                                             uint64_t desc_b, int scale_d) {
@@ -158,6 +228,49 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64×32] (+)= A · B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64×N] += A · B for N ∈ {32, 64}, A and B from shared memory, K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b) {
+  if constexpr (N == 32) {
+    wgmma_ss_n32(d, desc_a, desc_b, 1);
+  } else {
+    wgmma_ss_n64(d, desc_a, desc_b, 1);
+  }
+}
+
+// d[64×16] (+)= A · B, A from registers, B from shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
 }
 
 // d[64×32] (+)= A · B, A from registers, B from shared memory MN-major.
@@ -234,6 +347,23 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(scale_d));
 }
 
+// d[64×N] += A · B for N = D ∈ {16, 32, 64, 128}: A (one k16 step) from
+// registers, B from shared memory MN-major.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (N == 16) {
+    wgmma_rs_n16(d, a, desc_b, 1);
+  } else if constexpr (N == 32) {
+    wgmma_rs_n32(d, a, desc_b, 1);
+  } else if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, desc_b, 1);
+  } else {
+    wgmma_rs_n128(d, a, desc_b, 1);
+  }
+}
+
 using EncodeTiled = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
     const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -276,8 +406,7 @@ cudaError_t encode(CUtensorMap* map, const void* base, int batch,
   const CUresult r = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                          : CU_TENSOR_MAP_SWIZZLE_64B,
+      L::kTmaSwizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -26,10 +26,17 @@ both outputs. δ = rowsum(dO·O) − dlse (one torch expression over the
 saved `out` in its own dtype; a None dlse counts as zeros), p = exp(s −
 lse) recomputed from the saved lse, ds = p·(dO·vᵀ − δ)/√D; p rounded to
 dO's dtype before dv = pᵀ·dO, ds to q's dtype before dk = dsᵀ·q and to
-k's dtype before dq = ds·k, all accumulated in f32. `flash_attention`
-and `flash_attention_with_lse` go through the `torch.autograd.Function`
-`FlashAttention` whenever autograd records (grad mode on and an input
-requiring grad); otherwise they call the forward alone.
+k's dtype before dq = ds·k, all accumulated in f32 (bf16: the five
+products on tensor cores, `wgmma`, with q, k, v and dO tiles brought in
+by TMA; a bf16 operand outside TMA's rule, such as a dO that autograd
+hands over with odd strides, is copied dense first; f32: on CUDA
+cores). `flash_attention` and `flash_attention_with_lse` go through the
+`torch.autograd.Function` `FlashAttention` whenever autograd records
+(grad mode on and an input requiring grad); otherwise they call the
+forward alone.
+
+Head dims: D ∈ {16, 32, 64, 128} on the card (the plain versions take
+any D).
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ import torch
 from tensor2robot_tpu_torch.ops import build
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_Y = 65535
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -282,26 +289,45 @@ flash_attention_bwd_dq.launches = 0
 _COUNT_LOCK = threading.Lock()
 
 
+def _dense_strides(x):
+  """x's batch, time and head strides in elements; a dim of size 1 is
+  never stepped along and gets its dense stride."""
+  _, t, h, d = x.shape
+  return tuple(s if n > 1 else dense for s, n, dense in
+               zip(x.stride()[:3], x.shape[:3], (t * h * d, h * d, d)))
+
+
+def _meets_tma_rule(x) -> bool:
+  """TMA (the bf16 kernels' loads) takes a dense last dim, a 16-byte
+  aligned base, and batch, time and head strides of a multiple of 16
+  bytes."""
+  return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+          and all(s * x.element_size() % 16 == 0 for s in _dense_strides(x)))
+
+
 def _view_strides(name, x):
   """x's batch, time and head strides in elements, as the forward kernel
-  reads them. A dim of size 1 is never stepped along and gets its dense
-  stride. bf16 goes through TMA, which takes a 16-byte aligned base and
-  strides of a multiple of 16 bytes: anything else raises."""
+  reads them. The last dim must be dense; bf16 must also meet TMA's rule
+  (`_meets_tma_rule`): anything else raises."""
   if x.stride(-1) != 1:
     raise ValueError(f"{name} needs a dense last (head_dim) axis, "
                      f"strides {x.stride()}")
-  _, t, h, d = x.shape
-  strides = tuple(s if n > 1 else dense for s, n, dense in
-                  zip(x.stride()[:3], x.shape[:3], (t * h * d, h * d, d)))
-  if x.dtype == torch.bfloat16:
-    nbytes = x.element_size()
-    if x.data_ptr() % 16 or any(s * nbytes % 16 for s in strides):
-      raise ValueError(
-          f"{name}: the bf16 forward loads by TMA, which needs a 16-byte "
-          f"aligned base and batch, time and head strides of a multiple of "
-          f"16 bytes; got base % 16 = {x.data_ptr() % 16} and strides "
-          f"{x.stride()} of {nbytes}-byte elements")
-  return strides
+  if x.dtype == torch.bfloat16 and not _meets_tma_rule(x):
+    raise ValueError(
+        f"{name}: the bf16 forward loads by TMA, which needs a 16-byte "
+        f"aligned base and batch, time and head strides of a multiple of "
+        f"16 bytes; got base % 16 = {x.data_ptr() % 16} and strides "
+        f"{x.stride()} of {x.element_size()}-byte elements")
+  return _dense_strides(x)
+
+
+def _bwd_operand(x):
+  """A backward operand as its kernel reads it: f32 through its four
+  strides as it is; bf16 in place where it meets TMA's rule, else a dense
+  copy (autograd may hand over any dO)."""
+  if x.dtype == torch.bfloat16 and not _meets_tma_rule(x):
+    x = x.clone(memory_format=torch.contiguous_format)
+  return x
 
 
 def _launch(q, k, v, causal):
@@ -329,8 +355,8 @@ def _launch(q, k, v, causal):
 
 def _launch_bwd(dkdv: bool, q, k, v, do, lse, delta, causal):
   """Launches the dK/dV (`dkdv`) or the dQ kernel; q, k, v and dO are
-  read through their four strides in place, lse and δ must be dense
-  [B, H, T] f32."""
+  read in place through their strides (bf16 ones that TMA cannot read are
+  copied dense first), lse and δ must be dense [B, H, T] f32."""
   _check_launch(q, k, v, do)
   b, t, h, d = q.shape
   for name, x in (("lse", lse), ("delta", delta)):
@@ -341,9 +367,10 @@ def _launch_bwd(dkdv: bool, q, k, v, do, lse, delta, causal):
   if q.device.type != "cuda":
     raise ValueError(f"flash_attention backward: unsupported device "
                      f"{q.device}")
+  q, k, v, do = (_bwd_operand(x) for x in (q, k, v, do))
   lib = build.load("flash_attention_bwd", _BWD_ARGTYPES)
   strides = (ctypes.c_longlong * 16)(
-      *(s for x in (q, k, v, do) for s in x.stride()))
+      *(s for x in (q, k, v, do) for s in _dense_strides(x) + (x.stride(3),)))
   fn_name = ("t2r_flash_attention_bwd_dkdv" if dkdv
              else "t2r_flash_attention_bwd_dq")
   outs = [torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)

@@ -59,24 +59,27 @@ def _np(x):
                     else x.astype(jnp.float32))
 
 
+# D=16 is the default VRGripper transformer's head dim (width 64, 4 heads).
+@pytest.mark.parametrize("d", [32, 16])
 @pytest.mark.parametrize("t", [64, 48])
 @pytest.mark.parametrize("causal", [False, True])
-def test_plain_version_matches_jax_interpret_f32(causal, t):
-  arrays = _qkv(t, seed=t + causal)
+def test_plain_version_matches_jax_interpret_f32(causal, t, d):
+  arrays = _qkv(t, seed=t + causal, d=d)
   want_out, want_lse = jax_flash_with_lse(
       *_jax(arrays, jnp.float32), causal=causal, block_q=16, block_k=16,
       interpret=True)
   got_out, got_lse = fa.flash_attention_reference(
       *_torch(arrays, torch.float32), causal=causal)
-  assert got_out.shape == (_B, t, _H, _D) and got_lse.shape == (_B, _H, t)
+  assert got_out.shape == (_B, t, _H, d) and got_lse.shape == (_B, _H, t)
   assert got_lse.dtype == torch.float32
   np.testing.assert_allclose(_np(got_out), _np(want_out), atol=1e-5, rtol=0)
   np.testing.assert_allclose(_np(got_lse), _np(want_lse), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("d", [32, 16])
 @pytest.mark.parametrize("causal", [False, True])
-def test_plain_version_matches_jax_interpret_bf16(causal):
-  arrays = _qkv(64, seed=7 + causal)
+def test_plain_version_matches_jax_interpret_bf16(causal, d):
+  arrays = _qkv(64, seed=7 + causal, d=d)
   want_out, want_lse = jax_flash_with_lse(
       *_jax(arrays, jnp.bfloat16), causal=causal, block_q=16, block_k=16,
       interpret=True)
@@ -201,6 +204,45 @@ def test_bf16_rule_takes_the_model_views_and_size_one_dims():
   one = torch.zeros((1, 1, 1, _D), dtype=torch.bfloat16).as_strided(
       (1, 1, 1, _D), (3, 5, 7, 1))
   assert fa._view_strides("q", one) == (_D, _D, _D)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_checks_take_every_kernel_head_dim(dtype, d):
+  """D ∈ {16, 32, 64, 128} passes `_check_launch` (D=24 and 48 raise in
+  `test_launch_validates_before_building`)."""
+  q, k, v = _torch(_qkv(16, seed=11, d=d), dtype)
+  fa._check_launch(q, k, v)
+  fa._check_launch(q, k, v, q)
+
+
+def test_bf16_rule_takes_the_default_model_head_dim_16_views():
+  """The default model's q, k, v (width 64, 4 heads: slices of one
+  [B, T, 12, 16] tensor, time stride 384 B, head stride 32 B) meet TMA's
+  rule in the forward and are read in place by the backward."""
+  qkv = torch.zeros((2, 5, 12, 16), dtype=torch.bfloat16)
+  for x in qkv.split(4, dim=2):
+    assert x.stride() == (960, 192, 16, 1)
+    assert fa._view_strides("q", x) == x.stride()[:3]
+    assert fa._bwd_operand(x) is x
+  fa._check_launch(*qkv.split(4, dim=2))
+
+
+def test_backward_copies_a_bf16_operand_outside_the_tma_rule():
+  """A dO whose head dim is not dense, or whose base sits off 16 bytes,
+  is copied dense (same values) and then meets the rule; an f32 operand
+  is read through its strides as it is."""
+  do = torch.randn(2, 5, 4, 16).to(torch.bfloat16)
+  odd = do.transpose(-1, -2).contiguous().transpose(-1, -2)
+  shifted = _bf16_view(do.shape, (1, 0))
+  shifted.copy_(do)
+  for bad in (odd, shifted):
+    assert not fa._meets_tma_rule(bad)
+    fixed = fa._bwd_operand(bad)
+    assert fixed is not bad and fa._meets_tma_rule(fixed)
+    assert torch.equal(fixed, do)
+  f32 = odd.float()
+  assert fa._bwd_operand(f32) is f32
 
 
 def test_shapes_must_agree():

@@ -74,12 +74,14 @@ def _jax_vjp(causal):
   return _JAX_VJP[causal]
 
 
+# D=16 is the default VRGripper transformer's head dim (width 64, 4 heads).
+@pytest.mark.parametrize("d", [32, 16])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dlse", ["zero", "random"])
 @pytest.mark.parametrize("t", [64, 48])
 @pytest.mark.parametrize("causal", [False, True])
-def test_plain_backward_matches_jax_interpret(causal, t, dlse, dtype):
-  (q, k, v, do), g_lse = _arrays(t, seed=t + 2 * causal)
+def test_plain_backward_matches_jax_interpret(causal, t, dlse, dtype, d):
+  (q, k, v, do), g_lse = _arrays(t, seed=t + 2 * causal, d=d)
   if dlse == "zero":
     g_lse = np.zeros_like(g_lse)
   jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
@@ -91,7 +93,7 @@ def test_plain_backward_matches_jax_interpret(causal, t, dlse, dtype):
       torch.from_numpy(_np(lse)), to_t(do),
       None if dlse == "zero" else torch.from_numpy(g_lse), causal=causal)
   for g, w in zip(got, want):
-    assert g.dtype == tdt and g.shape == (_B, t, _H, _D)
+    assert g.dtype == tdt and g.shape == (_B, t, _H, d)
     _assert_close(g, w, _TOL[dtype])
 
 

@@ -242,10 +242,11 @@ def test_gelu_is_the_tanh_approximation():
 # ---- the whole model ----
 
 
-def _models(dtypes, impl="reference"):
+def _models(dtypes, impl="reference", **widths):
   jdt, tdt = dtypes
+  widths = dict(_SMALL, **widths)
   jax_model = JaxModel(attention_impl="reference", device_dtype=jdt,
-                       **_SMALL)
+                       **widths)
   state = jax_model.create_inference_state(jax.random.PRNGKey(0))
   variables = {"params": jax.tree_util.tree_map(np.asarray, state.params)}
   # Move the positions and temperature off their init so both count.
@@ -258,7 +259,7 @@ def _models(dtypes, impl="reference"):
   jax_state = state.replace(params=jax.tree_util.tree_map(
       jnp.asarray, variables["params"]))
   model = VRGripperTransformerModel(attention_impl=impl, device_dtype=tdt,
-                                    **_SMALL)
+                                    **widths)
   return jax_model, jax_state, model, convert.convert_variables(variables)
 
 
@@ -299,6 +300,25 @@ def test_predict_step_matches_jax_flash_interpret_f32(monkeypatch):
       jax_flash_attention(q, k, v, causal=causal, block_q=8, block_k=8,
                           interpret=True))
   feats = _episode_batch(seed=7)
+  want = _jax_predict(jax_model, jax_state, feats)
+  got = model.predict_step(
+      state, {k: torch.from_numpy(v) for k, v in feats.items()})
+  np.testing.assert_allclose(_np(got["action"]), _np(want["action"]),
+                             atol=1e-5, rtol=0)
+
+
+def test_predict_step_at_head_dim_16_matches_jax_flash_interpret_f32(
+    monkeypatch):
+  """Head dim 16, the default model's (there width 64 over 4 heads; here
+  width 32 over 2): the JAX model with its Pallas flash kernel in
+  interpret mode against the port's flash path on the same weights."""
+  jax_model, jax_state, model, state = _models(_F32, "flash", width=32)
+  assert model.create_network().trunk.block0.attn.head_dim == 16
+  monkeypatch.setattr(
+      jax_tr, "_attend", lambda q, k, v, *, impl, causal, mesh:
+      jax_flash_attention(q, k, v, causal=causal, block_q=8, block_k=8,
+                          interpret=True))
+  feats = _episode_batch(seed=9)
   want = _jax_predict(jax_model, jax_state, feats)
   got = model.predict_step(
       state, {k: torch.from_numpy(v) for k, v in feats.items()})
