@@ -8,10 +8,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   1. device: torch's name for card 0, and nvidia-smi's name + power limit;
   2. build: nvcc of every kernel source in tensor2robot_tpu_torch/csrc
      (cem_head.cu, cem_select.cu, flash_attention.cu,
-     flash_attention_bwd.cu), all started together;
+     flash_attention_bwd.cu), all started together; ptxas registers,
+     spills and dynamic shared memory of each CEM wgmma instantiation;
   3. kernels against their plain versions on the card. cem_select at
      the main path's shapes (P=64, C=H=64, A=4, E=6) in bf16 with
-     sigmoid on and off, at P=50, on exactly-tied scores, and in f32.
+     sigmoid on and off, at P=50, on exactly-tied scores, and in f32;
+     then the serving buckets B = 1, 3, 8, P=200 (four 64-row tiles,
+     the last ragged) and exact ties through a hidden layer at P = 64
+     and 200, every bf16 case rerun for identical bits, each case's
+     path (wgmma or CUDA cores) printed.
      flash_attention (out and lse) causal and not, T = 512, 100, 65, 32,
      17, 1, D = 16, 32, 64, 128, B = 1, 16, bf16 (tensor cores) and f32
      (CUDA cores), H = 4, plus the policy's and the training path's
@@ -51,7 +56,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      serves one episode through `make_context_policy`; then one f32
      train step on the card against the CPU (loss, grad_norm, every
      gradient and every parameter after the Adam update);
-  8. timings with CUDA events (medians): each kernel and its plain
+  8. timings with CUDA events (medians): the launch floor (a one-element
+     add by graph replay), each kernel and its plain
      version (and for flash, SDPA as the library yardstick: its forward
      at all three forward shapes, and its backward as fwd+bwd minus fwd;
      the backward pair, δ and SDPA's backward at B=16, H=4 and T=32 with
@@ -66,8 +72,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the CPU;
   9. fused_cem_head_tail (cem_head.cu) against its plain version: the
      --verify gate's case (B=4, P=64, 8×8×64 → 64, bf16), B = 1, 3, 256,
-     P = 50, f32, C1 = C2 = 128, a ragged shape and the Q-network's
-     P-major tensor as a transposed view;
+     P = 50, f32, C1 = C2 = 128, a ragged shape, 32 → 32 and 4×16×64 →
+     32, the Q-network's P-major tensor as a transposed view and a bf16
+     view outside TMA's rule (copied dense), each case rerun for
+     identical bits and its path printed;
  10. QT-Opt Bellman training at `GraspingQModel()` width: `train_qtopt`
      takes 60 steps of batch 256 over a replay buffer of synthetic-bandit
      transitions (research/qtopt/synthetic_bandit.py), with cem_select's
@@ -146,6 +154,14 @@ def _graph_ms(fn, iters=20, repeats=5):
   return statistics.median(times)
 
 
+def launch_floor_ms():
+  """Device time of the least kernel, a one-element add, per call by
+  graph replay: what any launch costs beside its work."""
+  import torch
+  x = torch.zeros(1, device="cuda")
+  return _graph_ms(lambda: x.add_(1))
+
+
 def _select_inputs(b, p, c, hidden, a_dim, dtype, seed):
   """Random pooled features / samples / q-head at the kernel's shapes."""
   import torch
@@ -222,8 +238,48 @@ def check_select(name, pooled, samples, dense, num_elites, sigmoid,
   return max(errs.values())
 
 
+def _select_path(pooled, samples, dense, num_elites):
+  """The path `fused_cem_select` takes for these inputs, and its bytes of
+  dynamic shared memory (ops/cem_select.py `_plan`)."""
+  from tensor2robot_tpu_torch.ops import cem_select as ops
+  p, _, c = pooled.shape
+  plan = ops._plan(p, [c] + [w.shape[1] for w, _ in dense], pooled.dtype,
+                   num_elites, samples.shape[-1])
+  return f"{plan['path']} smem={plan['smem']}"
+
+
+def _same_bits(name, fn):
+  """Runs `fn` twice on the same inputs; every output must be identical
+  bit for bit (no atomics, sums in a fixed order)."""
+  import torch
+  first, second = fn(), fn()
+  torch.cuda.synchronize()
+  first = first if isinstance(first, tuple) else (first,)
+  second = second if isinstance(second, tuple) else (second,)
+  for a, b in zip(first, second):
+    if not torch.equal(a, b):
+      raise AssertionError(f"{name}: a rerun gave other bits")
+
+
+def _tied_select_inputs(p, b, seed):
+  """Integer features and weights with a hidden layer: every score is an
+  integer, exact in any summation order, and many tie."""
+  import torch
+  bf16 = torch.bfloat16
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  ints = lambda lo, hi, shape: torch.randint(  # noqa: E731
+      lo, hi, shape, generator=g, device="cuda").to(bf16)
+  pooled = ints(0, 4, (p, b, 64))
+  samples = torch.rand((b, p, 4), generator=g, device="cuda") * 2 - 1
+  dense = ((ints(-1, 2, (64, 64)), ints(-2, 3, (64,))),
+           (ints(-1, 2, (64, 1)), torch.full((1,), 0.5, device="cuda",
+                                             dtype=bf16)))
+  return pooled, samples, dense
+
+
 def phase_kernels():
   import torch
+  from tensor2robot_tpu_torch.ops import cem_select as ops
   bf16, f32 = torch.bfloat16, torch.float32
   hidden = (64, 64)
   errs = {}
@@ -248,6 +304,29 @@ def phase_kernels():
             torch.full((1,), 0.5, device="cuda").to(bf16)),)
   check_select("exact ties", pooled, samples, dense, num_elites=5,
                sigmoid=False, score_tol=0.0, exact=True)
+  # The serving buckets, a population of four 64-row tiles (the last
+  # ragged), and exact ties through the tensor-core path (a hidden
+  # layer), one tile and four.
+  cases = [(f"bf16 B={b}", _select_inputs(b, 64, 64, hidden, 4, bf16,
+                                          seed=20 + b), 6, True, 1e-2, False)
+           for b in (1, 3, 8)]
+  cases.append(("bf16 P=200", _select_inputs(64, 200, 64, hidden, 4, bf16,
+                                             seed=24), 6, False, 1e-2, False))
+  cases += [(f"exact ties hidden P={p}", _tied_select_inputs(p, 64, 25 + p),
+             5, False, 0.0, True) for p in (64, 200)]
+  for name, args, elites, sigmoid, tol, exact in cases:
+    errs[name] = check_select(name, *args, num_elites=elites,
+                              sigmoid=sigmoid, score_tol=tol, exact=exact)
+  # Identical bits on a rerun, and the path of every bf16 case.
+  reruns = [("bf16 B=256", _select_inputs(256, 64, 64, hidden, 4, bf16,
+                                          seed=1), 6)]
+  reruns += [(name, args, elites) for name, args, elites, *_ in cases]
+  reruns.append(("exact ties", (pooled, samples, dense), 5))
+  for name, args, elites in reruns:
+    _same_bits(f"cem_select {name}", lambda: ops.fused_cem_select(
+        *args, elites, sigmoid=True))
+    _log(f"cem_select {name}: path {_select_path(*args, elites)}, "
+         f"identical bits on a rerun")
   return max(errs.values())
 
 
@@ -377,6 +456,8 @@ def phase_timings(learner, state):
   spec = learner.observation_specification()
   policy = learner.build_policy()
   rows = {}
+  _log(f"timing launch floor: one-element torch add, device ms per call "
+       f"(graph replay) {launch_floor_ms()}")
   for b in (8, 256):
     args = _select_inputs(b, 64, 64, (64, 64), 4, torch.bfloat16,
                           seed=7 + b)
@@ -1173,16 +1254,22 @@ def check_head(name, act, enc0, ck, scale, shift, dense):
   plan = cem_head.launch_plan(
       tuple(act.shape), ck.shape[-1],
       [ck.shape[-1]] + [w.shape[1] for w, _ in dense], act.dtype)
+  _same_bits(f"cem_head {name}", lambda: cem_head.fused_cem_head_tail(
+      act, enc0, ck, scale, shift, dense))
+  copy = ", act copied dense" if cem_head.needs_dense_copy(act, plan) else ""
   return err, want.abs().max().item(), (
-      "tensor cores" if plan["tensor_cores"] else "CUDA cores")
+      f"{plan['path']} smem={plan['smem']}{copy}, identical bits on a rerun")
 
 
 def phase_head_kernels():
   """fused_cem_head_tail against its plain version: the --verify gate's
   case (B=4, P=64, 8×8×64 → 64, dense 64-64-1, bf16), then B = 1, 3,
   256, P = 50, f32, C1 = C2 = 128, a ragged shape (6×10×6 → 10, dense
-  10-8-1: channels not a multiple of 4, h1 ≠ w1), and act as the
-  Q-network's P-major tensor seen through a transposed view."""
+  10-8-1: channels not a multiple of 4, h1 ≠ w1), two more wgmma shapes
+  (32 → 32; 4×16×64 → 32 with dense 32-48-16-1), act as the Q-network's
+  P-major tensor seen through a transposed view, and a bf16 view
+  outside TMA's rule (copied dense). Every case runs twice for identical
+  bits and prints its path."""
   import torch
   bf16, f32 = torch.bfloat16, torch.float32
   cases = [("verify gate B=4 P=64", (4, 64, 8, 8, 64, 64, (64, 64), bf16),
@@ -1196,7 +1283,9 @@ def phase_head_kernels():
       ("C=128 bf16", (4, 64, 8, 8, 128, 128, (64, 64), bf16)),
       ("C=128 f32", (4, 64, 8, 8, 128, 128, (64, 64), f32)),
       ("ragged f32", (3, 5, 6, 10, 6, 10, (8,), f32)),
-      ("ragged bf16", (3, 5, 6, 10, 6, 10, (8,), bf16)))]
+      ("ragged bf16", (3, 5, 6, 10, 6, 10, (8,), bf16)),
+      ("32 -> 32 bf16", (4, 64, 8, 8, 32, 32, (64,), bf16)),
+      ("4x16x64 -> 32 bf16", (3, 30, 4, 16, 64, 32, (48, 16), bf16)))]
   worst, lines = {}, []
   for i, (name, shape, verify) in enumerate(cases):
     err, q_max, path = check_head(name, *_head_inputs(
@@ -1207,10 +1296,20 @@ def phase_head_kernels():
   for b in (4, 256):
     act, *rest = _head_inputs(b, 64, 8, 8, 64, 64, (64, 64), bf16, seed=600)
     view = act.transpose(0, 1).contiguous().transpose(0, 1)
-    err, _, _ = check_head(f"P-major view B={b}", view, *rest)
+    err, _, path = check_head(f"P-major view B={b}", view, *rest)
     worst["torch.bfloat16"] = max(worst["torch.bfloat16"], err)
-    lines.append(f"P-major view B={b}: {err}")
-  _log(f"kernel check cem_head_tail: {len(cases) + 2} cases, max_abs_err "
+    lines.append(f"P-major view B={b}: {err} ({path})")
+  # A bf16 view outside TMA's rule (rows of 65 channels, the base 2 bytes
+  # past a 16-byte boundary): the wrapper copies it dense first.
+  act, *rest = _head_inputs(4, 64, 8, 8, 64, 64, (64, 64), bf16, seed=601)
+  wide = torch.zeros(act.shape[:-1] + (65,), dtype=bf16, device="cuda")
+  wide[..., 1:] = act
+  err, _, path = check_head("view outside TMA's rule", wide[..., 1:], *rest)
+  if "copied dense" not in path:
+    raise AssertionError(f"view outside TMA's rule not copied: {path}")
+  worst["torch.bfloat16"] = max(worst["torch.bfloat16"], err)
+  lines.append(f"view outside TMA's rule B=4: {err} ({path})")
+  _log(f"kernel check cem_head_tail: {len(cases) + 3} cases, max_abs_err "
        f"{json.dumps(worst)} (tolerances {json.dumps(_HEAD_TOL)}); "
        + "; ".join(lines))
   return max(worst.values())
@@ -1491,6 +1590,8 @@ def phase_qtopt_timings(learner, state, replay, network, encoded):
   params = networks.head_tail_params(network)
   rows = {}
   g = torch.Generator(device="cuda").manual_seed(9)
+  _log(f"timing launch floor: one-element torch add, device ms per call "
+       f"(graph replay) {launch_floor_ms()}")
   for b in (4, 256):
     actions = torch.rand((b, 64, 4), generator=g, device="cuda") * 2 - 1
     with torch.inference_mode():
@@ -1541,6 +1642,44 @@ def phase_qtopt_timings(learner, state, replay, network, encoded):
   return rows, step_graph, step_eager, prof
 
 
+def log_wgmma_kernels(logs):
+  """One line per instantiation of the two CEM kernels' wgmma paths:
+  ptxas's registers and spill bytes, and the dynamic shared memory a
+  launch of it asks for at its smallest shape (P=64, one hidden layer of
+  its widest width)."""
+  import re
+  import torch
+  from tensor2robot_tpu_torch.ops import cem_head, cem_select
+  bf16 = torch.bfloat16
+  for name, log in sorted(logs.items()):
+    entry = None
+    for line in log.splitlines():
+      m = re.search(r"Function properties for (\S+)", line)
+      if m:
+        entry = m.group(1) if "wgmma" in m.group(1) else None
+        continue
+      m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                    line)
+      if entry and m:
+        spill = (int(m.group(1)), int(m.group(2)))
+        continue
+      m = re.search(r"Used (\d+) registers", line)
+      if entry and m:
+        args = [int(x) for x in re.findall(r"Li(\d+)E", entry)]
+        if "cem_select" in entry:
+          kernel = f"cem_select_wgmma<C={args[0]}, H<={args[1]}>"
+          smem = cem_select._plan(64, [args[0], args[1], 1], bf16)["smem"]
+        else:
+          kernel = (f"cem_head_wgmma<C1={args[0]}, C2={args[1]}, "
+                    f"H<={args[2]}>")
+          smem = cem_head.launch_plan((1, 64, 8, 8, args[0]), args[1],
+                                      [args[1], args[2], 1], bf16)["smem"]
+        _log(f"ptxas {name}.cu {kernel}: registers={m.group(1)} "
+             f"spill_stores={spill[0]} spill_loads={spill[1]} "
+             f"dynamic_smem={smem}")
+        entry = None
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -1561,8 +1700,10 @@ def main():
   sources = sorted(f[:-3] for f in os.listdir(build.CSRC_DIR)
                    if f.endswith(".cu"))
   t0 = time.perf_counter()
-  per_kernel = build.build(sources, ptxas_verbose=True)
+  logs = {}
+  per_kernel = build.build(sources, ptxas_verbose=True, logs=logs)
   _log(f"build: {json.dumps(per_kernel)} wall_s={time.perf_counter() - t0}")
+  log_wgmma_kernels(logs)
 
   max_err = phase_kernels()
   flash_err = phase_flash_kernels()

@@ -23,39 +23,52 @@
 // dense head with f32 sums, + the f32 bias, relu and rounding to T
 // between layers.
 //
-// Design. A CTA owns one state b and walks a run of its population in
-// chunks of `rows` members; the grid is (CTAs per state, B), sized so
-// the card has a couple of CTAs per SM even at B=4, where one CTA per
-// state would leave most of the 132 SMs idle. Each chunk is staged into
-// shared memory with the enc0 add, relu and rounding to T on the way in
-// (16-byte loads, several in flight, where the layout allows; act is read
-// through its five strides, so the Q-network's P-major tensor comes in
-// as a transposed view, not a copy). The conv is an implicit GEMM: M =
-// the chunk's output positions, N = C2, K = 9·C1 (the nine taps read
-// the staged members in place, the stride-2 padding as a zero row).
-//   - bf16 (the Bellman path): on tensor cores, `mma.sync` m16n8k16 with
-//     f32 accumulators. The taps are staged once per CTA as bf16 [tap][n]
-//     [k]; each warp owns a 16-position × 32-channel tile. Chunks are as
-//     large as lets two CTAs share an SM (2 members at 8×8×64 → 64), so
-//     one CTA's staging and epilogue overlap the other's conv.
-//   - f32, and bf16 convs too wide to stage whole (C1 = C2 = 128): on
-//     CUDA cores in f32, the taps staged per channel chunk as f32; each
-//     thread owns 4 positions × 4 channels, 4 input channels per step
-//     from float4 loads.
-// The BN affine and relu follow in registers; a member's positions are
-// summed in a fixed order (no atomics: the result is the same on every
-// run), and the dense head runs per member from shared memory with its
-// weights read from device memory (L2-resident).
-//
 // Bound: at the Bellman shape (B=256, P=64, 8×8×64 → 64, bf16) the
 // kernel must read the 134 MB population activation once (~40 µs at
 // 3.35 TB/s) and do 19.3 GFLOP of conv (~20 µs on bf16 tensor cores), so
-// bytes bound it. `mma.sync` is Hopper's older tensor-core path; wgmma
-// and TMA staging are later work.
+// bytes bound it: 0.0407 ms. PR 4's kernel took 0.548 ms there, 13.5×
+// its bound: staging through five strides with plain 16-byte loads, the
+// conv on `mma.sync` (Hopper's older tensor-core path), and a dense head
+// per member out of shared memory.
+//
+// Three paths, chosen by ops/cem_head.py's `launch_plan`:
+//  - wgmma (bf16, h1·w1 = 64, C1 and C2 in {32, 64}: the Q-network's
+//    shape). One CTA per (run of ≤ 64 members, state b); runs are sized
+//    so the batch gives about one CTA per SM (the taps leave room for
+//    one). Two warpgroups take alternate groups of 4 members, so 8 warps
+//    hide each other's gather and product latency. Members arrive by TMA
+//    through a rank-5 map over act's own strides (the Q-network's
+//    transposed P-major view as it is), four to a stage, two stages per
+//    warpgroup behind mbarriers, so a warpgroup's next group lands while
+//    it computes this one. The taps [9·C1, C2] and enc0 come once per
+//    CTA, by TMA; the q-head's weights are staged over them at the end.
+//    The conv is an implicit GEMM, M = 64 (4 members × 16 positions),
+//    N = C2, K = 9·C1 (36 k16 steps at 64 → 64), on wgmma with A from
+//    registers: ldmatrix gathers each stride-2 tap's rows (the high-side
+//    padding a zero row) from the member's tile and from enc0's, and
+//    relu(act + enc0) rounded to bf16 is made in registers. The BN
+//    affine and relu run on the accumulators; warp w holds member w, so
+//    its 16-position mean is an in-warp shuffle sum in a fixed order.
+//    The run's pooled rows go to a [64, C2] tile and the dense head runs
+//    once over it (first warpgroup) with qhead.cuh's wgmma routine
+//    (shared with cem_select.cu).
+//  - mma.sync (other bf16 whose taps fit whole): PR 4's kernel. Chunks
+//    of `rows` members are staged with the enc0 add, relu and rounding on
+//    the way in (16-byte loads where the layout allows, act read through
+//    its five strides); the conv is an implicit GEMM on `mma.sync`
+//    m16n8k16, each warp a 16-position × 32-channel tile; a dense head
+//    per member from shared memory.
+//  - CUDA cores (f32, and bf16 convs too wide to stage whole: C1 = C2 =
+//    128): the same chunks staged as f32, the taps per channel chunk,
+//    each thread 4 positions × 4 channels in f32.
+// No path uses atomics; a member's positions are summed in a fixed
+// order, so a rerun gives the same bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "qhead.cuh"
 
 namespace {
 
@@ -63,8 +76,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLayers = 8;
 constexpr int kMaxSmem = 232448;  // 227 KB per block on sm_90
-// Two blocks on one SM: 228 KB per SM, less 1 KB reserved per block.
-constexpr int kHalfSmem = 233472 / 2 - 1024;
 constexpr int kTM = 4;            // CUDA cores: output positions per item
 constexpr int kTN = 4;            // CUDA cores: output channels per item
 constexpr int kCtasPerSm = 2;     // grid target: CTAs per SM, over B
@@ -203,44 +214,6 @@ __host__ __device__ inline MmaLayout mma_layout(const Shape& s,
   off = align16(off + size_t(L.mp) * L.c2p * sizeof(float));
   L.total = tail_layout(off, rows, s.C2, max_width, &L.tail);
   return L;
-}
-
-struct Plan {
-  bool mma;
-  int rows, nc;
-  size_t smem;
-};
-
-// bf16 on tensor cores when the taps fit whole: the most members per
-// chunk (at most 4) that let two CTAs share an SM, else that fit at all;
-// otherwise CUDA cores with 4 members and all channels where they fit,
-// else fewer channels, then fewer members.
-bool make_plan(const Shape& s, int max_width, bool bf16, Plan* plan) {
-  if (bf16) {
-    const int limits[2] = {kHalfSmem, kMaxSmem};
-    for (const int limit : limits) {
-      for (int r = 4; r >= 1; r /= 2) {
-        const MmaLayout L = mma_layout(s, max_width, r);
-        if (L.total <= size_t(limit)) {
-          *plan = Plan{true, r, s.C2, L.total};
-          return true;
-        }
-      }
-    }
-  }
-  for (int r = 4; r >= 1; r /= 2) {
-    int n = s.C2;
-    while (true) {
-      const CoreLayout L = core_layout(s, max_width, r, n);
-      if (L.total <= size_t(kMaxSmem)) {
-        *plan = Plan{false, r, n, L.total};
-        return true;
-      }
-      if (n <= kTN) break;
-      n = round_up((n + 1) / 2, kTN);
-    }
-  }
-  return false;
 }
 
 // ---- device pieces shared by both paths ----
@@ -664,6 +637,237 @@ cem_head_core_kernel(const T* __restrict__ act, const T* __restrict__ enc0,
   }
 }
 
+// ---- bf16 on wgmma, members by TMA (hopper.cuh, qhead.cuh) ----
+
+constexpr int kWgThreads = 128;  // one warpgroup
+constexpr int kConsumers = 2;    // warpgroups per CTA, alternate groups
+constexpr int kCtaThreads = kConsumers * kWgThreads;
+constexpr int kMembers = 4;      // members per product: 4 × 16 positions
+constexpr int kPixels = 64;      // h1·w1 on this path (16 output positions)
+constexpr int kMaxRun = 64;      // members per CTA: one q-head tile
+
+struct WgLayout {
+  uint32_t taps_off, enc_off, stage_off, pool_off, bn_off, zero_off,
+      bar_off;
+  int stages;
+  size_t total;  // with the 1 KB of alignment slack
+};
+
+// Bytes from the 1024-B aligned base (ops/cem_head.py computes the same
+// total): the taps [9·C1, C2], enc0's 64 pixels and `stages` groups of 4
+// members, with the q-head laid over them (it is staged once the conv is
+// done); then the pooled tile [64, C2], BN, a zero row, the mbarriers.
+template <int C1, int C2>
+WgLayout wg_layout(qhead::Params* qp, int stages) {
+  WgLayout L;
+  L.stages = stages;
+  L.taps_off = 0;
+  size_t off = size_t(9) * C1 * C2 * 2;
+  L.enc_off = uint32_t(qhead::align_to(off, 1024));
+  off = L.enc_off + size_t(kPixels) * C1 * 2;
+  L.stage_off = uint32_t(qhead::align_to(off, 1024));
+  off = L.stage_off + size_t(stages) * kMembers * kPixels * C1 * 2;
+  const size_t head_end = qhead::layout(qp, 0);
+  const size_t overlay_end = off > head_end ? off : head_end;
+  L.pool_off = uint32_t(qhead::align_to(overlay_end, 1024));
+  off = L.pool_off + size_t(hopper::kRows) * C2 * 2;
+  L.bn_off = uint32_t(off);
+  off += 2 * C2 * 4;
+  L.zero_off = uint32_t(qhead::align_to(off, 16));
+  off = L.zero_off + 16;
+  L.bar_off = uint32_t(qhead::align_to(off, 8));
+  off = L.bar_off + 8 * (stages + 1);
+  L.total = qhead::align_to(off, 16) + 1024;
+  return L;
+}
+
+// relu(f32(a) + f32(e)) rounded to bf16, for two bf16 pairs at once. One
+// correctly rounded bf16 add gives the same bits: the f32 sum of two
+// bf16 values is exact unless their exponents lie more than 16 apart,
+// and then both roundings return the larger; relu commutes with the
+// rounding. So two instructions instead of nine.
+__device__ __forceinline__ uint32_t merge_relu(uint32_t a, uint32_t e) {
+  uint32_t out;
+  asm("{\n.reg .b32 s;\n"
+      "add.rn.bf16x2 s, %1, %2;\n"
+      "max.bf16x2 %0, s, %3;\n}\n"
+      : "=r"(out) : "r"(a), "r"(e), "r"(0u));
+  return out;
+}
+
+// One CTA per (run of ≤ 64 members, state b), two warpgroups taking
+// alternate groups of 4 members: group g lands in stage g % S (S even),
+// so each warpgroup waits on and refills only its own stages, in order.
+// Warp w of a product owns member w of the group: rows 16w .. 16w+15
+// are its 16 output positions. The conv is an implicit GEMM, M = 64,
+// N = C2, K = 9·C1, on wgmma with A from registers: each lane's
+// ldmatrix row address is the stride-2 tap's input pixel (XLA's
+// high-side padding: a zero row), the same address in enc0's tile gives
+// the enc0 add, and relu and the bf16 rounding happen in registers. Two
+// fragment buffers let one tap's products run while the next tap's
+// fragments are built.
+template <int C1, int C2, int kH>
+__global__ void __launch_bounds__(kCtaThreads, 1)
+cem_head_wgmma(const __grid_constant__ CUtensorMap tact,
+               const __grid_constant__ CUtensorMap tenc,
+               const __grid_constant__ CUtensorMap ttaps,
+               const float* __restrict__ bn_scale,
+               const float* __restrict__ bn_shift, qhead::Params qp,
+               WgLayout lay, float* __restrict__ q, int P, int W1, int run,
+               int p_outer) {
+  using TA = hopper::Tile<C1>;  // act / enc0 rows: pixels
+  using TB = hopper::Tile<C2>;  // taps rows: (tap, c1); pooled rows
+  constexpr int kMemberBytes = kPixels * C1 * 2;
+  constexpr int kGroupBytes = kMembers * kMemberBytes;
+  constexpr int kTapRows = 3 * C1;  // rows of one taps box
+  constexpr int kKSteps = C1 / 16;  // k16 steps of one tap
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  const uint32_t base = hopper::smem_addr(smem);
+  const uint32_t bar_w = base + lay.bar_off;  // taps and enc0
+  const int S = lay.stages;
+  const int b = blockIdx.y;
+  const int p_begin = blockIdx.x * run;
+  const int members = min(run, P - p_begin);
+  const int groups = (members + kMembers - 1) / kMembers;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / kWgThreads, wtid = tid % kWgThreads;
+  const int warp = wtid / 32;
+
+  const CUtensorMap* act_map = &tact;
+  auto issue = [=](int g) {  // group g's members into stage g % S
+    const int st = g % S;
+    const uint32_t bar = bar_w + 8 * (1 + st);
+    const uint32_t dst = base + lay.stage_off + st * kGroupBytes;
+    const int p = p_begin + kMembers * g;
+    hopper::mbar_expect_tx(bar, kGroupBytes);
+    if (p_outer) {
+      hopper::tma_load_5d(dst, act_map, bar, 0, 0, 0, b, p);
+    } else {
+      hopper::tma_load_5d(dst, act_map, bar, 0, 0, 0, p, b);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i <= S; ++i) hopper::mbar_init(bar_w + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar_w, 9 * C1 * C2 * 2 + kMemberBytes);
+    for (int i = 0; i < 3; ++i)
+      hopper::tma_load_2d(base + lay.taps_off + i * kTapRows * C2 * 2,
+                          &ttaps, bar_w, 0, i * kTapRows);
+    hopper::tma_load_2d(base + lay.enc_off, &tenc, bar_w, 0, b * kPixels);
+    for (int g = 0; g < S && g < groups; ++g) issue(g);
+  }
+  const float* bn = reinterpret_cast<const float*>(smem + lay.bn_off);
+  for (int i = tid; i < C2; i += kCtaThreads) {
+    hopper::cp_async4(base + lay.bn_off + 4 * i, bn_scale + i);
+    hopper::cp_async4(base + lay.bn_off + 4 * (C2 + i), bn_shift + i);
+  }
+  if (tid < 4) reinterpret_cast<uint32_t*>(smem + lay.zero_off)[tid] = 0u;
+  for (int i = tid; i < hopper::kRows * C2 / 8; i += kCtaThreads)
+    reinterpret_cast<uint4*>(smem + lay.pool_off)[i] = make_uint4(0, 0, 0, 0);
+  hopper::cp_async_wait_all();
+  __syncthreads();
+  hopper::mbar_wait(bar_w, 0);
+
+  // ldmatrix rows: lane i addresses row (i%8) + 8·((i/8)%2), columns
+  // 8·(i/16) .. +7 of a k16 step; the row is an output position.
+  const int pos = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int cofs = 8 * (lane >> 4);
+  const int w2 = W1 / 2, H1 = kPixels / W1;
+  const int oi = pos / w2, oj = pos % w2;
+  const uint32_t zero_s = base + lay.zero_off;
+  const uint32_t enc_s = base + lay.enc_off;
+  const uint32_t taps_s = base + lay.taps_off;
+  const int t = lane % 4;
+
+  for (int g = wg; g < groups; g += kConsumers) {
+    const int st = g % S;
+    hopper::mbar_wait(bar_w + 8 * (1 + st), (g / S) & 1);
+    const uint32_t mem_s =
+        base + lay.stage_off + st * kGroupBytes + warp * kMemberBytes;
+    float acc[C2 / 2];
+#pragma unroll
+    for (int i = 0; i < C2 / 2; ++i) acc[i] = 0.f;
+    uint32_t fa[2][kKSteps][4];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ii = 2 * oi + tap / 3, jj = 2 * oj + tap % 3;
+      const bool live = ii < H1 && jj < W1;
+      if (tap >= 2) hopper::wgmma_wait<1>();  // tap − 2's products are done
+      uint32_t (&f)[kKSteps][4] = fa[tap & 1];
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        const uint32_t off = TA::offset(ii * W1 + jj, ks * 16 + cofs);
+        uint32_t ra[4], re[4];
+        hopper::ldmatrix_x4(ra, live ? mem_s + off : zero_s);
+        hopper::ldmatrix_x4(re, live ? enc_s + off : zero_s);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) f[ks][r] = merge_relu(ra[r], re[r]);
+      }
+      if (tap == 8) {  // the warpgroup has read the stage: refill it
+        asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(kWgThreads)
+                     : "memory");
+        if (wtid == 0 && g + S < groups) issue(g + S);
+      }
+      hopper::pin(acc);
+      hopper::pin(f);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks)
+        hopper::wgmma_rs<C2>(acc, f[ks], TB::mn_major(taps_s,
+                                                      tap * kKSteps + ks));
+      hopper::wgmma_commit();
+    }
+    hopper::wgmma_wait_all();
+    hopper::pin(acc);
+    hopper::pin(fa[0]);
+    hopper::pin(fa[1]);
+
+    // BN affine and relu per element; the member's 16 positions summed
+    // in a fixed order (its two rows, then lanes 4 and 8 and 16 apart).
+    const int m = kMembers * g + warp;
+#pragma unroll
+    for (int n = 0; n < C2 / 8; ++n) {
+      float mean[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        const float sc = bn[col], sh = bn[C2 + col];
+        float v = bn_relu(acc[4 * n + e], sc, sh) +
+                  bn_relu(acc[4 * n + 2 + e], sc, sh);
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        mean[e] = v / 16.f;
+      }
+      if (lane < 4)
+        *reinterpret_cast<uint32_t*>(smem + lay.pool_off +
+                                     TB::offset(m, 8 * n + 2 * t)) =
+            hopper::pack_bf16(mean[0], mean[1]);
+    }
+  }
+
+  // The dense head over the run's pooled rows (zero rows past it), its
+  // weights staged over the taps and stages the conv no longer reads.
+  __syncthreads();
+  qhead::stage(qp, smem, tid, kCtaThreads);
+  hopper::cp_async_wait_all();
+  hopper::fence_proxy_async();
+  __syncthreads();
+  if (wg != 0) return;
+  const float2 sc = qhead::rows<C2, kH>(qp, smem, base, base + lay.pool_off,
+                                        tid);
+  const int r0 = 16 * warp + lane / 4;
+  if (lane % 4 == 0) {
+    float* qb = q + size_t(b) * P + p_begin;
+    if (r0 < members) qb[r0] = sc.x;
+    if (r0 + 8 < members) qb[r0 + 8] = sc.y;
+  }
+}
+
 // ---- host side ----
 
 int max_width_of(const DenseParams& dp) {
@@ -696,52 +900,157 @@ cudaError_t opt_in(K kernel, size_t smem, size_t* opted_in) {
   return err;
 }
 
-template <typename T>
-int launch(const void* act, const void* enc0, const void* taps,
-           const float* bn_scale, const float* bn_shift,
-           const DenseParams& dp, float* q, const Shape& s,
-           cudaStream_t stream) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  const int max_width = max_width_of(dp);
-  Plan plan;
-  if (!make_plan(s, max_width, kBf16, &plan))
-    return int(cudaErrorInvalidValue);
-  static int sms = 0;
-  if (sms == 0) {
+cudaError_t sm_count(int* sms) {
+  static int count = 0;
+  if (count == 0) {
     int device = 0;
     cudaError_t err = cudaGetDevice(&device);
     if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
                                    device);
-    if (err != cudaSuccess) return int(err);
+    if (err != cudaSuccess) return err;
   }
+  *sms = count;
+  return cudaSuccess;
+}
+
+// The mma.sync (tensor_cores) and CUDA-core paths with the plan's
+// members per chunk (`rows`) and channels per tap chunk (`nc`).
+template <typename T>
+int launch_chunks(bool mma, int rows, int nc, size_t planned_smem,
+                  const void* act, const void* enc0, const void* taps,
+                  const float* bn_scale, const float* bn_shift,
+                  const DenseParams& dp, float* q, const Shape& s, int sms,
+                  cudaStream_t stream) {
+  const int max_width = max_width_of(dp);
+  const size_t smem = mma ? mma_layout(s, max_width, rows).total
+                          : core_layout(s, max_width, rows, nc).total;
+  if (rows < 1 || nc < 1 || smem != planned_smem || smem > size_t(kMaxSmem))
+    return int(cudaErrorInvalidValue);
   // CTAs per state: enough for kCtasPerSm CTAs per SM over the batch,
   // at most one per population chunk.
-  const int chunks = (s.P + plan.rows - 1) / plan.rows;
+  const int chunks = (s.P + rows - 1) / rows;
   int per_state = (kCtasPerSm * sms + s.B - 1) / s.B;
   per_state = per_state < chunks ? per_state : chunks;
   const dim3 grid(per_state, s.B);
   const int vec = can_vectorize<T>(act, enc0, s);
   cudaError_t err;
-  if (plan.mma) {
+  if (mma) {
     static size_t opted_in = 0;
-    err = opt_in(cem_head_mma_kernel, plan.smem, &opted_in);
+    err = opt_in(cem_head_mma_kernel, smem, &opted_in);
     if (err != cudaSuccess) return int(err);
-    cem_head_mma_kernel<<<grid, kThreads, plan.smem, stream>>>(
+    cem_head_mma_kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(act),
         static_cast<const __nv_bfloat16*>(enc0),
         static_cast<const __nv_bfloat16*>(taps), bn_scale, bn_shift, dp, q,
-        s, plan.rows, max_width, vec);
+        s, rows, max_width, vec);
   } else {
     static size_t opted_in = 0;  // per T
-    err = opt_in(cem_head_core_kernel<T>, plan.smem, &opted_in);
+    err = opt_in(cem_head_core_kernel<T>, smem, &opted_in);
     if (err != cudaSuccess) return int(err);
-    cem_head_core_kernel<T><<<grid, kThreads, plan.smem, stream>>>(
+    cem_head_core_kernel<T><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(act), static_cast<const T*>(enc0),
-        static_cast<const T*>(taps), bn_scale, bn_shift, dp, q, s,
-        plan.rows, plan.nc, max_width, vec);
+        static_cast<const T*>(taps), bn_scale, bn_shift, dp, q, s, rows, nc,
+        max_width, vec);
   }
   return int(cudaGetLastError());
+}
+
+template <int C1, int C2, int kH>
+int launch_wgmma_t(const void* act, const long long* st, const void* enc0,
+                   const void* taps, const float* bn_scale,
+                   const float* bn_shift, qhead::Params qp, float* q,
+                   const Shape& s, int stages, size_t planned_smem, int sms,
+                   cudaStream_t stream) {
+  using TA = hopper::Tile<C1>;
+  using TB = hopper::Tile<C2>;
+  const WgLayout lay = wg_layout<C1, C2>(&qp, stages);
+  if (lay.total != planned_smem || lay.total > size_t(kMaxSmem))
+    return int(cudaErrorInvalidValue);
+  // act [B, P, h1, w1, C1] as a rank-5 map, dims innermost first: C1,
+  // w1, h1, then P and B in the order of their strides.
+  const int p_outer = st[1] > st[0];
+  CUtensorMap tact, tenc, ttaps;
+  const cuuint64_t adims[5] = {
+      cuuint64_t(C1), cuuint64_t(s.W1), cuuint64_t(s.H1),
+      cuuint64_t(p_outer ? s.B : s.P), cuuint64_t(p_outer ? s.P : s.B)};
+  const cuuint64_t astrides[4] = {
+      cuuint64_t(st[3]) * 2, cuuint64_t(st[2]) * 2,
+      cuuint64_t(p_outer ? st[0] : st[1]) * 2,
+      cuuint64_t(p_outer ? st[1] : st[0]) * 2};
+  const cuuint32_t abox[5] = {cuuint32_t(C1), cuuint32_t(s.W1),
+                              cuuint32_t(s.H1),
+                              cuuint32_t(p_outer ? 1 : kMembers),
+                              cuuint32_t(p_outer ? kMembers : 1)};
+  cudaError_t err = hopper::encode_bf16(&tact, act, 5, adims, astrides,
+                                        abox, TA::kTmaSwizzle);
+  const cuuint64_t edims[2] = {cuuint64_t(C1), cuuint64_t(s.B) * kPixels};
+  const cuuint64_t estrides[1] = {cuuint64_t(C1) * 2};
+  const cuuint32_t ebox[2] = {cuuint32_t(C1), cuuint32_t(kPixels)};
+  if (err == cudaSuccess)
+    err = hopper::encode_bf16(&tenc, enc0, 2, edims, estrides, ebox,
+                              TA::kTmaSwizzle);
+  const cuuint64_t tdims[2] = {cuuint64_t(C2), cuuint64_t(9) * C1};
+  const cuuint64_t tstrides[1] = {cuuint64_t(C2) * 2};
+  const cuuint32_t tbox[2] = {cuuint32_t(C2), cuuint32_t(3 * C1)};
+  if (err == cudaSuccess)
+    err = hopper::encode_bf16(&ttaps, taps, 2, tdims, tstrides, tbox,
+                              TB::kTmaSwizzle);
+  if (err != cudaSuccess) return int(err);
+  static size_t opted_in = 0;  // per instantiation
+  err = opt_in(cem_head_wgmma<C1, C2, kH>, lay.total, &opted_in);
+  if (err != cudaSuccess) return int(err);
+  // Members per CTA: a multiple of 4, enough CTAs for one per SM over
+  // the batch, at most one q-head tile.
+  int run = (s.P * s.B + sms - 1) / sms;
+  run = (run + kMembers - 1) / kMembers * kMembers;
+  run = run < kMembers ? kMembers : run > kMaxRun ? kMaxRun : run;
+  const dim3 grid((s.P + run - 1) / run, s.B);
+  cem_head_wgmma<C1, C2, kH><<<grid, kCtaThreads, lay.total, stream>>>(
+      tact, tenc, ttaps, bn_scale, bn_shift, qp, lay, q, s.P, s.W1, run,
+      p_outer);
+  return int(cudaGetLastError());
+}
+
+// The wgmma path's rule (ops/cem_head.py `launch_plan` states the same):
+// bf16, h1·w1 = 64, C1 and C2 in {32, 64}, at least one hidden dense
+// layer, hidden widths multiples of 16 up to 256.
+int launch_wgmma(const void* act, const long long* st, const void* enc0,
+                 const void* taps, const float* bn_scale,
+                 const float* bn_shift, const DenseParams& dp, float* q,
+                 const Shape& s, int stages, size_t planned_smem, int sms,
+                 cudaStream_t stream) {
+  if (s.H1 * s.W1 != kPixels || dp.n_layers < 2 || stages < 2 ||
+      stages % kConsumers)
+    return int(cudaErrorInvalidValue);
+  qhead::Params qp = {};
+  qp.n_layers = dp.n_layers;
+  int widest = 0;
+  for (int l = 0; l <= dp.n_layers; ++l) qp.dims[l] = dp.dims[l];
+  for (int l = 0; l < dp.n_layers; ++l) {
+    qp.w[l] = static_cast<const __nv_bfloat16*>(dp.w[l]);
+    qp.b[l] = static_cast<const __nv_bfloat16*>(dp.b[l]);
+    if (l < dp.n_layers - 1) {
+      const int h = dp.dims[l + 1];
+      if (h % 16 || h > 256) return int(cudaErrorInvalidValue);
+      widest = h > widest ? h : widest;
+    }
+  }
+#define T2R_HEAD_CASE(c1, c2)                                               \
+  if (s.C1 == c1 && s.C2 == c2)                                             \
+    return widest <= 64                                                     \
+               ? launch_wgmma_t<c1, c2, 64>(act, st, enc0, taps, bn_scale,  \
+                                            bn_shift, qp, q, s, stages,     \
+                                            planned_smem, sms, stream)      \
+               : launch_wgmma_t<c1, c2, 256>(act, st, enc0, taps, bn_scale, \
+                                             bn_shift, qp, q, s, stages,    \
+                                             planned_smem, sms, stream);
+  T2R_HEAD_CASE(64, 64)
+  T2R_HEAD_CASE(32, 32)
+  T2R_HEAD_CASE(64, 32)
+  T2R_HEAD_CASE(32, 64)
+#undef T2R_HEAD_CASE
+  return int(cudaErrorInvalidValue);
 }
 
 bool make_params(int n_layers, const void* const* w, const void* const* b,
@@ -751,8 +1060,8 @@ bool make_params(int n_layers, const void* const* w, const void* const* b,
   *dp = DenseParams{};
   dp->n_layers = n_layers;
   for (int l = 0; l < n_layers; ++l) {
-    dp->w[l] = w ? w[l] : nullptr;
-    dp->b[l] = b ? b[l] : nullptr;
+    dp->w[l] = w[l];
+    dp->b[l] = b[l];
   }
   for (int l = 0; l <= n_layers; ++l) dp->dims[l] = dims[l];
   return true;
@@ -762,52 +1071,45 @@ bool make_params(int n_layers, const void* const* w, const void* const* b,
 
 extern "C" {
 
-// The launch plan for a shape: whether the conv runs on tensor cores,
-// population members per chunk, output channels per chunk and
-// shared-memory bytes. Returns 0, or a CUDA error code when no plan fits
-// in 227 KB.
-int t2r_cem_head_plan(int B, int P, int H1, int W1, int C1, int C2,
-                      int n_layers, const int* dims, int is_bf16,
-                      int* tensor_cores, int* rows, int* nc, size_t* smem) {
-  DenseParams dp;
-  if (!make_params(n_layers, nullptr, nullptr, dims, &dp))
-    return int(cudaErrorInvalidValue);
-  const Shape s = {B, P, H1, W1, C1, C2, {0, 0, 0, 0, 0}};
-  Plan plan;
-  if (!make_plan(s, max_width_of(dp), is_bf16 != 0, &plan))
-    return int(cudaErrorInvalidValue);
-  *tensor_cores = plan.mma;
-  *rows = plan.rows;
-  *nc = plan.nc;
-  *smem = plan.smem;
-  return 0;
-}
-
 // Launches one head tail on `stream`; returns cudaGetLastError() (0 ok).
 // act_strides: 5 element strides of act for (b, p, i, j, c). w / b are
 // host arrays of n_layers device pointers; dims has n_layers + 1
-// entries (dims[0] = C2, dims[n_layers] = 1).
+// entries (dims[0] = C2, dims[n_layers] = 1). The plan is
+// ops/cem_head.py's `launch_plan`: `path` 0 CUDA cores, 1 mma.sync
+// (bf16), 2 wgmma (bf16; act, enc0 and taps read by TMA); `rows` and
+// `nc` the chunking of paths 0 and 1, `stages` the act ring of path 2,
+// and `smem` the shared-memory bytes, which the layout here must
+// reproduce (a launch whose layouts disagree is refused).
 int t2r_cem_head_tail(const void* act, const long long* act_strides,
                       const void* enc0, const void* taps,
                       const void* bn_scale, const void* bn_shift,
                       int n_layers, const void* const* w,
                       const void* const* b, const int* dims, void* q, int B,
                       int P, int H1, int W1, int C1, int C2, int is_bf16,
+                      int path, int rows, int nc, int stages, size_t smem,
                       void* stream) {
   DenseParams dp;
   if (!make_params(n_layers, w, b, dims, &dp) || dims[0] != C2 || B < 1 ||
       B > 65535 || P < 1 || H1 < 2 || W1 < 2 || (H1 & 1) || (W1 & 1) ||
-      C1 < 1 || C2 < 1)
+      C1 < 1 || C2 < 1 || path < 0 || path > 2 || (path && !is_bf16))
     return int(cudaErrorInvalidValue);
   Shape s = {B, P, H1, W1, C1, C2, {0, 0, 0, 0, 0}};
   for (int i = 0; i < 5; ++i) s.act_stride[i] = act_strides[i];
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return int(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(bn_scale);
   const float* sh = static_cast<const float*>(bn_shift);
   float* out = static_cast<float*>(q);
-  return is_bf16 ? launch<__nv_bfloat16>(act, enc0, taps, sc, sh, dp, out, s,
-                                         st)
-                 : launch<float>(act, enc0, taps, sc, sh, dp, out, s, st);
+  if (path == 2)
+    return launch_wgmma(act, act_strides, enc0, taps, sc, sh, dp, out, s,
+                        stages, smem, sms, st);
+  return is_bf16 ? launch_chunks<__nv_bfloat16>(path == 1, rows, nc, smem,
+                                                act, enc0, taps, sc, sh, dp,
+                                                out, s, sms, st)
+                 : launch_chunks<float>(false, rows, nc, smem, act, enc0,
+                                        taps, sc, sh, dp, out, s, sms, st);
 }
 
 }  // extern "C"

@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks of the port's attention kernels, and
-// the layout they agree on: a [64, D] bf16 tile of a strided
+// Hopper (sm_90a) building blocks of the port's attention and CEM
+// kernels, and the layout they agree on: a [64, D] bf16 tile of a strided
 // [B, T, H, D] view, loaded by TMA through a rank-4 tensor map into
-// shared memory with the swizzle that wgmma's descriptors read; mbarrier
-// and TMA primitives; wgmma descriptors and the m64nNk16 bf16 → f32
-// instructions (A from shared memory or from registers).
+// shared memory with the swizzle that wgmma's descriptors read (the CEM
+// kernels encode maps of rank 2, 3 and 5 with `encode_bf16`); mbarrier,
+// TMA, ldmatrix and cp.async primitives; wgmma descriptors and the
+// m64nNk16 bf16 → f32 instructions (A from shared memory or from
+// registers).
 //
 // Fragments: a warpgroup's m64nN f32 accumulator gives warp w rows 16w ..
 // 16w+15, and lane l rows r0 = 16w + l/4 and r0 + 8, columns 2(l%4) and
@@ -39,7 +41,8 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 // 3); both need 1024-B alignment.
 template <int D>
 struct Tile {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "tile width");
   static constexpr int kBoxCols = D > 64 ? 64 : D;
   static constexpr int kBoxes = D / kBoxCols;
   static constexpr int kRowBytes = kBoxCols * 2;          // 32, 64 or 128
@@ -130,6 +133,76 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
   }
 }
 
+// Generic-proxy writes to shared memory (st.shared) made visible to the
+// async proxy (wgmma operands, TMA stores); a barrier must follow.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// One box of a map of rank 2, 3 or 5 at coordinates c (innermost first).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+        "r"(c1) : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+        "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+        "r"(c1), "r"(c2), "r"(c3), "r"(c4) : "memory");
+}
+
+// Four 8×8 bf16 matrices from shared memory: lane i gives the 16-byte row
+// address of row i%8 of matrix i/8; register j of lane l holds row l/4,
+// columns 2(l%4) and +1 of matrix j (an m64k16 A fragment's layout when
+// the matrices are rows 0-7 / 8-15 × columns 0-7 / 8-15, in that order).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr) : "memory");
+}
+
+// 4-byte asynchronous copy global → shared (completes at cp_async_wait).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               ::"r"(dst), "l"(src) : "memory");
+}
+// 16-byte asynchronous copy global → shared (bypassing L1).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Waits until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -138,6 +211,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Waits until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving register reads or writes across an
@@ -244,6 +322,28 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64×64] (+)= A · B, A from shared memory K-major, B from shared memory
+// MN-major (a [K, N] matrix with N contiguous, as weights are stored).
+__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t desc_a,
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -407,6 +507,25 @@ cudaError_t encode(CUtensorMap* map, const void* base, int batch,
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       L::kTmaSwizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tiled map over a bf16 tensor of rank 2 to 5: dims and boxes innermost
+// first, strides in bytes for dims 1 .. rank-1 (multiples of 16), zero
+// fill past the edges, the given swizzle.
+inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
+                               const cuuint64_t* dims,
+                               const cuuint64_t* strides,
+                               const cuuint32_t* box,
+                               CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cuuint32_t(rank),
+      const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

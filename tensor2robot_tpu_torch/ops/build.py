@@ -56,11 +56,12 @@ def library_path(name: str) -> Path:
   return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str], ptxas_verbose: bool = False
-          ) -> Dict[str, float]:
+def build(names: Iterable[str], ptxas_verbose: bool = False,
+          logs: Dict[str, str] = None) -> Dict[str, float]:
   """Compiles every listed kernel whose library is missing, one nvcc
   each, all started together. Returns wall seconds per name (0.0 when
-  already built). `ptxas_verbose` prints registers/smem/spills."""
+  already built). `ptxas_verbose` prints registers/smem/spills; `logs`,
+  when given, receives each compiled name's compiler output."""
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   started = {}
   seconds = {}
@@ -84,6 +85,8 @@ def build(names: Iterable[str], ptxas_verbose: bool = False
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
       if ptxas_verbose and log:
         print(log, end="")
+      if logs is not None:
+        logs[name] = log
       os.replace(tmp, out)  # atomic: a concurrent builder sees old or new
   finally:
     for proc, tmp, _, _ in started.values():

@@ -22,6 +22,11 @@ relu and rounding between layers. This is not the order of
 dtype and rounds the conv output before batch norm: the two agree to
 bf16 tolerance, and in f32 to summation order.
 
+`launch_plan` picks the kernel's path by an explicit rule: bf16 at the
+Q-network's shape (h1·w1 = 64, C1 and C2 in {32, 64}) on `wgmma` with
+act, enc0 and the taps read by TMA; other bf16 on `mma.sync`; f32 on
+CUDA cores. A bf16 act view outside TMA's rule is copied dense first.
+
 The Mosaic-only arguments of the JAX function (`interpret`, `block_b`
 and with it the batch's divisibility, the `[B, P, 128]` broadcast
 output) have no counterpart here.
@@ -37,23 +42,29 @@ import torch
 import torch.nn.functional as F
 
 from tensor2robot_tpu_torch.ops import build
-from tensor2robot_tpu_torch.ops.cem_select import _mlp_f32
+from tensor2robot_tpu_torch.ops.cem_select import (
+    _align,
+    _aligned16,
+    _mlp_f32,
+    qhead_smem,
+)
 
 _MAX_LAYERS = 8
+_MAX_SMEM = 232448  # 227 KB per block
+_HALF_SMEM = 233472 // 2 - 1024  # two blocks on one SM
+_PATHS = {"cuda_cores": 0, "mma_sync": 1, "wgmma": 2}
+_WGMMA_CHANNELS = (32, 64)  # C1 and C2 the wgmma path is built for
+_WGMMA_PIXELS = 64  # h1·w1: 16 output positions, 4 members per product
 
 _ARGTYPES = {
-    "t2r_cem_head_plan": (
-        ctypes.c_int,
-        [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-        + [ctypes.POINTER(ctypes.c_int)] * 3
-        + [ctypes.POINTER(ctypes.c_size_t)]),
     "t2r_cem_head_tail": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
          ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-         ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+         ctypes.c_void_p] + [ctypes.c_int] * 11
+        + [ctypes.c_size_t, ctypes.c_void_p]),
 }
 
 Dense = Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -135,31 +146,143 @@ fused_cem_head_tail.launches = 0
 _COUNT_LOCK = threading.Lock()
 
 
+def _tail_smem(off, rows, c2, max_width):
+  """Per-member spatial sums and the dense head's two buffers (f32)."""
+  off = _align(off + rows * c2 * 4, 16)
+  off = _align(off + rows * max_width * 4, 16)
+  return _align(off + rows * max_width * 4, 16)
+
+
+def _mma_smem(h1, w1, c1, c2, max_width, rows):
+  """The mma.sync path's bytes (`mma_layout` in csrc/cem_head.cu)."""
+  npos = (h1 // 2) * (w1 // 2)
+  c1p, c2p = _align(c1, 16), _align(c2, 8)
+  row = c1p + 8
+  off = _align(rows * h1 * w1 * row * 2, 16)
+  off = _align(off + row * 2, 16)
+  off = _align(off + 9 * c2p * row * 2, 16)
+  off = _align(off + _align(rows * npos, 16) * c2p * 4, 16)
+  return _tail_smem(off, rows, c2, max_width)
+
+
+def _core_smem(h1, w1, c1, c2, max_width, rows, nc):
+  """The CUDA-core path's bytes (`core_layout` in csrc/cem_head.cu)."""
+  groups = -(-((h1 // 2) * (w1 // 2)) // 4)
+  c1p = _align(c1, 4)
+  ncp = _align(nc, 4)
+  off = _align(rows * h1 * w1 * (c1p + 4) * 4, 16)
+  off = _align(off + c1p * 4, 16)
+  off = _align(off + 9 * c1p * ncp * 4, 16)
+  off = _align(off + rows * groups * ncp * 4, 16)
+  return _tail_smem(off, rows, c2, max_width)
+
+
+def _wgmma_smem(c1, c2, dense_widths, stages):
+  """The wgmma path's bytes (`wg_layout` in csrc/cem_head.cu): taps, enc0
+  and `stages` groups of 4 members with the q-head laid over them, the
+  pooled tile, BN, a zero row, the mbarriers and 1 KB of alignment."""
+  off = _align(9 * c1 * c2 * 2, 1024) + _WGMMA_PIXELS * c1 * 2
+  off = _align(off, 1024) + stages * 4 * _WGMMA_PIXELS * c1 * 2
+  off = _align(max(off, qhead_smem(dense_widths, 0)), 1024) + 64 * c2 * 2
+  off = _align(off + 2 * c2 * 4, 16) + 16
+  return _align(_align(off, 8) + 8 * (stages + 1), 16) + 1024
+
+
 def launch_plan(act_shape, c2: int, dense_widths, dtype) -> dict:
-  """How `csrc/cem_head.cu` runs a shape: the conv on tensor cores (bf16
-  when its taps fit in shared memory whole) or on CUDA cores, population
-  members per CTA chunk, output channels per tap chunk and shared-memory
-  bytes. Raises when no plan fits in 227 KB."""
-  b, p, h1, w1, c1 = act_shape
-  dims = (ctypes.c_int * len(dense_widths))(*dense_widths)
-  lib = build.load("cem_head", _ARGTYPES)
-  out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_size_t()]
-  if lib.t2r_cem_head_plan(b, p, h1, w1, c1, c2, len(dense_widths) - 1, dims,
-                           int(dtype == torch.bfloat16),
-                           *[ctypes.byref(x) for x in out]) != 0:
-    raise ValueError(f"fused_cem_head_tail: no launch plan fits 227 KB of "
-                     f"shared memory for {h1}x{w1}x{c1} -> {c2}, q-head "
-                     f"{list(dense_widths)}")
-  return {"tensor_cores": bool(out[0].value), "rows": out[1].value,
-          "channels": out[2].value, "smem": out[3].value}
+  """How `csrc/cem_head.cu` runs a shape, by an explicit rule.
+
+  - "wgmma": bf16 with h1·w1 = 64 (16 output positions), C1 and C2 in
+    {32, 64}, at least one hidden dense layer and hidden widths that are
+    multiples of 16 up to 256: the conv on `wgmma` from TMA-staged
+    members, `stages` groups of 4 members in flight (4, else 2: two
+    warpgroups take alternate groups, each with its own stages).
+  - "mma_sync": other bf16 whose taps fit in shared memory whole (`rows`
+    members per chunk, the most up to 4 that let two CTAs share an SM,
+    else that fit).
+  - "cuda_cores": f32 and the rest, `rows` members and `channels` output
+    channels per chunk, the largest that fit.
+  `tensor_cores` is True on the first two. Raises ValueError when dtype,
+  depth or shared memory (227 KB) rule every path out.
+  """
+  _, _, h1, w1, c1 = act_shape
+  widths = [int(w) for w in dense_widths]
+  if dtype not in (torch.bfloat16, torch.float32):
+    raise ValueError(f"act dtype {dtype} not in (bfloat16, float32)")
+  if len(widths) - 1 > _MAX_LAYERS:
+    raise ValueError(f"q-head has {len(widths) - 1} layers > {_MAX_LAYERS}")
+  bf16 = dtype == torch.bfloat16
+  max_width = max(widths)
+  hidden = widths[1:-1]
+
+  def plan(path, rows, channels, smem, stages=0):
+    return {"path": path, "tensor_cores": path != "cuda_cores",
+            "rows": rows, "channels": channels, "stages": stages,
+            "smem": smem}
+
+  if (bf16 and h1 * w1 == _WGMMA_PIXELS and c1 in _WGMMA_CHANNELS
+      and c2 in _WGMMA_CHANNELS and hidden
+      and all(h % 16 == 0 and h <= 256 for h in hidden)):
+    for stages in (4, 2):
+      smem = _wgmma_smem(c1, c2, widths, stages)
+      if smem <= _MAX_SMEM:
+        return plan("wgmma", 4, c2, smem, stages)
+  if bf16:
+    for limit in (_HALF_SMEM, _MAX_SMEM):
+      for rows in (4, 2, 1):
+        smem = _mma_smem(h1, w1, c1, c2, max_width, rows)
+        if smem <= limit:
+          return plan("mma_sync", rows, c2, smem)
+  for rows in (4, 2, 1):
+    n = c2
+    while True:
+      smem = _core_smem(h1, w1, c1, c2, max_width, rows, n)
+      if smem <= _MAX_SMEM:
+        return plan("cuda_cores", rows, n, smem)
+      if n <= 4:
+        break
+      n = _align((n + 1) // 2, 4)
+  raise ValueError(f"fused_cem_head_tail: no launch plan fits 227 KB of "
+                   f"shared memory for {h1}x{w1}x{c1} -> {c2}, q-head "
+                   f"{widths}")
+
+
+def _act_strides(act):
+  """act's five element strides, a size-1 dim's replaced by its dense
+  stride (it is never stepped along)."""
+  dense, step = [], 1
+  for n in reversed(act.shape):
+    dense.insert(0, step)
+    step *= n
+  return tuple(st if n > 1 else d
+               for st, n, d in zip(act.stride(), act.shape, dense))
+
+
+def meets_tma_rule(act) -> bool:
+  """TMA (the wgmma path's loads of act) takes a dense channel dim, a
+  16-byte aligned base, and positive strides of a multiple of 16 bytes
+  for the other four dims; the kernel's map lists the dims innermost
+  first (C1, w1, h1, then P and B by stride), so the w1 stride must not
+  exceed the h1 stride, nor that one P's or B's."""
+  st = _act_strides(act)
+  return (st[4] == 1 and act.data_ptr() % 16 == 0
+          and all(x > 0 and x * act.element_size() % 16 == 0
+                  for x in st[:4])
+          and st[3] <= st[2] <= min(st[0], st[1]))
+
+
+def needs_dense_copy(act, plan) -> bool:
+  """Whether the wrapper copies act dense before the launch: only on the
+  wgmma path, for a view outside TMA's rule (never refused)."""
+  return plan["path"] == "wgmma" and not meets_tma_rule(act)
 
 
 def _launch(act, enc0, conv_kernel, bn_scale, bn_shift, dense_params):
   dtype = act.dtype
-  if dtype not in (torch.bfloat16, torch.float32):
-    raise ValueError(f"act dtype {dtype} not in (bfloat16, float32)")
-  if len(dense_params) > _MAX_LAYERS:
-    raise ValueError(f"q-head has {len(dense_params)} layers > {_MAX_LAYERS}")
+  b, p, h1, w1, c1 = act.shape
+  c2 = conv_kernel.shape[-1]
+  n = len(dense_params)
+  widths = [c2] + [w.shape[1] for w, _ in dense_params]
+  plan = launch_plan(tuple(act.shape), c2, widths, dtype)  # raises if none
   same_dtype = [enc0, conv_kernel] + [t for pair in dense_params
                                       for t in pair]
   for t in same_dtype:
@@ -174,16 +297,15 @@ def _launch(act, enc0, conv_kernel, bn_scale, bn_shift, dense_params):
         or not t.is_contiguous()):
       raise ValueError("bn_scale/bn_shift must be contiguous f32 on act's "
                        "device")
-  b, p, h1, w1, c1 = act.shape
-  c2 = conv_kernel.shape[-1]
-  n = len(dense_params)
-  widths = [c2] + [w.shape[1] for w, _ in dense_params]
+  if plan["path"] == "wgmma":
+    if needs_dense_copy(act, plan):
+      act = act.clone(memory_format=torch.contiguous_format)
+    enc0, conv_kernel = _aligned16(enc0), _aligned16(conv_kernel)
+    dense_params = [(_aligned16(w), bias) for w, bias in dense_params]
   dims = (ctypes.c_int * (n + 1))(*widths)
-  is_bf16 = int(dtype == torch.bfloat16)
   lib = build.load("cem_head", _ARGTYPES)
-  launch_plan(tuple(act.shape), c2, widths, dtype)  # raises if none fits
   q = torch.empty((b, p), dtype=torch.float32, device=act.device)
-  strides = (ctypes.c_longlong * 5)(*act.stride())
+  strides = (ctypes.c_longlong * 5)(*_act_strides(act))
   ws = (ctypes.c_void_p * n)(*[w.data_ptr() for w, _ in dense_params])
   bs = (ctypes.c_void_p * n)(*[bias.data_ptr() for _, bias in dense_params])
   with torch.cuda.device(act.device):
@@ -191,7 +313,9 @@ def _launch(act, enc0, conv_kernel, bn_scale, bn_shift, dense_params):
     err = lib.t2r_cem_head_tail(
         act.data_ptr(), strides, enc0.data_ptr(), conv_kernel.data_ptr(),
         bn_scale.data_ptr(), bn_shift.data_ptr(), n, ws, bs, dims,
-        q.data_ptr(), b, p, h1, w1, c1, c2, is_bf16, stream)
+        q.data_ptr(), b, p, h1, w1, c1, c2, int(dtype == torch.bfloat16),
+        _PATHS[plan["path"]], plan["rows"], plan["channels"],
+        plan["stages"], plan["smem"], stream)
   if err != 0:
     raise RuntimeError(f"cem_head kernel launch failed: CUDA error {err}")
   with _COUNT_LOCK:

@@ -30,6 +30,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tensor2robot_tpu.ops import cem_head as jax_cem_head  # noqa: E402
 from tensor2robot_tpu_torch.ops import cem_head  # noqa: E402
+from tensor2robot_tpu_torch.ops import cem_select  # noqa: E402
 from tensor2robot_tpu_torch.research.qtopt import networks  # noqa: E402
 from tensor2robot_tpu_torch.research.qtopt.t2r_models import (  # noqa: E402
     GraspingQModel,
@@ -188,3 +189,121 @@ def test_head_tail_params_need_batch_norm_and_two_head_convs():
   network = model.bind(model.create_inference_state(device="cpu"))
   with pytest.raises(ValueError, match="exactly two head convs"):
     networks.head_tail_params(network)
+
+
+# ---- the dispatch rule (`launch_plan`) and the TMA rule, without a card ----
+
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("shape,c2,widths,dtype,path,rows,channels", [
+    ((4, 64, 8, 8, 64), 64, (64, 64, 64, 1), _BF16, "wgmma", 4, 64),
+    ((256, 64, 8, 8, 64), 64, (64, 64, 64, 1), _BF16, "wgmma", 4, 64),
+    ((4, 64, 8, 8, 32), 32, (32, 64, 1), _BF16, "wgmma", 4, 32),
+    ((3, 30, 4, 16, 64), 32, (32, 48, 16, 1), _BF16, "wgmma", 4, 32),
+    # mma_sync at 8×8×64 → 64: 2-member chunks, two CTAs to an SM.
+    ((4, 64, 8, 8, 64), 64, (64, 1), _BF16, "mma_sync", 2, 64),  # no hidden
+    ((4, 64, 8, 8, 64), 64, (64, 40, 1), _BF16, "mma_sync", 2, 64),
+    ((4, 64, 6, 6, 64), 64, (64, 64, 1), _BF16, "mma_sync", 2, 64),
+    ((3, 5, 6, 10, 6), 10, (10, 8, 1), _BF16, "mma_sync", 4, 10),
+    ((4, 64, 8, 8, 128), 128, (128, 64, 64, 1), _BF16, "cuda_cores", 4, 16),
+    ((4, 64, 8, 8, 64), 64, (64, 64, 64, 1), _F32, "cuda_cores", 4, 64),
+    ((3, 5, 6, 10, 6), 10, (10, 8, 1), _F32, "cuda_cores", 4, 10),
+], ids=lambda v: str(v))
+def test_launch_plan_paths(shape, c2, widths, dtype, path, rows, channels):
+  plan = cem_head.launch_plan(shape, c2, widths, dtype)
+  assert (plan["path"], plan["rows"], plan["channels"]) == (path, rows,
+                                                           channels)
+  assert plan["tensor_cores"] == (path != "cuda_cores")
+  assert plan["stages"] == (4 if path == "wgmma" else 0)
+  assert plan["smem"] <= 232448
+
+
+def test_launch_plan_wgmma_bytes():
+  """The wgmma layout at the Bellman shape, by hand: taps 73,728 B;
+  enc0 8,192; four 4-member stages 131,072 (the q-head's 17,168 laid
+  over them); the pooled tile 8,192; BN 512; a zero row 16; five
+  mbarriers 40, rounded up to 16; 1,024 of alignment."""
+  plan = cem_head.launch_plan((256, 64, 8, 8, 64), 64, (64, 64, 64, 1),
+                              _BF16)
+  assert plan["stages"] == 4
+  assert plan["smem"] == (73728 + 8192 + 131072 + 8192 + 512 + 16 + 48
+                          + 1024)
+  # A q-head larger than the conv's buffers pushes the pooled tile out.
+  wide = cem_head.launch_plan((4, 64, 8, 8, 32), 32, (32, 256, 256, 1),
+                              _BF16)
+  assert wide["path"] == "wgmma"
+  head_end = cem_select.qhead_smem((32, 256, 256, 1), 0)
+  assert head_end > 18432 + 4096 + 4 * 16384  # taps, enc0, stages
+  assert wide["smem"] == (-(-head_end // 1024) * 1024 + 4096 + 256 + 16
+                          + 48 + 1024)
+
+
+@pytest.mark.parametrize("shape,c2,widths,dtype,match", [
+    ((4, 64, 8, 8, 64), 64, (64, 64, 1), torch.float16, "dtype"),
+    ((4, 64, 8, 8, 64), 64, (64,) + (8,) * 8 + (1,), _BF16, "layers"),
+    ((4, 64, 64, 64, 64), 64, (64, 64, 1), _F32, "227 KB"),
+], ids=["fp16", "nine_layers", "no_plan_fits"])
+def test_launch_plan_raises_before_building(shape, c2, widths, dtype, match,
+                                            monkeypatch):
+  monkeypatch.setattr(cem_head.build, "load",
+                      lambda *a, **k: pytest.fail("built"))
+  with pytest.raises(ValueError, match=match):
+    cem_head.launch_plan(shape, c2, widths, dtype)
+  b, p, h1, w1, c1 = shape
+  dense = tuple((torch.zeros((i, o), dtype=dtype),
+                 torch.zeros((o,), dtype=dtype))
+                for i, o in zip(widths[:-1], widths[1:]))
+  with pytest.raises(ValueError, match=match):
+    cem_head._launch(torch.zeros(shape, dtype=dtype),
+                     torch.zeros((b, h1, w1, c1), dtype=dtype),
+                     torch.zeros((3, 3, c1, c2), dtype=dtype),
+                     torch.ones(c2), torch.zeros(c2), dense)
+
+
+def test_q_network_operands_meet_the_tma_rule():
+  """`GraspingQModel()` at full width (bf16, on the CPU): the P-major
+  merge GEMM output seen as `[B, P, ...]`, the view the Q-network hands
+  over, takes the wgmma path without a copy."""
+  model = GraspingQModel()
+  network = model.bind(model.create_inference_state(seed=0, device="cpu"))
+  rng = np.random.default_rng(5)
+  image = torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3), np.uint8))
+  actions = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 4)).astype(
+      np.float32))
+  with torch.no_grad():
+    encoded = network.encode(image)
+    pooled = network.pool_population(encoded, {}, actions)
+    act_pm, enc0 = network._population_merge_parts(
+        encoded, network._population_action_embed({}, actions))
+  act = act_pm.transpose(0, 1)
+  params = networks.head_tail_params(network)
+  widths = [params[0].shape[-1]] + [w.shape[1] for w, _ in params[3]]
+  plan = cem_head.launch_plan(tuple(act.shape), widths[0], widths, act.dtype)
+  assert plan["path"] == "wgmma" and not act.is_contiguous()
+  assert cem_head.meets_tma_rule(act)
+  assert not cem_head.needs_dense_copy(act, plan)
+  assert enc0.is_contiguous() and enc0.data_ptr() % 16 == 0
+  assert tuple(pooled.shape) == (64, 2, widths[-3])
+
+
+@pytest.mark.parametrize("make,copied", [
+    (lambda a: a, False),
+    (lambda a: a.transpose(0, 1).contiguous().transpose(0, 1), False),
+    (lambda a: torch.cat([a, a[..., :1]], -1)[..., :-1], True),   # row 130 B
+    (lambda a: torch.cat([a[..., :1], a], -1)[..., 1:], True),    # base + 2 B
+    (lambda a: a.transpose(2, 3), True),                 # h1, w1 swapped
+    (lambda a: a[:, :1].expand(a.shape), True),          # stride 0
+], ids=["dense", "p_major", "row_stride", "base_offset", "hw_swapped",
+        "broadcast"])
+def test_bf16_views_outside_the_tma_rule_are_copied_not_refused(make,
+                                                                copied):
+  act = torch.zeros((2, 8, 8, 8, 64), dtype=_BF16)
+  view = make(act)
+  plan = cem_head.launch_plan(tuple(view.shape), 64, (64, 64, 1), _BF16)
+  assert plan["path"] == "wgmma"
+  assert cem_head.needs_dense_copy(view, plan) == copied
+  # f32 never copies: its path reads any strides.
+  f32 = view.float()
+  assert not cem_head.needs_dense_copy(
+      f32, cem_head.launch_plan(tuple(f32.shape), 64, (64, 64, 1), _F32))

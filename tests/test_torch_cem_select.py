@@ -173,3 +173,82 @@ class TestWrapper:
       fused_cem_select(meta(pooled), meta(samples),
                        tuple((meta(w), meta(b)) for w, b in dense),
                        num_elites=6)
+
+
+class TestPlan:
+  """`_plan`, the kernel's dispatch rule, pinned without a card: which
+  shapes take version 2 (`wgmma`), which keep version 1 (CUDA cores),
+  which raise before anything is built."""
+
+  @pytest.mark.parametrize("p,widths,dtype,elites,path", [
+      (64, (64, 64, 64, 1), torch.bfloat16, 6, "wgmma"),    # main path
+      (200, (64, 64, 64, 1), torch.bfloat16, 6, "wgmma"),   # four tiles
+      (50, (64, 64, 64, 1), torch.bfloat16, 6, "wgmma"),    # ragged tile
+      (64, (16, 48, 1), torch.bfloat16, 6, "wgmma"),        # padded hidden
+      (64, (256, 256, 16, 1), torch.bfloat16, 64, "wgmma"),
+      (64, (64, 64, 64, 1), torch.float32, 6, "cuda_cores"),  # f32
+      (64, (64, 1), torch.bfloat16, 5, "cuda_cores"),       # no hidden
+      (64, (48, 64, 1), torch.bfloat16, 6, "cuda_cores"),   # C not 2^k
+      (64, (64, 40, 1), torch.bfloat16, 6, "cuda_cores"),   # width % 16
+      (64, (64, 272, 1), torch.bfloat16, 6, "cuda_cores"),  # width > 256
+      (128, (64, 64, 1), torch.bfloat16, 65, "cuda_cores"),  # E > 64
+      (64, (8, 16, 1), torch.bfloat16, 6, "cuda_cores"),    # C < 16
+  ], ids=lambda v: str(v))
+  def test_path(self, p, widths, dtype, elites, path):
+    assert cem_select._plan(p, widths, dtype, elites, 4)["path"] == path
+
+  def test_main_path_bytes(self):
+    """Version 2's layout at the serving / Bellman shape, by hand: the
+    pooled tile 8,192 B; the q-head's two 64×64 bf16 tiles 16,384 B, two
+    f32 biases 512 B, the last column and bias 272 B; 128 candidates'
+    scores and indices and two mbarriers 1,040 B; the samples 1,024 B;
+    1,024 B of alignment."""
+    plan = cem_select._plan(64, (64, 64, 64, 1), torch.bfloat16, 6, 4)
+    assert plan == {"path": "wgmma",
+                    "smem": 8192 + 16384 + 512 + 272 + 1040 + 1024 + 1024}
+    # Two stages of 8,192 B once P passes one tile, and P·A·4 samples.
+    two = cem_select._plan(200, (64, 64, 64, 1), torch.bfloat16, 6, 4)
+    assert two["smem"] == plan["smem"] + 8192 + (200 - 64) * 16
+
+  @pytest.mark.parametrize("p,widths,dtype,match", [
+      (64, (64, 64, 1), torch.float16, "dtype"),
+      (64, (64,) + (16,) * 8 + (1,), torch.bfloat16, "layers"),
+      (4096, (256, 256, 256, 1), torch.bfloat16, "shared memory"),
+      (20000, (64, 64, 1), torch.float32, "shared memory"),
+  ], ids=["fp16", "nine_layers", "too_wide_bf16", "too_many_f32"])
+  def test_raises_before_building(self, p, widths, dtype, match,
+                                  monkeypatch):
+    monkeypatch.setattr(cem_select.build, "load",
+                        lambda *a, **k: pytest.fail("built"))
+    with pytest.raises(ValueError, match=match):
+      cem_select._plan(p, widths, dtype, 6, 4)
+    pooled = torch.zeros((p, 1, widths[0]), dtype=dtype)
+    samples = torch.zeros((1, p, 4))
+    dense = tuple((torch.zeros((i, o), dtype=dtype),
+                   torch.zeros((o,), dtype=dtype))
+                  for i, o in zip(widths[:-1], widths[1:]))
+    with pytest.raises(ValueError, match=match):
+      cem_select._launch(pooled, samples, dense, 6, 1e-2, False)
+
+  def test_q_network_operands_take_the_wgmma_path(self):
+    """`GraspingQModel()`'s real pooled features and q-head (full width,
+    bf16, on the CPU) take version 2 and meet its alignment."""
+    from tensor2robot_tpu_torch.research.qtopt import networks
+    from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+        GraspingQModel,
+    )
+    model = GraspingQModel()
+    network = model.bind(model.create_inference_state(seed=0, device="cpu"))
+    rng = np.random.default_rng(0)
+    image = torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3), np.uint8))
+    actions = torch.from_numpy(
+        rng.uniform(-1, 1, (2, 64, 4)).astype(np.float32))
+    with torch.no_grad():
+      pooled = network.pool_population(network.encode(image), {}, actions)
+    dense = networks.q_head_dense_params(network, dtype=network.dtype)
+    widths = [pooled.shape[-1]] + [w.shape[1] for w, _ in dense]
+    assert pooled.dtype == torch.bfloat16 and pooled.is_contiguous()
+    assert cem_select._plan(64, widths, pooled.dtype, 6, 4)["path"] == \
+        "wgmma"
+    for t in [pooled] + [w for w, _ in dense]:
+      assert cem_select._aligned16(t) is t
