@@ -88,15 +88,46 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  12. one f32 Bellman step on the card against the CPU (bench.py's
      --verify config); timings of the head tail, its plain version and
      the unfused torch tail at B=4 and 256, and of the Bellman step
-     (graph replay, eager, profiler); then the `kernels` JSON line, the
-     card line, and the result line last.
+     (graph replay, eager, profiler);
+ 13. the flash wrapper's head-dim padding (D = 24 and 48, forward,
+     backward and autograd, bf16 and f32) and batch chunking (B·H =
+     65,540: two launches) against the plain versions;
+ 14. the compiled dispatch as CUDA graphs (utils/step_graph.py): Bellman
+     training 8 steps eager against K=1 and K=4 graphed and a resume at
+     K=4 (f32 and bf16: every state leaf and loss bit for bit; cuDNN's
+     deterministic algorithms, after two eager runs under its default
+     are compared and printed), with cem_select's launches 2 a step past
+     each graph's warm-up; its rate (steps after the first dispatch over
+     their wall time, gated at 100 grad steps/s, and input_wait_fraction)
+     over 200 steps graphed at K=1 and 8 and eager, and its idle share;
+ 15. BC training (`train_eval_model`) of the gin-width and the default
+     model in f32 and bf16: eager against K=1 and K=4 graphed, with
+     evaluations and a resume, every state leaf and logged metric bit
+     for bit; steps_per_sec graphed and eager;
+ 16. CEM serving: every bucket graphed against eager (actions, scores),
+     compile_count, warmup_async, swap_state under four robots' traffic
+     (each answer that of its params version), p50/p95 wall per dispatch;
+ 17. the context policy graphed against eager over one episode (the
+     same actions), p50/p95 wall per step;
+ 18. every path's profile graphed and eager (device busy, idle share,
+     wall, kernels and host launch calls per call); then the `kernels`
+     JSON line, the card line, and the result line last.
+
+Every run whose launches are checked (the main paths of phases 4, 5, 7,
+8, 10 and 11, the chunked forward of 13, and each run of 14 and 15) runs
+under the profiler's CUDA kernel tracing: each kernel wrapper's count,
+replays included, must equal the launches of that kernel's symbols that
+the card ran (`traced_launches`), and the `kernels` line reports the
+traced launches.
 
 Exits 2 without a result when CUDA is unavailable.
 """
 
+import contextlib
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -105,6 +136,89 @@ import time
 
 def _log(*args):
   print(*args, flush=True)
+
+
+def _reset_counts():
+  """Every kernel's launch count, and the graph warm-up tally, to 0."""
+  from tensor2robot_tpu_torch.ops import reset_launch_counts
+  reset_launch_counts()
+
+
+def _warm(name):
+  """Launches of `name` made by graph warm-ups since `_reset_counts()`:
+  a graphed path runs its step once before capturing it."""
+  from tensor2robot_tpu_torch.ops import warmup_launch_counts
+  return warmup_launch_counts()[name]
+
+
+# Each kernel's CUDA symbols (csrc/*.cu), as the profiler's kernel events
+# name them: demangled, after their namespace, before a template's
+# arguments or the parameters ("void (anonymous
+# namespace)::cem_select_wgmma<64, 64>(CUtensorMap_st, ...").
+_SYMBOLS = {
+    "cem_select": ("cem_select_kernel", "cem_select_wgmma"),
+    "cem_head_tail": ("cem_head_mma_kernel", "cem_head_core_kernel",
+                      "cem_head_wgmma"),
+    "flash_attention_fwd": ("flash_fwd_f32", "flash_fwd_bf16"),
+    "flash_attention_bwd_dkdv": ("flash_bwd_dkdv_f32", "flash_bwd_dkdv_bf16"),
+    "flash_attention_bwd_dq": ("flash_bwd_dq_f32", "flash_bwd_dq_bf16"),
+}
+
+
+_TRACE_LEAD_S = 1.0
+_TRACE_MARKERS = 256
+_TRACE_MARGIN_S = 0.1
+_FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+                  "flash_attention_bwd_dq")
+
+
+@contextlib.contextmanager
+def traced_launches(label):
+  """Sets every launch count to 0, runs the block under the profiler's
+  CUDA kernel tracing (CUPTI, which also traces each kernel that a graph
+  replay launches), and fills the dict it yields with the launches the
+  card ran per kernel, matched by symbol. Fails unless every wrapper's
+  count equals its kernel's traced launches: a replay adds the counts
+  its capture recorded, so this holds that tally to what ran."""
+  import torch
+  from tensor2robot_tpu_torch.ops import launch_counts
+  patterns = {name: re.compile(r"(?<!\w)(?:%s)(?=[<(])" % "|".join(syms))
+              for name, syms in _SYMBOLS.items()}
+  traced = {}
+  _reset_counts()
+  acts = [torch.profiler.ProfilerActivity.CPU,
+          torch.profiler.ProfilerActivity.CUDA]
+  torch.cuda.synchronize()
+  with torch.profiler.profile(activities=acts) as prof:
+    # A trace can lack the device events of its session's first moments:
+    # on an H100 a session lost the kernels it ran 0.1 s after its start,
+    # and another all 256 markers it ran at once. So the block starts
+    # after a margin, behind marker kernels (spin loops) whose count in
+    # the trace shows how close the loss came to it.
+    time.sleep(_TRACE_LEAD_S)
+    for _ in range(_TRACE_MARKERS):
+      torch.cuda._sleep(1000)
+    yield traced
+    torch.cuda.synchronize()
+    time.sleep(_TRACE_MARGIN_S)
+  counted = launch_counts()
+  traced.update({name: 0 for name in patterns})
+  device_events = {}
+  for event in prof.key_averages():
+    if event.device_type != torch.autograd.DeviceType.CUDA:
+      continue
+    device_events[event.key] = event.count
+    for name, pattern in patterns.items():
+      if pattern.search(event.key):
+        traced[name] += event.count
+  markers = sum(n for key, n in device_events.items() if "spin_kernel" in key)
+  _log(f"traced launches, {label}: {json.dumps(traced)} (markers traced "
+       f"{markers} of {_TRACE_MARKERS})")
+  if traced != counted:
+    raise AssertionError(f"{label}: the wrappers counted {counted}, the "
+                         f"card ran {traced}; the trace's device events "
+                         f"{sum(device_events.values())}: "
+                         f"{sorted(device_events.items())[:20]}")
 
 
 def _median_ms(fn, iters=50, repeats=5):
@@ -346,7 +460,6 @@ def _value_regret(scorer, ts, obs, a_ref, a_new):
 def phase_slice():
   import numpy as np
   import torch
-  from tensor2robot_tpu_torch.ops import cem_select as ops
   from tensor2robot_tpu_torch.research.qtopt import (
       GraspingQModel,
       QTOptLearner,
@@ -365,11 +478,7 @@ def phase_slice():
 
   # ---- the main path, with the kernel's launch count read around it ----
   engine = server.engine
-  ops.fused_cem_select.launches = 0
   d0 = engine.dispatch_count
-  answers = [server.select_actions(
-      make_random_tensors(spec, batch_size=n, seed=10 + n).to_flat_dict())
-      for n in (1, 3, 8)]
   barrier = threading.Barrier(4)
   robots = {}
 
@@ -378,12 +487,16 @@ def phase_slice():
     barrier.wait()
     robots[i] = server.select_actions(obs.to_flat_dict())
 
-  threads = [threading.Thread(target=robot, args=(i,)) for i in range(4)]
-  for t in threads:
-    t.start()
-  for t in threads:
-    t.join(timeout=300)
-  launches = ops.fused_cem_select.launches
+  with traced_launches("CEM serving") as traced:
+    answers = [server.select_actions(
+        make_random_tensors(spec, batch_size=n, seed=10 + n).to_flat_dict())
+        for n in (1, 3, 8)]
+    threads = [threading.Thread(target=robot, args=(i,)) for i in range(4)]
+    for t in threads:
+      t.start()
+    for t in threads:
+      t.join(timeout=300)
+  launches = traced["cem_select"]
   dispatches = engine.dispatch_count - d0
   server.close()
   if any(t.is_alive() for t in threads) or len(robots) != 4:
@@ -581,7 +694,6 @@ class _Recorder:
 def phase_gripper_slice():
   import numpy as np
   import torch
-  from tensor2robot_tpu_torch.ops.flash_attention import flash_attention
   from tensor2robot_tpu_torch.research.vrgripper import (
       ACTION,
       VRGripperEnv,
@@ -595,12 +707,13 @@ def phase_gripper_slice():
   recorder = _Recorder(policy)
 
   # ---- the main path, with the kernel's launch count read around it ----
-  flash_attention.launches = 0
   t0 = time.perf_counter()
-  metrics = evaluate_gripper_policy(recorder, num_episodes=3,
-                                    image_size=48, seed=1)
+  with traced_launches("context policy") as traced:
+    metrics = evaluate_gripper_policy(recorder, num_episodes=3,
+                                      image_size=48, seed=1)
   wall_s = time.perf_counter() - t0
-  launches = flash_attention.launches
+  launches = traced["flash_attention_fwd"]
+  warm = _warm("flash_attention_fwd")
   steps = policy.steps
   for a in recorder.actions:
     if a.shape != (1, 3) or not np.all(np.isfinite(a)):
@@ -608,11 +721,13 @@ def phase_gripper_slice():
   if policy.resets != 3 or len(recorder.actions) != steps or steps < 3:
     raise AssertionError(f"resets {policy.resets}, steps {steps}, "
                          f"actions {len(recorder.actions)}")
-  if launches != model.depth * steps:
+  if launches != model.depth * steps + warm or warm != model.depth:
     raise AssertionError(f"flash launches {launches} != depth "
-                         f"{model.depth} x policy steps {steps}")
-  _log(f"main path (vrgripper transformer): episodes=3 steps={steps} "
-       f"resets={policy.resets} flash_attention_launches={launches} "
+                         f"{model.depth} x policy steps {steps} + the "
+                         f"graph's warm-up {warm}")
+  _log(f"main path (vrgripper transformer, one CUDA-graph replay per "
+       f"step): episodes=3 steps={steps} resets={policy.resets} "
+       f"flash_attention_launches={launches} (warm-up {warm}) "
        f"wall_s={wall_s} (first step builds cuDNN/cuBLAS plans) "
        f"metrics={json.dumps(metrics)}")
 
@@ -951,11 +1066,6 @@ def phase_default_model():
   import numpy as np
   import torch
   from tensor2robot_tpu_torch.data import EpisodeInputGenerator
-  from tensor2robot_tpu_torch.ops.flash_attention import (
-      flash_attention,
-      flash_attention_bwd_dkdv,
-      flash_attention_bwd_dq,
-  )
   from tensor2robot_tpu_torch.research.vrgripper import (
       VRGripperTransformerModel,
       evaluate_gripper_policy,
@@ -971,11 +1081,11 @@ def phase_default_model():
 
   # ---- serving: one episode, the forward's count read around it ----
   policy = model.make_context_policy(model.create_inference_state(seed=0))
-  flash_attention.launches = 0
-  metrics = evaluate_gripper_policy(policy, num_episodes=1, image_size=48,
-                                    seed=12)
-  serve_launches = flash_attention.launches
-  if (policy.steps < 1 or serve_launches != model.depth * policy.steps
+  with traced_launches("default model serving") as traced:
+    metrics = evaluate_gripper_policy(policy, num_episodes=1, image_size=48,
+                                      seed=12)
+  serve_launches = traced["flash_attention_fwd"]
+  if (policy.steps < 1 or serve_launches != model.depth * (policy.steps + 1)
       or not np.isfinite(metrics["mean_final_distance"])):
     raise AssertionError(f"default model served {policy.steps} steps with "
                          f"{serve_launches} flash launches: {metrics}")
@@ -985,24 +1095,22 @@ def phase_default_model():
   gen = EpisodeInputGenerator(episodes,
                               sequence_length=gin_config.GIN_SEQUENCE_LENGTH,
                               batch_size=gin_config.GIN_BATCH_SIZE, seed=0)
-  counters = (flash_attention, flash_attention_bwd_dkdv,
-              flash_attention_bwd_dq)
   with tempfile.TemporaryDirectory() as model_dir:
-    for fn in counters:
-      fn.launches = 0
-    state = train_eval_model(model, model_dir, gen,
-                             max_train_steps=_DEFAULT_STEPS,
-                             batch_size=gin_config.GIN_BATCH_SIZE,
-                             log_every_steps=1, seed=0)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
+    with traced_launches("default model training") as traced:
+      state = train_eval_model(model, model_dir, gen,
+                               max_train_steps=_DEFAULT_STEPS,
+                               batch_size=gin_config.GIN_BATCH_SIZE,
+                               log_every_steps=1, seed=0)
+    launches = {name: traced[name] for name in _FLASH_KERNELS}
     records = read_records(os.path.join(model_dir, "metrics_train.jsonl"))
-  want = model.depth * _DEFAULT_STEPS
+  # One graph replay per step, and the graph's one warm-up step.
+  want = model.depth * (_DEFAULT_STEPS + 1)
   losses = [r["loss"] for r in records]
   if state.step != _DEFAULT_STEPS or any(n != want
                                          for n in launches.values()):
     raise AssertionError(f"default model: step {state.step}, launches "
-                         f"{launches}: each should be depth x steps = {want}")
+                         f"{launches}: each should be depth x (steps + the "
+                         f"warm-up step) = {want}")
   if len(losses) != _DEFAULT_STEPS or not all(np.isfinite(
       losses + [r["grad_norm"] for r in records])):
     raise AssertionError(f"default model: training metrics {records}")
@@ -1023,11 +1131,6 @@ def phase_train_slice():
   import numpy as np
   import torch
   from tensor2robot_tpu_torch.data import EpisodeInputGenerator
-  from tensor2robot_tpu_torch.ops.flash_attention import (
-      flash_attention,
-      flash_attention_bwd_dkdv,
-      flash_attention_bwd_dq,
-  )
   from tensor2robot_tpu_torch.research.vrgripper import (
       evaluate_gripper_policy,
       gin_config,
@@ -1046,25 +1149,25 @@ def phase_train_slice():
 
   # ---- the main path, with the kernels' launch counts read around it ----
   with tempfile.TemporaryDirectory() as model_dir:
-    counters = (flash_attention, flash_attention_bwd_dkdv,
-                flash_attention_bwd_dq)
-    for fn in counters:
-      fn.launches = 0
     t0 = time.perf_counter()
-    state = train_eval_model(model, model_dir, gen,
-                             max_train_steps=_TRAIN_STEPS,
-                             batch_size=gin_config.GIN_BATCH_SIZE,
-                             log_every_steps=1, seed=0)
-    torch.cuda.synchronize()
+    with traced_launches("BC training") as traced:
+      state = train_eval_model(model, model_dir, gen,
+                               max_train_steps=_TRAIN_STEPS,
+                               batch_size=gin_config.GIN_BATCH_SIZE,
+                               log_every_steps=1, seed=0)
     wall_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = {name: traced[name] for name in _FLASH_KERNELS}
+    warm = {name: _warm(name) for name in _FLASH_KERNELS}
     with open(os.path.join(model_dir, "metrics_train.jsonl")) as f:
       raw = [json.loads(line) for line in f]
     records = read_records(os.path.join(model_dir, "metrics_train.jsonl"))
   want = model.depth * _TRAIN_STEPS
-  if state.step != _TRAIN_STEPS or any(n != want for n in launches.values()):
+  if state.step != _TRAIN_STEPS or any(
+      n != want + warm[k] or warm[k] != model.depth
+      for k, n in launches.items()):
     raise AssertionError(f"step {state.step}, launches {launches}: each "
-                         f"should be depth x steps = {want}")
+                         f"should be depth x steps = {want} + the graph's "
+                         f"warm-up {warm}")
   if (len(raw) != _TRAIN_STEPS
       or any(set(r) != {"step", "wall", "role", "payload"} for r in raw)
       or [r["step"] for r in raw] != list(range(1, _TRAIN_STEPS + 1))):
@@ -1076,9 +1179,11 @@ def phase_train_slice():
   first, last = float(np.mean(mse[:10])), float(np.mean(mse[-10:]))
   if not last < first:
     raise AssertionError(f"mse did not fall: first 10 {first}, last 10 {last}")
-  _log(f"main path (vrgripper transformer training): steps={_TRAIN_STEPS} "
+  _log(f"main path (vrgripper transformer training, one CUDA-graph replay "
+       f"per step): steps={_TRAIN_STEPS} "
        f"batch=16 sequence_length=32 episodes=64 (lengths {lengths[0]}-"
-       f"{lengths[-1]}) launches={json.dumps(launches)} wall_s={wall_s} "
+       f"{lengths[-1]}) launches={json.dumps(launches)} (warm-up "
+       f"{json.dumps(warm)}) wall_s={wall_s} "
        f"(first step builds cuDNN/cuBLAS plans) mse first10={first} "
        f"last10={last} loss[0]={losses[0]} loss[-1]={losses[-1]}")
 
@@ -1352,11 +1457,10 @@ def phase_head_bellman(learner, state, replay):
       return cem_head.fused_cem_head_tail(
           *_merge_parts(network, encoded, actions), *params)
 
-    cem_head.fused_cem_head_tail.launches = 0
-    result = cem.cem_maximize(score, 256, 4, iterations=2, population=64,
-                              num_elites=6, noise=noise)
-    torch.cuda.synchronize()
-    launches = cem_head.fused_cem_head_tail.launches
+    with traced_launches("head-tail CEM") as traced:
+      result = cem.cem_maximize(score, 256, 4, iterations=2, population=64,
+                                num_elites=6, noise=noise)
+    launches = traced["cem_head_tail"]
     lax = cem.cem_maximize(
         lambda a: network.score_population(encoded, {}, a), 256, 4,
         iterations=2, population=64, num_elites=6, noise=noise)
@@ -1398,7 +1502,6 @@ def phase_qtopt_train():
   import torch
   from tensor2robot_tpu_torch.data import Mode
   from tensor2robot_tpu_torch.hooks import Hook
-  from tensor2robot_tpu_torch.ops import cem_select as select_ops
   from tensor2robot_tpu_torch.research.qtopt import ReplayBuffer
   from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
   from tensor2robot_tpu_torch.research.qtopt.train_qtopt import train_qtopt
@@ -1426,13 +1529,13 @@ def phase_qtopt_train():
     # ---- the main path, with the kernel's launch count read around it ----
     log = LossLog()
     torch.cuda.reset_peak_memory_stats()
-    select_ops.fused_cem_select.launches = 0
     t0 = time.perf_counter()
-    state = train_qtopt(learner, model_dir, max_train_steps=_QT_STEPS,
-                        hooks=[log], **kwargs)
-    torch.cuda.synchronize()
+    with traced_launches("Bellman training") as traced:
+      state = train_qtopt(learner, model_dir, max_train_steps=_QT_STEPS,
+                          hooks=[log], **kwargs)
     wall_s = time.perf_counter() - t0
-    launches = select_ops.fused_cem_select.launches
+    launches = traced["cem_select"]
+    warm = _warm("cem_select")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     path = os.path.join(model_dir, "metrics_train.jsonl")
     with open(path) as f:
@@ -1440,15 +1543,18 @@ def phase_qtopt_train():
     records = read_records(path)
     saved = checkpoints.list_steps(model_dir)
     resumed = LossLog()
-    select_ops.fused_cem_select.launches = 0
-    state2 = train_qtopt(learner, model_dir, max_train_steps=_QT_STEPS + 10,
-                         hooks=[resumed], **kwargs)
-    resume_launches = select_ops.fused_cem_select.launches
+    with traced_launches("Bellman training, resumed") as traced:
+      state2 = train_qtopt(learner, model_dir,
+                           max_train_steps=_QT_STEPS + 10, hooks=[resumed],
+                           **kwargs)
+    resume_launches = traced["cem_select"]
+    resume_warm = _warm("cem_select")
   losses = [x.item() for x in log.losses]
   if (state.step != _QT_STEPS or log.steps != list(range(1, _QT_STEPS + 1))
-      or launches != 2 * _QT_STEPS):
+      or warm != 2 or launches != 2 * _QT_STEPS + warm):
     raise AssertionError(f"step {state.step}, hook steps {log.steps[:3]}.., "
-                         f"cem_select launches {launches} != 2 x steps")
+                         f"cem_select launches {launches} != 2 x steps + "
+                         f"the graph's warm-up {warm}")
   if (len(raw) != _QT_STEPS // 10
       or any(set(r) != {"step", "wall", "role", "payload"} for r in raw)
       or [r["step"] for r in raw] != list(range(10, _QT_STEPS + 1, 10))
@@ -1464,7 +1570,8 @@ def phase_qtopt_train():
                          f"{last}")
   if (state2.step != _QT_STEPS + 10
       or resumed.steps != list(range(_QT_STEPS + 1, _QT_STEPS + 11))
-      or resume_launches != 20 or saved != [30, 60]):
+      or resume_launches != 20 + resume_warm or resume_warm != 2
+      or saved != [30, 60]):
     raise AssertionError(f"resume: step {state2.step}, steps "
                          f"{resumed.steps}, launches {resume_launches}, "
                          f"saved {saved}")
@@ -1477,9 +1584,11 @@ def phase_qtopt_train():
     f["action"] = torch.from_numpy(np.tile(a, (64, 1))).cuda()
     q[name] = learner.model.predict_step(state2.train_state,
                                          f)["q_value"].float().mean().item()
-  _log(f"main path (QT-Opt Bellman training): steps={_QT_STEPS} batch=256 "
+  _log(f"main path (QT-Opt Bellman training, one CUDA-graph replay per "
+       f"step): steps={_QT_STEPS} batch=256 "
        f"replay=4096 (rewarded {float(fill['reward'].mean())}) "
-       f"cem_select_launches={launches} wall_s={wall_s} (first step builds "
+       f"cem_select_launches={launches} (warm-up {warm}) wall_s={wall_s} "
+       f"(first step builds "
        f"cuDNN/cuBLAS plans) peak_device_memory_gb={peak_gb} loss first10="
        f"{first} last10={last} loss[0]={losses[0]} loss[-1]={losses[-1]} "
        f"q_next_mean[-1]={records[-1]['q_next_mean']} "
@@ -1642,6 +1751,568 @@ def phase_qtopt_timings(learner, state, replay, network, encoded):
   return rows, step_graph, step_eager, prof
 
 
+# ---- the compiled dispatch: CUDA graphs on every hot path ----
+
+
+def phase_flash_padded():
+  """The flash wrapper's head-dim padding and batch chunking: D = 24 and
+  48 (padded to 32 and 64, scale 1/√D of the true D) forward and
+  backward against the plain versions, bf16 and f32, causal and not,
+  through autograd too; and one forward with B·H = 65,540 (two launches
+  of at most 65,535 (b, h) pairs) against the plain version."""
+  import torch
+  from tensor2robot_tpu_torch.ops.flash_attention import (
+      flash_attention_reference,
+      flash_attention_with_lse,
+  )
+  worst = {}
+  for dtype in (torch.bfloat16, torch.float32):
+    for d in (24, 48):
+      for t, causal in ((32, True), (100, False)):
+        name = f"D={d} T={t} {dtype} causal={causal}"
+        q, k, v = _flash_inputs(2, t, 4, d, dtype, seed=500 + d + t)
+        err_out, _ = check_flash(name, q, k, v, causal)
+        do = _flash_inputs(2, t, 4, d, dtype, seed=600 + d + t)[0]
+        raw, scaled, _ = check_flash_bwd(name, q, k, v, do, None, causal)
+        # Autograd through the padded forward and the Function's backward.
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out, _ = flash_attention_with_lse(*leaves, causal=causal)
+        grads = torch.autograd.grad(out, leaves, do)
+        ref = [x.detach().requires_grad_() for x in (q, k, v)]
+        ref_grads = torch.autograd.grad(
+            flash_attention_reference(*ref, causal=causal)[0], ref, do)
+        auto = max(_grad_err(g, w) for g, w in zip(grads, ref_grads))
+        if auto > _FLASH_AUTOGRAD_TOL[str(dtype)]:
+          raise AssertionError(f"flash padded {name}: autograd grads differ "
+                               f"by {auto} (tol "
+                               f"{_FLASH_AUTOGRAD_TOL[str(dtype)]})")
+        key = str(dtype)
+        worst[key] = max(worst.get(key, 0.0), err_out, scaled[0], auto)
+  b, t, h, d = 16385, 16, 4, 16
+  q, k, v = _flash_inputs(b, t, h, d, torch.bfloat16, seed=700)
+  with traced_launches(f"flash B*H={b * h}") as traced:
+    err_out, err_lse = check_flash(f"B*H={b * h}", q, k, v, True)
+  chunks = traced["flash_attention_fwd"]
+  if chunks != 2:
+    raise AssertionError(f"B*H={b * h}: {chunks} launches, want 2 chunks")
+  _log(f"flash padded head dims D=24, 48 (fwd, bwd, autograd) worst scaled "
+       f"errors {json.dumps(worst)}; B*H={b * h} forward in {chunks} "
+       f"launches: out err {err_out}, lse err {err_lse}")
+
+
+class _FixedReplay:
+  """Stands in for a replay buffer: streams fixed transition batches from
+  `start`, so a step sees the same batch in every run, a resumed one
+  too (a real buffer's sampler starts anew on resume)."""
+
+  def __init__(self, batches, start=0):
+    self._batches = batches
+    self._start = start
+
+  def wait_until_size(self, *args, **kwargs):
+    pass
+
+  def as_stream(self, batch_size):
+    return iter([dict(b) for b in self._batches[self._start:]])
+
+  def set_learner_step(self, step):
+    pass
+
+  def metrics_scalars(self, prefix="replay_"):
+    return {}
+
+
+def _state_diff(a, b):
+  """(largest |a - b| over every tensor leaf, whether all are equal)."""
+  import torch
+  from tensor2robot_tpu_torch.utils.step_graph import tensors
+  ta, tb = tensors(a), tensors(b)
+  if len(ta) != len(tb):
+    raise AssertionError(f"states of {len(ta)} and {len(tb)} tensors")
+  diff = max((x.double() - y.double()).abs().max().item()
+             for x, y in zip(ta, tb))
+  return diff, all(torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+_GRAPH_STEPS = 8
+
+
+def phase_bellman_graphs():
+  """`train_qtopt` at `GraspingQModel()` width, B=256 (CEM 2 × 64, fused
+  select), 8 steps from seed 0 over the same fixed synthetic-bandit
+  batches: eager (one `train_step` call per step, the reference), K=1
+  graphed and K=4 graphed; then 4 steps at K=4, stopped, resumed at K=4
+  to 8. In f32 and in bf16 (the main path) every state leaf (params,
+  Adam moments and count, batch statistics, target) and every logged
+  loss must be equal bit for bit: a replay runs the eager step's kernels
+  on the same inputs in the same order. cuDNN runs its deterministic
+  algorithms here: by default its convolution backward may sum in
+  another order from run to run, and two eager runs then differ too (by
+  ~1e-6 after 8 f32 steps on this card)."""
+  import tempfile
+  import torch
+  from tensor2robot_tpu_torch.hooks import Hook
+  from tensor2robot_tpu_torch.research.qtopt import (
+      GraspingQModel,
+      QTOptLearner,
+  )
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
+  from tensor2robot_tpu_torch.research.qtopt.train_qtopt import train_qtopt
+
+  class Losses(Hook):
+    def __init__(self):
+      self.by_step = {}
+
+    def after_step(self, step, metrics):
+      self.by_step[step] = metrics["loss"]
+
+  results = {}
+  for dtype in (torch.float32, torch.bfloat16):
+    torch.backends.cudnn.allow_tf32 = dtype != torch.float32
+    learner = QTOptLearner(GraspingQModel(device_dtype=dtype), gamma=0.9,
+                           target_update_tau=0.05, cem_iterations=2,
+                           cem_population=64, cem_elites=6,
+                           cem_select="fused")
+    batches = [bandit.bandit_transitions(learner, bandit.BATCH_SIZE,
+                                         seed=100 + i)
+               for i in range(_GRAPH_STEPS)]
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+      def run(name, k, graphs, steps=_GRAPH_STEPS, start=0, model_dir=None):
+        hook = Losses()
+        with traced_launches(f"Bellman {dtype} {name}") as traced:
+          state = train_qtopt(
+              learner, model_dir or os.path.join(root, name),
+              replay_buffer=_FixedReplay(batches, start),
+              max_train_steps=steps, batch_size=bandit.BATCH_SIZE,
+              save_checkpoints_steps=4, log_every_steps=4, hooks=[hook],
+              steps_per_dispatch=k, graphs=graphs)
+        warm = _warm("cem_select")
+        launched = traced["cem_select"] - warm
+        if launched != 2 * (steps - start):
+          raise AssertionError(f"Bellman {name}: {launched} cem_select "
+                               f"launches past the warm-up ({warm}) in "
+                               f"{steps - start} steps, want 2 a step")
+        runs[name] = (state, {s: l.item() for s, l in hook.by_step.items()},
+                      warm)
+        return state
+
+      if dtype == torch.float32:  # cuDNN's default: two eager runs
+        torch.backends.cudnn.deterministic = False
+        default_pair = _state_diff(run("eager a", 1, False),
+                                   run("eager b", 1, False))
+        _log(f"Bellman f32 two eager runs under cuDNN's default "
+             f"algorithms: max state diff {default_pair[0]}, bitwise "
+             f"{default_pair[1]}")
+      torch.backends.cudnn.deterministic = True
+      run("eager", 1, False)
+      run("k1", 1, True)
+      run("k4", 4, True)
+      resume_dir = os.path.join(root, "resume")
+      run("first_half", 4, True, steps=4, model_dir=resume_dir)
+      run("resumed", 4, True, start=4, model_dir=resume_dir)
+    ref_state, ref_losses, _ = runs["eager"]
+    lines = {}
+    for name in ("k1", "k4", "resumed"):
+      state, losses, warm = runs[name]
+      diff, equal = _state_diff(ref_state, state)
+      loss_diff = max(abs(losses[s] - ref_losses[s]) for s in losses)
+      lines[name] = dict(max_state_diff=diff, bitwise=equal,
+                         max_loss_diff=loss_diff, logged_steps=sorted(losses),
+                         warmup_cem_select=warm)
+      if state.step != _GRAPH_STEPS:
+        raise AssertionError(f"Bellman {name}: step {state.step}")
+      if not equal or loss_diff != 0.0:
+        raise AssertionError(f"Bellman {dtype} {name} differs from eager: "
+                             f"{lines[name]}")
+    results[str(dtype)] = lines
+    _log(f"Bellman graphed vs eager ({dtype}, B=256, {_GRAPH_STEPS} steps; "
+         f"resumed = 4 steps at K=4, then resumed at K=4 to 8): "
+         f"{json.dumps(lines)}")
+  torch.backends.cudnn.allow_tf32 = True
+  torch.backends.cudnn.deterministic = False
+  return results
+
+
+def phase_bellman_rate(replay):
+  """`grad_steps_per_sec` and `input_wait_fraction` from
+  `metrics_train.jsonl` over 200 steps of `train_qtopt` at B=256 from the
+  real replay buffer (4,096 synthetic-bandit transitions): graphed at
+  K=1 and K=8, eager at K=1. The rate is the steps after the first
+  dispatch (which holds the warm-up and the capture) over their wall
+  time, the final checkpoint included; beside it the median of the
+  logged 40-step intervals' rates past the first, and the median of
+  their `input_wait_fraction`. Then the Bellman step's device idle share
+  by the profiler, graphed and eager."""
+  import tempfile
+  import torch
+  from tensor2robot_tpu_torch.hooks import Hook
+  from tensor2robot_tpu_torch.bin.profile_policy import (
+      profile_qtopt_train_step,
+  )
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
+  from tensor2robot_tpu_torch.research.qtopt.train_qtopt import train_qtopt
+  from tensor2robot_tpu_torch.telemetry.records import read_records
+  class FirstDispatch(Hook):
+    """The step and the time (device work done) at the end of the first
+    dispatch, which holds the warm-up and the capture."""
+
+    def __init__(self):
+      self.step = self.time = None
+
+    def after_step(self, step, metrics):
+      if self.step is None:
+        torch.cuda.synchronize()
+        self.step, self.time = step, time.perf_counter()
+
+  learner = bandit.bellman_learner()
+  rates = {}
+  for name, k, graphs in (("graphed K=1", 1, True), ("graphed K=8", 8, True),
+                          ("eager K=1", 1, False)):
+    first = FirstDispatch()
+    with tempfile.TemporaryDirectory() as model_dir:
+      t0 = time.perf_counter()
+      train_qtopt(learner, model_dir, replay_buffer=replay, max_train_steps=200,
+                  batch_size=bandit.BATCH_SIZE, save_checkpoints_steps=200,
+                  log_every_steps=40, steps_per_dispatch=k, graphs=graphs,
+                  hooks=[first])
+      torch.cuda.synchronize()
+      t_end = time.perf_counter()
+      records = read_records(os.path.join(model_dir, "metrics_train.jsonl"))
+    later = records[1:]
+    rates[name] = dict(
+        grad_steps_per_sec=(200 - first.step) / (t_end - first.time),
+        median_interval_grad_steps_per_sec=statistics.median(
+            r["grad_steps_per_sec"] for r in later),
+        input_wait_fraction=statistics.median(
+            r["input_wait_fraction"] for r in later),
+        per_interval=[r["grad_steps_per_sec"] for r in records],
+        wall_s=t_end - t0)
+    _log(f"Bellman rate {name} (B=256, 200 steps): {json.dumps(rates[name])}")
+  profiles = {}
+  for graphs in (True, False):
+    prof = profile_qtopt_train_step(graphs=graphs)
+    prof.pop("top_kernels")
+    profiles["graphed" if graphs else "eager"] = prof
+  _log(f"Bellman step profile (B=256, K=1): {json.dumps(profiles)}")
+  if rates["graphed K=1"]["grad_steps_per_sec"] < 100:
+    raise AssertionError("graphed Bellman training below 100 grad steps/s")
+  return rates, profiles
+
+
+def _bc_models():
+  """(label, model of a dtype) of the two BC configurations."""
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      VRGripperTransformerModel,
+      gin_config,
+  )
+  return (("gin width", lambda dtype: gin_config.gin_model(dtype)),
+          ("default model", lambda dtype: VRGripperTransformerModel(
+              device_dtype=dtype)))
+
+
+def phase_bc_graphs():
+  """`train_eval_model` for the gin-width model (16 × 32, depth 4, head
+  dim 32) and the default model (head dim 16), each in f32 and bf16, 8
+  steps over the same seeded episodes: eager K=1 against graphed K=1
+  and K=4, with an eval every 4 steps (2 batches); then a resume (4
+  steps at K=4, resumed to 8) graphed against the same resume eager.
+  In both dtypes every state leaf and every logged train and eval
+  metric must equal the eager run's bit for bit, and each run's kernel
+  counts the launches traced on the card; and `steps_per_sec` over 40 steps
+  graphed and eager (gin width, bf16). cuDNN runs its deterministic
+  algorithms for the comparisons, as in `phase_bellman_graphs`."""
+  import shutil
+  import tempfile
+  import torch
+  from tensor2robot_tpu_torch.data import EpisodeInputGenerator
+  from tensor2robot_tpu_torch.research.vrgripper import gin_config
+  from tensor2robot_tpu_torch.telemetry.records import read_records
+  from tensor2robot_tpu_torch.train_eval import train_eval_model
+  episodes = gin_config.expert_episodes(32, seed=21)
+  eval_episodes = gin_config.expert_episodes(16, seed=22)
+
+  def gen(eps):
+    return EpisodeInputGenerator(
+        eps, sequence_length=gin_config.GIN_SEQUENCE_LENGTH,
+        batch_size=gin_config.GIN_BATCH_SIZE, seed=0)
+
+  out = {}
+  torch.backends.cudnn.deterministic = True
+  with tempfile.TemporaryDirectory() as root:
+    for label, make in _bc_models():
+      for dtype in (torch.float32, torch.bfloat16):
+        torch.backends.cudnn.allow_tf32 = dtype != torch.float32
+        model = make(dtype)
+
+        def run(name, k, graphs, steps=_GRAPH_STEPS, model_dir=None):
+          d = model_dir or os.path.join(root, f"{label}{dtype}{name}")
+          with traced_launches(f"BC {label} {dtype} {name}"):
+            state = train_eval_model(
+                model, d, gen(episodes), gen(eval_episodes),
+                max_train_steps=steps, eval_steps=2, eval_every_steps=4,
+                save_checkpoints_steps=4, log_every_steps=4, seed=0,
+                steps_per_dispatch=k, graphs=graphs)
+          logged = {tag: read_records(os.path.join(d, f"metrics_{tag}.jsonl"))
+                    for tag in ("train", "eval")}
+          return state, logged
+
+        def metric_diff(got, want):
+          """Largest |difference| of the logged metrics (all but the
+          rate and the record's wall time), record by record, train and
+          eval."""
+          if any(len(got[t]) != len(want[t]) for t in want):
+            raise AssertionError(f"BC {label}: {len(got['train'])} train "
+                                 f"and {len(got['eval'])} eval records, "
+                                 f"want {len(want['train'])} and "
+                                 f"{len(want['eval'])}")
+          return max(abs(a[m] - b[m]) for t in want
+                     for a, b in zip(got[t], want[t])
+                     for m in b if m not in ("wall", "role",
+                                             "steps_per_sec"))
+
+        ref, ref_logged = run("eager", 1, False)
+        lines = {}
+        for name, k in (("k1", 1), ("k4", 4)):
+          state, logged = run(name, k, True)
+          diff, equal = _state_diff(ref, state)
+          lines[name] = dict(max_state_diff=diff, bitwise=equal,
+                             max_metric_diff=metric_diff(logged, ref_logged),
+                             evals=len(logged["eval"]))
+          if state.step != _GRAPH_STEPS:
+            raise AssertionError(f"BC {label} {name}: step {state.step}")
+          if not equal or lines[name]["max_metric_diff"] != 0.0:
+            raise AssertionError(f"BC {dtype} {label} {name} differs from "
+                                 f"eager: {lines[name]}")
+        # Resume: 4 steps at K=4, then resumed to 8 at K=4 (graphed) and
+        # at K=1 (eager) from copies of the same checkpoint.
+        half = os.path.join(root, f"{label}{dtype}half")
+        run("half", 4, True, steps=4, model_dir=half)
+        eager_dir = half + "-eager"
+        shutil.copytree(half, eager_dir)
+        resumed, logged = run("resumed", 4, True, model_dir=half)
+        resumed_eager, logged_eager = run("resumed eager", 1, False,
+                                          model_dir=eager_dir)
+        diff, equal = _state_diff(resumed_eager, resumed)
+        lines["resumed"] = dict(
+            max_state_diff=diff, bitwise=equal, step=resumed.step,
+            max_metric_diff=metric_diff(logged, logged_eager))
+        if (resumed.step != _GRAPH_STEPS or not equal
+            or lines["resumed"]["max_metric_diff"] != 0.0):
+          raise AssertionError(f"BC {dtype} {label} resume: "
+                               f"{lines['resumed']}")
+        out[f"{label} {dtype}"] = lines
+        _log(f"BC graphed vs eager ({label}, {dtype}, {_GRAPH_STEPS} steps, "
+             f"eval every 4): {json.dumps(lines)}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    rates = {}
+    model = gin_config.gin_model()
+    for name, graphs in (("graphed", True), ("eager", False)):
+      d = os.path.join(root, f"rate-{name}")
+      train_eval_model(model, d, gen(episodes), max_train_steps=40,
+                       save_checkpoints_steps=40, log_every_steps=10,
+                       seed=0, graphs=graphs)
+      records = read_records(os.path.join(d, "metrics_train.jsonl"))
+      rates[name] = [r["steps_per_sec"] for r in records]
+    _log(f"BC steps_per_sec (gin width, bf16, B=16 T=32, logged every 10 "
+         f"steps; the first interval holds the warm-up and capture): "
+         f"{json.dumps(rates)}")
+  return out, rates
+
+
+def _pcts(ms):
+  ms = sorted(ms)
+  return dict(p50=ms[len(ms) // 2], p95=ms[int(len(ms) * 0.95)], n=len(ms))
+
+
+def phase_serving_graphs():
+  """CEM serving at `GraspingQModel()` width: every bucket (1, 2, 4, 8)
+  graphed against eager with the same seeded generator (actions and
+  scores equal); `compile_count` after warmup and after traffic; a
+  `warmup_async` with requests in flight; `swap_state` under four
+  robots' traffic (every answer equal to the eager answer of the params
+  version it reports); wall ms per dispatch (p50, p95 over 200) graphed
+  and eager."""
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.research.qtopt import (
+      GraspingQModel,
+      QTOptLearner,
+  )
+  from tensor2robot_tpu_torch.serving import CEMPolicyServer
+  from tensor2robot_tpu_torch.serving.engine import BucketedServingEngine
+  from tensor2robot_tpu_torch.specs import make_random_tensors
+
+  learner = QTOptLearner(GraspingQModel(), cem_iterations=2,
+                         cem_population=64, cem_elites=6, cem_select="fused")
+  states = [learner.create_state(seed=s).train_state for s in (0, 1)]
+  spec = learner.observation_specification()
+  example = make_random_tensors(spec, batch_size=1, seed=0)
+
+  def cem_fn(st, obs, generator):  # best action and its score
+    batch = next(iter(obs.values())).shape[0]
+    with torch.inference_mode():
+      fns = learner._cem_fns(learner.model.bind(st), obs)
+      result = learner._cem(*fns, batch, generator, None,
+                            next(iter(st.params.values())).device)
+    return {"action": result.best_action, "score": result.best_score}
+
+  def engine(graphs, warm=True):
+    e = BucketedServingEngine(cem_fn, states[0], example, max_batch=8,
+                              takes_rng=True, graphs=graphs)
+    if warm:
+      e.warmup()
+    return e
+
+  graphed, eager = engine(True), engine(False)
+  compiles = graphed.compile_count
+  if compiles != 4 or graphed.compiled_buckets != (1, 2, 4, 8):
+    raise AssertionError(f"compile_count {compiles} after warmup")
+  gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa: E731
+  for n in (1, 2, 3, 4, 8):
+    obs = make_random_tensors(spec, batch_size=n, seed=40 + n).to_flat_dict()
+    a = graphed.predict(obs, gen(n))
+    b = eager.predict(obs, gen(n))
+    if not all(np.array_equal(a[k], b[k]) for k in ("action", "score")):
+      raise AssertionError(f"bucket for {n} rows: graphed and eager differ: "
+                           f"{a} {b}")
+  # Swap under traffic: version v serves states[v % 2].
+  answers, errors = [], []
+  stop = threading.Event()
+
+  def robot(i):
+    j = 0
+    try:
+      while not stop.is_set() or j < 10:
+        obs = make_random_tensors(spec, batch_size=1 + (i + j) % 3,
+                                  seed=1000 * i + j).to_flat_dict()
+        out, pub = graphed.predict_versioned(obs, gen(7 * i + j))
+        answers.append((obs, 7 * i + j, out, pub.version))
+        j += 1
+    except Exception as e:  # noqa: BLE001 — raised below
+      errors.append(e)
+
+  robots = [threading.Thread(target=robot, args=(i,)) for i in range(4)]
+  for t in robots:
+    t.start()
+  for v in range(1, 11):
+    time.sleep(0.01)
+    graphed.swap_state(states[v % 2], learner_step=v)
+  stop.set()
+  for t in robots:
+    t.join(timeout=300)
+  if errors or any(t.is_alive() for t in robots):
+    raise AssertionError(f"robots failed: {errors}")
+  checked = {0: 0, 1: 0}
+  for parity in (0, 1):
+    eager.swap_state(states[parity])
+    for obs, seed, out, version in answers:
+      if version % 2 != parity:
+        continue
+      want = eager.predict(obs, gen(seed))
+      if not all(np.array_equal(out[k], want[k])
+                 for k in ("action", "score")):
+        raise AssertionError(f"an answer of params version {version} is "
+                             "not that version's eager answer")
+      checked[parity] += 1
+  if graphed.compile_count != compiles:
+    raise AssertionError(f"compile_count moved under traffic: "
+                         f"{graphed.compile_count}")
+  _log(f"serving graphs: buckets 1, 2, 4, 8 equal to eager (actions, "
+       f"scores); compile_count {compiles} after warmup and after "
+       f"{len(answers)} dispatches; swap_state x10 under 4 robots: "
+       f"{len(answers)} answers each equal to its version's eager answer "
+       f"(versions of state 0: {checked[0]}, state 1: {checked[1]})")
+  # warmup_async with requests arriving during it.
+  late = engine(True, warm=False)
+  late.warmup_async()
+  obs1 = make_random_tensors(spec, batch_size=1, seed=3).to_flat_dict()
+  early = [late.predict(obs1, gen(3)) for _ in range(3)]
+  late.wait_warmup()
+  late.wait_warmup()
+  if late.compile_count != 4 or any(
+      not np.array_equal(e["action"], early[0]["action"]) for e in early):
+    raise AssertionError(f"warmup_async: compile_count {late.compile_count}")
+  # Wall ms per dispatch at B=8 through the server (padding, H2D, D2H).
+  walls = {}
+  for graphs in (True, False):
+    server = CEMPolicyServer(learner, states[0], max_batch=8, seed=0,
+                             graphs=graphs)
+    obs8 = make_random_tensors(spec, batch_size=8, seed=9).to_flat_dict()
+    for n, seeds in ((8, range(200)), (1, range(200))):
+      obs = {k: v[:n] for k, v in obs8.items()}
+      for s in range(5):
+        server.select_actions_direct(obs, generator=gen(s))
+      ms = []
+      for s in seeds:
+        t0 = time.perf_counter()
+        server.select_actions_direct(obs, generator=gen(s))
+        ms.append((time.perf_counter() - t0) * 1e3)
+      walls[f"{'graphed' if graphs else 'eager'} B={n}"] = _pcts(ms)
+    server.close()
+  _log(f"serving wall ms per dispatch (direct, host clock): "
+       f"{json.dumps(walls)}")
+  return walls
+
+
+def phase_context_graphs():
+  """One seeded episode of up to 40 steps through
+  `evaluate_gripper_policy`, the context policy graphed and eager (the
+  gin width, bf16): the same actions; wall ms per step (p50, p95)."""
+  import numpy as np
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      evaluate_gripper_policy,
+  )
+  from tensor2robot_tpu_torch.research.vrgripper.gin_config import gin_model
+  model = gin_model()
+  state = model.create_inference_state(seed=0)
+  actions, walls, steps = {}, {}, {}
+  for graphs in (True, False):
+    policy = model.make_context_policy(state, graphs=graphs)
+    recorder = _Recorder(policy)
+    times = []
+
+    def timed(batch, recorder=recorder, times=times):
+      t0 = time.perf_counter()
+      out = recorder(batch)
+      times.append((time.perf_counter() - t0) * 1e3)
+      return out
+
+    timed.reset = recorder.reset
+    evaluate_gripper_policy(timed, num_episodes=1, image_size=48, seed=5,
+                            max_steps=40)
+    name = "graphed" if graphs else "eager"
+    actions[name] = np.concatenate(recorder.actions)
+    walls[name] = _pcts(times[1:])  # the first step captures the graph
+    steps[name] = policy.steps
+  if not np.array_equal(actions["graphed"], actions["eager"]):
+    raise AssertionError("graphed and eager context policies differ: max "
+                         f"{np.abs(actions['graphed'] - actions['eager']).max()}")
+  _log(f"context policy graphed vs eager: {steps['graphed']}-step episode, "
+       f"the same actions; wall ms per step {json.dumps(walls)}")
+  return walls
+
+
+def phase_launch_accounting():
+  """Per path, graphed and eager, by `bin/profile_policy`'s profiler
+  (calls in a row): device busy and idle share, wall, the kernels run
+  and the host's launch calls per call, graph launches among them."""
+  from tensor2robot_tpu_torch.bin import profile_policy as pp
+  rows = {}
+  for name, fn in (("cem_dispatch_B8", lambda g: pp.profile_cem(8, g)),
+                   ("context_policy_step", pp.profile_context_policy),
+                   ("bc_train_step", pp.profile_train_step),
+                   ("bellman_step_B256", pp.profile_qtopt_train_step)):
+    for graphs in (False, True):
+      prof = fn(graphs)
+      prof.pop("top_kernels")
+      rows[f"{name} {'graphed' if graphs else 'eager'}"] = prof
+      _log(f"profile {name} {'graphed' if graphs else 'eager'}: "
+           f"{json.dumps(prof)}")
+  return rows
+
+
 def log_wgmma_kernels(logs):
   """One line per instantiation of the two CEM kernels' wgmma paths:
   ptxas's registers and spill bytes, and the dynamic shared memory a
@@ -1722,6 +2393,13 @@ def main():
   phase_qtopt_card_vs_cpu()
   head_rows, _, _, _ = phase_qtopt_timings(qt_learner, qt_state, replay,
                                            target_net, encoded)
+  phase_flash_padded()
+  phase_bellman_graphs()
+  phase_bellman_rate(replay)
+  phase_bc_graphs()
+  phase_serving_graphs()
+  phase_context_graphs()
+  phase_launch_accounting()
   main_row = rows[8]  # the serving path's largest bucket
   head_row = head_rows[256]  # the Bellman target's shape
   flash_row = flash_rows[1]  # the context policy serves one robot

@@ -4,6 +4,7 @@
     python -m tensor2robot_tpu_torch.bin.profile_policy --model vrgripper_transformer
     python -m tensor2robot_tpu_torch.bin.profile_policy --model vrgripper_train
     python -m tensor2robot_tpu_torch.bin.profile_policy --model qtopt_train
+    python -m tensor2robot_tpu_torch.bin.profile_policy --graphs [--model ...]
 
 `--model qtopt` (the default) runs `QTOptLearner.build_policy()` at
 `GraspingQModel()`'s full width (bf16, random weights from seed 0, CEM
@@ -22,10 +23,18 @@ steps, the gin's training shape. `--model qtopt_train` runs
 2 × 64 with the fused select, Adam 1e-4) on one batch of its synthetic
 bandit transitions, each step from the same state.
 
+`--graphs` runs each call as the product path graphs it: one replay of
+a CUDA graph (`utils.step_graph.StepGraph`) of the CEM dispatch, of the
+context policy's forward, of `train_eval`'s train step and of
+`train_qtopt`'s Bellman step (K=1, its noise generator seeded per
+step); without it every call runs eagerly.
+
 Each prints, under `torch.profiler`: the wall time per call (host clock
 around synchronized calls), the device-busy time per call (sum of
-kernel times), the device's idle share, the number of kernel launches
-per call, and the kernels that take the most device time. Needs a
+kernel times), the device's idle share, the number of kernels run per
+call, the host's launch calls per call (kernel launches and graph
+launches, from the CUDA runtime and driver events) and graph launches
+among them, and the kernels that take the most device time. Needs a
 CUDA card.
 """
 
@@ -40,6 +49,11 @@ import torch
 
 from tensor2robot_tpu_torch.research.qtopt import GraspingQModel, QTOptLearner
 from tensor2robot_tpu_torch.specs import make_random_tensors
+from tensor2robot_tpu_torch.utils.step_graph import StepGraph
+
+_KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx")
+_GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
 def _device_time_us(event) -> float:
@@ -69,8 +83,12 @@ def profile_calls(call: Callable[[], None], calls: int = 20,
     for _ in range(calls):
       call()
     torch.cuda.synchronize()
-  kernels = [e for e in prof.key_averages()
+  events = prof.key_averages()
+  kernels = [e for e in events
              if e.device_type == torch.autograd.DeviceType.CUDA]
+  graph_launches = sum(e.count for e in events if e.key in _GRAPH_LAUNCHES)
+  host_launches = graph_launches + sum(
+      e.count for e in events if e.key in _KERNEL_LAUNCHES)
   busy_us = sum(_device_time_us(e) for e in kernels)
   launches = sum(e.count for e in kernels)
   ranked = sorted(kernels, key=_device_time_us, reverse=True)[:top]
@@ -80,6 +98,8 @@ def profile_calls(call: Callable[[], None], calls: int = 20,
       "device_busy_ms_per_call": busy_ms,
       "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
       "kernel_launches_per_call": launches / calls,
+      "host_launches_per_call": host_launches / calls,
+      "graph_launches_per_call": graph_launches / calls,
       "top_kernels": [{"name": e.key[:80],
                        "ms_per_call": _device_time_us(e) / calls / 1e3,
                        "calls_per_call": e.count / calls}
@@ -87,7 +107,21 @@ def profile_calls(call: Callable[[], None], calls: int = 20,
   }
 
 
-def profile_cem(batch: int) -> dict:
+def _replayer(fn, carry, inputs, num_generators: int = 0, **kwargs):
+  """One replay of `fn` captured as a `StepGraph` on the card, its
+  generators seeded 0, as a call."""
+  graph = StepGraph(fn, carry, inputs, "cuda", num_generators=num_generators,
+                    **kwargs)
+
+  def replay():
+    for generator in graph.generators:
+      generator.manual_seed(0)
+    return graph.replay()
+
+  return replay
+
+
+def profile_cem(batch: int, graphs: bool = False) -> dict:
   learner = QTOptLearner(GraspingQModel(), cem_iterations=2,
                          cem_population=64, cem_elites=6,
                          cem_select="fused")
@@ -98,17 +132,24 @@ def profile_cem(batch: int) -> dict:
   policy = learner.build_policy()
   gen = torch.Generator(device="cuda").manual_seed(0)
 
-  def dispatch():
-    policy(state, obs, generator=gen)
+  if graphs:
+    dispatch = _replayer(
+        lambda st, o, gens: (st, policy(st, o, generator=gens[0])),
+        state.train_state, obs, num_generators=1, carries=False,
+        own_carry=False)
+  else:
+    dispatch = lambda: policy(state, obs, generator=gen)  # noqa: E731
 
-  return {"model": "qtopt", "batch": batch, **profile_calls(dispatch)}
+  return {"model": "qtopt", "batch": batch, "graphs": graphs,
+          **profile_calls(dispatch)}
 
 
-def profile_context_policy() -> dict:
+def profile_context_policy(graphs: bool = False) -> dict:
   from tensor2robot_tpu_torch.research.vrgripper import VRGripperEnv
   from tensor2robot_tpu_torch.research.vrgripper.gin_config import gin_model
   model = gin_model()
-  policy = model.make_context_policy(model.create_inference_state(seed=0))
+  policy = model.make_context_policy(model.create_inference_state(seed=0),
+                                     graphs=graphs)
   env = VRGripperEnv(image_size=48, seed=1)
   obs = env.reset()
 
@@ -121,10 +162,10 @@ def profile_context_policy() -> dict:
       policy.reset()
 
   return {"model": "vrgripper_transformer", "context": 512,
-          **profile_calls(step)}
+          "graphs": graphs, **profile_calls(step)}
 
 
-def profile_train_step() -> dict:
+def profile_train_step(graphs: bool = False) -> dict:
   from tensor2robot_tpu_torch.data import EpisodeInputGenerator, Mode
   from tensor2robot_tpu_torch.research.vrgripper import gin_config
   model = gin_config.gin_model()
@@ -139,17 +180,27 @@ def profile_train_step() -> dict:
   features, labels = to_card(features), to_card(labels)
   state = model.create_train_state(seed=0)
 
-  def step():  # the loss's copy to the host synchronizes, as a log does
+  def eager():
     nonlocal state
     state, metrics = model.train_step(state, features, labels)
-    metrics["loss"].item()
+    return metrics
+
+  if graphs:
+    from tensor2robot_tpu_torch.train_eval import train_step_fn
+    run = _replayer(train_step_fn(model), state,
+                    {"features": features, "labels": labels})
+  else:
+    run = eager
+
+  def step():  # the loss's copy to the host synchronizes, as a log does
+    run()["loss"].item()
 
   return {"model": "vrgripper_train", "batch": gin_config.GIN_BATCH_SIZE,
           "sequence_length": gin_config.GIN_SEQUENCE_LENGTH,
-          **profile_calls(step)}
+          "graphs": graphs, **profile_calls(step)}
 
 
-def profile_qtopt_train_step() -> dict:
+def profile_qtopt_train_step(graphs: bool = False) -> dict:
   from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
   learner = bandit.bellman_learner()
   state = learner.create_state(seed=0)
@@ -158,11 +209,17 @@ def profile_qtopt_train_step() -> dict:
                                      seed=1).items()}
   gen = torch.Generator(device="cuda").manual_seed(0)
 
+  if graphs:
+    from tensor2robot_tpu_torch.research.qtopt.train_qtopt import k_step_fn
+    run = _replayer(k_step_fn(learner, 1), state, batch, num_generators=1)
+  else:
+    run = lambda: learner.train_step(state, batch, generator=gen)[1]  # noqa: E731
+
   def step():  # the loss's copy to the host synchronizes, as a log does
-    learner.train_step(state, batch, generator=gen)[1]["loss"].item()
+    run()["loss"].item()
 
   return {"model": "qtopt_train", "batch": bandit.BATCH_SIZE,
-          **profile_calls(step)}
+          "graphs": graphs, **profile_calls(step)}
 
 
 def main():
@@ -172,19 +229,21 @@ def main():
                       default="qtopt")
   parser.add_argument("--batches", type=int, nargs="+", default=[8, 256],
                       help="CEM batch sizes (--model qtopt)")
+  parser.add_argument("--graphs", action="store_true",
+                      help="each call one CUDA-graph replay")
   args = parser.parse_args()
   if not torch.cuda.is_available():
     raise SystemExit("profile_policy needs a CUDA card")
   print(f"device: {torch.cuda.get_device_name(0)}")
   if args.model == "qtopt":
     for batch in args.batches:
-      print(json.dumps(profile_cem(batch)), flush=True)
+      print(json.dumps(profile_cem(batch, args.graphs)), flush=True)
   elif args.model == "vrgripper_transformer":
-    print(json.dumps(profile_context_policy()), flush=True)
+    print(json.dumps(profile_context_policy(args.graphs)), flush=True)
   elif args.model == "qtopt_train":
-    print(json.dumps(profile_qtopt_train_step()), flush=True)
+    print(json.dumps(profile_qtopt_train_step(args.graphs)), flush=True)
   else:
-    print(json.dumps(profile_train_step()), flush=True)
+    print(json.dumps(profile_train_step(args.graphs)), flush=True)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,9 @@
 `TrainState` holds a network's parameters, batch statistics and
 optimizer state. The model base has the inference half (`device_dtype`,
 `create_network`, `predict_step`; the JAX default preprocessor is the
-no-op one, so there is none to port) and the train half
+no-op one, so there is none to port), the train half
 (`create_train_state`, `loss_fn`, `train_grads`, `apply_gradients`,
-`train_step`). The JAX package keeps params outside its stateless flax
+`train_step`) and `eval_step`. The JAX package keeps params outside its stateless flax
 modules; the port does the same, so a state can be hot-swapped
 atomically while a dispatch still runs on the old one.
 `AbstractT2RModel.bind(state)` returns a module whose tensors ARE the
@@ -20,14 +20,26 @@ the new running statistics (`mutable=["batch_stats"]` under flax),
 which `apply_gradients` stores; the old state's buffers are never
 written.
 
-Not ported yet: `remat_policy` and `axis_name` (ROADMAP A11) and
-auxiliary losses sown by the network (MoE, A11). Each raises where it
-is asked for.
+An auxiliary loss that a network returns under `AUX_LOSS_OUTPUT` is
+popped before `model_train_fn` / `model_eval_fn` see the outputs and
+weighted into the loss by `aux_loss_weight`, reported as `aux_loss`, as
+the JAX package does (no port network returns one yet: MoE is A11).
+
+Under `utils.step_graph` a step's carry is a `TrainState` whose tensors
+are static buffers: the step still returns fresh tensors, and the graph
+copies them back into the buffers at the end of the captured region
+(one `_foreach_copy_`). `step` is a host int that the trainers advance
+outside the graph, K per dispatch; Adam's `count` is a device tensor
+and advances inside it.
+
+Not ported yet: `remat_policy` and `axis_name` (ROADMAP A11). Each
+raises where it is asked for.
 """
 
 from __future__ import annotations
 
 import abc
+
 import dataclasses
 import math
 import weakref
@@ -40,6 +52,7 @@ from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
 from tensor2robot_tpu_torch.layers.vision_layers import collect_batch_stats
 from tensor2robot_tpu_torch.models import optimizers as opt_lib
+from tensor2robot_tpu_torch.models.model_interface import ModelInterface
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 
 Metrics = Dict[str, torch.Tensor]
@@ -109,24 +122,30 @@ def _flat(struct) -> Dict[str, Any]:
           else dict(struct))
 
 
-class AbstractT2RModel(abc.ABC):
+class AbstractT2RModel(ModelInterface):
   """Base class for models: specs + network construction + loss.
 
   Subclasses implement `get_feature_specification(mode)`,
   `get_label_specification(mode)`, `create_network()` and, to train,
-  `model_train_fn(features, labels, outputs, mode) -> (loss, scalars)`.
+  `model_train_fn(features, labels, outputs, mode) -> (loss, scalars)`;
+  optionally `model_eval_fn(features, labels, outputs) -> scalars`
+  (default: the train fn's loss and scalars).
   """
+
+  AUX_LOSS_OUTPUT = "_aux_loss"
 
   def __init__(self, device_dtype: torch.dtype = torch.float32,
                create_optimizer_fn: Callable[
                    [], opt_lib.GradientTransformation] = (
                        opt_lib.create_optimizer),
+               aux_loss_weight: float = 0.01,
                remat_policy: Optional[str] = None):
     if remat_policy not in (None, "none"):
       raise NotImplementedError(
           f"remat_policy={remat_policy!r}: rematerialization is not ported "
           "yet (ROADMAP A11).")
     self._device_dtype = device_dtype
+    self._aux_loss_weight = aux_loss_weight
     self._create_optimizer_fn = create_optimizer_fn
     self._tx: Optional[opt_lib.GradientTransformation] = None
     self._train_network: Optional[nn.Module] = None
@@ -188,14 +207,16 @@ class AbstractT2RModel(abc.ABC):
     del labels, mode
     return features
 
-  def loss_fn(self, params: Dict[str, torch.Tensor],
-              batch_stats: Dict[str, torch.Tensor], features, labels,
-              mode: Mode) -> Tuple[torch.Tensor, Tuple[Metrics, Dict]]:
-    """(loss, (scalars, new_batch_stats)) of the network over `params`
-    and `batch_stats`. In TRAIN mode batch norm normalizes with the
-    batch's statistics and the new running statistics are returned;
-    otherwise `batch_stats` come back as they were. Neither is written
-    in place."""
+  def model_eval_fn(self, features, labels, outputs) -> Metrics:
+    """Eval scalars: the train fn's loss (as `loss`) and scalars."""
+    loss, scalars = self.model_train_fn(features, labels, outputs,
+                                        Mode.EVAL)
+    return {"loss": loss, **scalars}
+
+  def _apply_network(self, params, batch_stats, features, labels,
+                     mode: Mode):
+    """(features as the network saw them, outputs without the aux loss,
+    the aux loss or None, new batch stats) over `params`."""
     if self._train_network is None:
       with torch.device("meta"):
         self._train_network = self.create_network()
@@ -207,13 +228,51 @@ class AbstractT2RModel(abc.ABC):
         self._train_network, {**params, **batch_stats}, (features,),
         strict=True)
     new_stats = collect_batch_stats(self._train_network)
-    if isinstance(outputs, Mapping) and "_aux_loss" in outputs:
-      raise NotImplementedError(
-          "auxiliary (MoE) losses are not ported yet (ROADMAP A11).")
+    # Popped before the model's fns: they never see the private key.
+    aux = (outputs.pop(self.AUX_LOSS_OUTPUT, None)
+           if isinstance(outputs, dict) else None)
+    return (features, outputs, aux,
+            new_stats if train and batch_stats else batch_stats)
+
+  def _with_aux(self, metrics: Metrics, aux, what: str) -> Metrics:
+    if "aux_loss" in metrics:
+      raise ValueError(
+          f"{what} reported a scalar named 'aux_loss'; that key is "
+          "reserved for the network's auxiliary loss "
+          f"({self.AUX_LOSS_OUTPUT}) — rename the subclass scalar.")
+    return {**metrics, "aux_loss": aux}
+
+  def loss_fn(self, params: Dict[str, torch.Tensor],
+              batch_stats: Dict[str, torch.Tensor], features, labels,
+              mode: Mode) -> Tuple[torch.Tensor, Tuple[Metrics, Dict]]:
+    """(loss, (scalars, new_batch_stats)) of the network over `params`
+    and `batch_stats`. In TRAIN mode batch norm normalizes with the
+    batch's statistics and the new running statistics are returned;
+    otherwise `batch_stats` come back as they were. Neither is written
+    in place. A network's auxiliary loss adds `aux_loss_weight` times
+    itself to the loss."""
+    features, outputs, aux, new_stats = self._apply_network(
+        params, batch_stats, features, labels, mode)
     loss, scalars = self.model_train_fn(features, _flat(labels), outputs,
                                         mode)
-    return loss, (scalars, new_stats if train and batch_stats
-                  else batch_stats)
+    if aux is not None:
+      loss = loss + self._aux_loss_weight * aux
+      scalars = self._with_aux(scalars, aux, "model_train_fn")
+    return loss, (scalars, new_stats)
+
+  def eval_step(self, state: TrainState, features, labels) -> Metrics:
+    """Eval metrics of `state` on a batch (`model_eval_fn`), the network
+    in eval mode, without autograd. With an auxiliary loss: `aux_loss`
+    reported and, where a `loss` is, weighted into it."""
+    with torch.no_grad():
+      features, outputs, aux, _ = self._apply_network(
+          state.params, state.batch_stats, features, labels, Mode.EVAL)
+      metrics = self.model_eval_fn(features, _flat(labels), outputs)
+      if aux is not None:
+        metrics = self._with_aux(metrics, aux, "model_eval_fn")
+        if "loss" in metrics:
+          metrics["loss"] = metrics["loss"] + self._aux_loss_weight * aux
+    return {k: v.detach() for k, v in metrics.items()}
 
   def train_grads(self, state: TrainState, features, labels,
                   axis_name: Optional[str] = None

@@ -12,13 +12,13 @@ from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.layers.core import MLP
 from tensor2robot_tpu_torch.models.abstract_model import AbstractT2RModel
+from tensor2robot_tpu_torch.models.regression_model import float_feature_width
 
 Q_VALUE = "q_value"
 
@@ -63,9 +63,7 @@ class CriticModel(AbstractT2RModel):
   def create_network(self) -> nn.Module:
     """The default MLP critic; torch needs its input width up front, so
     it is summed from the TRAIN feature spec's float leaves."""
-    specs = self.get_feature_specification(Mode.TRAIN).to_flat_dict()
-    width = sum(int(np.prod(s.shape)) for s in specs.values()
-                if s.dtype is torch.bfloat16 or s.dtype.kind == "f")
+    width = float_feature_width(self.get_feature_specification(Mode.TRAIN))
     return _QNet(width, self._hidden_sizes, self.device_dtype)
 
   def q_from_outputs(self, outputs) -> torch.Tensor:

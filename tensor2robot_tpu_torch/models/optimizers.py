@@ -9,6 +9,13 @@ state, params) -> (updates, new_state)`, over flat dicts of tensors, and
 the caller adds the updates to the params (`apply_updates`). Nothing is
 updated in place.
 
+Every transformation runs on `torch._foreach_*`: one multi-tensor
+launch per elementwise op over all the leaves, not one per leaf, with
+the same single roundings as the per-leaf expressions (each product,
+sum and quotient is its own op, never fused), so a step's arithmetic is
+unchanged. `global_norm` squares the leaves in one multi-tensor launch
+and sums them leaf by leaf, in the per-leaf order.
+
 Ported: the schedules (constant, exponential, cosine and linear decay,
 each with a linear warmup), and `create_optimizer` for adam, adamw, sgd
 and momentum with the same chain order (clip by global norm → clip by
@@ -22,7 +29,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 
@@ -66,14 +74,43 @@ def _zeros(params: Params) -> Params:
   return {k: torch.zeros_like(v) for k, v in params.items()}
 
 
+def _tree_map(fn: Callable[..., List[torch.Tensor]], tree: Params,
+              *rest: Params) -> Params:
+  """`fn` over the leaf lists of `tree` (and `rest`, in `tree`'s key
+  order): {key: fn(...)[i]}. An empty tree maps to an empty dict."""
+  keys = list(tree)
+  if not keys:
+    return {}
+  out = fn([tree[k] for k in keys], *([r[k] for k in keys] for r in rest))
+  return dict(zip(keys, out))
+
+
+def _axpby(a: float, x: List[torch.Tensor], b: float,
+           y: List[torch.Tensor]) -> List[torch.Tensor]:
+  """a·x + b·y leafwise, each product and the sum rounded on their own."""
+  return torch._foreach_add(torch._foreach_mul(x, a),
+                            torch._foreach_mul(y, b))
+
+
 def global_norm(tree: Params) -> torch.Tensor:
-  """optax's `global_norm`: sqrt of the sum of every leaf's squares."""
-  return torch.sqrt(sum(torch.sum(g * g) for g in tree.values()))
+  """optax's `global_norm`: sqrt of the sum of every leaf's squares.
+
+  The squares are one multi-tensor product; each leaf's sum and the sum
+  of those sums keep the per-leaf order (a multi-tensor norm or a sum
+  over one stacked tensor would sum in another order and move the last
+  bits of the norm, and of every clipped gradient)."""
+  leaves = list(tree.values())
+  if not leaves:
+    return torch.zeros(())
+  return torch.sqrt(sum(torch.sum(s) for s in torch._foreach_mul(leaves,
+                                                                 leaves)))
 
 
 def apply_updates(params: Params, updates: Params) -> Params:
   """optax's `apply_updates`: p + u, in p's dtype."""
-  return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+  out = _tree_map(torch._foreach_add, params, updates)
+  return {k: v if v.dtype == params[k].dtype else v.to(params[k].dtype)
+          for k, v in out.items()}
 
 
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
@@ -106,22 +143,31 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return ScaleByAdamState(_count(params), _zeros(params), _zeros(params))
 
   def update(updates, state, params=None):
-    mu = {k: (1 - b1) * g + b1 * state.mu[k] for k, g in updates.items()}
-    nu = {k: (1 - b2) * (g * g) + b2 * state.nu[k]
-          for k, g in updates.items()}
     count = state.count + 1
     # As optax: the powers in f32, the division in the moment's dtype.
     c1 = 1 - torch.pow(b1, count).float()
     c2 = 1 - torch.pow(b2, count).float()
-    out = {k: (mu[k] / c1) / (torch.sqrt(nu[k] / c2 + eps_root) + eps)
-           for k in updates}
-    return out, ScaleByAdamState(count, mu, nu)
+
+    def moments_and_update(g, mu, nu):
+      mu = _axpby(1 - b1, g, b1, mu)
+      nu = _axpby(1 - b2, torch._foreach_mul(g, g), b2, nu)
+      den = torch._foreach_sqrt(
+          torch._foreach_add(torch._foreach_div(nu, c2), eps_root))
+      out = torch._foreach_div(torch._foreach_div(mu, c1),
+                               torch._foreach_add(den, eps))
+      return list(zip(out, mu, nu))
+
+    both = _tree_map(moments_and_update, updates, state.mu, state.nu)
+    return ({k: v[0] for k, v in both.items()},
+            ScaleByAdamState(count, {k: v[1] for k, v in both.items()},
+                             {k: v[2] for k, v in both.items()}))
 
   return GradientTransformation(init, update)
 
 
 def scale(step_size: float) -> GradientTransformation:
-  return _stateless(lambda u, p: {k: step_size * g for k, g in u.items()})
+  return _stateless(
+      lambda u, p: _tree_map(lambda g: torch._foreach_mul(g, step_size), u))
 
 
 def scale_by_schedule(step_size_fn: Schedule) -> GradientTransformation:
@@ -132,7 +178,7 @@ def scale_by_schedule(step_size_fn: Schedule) -> GradientTransformation:
 
   def update(updates, state, params=None):
     step = step_size_fn(state.count)
-    return ({k: step * g for k, g in updates.items()},
+    return (_tree_map(lambda g: torch._foreach_mul(g, step), updates),
             ScaleByScheduleState(state.count + 1))
 
   return GradientTransformation(init, update)
@@ -152,30 +198,51 @@ def trace(decay: float) -> GradientTransformation:
     return TraceState(_zeros(params))
 
   def update(updates, state, params=None):
-    new = {k: g + decay * state.trace[k] for k, g in updates.items()}
+    new = _tree_map(lambda g, t: torch._foreach_add(
+        g, torch._foreach_mul(t, decay)), updates, state.trace)
     return new, TraceState(new)
 
   return GradientTransformation(init, update)
 
 
 def add_decayed_weights(weight_decay: float) -> GradientTransformation:
-  return _stateless(
-      lambda u, p: {k: g + weight_decay * p[k] for k, g in u.items()})
+  return _stateless(lambda u, p: _tree_map(
+      lambda g, w: torch._foreach_add(g, torch._foreach_mul(w, weight_decay)),
+      u, p))
 
 
 def clip(max_delta: float) -> GradientTransformation:
-  return _stateless(
-      lambda u, p: {k: g.clamp(-max_delta, max_delta) for k, g in u.items()})
+  return _stateless(lambda u, p: _tree_map(
+      lambda g: torch._foreach_clamp_max(
+          torch._foreach_clamp_min(g, -max_delta), max_delta), u))
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
-  """Unchanged below `max_norm`, else (g / norm) · max_norm."""
+  """Unchanged below `max_norm`, else (g / norm) · max_norm.
+
+  The choice is made on the card, not the host: below the limit each
+  leaf is divided and multiplied by 1 (exact), above it by the norm and
+  `max_norm`."""
 
   def fn(updates, params):
+    if not updates:
+      return {}
     norm = global_norm(updates)
     trigger = norm < max_norm
-    return {k: torch.where(trigger, g, (g / norm.to(g.dtype)) * max_norm)
-            for k, g in updates.items()}
+    one = torch.ones_like(norm)
+    div = torch.where(trigger, one, norm)
+    mul = torch.where(trigger, one, torch.full_like(norm, max_norm))
+    # g / norm in g's dtype, then · max_norm as a Python scalar would be.
+    by_dtype: Dict[torch.dtype, List[str]] = {}
+    for k, g in updates.items():
+      by_dtype.setdefault(g.dtype, []).append(k)
+    out = {}
+    for dtype, keys in by_dtype.items():
+      leaves = [updates[k] for k in keys]
+      scaled = torch._foreach_mul(
+          torch._foreach_div(leaves, div.to(dtype)), mul)
+      out.update(zip(keys, scaled))
+    return {k: out[k] for k in updates}
 
   return _stateless(fn)
 

@@ -11,6 +11,12 @@ covers the source, the headers in `csrc/` and the flags: an edited
 source or header builds anew, an unchanged one loads the library
 already there. Nothing is built at import time. `build(names)` starts
 one nvcc per source, all at once.
+
+No build or first load runs inside a CUDA-graph capture: `load` raises
+there. `utils.step_graph` runs its step once before it captures, which
+builds and loads every library the step calls (and makes each
+library's once-per-process calls: shared-memory opt-ins, the SM count,
+the driver's tensor-map entry point).
 """
 
 from __future__ import annotations
@@ -106,6 +112,11 @@ def load(name: str, argtypes: Dict[str, Sequence] = None) -> ctypes.CDLL:
   with _LOCK:
     lib = _LOADED.get(name)
     if lib is None:
+      import torch
+      if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"kernel library {name!r} would be built and loaded inside a "
+            "CUDA-graph capture; run the step once before capturing it.")
       build([name])
       lib = ctypes.CDLL(str(library_path(name)))
       for fn, (restype, args) in (argtypes or {}).items():

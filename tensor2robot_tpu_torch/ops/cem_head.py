@@ -35,13 +35,12 @@ output) have no counterpart here.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from tensor2robot_tpu_torch.ops import build
+from tensor2robot_tpu_torch.ops import build, counters
 from tensor2robot_tpu_torch.ops.cem_select import (
     _align,
     _aligned16,
@@ -143,7 +142,6 @@ def fused_cem_head_tail(act: torch.Tensor, enc0: torch.Tensor,
 
 
 fused_cem_head_tail.launches = 0
-_COUNT_LOCK = threading.Lock()
 
 
 def _tail_smem(off, rows, c2, max_width):
@@ -318,6 +316,5 @@ def _launch(act, enc0, conv_kernel, bn_scale, bn_shift, dense_params):
         plan["stages"], plan["smem"], stream)
   if err != 0:
     raise RuntimeError(f"cem_head kernel launch failed: CUDA error {err}")
-  with _COUNT_LOCK:
-    fused_cem_head_tail.launches += 1
+  counters.count(fused_cem_head_tail)
   return q

@@ -22,12 +22,11 @@ to the lower sample index; std uses ddof 0, floored at `min_std`.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Sequence, Tuple
 
 import torch
 
-from tensor2robot_tpu_torch.ops import build
+from tensor2robot_tpu_torch.ops import build, counters
 
 _MAX_LAYERS = 8
 _MAX_SMEM = 232448 - 64  # 227 KB, less version 1's static scratch
@@ -204,7 +203,6 @@ def fused_cem_select(pooled: torch.Tensor, samples: torch.Tensor,
 
 
 fused_cem_select.launches = 0
-_COUNT_LOCK = threading.Lock()
 
 
 def _launch(pooled, samples, dense, num_elites, min_std, sigmoid):
@@ -244,6 +242,5 @@ def _launch(pooled, samples, dense, num_elites, min_std, sigmoid):
         plan["smem"], stream)
   if err != 0:
     raise RuntimeError(f"cem_select kernel launch failed: CUDA error {err}")
-  with _COUNT_LOCK:
-    fused_cem_select.launches += 1
+  counters.count(fused_cem_select)
   return out[0], out[1], out[2], best_score

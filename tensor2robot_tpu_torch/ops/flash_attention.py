@@ -35,20 +35,25 @@ cores). `flash_attention` and `flash_attention_with_lse` go through the
 (grad mode on and an input requiring grad); otherwise they call the
 forward alone.
 
-Head dims: D ∈ {16, 32, 64, 128} on the card (the plain versions take
-any D).
+Head dims: the kernels take D ∈ {16, 32, 64, 128}. The public path
+(`_forward`, `FlashAttention`, `flash_attention_backward`) takes any D ≤
+128 on the card: it zero-pads q, k, v (and out, dO) to the next kernel D
+(`kernel_head_dim`), keeps the score scale 1/√D of the true D, and
+slices the outputs back; zero columns add exact zeros to every product.
+It also launches B·H above the grid's 65,535 in batch chunks
+(`batch_chunks`). D > 128 raises on the card; the plain versions take
+any D.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from typing import Optional, Tuple
 
 import torch
 
-from tensor2robot_tpu_torch.ops import build
+from tensor2robot_tpu_torch.ops import build, counters
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -83,11 +88,14 @@ def _causal_mask(t: int, device) -> torch.Tensor:
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, causal: bool = False
+                              v: torch.Tensor, causal: bool = False,
+                              scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
   """The kernel's contract in plain torch, the softmax in one pass;
-  materializes the `[B, H, T, T]` scores the kernel never writes."""
-  scale = 1.0 / math.sqrt(q.shape[-1])
+  materializes the `[B, H, T, T]` scores the kernel never writes.
+  `scale` defaults to 1/√D."""
+  if scale is None:
+    scale = 1.0 / math.sqrt(q.shape[-1])
   s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
   if causal:
     mask = _causal_mask(q.shape[1], q.device)
@@ -103,10 +111,11 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
   return out, lse
 
 
-def _probs(q, k, lse, causal):
+def _probs(q, k, lse, causal, scale=None):
   """p = exp(s − lse) [B, H, T, T] f32, as the backward kernels
-  recompute it, and the score scale."""
-  scale = 1.0 / math.sqrt(q.shape[-1])
+  recompute it, and the score scale (default 1/√D)."""
+  if scale is None:
+    scale = 1.0 / math.sqrt(q.shape[-1])
   s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
   if causal:
     mask = _causal_mask(q.shape[1], q.device)
@@ -123,10 +132,10 @@ def _ds(p, scale, v, do, delta):
 
 
 def flash_attention_bwd_dkdv_reference(q, k, v, do, lse, delta,
-                                       causal: bool = False
+                                       causal: bool = False, scale=None
                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
   """`_dkdv_kernel` in plain torch: (dk, dv) in k's and v's dtype."""
-  p, scale = _probs(q, k, lse, causal)
+  p, scale = _probs(q, k, lse, causal, scale)
   dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
   ds = _ds(p, scale, v, do, delta)
   dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
@@ -134,9 +143,10 @@ def flash_attention_bwd_dkdv_reference(q, k, v, do, lse, delta,
 
 
 def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
-                                     causal: bool = False) -> torch.Tensor:
+                                     causal: bool = False,
+                                     scale=None) -> torch.Tensor:
   """`_dq_kernel` in plain torch: dq in q's dtype."""
-  p, scale = _probs(q, k, lse, causal)
+  p, scale = _probs(q, k, lse, causal, scale)
   ds = _ds(p, scale, v, do, delta)
   dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
   return dq.to(q.dtype)
@@ -190,12 +200,53 @@ def _check_launch(*tensors):
     raise ValueError(f"B·H = {b * h} > {_MAX_GRID_Y}")
 
 
+def kernel_head_dim(d: int) -> int:
+  """The kernel head dim that a head dim `d` runs at: the least of
+  `_HEAD_DIMS` that holds it (its columns past `d` zero)."""
+  for kd in _HEAD_DIMS:
+    if d <= kd:
+      return kd
+  raise ValueError(f"head dim {d} > {_HEAD_DIMS[-1]}: no flash kernel "
+                   "takes it on the card")
+
+
+def batch_chunks(b: int, h: int, max_grid: int = _MAX_GRID_Y):
+  """[start, stop) batch ranges whose B·H each fits the grid's y limit."""
+  if h > max_grid:
+    raise ValueError(f"H = {h} > {max_grid}")
+  step = max_grid // h
+  return [(i, min(i + step, b)) for i in range(0, b, step)]
+
+
+def _pad_head(x: torch.Tensor, d: int) -> torch.Tensor:
+  """x with its last dim zero-padded to `d` (x itself when it is d)."""
+  if x.shape[-1] == d:
+    return x
+  return torch.nn.functional.pad(x, (0, d - x.shape[-1]))
+
+
+def _padded_chunked_forward(launch, q, k, v, causal,
+                            max_grid: int = _MAX_GRID_Y):
+  """`launch(q, k, v, causal, scale)` over q, k, v padded to the kernel
+  head dim and cut into batch chunks within the grid; (out, lse) of the
+  true D, scale 1/√D."""
+  b, _, h, d = q.shape
+  kd = kernel_head_dim(d)
+  scale = 1.0 / math.sqrt(d)
+  q, k, v = (_pad_head(x, kd) for x in (q, k, v))
+  parts = [launch(q[i:j], k[i:j], v[i:j], causal, scale)
+           for i, j in batch_chunks(b, h, max_grid)]
+  out, lse = (parts[0] if len(parts) == 1 else
+              tuple(torch.cat(xs) for xs in zip(*parts)))
+  return (out if kd == d else out[..., :d]), lse
+
+
 def _forward(q, k, v, causal):
   if q.device.type == "cpu":
     return flash_attention_reference(q, k, v, causal=causal)
   if q.device.type != "cuda":
     raise ValueError(f"flash_attention: unsupported device {q.device}")
-  return _launch(q, k, v, causal)
+  return _padded_chunked_forward(_launch, q, k, v, causal)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -258,9 +309,35 @@ def flash_attention_backward(q, k, v, out, lse, do, dlse=None,
     raise ValueError(f"dO {tuple(do.shape)} and out {tuple(out.shape)} "
                      f"must be {tuple(q.shape)}")
   delta = _delta(out, do, dlse)
-  dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal)
-  dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
-  return dq, dk, dv
+  if q.device.type == "cpu":
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+  return _padded_chunked_backward(_launch_bwd, q, k, v, do, lse, delta,
+                                  causal)
+
+
+def _padded_chunked_backward(launch_bwd, q, k, v, do, lse, delta, causal,
+                             max_grid: int = _MAX_GRID_Y) -> Tensors3:
+  """`launch_bwd(dkdv, q, k, v, do, lse, delta, causal, scale)` (the
+  dK/dV then the dQ launch) over operands padded to the kernel head dim
+  and cut into batch chunks within the grid; (dq, dk, dv) of the true D,
+  scale 1/√D. Zero columns of q and k leave every score as it is, and
+  zero columns of v and dO leave dO·vᵀ as it is."""
+  b, _, h, d = q.shape
+  kd = kernel_head_dim(d)
+  scale = 1.0 / math.sqrt(d)
+  q, k, v, do = (_pad_head(x, kd) for x in (q, k, v, do))
+  parts = []
+  for i, j in batch_chunks(b, h, max_grid):
+    ops = (q[i:j], k[i:j], v[i:j], do[i:j], lse[i:j], delta[i:j], causal,
+           scale)
+    dk, dv = launch_bwd(True, *ops)
+    dq = launch_bwd(False, *ops)[0]
+    parts.append((dq, dk, dv))
+  grads = (parts[0] if len(parts) == 1 else
+           tuple(torch.cat(xs) for xs in zip(*parts)))
+  return tuple(g if kd == d else g[..., :d] for g in grads)
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = False
@@ -286,7 +363,6 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False
 flash_attention.launches = 0
 flash_attention_bwd_dkdv.launches = 0
 flash_attention_bwd_dq.launches = 0
-_COUNT_LOCK = threading.Lock()
 
 
 def _dense_strides(x):
@@ -330,7 +406,8 @@ def _bwd_operand(x):
   return x
 
 
-def _launch(q, k, v, causal):
+def _launch(q, k, v, causal, scale=None):
+  """One forward launch at a kernel head dim; `scale` defaults to 1/√D."""
   _check_launch(q, k, v)
   b, t, h, d = q.shape
   strides = [s for name, x in (("q", q), ("k", k), ("v", v))
@@ -344,19 +421,19 @@ def _launch(q, k, v, causal):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, t, h, d, *strides, int(causal),
         int(q.dtype == torch.bfloat16),
-        1.0 / math.sqrt(d), stream)
+        1.0 / math.sqrt(d) if scale is None else scale, stream)
   if err != 0:
     raise RuntimeError(
         f"flash_attention kernel launch failed: CUDA error {err}")
-  with _COUNT_LOCK:
-    flash_attention.launches += 1
+  counters.count(flash_attention)
   return out, lse
 
 
-def _launch_bwd(dkdv: bool, q, k, v, do, lse, delta, causal):
+def _launch_bwd(dkdv: bool, q, k, v, do, lse, delta, causal, scale=None):
   """Launches the dK/dV (`dkdv`) or the dQ kernel; q, k, v and dO are
   read in place through their strides (bf16 ones that TMA cannot read are
-  copied dense first), lse and δ must be dense [B, H, T] f32."""
+  copied dense first), lse and δ must be dense [B, H, T] f32; `scale`
+  defaults to 1/√D."""
   _check_launch(q, k, v, do)
   b, t, h, d = q.shape
   for name, x in (("lse", lse), ("delta", delta)):
@@ -381,10 +458,9 @@ def _launch_bwd(dkdv: bool, q, k, v, do, lse, delta, causal):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
         b, t, h, d, strides, int(causal), int(q.dtype == torch.bfloat16),
-        1.0 / math.sqrt(d), stream)
+        1.0 / math.sqrt(d) if scale is None else scale, stream)
   if err != 0:
     raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
   counter = flash_attention_bwd_dkdv if dkdv else flash_attention_bwd_dq
-  with _COUNT_LOCK:
-    counter.launches += 1
+  counters.count(counter)
   return outs

@@ -1,6 +1,7 @@
 """QT-Opt learner (port of `research/qtopt/qtopt_learner.py`).
 
-One Bellman update per `train_step`, eagerly on the device:
+One Bellman update per `train_step` (eagerly, or K of them captured as
+one CUDA graph by `train_qtopt`):
   1. CEM-maximize Q_target(s', ·) for the whole batch, under no_grad
      (the target network is the Polyak-averaged params with the ONLINE
      batch statistics, in eval mode);
@@ -191,7 +192,11 @@ class QTOptLearner:
   def _target_network_over(self, target_params, batch_stats):
     """The eval-mode network over the target params and the online
     batch statistics: one meta-device module, its tensors re-assigned
-    each step (nothing copied)."""
+    each step (nothing copied). Under a CUDA-graph capture this runs
+    once per captured step, on the host: the first step of a dispatch
+    points the module at the graph's static target buffers, a later one
+    at the Polyak output of the step before it in the graph's pool; a
+    replay reads those addresses and reassigns nothing."""
     if self._target_network is None:
       with torch.device("meta"):
         self._target_network = self._model.create_network()

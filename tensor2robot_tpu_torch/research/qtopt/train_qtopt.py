@@ -2,7 +2,14 @@
 one card: replay → device prefetch → Bellman step.
 
 The host thread samples replay batches; `DevicePrefetcher` copies them
-to the card ahead of the step; `QTOptLearner.train_step` runs eagerly.
+to the card ahead of the step; each dispatch of K steps is one replay
+of a CUDA graph (`utils.step_graph.StepGraph`, the counterpart of the
+JAX loop's compiled `lax.scan` over K steps): the prefetched batches
+are copied into the graph's static inputs, the K noise generators are
+seeded, and the graph runs K `QTOptLearner.train_step`s over the state
+it carries in its static buffers. On the CPU the same step runs eagerly
+over the same buffers. `graphs=False` runs the steps eagerly instead,
+one `train_step` call each (the reference the graphed run is held to).
 Kept from the JAX loop: `prefill_random`, `wait_until_size`, resume
 from the latest checkpoint, the metric log (`grad_steps_per_sec`,
 `input_wait_fraction` and the replay metrics every `log_every_steps`),
@@ -10,21 +17,25 @@ checkpoints every `save_checkpoints_steps` and at the end, the hooks
 (`begin`, `after_step`, `after_checkpoint`, and `end` in a `finally`),
 CEM noise from a per-step generator seeded from (seed + 1, absolute
 step), and `steps_per_dispatch` K with the JAX cadence rules: every
-cadence a multiple of K, K stacked batches per dispatch run as an
-eager loop, hooks and logs see each dispatch's last metrics.
+cadence a multiple of K, hooks and logs see each dispatch's last
+metrics. Step i of a dispatch starting at step s draws its CEM noise
+from a generator seeded `dispatch_seed(seed + 1, s + i)`, whatever K
+and wherever a run resumed. Hooks, the logger and the checkpoint writer
+get copies: nothing they keep is a buffer a later replay writes, and the
+returned state is a copy too.
 
 Not ported: a mesh (ROADMAP A11), `shard_weight_update` (A11) and
 multi-process learner groups (A13) raise; the perf meter, the sentinel,
-the compile-cache tap and the resource sampler (A7, A12) are left out;
-the K-step dispatch as one CUDA graph is later perf work.
+the compile-cache tap and the resource sampler (A7, A12) are left out.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
 import torch
 
@@ -39,6 +50,7 @@ from tensor2robot_tpu_torch.serving.microbatcher import dispatch_seed
 from tensor2robot_tpu_torch.specs import make_random_tensors
 from tensor2robot_tpu_torch.train_eval import MetricLogger
 from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+from tensor2robot_tpu_torch.utils.step_graph import StepGraph
 
 log = logging.getLogger(__name__)
 
@@ -49,6 +61,28 @@ def step_generator(seed: int, step: int,
   with `seed`: the same per step whatever K and wherever a run resumed."""
   return torch.Generator(device=device).manual_seed(
       dispatch_seed(seed + 1, step))
+
+
+def k_step_fn(learner: QTOptLearner, k: int) -> Callable:
+  """The dispatch of K Bellman steps, `StepGraph`'s step: over a state,
+  K stacked transition batches `[K, B, ...]` (one unstacked batch when K
+  = 1) and K generators, the new state and the last step's metrics."""
+
+  def fn(state, transitions, generators):
+    metrics = None
+    for i in range(k):
+      batch = (transitions if k == 1 else
+               {key: v[i] for key, v in transitions.items()})
+      state, metrics = learner.train_step(state, batch,
+                                          generator=generators[i])
+    return state, metrics
+
+  return fn
+
+
+def _at_step(state: QTOptState, step: int) -> QTOptState:
+  return dataclasses.replace(
+      state, train_state=dataclasses.replace(state.train_state, step=step))
 
 
 def train_qtopt(
@@ -68,9 +102,13 @@ def train_qtopt(
     steps_per_dispatch: int = 1,
     prefetch_buffer_size: Optional[int] = None,
     shard_weight_update: bool = False,
+    graphs: bool = True,
 ) -> QTOptState:
   """Runs the QT-Opt learner loop on `learner.device`; resumes from
   `model_dir`'s latest checkpoint. Returns the final state.
+
+  `graphs` (default) runs each dispatch of `steps_per_dispatch` steps as
+  one `StepGraph` replay; False runs the steps eagerly, one call each.
 
   `replay_buffer` is fed by the caller (actors, logged episodes);
   `prefill_random=True` adds `min(capacity, 4·batch_size)` spec-random
@@ -118,6 +156,12 @@ def train_qtopt(
   writer = ckpt_lib.CheckpointWriter(model_dir,
                                      max_to_keep=max_checkpoints_to_keep)
   prefetcher = None
+  graph = None
+
+  def current():
+    """The state as of `step`, a copy no later replay writes."""
+    return state if graph is None else _at_step(graph.carry_copy(), step)
+
   try:
     # Hooks begin before the replay wait: actors bootstrapping an empty
     # buffer must start collecting first.
@@ -138,13 +182,21 @@ def train_qtopt(
     for transitions in prefetch_iter:
       if step >= max_train_steps:
         break
-      batches = ([transitions] if k == 1 else
-                 [{key: v[i] for key, v in transitions.items()}
-                  for i in range(k)])
-      for batch in batches:
-        state, metrics = learner.train_step(
-            state, batch, generator=step_generator(seed, step, device))
-        step += 1
+      if graphs:
+        if graph is None:
+          graph = StepGraph(k_step_fn(learner, k), state, transitions,
+                            device, num_generators=k)
+        for i, generator in enumerate(graph.generators):
+          generator.manual_seed(dispatch_seed(seed + 1, step + i))
+        metrics = graph.replay(transitions)
+      else:
+        batches = ([transitions] if k == 1 else
+                   [{key: v[i] for key, v in transitions.items()}
+                    for i in range(k)])
+        for i, batch in enumerate(batches):
+          state, metrics = learner.train_step(
+              state, batch, generator=step_generator(seed, step + i, device))
+      step += k
       steps_since_log += k
       replay_buffer.set_learner_step(step)
       hook_list.after_step(step, metrics)
@@ -158,15 +210,17 @@ def train_qtopt(
         t_last = time.time()
         steps_since_log = 0
       if step % save_checkpoints_steps == 0 or step == max_train_steps:
-        writer.save(step, state)
+        saved = current()
+        writer.save(step, saved)
         last_saved = step
-        hook_list.after_checkpoint(step, state.train_state, model_dir)
+        hook_list.after_checkpoint(step, saved.train_state, model_dir)
+    state = current()
     if last_saved != step:
       writer.save(step, state)
       hook_list.after_checkpoint(step, state.train_state, model_dir)
   finally:
     try:
-      hook_list.end(step, state.train_state, model_dir)
+      hook_list.end(step, current().train_state, model_dir)
     except Exception:  # noqa: BLE001 — don't mask the original error
       log.exception("hook end() failed during teardown")
     if prefetcher is not None:

@@ -186,8 +186,10 @@ def evaluate_gripper_policy(
     seed: int = 1,
     task_offset_scale: float = 0.0,
     action_key: str = "action",
+    max_steps: int = 12,
 ) -> Dict[str, float]:
   """Closed-loop policy rollout; returns success rate + final distance.
+  An episode ends on success or after `max_steps` steps.
 
   `predict_fn` maps a batched feature dict {image, gripper_pose} to an
   output dict containing the action (the predictor API). Stateful
@@ -195,7 +197,7 @@ def evaluate_gripper_policy(
   `.reset()` method, called at each episode boundary.
   """
   env = VRGripperEnv(image_size=image_size, seed=seed,
-                     task_offset_scale=task_offset_scale)
+                     task_offset_scale=task_offset_scale, max_steps=max_steps)
   successes, final_dists = [], []
   for _ in range(num_episodes):
     obs = env.reset()

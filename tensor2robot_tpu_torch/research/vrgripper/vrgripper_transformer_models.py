@@ -37,6 +37,7 @@ from tensor2robot_tpu_torch.research.vrgripper.vrgripper_models import (
     GripperObsEncoder,
 )
 from tensor2robot_tpu_torch.specs import ExtendedTensorSpec, TensorSpecStruct
+from tensor2robot_tpu_torch.utils.step_graph import StepGraph
 
 
 class _EpisodeTransformerNet(nn.Module):
@@ -172,11 +173,12 @@ class VRGripperTransformerModel(AbstractT2RModel):
 
   def make_context_policy(self, state: TrainState,
                           context_length: Optional[int] = None,
-                          device: DeviceLike = None
+                          device: DeviceLike = None, graphs: bool = True
                           ) -> "EpisodeContextPolicy":
     """A closed-loop policy that feeds the growing episode history."""
     return EpisodeContextPolicy(self, state,
-                                context_length or self._max_len, device)
+                                context_length or self._max_len, device,
+                                graphs=graphs)
 
 
 class EpisodeContextPolicy:
@@ -191,11 +193,23 @@ class EpisodeContextPolicy:
   for every step; causal masking makes the zero padding harmless — and
   returns the action at the last real slot. `steps` and `resets` count
   the calls and episode boundaries served.
+
+  The forward over the context is one CUDA graph (`StepGraph`, captured
+  at the first call; `graphs=False` runs it eagerly): the history
+  buffers are the graph's static inputs, so a step is the observation's
+  two host-to-device copies into its slot (and, once T steps are held,
+  the window's shift: two device copies of each buffer), one graph
+  launch and the action's copy to the host. On the CPU the same forward
+  runs eagerly over the same buffers.
   """
 
   def __init__(self, model: VRGripperTransformerModel, state: TrainState,
-               context_length: int, device: DeviceLike = None):
+               context_length: int, device: DeviceLike = None,
+               graphs: bool = True):
     device = resolve_device(device)
+    self._device = device
+    self._graphs = graphs
+    self._graph: Optional[StepGraph] = None
     self._model = model
     self._state = state.to(device)
     self._t = context_length
@@ -227,7 +241,23 @@ class EpisodeContextPolicy:
     self._pose[0, self._held].copy_(pose)
     self._held += 1
     self.steps += 1
-    outputs = self._model.predict_step(
-        self._state, {"image": self._image, "gripper_pose": self._pose})
+    actions = self._forward()
     # The CURRENT step's action is at the last real history slot.
-    return {ACTION: outputs[ACTION][:, self._held - 1].cpu().numpy()}
+    return {ACTION: actions[:, self._held - 1].cpu().numpy()}
+
+  def _forward(self) -> torch.Tensor:
+    """Actions [1, T, A] over the whole history."""
+    history = {"image": self._image, "gripper_pose": self._pose}
+    if not self._graphs:
+      return self._model.predict_step(self._state, history)[ACTION]
+    if self._graph is None:
+      model = self._model
+      self._graph = StepGraph(
+          lambda state, feats, gens: (
+              state, model.predict_step(state, feats)[ACTION]),
+          self._state, history, self._device, carries=False,
+          own_carry=False)
+      # From now on observations go straight into the graph's inputs.
+      self._image = self._graph.inputs["image"]
+      self._pose = self._graph.inputs["gripper_pose"]
+    return self._graph.replay()

@@ -3,9 +3,10 @@ QT-Opt policy behind the micro-batcher.
 
 `QTOptLearner.build_policy` runs the whole CEM loop on the device; this
 wraps it for deployment: bucketed batches (a robot fleet's request
-sizes all hit warmed-up shapes), one device-resident state that
-checkpoint refreshes hot-swap, and a micro-batcher so N concurrent
-robots cost ~one CEM dispatch instead of N.
+sizes all hit warmed-up shapes), each bucket's CEM dispatch one CUDA
+graph replay, device-resident params that checkpoint refreshes
+hot-swap, and a micro-batcher so N concurrent robots cost ~one CEM
+dispatch instead of N.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ class CEMPolicyServer:
                cem_iterations: Optional[int] = None,
                seed: int = 0,
                warmup: bool = True,
-               device=None):
+               device=None,
+               graphs: bool = True):
     """Args:
       learner: a `QTOptLearner` (provides the CEM policy).
       state: acting params — a critic `TrainState` or a `QTOptState`.
@@ -44,8 +46,11 @@ class CEMPolicyServer:
       max_wait_us: micro-batch deadline (0 = never hold a request).
       cem_population / cem_iterations: serving-side CEM overrides.
       seed: base seed of the per-dispatch CEM noise generators.
-      warmup: run every bucket once now; `warmup_seconds` records it.
+      warmup: capture and run every bucket now; `warmup_seconds`
+        records it.
       device: where the params live and the policy runs; None = CUDA.
+      graphs: one CUDA graph per bucket (default); False dispatches the
+        policy eagerly.
     """
     self._learner = learner
     policy = learner.build_policy(cem_population=cem_population,
@@ -54,7 +59,7 @@ class CEMPolicyServer:
         learner.observation_specification(), batch_size=1, seed=0)
     self._engine = BucketedServingEngine(
         policy, state, example, max_batch=max_batch, takes_rng=True,
-        device=device)
+        device=device, graphs=graphs)
     self.warmup_seconds = self._engine.warmup() if warmup else 0.0
     self._batcher = MicroBatcher(self._engine, max_wait_us=max_wait_us,
                                  seed=seed)

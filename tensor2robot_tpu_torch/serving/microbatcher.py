@@ -9,7 +9,9 @@ engine, and scatters per-caller slices back. N concurrent robots cost
 Noise: where the JAX version folds the dispatch index into a PRNG key,
 each dispatch here draws from its own `torch.Generator` on the
 engine's device, seeded from ``(seed, dispatch_index)`` — coalesced
-callers in one dispatch share it, successive dispatches never do.
+callers in one dispatch share it, successive dispatches never do. A
+graphed engine seeds its bucket's registered generator from it, so the
+dispatch draws what an eager one with that generator would.
 """
 
 from __future__ import annotations

@@ -1,38 +1,61 @@
-"""train_eval_model: the training loop (port of the training half of
+"""train_eval_model: the training / evaluation loop (port of
 `train_eval.py`).
 
-The model's `train_step` runs eagerly on the device: pull a numpy batch
-from the input generator, move it to the device, step, and log the
-metrics every `log_every_steps` steps (one host read per log) to
-`<model_dir>/metrics_train.jsonl` in the telemetry envelope.
+The JAX package jits the model's pure train and eval steps once and
+dispatches the compiled programs; here each is a CUDA graph
+(`utils.step_graph.StepGraph`): the train step, K steps per dispatch
+when `steps_per_dispatch` is K (the JAX `lax.scan` over K stacked
+batches), carries the `TrainState` in its static buffers, and the eval
+step reads a copy of it. A batch of another shape captures a graph of
+its own, as a new shape compiles anew under jit, and a shape seen
+before replays its graph (`utils.step_graph.GraphCache`). On the CPU the same
+steps run eagerly over the same buffers; `graphs=False` runs them
+eagerly, one call each, on either device.
 
-Not ported yet (ROADMAP A12): evaluation, checkpoints and resume,
-exporters, hooks, meshes and sharding strategies, K-step dispatch and
-AOT startup. `train_eval_model` takes none of their arguments.
+The host loop: pull a batch (a `DevicePrefetcher` copies it to the
+device ahead of the step; K batches stacked when K > 1), dispatch,
+call the hooks, log every `log_every_steps` steps (one host read per
+log) to `<model_dir>/metrics_train.jsonl` in the telemetry envelope,
+checkpoint every `save_checkpoints_steps` steps and at the end (keeping
+the newest `max_checkpoints_to_keep`), evaluate every
+`eval_every_steps` steps and at the end (`metrics_eval.jsonl`). A run
+resumes from the latest checkpoint in `model_dir`. Hooks and the
+checkpoint writer get copies of the state: nothing they keep is a
+buffer that a later replay writes, and the returned state is a copy.
+
+Not ported yet: meshes and sharding strategies (ROADMAP A11), exporters
+(A12 export) and the overlapped startup (A12 startup); each raises where
+it is asked for.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 import torch
 
+from tensor2robot_tpu_torch.data import prefetch as prefetch_lib
 from tensor2robot_tpu_torch.data.abstract_input_generator import (
     AbstractInputGenerator,
     Mode,
 )
 from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
-from tensor2robot_tpu_torch.models.abstract_model import (
-    AbstractT2RModel,
-    TrainState,
-)
+from tensor2robot_tpu_torch.hooks import Hook, HookList
+from tensor2robot_tpu_torch.models.abstract_model import TrainState
+from tensor2robot_tpu_torch.models.model_interface import ModelInterface
 from tensor2robot_tpu_torch.telemetry import records
+from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+from tensor2robot_tpu_torch.utils.step_graph import GraphCache
 
 log = logging.getLogger(__name__)
+
+_FEATURES, _LABELS = "features/", "labels/"
+_DEFAULT_MIN_SIZE_TO_SHARD = 2 ** 10
 
 
 class MetricLogger:
@@ -61,56 +84,308 @@ class MetricLogger:
     self._files.clear()
 
 
-def _to_device(batch, device: torch.device) -> Optional[Dict[str, Any]]:
-  """A numpy (or torch) batch struct as a flat dict of device tensors."""
-  if batch is None:
-    return None
-  flat = batch.to_flat_dict() if hasattr(batch, "to_flat_dict") else batch
-  return {k: torch.as_tensor(v).to(device) for k, v in flat.items()}
+def _flat(struct) -> Dict[str, Any]:
+  if struct is None:
+    return {}
+  return dict(struct.to_flat_dict() if hasattr(struct, "to_flat_dict")
+              else struct)
 
 
-def train_eval_model(model: AbstractT2RModel,
-                     model_dir: str,
-                     input_generator_train: AbstractInputGenerator,
-                     max_train_steps: int = 1000,
-                     batch_size: Optional[int] = None,
-                     log_every_steps: int = 100,
-                     seed: int = 0,
-                     device: DeviceLike = None) -> TrainState:
-  """Trains `model` for `max_train_steps` steps from a fresh state made
-  from `seed`, on `device` (None = the CUDA card; raises without one).
+def _packed(stream: Iterable) -> Iterator[Dict[str, Any]]:
+  """(features, labels) batches as one flat dict, keys prefixed by
+  their side, as the prefetcher and K-stacking take them."""
+  for features, labels in stream:
+    yield {**{_FEATURES + k: v for k, v in _flat(features).items()},
+           **{_LABELS + k: v for k, v in _flat(labels).items()}}
 
-  Each logged record holds the step's metrics (`loss`, `grad_norm` and
-  the model's scalars) and `steps_per_sec` over the interval. Returns
-  the final `TrainState`.
+
+def _unpacked(batch: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
+  return {side: {k[len(prefix):]: v for k, v in batch.items()
+                 if k.startswith(prefix)}
+          for side, prefix in (("features", _FEATURES), ("labels", _LABELS))}
+
+
+def _device_batches(stream: Iterable, device: torch.device, k: int = 1,
+                    buffer_size: int = 2) -> prefetch_lib.DevicePrefetcher:
+  packed = _packed(stream)
+  if k > 1:
+    packed = prefetch_lib.stack_batches(packed, k)
+  return prefetch_lib.DevicePrefetcher(packed, device,
+                                       buffer_size=buffer_size)
+
+
+def train_step_fn(model: ModelInterface, k: int = 1) -> Callable:
+  """K train steps as `StepGraph`'s step: over a state and a batch
+  `{"features", "labels"}` (each leaf `[K, B, ...]` when K > 1), the new
+  state and the last step's metrics."""
+
+  def fn(state, batch, generators):
+    metrics = None
+    for i in range(k):
+      features, labels = batch["features"], batch["labels"]
+      if k > 1:
+        features = {key: v[i] for key, v in features.items()}
+        labels = {key: v[i] for key, v in labels.items()}
+      state, metrics = model.train_step(state, features, labels)
+    return state, metrics
+
+  return fn
+
+
+def eval_step_fn(model: ModelInterface) -> Callable:
+  """The eval step as `StepGraph`'s step (the state is only read)."""
+  return lambda state, batch, generators: (  # noqa: E731
+      state, model.eval_step(state, batch["features"], batch["labels"]))
+
+
+def _at_step(state: TrainState, step: int) -> TrainState:
+  return dataclasses.replace(state, step=step)
+
+
+class _Evaluator:
+  """Eval passes: the eval step graphed per batch shape (each graph
+  given the evaluated state once per pass), or eager."""
+
+  def __init__(self, model: ModelInterface, device: torch.device,
+               graphs: bool):
+    self._fn = eval_step_fn(model)
+    self._graphs = (GraphCache(self._fn, None, device, carries=False)
+                    if graphs else None)
+    self._device = device
+
+  def run(self, state: TrainState, generator: AbstractInputGenerator,
+          eval_steps: int, batch_size: Optional[int]) -> Dict[str, float]:
+    """Averages the eval metrics over `eval_steps` batches."""
+    prefetcher = _device_batches(
+        generator.create_dataset(Mode.EVAL, batch_size=batch_size),
+        self._device)
+    totals: Dict[str, float] = {}
+    count = 0
+    if self._graphs is not None:
+      self._graphs.load(state)
+    try:
+      for packed in prefetcher:
+        batch = _unpacked(packed)
+        if self._graphs is None:
+          metrics = self._fn(state, batch, ())[1]
+        else:
+          metrics = self._graphs.replay(batch)
+        for key, value in metrics.items():
+          totals[key] = totals.get(key, 0.0) + float(value)
+        count += 1
+        if count >= eval_steps:
+          break
+    finally:
+      prefetcher.close()
+    return {k: v / count for k, v in totals.items()} if count else {}
+
+
+def _check_unported(mesh, sharding_strategy: str, min_size_to_shard: int,
+                    create_exporters_fn=None, overlap_startup: bool = False):
+  if (mesh is not None or sharding_strategy != "replicated"
+      or min_size_to_shard != _DEFAULT_MIN_SIZE_TO_SHARD):
+    raise NotImplementedError(
+        "train_eval_model(mesh=..., sharding_strategy=..., "
+        "min_size_to_shard=...): meshes and sharding strategies are not "
+        "ported yet (ROADMAP A11).")
+  if create_exporters_fn is not None:
+    raise NotImplementedError(
+        "create_exporters_fn: exporters are not ported yet (ROADMAP A12, "
+        "export).")
+  if overlap_startup:
+    raise NotImplementedError(
+        "overlap_startup=True: the overlapped startup is not ported yet "
+        "(ROADMAP A12, startup); the serial path is overlap_startup=False.")
+
+
+def train_eval_model(
+    model: ModelInterface,
+    model_dir: str,
+    input_generator_train: Optional[AbstractInputGenerator] = None,
+    input_generator_eval: Optional[AbstractInputGenerator] = None,
+    max_train_steps: int = 1000,
+    eval_steps: int = 10,
+    eval_every_steps: Optional[int] = None,
+    save_checkpoints_steps: int = 500,
+    max_checkpoints_to_keep: int = 5,
+    batch_size: Optional[int] = None,
+    eval_batch_size: Optional[int] = None,
+    mesh=None,
+    sharding_strategy: str = "replicated",
+    min_size_to_shard: int = _DEFAULT_MIN_SIZE_TO_SHARD,
+    create_exporters_fn: Optional[Callable] = None,
+    hooks: Iterable[Hook] = (),
+    log_every_steps: int = 100,
+    seed: int = 0,
+    init_batch_size: int = 2,
+    steps_per_dispatch: int = 1,
+    overlap_startup: bool = False,
+    device: DeviceLike = None,
+    graphs: bool = True,
+) -> TrainState:
+  """Trains (with interleaved evaluation) on `device` (None = the CUDA
+  card; raises without one); resumes from `model_dir`'s latest
+  checkpoint, else starts from a state made from `seed`.
+
+  `steps_per_dispatch` K runs K steps per dispatch (one graph replay):
+  the log, checkpoint and eval cadences and `max_train_steps` must be
+  multiples of K, and per-step hooks see each dispatch's last metrics.
+  Each train record holds the step's metrics and `steps_per_sec` over
+  the interval. `init_batch_size` is accepted for the JAX signature: the
+  port builds its networks from their specs. Returns the final state.
   """
+  _check_unported(mesh, sharding_strategy, min_size_to_shard,
+                  create_exporters_fn, overlap_startup)
+  del init_batch_size
   device = resolve_device(device)
-  logger = MetricLogger(model_dir)
-  input_generator_train.set_specification_from_model(model, Mode.TRAIN)
+  k = prefetch_lib.validate_steps_per_dispatch(
+      steps_per_dispatch,
+      log_every_steps=log_every_steps,
+      save_checkpoints_steps=save_checkpoints_steps,
+      max_train_steps=max_train_steps,
+      eval_every_steps=eval_every_steps)
+  os.makedirs(model_dir, exist_ok=True)
+  hook_list = HookList(list(hooks))
+  if input_generator_train is not None:
+    input_generator_train.set_specification_from_model(model, Mode.TRAIN)
+  if input_generator_eval is not None:
+    input_generator_eval.set_specification_from_model(model, Mode.EVAL)
+
   state = model.create_train_state(seed=seed, device=device)
-  stream = input_generator_train.create_dataset(Mode.TRAIN,
-                                                batch_size=batch_size)
-  step = 0
-  steps_since_log = 0
-  t_last = time.time()
+  resume_step = ckpt_lib.latest_step(model_dir)
+  if resume_step is not None:
+    log.info("Resuming from checkpoint at step %d in %s", resume_step,
+             model_dir)
+    state = ckpt_lib.restore_state(model_dir, like=state, step=resume_step)
+  step = int(state.step)
+  if k > 1 and step % k and step < max_train_steps:
+    raise ValueError(
+        f"Resumed at step {step}, not a multiple of "
+        f"steps_per_dispatch={k}: boundaries would never align.")
+
+  metric_logger = MetricLogger(model_dir)
+  writer = ckpt_lib.CheckpointWriter(model_dir,
+                                     max_to_keep=max_checkpoints_to_keep)
+  evaluator = _Evaluator(model, device, graphs)
+  eval_batch = eval_batch_size or batch_size
+  prefetcher = None
+  graphs_by_shape: Optional[GraphCache] = None
+
+  def current() -> TrainState:
+    """The state as of `step`, a copy no later replay writes."""
+    return (state if graphs_by_shape is None
+            else _at_step(graphs_by_shape.carry_copy(), step))
+
   try:
-    for features, labels in stream:
-      if step >= max_train_steps:
-        break
-      state, metrics = model.train_step(state, _to_device(features, device),
-                                        _to_device(labels, device))
-      step += 1
-      steps_since_log += 1
-      if step % log_every_steps == 0 or step == max_train_steps:
-        scalars = {k: v.item() for k, v in metrics.items()}
-        dt = time.time() - t_last
-        scalars["steps_per_sec"] = steps_since_log / max(dt, 1e-9)
-        logger.write("train", step, scalars)
-        t_last = time.time()
-        steps_since_log = 0
+    hook_list.begin(model, model_dir)
+    if input_generator_train is not None and step < max_train_steps:
+      prefetcher = _device_batches(
+          input_generator_train.create_dataset(Mode.TRAIN,
+                                               batch_size=batch_size),
+          device, k)
+      train_fn = train_step_fn(model, k)
+      if graphs:
+        graphs_by_shape = GraphCache(train_fn, state, device)
+      t_last = time.time()
+      steps_since_log = 0
+      last_saved = resume_step
+      for packed in prefetcher:
+        if step >= max_train_steps:
+          break
+        batch = _unpacked(packed)
+        if graphs_by_shape is not None:
+          metrics = graphs_by_shape.replay(batch)
+        else:
+          state, metrics = train_fn(state, batch, ())
+        step += k
+        steps_since_log += k
+        hook_list.after_step(step, metrics)
+        if step % log_every_steps == 0 or step == max_train_steps:
+          scalars = {key: v.item() for key, v in metrics.items()}
+          dt = time.time() - t_last
+          scalars["steps_per_sec"] = steps_since_log / max(dt, 1e-9)
+          metric_logger.write("train", step, scalars)
+          t_last = time.time()
+          steps_since_log = 0
+        if step % save_checkpoints_steps == 0 or step == max_train_steps:
+          saved = current()
+          writer.save(step, saved)
+          last_saved = step
+          hook_list.after_checkpoint(step, saved, model_dir)
+        if (input_generator_eval is not None and eval_every_steps
+            and step % eval_every_steps == 0 and step != max_train_steps):
+          metric_logger.write("eval", step, evaluator.run(
+              current(), input_generator_eval, eval_steps, eval_batch))
+      state = current()
+      if last_saved != step:
+        writer.save(step, state)
+        hook_list.after_checkpoint(step, state, model_dir)
+
+    state = current()
+    if input_generator_eval is not None:
+      eval_metrics = evaluator.run(state, input_generator_eval, eval_steps,
+                                   eval_batch)
+      if eval_metrics:
+        metric_logger.write("eval", step, eval_metrics)
+    hook_list.end(step, state, model_dir)
   finally:
-    close = getattr(stream, "close", None)
-    if close is not None:
-      close()
-    logger.close()
-  return state
+    if prefetcher is not None:
+      prefetcher.close()
+    metric_logger.close()
+  return current()
+
+
+def continuous_eval(
+    model: ModelInterface,
+    model_dir: str,
+    input_generator_eval: AbstractInputGenerator,
+    eval_steps: int = 10,
+    eval_batch_size: Optional[int] = None,
+    mesh=None,
+    timeout_secs: Optional[float] = None,
+    poll_interval_secs: float = 2.0,
+    max_evals: Optional[int] = None,
+    seed: int = 0,
+    init_batch_size: int = 2,
+    device: DeviceLike = None,
+    graphs: bool = True,
+) -> Dict[int, Dict[str, float]]:
+  """Polls `model_dir` for new checkpoints and evaluates each one on
+  `device` (None = the CUDA card); returns {step: metrics}.
+
+  Each record carries `restore_secs`, `eval_secs` and
+  `restore_and_eval_secs`: how far this evaluator lags the trainer per
+  checkpoint. The loop ends after `max_evals` evaluations or when no new
+  checkpoint comes within `timeout_secs`.
+  """
+  _check_unported(mesh, "replicated", _DEFAULT_MIN_SIZE_TO_SHARD)
+  del init_batch_size
+  device = resolve_device(device)
+  input_generator_eval.set_specification_from_model(model, Mode.EVAL)
+  state = model.create_train_state(seed=seed, device=device)
+  evaluator = _Evaluator(model, device, graphs)
+  metric_logger = MetricLogger(model_dir)
+  results: Dict[int, Dict[str, float]] = {}
+  last_step = None
+  try:
+    while max_evals is None or len(results) < max_evals:
+      new_step = ckpt_lib.wait_for_new_checkpoint(
+          model_dir, last_step, timeout_secs=timeout_secs,
+          poll_interval_secs=poll_interval_secs)
+      if new_step is None:
+        break
+      t_restore = time.perf_counter()
+      state = ckpt_lib.restore_state(model_dir, like=state, step=new_step)
+      restore_secs = time.perf_counter() - t_restore
+      t_eval = time.perf_counter()
+      metrics = evaluator.run(state, input_generator_eval, eval_steps,
+                              eval_batch_size)
+      eval_secs = time.perf_counter() - t_eval
+      metrics.update(restore_secs=restore_secs, eval_secs=eval_secs,
+                     restore_and_eval_secs=restore_secs + eval_secs)
+      metric_logger.write("eval", new_step, metrics)
+      results[new_step] = metrics
+      last_step = new_step
+  finally:
+    metric_logger.close()
+  return results

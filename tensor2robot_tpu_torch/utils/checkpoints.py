@@ -19,6 +19,7 @@ import dataclasses
 import os
 import re
 import shutil
+import time
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -88,6 +89,22 @@ def list_steps(model_dir: str) -> List[int]:
 def latest_step(model_dir: str) -> Optional[int]:
   steps = list_steps(model_dir)
   return steps[-1] if steps else None
+
+
+def wait_for_new_checkpoint(model_dir: str,
+                            last_step: Optional[int] = None,
+                            timeout_secs: Optional[float] = None,
+                            poll_interval_secs: float = 1.0) -> Optional[int]:
+  """Blocks until a checkpoint newer than `last_step` is written; returns
+  its step, or None after `timeout_secs`."""
+  deadline = None if timeout_secs is None else time.time() + timeout_secs
+  while True:
+    step = latest_step(model_dir)
+    if step is not None and (last_step is None or step > last_step):
+      return step
+    if deadline is not None and time.time() > deadline:
+      return None
+    time.sleep(poll_interval_secs)
 
 
 def _atomic_save(obj: Any, path: str) -> None:

@@ -1,11 +1,13 @@
 """Structure mapping over feature trees (the port's `jax.tree_util`).
 
 Feature and output trees here are `TensorSpecStruct`s, mappings,
-tuples/lists, or single leaves (numpy arrays or torch tensors).
+tuples/lists (named tuples too), dataclass instances (a `TrainState`),
+or single leaves (numpy arrays, torch tensors, or anything else).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, List, Mapping
 
 
@@ -19,6 +21,11 @@ def map_structure(fn: Callable, tree: Any, *rest: Any) -> Any:
     flats = [t.to_flat_dict() for t in (tree,) + rest]
     return type(tree).from_flat_dict(
         {k: fn(*(f[k] for f in flats)) for k in flats[0]})
+  if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+    return dataclasses.replace(tree, **{
+        f.name: map_structure(fn, getattr(tree, f.name),
+                              *(getattr(r, f.name) for r in rest))
+        for f in dataclasses.fields(tree) if f.init})
   if isinstance(tree, Mapping):
     return type(tree)(
         (k, map_structure(fn, tree[k], *(r[k] for r in rest)))
