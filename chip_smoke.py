@@ -110,11 +110,41 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  17. the context policy graphed against eager over one episode (the
      same actions), p50/p95 wall per step;
  18. every path's profile graphed and eager (device busy, idle share,
-     wall, kernels and host launch calls per call); then the `kernels`
-     JSON line, the card line, and the result line last.
+     wall, kernels and host launch calls per call);
+ 19. cem_select against its plain version at the online path's shapes:
+     the serving buckets 2, 4, 16 and 32, the evaluation's B=512, and
+     the seedcheck's test-size widths (C=8: CUDA cores), rerun for
+     identical bits;
+ 20. the offline→online grasp protocol at `GraspingQModel()` width
+     through `bin/run_success_protocol.py` (fused select, K=50): 2000
+     offline steps on 16384 random grasps, then 2000 online steps with a
+     server-wired `GraspActor`, a `ReplayWriteService` and the refresh
+     hook, scored at every 500-step checkpoint on 512 episodes (CEM 64 ×
+     3); gated at success ≥ 0.50 at step 2000, online final ≥ offline
+     final − 0.10, episodes collected, no actor crash, no writer error;
+     each phase's rate is its steps past the first log interval over
+     their wall time; then the online phase four times from the step-2000
+     checkpoint, the store gathering by numpy's index and by the native
+     gather in turns (numpy, native, native, numpy); then a traced window
+     of the online loop (20 more steps at K=10, checkpoints every 10, the
+     actor running) whose CUPTI launches must equal the counters, with
+     cem_select's launches measured per path (learner, evaluation, the
+     server's warm-up, serving dispatches) and held to what each path
+     should launch;
+ 21. the offline phase again with cem_select="lax" (printed, not gated);
+ 22. the native row gather (`utils/native.py`) built, loaded and equal to
+     numpy on the protocol replay's dtypes, and one B=256 gather of the
+     Bellman transition timed native against numpy;
+ 23. the protocol's seedcheck on the card: two synchronous collect →
+     flush → sample passes with the same digests;
+ 24. an actor batch's split (env, CEM dispatch of 32, commit); then the
+     cem_select launches per path (each traced in its own run), the
+     `kernels` JSON line (cem_select's count: the CEM serving path of
+     phase 4), the card line, and the result line last.
 
 Every run whose launches are checked (the main paths of phases 4, 5, 7,
-8, 10 and 11, the chunked forward of 13, and each run of 14 and 15) runs
+8, 10 and 11, the chunked forward of 13, each run of 14 and 15, and the
+online window of 20) runs
 under the profiler's CUDA kernel tracing: each kernel wrapper's count,
 replays included, must equal the launches of that kernel's symbols that
 the card ran (`traced_launches`), and the `kernels` line reports the
@@ -2313,6 +2343,391 @@ def phase_launch_accounting():
   return rows
 
 
+# ---- the online QT-Opt path (replay plane, actor, success protocol) ----
+
+
+def phase_online_kernels():
+  """cem_select against its plain version at the online path's shapes:
+  the actor's serving buckets 2, 4, 16 and 32 (phase 3 holds 1 and 8)
+  and the evaluation's B=512 (P=64, the q-head of `GraspingQModel()`,
+  bf16, on `wgmma`), and the seedcheck's test-size widths (C=8, dense
+  16, P=8, 2 elites: CUDA cores), every case rerun for identical
+  bits."""
+  import torch
+  from tensor2robot_tpu_torch.ops import cem_select as ops
+  bf16 = torch.bfloat16
+  cases = [(f"bf16 B={b}", _select_inputs(b, 64, 64, (64, 64), 4, bf16,
+                                          seed=40 + b), 6)
+           for b in (2, 4, 16, 32, 512)]
+  cases.append(("bf16 test size B=16", _select_inputs(16, 8, 8, (16,), 2,
+                                                      bf16, seed=41), 2))
+  errs = {}
+  for name, args, elites in cases:
+    errs[name] = check_select(name, *args, num_elites=elites, sigmoid=True,
+                              score_tol=1e-2)
+    _same_bits(f"cem_select {name}", lambda: ops.fused_cem_select(
+        *args, elites, sigmoid=True))
+    _log(f"cem_select {name}: path {_select_path(*args, elites)}, "
+         f"identical bits on a rerun")
+  return max(errs.values())
+
+
+def _protocol_lines(label, summary):
+  """Prints a protocol run's success per checkpoint and its phases'
+  rates and counters."""
+  for r in summary["records"]:
+    _log(f"{label} step {r['step']} ({r['phase']}): success_rate="
+         f"{r['success_rate']} random_baseline="
+         f"{r['random_baseline_success_rate']}")
+  for phase in ("offline", "online"):
+    _log(f"{label} {phase} phase: {json.dumps(summary[phase])}")
+
+
+def phase_online_protocol():
+  """The offline→online grasp protocol at `GraspingQModel()` width
+  through the entry point (`bin/run_success_protocol.py`'s `run_online`,
+  fused select): 2000 offline steps (K=50, checkpoints every 500, 512
+  evaluation episodes at CEM 64 × 3), then 2000 online steps at lr 3e-4
+  with the server-wired actor, the write service and the refresh hook.
+  Gates: success ≥ 0.50 at step 2000, online final ≥ offline final −
+  0.10, episodes collected, no actor crash (a latched writer error
+  raises). Then the online phase again from the step-2000 checkpoint
+  with numpy's row index in place of the native gather, and with the
+  native gather (`_online_gather_ab`). Last, a traced window of the
+  online loop (`_online_window`). Returns the window's cem_select
+  launches per path and the protocol's summary."""
+  import tempfile
+  from tensor2robot_tpu_torch.bin import run_success_protocol as protocol
+
+  config = protocol.FULL
+  with tempfile.TemporaryDirectory() as out_dir:
+    t0 = time.perf_counter()
+    summary = protocol.run_online(out_dir, device="cuda", cem_select="fused")
+    wall_s = time.perf_counter() - t0
+    _protocol_lines("online protocol (fused)", summary)
+    _log(f"online protocol (fused): wall_s={wall_s} serving dispatches="
+         f"{summary['online']['serving_dispatches']} episodes collected="
+         f"{summary['online']['episodes_collected']} dropped="
+         f"{summary['online']['episodes_dropped']} service="
+         f"{json.dumps(summary['online']['ingestion'])} staleness="
+         f"{json.dumps(summary['online']['staleness'])}")
+    offline_final = summary["offline_only_success_rate"]
+    online_final = summary["online_finetuned_success_rate"]
+    if offline_final < 0.5:
+      raise AssertionError(f"offline success {offline_final} < 0.50 at step "
+                           f"{config.offline_steps}")
+    if online_final < offline_final - 0.10:
+      raise AssertionError(f"online final {online_final} < offline final "
+                           f"{offline_final} - 0.10")
+    if summary["online"]["episodes_collected"] <= 0:
+      raise AssertionError("the actor collected no episodes")
+    if summary["online"]["actor_crashed"]:
+      raise AssertionError(f"the actor crashed: "
+                           f"{summary['online']['actor_crash_error']}")
+    model_dir = os.path.join(out_dir, "qtopt_online")
+    _online_gather_ab(model_dir, out_dir)
+    per_path = _online_window(model_dir, out_dir)
+  return per_path, summary
+
+
+def _numpy_gather(src, idx, out=None, num_threads=1):
+  """numpy's row index in `native.gather_rows`' place."""
+  import numpy as np
+  del num_threads
+  if out is None:
+    return src[idx]
+  np.take(src, idx, axis=0, out=out)
+  return out
+
+
+def _numpy_scatter(dst, idx, src, num_threads=1):
+  """numpy's row assignment in `native.scatter_rows`' place."""
+  del num_threads
+  dst[idx] = src
+
+
+def _online_gather_ab(model_dir, out_dir):
+  """The protocol's online phase four times from its step-2000
+  checkpoint and the same logged replay, its store gathering and
+  scattering rows by numpy's index and by the native gather in the order
+  numpy, native, native, numpy: each run's rates (steps past the first
+  log interval over their wall time, the wait over it), steps per wall
+  second of the phase, and the actor's episodes."""
+  import shutil
+  from tensor2robot_tpu_torch.bin import run_success_protocol as protocol
+  from tensor2robot_tpu_torch.research.qtopt import ReplayBuffer, ToyGraspEnv
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+  from tensor2robot_tpu_torch.utils import native
+  config = protocol.FULL
+  ckpt = os.path.join(model_dir, ckpt_lib.CKPT_SUBDIR,
+                      str(config.offline_steps))
+  transitions = None
+  gathers = {"native": (native.gather_rows, native.scatter_rows),
+             "numpy": (_numpy_gather, _numpy_scatter)}
+  runs = {"native": [], "numpy": []}
+  for i, name in enumerate(("numpy", "native", "native", "numpy")):
+    run_dir = os.path.join(out_dir, f"gather_ab_{i}")
+    shutil.copytree(ckpt, os.path.join(run_dir, ckpt_lib.CKPT_SUBDIR,
+                                       str(config.offline_steps)))
+    learner = protocol.build_learner(config, config.finetune_lr, "cuda",
+                                     "fused")
+    if transitions is None:
+      transitions = ToyGraspEnv(
+          image_size=learner.model.image_size,
+          action_dim=learner.model.action_dim,
+          seed=protocol.PROTOCOL_SEED).sample_transitions(
+              config.offline_transitions)
+    replay = ReplayBuffer(learner.transition_specification(),
+                          capacity=config.replay_capacity,
+                          seed=protocol.PROTOCOL_SEED)
+    replay.add(transitions)
+    saved = native.gather_rows, native.scatter_rows
+    native.gather_rows, native.scatter_rows = gathers[name]
+    try:
+      out = protocol.online_phase(learner, replay, run_dir, config)
+    finally:
+      native.gather_rows, native.scatter_rows = saved
+    row = {key: out[key] for key in (
+        "grad_steps_per_sec", "input_wait_fraction", "grad_steps_per_wall_sec",
+        "median_grad_steps_per_sec", "median_input_wait_fraction", "wall_s",
+        "episodes_collected", "episodes_dropped", "serving_dispatches")}
+    runs[name].append(row)
+    _log(f"online phase with the {name} gather (run {i + 1} of 4): "
+         f"{json.dumps(row)}")
+    if out["actor_crashed"] or out["episodes_collected"] <= 0:
+      raise AssertionError(f"online phase with the {name} gather: {out}")
+  _log("online phase, native against numpy gather (mean of two runs each): "
+       + json.dumps({name: {key: statistics.mean(r[key] for r in rows)
+                            for key in rows[0]}
+                     for name, rows in runs.items()}))
+  return runs
+
+
+def _online_window(model_dir, out_dir):
+  """A traced window of the online loop: resumed from the protocol's
+  last checkpoint for 20 steps at K=10, checkpoints every 10, the actor
+  running. Every wrapper's count equals CUPTI's, and cem_select's
+  launches are measured per path by the thread that made them and the
+  hooks' reads around them: the server's warm-up (this thread, before
+  the loop), the evaluation (this thread, inside the evaluation hook),
+  the learner (the rest of this thread's) and the serving dispatches
+  (the server's dispatcher thread). Each is held to what its path
+  should launch: 2 a step and 2K for the graph's warm-up; one per CEM
+  iteration of each evaluation; 2 a dispatch; 6 a bucket's warm-up (a
+  warm-up call for each of its two slots' graphs and a dispatch)."""
+  import dataclasses
+  import shutil
+  from tensor2robot_tpu_torch.bin import run_success_protocol as protocol
+  from tensor2robot_tpu_torch.ops import launch_counts_by_thread
+  from tensor2robot_tpu_torch.research.qtopt import ReplayBuffer, ToyGraspEnv
+  from tensor2robot_tpu_torch.serving import bucketing
+  config = dataclasses.replace(protocol.FULL, steps_per_dispatch=10)
+  start = 2 * config.offline_steps
+  window_dir = os.path.join(out_dir, "window")
+  shutil.copytree(model_dir, window_dir)
+  learner = protocol.build_learner(config, config.finetune_lr, "cuda",
+                                   "fused")
+  replay = ReplayBuffer(learner.transition_specification(), capacity=4096,
+                        seed=0)
+  replay.add(ToyGraspEnv(image_size=learner.model.image_size,
+                         action_dim=learner.model.action_dim,
+                         seed=1).sample_transitions(1024))
+  me = threading.current_thread().name
+
+  def mine():
+    return launch_counts_by_thread().get(me, {}).get("cem_select", 0)
+
+  hook = protocol.make_eval_hook(learner, config)
+  begin, after_checkpoint = hook.begin, hook.after_checkpoint
+  reads = {"before_loop": None, "evaluation": 0, "evaluations": 0}
+
+  def counted_begin(*args):
+    reads["before_loop"] = mine()
+    begin(*args)
+
+  def counted_after_checkpoint(*args):
+    before = mine()
+    after_checkpoint(*args)
+    reads["evaluation"] += mine() - before
+    reads["evaluations"] += 1
+
+  hook.begin, hook.after_checkpoint = counted_begin, counted_after_checkpoint
+  # K=10 keeps the trace short (its events are processed on the host):
+  # two dispatches, each checkpoint evaluated and handed to the server.
+  with traced_launches("online window") as traced:
+    window = protocol.online_phase(
+        learner, replay, window_dir, config, max_train_steps=start + 20,
+        save_checkpoints_steps=10, log_every_steps=10, eval_hook=hook)
+  threads = {name: n.get("cem_select", 0)
+             for name, n in launch_counts_by_thread().items()}
+  per_path = {
+      "learner": threads.pop(me, 0) - reads["before_loop"]
+                 - reads["evaluation"],
+      "evaluation": reads["evaluation"],
+      "serving_warmup": reads["before_loop"],
+      "serving": threads.pop("microbatcher", 0),
+  }
+  buckets = len(bucketing.bucket_table(config.server_max_batch))
+  iterations = learner.cem_iterations
+  expected = {
+      "learner": iterations * (20 + config.steps_per_dispatch),
+      "evaluation": reads["evaluations"] * config.eval_cem["cem_iterations"],
+      "serving_warmup": iterations * 3 * buckets,
+      "serving": iterations * window["serving_dispatches"],
+  }
+  _log(f"online window (steps {start}-{start + 20}, K=10, checkpoints every "
+       f"10): cem_select traced={traced['cem_select']}, per path measured "
+       f"{json.dumps(per_path)}, expected {json.dumps(expected)}; "
+       f"evaluations={reads['evaluations']} episodes="
+       f"{window['episodes_collected']} serving dispatches="
+       f"{window['serving_dispatches']}")
+  if window["episodes_collected"] <= 0 or window["actor_crashed"]:
+    raise AssertionError(f"online window: {window}")
+  if (threads or per_path != expected
+      or sum(per_path.values()) != traced["cem_select"]):
+    raise AssertionError(f"online window: cem_select per path {per_path}, "
+                         f"expected {expected}, other threads {threads}")
+  return per_path
+
+
+def phase_lax_offline():
+  """The offline phase once more with cem_select="lax" (the JAX
+  protocol's own configuration): printed, not gated. Returns its replay
+  (16384 grasps at `GraspingQModel()` width) for the gather timing."""
+  import tempfile
+  from tensor2robot_tpu_torch.bin import run_success_protocol as protocol
+  from tensor2robot_tpu_torch.telemetry.records import read_records
+  config = protocol.FULL
+  learner = protocol.build_learner(config, config.lr, "cuda", "lax")
+  replay = protocol.offline_replay(learner, config)
+  with tempfile.TemporaryDirectory() as model_dir:
+    rates = protocol.offline_phase(learner, replay, model_dir, config)
+    records = read_records(os.path.join(model_dir,
+                                        "metrics_success_eval.jsonl"))
+  for r in records:
+    _log(f"offline protocol (lax) step {r['step']}: success_rate="
+         f"{r['success_rate']} random_baseline="
+         f"{r['random_baseline_success_rate']}")
+  _log(f"offline protocol (lax) phase: {json.dumps(rates)}")
+  return replay
+
+
+def phase_native_gather(replay):
+  """The native row gather (`utils/native.py`): built and loaded (or the
+  run fails with the compiler's message), equal to numpy on the
+  transition's dtypes (uint8 images, f32) with and without `out=`, with
+  negative indices, at one thread (the default) and one per core; then
+  one B=256 gather of the Bellman transition from the protocol's replay
+  (2 × 64×64×3 uint8 + action, reward, done), native at both against
+  numpy, median host ms of 50."""
+  import numpy as np
+  from tensor2robot_tpu_torch.utils import native
+  if not native.native_available():
+    raise AssertionError(f"native gather did not load: {native.load_error()}")
+  storage = replay.store._shards[0].storage
+  live = len(replay)
+  rng = np.random.default_rng(0)
+  for key, src in storage.items():
+    src = src[:live]
+    idx = rng.integers(-live, live, 256)
+    for threads in (1, 0):
+      out = np.empty((256,) + src.shape[1:], src.dtype)
+      got = native.gather_rows(src, idx, num_threads=threads)
+      native.gather_rows(src, idx, out=out, num_threads=threads)
+      if not (np.array_equal(got, src[idx]) and np.array_equal(out, src[idx])):
+        raise AssertionError(f"native gather of {key} != numpy")
+      dst, want = src[:512].copy(), src[:512].copy()
+      slots = rng.permutation(512)[:256] - 256
+      native.scatter_rows(dst, slots, got, num_threads=threads)
+      want[slots] = got
+      if not np.array_equal(dst, want):
+        raise AssertionError(f"native scatter of {key} != numpy")
+  times = {}
+  for name, fn in (
+      ("native", lambda i: {k: native.gather_rows(v, i)
+                            for k, v in storage.items()}),
+      ("native_thread_per_core", lambda i: {
+          k: native.gather_rows(v, i, num_threads=0)
+          for k, v in storage.items()}),
+      ("numpy", lambda i: {k: v[i] for k, v in storage.items()})):
+    ms = []
+    for _ in range(50):
+      idx = rng.integers(0, live, 256)
+      t0 = time.perf_counter()
+      fn(idx)
+      ms.append((time.perf_counter() - t0) * 1e3)
+    times[name] = statistics.median(ms)
+  row_bytes = sum(v[0].nbytes for v in storage.values())
+  keys = ", ".join(f"{k} {v.dtype}{list(v.shape[1:])}"
+                   for k, v in storage.items())
+  _log(f"native gather: loaded {native.library_path().name}, equal to numpy "
+       f"({keys}); B=256 Bellman transition ({row_bytes} B a row) median "
+       f"host ms {json.dumps(times)} (cores {os.cpu_count()})")
+  return times
+
+
+def phase_seedcheck():
+  """The protocol's seedcheck on the card (fused select): two
+  synchronous collect → flush → sample passes draw the same sample
+  schedule and the same action stream."""
+  from tensor2robot_tpu_torch.bin import run_success_protocol as protocol
+  out = protocol.run_seedcheck(device="cuda", cem_select="fused")
+  if not out["reproducible"]:
+    raise AssertionError(f"seedcheck diverged: {out}")
+  return out
+
+
+def phase_actor_split():
+  """Where an actor batch's time goes without the learner beside it:
+  env reset and render (32 episodes at 64×64), one CEM dispatch of 32
+  rows through `CEMPolicyServer(max_batch=32)` (graphed), and the commit
+  through a `ReplayWriteService` session with its writer's store add
+  (flushed); median host ms of 30."""
+  import numpy as np
+  from tensor2robot_tpu_torch.bin import run_success_protocol as protocol
+  from tensor2robot_tpu_torch.replay import ReplayStore, ReplayWriteService
+  from tensor2robot_tpu_torch.research.qtopt import ToyGraspEnv
+  from tensor2robot_tpu_torch.serving import CEMPolicyServer
+  config = protocol.FULL
+  learner = protocol.build_learner(config, config.finetune_lr, "cuda",
+                                   "fused")
+  state = learner.create_state(0)
+  server = CEMPolicyServer(learner, state.train_state,
+                           max_batch=config.server_max_batch,
+                           max_wait_us=config.server_max_wait_us, seed=7,
+                           device=learner.device)
+  store = ReplayStore(learner.transition_specification(), capacity=8192)
+  service = ReplayWriteService(store, queue_batches=16)
+  session = service.session("timing")
+  env = ToyGraspEnv(image_size=learner.model.image_size,
+                    action_dim=learner.model.action_dim, seed=3)
+  times = {"env_reset_ms": [], "cem_dispatch_ms": [], "commit_ms": []}
+  try:
+    n = config.actor_batch_episodes
+    for _ in range(30):
+      t0 = time.perf_counter()
+      obs, pos = env.reset_batch(n)
+      t1 = time.perf_counter()
+      actions = server.select_actions({"image": obs["image"]})
+      t2 = time.perf_counter()
+      session.add({"image": obs["image"], "action": actions,
+                   "reward": env.grade(actions, pos)[:, None],
+                   "done": np.ones((n, 1), np.float32),
+                   "next_image": obs["image"]})
+      service.flush()
+      t3 = time.perf_counter()
+      for key, a, b in (("env_reset_ms", t0, t1), ("cem_dispatch_ms", t1, t2),
+                        ("commit_ms", t2, t3)):
+        times[key].append((b - a) * 1e3)
+  finally:
+    service.close()
+    server.close()
+  split = {k: statistics.median(v) for k, v in times.items()}
+  _log(f"actor batch split (32 episodes, no learner running; median host "
+       f"ms of 30): {json.dumps(split)}")
+  return split
+
+
 def log_wgmma_kernels(logs):
   """One line per instantiation of the two CEM kernels' wgmma paths:
   ptxas's registers and spill bytes, and the dynamic shared memory a
@@ -2387,7 +2802,7 @@ def main():
   bwd_rows, _, _ = phase_train_timings(train_model, train_state, gen)
   phase_default_model()
   head_err = phase_head_kernels()
-  _, qt_learner, qt_state, replay = phase_qtopt_train()
+  qt_launches, qt_learner, qt_state, replay = phase_qtopt_train()
   head_launches, _, target_net, encoded = phase_head_bellman(
       qt_learner, qt_state, replay)
   phase_qtopt_card_vs_cpu()
@@ -2400,6 +2815,16 @@ def main():
   phase_serving_graphs()
   phase_context_graphs()
   phase_launch_accounting()
+  online_err = phase_online_kernels()
+  online_per_path, _ = phase_online_protocol()
+  lax_replay = phase_lax_offline()
+  phase_native_gather(lax_replay)
+  del lax_replay
+  phase_seedcheck()
+  phase_actor_split()
+  _log(f"cem_select launches per path (each traced in its own run): CEM "
+       f"serving {launches}, Bellman training {qt_launches}, online window "
+       f"{sum(online_per_path.values())} ({json.dumps(online_per_path)})")
   main_row = rows[8]  # the serving path's largest bucket
   head_row = head_rows[256]  # the Bellman target's shape
   flash_row = flash_rows[1]  # the context policy serves one robot
@@ -2409,7 +2834,7 @@ def main():
       "source": "tensor2robot_tpu_torch/csrc/cem_select.cu",
       "replaces": "tensor2robot_tpu/ops/cem_select.py:181",
       "launches": launches,
-      "max_abs_err": max_err,
+      "max_abs_err": max(max_err, online_err),
       "ms": main_row["ms"],
       "plain_ms": main_row["plain_ms"],
       "bound_ms": main_row["bound_ms"],

@@ -22,7 +22,7 @@ and momentum with the same chain order (clip by global norm → clip by
 value → decayed weights → optimizer). Adam is optax's `scale_by_adam`:
 bias-corrected moments, eps outside the square root, eps_root 0.
 rmsprop, adagrad and lamb raise: their optax arithmetic is not ported
-yet (ROADMAP A4).
+yet (ROADMAP A1 rest).
 """
 
 from __future__ import annotations
@@ -369,7 +369,7 @@ def create_optimizer(optimizer_name: str = "adam",
   elif name in ("rmsprop", "adagrad", "lamb"):
     raise NotImplementedError(
         f"optimizer {optimizer_name!r}: optax's arithmetic for it is not "
-        "ported yet, and torch.optim's differs (ROADMAP A4).")
+        "ported yet, and torch.optim's differs (ROADMAP A1 rest).")
   else:
     raise ValueError(f"Unknown optimizer: {optimizer_name!r}")
 

@@ -8,7 +8,10 @@ counts of launches queued on that stream go to the recording instead
 stream of the forward), and the graph's owner adds them once per replay
 (`add`). Launches of a graph's warm-up calls before its capture ran and
 count; `warmups()` tallies them apart as well, so that a reader can
-tell N replays' launches from the warm-up's.
+tell N replays' launches from the warm-up's. `by_thread()` splits the
+counts by the name of the thread that launched (a replay's, the
+replaying thread's), so that a reader can tell apart paths that run
+on threads of their own, such as a server's dispatcher.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 _LOCK = threading.Lock()
 _RECORDINGS: Dict[Any, Dict[Callable, int]] = {}  # stream key → recording
 _WARMUPS: Dict[Callable, int] = {}
+_BY_THREAD: Dict[str, Dict[Callable, int]] = {}  # thread name → counts
 
 
 def stream_key(stream: Any = None) -> Any:
@@ -31,6 +35,13 @@ def stream_key(stream: Any = None) -> Any:
   return stream.cuda_stream
 
 
+def _launched(wrapper: Callable, n: int) -> None:
+  """Adds `n` to `wrapper`'s count and to this thread's (under _LOCK)."""
+  wrapper.launches += n
+  mine = _BY_THREAD.setdefault(threading.current_thread().name, {})
+  mine[wrapper] = mine.get(wrapper, 0) + n
+
+
 def count(wrapper: Callable) -> None:
   """One launch of `wrapper`'s kernel, on the current CUDA stream."""
   with _LOCK:
@@ -38,7 +49,7 @@ def count(wrapper: Callable) -> None:
     if recording is not None:
       recording[wrapper] = recording.get(wrapper, 0) + 1
     else:
-      wrapper.launches += 1
+      _launched(wrapper, 1)
 
 
 def add(deltas: Dict[Callable, int], warmup: bool = False) -> None:
@@ -46,7 +57,7 @@ def add(deltas: Dict[Callable, int], warmup: bool = False) -> None:
   `warmup`, to the warm-up tally too."""
   with _LOCK:
     for wrapper, n in deltas.items():
-      wrapper.launches += n
+      _launched(wrapper, n)
       if warmup:
         _WARMUPS[wrapper] = _WARMUPS.get(wrapper, 0) + n
 
@@ -60,6 +71,17 @@ def warmups() -> Dict[Callable, int]:
 def clear_warmups() -> None:
   with _LOCK:
     _WARMUPS.clear()
+
+
+def by_thread() -> Dict[str, Dict[Callable, int]]:
+  """Launches since `clear_by_thread()`, by launching thread's name."""
+  with _LOCK:
+    return {name: dict(n) for name, n in _BY_THREAD.items()}
+
+
+def clear_by_thread() -> None:
+  with _LOCK:
+    _BY_THREAD.clear()
 
 
 @contextlib.contextmanager

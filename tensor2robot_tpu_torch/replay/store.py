@@ -1,44 +1,84 @@
-"""Replay store (port of `replay/store.py`): one ring buffer, uniform
-sampling.
+"""Sharded replay store (port of `replay/store.py`): the data plane's
+memory tier.
 
-The port keeps the JAX store's one-shard uniform path exactly: the same
-ring layout and wraparound on add, and one `rng.integers(0, total,
-size=batch)` on a `numpy.random.default_rng(seed)` per sample, so the
-same seed and adds sample the same rows bit for bit (pinned by
-tests/test_torch_qtopt_train.py). Rows are gathered with numpy fancy
-indexing (the JAX store's native gather computes `src[idx]` too).
-Counters and metrics are this store's own fields.
+N independent ring-buffer shards, each under its own mutex, so that
+actors adding and the learner sampling contend on different locks: an
+add routes its whole batch to one shard (round-robin per call), and a
+sample gathers each shard's slice as one contiguous block under that
+shard's lock only. Rows are gathered and written through the native
+row gather (`utils/native.py`), which copies them without the
+interpreter lock.
 
-Not ported yet (ROADMAP A4 rest): more than one shard, "fifo" and
-"prioritized" sampling, and the eviction spill (`spill_dir`); each
-raises `NotImplementedError`.
+Sampling modes (one seeded `numpy` Generator for the whole store, so the
+draws are a function of the seed and the call sequence, and equal the
+JAX store's bit for bit):
+
+  * ``uniform`` — one `rng.integers` over the live total, split to shards
+    by cumulative size. With one shard this is the exact draw and gather
+    of the one-buffer `ReplayBuffer`.
+  * ``fifo`` — globally oldest-first by add order; the read cursors
+    wrap, all together, when every live row has been read.
+  * ``prioritized`` — proportional to each row's priority (set at add
+    time); all-zero priorities fall back to a uniform draw.
+
+Eviction is ring overwrite per shard; with `spill_dir` the rows about to
+be overwritten are copied under the shard's lock and written after it
+as `spill-%08d.npz` (with their add steps under `__add_step`). Every
+row carries the learner step at which it was added (`set_learner_step`),
+from which `sample_with_ages` measures each sampled row's staleness.
+
+Counters are this store's own fields (read by `metrics_snapshot` and
+`metrics_scalars`); the JAX store's telemetry-registry twins and its
+`jax.monitoring` events come with the telemetry plane (ROADMAP A13).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 from tensor2robot_tpu_torch.specs.random_data import _flatten_specs
+from tensor2robot_tpu_torch.utils import native
 
 SAMPLING_MODES = ("uniform", "fifo", "prioritized")
 
 
 def to_flat_arrays(transitions: Any) -> Dict[str, np.ndarray]:
   """Transition batch (struct or mapping of arrays/CPU tensors) → flat
-  numpy dict."""
+  numpy dict: the one normalization every ingestion path shares (store
+  `add`, service `put`, session staging)."""
   flat = (transitions.to_flat_dict() if isinstance(transitions,
                                                    TensorSpecStruct)
           else dict(transitions))
   return {k: np.asarray(v) for k, v in flat.items()}
 
 
+class _Shard:
+  """One ring buffer: storage + per-row metadata under one mutex."""
+
+  __slots__ = ("storage", "add_step", "add_seq", "priority", "lock",
+               "insert", "size", "cursor")
+
+  def __init__(self, flat_spec: Dict[str, Any], capacity: int):
+    self.storage: Dict[str, np.ndarray] = {
+        key: np.zeros((capacity,) + tuple(spec.shape), dtype=spec.dtype)
+        for key, spec in flat_spec.items()}
+    self.add_step = np.zeros((capacity,), np.int64)   # learner step at add
+    self.add_seq = np.zeros((capacity,), np.int64)    # global add order
+    self.priority = np.zeros((capacity,), np.float64)
+    self.lock = threading.Lock()
+    self.insert = 0
+    self.size = 0
+    self.cursor = 0  # FIFO read position (rows consumed mod size)
+
+
 class ReplayStore:
-  """Capacity-bounded transition ring buffer with seeded sampling."""
+  """Sharded, capacity-bounded transition store with seeded sampling."""
 
   def __init__(self,
                transition_spec: Any,
@@ -47,6 +87,16 @@ class ReplayStore:
                seed: int = 0,
                sampling: str = "uniform",
                spill_dir: Optional[str] = None):
+    """Args:
+      transition_spec: flat(-tenable) spec of one transition row.
+      capacity: TOTAL row capacity; each shard holds capacity//num_shards
+        (the remainder is dropped — capacity must be >= num_shards).
+      num_shards: independent ring buffers (per-shard locks).
+      seed: sampler determinism (one Generator for the whole store).
+      sampling: "uniform" | "fifo" | "prioritized".
+      spill_dir: when set, rows evicted by ring overwrite are saved as
+        npz chunks here instead of being lost.
+    """
     if sampling not in SAMPLING_MODES:
       raise ValueError(
           f"sampling must be one of {SAMPLING_MODES}, got {sampling!r}")
@@ -56,47 +106,83 @@ class ReplayStore:
       raise ValueError(
           f"capacity {capacity} < num_shards {num_shards}: every shard "
           "needs at least one row.")
-    for asked, what in ((num_shards > 1, f"num_shards={num_shards}"),
-                        (sampling != "uniform", f"sampling={sampling!r}"),
-                        (spill_dir is not None, "spill_dir")):
-      if asked:
-        raise NotImplementedError(
-            f"ReplayStore({what}) is not ported yet (ROADMAP A4 rest): the "
-            "port has one shard with uniform sampling.")
     self._flat_spec = _flatten_specs(transition_spec)
-    self._capacity = int(capacity)
-    self._storage = {key: np.zeros((self._capacity,) + tuple(spec.shape),
-                                   dtype=spec.dtype)
-                     for key, spec in self._flat_spec.items()}
-    self._add_step = np.zeros((self._capacity,), np.int64)
-    self._insert = 0
-    self._size = 0
+    self._spec = TensorSpecStruct.from_flat_dict(self._flat_spec)
+    self._num_shards = int(num_shards)
+    self._shard_capacity = int(capacity) // self._num_shards
+    self._capacity = self._shard_capacity * self._num_shards
+    self._sampling = sampling
+    self._spill_dir = spill_dir
+    self._shards = [_Shard(self._flat_spec, self._shard_capacity)
+                    for _ in range(self._num_shards)]
     self._rng = np.random.default_rng(seed)
-    self._lock = threading.Lock()
+    # The sampler state (rng, route, add order); never held while a
+    # shard gathers, so adds into other shards run during a sample.
+    self._sample_lock = threading.Lock()
+    self._route = 0          # round-robin add target
+    self._add_seq = 0        # global monotonically increasing add order
     self._learner_step = 0
+    self._spill_chunks = 0
+    # Counters are bumped from many threads; `+=` on an int drops
+    # updates under contention without a lock.
+    self._stats_lock = threading.Lock()
     self.adds_total = 0          # transitions
+    self.add_calls = 0
     self.samples_total = 0       # transitions
+    self.sample_calls = 0
     self.evictions_total = 0
+    self.spilled_total = 0
     self._last_snapshot = (time.monotonic(), 0, 0)
+
+  # ---- shape / introspection ----
 
   @property
   def capacity(self) -> int:
     return self._capacity
 
+  @property
+  def num_shards(self) -> int:
+    return self._num_shards
+
+  @property
+  def shard_capacity(self) -> int:
+    return self._shard_capacity
+
+  @property
+  def transition_spec(self) -> TensorSpecStruct:
+    return self._spec
+
+  @property
+  def sampling(self) -> str:
+    return self._sampling
+
   def __len__(self) -> int:
-    return self._size
+    return sum(s.size for s in self._shards)
+
+  def shard_sizes(self) -> Tuple[int, ...]:
+    return tuple(s.size for s in self._shards)
 
   # ---- learner-step plumbing (staleness source) ----
 
   def set_learner_step(self, step: int) -> None:
-    """Tags subsequent adds with the learner's current step."""
+    """Tags subsequent adds with the learner's current step (one int
+    assignment: safe from the trainer while actors add)."""
     self._learner_step = int(step)
+
+  @property
+  def learner_step(self) -> int:
+    return self._learner_step
 
   # ---- add path ----
 
   def add(self, transitions: Any, priority: Optional[float] = None) -> int:
     """Appends a BATCH of transitions ([N, ...] per key); returns N.
-    `priority` is accepted and unused (uniform sampling)."""
+
+    The whole batch lands on ONE shard (round-robin per call), so an add
+    takes one shard lock; a batch larger than a shard is split across
+    shards, and only the last `capacity` rows of a batch larger than the
+    store are kept.
+    """
     flat = to_flat_arrays(transitions)
     for key in self._flat_spec:
       if key not in flat:
@@ -108,21 +194,62 @@ class ReplayStore:
     n = int(next(iter(flat.values())).shape[0])
     if n == 0:
       return 0
-    if n > self._capacity:  # only the last `capacity` rows can survive
+    if n > self._capacity:
       flat = {k: v[-self._capacity:] for k, v in flat.items()}
       n = self._capacity
-    with self._lock:
-      start = self._insert
-      idx = (start + np.arange(n)) % self._capacity
-      evicted = max(0, n - (self._capacity - self._size))
-      for key, store in self._storage.items():
-        store[idx] = flat[key]
-      self._add_step[idx] = self._learner_step
-      self._insert = int((start + n) % self._capacity)
-      self._size = int(min(self._size + n, self._capacity))
+    if n > self._shard_capacity and self._num_shards > 1:
+      for lo in range(0, n, self._shard_capacity):
+        self.add({k: v[lo:lo + self._shard_capacity]
+                  for k, v in flat.items()}, priority=priority)
+      return n
+    if n > self._shard_capacity:
+      flat = {k: v[-self._shard_capacity:] for k, v in flat.items()}
+      n = self._shard_capacity
+    with self._sample_lock:
+      shard = self._shards[self._route]
+      self._route = (self._route + 1) % self._num_shards
+      seq0 = self._add_seq
+      self._add_seq += n
+    step = self._learner_step
+    prio = 1.0 if priority is None else float(priority)
+    spill_payload = None
+    with shard.lock:
+      start = shard.insert
+      idx = (start + np.arange(n)) % self._shard_capacity
+      evicted = max(0, n - (self._shard_capacity - shard.size))
+      if evicted and self._spill_dir:
+        # Copied under the lock, written after it: a file write under
+        # the shard's mutex would stall every sampler of this shard.
+        spill_idx = idx[n - evicted:]
+        spill_payload = {key: native.gather_rows(store, spill_idx)
+                         for key, store in shard.storage.items()}
+        spill_payload["__add_step"] = shard.add_step[spill_idx].copy()
+      for key, store in shard.storage.items():
+        native.scatter_rows(store, idx, np.ascontiguousarray(flat[key]))
+      shard.add_step[idx] = step
+      shard.add_seq[idx] = seq0 + np.arange(n)
+      shard.priority[idx] = prio
+      shard.insert = int((start + n) % self._shard_capacity)
+      shard.size = int(min(shard.size + n, self._shard_capacity))
+    if spill_payload is not None:
+      self._write_spill(spill_payload)
+    with self._stats_lock:
       self.adds_total += n
+      self.add_calls += 1
       self.evictions_total += evicted
     return n
+
+  def _write_spill(self, arrays: Dict[str, np.ndarray]) -> None:
+    """Persists one batch of evicted rows (no locks held)."""
+    os.makedirs(self._spill_dir, exist_ok=True)
+    with self._stats_lock:
+      chunk = self._spill_chunks
+      self._spill_chunks += 1
+    path = os.path.join(self._spill_dir, f"spill-{chunk:08d}.npz")
+    np.savez(path + ".tmp", **arrays)
+    os.replace(path + ".tmp.npz", path)
+    with self._stats_lock:
+      self.spilled_total += int(arrays["__add_step"].size)
 
   # ---- sample path ----
 
@@ -133,16 +260,148 @@ class ReplayStore:
 
   def sample_with_ages(self, batch_size: int
                        ) -> Tuple[TensorSpecStruct, np.ndarray, np.ndarray]:
-    """(batch, ages_in_learner_steps [B], row_ids [B]): one uniform
-    draw over the live rows, then one gather per key in draw order."""
-    with self._lock:
-      if self._size == 0:
+    """(batch, ages_in_learner_steps [B], global_row_ids [B]).
+
+    `ages`: the learner step now minus the step each sampled row was
+    added at (clamped at 0: adds race the step tag). `global_row_ids`:
+    shard * shard_capacity + slot, the exact schedule drawn.
+
+    Multi-shard batches come SHARD-MAJOR (rows grouped by shard in
+    index order), each shard's slice one gather under that shard's lock
+    only; FIFO restores its global oldest-first order by the inverse
+    permutation.
+    """
+    with self._sample_lock:
+      sizes = [s.size for s in self._shards]
+      total = sum(sizes)
+      if total == 0:
         raise ValueError("Cannot sample from an empty replay store.")
-      idx = self._rng.integers(0, self._size, size=batch_size)
-      out = {key: store[idx] for key, store in self._storage.items()}
-      ages = np.maximum(self._learner_step - self._add_step[idx], 0)
+      if self._sampling == "uniform":
+        shard_ids, local = self._draw_uniform(batch_size, sizes, total)
+      elif self._sampling == "prioritized":
+        shard_ids, local = self._draw_prioritized(batch_size, sizes)
+      else:
+        # FIFO's oldest-first order needs a consistent view of every
+        # shard's insert/add_seq: all shard locks, taken in index order
+        # (no path holds one shard lock while taking another).
+        for sh in self._shards:
+          sh.lock.acquire()
+        try:
+          sizes = [s.size for s in self._shards]
+          shard_ids, local = self._draw_fifo(batch_size, sizes)
+        finally:
+          for sh in self._shards:
+            sh.lock.release()
+    now = self._learner_step
+    if self._num_shards == 1:
+      # One gather, draw order kept.
+      shard = self._shards[0]
+      with shard.lock:
+        out = {key: native.gather_rows(store, local)
+               for key, store in shard.storage.items()}
+        ages = now - shard.add_step[local]
+        row_ids = local.copy()
+    else:
+      order = np.argsort(shard_ids, kind="stable")
+      sorted_local = local[order]
+      out = {key: np.empty((batch_size,) + store.shape[1:],
+                           dtype=store.dtype)
+             for key, store in self._shards[0].storage.items()}
+      ages = np.empty((batch_size,), np.int64)
+      row_ids = np.empty((batch_size,), np.int64)
+      counts = np.bincount(shard_ids, minlength=self._num_shards)
+      lo = 0
+      for s in range(self._num_shards):
+        hi = lo + int(counts[s])
+        if hi == lo:
+          continue
+        idx = sorted_local[lo:hi]
+        shard = self._shards[s]
+        with shard.lock:
+          for key, store in shard.storage.items():
+            # One thread per slice (the gather's default): a sharded
+            # store's parallelism comes from concurrent callers and
+            # writers on other shards, whose cores a fanned-out slice
+            # gather would take.
+            native.gather_rows(store, idx, out=out[key][lo:hi])
+          ages[lo:hi] = now - shard.add_step[idx]
+        row_ids[lo:hi] = s * self._shard_capacity + idx
+        lo = hi
+      if self._sampling == "fifo":
+        inverse = np.empty_like(order)
+        inverse[order] = np.arange(batch_size)
+        out = {key: arr[inverse] for key, arr in out.items()}
+        ages = ages[inverse]
+        row_ids = row_ids[inverse]
+    with self._stats_lock:
       self.samples_total += batch_size
-    return TensorSpecStruct.from_flat_dict(out), ages, idx.copy()
+      self.sample_calls += 1
+    np.maximum(ages, 0, out=ages)
+    return TensorSpecStruct.from_flat_dict(out), ages, row_ids
+
+  def _draw_uniform(self, batch: int, sizes: List[int], total: int):
+    """One rng call over the live total."""
+    flat = self._rng.integers(0, total, size=batch)
+    if self._num_shards == 1:
+      return np.zeros(batch, np.int64), flat
+    cum = np.cumsum(sizes)
+    shard_ids = np.searchsorted(cum, flat, side="right")
+    offsets = cum - np.asarray(sizes)
+    return shard_ids, flat - offsets[shard_ids]
+
+  def _draw_prioritized(self, batch: int, sizes: List[int]):
+    """Proportional to per-row priority across every live row."""
+    parts = []
+    for s, shard in enumerate(self._shards):
+      if sizes[s]:
+        parts.append(shard.priority[:sizes[s]])
+    weights = np.concatenate(parts) if parts else np.zeros(0)
+    cum = np.cumsum(weights)
+    if cum[-1] <= 0:
+      flat = self._rng.integers(0, int(sum(sizes)), size=batch)
+    else:
+      flat = np.searchsorted(cum,
+                             self._rng.random(batch) * cum[-1],
+                             side="right")
+      flat = np.minimum(flat, len(weights) - 1)
+    cumsize = np.cumsum(sizes)
+    shard_ids = np.searchsorted(cumsize, flat, side="right")
+    offsets = cumsize - np.asarray(sizes)
+    return shard_ids, flat - offsets[shard_ids]
+
+  def _draw_fifo(self, batch: int, sizes: List[int]):
+    """Globally oldest-first by add sequence; wraps when exhausted.
+
+    Per shard the oldest live row sits at insert - size (mod capacity)
+    and `cursor` counts the rows read since it. Each draw takes the
+    smallest next add_seq among shards with unread rows; only when every
+    live shard is fully read do all cursors reset together (a per-shard
+    reset would let a wrapped shard's old rows jump ahead of another
+    shard's unread ones).
+    """
+    shard_ids = np.empty(batch, np.int64)
+    local = np.empty(batch, np.int64)
+    for i in range(batch):
+      if all(self._shards[s].cursor >= sizes[s]
+             for s in range(self._num_shards) if sizes[s]):
+        for shard in self._shards:
+          shard.cursor = 0
+      best, best_seq = -1, None
+      for s, shard in enumerate(self._shards):
+        if sizes[s] == 0 or shard.cursor >= sizes[s]:
+          continue
+        pos = (shard.insert - sizes[s] + shard.cursor) \
+            % self._shard_capacity
+        seq = shard.add_seq[pos]
+        if best_seq is None or seq < best_seq:
+          best, best_seq = s, seq
+      shard = self._shards[best]
+      pos = (shard.insert - sizes[best] + shard.cursor) \
+          % self._shard_capacity
+      shard_ids[i] = best
+      local[i] = pos
+      shard.cursor += 1
+    return shard_ids, local
 
   # ---- warmup / metrics ----
 
@@ -158,17 +417,17 @@ class ReplayStore:
     return True
 
   def metrics_snapshot(self) -> Dict[str, float]:
-    """Cumulative counters + instantaneous fill."""
+    """Cumulative counters + instantaneous fill; cheap, lock-free."""
     size = len(self)
     return {
         "size": float(size),
         "capacity": float(self._capacity),
         "fill": size / max(self._capacity, 1),
-        "num_shards": 1.0,
+        "num_shards": float(self._num_shards),
         "adds_total": float(self.adds_total),
         "samples_total": float(self.samples_total),
         "evictions_total": float(self.evictions_total),
-        "spilled_total": 0.0,
+        "spilled_total": float(self.spilled_total),
         "learner_step": float(self._learner_step),
     }
 
@@ -187,5 +446,5 @@ class ReplayStore:
         f"{prefix}adds_per_sec": (adds - adds0) / dt,
         f"{prefix}samples_per_sec": (samples - samples0) / dt,
         f"{prefix}evictions_total": float(self.evictions_total),
-        f"{prefix}spilled_total": 0.0,
+        f"{prefix}spilled_total": float(self.spilled_total),
     }

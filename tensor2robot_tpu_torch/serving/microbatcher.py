@@ -69,7 +69,8 @@ class MicroBatcher:
     self.dispatches = 0
     self.requests = 0
     self.batch_sizes: List[int] = []
-    self._thread = threading.Thread(target=self._run, daemon=True)
+    self._thread = threading.Thread(target=self._run, name="microbatcher",
+                                    daemon=True)
     self._thread.start()
 
   # ---- caller side ----

@@ -49,7 +49,9 @@ _EXPECTED = (
     "models.optimizers", "telemetry.records", "train_eval",
     "ops.cem_head", "replay.store", "replay.sampler", "hooks.hook",
     "data.prefetch", "utils.checkpoints", "research.qtopt.replay_buffer",
-    "research.qtopt.train_qtopt",
+    "research.qtopt.train_qtopt", "utils.native", "replay.service",
+    "research.qtopt.actor", "research.qtopt.grasping_env",
+    "hooks.success_eval_hook", "bin.run_success_protocol",
 )
 
 
@@ -79,7 +81,9 @@ def test_chip_smoke_imports_no_jax():
       imported.add(node.module)
   assert {"tensor2robot_tpu_torch.ops.flash_attention",
           "tensor2robot_tpu_torch.research.qtopt.train_qtopt",
-          "tensor2robot_tpu_torch.train_eval"} <= imported
+          "tensor2robot_tpu_torch.train_eval",
+          "tensor2robot_tpu_torch.bin", "tensor2robot_tpu_torch.replay",
+          "tensor2robot_tpu_torch.utils"} <= imported
   bad = sorted(m for m in imported if forbidden(m))  # noqa: F821
   assert not bad, bad
 

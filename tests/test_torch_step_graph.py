@@ -366,6 +366,41 @@ def test_launch_counters_record_a_capture_and_add_per_replay(monkeypatch):
   counters.clear_warmups()
 
 
+def test_launch_counters_split_by_launching_thread(monkeypatch):
+  """Launches and replays count for the thread that makes them; a
+  recorded launch counts for the thread that replays it."""
+  current = {"stream": _Stream(1)}
+  monkeypatch.setattr(counters.torch.cuda, "current_stream",
+                      lambda: current["stream"])
+
+  def wrapper():
+    counters.count(wrapper)
+  wrapper.launches = 0
+  counters.clear_by_thread()
+  main = threading.current_thread().name
+  wrapper()
+  capture = _Stream(2)
+  with counters.recording(capture) as rec:
+    current["stream"] = capture
+    wrapper()
+    wrapper()
+  current["stream"] = _Stream(1)
+
+  def dispatcher():
+    wrapper()
+    counters.add(rec)  # a replay on this thread
+  t = threading.Thread(target=dispatcher, name="dispatcher")
+  t.start()
+  t.join()
+  counters.add(rec, warmup=True)
+  assert counters.by_thread() == {main: {wrapper: 3},
+                                  "dispatcher": {wrapper: 3}}
+  assert wrapper.launches == 6
+  counters.clear_by_thread()
+  counters.clear_warmups()
+  assert counters.by_thread() == {}
+
+
 # ---- K-step Bellman dispatch ----
 
 
