@@ -137,14 +137,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      Bellman transition timed native against numpy;
  23. the protocol's seedcheck on the card: two synchronous collect →
      flush → sample passes with the same digests;
- 24. an actor batch's split (env, CEM dispatch of 32, commit); then the
-     cem_select launches per path (each traced in its own run), the
-     `kernels` JSON line (cem_select's count: the CEM serving path of
-     phase 4), the card line, and the result line last.
+ 24. an actor batch's split (env, CEM dispatch of 32, commit);
+ 25. cem_select against its plain version on the int8 CEM tower's pooled
+     features (`quantized_pool_population`, `GraspingQModel()` width,
+     bf16) at B = 8 and 256, rerun for identical bits;
+ 26. the int8 tower on the card against the CPU (f32, B=16): int8
+     weights, each quantizer on the same input, the codes along each
+     device's own forward, the quantized scores;
+ 27. int8 Bellman training (the JAX bench's flagship config, B=256, CEM
+     2 × 64) with the lax and the fused select: `train_qtopt` calibrates
+     and takes 60 graphed steps (traced; the loss must fall), graphed
+     equals eager bit for bit (f32), and the int8 actions against the
+     bf16 tower's under the exact scorer (value regret < 5% of spread);
+ 28. the four tower × select Bellman steps' rates (200 graphed steps),
+     device ms and idle share, and the population path's device ms in
+     int8 against bf16;
+ 29. the multi-tenant serving plane: a `ServingFront` over a budgeted
+     `ModelArena` (four tenants, three fit) with an
+     `AdmissionController`, six caller threads for ~10 s (one tenant
+     offered 10× its rate), evictions and reloads that build no kernel,
+     a single-request dispatch equal to the engine's answer,
+     `SpeculativeCEM` (refined answers never cross a swap), and traced
+     windows whose launches are held per thread; then the cem_select
+     launches per path (each traced in its own run), the `kernels` JSON
+     line (cem_select's count: the CEM serving path of phase 4), the card
+     line, and the result line last.
 
 Every run whose launches are checked (the main paths of phases 4, 5, 7,
-8, 10 and 11, the chunked forward of 13, each run of 14 and 15, and the
-online window of 20) runs
+8, 10 and 11, the chunked forward of 13, each run of 14 and 15, the
+online window of 20, the int8 training runs of 27 and the windows of 29)
+runs
 under the profiler's CUDA kernel tracing: each kernel wrapper's count,
 replays included, must equal the launches of that kernel's symbols that
 the card ran (`traced_launches`), and the `kernels` line reports the
@@ -1864,6 +1886,32 @@ def _state_diff(a, b):
   return diff, all(torch.equal(x, y) for x, y in zip(ta, tb))
 
 
+def _hooks():
+  """(Losses, FirstDispatch): hooks keeping each step's loss (device
+  tensors) by step, and the step and time (device work done) at the end
+  of the first dispatch, which holds the warm-up and the capture."""
+  import torch
+  from tensor2robot_tpu_torch.hooks import Hook
+
+  class Losses(Hook):
+    def __init__(self):
+      self.by_step = {}
+
+    def after_step(self, step, metrics):
+      self.by_step[step] = metrics["loss"]
+
+  class FirstDispatch(Hook):
+    def __init__(self):
+      self.step = self.time = None
+
+    def after_step(self, step, metrics):
+      if self.step is None:
+        torch.cuda.synchronize()
+        self.step, self.time = step, time.perf_counter()
+
+  return Losses, FirstDispatch
+
+
 _GRAPH_STEPS = 8
 
 
@@ -1881,20 +1929,13 @@ def phase_bellman_graphs():
   ~1e-6 after 8 f32 steps on this card)."""
   import tempfile
   import torch
-  from tensor2robot_tpu_torch.hooks import Hook
   from tensor2robot_tpu_torch.research.qtopt import (
       GraspingQModel,
       QTOptLearner,
   )
   from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
   from tensor2robot_tpu_torch.research.qtopt.train_qtopt import train_qtopt
-
-  class Losses(Hook):
-    def __init__(self):
-      self.by_step = {}
-
-    def after_step(self, step, metrics):
-      self.by_step[step] = metrics["loss"]
+  Losses, FirstDispatch = _hooks()
 
   results = {}
   for dtype in (torch.float32, torch.bfloat16):
@@ -1976,24 +2017,13 @@ def phase_bellman_rate(replay):
   by the profiler, graphed and eager."""
   import tempfile
   import torch
-  from tensor2robot_tpu_torch.hooks import Hook
   from tensor2robot_tpu_torch.bin.profile_policy import (
       profile_qtopt_train_step,
   )
   from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
   from tensor2robot_tpu_torch.research.qtopt.train_qtopt import train_qtopt
   from tensor2robot_tpu_torch.telemetry.records import read_records
-  class FirstDispatch(Hook):
-    """The step and the time (device work done) at the end of the first
-    dispatch, which holds the warm-up and the capture."""
-
-    def __init__(self):
-      self.step = self.time = None
-
-    def after_step(self, step, metrics):
-      if self.step is None:
-        torch.cuda.synchronize()
-        self.step, self.time = step, time.perf_counter()
+  Losses, FirstDispatch = _hooks()
 
   learner = bandit.bellman_learner()
   rates = {}
@@ -2728,6 +2758,667 @@ def phase_actor_split():
   return split
 
 
+# ---- the int8 CEM tower and the multi-tenant serving plane ----
+
+_INT8_STEPS = 60
+_RATE_STEPS = 200
+_CEM_KW = dict(cem_iterations=2, cem_population=64, cem_elites=6)
+
+
+def _int8_learner(cem_select="fused", device=None, **model_kwargs):
+  """The JAX bench's flagship Bellman learner (`bench.py:210`,
+  `qtopt_int8.gin`): `GraspingQModel()`, CEM 2 × 64, 6 elites, the int8
+  tower."""
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
+  return bandit.bellman_learner(device=device, cem_inference="int8",
+                                cem_select=cem_select, **model_kwargs)
+
+
+def _scale_tensors(learner, device):
+  """The learner's calibrated scales as f32 tensors on `device`, made
+  before any capture."""
+  import torch
+  return {k: torch.full((), v, dtype=torch.float32, device=device)
+          for k, v in learner.act_scales.items()}
+
+
+def phase_int8_kernels():
+  """cem_select against its plain version on pooled features of the int8
+  tower (`quantized_pool_population` at `GraspingQModel()` width, bf16,
+  calibrated on a synthetic-bandit batch) at B = 8 and 256, P=64: their
+  range and rounding are the int8 tower's, not the bf16 tower's. Same
+  tolerance as phase 3's bf16 cases; each rerun for identical bits."""
+  import torch
+  from tensor2robot_tpu_torch.ops import cem_select as ops
+  from tensor2robot_tpu_torch.research.qtopt import networks as net_lib
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
+  learner = _int8_learner()
+  state = learner.create_state(seed=0)
+  batch = bandit.bandit_transitions(learner, 256, seed=1)
+  learner.calibrate(state, batch)
+  net = learner.model.bind(state.train_state)
+  dense = net_lib.q_head_dense_params(net, dtype=net.dtype)
+  image = torch.from_numpy(batch["next_image"]).cuda()
+  errs = {}
+  with torch.no_grad():
+    tower = net_lib.quantize_tower(net, _scale_tensors(learner, "cuda"))
+    encoded = net_lib.quantized_encode(net, tower, image)
+    for b in (8, 256):
+      g = torch.Generator(device="cuda").manual_seed(30 + b)
+      samples = torch.rand((b, 64, 4), generator=g, device="cuda") * 2 - 1
+      pooled = net_lib.quantized_pool_population(net, tower, encoded[:b], {},
+                                                 samples)
+      name = f"int8 tower B={b}"
+      errs[name] = check_select(name, pooled, samples, dense, 6, True, 1e-2)
+      _same_bits(f"cem_select {name}", lambda: ops.fused_cem_select(
+          pooled, samples, dense, 6, sigmoid=True))
+      _log(f"cem_select {name}: pooled range [{pooled.min().item()}, "
+           f"{pooled.max().item()}], path "
+           f"{_select_path(pooled, samples, dense, 6)}, identical bits on a "
+           f"rerun")
+  return max(errs.values())
+
+
+def phase_int8_card_vs_cpu():
+  """The int8 tower on the card against the CPU: `GraspingQModel()` width
+  in f32, B=16, P=64, the same weights, CPU-calibrated scales and
+  actions, TF32 off. Gates: every int8 kernel bit for bit; each
+  quantizer, given the CPU's input at its point, returns the CPU's codes
+  bit for bit; along each device's own forward the torso's codes are
+  bit-equal (exact inputs, int8 convs summed exactly) and the merged
+  tensor's differ only where the CPU's value sits within 1e-3 of a code
+  boundary (the merge's f32 conv and GEMM sum in another order), by one
+  code; the quantized scores from the same merged tensor (the CPU's)
+  within 1e-5 of their spread. The scores along each device's own
+  forward are printed: a code that moves at a boundary moves them by more
+  than 1e-5 of the spread."""
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.layers.vision_layers import spatial_mean
+  from tensor2robot_tpu_torch.research.qtopt import networks as net_lib
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
+  torch.backends.cudnn.allow_tf32 = False
+  cpu_learner = _int8_learner(device="cpu", device_dtype=torch.float32)
+  ts_cpu = cpu_learner.create_state(seed=0).train_state
+  batch = bandit.bandit_transitions(cpu_learner, 16, seed=2)
+  scales = cpu_learner.calibrate(ts_cpu, batch)
+  actions = np.random.default_rng(3).uniform(-1, 1, (16, 64, 4)).astype(
+      np.float32)
+  out = {}
+  for device in ("cpu", "cuda"):
+    ts = ts_cpu if device == "cpu" else ts_cpu.to(device)
+    net = cpu_learner.model.bind(ts)
+    taps = {}
+    with torch.no_grad():
+      tower = net_lib.quantize_tower(net, _scale_tensors(cpu_learner, device))
+      image = torch.from_numpy(batch["image"]).to(device)
+      acts = torch.from_numpy(actions).to(device)
+      encoded = net_lib.quantized_encode(net, tower, image, taps=taps)
+      net_lib.quantized_pool_population(net, tower, encoded, {}, acts,
+                                        taps=taps)
+      score = net_lib.quantized_score_population(net, tower, encoded, {},
+                                                 acts)
+    layers = {f"torso_in_{i}": layer for i, layer
+              in enumerate(tower["torso"])}
+    layers.update({f"head_in_{i}": layer for i, layer
+                   in enumerate(tower["head"], start=1)})
+    out[device] = dict(taps=taps, layers=layers, score=score.cpu(), net=net,
+                       tower=tower)
+  cpu, card = out["cpu"], out["cuda"]
+  # The tail after the merge on each device from the CPU's merged tensor:
+  # the same codes in, so the int8 convs, the scales, the pool and the
+  # q-head must agree to f32 summation order.
+  tails = {}
+  for device, run in out.items():
+    x = cpu["taps"]["head_in_1"].to(device)
+    with torch.no_grad():
+      for layer in run["tower"]["head"]:
+        x = net_lib._int8_conv(x, layer, 2, torch.float32)
+      tails[device] = run["net"].q_head(spatial_mean(x))[..., 0].cpu()
+  lines = {}
+  for point in sorted(cpu["layers"]):
+    lc, lg = cpu["layers"][point], card["layers"][point]
+    if not torch.equal(lc["w_q"], lg["w_q"].cpu()):
+      raise AssertionError(f"int8 {point}: the weights' codes differ")
+    q_cpu = net_lib._quantize_act(cpu["taps"][point], lc["act_scale"])
+    same_in = net_lib._quantize_act(cpu["taps"][point].cuda(),
+                                    lg["act_scale"]).cpu()
+    if not torch.equal(same_in, q_cpu):
+      raise AssertionError(f"int8 {point}: the card's quantizer gives other "
+                           "codes on the CPU's input")
+    own = net_lib._quantize_act(card["taps"][point], lg["act_scale"]).cpu()
+    diff = own.int() - q_cpu.int()
+    ratio = cpu["taps"][point].float() / lc["act_scale"]
+    to_edge = ((ratio.abs() - ratio.abs().floor()) - 0.5).abs()
+    moved = diff != 0
+    lines[point] = dict(codes=q_cpu.numel(), differ=int(moved.sum()),
+                        max_code_diff=int(diff.abs().max()),
+                        act_scale=scales[point])
+    if point.startswith("torso") and bool(moved.any()):
+      raise AssertionError(f"int8 {point}: {lines[point]}")
+    if bool(moved.any()) and (int(diff.abs().max()) > 1
+                              or float(to_edge[moved].max()) >= 1e-3):
+      raise AssertionError(f"int8 {point}: codes differ away from a code "
+                           f"boundary: {lines[point]}")
+  spread = (cpu["score"].max() - cpu["score"].min()).item()
+  score_err = (card["score"] - cpu["score"]).abs().max().item()
+  tail_spread = (tails["cpu"].max() - tails["cpu"].min()).item()
+  tail_err = (tails["cuda"] - tails["cpu"]).abs().max().item()
+  torch.backends.cudnn.allow_tf32 = True
+  _log(f"int8 card vs CPU (f32, GraspingQModel() width, B=16, P=64): int8 "
+       f"weights bit for bit; every quantizer bit for bit on the same input; "
+       f"codes along each device's own forward: {json.dumps(lines)}; "
+       f"quantized scores from the same merged tensor: max diff {tail_err} "
+       f"over spread {tail_spread} (ratio {tail_err / tail_spread}, tol "
+       f"1e-5); along each device's own forward (the codes above): max diff "
+       f"{score_err} over spread {spread} (ratio {score_err / spread})")
+  if tail_err > 1e-5 * tail_spread:
+    raise AssertionError("int8 card and CPU scores differ")
+
+
+def phase_int8_training():
+  """int8 Bellman training, the JAX bench's flagship config at
+  `GraspingQModel()` width (B=256, CEM 2 × 64, 6 elites), for the lax
+  and the fused select: `train_qtopt` over the synthetic-bandit replay
+  calibrates on a replay batch, then runs 60 graphed steps under the
+  profiler (cem_select 2 a step + the warm-up's with the fused select,
+  none with lax); the loss must stay finite and fall. Then 8 f32 steps
+  eager against K=1 graphed (cuDNN's deterministic algorithms, TF32 off):
+  every state leaf and loss bit for bit. Then, at B=256 on the trained
+  state and shared noise, the int8 actions against the other tower's
+  under the exact scorer (the same params in f32, lax select), in f32 and
+  in bf16: the mean value regret over the 256 states < 0.05 of the
+  batch's Q spread (the JAX gate's quotient; its largest-regret form is
+  held at the JAX test's B=8 by the CPU tests, and printed here: over 256
+  states a few near-tied candidates swap, in bf16 as much between the
+  bf16 tower's own two selects). The gap of the two Bellman target means
+  is printed."""
+  import tempfile
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.research.qtopt import ReplayBuffer
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
+  from tensor2robot_tpu_torch.research.qtopt.train_qtopt import train_qtopt
+  Losses, FirstDispatch = _hooks()
+
+  launches, trained = {}, {}
+  for select in ("lax", "fused"):
+    learner = _int8_learner(cem_select=select)
+    replay = ReplayBuffer(learner.transition_specification(), capacity=4096,
+                          seed=0)
+    replay.add(bandit.bandit_transitions(learner, 4096, seed=1))
+    hook = Losses()
+    with tempfile.TemporaryDirectory() as model_dir:
+      with traced_launches(f"int8 Bellman training ({select})") as traced:
+        state = train_qtopt(learner, model_dir, replay_buffer=replay,
+                            max_train_steps=_INT8_STEPS,
+                            batch_size=bandit.BATCH_SIZE,
+                            save_checkpoints_steps=_INT8_STEPS,
+                            log_every_steps=20, hooks=[hook])
+    warm = _warm("cem_select")
+    losses = [hook.by_step[s].item() for s in sorted(hook.by_step)]
+    want = 2 * _INT8_STEPS + warm if select == "fused" else 0
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    _log(f"int8 Bellman training ({select}, B=256, {_INT8_STEPS} graphed "
+         f"steps): calibrated {learner.act_scales}; cem_select launches "
+         f"{traced['cem_select']} (warm-up {warm}); loss first10 {first} "
+         f"last10 {last}")
+    if learner.needs_calibration or traced["cem_select"] != want:
+      raise AssertionError(f"int8 {select}: launches {traced['cem_select']}"
+                           f" != {want}")
+    if not all(np.isfinite(losses)) or not last < first:
+      raise AssertionError(f"int8 {select}: losses {losses[:3]}..")
+    launches[select] = traced["cem_select"]
+    trained[select] = (learner, state)
+  # Graphed against eager, f32, bit for bit.
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cudnn.deterministic = True
+  for select in ("lax", "fused"):
+    learner = _int8_learner(cem_select=select, device_dtype=torch.float32)
+    batches = [bandit.bandit_transitions(learner, bandit.BATCH_SIZE,
+                                         seed=100 + i)
+               for i in range(_GRAPH_STEPS)]
+    learner.calibrate(learner.create_state(seed=0), batches[0])
+    runs = {}
+    for graphs in (False, True):
+      hook = Losses()
+      with tempfile.TemporaryDirectory() as model_dir:
+        state = train_qtopt(learner, model_dir,
+                            replay_buffer=_FixedReplay(batches),
+                            max_train_steps=_GRAPH_STEPS,
+                            batch_size=bandit.BATCH_SIZE,
+                            save_checkpoints_steps=_GRAPH_STEPS,
+                            log_every_steps=4, hooks=[hook], graphs=graphs)
+      runs[graphs] = (state, {s: v.item() for s, v in hook.by_step.items()})
+    diff, equal = _state_diff(runs[False][0], runs[True][0])
+    loss_diff = max(abs(runs[True][1][s] - runs[False][1][s])
+                    for s in runs[False][1])
+    _log(f"int8 Bellman graphed vs eager (f32, {select}, B=256, "
+         f"{_GRAPH_STEPS} steps): max state diff {diff}, bitwise {equal}, "
+         f"max loss diff {loss_diff}")
+    if not equal or loss_diff != 0.0:
+      raise AssertionError(f"int8 {select}: graphed differs from eager")
+  torch.backends.cudnn.deterministic = False
+  torch.backends.cudnn.allow_tf32 = True
+  # int8 against the bf16 tower on the trained state, shared noise, under
+  # the exact scorer (the same params in f32, lax select).
+  i8, state = trained["fused"]
+  ts = state.train_state
+  exact = bandit.bellman_learner(cem_select="lax", device_dtype=torch.float32)
+  obs = {k: torch.from_numpy(v).cuda() for k, v in make_random_tensors_flat(
+      exact.observation_specification(), 256, seed=12).items()}
+  g = torch.Generator(device="cuda").manual_seed(13)
+  noise = torch.randn((2, 256, 64, 4), generator=g, device="cuda")
+  batch = {k: torch.from_numpy(v).cuda() for k, v in
+           bandit.bandit_transitions(exact, bandit.BATCH_SIZE, seed=14).items()}
+  regrets = {}
+  for dtype in (torch.float32, torch.bfloat16):
+    bf = bandit.bellman_learner(cem_select="fused", device_dtype=dtype)
+    if dtype == torch.float32:
+      quant = _int8_learner(device_dtype=dtype)
+      quant.calibrate(state, batch)
+    else:
+      quant = i8
+    a_bf = bf.build_policy()(ts, obs, noise=noise)
+    a_i8 = quant.build_policy()(ts, obs, noise=noise)
+    with torch.inference_mode():
+      score = exact._cem_fns(exact.model.bind(ts), obs)[0]
+      q_bf, q_i8 = score(a_bf[:, None])[:, 0], score(a_i8[:, None])[:, 0]
+    regret = q_bf - q_i8
+    row = dict(max_value_regret=regret.max().item(),
+               mean_value_regret=regret.mean().item(),
+               q_spread=(q_bf.max() - q_bf.min()).item() + 1e-6,
+               same_action_fraction=((a_bf - a_i8).abs().max(dim=1).values
+                                     < 1e-6).float().mean().item())
+    if dtype == torch.bfloat16:
+      # The bf16 floor: the bf16 tower's own two selects disagree too.
+      a_lax = bandit.bellman_learner(cem_select="lax").build_policy()(
+          ts, obs, noise=noise)
+      with torch.inference_mode():
+        q_lax = score(a_lax[:, None])[:, 0]
+      row["bf16_fused_vs_lax_max_regret"] = (q_bf - q_lax).abs().max().item()
+      means = {}
+      for name, learner in (("int8", quant), ("bf16", bf)):
+        _, _, metrics = learner.train_grads(state, batch, noise=noise)
+        means[name] = metrics["target_mean"].item()
+      row["target_mean_int8"], row["target_mean_bf16"] = (means["int8"],
+                                                          means["bf16"])
+      row["target_mean_gap"] = means["int8"] - means["bf16"]
+    regrets[str(dtype)] = row
+  _log(f"int8 vs bf16 tower (B=256, trained state, shared noise, exact "
+       f"scorer f32 lax): {json.dumps(regrets)}")
+  for name, row in regrets.items():
+    if row["mean_value_regret"] / row["q_spread"] >= 0.05:
+      raise AssertionError(f"int8 CEM loses value ({name}): {row}")
+  return launches["fused"]
+
+
+def phase_int8_timings():
+  """The four tower × select paths of the Bellman step at B=256, graphed
+  at K=1 over the synthetic-bandit replay: grad steps/s over a whole
+  200-step run (steps after the first dispatch over their wall time) and,
+  by the profiler, device ms a step and idle share. Then the population
+  path's device ms (graph replay) in int8 against bf16 at B=256, P=64:
+  `quantized_pool_population` (merge, int8 head conv, pool) against
+  `pool_population` (merge, bf16 head conv, BN, relu, pool), and the
+  per-step requantization (`quantize_tower`)."""
+  import tempfile
+  import torch
+  from tensor2robot_tpu_torch.bin.profile_policy import (
+      profile_qtopt_train_step,
+  )
+  from tensor2robot_tpu_torch.research.qtopt import ReplayBuffer
+  from tensor2robot_tpu_torch.research.qtopt import networks as net_lib
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
+  from tensor2robot_tpu_torch.research.qtopt.train_qtopt import train_qtopt
+  Losses, FirstDispatch = _hooks()
+
+  rows = {}
+  for tower in ("bf16", "int8"):
+    for select in ("lax", "fused"):
+      learner = bandit.bellman_learner(cem_inference=tower, cem_select=select)
+      replay = ReplayBuffer(learner.transition_specification(),
+                            capacity=4096, seed=0)
+      replay.add(bandit.bandit_transitions(learner, 4096, seed=1))
+      first = FirstDispatch()
+      with tempfile.TemporaryDirectory() as model_dir:
+        train_qtopt(learner, model_dir, replay_buffer=replay,
+                    max_train_steps=_RATE_STEPS, batch_size=bandit.BATCH_SIZE,
+                    save_checkpoints_steps=_RATE_STEPS, log_every_steps=40,
+                    hooks=[first])
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+      prof = profile_qtopt_train_step(graphs=True, cem_inference=tower,
+                                      cem_select=select)
+      prof.pop("top_kernels")
+      rows[f"{tower} {select}"] = dict(
+          grad_steps_per_sec=(_RATE_STEPS - first.step) / (t_end - first.time),
+          device_ms_per_step=prof["device_busy_ms_per_call"],
+          idle_share=prof["device_idle_share"],
+          wall_ms_per_step=prof["wall_ms_per_call"],
+          kernels_per_step=prof["kernel_launches_per_call"])
+      _log(f"Bellman step {tower} tower, {select} select (B=256, K=1 "
+           f"graphed): {json.dumps(rows[f'{tower} {select}'])}")
+  learner = _int8_learner()
+  state = learner.create_state(seed=0)
+  batch = bandit.bandit_transitions(learner, 256, seed=1)
+  learner.calibrate(state, batch)
+  net = learner.model.bind(state.train_state)
+  image = torch.from_numpy(batch["next_image"]).cuda()
+  g = torch.Generator(device="cuda").manual_seed(5)
+  actions = torch.rand((256, 64, 4), generator=g, device="cuda") * 2 - 1
+  scales = _scale_tensors(learner, "cuda")
+  with torch.no_grad():
+    tower = net_lib.quantize_tower(net, scales)
+    enc_q = net_lib.quantized_encode(net, tower, image)
+    enc = net.encode(image)
+    paths = {"bf16": lambda: net.pool_population(enc, {}, actions),
+             "int8": lambda: net_lib.quantized_pool_population(
+                 net, tower, enc_q, {}, actions)}
+    tails = {"bf16": [], "int8": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+      tails[name].append(_graph_ms(paths[name], iters=10))
+    requant = _graph_ms(lambda: net_lib.quantize_tower(net, scales))
+  _log(f"population path device ms (B=256, P=64, bf16 compute; graph "
+       f"replay, turns bf16, int8, int8, bf16): bf16 tower {tails['bf16']}, "
+       f"int8 tower {tails['int8']}; quantize_tower per call {requant}")
+  return rows, tails, requant
+
+
+def _serving_loader(learner, seed, example, cem_iterations=None):
+  def load():
+    state = learner.create_state(seed=seed).train_state
+    learner.ensure_calibrated(state)
+    return learner.build_policy(cem_iterations=cem_iterations), state, example
+  return load
+
+
+def _check_actions(name, actions):
+  import numpy as np
+  if not np.all(np.isfinite(actions)) or np.any(np.abs(actions) > 1.0):
+    raise AssertionError(f"{name}: bad actions {actions}")
+
+
+_TRAFFIC_S = 10.0
+
+
+def phase_serving_plane():
+  """The multi-tenant serving plane at `GraspingQModel()` width: a
+  `ServingFront` over a `ModelArena` whose budget holds three tenants'
+  `state_bytes`, four tenants each with its own seed (three bf16 + fused,
+  one int8 + fused; buckets 1–8), an `AdmissionController` (the abusive
+  tenant at 20 rows/s, burst 8, "drop"; the others unlimited). Six
+  caller threads send single-observation requests for ~10 s: two offer
+  the abusive tenant 10× its rate open-loop, four cycle the other three
+  tenants closed-loop, so round-robin traffic evicts and reloads. Gates:
+  every action finite and in bounds; every reload builds no kernel
+  (`cache_misses == 0`) and at least one eviction happened; the abusive
+  tenant dropped requests while every request of the others completed;
+  a single-request dispatch equals the direct engine answer bit for bit
+  (bf16 and int8 tenants); `SpeculativeCEM` over the 1-iteration and the
+  full CEM engines: a repeated observation gets the refined answer, equal
+  to the full engine's under the same params version, and after a
+  `swap_state` no refined answer from before it is served; traced
+  windows of the front and of the speculative pair whose cem_select
+  launches equal CUPTI's and, per thread, what each thread should
+  launch."""
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch import ops
+  from tensor2robot_tpu_torch.research.qtopt import (
+      GraspingQModel,
+      QTOptLearner,
+  )
+  from tensor2robot_tpu_torch.serving import (
+      AdmissionController,
+      BucketedServingEngine,
+      ModelArena,
+      RequestRejected,
+      ServingFront,
+      SpeculativeCEM,
+      TenantPolicy,
+  )
+  from tensor2robot_tpu_torch.serving.engine import acting_params
+  from tensor2robot_tpu_torch.serving.microbatcher import dispatch_seed
+  from tensor2robot_tpu_torch.specs import make_random_tensors
+  from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
+
+  learners = {
+      "bf16": QTOptLearner(GraspingQModel(), cem_select="fused", **_CEM_KW),
+      "int8": QTOptLearner(GraspingQModel(), cem_inference="int8",
+                           cem_select="fused", **_CEM_KW)}
+  spec = learners["bf16"].observation_specification()
+  example = make_random_tensors(spec, batch_size=1, seed=0)
+  tenants = {"grasp-a": ("bf16", 0), "grasp-b": ("bf16", 1),
+             "grasp-c": ("bf16", 2), "grasp-i8": ("int8", 3)}
+  abusive, rate = "grasp-a", 20.0
+  one = acting_params(learners["bf16"].create_state(seed=0)).nbytes
+  tmetrics.registry().reset()
+  arena = ModelArena(budget_bytes=3 * one)
+  front = ServingFront(arena, AdmissionController(slo_ms=100.0), seed=0)
+  for name, (kind, seed) in tenants.items():
+    policy = (TenantPolicy(rate_rps=rate, burst=8, overflow="drop",
+                           slo_ms=100.0) if name == abusive
+              else TenantPolicy(slo_ms=100.0))
+    front.register_tenant(name, _serving_loader(learners[kind], seed, example),
+                          policy=policy, max_batch=8, takes_rng=True,
+                          preload=name != "grasp-i8")
+  observations = [make_random_tensors(spec, batch_size=1,
+                                      seed=100 + i).to_flat_dict()
+                  for i in range(64)]
+  latencies = {name: [] for name in tenants}
+  errors, abusive_futures = [], []
+  counts = {"abusive_offered": 0, "abusive_rejected": 0, "others_sent": 0,
+            "others_done": 0}
+  lock = threading.Lock()
+  stop = threading.Event()
+
+  def abuser(i):
+    period = 2.0 / (10 * rate)  # two threads: 10× the rate together
+    j = 0
+    while not stop.is_set():
+      t0 = time.perf_counter()
+      try:
+        abusive_futures.append(front.submit(
+            abusive, observations[(i + 2 * j) % 64]))
+      except RequestRejected:
+        with lock:
+          counts["abusive_rejected"] += 1
+      with lock:
+        counts["abusive_offered"] += 1
+      j += 1
+      time.sleep(max(0.0, period - (time.perf_counter() - t0)))
+
+  others = [t for t in tenants if t != abusive]
+
+  def caller(i):
+    j = 0
+    while not stop.is_set():
+      name = others[(i + j) % len(others)]
+      with lock:
+        counts["others_sent"] += 1
+      t0 = time.perf_counter()
+      try:
+        action = front.predict(name, observations[(7 * i + j) % 64])
+        _check_actions(name, action)
+      except Exception as e:  # noqa: BLE001 — raised below
+        errors.append((name, repr(e)))
+        return
+      latencies[name].append((time.perf_counter() - t0) * 1e3)
+      with lock:
+        counts["others_done"] += 1
+      j += 1
+
+  threads = ([threading.Thread(target=abuser, args=(i,)) for i in range(2)]
+             + [threading.Thread(target=caller, args=(i,)) for i in range(4)])
+  t_start = time.perf_counter()
+  for t in threads:
+    t.start()
+  time.sleep(_TRAFFIC_S)
+  stop.set()
+  for t in threads:
+    t.join(timeout=300)
+  traffic_s = time.perf_counter() - t_start
+  for future in abusive_futures:
+    _check_actions(abusive, future.result(timeout=300))
+  abusive_done = len(abusive_futures)
+  stats = arena.stats()
+  snap = tmetrics.registry().snapshot()
+  dropped = snap["counters"].get(f"serving.{abusive}.admission.dropped", 0.0)
+  _log(f"serving plane traffic ({traffic_s:.2f} s, 6 threads): "
+       f"{json.dumps(counts)}, abusive admitted and answered {abusive_done}, "
+       f"dropped rows {dropped}; arena {json.dumps(stats)}")
+  if errors or any(t.is_alive() for t in threads):
+    raise AssertionError(f"serving plane callers failed: {errors[:3]}")
+  if counts["others_done"] != counts["others_sent"]:
+    raise AssertionError(f"not every request completed: {counts}")
+  if not dropped > 0 or counts["abusive_rejected"] == 0:
+    raise AssertionError("the abusive tenant dropped nothing")
+  if (stats["evictions"] < 1 or stats["reloads"] < 1
+      or stats["reload_cache_misses"] != 0):
+    raise AssertionError(f"arena: {stats}")
+  # A single-request dispatch against the engine's direct answer.
+  order = list(tenants)
+  for name in ("grasp-b", "grasp-i8"):
+    arena.engine(name)  # resident now (a reload if it was evicted)
+    obs = observations[5]
+    d = front.dispatches
+    answer = front.predict(name, obs)
+    engine = arena.engine(name)
+    generator = torch.Generator(device="cuda").manual_seed(
+        dispatch_seed(order.index(name), d))
+    direct = engine.predict(obs, generator=generator)
+    if not np.array_equal(answer, direct):
+      raise AssertionError(f"{name}: the front's answer {answer} is not the "
+                           f"engine's {direct}")
+  # A traced window of the front: only its dispatcher launches cem_select,
+  # 2 a dispatch (CEM 2 iterations); no load runs (b and c resident).
+  arena.engine("grasp-b")
+  arena.engine("grasp-c")
+  d0 = front.dispatches
+
+  def window_caller(i):
+    for j in range(10):
+      front.predict(("grasp-b", "grasp-c")[(i + j) % 2], observations[j])
+
+  with traced_launches("serving front window") as traced:
+    callers = [threading.Thread(target=window_caller, args=(i,))
+               for i in range(2)]
+    for t in callers:
+      t.start()
+    for t in callers:
+      t.join(timeout=300)
+  window = {thread: {k: n for k, n in counts_.items() if n}
+            for thread, counts_ in ops.launch_counts_by_thread().items()}
+  window = {k: v for k, v in window.items() if v}
+  want = {"serving-front": {"cem_select": 2 * (front.dispatches - d0)}}
+  _log(f"serving front window: dispatches {front.dispatches - d0}, launches "
+       f"by thread {json.dumps(window)}, CUPTI {traced['cem_select']}")
+  if window != want:
+    raise AssertionError(f"front window launches {window} != {want}")
+  front_window = traced["cem_select"]
+  report = front.admission.slo_report()
+  per_tenant = {}
+  for name in tenants:
+    done = snap["counters"].get(f"serving.{name}.completions", 0.0)
+    n_disp = front.dispatches_per_tenant.get(name, 0)
+    per_tenant[name] = dict(
+        wall_ms=_pcts(latencies[name]) if latencies[name] else None,
+        e2e_p50_ms=report[name].get("e2e_p50_ms"),
+        e2e_p95_ms=report[name].get("e2e_p95_ms"),
+        dispatch_p50_ms=report[name].get("p50_ms"),
+        dispatch_p95_ms=report[name].get("p95_ms"),
+        dispatches=n_disp, rows_per_dispatch=done / max(n_disp, 1))
+  load_ms = snap["histograms"].get("serving.arena.load_ms", {})
+  _log(f"serving plane per tenant: {json.dumps(per_tenant)}")
+  _log(f"serving plane loads: count {load_ms.get('count')} p50 "
+       f"{load_ms.get('p50')} ms p95 {load_ms.get('p95')} ms max "
+       f"{load_ms.get('max')} ms; last load {json.dumps(stats['last_load'])}")
+  front.close()
+  # SpeculativeCEM over the 1-iteration and the full CEM engines.
+  learner = learners["bf16"]
+  states = [learner.create_state(seed=s).train_state for s in (10, 11)]
+  fast = BucketedServingEngine(learner.build_policy(cem_iterations=1),
+                               states[0], example, max_batch=8,
+                               takes_rng=True, metric_prefix="serving.fast.")
+  full = BucketedServingEngine(learner.build_policy(), states[0], example,
+                               max_batch=8, takes_rng=True,
+                               metric_prefix="serving.full.")
+  fast.warmup()
+  full.warmup()
+  gen = lambda: torch.Generator(device="cuda").manual_seed(5)  # noqa: E731
+  spec_cem = SpeculativeCEM(
+      fast_predict=lambda o: fast.predict(o, generator=gen()),
+      full_predict=lambda o: full.predict(o, generator=gen()),
+      version_fn=lambda: full.params_version)
+  obs = observations[9]
+  try:
+    first = spec_cem.predict(obs)
+    if not np.array_equal(first, fast.predict(obs, generator=gen())):
+      raise AssertionError("speculative: the first answer is not the fast "
+                           "engine's")
+    if not spec_cem.flush(timeout_secs=60):
+      raise AssertionError("speculative: the refinement did not land")
+    refined = spec_cem.predict(obs)
+    full_before = full.predict(obs, generator=gen())
+    if (not np.array_equal(refined, full_before)
+        or spec_cem.stats()["refined_served"] != 1):
+      raise AssertionError("speculative: the repeat is not the full answer")
+    for engine in (fast, full):
+      engine.swap_state(states[1])
+    spec_cem.on_publish(full.params_version)
+    after = spec_cem.predict(obs)
+    if (not np.array_equal(after, fast.predict(obs, generator=gen()))
+        or spec_cem.stats()["refined_served"] != 1):
+      raise AssertionError("speculative: a refined answer crossed the swap")
+    spec_cem.flush(timeout_secs=60)
+    again = spec_cem.predict(obs)
+    if not np.array_equal(again, full.predict(obs, generator=gen())):
+      raise AssertionError("speculative: the new version's refinement is "
+                           "not the full answer")
+    # Traced window: the caller's fast dispatches (1 launch each, one CEM
+    # iteration) and the refine worker's full ones (2 each).
+    stats0 = spec_cem.stats()
+    with traced_launches("speculative window") as traced:
+      for i in range(10):
+        spec_cem.predict(observations[20 + i])
+      spec_cem.flush(timeout_secs=60)
+    stats1 = spec_cem.stats()
+    window = {thread: {k: n for k, n in c.items() if n}
+              for thread, c in ops.launch_counts_by_thread().items()}
+    window = {k: v for k, v in window.items() if v}
+    refines = stats1["refines"] - stats0["refines"]
+    want = {threading.current_thread().name: {"cem_select": 10},
+            "speculative-refine": {"cem_select": 2 * refines}}
+    _log(f"speculative window: 10 fast answers, {refines} refines; launches "
+         f"by thread {json.dumps(window)}, CUPTI {traced['cem_select']}")
+    if refines != 10 or window != want:
+      raise AssertionError(f"speculative window {window} != {want}")
+    spec_window = traced["cem_select"]
+    walls = {}
+    for name, engine in (("fast", fast), ("full", full)):
+      ms = []
+      for i in range(100):
+        t0 = time.perf_counter()
+        engine.predict(observations[i % 64], generator=gen())
+        ms.append((time.perf_counter() - t0) * 1e3)
+      walls[name] = _pcts(ms)
+    ms = []
+    for i in range(100):
+      t0 = time.perf_counter()
+      spec_cem.predict(observations[20 + i % 10])  # refined: cache hits
+      ms.append((time.perf_counter() - t0) * 1e3)
+    walls["speculative repeat"] = _pcts(ms)
+    _log(f"speculative CEM wall ms per B=1 request (host clock): "
+         f"{json.dumps(walls)}; stats {json.dumps(spec_cem.stats())}")
+  finally:
+    spec_cem.close()
+  scalars = tmetrics.registry().scalars("serving.")
+  _log(f"registry serving.* scalars: {json.dumps(scalars, sort_keys=True)}")
+  return {"serving front window": front_window,
+          "speculative window": spec_window}
+
+
 def log_wgmma_kernels(logs):
   """One line per instantiation of the two CEM kernels' wgmma paths:
   ptxas's registers and spill bytes, and the dynamic shared memory a
@@ -2822,9 +3513,17 @@ def main():
   del lax_replay
   phase_seedcheck()
   phase_actor_split()
+  int8_err = phase_int8_kernels()
+  phase_int8_card_vs_cpu()
+  int8_launches = phase_int8_training()
+  phase_int8_timings()
+  plane_launches = phase_serving_plane()
   _log(f"cem_select launches per path (each traced in its own run): CEM "
        f"serving {launches}, Bellman training {qt_launches}, online window "
-       f"{sum(online_per_path.values())} ({json.dumps(online_per_path)})")
+       f"{sum(online_per_path.values())} ({json.dumps(online_per_path)}), "
+       f"int8 Bellman training (fused) {int8_launches}, serving front window "
+       f"{plane_launches['serving front window']}, speculative window "
+       f"{plane_launches['speculative window']}")
   main_row = rows[8]  # the serving path's largest bucket
   head_row = head_rows[256]  # the Bellman target's shape
   flash_row = flash_rows[1]  # the context policy serves one robot
@@ -2834,7 +3533,7 @@ def main():
       "source": "tensor2robot_tpu_torch/csrc/cem_select.cu",
       "replaces": "tensor2robot_tpu/ops/cem_select.py:181",
       "launches": launches,
-      "max_abs_err": max(max_err, online_err),
+      "max_abs_err": max(max_err, online_err, int8_err),
       "ms": main_row["ms"],
       "plain_ms": main_row["plain_ms"],
       "bound_ms": main_row["bound_ms"],

@@ -3,7 +3,8 @@
     python -m tensor2robot_tpu_torch.bin.profile_policy [--batches 8 256]
     python -m tensor2robot_tpu_torch.bin.profile_policy --model vrgripper_transformer
     python -m tensor2robot_tpu_torch.bin.profile_policy --model vrgripper_train
-    python -m tensor2robot_tpu_torch.bin.profile_policy --model qtopt_train
+    python -m tensor2robot_tpu_torch.bin.profile_policy --model qtopt_train \
+        [--cem_inference bf16|int8] [--cem_select fused|lax]
     python -m tensor2robot_tpu_torch.bin.profile_policy --graphs [--model ...]
 
 `--model qtopt` (the default) runs `QTOptLearner.build_policy()` at
@@ -21,7 +22,9 @@ steps, the gin's training shape. `--model qtopt_train` runs
 `QTOptLearner.train_step` of the Bellman-training configuration in
 `research/qtopt/synthetic_bandit.py` (`GraspingQModel()`, batch 256, CEM
 2 × 64 with the fused select, Adam 1e-4) on one batch of its synthetic
-bandit transitions, each step from the same state.
+bandit transitions, each step from the same state; `--cem_inference
+int8` runs the int8 CEM tower (calibrated on that batch) and
+`--cem_select lax` the sort + gather select.
 
 `--graphs` runs each call as the product path graphs it: one replay of
 a CUDA graph (`utils.step_graph.StepGraph`) of the CEM dispatch, of the
@@ -200,13 +203,18 @@ def profile_train_step(graphs: bool = False) -> dict:
           "graphs": graphs, **profile_calls(step)}
 
 
-def profile_qtopt_train_step(graphs: bool = False) -> dict:
+def profile_qtopt_train_step(graphs: bool = False,
+                             cem_inference: str = "bf16",
+                             cem_select: str = "fused") -> dict:
   from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
-  learner = bandit.bellman_learner()
+  learner = bandit.bellman_learner(cem_inference=cem_inference,
+                                   cem_select=cem_select)
   state = learner.create_state(seed=0)
   batch = {k: torch.from_numpy(v).cuda() for k, v in
            bandit.bandit_transitions(learner, bandit.BATCH_SIZE,
                                      seed=1).items()}
+  if learner.needs_calibration:
+    learner.calibrate(state, batch)
   gen = torch.Generator(device="cuda").manual_seed(0)
 
   if graphs:
@@ -219,6 +227,7 @@ def profile_qtopt_train_step(graphs: bool = False) -> dict:
     run()["loss"].item()
 
   return {"model": "qtopt_train", "batch": bandit.BATCH_SIZE,
+          "cem_inference": cem_inference, "cem_select": cem_select,
           "graphs": graphs, **profile_calls(step)}
 
 
@@ -231,6 +240,10 @@ def main():
                       help="CEM batch sizes (--model qtopt)")
   parser.add_argument("--graphs", action="store_true",
                       help="each call one CUDA-graph replay")
+  parser.add_argument("--cem_inference", choices=("bf16", "int8"),
+                      default="bf16", help="CEM tower (--model qtopt_train)")
+  parser.add_argument("--cem_select", choices=("fused", "lax"),
+                      default="fused", help="CEM select (--model qtopt_train)")
   args = parser.parse_args()
   if not torch.cuda.is_available():
     raise SystemExit("profile_policy needs a CUDA card")
@@ -241,7 +254,8 @@ def main():
   elif args.model == "vrgripper_transformer":
     print(json.dumps(profile_context_policy(args.graphs)), flush=True)
   elif args.model == "qtopt_train":
-    print(json.dumps(profile_qtopt_train_step(args.graphs)), flush=True)
+    print(json.dumps(profile_qtopt_train_step(
+        args.graphs, args.cem_inference, args.cem_select)), flush=True)
   else:
     print(json.dumps(profile_train_step(args.graphs)), flush=True)
 

@@ -35,16 +35,22 @@ def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
 def conv_same(conv: nn.Conv2d, x: torch.Tensor,
               dtype: torch.dtype) -> torch.Tensor:
   """flax `nn.Conv(padding='SAME', dtype=dtype)` on NHWC `x`."""
-  (kh, kw), (sh, sw) = conv.kernel_size, conv.stride
+  y = conv2d_same(x, conv.weight.to(dtype), conv.stride, dtype)
+  if conv.bias is not None:
+    y = y + conv.bias.to(dtype)
+  return y
+
+
+def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride,
+                dtype: torch.dtype) -> torch.Tensor:
+  """`lax.conv_general_dilated(x, w, stride, "SAME")` on NHWC `x` with
+  an OIHW `weight` (already in `dtype`), no bias: NHWC out."""
+  (kh, kw), (sh, sw) = weight.shape[2:], stride
   ph = _same_pads(x.shape[1], kh, sh)
   pw = _same_pads(x.shape[2], kw, sw)
   xt = F.pad(x.to(dtype).permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
   xt = xt.contiguous(memory_format=torch.channels_last)
-  y = F.conv2d(xt, conv.weight.to(dtype), stride=(sh, sw))
-  y = y.permute(0, 2, 3, 1)
-  if conv.bias is not None:
-    y = y + conv.bias.to(dtype)
-  return y
+  return F.conv2d(xt, weight, stride=(sh, sw)).permute(0, 2, 3, 1)
 
 
 def spatial_mean(x: torch.Tensor) -> torch.Tensor:

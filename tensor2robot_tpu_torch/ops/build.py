@@ -29,7 +29,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -39,6 +39,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# Called with (name, built) for each kernel `build` is asked for: built
+# True when nvcc ran, False when the library was already there
+# (`startup.compile_cache.CompileWatch` counts them).
+_BUILD_LISTENERS: List[Callable[[str, bool], None]] = []
+
+
+def add_build_listener(listener: Callable[[str, bool], None]) -> None:
+  _BUILD_LISTENERS.append(listener)
+
+
+def _notify(name: str, built: bool) -> None:
+  for listener in _BUILD_LISTENERS:
+    listener(name, built)
 
 
 def nvcc_path() -> str:
@@ -76,6 +89,7 @@ def build(names: Iterable[str], ptxas_verbose: bool = False,
       out = library_path(name)
       if out.exists():
         seconds[name] = 0.0
+        _notify(name, False)
         continue
       tmp = out.with_suffix(f".{os.getpid()}.tmp")
       cmd = [nvcc_path(), *NVCC_FLAGS,
@@ -94,6 +108,7 @@ def build(names: Iterable[str], ptxas_verbose: bool = False,
       if logs is not None:
         logs[name] = log
       os.replace(tmp, out)  # atomic: a concurrent builder sees old or new
+      _notify(name, True)
   finally:
     for proc, tmp, _, _ in started.values():
       if proc.poll() is None:

@@ -6,8 +6,10 @@ floats) → grasp-success Q logit, split at the action merge into
 `head(encoded, features)`; `score_population` / `pool_population`
 score a whole CEM population through the linearity-split merge
 without tiling the torso map, and `head_tail_params` hands the tail
-after the merge to `ops.fused_cem_head_tail`. The int8 tower comes in
-a later slice.
+after the merge to `ops.fused_cem_head_tail`. The int8 CEM tower
+(`quantize_tower`, `quantized_encode`, `quantized_score_population`,
+`quantized_pool_population`) is at the end of the module; its
+activation scales come from `GraspingQNetwork.calibration_stats`.
 
 Layouts follow the JAX package at every public method — NHWC maps,
 P-major `[P, B, C]` pooled features, `[B, P]` scores — so converted
@@ -24,7 +26,7 @@ shared ones of `layers/vision_layers.py`.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -33,6 +35,7 @@ from tensor2robot_tpu_torch.layers import MLP, dense
 from tensor2robot_tpu_torch.layers.vision_layers import (
     _BN_EPS,
     BatchNorm,
+    conv2d_same,
     conv_same,
     spatial_mean,
 )
@@ -115,8 +118,14 @@ class GraspingQNetwork(nn.Module):
       x = getattr(self, f"{kind}_bn_{i}")(x)
     return torch.relu(x)
 
-  def encode(self, image: torch.Tensor) -> torch.Tensor:
-    """Action-independent half: image → torso feature map [B,h,w,C]."""
+  def encode(self, image: torch.Tensor,
+             taps: Optional[Dict[str, torch.Tensor]] = None
+             ) -> torch.Tensor:
+    """Action-independent half: image → torso feature map [B,h,w,C].
+
+    `taps` (optional dict) records each conv's INPUT under
+    ``torso_in_<i>``: the int8 calibration points
+    (`calibration_stats`); passing it changes nothing else."""
     x = image.to(self.dtype) / 255.0
     s = self.space_to_depth
     if s > 1:
@@ -126,6 +135,8 @@ class GraspingQNetwork(nn.Module):
       x = x.reshape(b, h // s, s, w // s, s, c).permute(
           0, 1, 3, 2, 4, 5).reshape(b, h // s, w // s, s * s * c)
     for i in range(len(self.torso_filters)):
+      if taps is not None:
+        taps[f"torso_in_{i}"] = x
       x = self._conv_bn_relu("torso", i, x)
     return x
 
@@ -209,10 +220,15 @@ class GraspingQNetwork(nn.Module):
     a_pm = a.transpose(0, 1).reshape(p * b, c)
     return (a_pm @ v.reshape(c, -1)).reshape(p, b, h2, w2, oc), enc0
 
-  def _population_tail(self, x: torch.Tensor) -> torch.Tensor:
+  def _population_tail(self, x: torch.Tensor,
+                       taps: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> torch.Tensor:
     """Remaining head convs + spatial pool: [P·B, h', w', C'] →
-    pooled [P·B, C'']."""
+    pooled [P·B, C'']. `taps` records each conv's input under
+    ``head_in_<i>`` (int8 calibration points)."""
     for i in range(1, len(self.head_filters)):
+      if taps is not None:
+        taps[f"head_in_{i}"] = x
       x = self._conv_bn_relu("head", i, x)
     return spatial_mean(x)
 
@@ -228,6 +244,26 @@ class GraspingQNetwork(nn.Module):
     x = encoded[:, None] + a[:, :, None, None, :]
     x = x.reshape((b * p,) + x.shape[2:])
     return spatial_mean(x).reshape(b, p, -1).transpose(0, 1)
+
+  def calibration_stats(self, features) -> Dict[str, torch.Tensor]:
+    """Eval-mode forward recording max-abs at every int8 quantization
+    point: the held-out-batch calibration `quantize_tower` consumes.
+
+    `features` is a flat struct/dict with ``image``, ``action`` and any
+    extra state floats; the batch's own actions stand in as a
+    population of 1. Returns {point_name: f32 scalar tensor}.
+    """
+    taps: Dict[str, torch.Tensor] = {}
+    flat = (features.to_flat_dict() if hasattr(features, "to_flat_dict")
+            else dict(features))
+    encoded = self.encode(flat["image"], taps=taps)
+    action = flat["action"]
+    actions = action.reshape(action.shape[0], 1, -1)
+    extras = {k: v for k, v in flat.items() if k not in ("image", "action")}
+    a = self._population_action_embed(extras, actions)
+    if self.head_filters:
+      self._population_tail(self._population_merge(encoded, a), taps=taps)
+    return {k: v.abs().max().float() for k, v in taps.items()}
 
 
 def _eval_bn_affine(bn: BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -262,3 +298,179 @@ def head_tail_params(network: GraspingQNetwork):
   scale, shift = _eval_bn_affine(network.head_bn_1)
   return (kernel.to(network.dtype).contiguous(), scale, shift,
           q_head_dense_params(network, dtype=network.dtype))
+
+
+# ---------------------------------------------------------------------------
+# int8 CEM inference tower (JAX `networks.py:283-534`)
+#
+# The CEM Q-tower forward is inference only (Bellman targets and
+# acting). Its weights and activations are stored as int8: weights per
+# output channel with scales computed from the network's CURRENT
+# tensors on every call (a Polyak-drifting target network requantizes
+# every step, inside a captured step too), activations per tensor with
+# scales from a one-time calibration (`calibration_stats` →
+# `scales_from_stats`). Each conv runs on the int8 values cast to the
+# compute dtype (exact: int8 values are exact in bf16, and the products
+# sum in f32), then folds activation, weight and batch-norm scales into
+# one f32 multiplier. The merged population tensor, the hot one, is
+# stored int8 between the merge and the next conv.
+#
+# Rounding (trap 8): `x / scale` is an f32 DIVISION by a tensor on x's
+# device, never a product with a reciprocal (CUDA turns a division by
+# a host scalar into one); `torch.round` rounds half to even like
+# `jnp.round`; both clip to ±127.
+# ---------------------------------------------------------------------------
+
+Tower = Dict[str, list]
+
+
+def _quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Per-output-channel symmetric int8 of an OIHW kernel:
+  w ≈ w_q · scale[c_out]."""
+  w = w.float()
+  amax = w.abs().amax(dim=tuple(range(1, w.dim())))
+  scale = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-12)
+  w_q = torch.clamp(torch.round(w / scale.reshape((-1,) + (1,) * (w.dim() - 1))),
+                    -127, 127).to(torch.int8)
+  return w_q, scale
+
+
+def _quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+  """Per-tensor symmetric int8 with a calibrated f32 scale (a tensor on
+  x's device)."""
+  return torch.clamp(torch.round(x.float() / scale), -127, 127).to(
+      torch.int8)
+
+
+def scales_from_stats(stats) -> Dict[str, float]:
+  """max-abs calibration stats → per-tensor int8 scales (host floats)."""
+  return {k: max(float(v) / 127.0, 1e-8) for k, v in stats.items()}
+
+
+def _scale_tensor(value: Any, device: torch.device) -> torch.Tensor:
+  """A scale as an f32 0-dim tensor on `device` (a host float rounds to
+  f32 as `jnp.asarray(value, jnp.float32)` does). A fill, not a copy from
+  the host, so that a CUDA-graph capture may run it."""
+  if isinstance(value, torch.Tensor):
+    return value
+  return torch.full((), float(value), dtype=torch.float32, device=device)
+
+
+def quantize_tower(network: GraspingQNetwork, act_scales) -> Tower:
+  """The int8 tower from the network's own tensors and the calibrated
+  activation scales (host floats, or f32 0-dim tensors on the network's
+  device). Each layer: ``w_q``
+  int8 OIHW kernel, ``eff_scale`` f32 [c_out] (activation · weight · BN
+  scales), ``shift`` f32 [c_out] (BN shift or conv bias), ``act_scale``
+  f32 scalar of the layer's input quantizer."""
+
+  def layer(kind: str, i: int):
+    conv = getattr(network, f"{kind}_conv_{i}")
+    w_q, w_scale = _quantize_weight(conv.weight)
+    a_scale = _scale_tensor(act_scales[f"{kind}_in_{i}"],
+                            conv.weight.device)
+    if network.use_batch_norm:
+      bn_scale, shift = _eval_bn_affine(getattr(network, f"{kind}_bn_{i}"))
+      eff = a_scale * w_scale * bn_scale
+    else:
+      eff = a_scale * w_scale
+      shift = conv.bias.float()
+    return {"w_q": w_q, "eff_scale": eff, "shift": shift,
+            "act_scale": a_scale}
+
+  return {
+      "torso": [layer("torso", i) for i in range(len(network.torso_filters))],
+      "head": [layer("head", i) for i in range(1, len(network.head_filters))],
+  }
+
+
+def _int8_conv(x: torch.Tensor, layer: Dict[str, torch.Tensor], stride: int,
+               dtype: torch.dtype) -> torch.Tensor:
+  """quantize → int8-valued conv in `dtype` (rounded to `dtype`, as a
+  JAX conv in bf16 returns bf16) → fold scales in f32 → relu."""
+  x_q = _quantize_act(x, layer["act_scale"])
+  y = conv2d_same(x_q.to(dtype), layer["w_q"].to(dtype), (stride, stride),
+                  dtype)
+  y = y.float() * layer["eff_scale"] + layer["shift"]
+  return torch.relu(y).to(dtype)
+
+
+def quantized_encode(network: GraspingQNetwork, tower: Tower,
+                     image: torch.Tensor,
+                     taps: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> torch.Tensor:
+  """int8 twin of `GraspingQNetwork.encode` (eval mode). `taps` records
+  each quantizer's input under ``torso_in_<i>``, as `encode` does."""
+  dt = network.dtype
+  x = image.to(dt) / torch.full((), 255.0, dtype=dt, device=image.device)
+  s = network.space_to_depth
+  if s > 1:
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // s, s, w // s, s, c).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, h // s, w // s, s * s * c)
+  for i, layer in enumerate(tower["torso"]):
+    if taps is not None:
+      taps[f"torso_in_{i}"] = x
+    x = _int8_conv(x, layer, 1 if i == 0 and s > 1 else 2, dt)
+  return x
+
+
+def _quantized_population_pooled(network: GraspingQNetwork, tower: Tower,
+                                 encoded, extras, actions, taps=None
+                                 ) -> torch.Tensor:
+  """int8 twin of the population path up to the pooled features, with
+  the same P-major layout: the merge on head conv 0's raw kernel (its
+  batch norm folded in f32), then the int8 head convs. Returns pooled
+  [P·B, C''] in the compute dtype."""
+  dt = network.dtype
+  b, p, _ = actions.shape
+  a = network._population_action_embed(extras, actions)  # [B, P, C]
+  if not network.head_filters:
+    x = encoded[:, None] + a[:, :, None, None, :]
+    x = x.reshape((b * p,) + x.shape[2:])
+    return spatial_mean(x).reshape(b, p, -1).transpose(0, 1).reshape(p * b, -1)
+  conv0 = network.head_conv_0
+  k0 = conv0.weight.to(dt)
+  c = encoded.shape[-1]
+  enc0 = conv2d_same(encoded, k0, conv0.stride, dt)
+  basis = torch.eye(c, dtype=dt, device=encoded.device)
+  basis = basis[:, None, None, :].expand((c,) + encoded.shape[1:])
+  v = conv2d_same(basis, k0, conv0.stride, dt)
+  if network.use_batch_norm:
+    bn_scale, bn_shift = _eval_bn_affine(network.head_bn_0)
+    enc0 = (enc0.float() * bn_scale + bn_shift).to(dt)
+    v = (v.float() * bn_scale).to(dt)
+  else:
+    enc0 = enc0 + conv0.bias.to(dt)
+  h2, w2, oc = v.shape[1:]
+  a_pm = a.transpose(0, 1).reshape(p * b, c)
+  act = (a_pm @ v.reshape(c, -1)).reshape(p, b, h2, w2, oc)
+  # The hot tensor: int8 from the first head-tail quantizer on. Adding
+  # enc0 broadcast over the leading P axis gives the values of JAX's
+  # axis-0 concatenation of p copies without materializing them.
+  x = torch.relu(act + enc0).reshape(p * b, h2, w2, oc)
+  for i, layer in enumerate(tower["head"], start=1):
+    if taps is not None:
+      taps[f"head_in_{i}"] = x
+    x = _int8_conv(x, layer, 2, dt)
+  return spatial_mean(x)
+
+
+def quantized_score_population(network: GraspingQNetwork, tower: Tower,
+                               encoded, extras, actions) -> torch.Tensor:
+  """int8 twin of `GraspingQNetwork.score_population`: [B, P] Q (f32).
+  The q-head MLP is not quantized."""
+  b, p, _ = actions.shape
+  pooled = _quantized_population_pooled(network, tower, encoded, extras,
+                                        actions)
+  return network.q_head(pooled)[..., 0].reshape(p, b).t()
+
+
+def quantized_pool_population(network: GraspingQNetwork, tower: Tower,
+                              encoded, extras, actions, taps=None
+                              ) -> torch.Tensor:
+  """int8 twin of `GraspingQNetwork.pool_population`: [P, B, C'']
+  (`taps` records the head quantizers' inputs under ``head_in_<i>``)."""
+  b, p, _ = actions.shape
+  return _quantized_population_pooled(network, tower, encoded, extras,
+                                      actions, taps).reshape(p, b, -1)

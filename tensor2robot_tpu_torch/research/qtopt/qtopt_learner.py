@@ -13,13 +13,19 @@ The acting half (`_cem_fns`, `build_policy`) is the same CEM, on the
 online params. CEM noise comes from a `torch.Generator` or whole as
 `noise` `[iterations, B, P, A]` (a test can inject JAX's draw).
 
-Not ported: data-parallel steps (`axis_name`, ROADMAP A11) and the int8
-tower (`cem_inference="int8"`, A5); both raise.
+The CEM's Q-tower runs in the network's compute dtype or as the int8
+tower (`cem_inference="int8"`, `networks.quantize_tower`), and its
+scoring tail as sort + gather or in the fused kernel (`cem_select`):
+four paths. The int8 tower needs activation scales from `calibrate()`
+(or `ensure_calibrated()`) before a step or policy runs.
+
+Not ported: data-parallel steps (`axis_name`, ROADMAP A11) raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -32,8 +38,16 @@ from tensor2robot_tpu_torch.ops import fused_cem_select
 from tensor2robot_tpu_torch.research.qtopt import cem
 from tensor2robot_tpu_torch.research.qtopt import networks as net_lib
 from tensor2robot_tpu_torch.research.qtopt.t2r_models import GraspingQModel
-from tensor2robot_tpu_torch.specs import ExtendedTensorSpec, TensorSpecStruct
+from tensor2robot_tpu_torch.specs import (
+    ExtendedTensorSpec,
+    TensorSpecStruct,
+    make_random_tensors,
+)
 from tensor2robot_tpu_torch.utils import tree
+
+_UNCALIBRATED = ("cem_inference='int8' needs activation scales: call "
+                 "learner.calibrate(state, batch) (or ensure_calibrated) "
+                 "before tracing the step/policy.")
 
 
 def _polyak(tau: float, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
@@ -59,6 +73,11 @@ class QTOptState:
         train_state=self.train_state.to(device),
         target_params={k: v.to(device)
                        for k, v in self.target_params.items()})
+
+
+def _capturing(device: torch.device) -> bool:
+  """Whether this thread is capturing a CUDA graph on `device`."""
+  return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def _state_device(ts: TrainState) -> torch.device:
@@ -95,20 +114,35 @@ class QTOptLearner:
     """The JAX constructor's arguments, plus `device` (None = CUDA),
     where `create_state` puts the state.
 
+    cem_inference: "bf16" (the network's compute dtype) or "int8" (the
+      quantized tower, `networks.quantize_tower`: int8 weights and
+      activations, each conv on int8 values in the compute dtype,
+      activation scales from `calibrate()`). Bellman targets and acting
+      only; the critic's gradient path is untouched. Weight scales are
+      recomputed from the network's tensors on every call, inside a
+      captured step too.
     cem_select: "lax" (sort + gather, the reference path) or "fused"
-    (scoring + top-E + elite stats in the `ops.fused_cem_select` kernel
-    through `cem_maximize`'s select_fn seam). `clip_targets` applies
-    only with the model's `sigmoid_q`."""
+      (scoring + top-E + elite stats in the `ops.fused_cem_select`
+      kernel through `cem_maximize`'s select_fn seam).
+    `clip_targets` applies only with the model's `sigmoid_q`.
+
+    Calibration and captured graphs. As in the JAX package, where the
+    activation scales are constants of each traced program, a CUDA
+    graph keeps the scales it was captured with: a step or policy that
+    runs eagerly reads the current scales on every call, a graph
+    captured before a later `calibrate()` goes on reading the old ones
+    (their device tensors are kept, never overwritten or freed). That
+    is never silent: `calibrate()` warns (`RuntimeWarning`) when a
+    capture has read the scales it replaces. Calibrate before building
+    the engine or the training loop, as `train_qtopt` and
+    `CEMPolicyServer` do; rebuild them after recalibrating.
+    """
     if cem_inference not in ("bf16", "int8"):
       raise ValueError(f"cem_inference={cem_inference!r} not in "
                        "('bf16', 'int8')")
     if cem_select not in ("lax", "fused"):
       raise ValueError(f"cem_select={cem_select!r} not in "
                        "('lax', 'fused')")
-    if cem_inference == "int8":
-      raise NotImplementedError(
-          "cem_inference='int8' (the quantized CEM tower) is not ported "
-          "yet; see ROADMAP.md Queue A, item A5.")
     self._model = model
     self._gamma = gamma
     self._cem_iterations = cem_iterations
@@ -122,6 +156,14 @@ class QTOptLearner:
     self._cem_select = cem_select
     self._device = resolve_device(device)
     self._target_network = None
+    self._act_scales: Optional[Dict[str, float]] = None
+    # Each calibration's scales as f32 device tensors, per device; a
+    # calibration's tensors are kept (a graph captured over them reads
+    # them for its lifetime). `_scales_captured`: a capture read the
+    # current calibration's tensors.
+    self._scale_tensors: Dict[Tuple[int, str], Dict[str, torch.Tensor]] = {}
+    self._calibration = 0
+    self._scales_captured = False
 
   @property
   def model(self) -> GraspingQModel:
@@ -143,6 +185,73 @@ class QTOptLearner:
   def cem_inference(self) -> str:
     return self._cem_inference
 
+  # ---- int8 calibration ----
+
+  @property
+  def needs_calibration(self) -> bool:
+    """True when the int8 tower is selected but no activation scales
+    exist yet: `calibrate()` (or `ensure_calibrated()`) must run before
+    a step or policy does."""
+    return self._cem_inference == "int8" and self._act_scales is None
+
+  @property
+  def act_scales(self) -> Optional[Dict[str, float]]:
+    """The calibrated per-tensor activation scales (host floats)."""
+    return None if self._act_scales is None else dict(self._act_scales)
+
+  def calibrate(self, state, features) -> Dict[str, float]:
+    """Computes the int8 activation scales from a held-out batch.
+
+    `state` is a QTOptState or TrainState (its online params and batch
+    statistics, in eval mode); `features` a batch of the model's TRAIN
+    features (a transition batch works: its ``next_*``, ``reward`` and
+    ``done`` are dropped first), numpy or tensors. Returns the scales
+    (host floats)."""
+    ts = state.train_state if isinstance(state, QTOptState) else state
+    device = _state_device(ts)
+    flat = dict(features.to_flat_dict() if hasattr(features, "to_flat_dict")
+                else features)
+    flat = {k: torch.as_tensor(v, device=device) for k, v in flat.items()
+            if not k.startswith("next_") and k not in ("reward", "done")}
+    with torch.no_grad():
+      stats = self._model.bind(ts).calibration_stats(flat)
+    if self._scales_captured:
+      warnings.warn(
+          "QTOptLearner.calibrate(): a CUDA graph captured over the previous "
+          "activation scales keeps them, as a traced JAX step keeps its "
+          "constants; build the engine or training loop anew to use the "
+          "new scales.", RuntimeWarning, stacklevel=2)
+    self._act_scales = net_lib.scales_from_stats(
+        {k: v.item() for k, v in stats.items()})
+    self._calibration += 1
+    self._scales_captured = False
+    return dict(self._act_scales)
+
+  def ensure_calibrated(self, state) -> None:
+    """Calibrates from a spec-random batch (16 rows, seed 0) when no
+    calibration ran: serving contexts that never see a replay batch."""
+    if not self.needs_calibration:
+      return
+    batch = make_random_tensors(
+        self._model.get_feature_specification(Mode.TRAIN), batch_size=16,
+        seed=0)
+    self.calibrate(state, batch.to_flat_dict())
+
+  def _act_scale_tensors(self, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The current calibration's scales as f32 0-dim tensors on
+    `device`, made outside any capture (a step's warm-up makes them)."""
+    if self._act_scales is None:
+      raise RuntimeError(_UNCALIBRATED)
+    key = (self._calibration, str(device))
+    found = self._scale_tensors.get(key)
+    if found is None:
+      found = {k: net_lib._scale_tensor(v, device)
+               for k, v in self._act_scales.items()}
+      self._scale_tensors[key] = found
+    if _capturing(device):
+      self._scales_captured = True
+    return found
+
   def create_state(self, seed: int = 0) -> QTOptState:
     """Params, batch stats and Adam state from `seed`; the target is a
     distinct copy of the params."""
@@ -153,26 +262,43 @@ class QTOptLearner:
   def _cem_fns(self, network, state_features):
     """(score_fn, select_fn) for `cem_maximize` — exactly one is used.
 
-    Both run the torso ONCE per state; "fused" routes the scoring tail
-    through `ops.fused_cem_select` via the select seam (the kernel
-    applies the sigmoid of a `sigmoid_q` model itself).
+    The four paths: bf16/int8 tower × lax/fused select. Each runs the
+    torso ONCE per state; int8 swaps the tower for the quantized twin
+    (requantizing the network's weights here, on every call); "fused"
+    routes the scoring tail through `ops.fused_cem_select` via the
+    select seam (the kernel applies the sigmoid of a `sigmoid_q` model
+    itself).
     """
-    if self._cem_select == "lax":
+    if self._cem_inference == "bf16" and self._cem_select == "lax":
       return cem.make_encoded_q_score_fn(network, state_features), None
     flat_state = dict(state_features.to_flat_dict()
                       if hasattr(state_features, "to_flat_dict")
                       else state_features)
     image = flat_state.pop("image")
     extras = {k: v for k, v in flat_state.items() if k != "action"}
-    encoded = network.encode(image)
+    if self._cem_inference == "int8":
+      tower = net_lib.quantize_tower(
+          network, self._act_scale_tensors(image.device))
+      encoded = net_lib.quantized_encode(network, tower, image)
+      score_fn = lambda actions: net_lib.quantized_score_population(  # noqa: E731
+          network, tower, encoded, extras, actions)
+      pool_fn = lambda actions: net_lib.quantized_pool_population(  # noqa: E731
+          network, tower, encoded, extras, actions)
+    else:
+      encoded = network.encode(image)
+      score_fn = lambda actions: network.score_population(  # noqa: E731
+          encoded, extras, actions)
+      pool_fn = lambda actions: network.pool_population(  # noqa: E731
+          encoded, extras, actions)
+    if self._cem_select != "fused":
+      return score_fn, None
     dense = net_lib.q_head_dense_params(network, dtype=network.dtype)
     sigmoid = self._model.sigmoid_q
 
     def select_fn(actions, min_std):
       return fused_cem_select(
-          network.pool_population(encoded, extras, actions), actions,
-          dense, num_elites=self._cem_elites, min_std=min_std,
-          sigmoid=sigmoid)
+          pool_fn(actions), actions, dense, num_elites=self._cem_elites,
+          min_std=min_std, sigmoid=sigmoid)
 
     return None, select_fn
 

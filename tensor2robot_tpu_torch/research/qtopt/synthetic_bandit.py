@@ -28,12 +28,17 @@ A_STAR = np.array([0.4, -0.2, 0.4, -0.2], np.float32)
 REWARD_RADIUS = 1.0
 
 
-def bellman_learner(device=None) -> QTOptLearner:
-  """The bench's learner over `GraspingQModel()`, on `device` (None =
-  the CUDA card)."""
-  return QTOptLearner(GraspingQModel(), gamma=0.9, target_update_tau=0.05,
-                      cem_iterations=2, cem_population=64, cem_elites=6,
-                      cem_select="fused", device=device)
+def bellman_learner(device=None, cem_inference: str = "bf16",
+                    cem_select: str = "fused", **model_kwargs
+                    ) -> QTOptLearner:
+  """The bench's learner over `GraspingQModel(**model_kwargs)`, on
+  `device` (None = the CUDA card); `cem_inference="int8"` is the JAX
+  bench's flagship tower (`bench.py:210`, `qtopt_int8.gin`)."""
+  return QTOptLearner(GraspingQModel(**model_kwargs), gamma=0.9,
+                      target_update_tau=0.05, cem_iterations=2,
+                      cem_population=64, cem_elites=6,
+                      cem_inference=cem_inference, cem_select=cem_select,
+                      device=device)
 
 
 def bandit_transitions(learner: QTOptLearner, n: int,

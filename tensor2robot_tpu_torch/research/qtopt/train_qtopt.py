@@ -24,9 +24,13 @@ and wherever a run resumed. Hooks, the logger and the checkpoint writer
 get copies: nothing they keep is a buffer a later replay writes, and the
 returned state is a copy too.
 
+An int8 learner (`cem_inference="int8"`) that was never calibrated
+calibrates on one replay batch before the first dispatch, as the JAX
+loop does before it traces its step.
+
 Not ported: a mesh (ROADMAP A11), `shard_weight_update` (A11) and
-multi-process learner groups (A13) raise; the perf meter, the sentinel,
-the compile-cache tap and the resource sampler (A7, A12) are left out.
+multi-process learner groups (A13) raise; the perf meter, the sentinel
+and the resource sampler (A12, A13) are left out.
 """
 
 from __future__ import annotations
@@ -167,6 +171,10 @@ def train_qtopt(
     # buffer must start collecting first.
     hook_list.begin(learner.model, model_dir)
     replay_buffer.wait_until_size(min_replay_size or batch_size)
+    # The int8 tower's activation scales calibrate on a real replay batch
+    # before the first dispatch (a captured step reads them).
+    if learner.needs_calibration:
+      learner.calibrate(state, replay_buffer.sample(batch_size))
     stream = replay_buffer.as_stream(batch_size)
     if k > 1:
       stream = prefetch_lib.stack_batches(stream, k)

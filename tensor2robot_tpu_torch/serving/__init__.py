@@ -1,7 +1,66 @@
-"""Serving: bucketed engine, micro-batcher and the CEM policy server."""
+"""Serving: bucketed engine, micro-batcher, the CEM policy server, and
+the multi-tenant plane (port of `serving/`).
 
-from tensor2robot_tpu_torch.serving.cem_policy import CEMPolicyServer
+  * `bucketing` — powers-of-two batch buckets and batch-dim padding.
+  * `engine.BucketedServingEngine` — one CUDA graph per bucket over two
+    params slots, hot-swapped without a mixed dispatch.
+  * `microbatcher.MicroBatcher` — coalesces concurrent `predict()`
+    calls into one dispatch.
+  * `cem_policy.CEMPolicyServer` — the QT-Opt action-selection entry.
+
+The multi-tenant front:
+
+  * `arena.ModelArena` — many models over one device: a budgeted pool
+    of engines with LRU eviction and reloads that build no kernel.
+  * `admission.AdmissionController` — per-tenant token-bucket rate and
+    bounded queues, SLO reports off the telemetry histograms.
+  * `front.ServingFront` — ONE continuous-batching dispatcher over
+    every tenant's queue, round-robin.
+  * `speculative.SpeculativeCEM` — the 1-iteration CEM answer now, the
+    full answer refined behind it, never across a hot-swap.
+  * `dedup.ObservationDedupCache` — quantized-observation hash + params
+    version → cached action.
+
+The replicated tier's `router.ServingRouter` (front replicas over the
+fleet's RPC) is ROADMAP A13.
+"""
+
+from tensor2robot_tpu_torch.serving.bucketing import (
+    bucket_for,
+    bucket_table,
+    pad_batch,
+    unpad_batch,
+)
 from tensor2robot_tpu_torch.serving.engine import BucketedServingEngine
 from tensor2robot_tpu_torch.serving.microbatcher import MicroBatcher
+from tensor2robot_tpu_torch.serving.cem_policy import CEMPolicyServer
+from tensor2robot_tpu_torch.serving.admission import (
+    AdmissionController,
+    RequestRejected,
+    TenantPolicy,
+)
+from tensor2robot_tpu_torch.serving.arena import ModelArena
+from tensor2robot_tpu_torch.serving.front import ServingFront
+from tensor2robot_tpu_torch.serving.dedup import (
+    ObservationDedupCache,
+    observation_key,
+)
+from tensor2robot_tpu_torch.serving.speculative import SpeculativeCEM
 
-__all__ = ["BucketedServingEngine", "CEMPolicyServer", "MicroBatcher"]
+__all__ = [
+    "AdmissionController",
+    "BucketedServingEngine",
+    "CEMPolicyServer",
+    "MicroBatcher",
+    "ModelArena",
+    "ObservationDedupCache",
+    "RequestRejected",
+    "ServingFront",
+    "SpeculativeCEM",
+    "TenantPolicy",
+    "bucket_for",
+    "bucket_table",
+    "observation_key",
+    "pad_batch",
+    "unpad_batch",
+]

@@ -1,0 +1,467 @@
+"""Per-tenant admission control: token-bucket rate + bounded queues
+(port of `serving/admission.py`).
+
+A multi-tenant front dies by its worst tenant unless admission is
+enforced per tenant at the door: one runaway client must shed ITS OWN
+load while every other tenant keeps its SLO. Overflow follows the
+replay service's contract:
+
+  * ``"drop"`` — an over-rate or queue-full request is rejected
+    immediately, counted (``serving.<tenant>.admission.dropped``), and
+    the caller never blocks;
+  * ``"block"`` — the caller waits for capacity (backpressure), with
+    ``block_timeout_secs`` capping the wait; on expiry the request is
+    dropped and counted.
+
+Two gates, both per tenant:
+
+  * TOKEN BUCKET — ``rate_rps`` sustained rows/s with ``burst``
+    headroom; a request needs one token per ROW.
+  * BOUNDED QUEUE — ``max_queue`` rows may wait in the tenant's front
+    queue; beyond that the overflow policy applies.
+
+SLO accounting reads the ``serving.<tenant>.bucket_<n>_ms`` dispatch
+histograms the engine publishes and the front's
+``serving.<tenant>.request_ms``: `slo_report()` merges a tenant's
+histograms and interpolates the in-SLO fraction and p50/p95/p99 from
+the bucket counts, with the JAX module's arithmetic.
+
+The clock is `time.monotonic` and the waits `time.sleep`, read through
+the `time` module at each call, as in the JAX module: a test that
+replaces them drives both packages' controllers with one clock.
+
+Locking: the token bucket guards a few floats with its own lock
+(arithmetic only); every wait happens OUTSIDE any lock, in timed slices
+that re-check the deadline.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, Optional
+
+from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
+
+OVERFLOW_POLICIES = ("drop", "block")
+
+# `retune(rate_rps=None)` means UNLIMITED, so "not provided" needs
+# its own sentinel.
+_UNSET = object()
+
+
+class RequestRejected(RuntimeError):
+  """An admission gate shed this request (rate, queue bound, or block
+  deadline). `tenant` and `reason` ("rate" | "queue_full") say which."""
+
+  def __init__(self, tenant: str, reason: str, message: str):
+    super().__init__(message)
+    self.tenant = tenant
+    self.reason = reason
+
+
+class TenantPolicy:
+  """One tenant's admission envelope. Policy OBJECTS are immutable;
+  a live retune (`AdmissionController.retune`, the control plane's
+  lever) swaps the whole policy atomically rather than mutating."""
+
+  __slots__ = ("rate_rps", "burst", "max_queue", "overflow",
+               "block_timeout_secs", "slo_ms")
+
+  def __init__(self,
+               rate_rps: Optional[float] = None,
+               burst: int = 32,
+               max_queue: int = 256,
+               overflow: str = "drop",
+               block_timeout_secs: Optional[float] = None,
+               slo_ms: float = 100.0):
+    """Args:
+      rate_rps: sustained admitted rows/s (None = unlimited — the
+        queue bound still applies).
+      burst: token-bucket depth: rows admitted instantaneously above
+        the sustained rate.
+      max_queue: rows that may wait in the tenant's front queue.
+      overflow: "drop" (reject + count, never block) or "block"
+        (backpressure; `block_timeout_secs` caps the wait, expiry =
+        counted drop) — the replay service's contract.
+      block_timeout_secs: cap on a "block" wait (None = wait forever,
+        which is only safe when the dispatcher is known alive).
+      slo_ms: the tenant's latency objective; `slo_report()` scores
+        the dispatch histograms against it and the front counts a
+        completion under it as GOODPUT.
+    """
+    if overflow not in OVERFLOW_POLICIES:
+      raise ValueError(
+          f"overflow must be one of {OVERFLOW_POLICIES}, got {overflow!r}")
+    if rate_rps is not None and rate_rps <= 0:
+      raise ValueError(f"rate_rps must be positive, got {rate_rps}")
+    if burst < 1 or max_queue < 1:
+      raise ValueError("burst and max_queue must be >= 1")
+    self.rate_rps = None if rate_rps is None else float(rate_rps)
+    self.burst = int(burst)
+    self.max_queue = int(max_queue)
+    self.overflow = overflow
+    self.block_timeout_secs = block_timeout_secs
+    self.slo_ms = float(slo_ms)
+
+
+def deadline_slices(block_timeout_secs: Optional[float],
+                    stop: Optional[threading.Event] = None,
+                    slice_secs: float = 0.05):
+  """Yields sleep-slice durations for a "block" overflow wait.
+
+  Ends (StopIteration) when the deadline expires or `stop` is set —
+  the caller then counts its drop. THE one timed-slice loop both the
+  rate gate (`admit`) and the front's queue gate drive, so the
+  replay-service overflow contract the two docstrings cite can never
+  drift between them. `block_timeout_secs=None` yields forever (wait
+  until `stop`).
+  """
+  deadline = (time.monotonic() + block_timeout_secs
+              if block_timeout_secs is not None else None)
+  while True:
+    if stop is not None and stop.is_set():
+      return
+    duration = slice_secs
+    if deadline is not None:
+      remaining = deadline - time.monotonic()
+      if remaining <= 0:
+        return
+      duration = min(duration, remaining)
+    yield duration
+
+
+class _TokenBucket:
+  """Continuous-refill token bucket; arithmetic-only under its lock."""
+
+  __slots__ = ("_lock", "_rate", "_burst", "_tokens", "_last")
+
+  def __init__(self, rate_rps: float, burst: int):
+    self._lock = threading.Lock()
+    self._rate = float(rate_rps)
+    self._burst = float(burst)
+    self._tokens = float(burst)
+    self._last = time.monotonic()
+
+  def try_take(self, n: int) -> bool:
+    now = time.monotonic()
+    with self._lock:
+      self._tokens = min(self._burst,
+                         self._tokens + (now - self._last) * self._rate)
+      self._last = now
+      if self._tokens >= n:
+        self._tokens -= n
+        return True
+      return False
+
+  def seconds_until(self, n: int) -> float:
+    """Time until `n` tokens accumulate (0.0 if available now)."""
+    now = time.monotonic()
+    with self._lock:
+      tokens = min(self._burst,
+                   self._tokens + (now - self._last) * self._rate)
+      if tokens >= n:
+        return 0.0
+      return (n - tokens) / self._rate
+
+  def refund(self, n: int) -> None:
+    """Returns `n` spent tokens (a request shed AFTER the rate gate —
+    unserved rows must not charge the tenant's future budget)."""
+    with self._lock:
+      self._tokens = min(self._burst, self._tokens + n)
+
+
+class AdmissionController:
+  """Per-tenant token buckets + drop/block overflow + SLO reports.
+
+  One controller fronts one `ServingFront`; tenants register with a
+  `TenantPolicy` (or inherit the controller's default). The front
+  calls `admit()` BEFORE enqueueing and `queue_full()` when the
+  tenant's bounded queue rejects the put — admission owns every shed
+  counter so the telemetry story lives in one place:
+
+    serving.<tenant>.admission.admitted    (counter, rows)
+    serving.<tenant>.admission.dropped     (counter, rows)
+    serving.<tenant>.admission.shed_rate   (counter, rows — over-rate)
+    serving.<tenant>.admission.shed_queue  (counter, rows — queue full)
+  """
+
+  def __init__(self,
+               rate_rps: Optional[float] = None,
+               burst: int = 32,
+               max_queue: int = 256,
+               overflow: str = "drop",
+               block_timeout_secs: Optional[float] = None,
+               slo_ms: float = 100.0):
+    """The args are the DEFAULT `TenantPolicy`; `register()` may
+    override per tenant."""
+    self._default = TenantPolicy(
+        rate_rps=rate_rps, burst=burst, max_queue=max_queue,
+        overflow=overflow, block_timeout_secs=block_timeout_secs,
+        slo_ms=slo_ms)
+    self._lock = threading.Lock()
+    self._policies: Dict[str, TenantPolicy] = {}
+    self._buckets: Dict[str, _TokenBucket] = {}
+    self._tm: Dict[str, tmetrics.Counter] = {}
+
+  @property
+  def default_policy(self) -> TenantPolicy:
+    return self._default
+
+  def register(self, tenant: str,
+               policy: Optional[TenantPolicy] = None) -> TenantPolicy:
+    """Installs (or returns the existing) policy for `tenant`."""
+    with self._lock:
+      existing = self._policies.get(tenant)
+      if existing is not None:
+        return existing
+      policy = policy or self._default
+      self._policies[tenant] = policy
+      if policy.rate_rps is not None:
+        self._buckets[tenant] = _TokenBucket(policy.rate_rps,
+                                             policy.burst)
+      return policy
+
+  def policy(self, tenant: str) -> TenantPolicy:
+    with self._lock:
+      found = self._policies.get(tenant)
+    return found if found is not None else self._default
+
+  def _count(self, tenant: str, leaf: str, rows: int) -> None:
+    name = f"serving.{tenant}.admission.{leaf}"
+    with self._lock:
+      handle = self._tm.get(name)
+      if handle is None:
+        handle = self._tm[name] = tmetrics.counter(name)
+    handle.inc(rows)
+
+  # ---- the gates (called by the front's submit path) ----
+
+  def admit(self, tenant: str, rows: int,
+            stop: Optional[threading.Event] = None) -> bool:
+    """The RATE gate. True = tokens granted (NOT yet counted admitted
+    — the caller counts via `count_admitted` only after the request
+    clears the queue gate too, so `admitted` and `dropped` partition
+    offered load with no overlap).
+
+    "drop": an over-rate request returns False immediately (counted).
+    "block": waits in timed slices for tokens, re-checking `stop`
+    (the front's closed flag — a shutdown must not strand callers)
+    and the policy's block deadline; expiry/shutdown = counted drop.
+    Never called under a lock.
+    """
+    policy = self.policy(tenant)
+    bucket = self._bucket(tenant, policy)
+    if bucket is None or bucket.try_take(rows):
+      return True
+    if policy.overflow == "block":
+      for slice_secs in deadline_slices(policy.block_timeout_secs,
+                                        stop):
+        wait = bucket.seconds_until(rows)
+        if wait <= 0.0 and bucket.try_take(rows):
+          return True
+        time.sleep(min(slice_secs, max(wait, 0.001)))
+    self._count(tenant, "dropped", rows)
+    self._count(tenant, "shed_rate", rows)
+    return False
+
+  def count_admitted(self, tenant: str, rows: int) -> None:
+    """Counts rows that cleared BOTH gates (rate + queue). The front
+    calls this after a successful enqueue."""
+    self._count(tenant, "admitted", rows)
+
+  def queue_full(self, tenant: str, rows: int) -> None:
+    """The QUEUE gate's shed accounting (the front detected the full
+    queue — bounded puts live with the queue, counters live here).
+    Refunds the rate tokens the request already spent: a shed request
+    served nothing, so it must not charge the tenant's budget."""
+    policy = self.policy(tenant)
+    bucket = self._bucket(tenant, policy)
+    if bucket is not None:
+      bucket.refund(rows)
+    self._count(tenant, "dropped", rows)
+    self._count(tenant, "shed_queue", rows)
+
+  def retune(self, tenant: str,
+             rate_rps: object = _UNSET,
+             factor: Optional[float] = None,
+             burst: Optional[int] = None,
+             min_rate_rps: float = 1.0,
+             max_rate_rps: Optional[float] = None) -> TenantPolicy:
+    """Live-retunes a REGISTERED tenant's token rate (a control plane's
+    lever).
+
+    Either an absolute ``rate_rps`` (None = unlimited — the restore
+    path) or a multiplicative ``factor`` over the current rate; the
+    result clamps to ``[min_rate_rps, max_rate_rps]``. A ``factor``
+    on an unlimited tenant grants ``max_rate_rps`` (you cannot scale
+    infinity down; the cap is the starting point) and is a no-op when
+    no cap is given. The policy swap is atomic under the controller
+    lock and the bucket is REBUILT at the new rate — a shed tenant's
+    hoarded burst tokens must not outlive the retune. Raises
+    `KeyError` for an unregistered tenant (retuning a tenant that
+    never registered would silently create policy out of thin air).
+    """
+    with self._lock:
+      current = self._policies.get(tenant)
+      if current is None:
+        raise KeyError(f"unknown tenant {tenant!r}: retune needs a "
+                       f"registered policy")
+      new_rate = current.rate_rps
+      if factor is not None:
+        if factor <= 0:
+          raise ValueError(f"factor must be positive, got {factor}")
+        if new_rate is None:
+          new_rate = max_rate_rps  # may stay None: no cap, no-op
+        else:
+          new_rate = new_rate * factor
+      elif rate_rps is not _UNSET:
+        new_rate = None if rate_rps is None else float(rate_rps)
+      if new_rate is not None:
+        new_rate = max(new_rate, float(min_rate_rps))
+        if max_rate_rps is not None:
+          new_rate = min(new_rate, float(max_rate_rps))
+      policy = TenantPolicy(
+          rate_rps=new_rate,
+          burst=int(burst) if burst is not None else current.burst,
+          max_queue=current.max_queue,
+          overflow=current.overflow,
+          block_timeout_secs=current.block_timeout_secs,
+          slo_ms=current.slo_ms)
+      self._policies[tenant] = policy
+      if policy.rate_rps is None:
+        self._buckets.pop(tenant, None)
+      else:
+        self._buckets[tenant] = _TokenBucket(policy.rate_rps,
+                                             policy.burst)
+    self._count(tenant, "retunes", 1)
+    return policy
+
+  def _bucket(self, tenant: str,
+              policy: TenantPolicy) -> Optional[_TokenBucket]:
+    if policy.rate_rps is None:
+      return None
+    with self._lock:
+      bucket = self._buckets.get(tenant)
+      if bucket is None:
+        bucket = self._buckets[tenant] = _TokenBucket(
+            policy.rate_rps, policy.burst)
+    return bucket
+
+  # ---- SLO accounting over the published histograms ----
+
+  def slo_report(self, snapshot: Optional[Dict] = None) -> Dict[str, Dict]:
+    """Per-tenant SLO scorecard from the registry's histograms.
+
+    Two views per tenant, both read off already-published histograms:
+
+      * DISPATCH view (``in_slo_fraction``/``p50..p99_ms``): merges
+        the ``serving.<tenant>.bucket_<n>_ms`` engine histograms —
+        device-program latency, the "is the MODEL fast enough"
+        question, stable under load;
+      * END-TO-END view (``e2e_*``): the front's
+        ``serving.<tenant>.request_ms`` histogram — submit→result
+        including queueing, the latency a CALLER experiences. Past
+        saturation these diverge (queue wait dominates while dispatch
+        stays flat); alert on the e2e view, diagnose with the
+        dispatch view.
+
+    Quantiles interpolate inside the straddling bucket (the registry's
+    own read). A tenant with no recorded traffic reports ``count==0``.
+    """
+    if snapshot is None:
+      snapshot = tmetrics.registry().snapshot()
+    histograms = snapshot.get("histograms", {})
+    with self._lock:
+      tenants = list(self._policies)
+    report = {}
+    for tenant in tenants:
+      prefix = f"serving.{tenant}.bucket_"
+      merged_bounds = None
+      merged_counts = None
+      merged_max = None
+      total = 0
+      for name, hist in histograms.items():
+        if not (name.startswith(prefix) and name.endswith("_ms")):
+          continue
+        bounds = tuple(hist["bounds"])
+        if merged_bounds is None:
+          merged_bounds = bounds
+          merged_counts = [0] * (len(bounds) + 1)
+        if bounds != merged_bounds:
+          continue  # foreign bounds can't merge; skip rather than lie
+        for index, count in enumerate(hist["counts"]):
+          merged_counts[index] += count
+        total += int(hist["count"])
+        if hist.get("max") is not None:
+          merged_max = (hist["max"] if merged_max is None
+                        else max(merged_max, hist["max"]))
+      policy = self.policy(tenant)
+      entry = {"slo_ms": policy.slo_ms, "count": total}
+      if total:
+        entry["in_slo_fraction"] = round(_fraction_at_most(
+            merged_bounds, merged_counts, total, policy.slo_ms,
+            merged_max), 4)
+        for q in (0.5, 0.95, 0.99):
+          entry[f"p{int(q * 100)}_ms"] = round(_quantile(
+              merged_bounds, merged_counts, total, q, merged_max), 3)
+      e2e = histograms.get(f"serving.{tenant}.request_ms")
+      if e2e is not None and e2e["count"]:
+        e2e_bounds = tuple(e2e["bounds"])
+        e2e_total = int(e2e["count"])
+        e2e_max = e2e.get("max")
+        entry["e2e_count"] = e2e_total
+        entry["e2e_in_slo_fraction"] = round(_fraction_at_most(
+            e2e_bounds, e2e["counts"], e2e_total, policy.slo_ms,
+            e2e_max), 4)
+        for q in (0.5, 0.95, 0.99):
+          entry[f"e2e_p{int(q * 100)}_ms"] = round(_quantile(
+              e2e_bounds, e2e["counts"], e2e_total, q, e2e_max), 3)
+      report[tenant] = entry
+    return report
+
+
+def _fraction_at_most(bounds, counts, total, value,
+                      observed_max=None) -> float:
+  """Fraction of observations ≤ `value`, interpolated in its bucket.
+
+  The OVERFLOW bucket (observations above the last bound) only counts
+  as ≤ `value` when the observed max proves it — an SLO above the
+  histogram's top bound must not silently bless multi-minute stalls
+  as in-SLO (the pessimistic default when no max is known)."""
+  seen = 0.0
+  lo = 0.0
+  for index, bound in enumerate(bounds):
+    if value <= bound:
+      width = bound - lo
+      frac = (value - lo) / width if width > 0 else 1.0
+      return (seen + counts[index] * min(max(frac, 0.0), 1.0)) / total
+    seen += counts[index]
+    lo = bound
+  overflow = counts[len(bounds)]
+  if overflow and observed_max is not None and observed_max <= value:
+    seen += overflow
+  return seen / total
+
+
+def _quantile(bounds, counts, total, q, observed_max=None) -> float:
+  """Bucket-interpolated quantile (the registry Histogram's read,
+  reproduced over a MERGED count vector): the overflow bucket reports
+  the observed max — clamping to the top bound would understate the
+  tail exactly when it blows out."""
+  rank = q * total
+  seen = 0
+  for index, count in enumerate(counts):
+    if seen + count >= rank:
+      if index == len(bounds):
+        return float(observed_max if observed_max is not None
+                     else bounds[-1])
+      lo = bounds[index - 1] if index else 0.0
+      up = bounds[index]
+      if not count:
+        return up
+      frac = (rank - seen) / count
+      return lo + (up - lo) * min(max(frac, 0.0), 1.0)
+    seen += count
+  return float(observed_max if observed_max is not None
+               else bounds[-1])

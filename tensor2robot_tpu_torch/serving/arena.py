@@ -1,0 +1,439 @@
+"""ModelArena: many models multiplexed over one device's memory (port
+of `serving/arena.py`).
+
+  * a BUDGETED pool of `BucketedServingEngine`s, one per resident
+    tenant, accounted in device bytes (`engine.state_bytes`: one params
+    slot, as the JAX engine's pinned params);
+  * LRU EVICTION when a load would exceed the budget: the
+    least-recently-dispatched tenant's engine is released;
+  * WARM RELOADS: a reload builds a fresh engine, which captures its
+    buckets' CUDA graphs again (graphs cannot be saved between loads:
+    `engine.compile_count`) and builds no kernel, since every kernel
+    library is already in the build directory. `CompileWatch` counts
+    each load's kernel builds: `cache_misses == 0` on a reload is the
+    port's form of the JAX reload contract.
+
+Loads use a placeholder-future protocol so the structural lock never
+covers a blocking operation: a miss installs a Future under the lock,
+builds the engine OUTSIDE it, then publishes. Concurrent callers of the
+SAME tenant wait on the future; callers of OTHER resident tenants are
+never blocked by a load in flight. Builds are chained by tickets, one
+at a time, so each load's `CompileWatch` counts only its own builds.
+
+Eviction vs. dispatch: `release()` RETIRES the engine by dropping its
+references. A dispatch already in flight on another thread holds its
+own references to the params slot and the bucket's graphs (and through
+them the graphs' private memory pools), so it completes on the params
+it started with; the buffers are freed when the last holder lets go.
+New dispatches on the retired engine fail with a clear error, and the
+next `engine()` touch reloads.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import os
+import re
+import threading
+import time
+from concurrent.futures import Future
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from tensor2robot_tpu_torch.device import resolve_device
+from tensor2robot_tpu_torch.serving import engine as engine_lib
+from tensor2robot_tpu_torch.startup import compile_cache
+from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
+
+log = logging.getLogger(__name__)
+
+# Middle segments of `serving.<x>.*` metric names that are NOT tenants;
+# tenant ids must avoid them and stay inside the metric-name charset.
+RESERVED_TENANT_IDS = frozenset({"arena", "front", "admission"})
+_TENANT_RE = re.compile(r"[A-Za-z0-9_\-]+")
+
+# loader() -> (fn, state, example_features): `fn` the engine's
+# `(state, features[, generator])` callable, `state` a `TrainState` (or
+# `QTOptState`) whose acting params the engine copies onto its device,
+# `example_features` the per-row wire example. Reloads call it again — a
+# production loader re-reads the newest checkpoint.
+TenantLoader = Callable[[], Tuple[Callable, Any, Any]]
+
+
+class _TenantSpec:
+
+  __slots__ = ("tenant", "loader", "max_batch", "takes_rng", "warmup")
+
+  def __init__(self, tenant: str, loader: TenantLoader, max_batch: int,
+               takes_rng: bool, warmup: bool):
+    self.tenant = tenant
+    self.loader = loader
+    self.max_batch = max_batch
+    self.takes_rng = takes_rng
+    self.warmup = warmup
+
+
+class _Resident:
+  """One tenant's residency record: a future that resolves to the
+  engine, plus the byte reservation taken while it loads."""
+
+  __slots__ = ("tenant", "future", "bytes", "async_pickup_pending")
+
+  def __init__(self, tenant: str):
+    self.tenant = tenant
+    self.future: Future = Future()
+    self.bytes = 0
+    # True between an engine_async() cold MISS and the dispatcher's
+    # first post-load re-touch: that re-touch is the tail of the SAME
+    # logical dispatch the miss already counted, not a warm hit.
+    self.async_pickup_pending = False
+
+  @property
+  def loaded(self) -> bool:
+    return self.future.done() and self.future.exception() is None
+
+
+class ModelArena:
+  """Budgeted pinned-param pool with LRU eviction + warm reloads."""
+
+  def __init__(self,
+               budget_bytes: Optional[int] = None,
+               cache_dir: Optional[str] = None,
+               device=None):
+    """Args:
+      budget_bytes: device bytes the pool may pin across all resident
+        tenants (None = unlimited — no eviction ever). A single tenant
+        larger than the whole budget is a configuration error and
+        raises at load.
+      cache_dir: the kernel build directory (`compile_cache.cache_dir()`,
+        the default). Another directory raises `NotImplementedError`:
+        a configurable persistent compile cache is ROADMAP A12.
+      device: where every tenant's engine runs; None = CUDA.
+    """
+    if cache_dir is not None and (os.path.realpath(cache_dir)
+                                  != os.path.realpath(
+                                      compile_cache.cache_dir())):
+      raise NotImplementedError(
+          f"ModelArena(cache_dir={cache_dir!r}): the port builds its "
+          "kernels into one directory (compile_cache.cache_dir()); a "
+          "configurable persistent compile cache is ROADMAP A12.")
+    self._device = resolve_device(device)
+    self._budget = None if budget_bytes is None else int(budget_bytes)
+    self._specs: Dict[str, _TenantSpec] = {}
+    # Structural lock: guards the spec/resident tables and the LRU
+    # order. Dict/float ops only — loads, releases, and future waits
+    # all happen outside it.
+    self._lock = threading.Lock()
+    self._resident: "collections.OrderedDict[str, _Resident]" = (
+        collections.OrderedDict())
+    # Tail of the build ticket chain: engine BUILDS serialize by
+    # waiting on their predecessor's future (no lock is ever held
+    # across the blocking build), so each load's CompileWatch counts
+    # exactly its own compiles — a concurrent cold load must never
+    # charge its cache misses to another tenant's warm reload (the
+    # reload contract's hard gate depends on exact attribution).
+    # Dispatches on resident tenants never enter the chain.
+    self._build_tail: Optional[Future] = None
+    self._reserved_bytes = 0
+    self.loads = 0
+    self.reloads = 0
+    self.evictions = 0
+    self.reload_cache_misses = 0
+    self.last_load: Optional[Dict[str, Any]] = None
+    self._loaded_once: set = set()
+    self._tm_hits = tmetrics.counter("serving.arena.hits")
+    self._tm_misses = tmetrics.counter("serving.arena.misses")
+    self._tm_loads = tmetrics.counter("serving.arena.loads")
+    self._tm_evictions = tmetrics.counter("serving.arena.evictions")
+    self._tm_resident = tmetrics.gauge("serving.arena.resident_models")
+    self._tm_bytes = tmetrics.gauge("serving.arena.resident_bytes")
+    self._tm_load_ms = tmetrics.histogram("serving.arena.load_ms")
+
+  # ---- registration ----
+
+  def register(self,
+               tenant: str,
+               loader: TenantLoader,
+               max_batch: int = 8,
+               takes_rng: bool = False,
+               warmup: bool = True) -> None:
+    """Declares a tenant (no load yet — loads are demand-driven).
+
+    `tenant` becomes a metric namespace (`serving.<tenant>.*`) and a
+    Prometheus label value, so it must match ``[A-Za-z0-9_-]+`` and
+    avoid the reserved segment names.
+    """
+    if not _TENANT_RE.fullmatch(tenant):
+      raise ValueError(
+          f"tenant id {tenant!r} must match {_TENANT_RE.pattern} "
+          "(it becomes a metric namespace and Prometheus label)")
+    if tenant in RESERVED_TENANT_IDS:
+      raise ValueError(
+          f"tenant id {tenant!r} is a reserved serving metric "
+          f"namespace ({sorted(RESERVED_TENANT_IDS)})")
+    spec = _TenantSpec(tenant, loader, int(max_batch), bool(takes_rng),
+                       bool(warmup))
+    with self._lock:
+      if tenant in self._specs:
+        raise ValueError(f"tenant {tenant!r} already registered")
+      self._specs[tenant] = spec
+
+  def spec(self, tenant: str) -> _TenantSpec:
+    with self._lock:
+      found = self._specs.get(tenant)
+    if found is None:
+      raise KeyError(f"tenant {tenant!r} is not registered")
+    return found
+
+  @property
+  def tenants(self) -> Tuple[str, ...]:
+    with self._lock:
+      return tuple(self._specs)
+
+  @property
+  def budget_bytes(self) -> Optional[int]:
+    return self._budget
+
+  def resident_tenants(self) -> Tuple[str, ...]:
+    """LRU→MRU order, loads in flight included."""
+    with self._lock:
+      return tuple(self._resident)
+
+  def resident_bytes(self) -> int:
+    with self._lock:
+      return self._reserved_bytes
+
+  # ---- the load path ----
+
+  def engine(self, tenant: str):
+    """Get-or-load: the tenant's live engine, LRU-touched.
+
+    A hit returns immediately (dict ops only). A miss runs the loader
+    and warmup (bucket captures) on THIS thread; concurrent callers of the same
+    tenant block on the load's future instead of loading twice, and
+    other residents keep dispatching throughout.
+    """
+    spec = self.spec(tenant)
+    with self._lock:
+      record = self._resident.get(tenant)
+      if record is not None:
+        self._resident.move_to_end(tenant)
+        loading = not record.future.done()
+      else:
+        record = _Resident(tenant)
+        self._resident[tenant] = record
+        loading = None  # this thread owns the load
+    if loading is None:
+      self._tm_misses.inc()
+      return self._load(spec, record)
+    self._tm_hits.inc()
+    # Done: returns immediately. Mid-load on another thread: waiting
+    # on its future is the "never load the same tenant twice" seam.
+    return record.future.result()
+
+  def engine_async(self, tenant: str):
+    """Non-blocking get-or-load: `(engine, None)` on a resident hit
+    (LRU-touched, dict ops only), `(None, future)` when the tenant is
+    cold or mid-load — a cold touch starts the load on a BACKGROUND
+    thread and returns immediately, so a single-threaded caller (the
+    ServingFront dispatcher) is never parked behind a loader while
+    other tenants have dispatchable work. The
+    future resolves to the engine, or to the load's exception."""
+    spec = self.spec(tenant)
+    with self._lock:
+      record = self._resident.get(tenant)
+      if record is not None:
+        # Same ownership rule as engine(): whoever INSTALLS the record
+        # owns its load; everyone else rides the future.
+        self._resident.move_to_end(tenant)
+        hit = record.future.result() if record.loaded else None
+        # The first post-load touch completes the cold dispatch whose
+        # miss was already counted — don't double it as a warm hit
+        # (the sync engine() path counts that dispatch once).
+        count_hit = hit is not None and not record.async_pickup_pending
+        if hit is not None:
+          record.async_pickup_pending = False
+        owner = False
+      else:
+        record = _Resident(tenant)
+        record.async_pickup_pending = True
+        self._resident[tenant] = record
+        hit = None
+        count_hit = False
+        owner = True
+    if owner:
+      self._tm_misses.inc()
+      threading.Thread(
+          target=self._load_quietly, args=(spec, record),
+          name=f"arena-load-{tenant}", daemon=True).start()
+      return None, record.future
+    if hit is not None:
+      if count_hit:
+        self._tm_hits.inc()
+      return hit, None
+    return None, record.future
+
+  def _load_quietly(self, spec: _TenantSpec, record: _Resident) -> None:
+    """Background-thread wrapper: failures land on the record future
+    (every waiter sees them); nothing to re-raise into."""
+    try:
+      self._load(spec, record)
+    except BaseException:  # noqa: BLE001 — surfaced via the future
+      log.exception("async load of tenant %r failed", spec.tenant)
+
+  def _load(self, spec: _TenantSpec, record: _Resident):
+    tenant = spec.tenant
+    t0 = time.perf_counter()
+    # Join the build chain: wait for the previous build to finish so
+    # the CompileWatch below observes ONLY this build's compiles.
+    with self._lock:
+      predecessor, self._build_tail = self._build_tail, Future()
+      ticket = self._build_tail
+    try:
+      if predecessor is not None:
+        # Predecessor failures are its loader's problem, not ours —
+        # the chain only sequences, never propagates.
+        predecessor.exception()
+      fn, state, example = spec.loader()
+      host_bytes = engine_lib.acting_params(state).nbytes
+      victims = self._reserve_or_evict(tenant, record, host_bytes)
+      for victim in victims:
+        victim.release()
+      reload_ = tenant in self._loaded_once
+      with compile_cache.CompileWatch() as watch:
+        engine = engine_lib.BucketedServingEngine(
+            fn, state, example,
+            max_batch=spec.max_batch,
+            takes_rng=spec.takes_rng,
+            device=self._device,
+            metric_prefix=f"serving.{tenant}.")
+        if spec.warmup:
+          engine.warmup()
+      seconds = time.perf_counter() - t0
+      with self._lock:
+        # device bytes may differ from the host estimate (padding,
+        # dtypes); settle the reservation to the real figure.
+        self._reserved_bytes += engine.state_bytes - record.bytes
+        record.bytes = engine.state_bytes
+        self.loads += 1
+        if reload_:
+          self.reloads += 1
+          self.reload_cache_misses += watch.cache_misses
+        self._loaded_once.add(tenant)
+        self.last_load = {
+            "tenant": tenant,
+            "seconds": round(seconds, 4),
+            "reload": reload_,
+            "cache_misses": watch.cache_misses,
+            "cache_hits": watch.cache_hits,
+            "captures": engine.compile_count,
+        }
+      self._tm_loads.inc()
+      self._tm_load_ms.observe(seconds * 1e3)
+      record.future.set_result(engine)
+      self._publish_gauges()  # after set_result: the gauge counts it
+      return engine
+    except BaseException as e:
+      with self._lock:
+        self._resident.pop(tenant, None)
+        self._reserved_bytes -= record.bytes
+      self._publish_gauges()
+      record.future.set_exception(e)
+      raise
+    finally:
+      ticket.set_result(None)  # hand the build chain to the next load
+
+  def _reserve_or_evict(self, tenant: str, record: _Resident,
+                        need_bytes: int) -> List[Any]:
+    """Books `need_bytes` for `tenant`, choosing LRU victims to make
+    room. Structural work only — returns the victims' engines for the
+    CALLER to release outside the lock."""
+    victims: List[Any] = []
+    with self._lock:
+      if self._budget is not None and need_bytes > self._budget:
+        raise ValueError(
+            f"tenant {tenant!r} needs {need_bytes} bytes, over the "
+            f"whole arena budget {self._budget}; raise budget_bytes")
+      while (self._budget is not None
+             and self._reserved_bytes + need_bytes > self._budget):
+        victim_id = next(
+            (tid for tid, rec in self._resident.items()
+             if tid != tenant and rec.loaded), None)
+        if victim_id is None:
+          # Everything else is mid-load (can't evict a load in
+          # flight); over-budget transiently rather than deadlock.
+          break
+        rec = self._resident.pop(victim_id)
+        self._reserved_bytes -= rec.bytes
+        self.evictions += 1
+        victims.append(rec.future.result())
+      record.bytes = need_bytes
+      self._reserved_bytes += need_bytes
+    for _ in victims:
+      self._tm_evictions.inc()
+    return victims
+
+  def _publish_gauges(self) -> None:
+    with self._lock:
+      models = sum(1 for rec in self._resident.values() if rec.loaded)
+      total = self._reserved_bytes
+    self._tm_resident.set(models)
+    self._tm_bytes.set(total)
+
+  # ---- refresh / eviction entry points ----
+
+  def swap_state(self, tenant: str, state: Any,
+                 learner_step: Optional[int] = None) -> bool:
+    """Hot-swaps a RESIDENT tenant's params (lock-free readers, the
+    engine's swap contract). Returns False when the tenant is not
+    resident — an evicted tenant picks its new checkpoint up from the
+    loader at the next reload, so there is nothing to swap. Never
+    blocks other tenants: the swap runs on the caller's thread against
+    one engine; every other engine keeps dispatching."""
+    self.spec(tenant)  # raises on unknown tenant
+    with self._lock:
+      record = self._resident.get(tenant)
+    if record is None or not record.loaded:
+      return False
+    engine = record.future.result()
+    try:
+      engine.swap_state(state, learner_step=learner_step)
+    except RuntimeError:
+      if engine.released:
+        return False  # evicted mid-swap: the publication didn't land
+      raise
+    # Re-check residency AFTER the swap: an LRU eviction racing in
+    # would retire the engine and discard the new params — returning
+    # True would tell a checkpoint poller its publication landed when
+    # the next reload will serve whatever the loader reads instead.
+    with self._lock:
+      still_resident = self._resident.get(tenant) is record
+    return still_resident and not engine.released
+
+  def evict(self, tenant: str) -> bool:
+    """Explicit eviction (tests, manual shedding); False if absent."""
+    with self._lock:
+      record = self._resident.get(tenant)
+      if record is None or not record.loaded:
+        return False
+      self._resident.pop(tenant)
+      self._reserved_bytes -= record.bytes
+      self.evictions += 1
+    self._tm_evictions.inc()
+    record.future.result().release()
+    self._publish_gauges()
+    return True
+
+  def stats(self) -> Dict[str, Any]:
+    with self._lock:
+      return {
+          "budget_bytes": self._budget,
+          "resident_bytes": self._reserved_bytes,
+          "resident": [tid for tid, rec in self._resident.items()
+                       if rec.loaded],
+          "loads": self.loads,
+          "reloads": self.reloads,
+          "evictions": self.evictions,
+          "reload_cache_misses": self.reload_cache_misses,
+          "last_load": dict(self.last_load) if self.last_load else None,
+      }

@@ -53,6 +53,10 @@ class CEMPolicyServer:
         policy eagerly.
     """
     self._learner = learner
+    # An int8 learner that was never calibrated on real data calibrates
+    # on a spec-random batch here, before the engine captures its
+    # buckets (they read the scales).
+    learner.ensure_calibrated(state)
     policy = learner.build_policy(cem_population=cem_population,
                                   cem_iterations=cem_iterations)
     example = make_random_tensors(

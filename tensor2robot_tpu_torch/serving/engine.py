@@ -26,8 +26,15 @@ path and the params it serves:
     are on the host, so it completes on the params it started with and
     sees entirely-old or entirely-new params, never a mix.
 
-Telemetry spans/metrics and the persistent compile cache of the JAX
-engine come in later slices (ROADMAP A7).
+Telemetry, as the JAX engine publishes it: under `metric_prefix`
+(``serving.`` by default; the arena passes ``serving.<tenant>.``) the
+``dispatches`` and ``swaps`` counters and one ``bucket_<n>_ms``
+histogram per bucket (the wall time of a dispatch on the host, features
+in to outputs on the host); a ``serving.dispatch`` span per dispatch
+and a ``serving.swap_state`` event per swap. The span and the histogram
+time the host side around a graph replay: they add no device
+synchronization to the dispatch (the copy of the outputs to the host is
+the only wait, as before).
 
 `fn(state, features[, generator])` takes tensors with a leading batch
 dim on the engine's device and returns a tensor (or a tree of them)
@@ -43,9 +50,11 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch import telemetry
 from tensor2robot_tpu_torch.device import resolve_device, synchronize
 from tensor2robot_tpu_torch.models.abstract_model import TrainState
 from tensor2robot_tpu_torch.serving import bucketing
+from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
 from tensor2robot_tpu_torch.utils import tree
 from tensor2robot_tpu_torch.utils.step_graph import (
     StepGraph,
@@ -69,7 +78,7 @@ class _Published(NamedTuple):
   slot: int = 0
 
 
-def _acting(state: Any) -> TrainState:
+def acting_params(state: Any) -> TrainState:
   """The acting params of a `TrainState` or a `QTOptState` (its online
   `TrainState`): params and batch statistics, no optimizer state."""
   ts = getattr(state, "train_state", state)
@@ -87,7 +96,8 @@ class BucketedServingEngine:
                max_batch: int = 8,
                takes_rng: bool = False,
                device=None,
-               graphs: bool = True):
+               graphs: bool = True,
+               metric_prefix: str = "serving."):
     """Args:
       fn: `(state, features)` or `(state, features, generator)`.
       state: params holder (a `TrainState` or a `QTOptState`); its
@@ -99,6 +109,7 @@ class BucketedServingEngine:
       device: where the state lives and `fn` runs; None = CUDA.
       graphs: one captured graph per bucket (default); False runs `fn`
         eagerly per dispatch.
+      metric_prefix: namespace of this engine's registry metrics.
     """
     self._device = resolve_device(device)
     self._fn = fn
@@ -128,6 +139,10 @@ class BucketedServingEngine:
     self.dispatch_count = 0
     self.dispatches_per_bucket: Dict[int, int] = {}
     self.swap_count = 0
+    self._metric_prefix = metric_prefix
+    self._tm_dispatches = tmetrics.counter(f"{metric_prefix}dispatches")
+    self._tm_swaps = tmetrics.counter(f"{metric_prefix}swaps")
+    self._tm_bucket_ms: Dict[int, Any] = {}
 
   @property
   def device(self) -> torch.device:
@@ -156,7 +171,7 @@ class BucketedServingEngine:
     return self._released
 
   def _place(self, state: Any) -> TrainState:
-    placed = _acting(state).to(self._device)
+    placed = acting_params(state).to(self._device)
     synchronize(self._device)  # published only once fully on device
     return placed
 
@@ -286,7 +301,7 @@ class BucketedServingEngine:
       with self._slot_cv:
         self._slot_cv.wait_for(lambda: self._readers[target] == 0)
       slot = self._slots[target]
-      copy_into(tensors(slot), tensors(_acting(new_state).to(self._device)))
+      copy_into(tensors(slot), tensors(acting_params(new_state).to(self._device)))
       synchronize(self._device)
       self._published = _Published(
           slot, version=previous.version + 1,
@@ -294,6 +309,10 @@ class BucketedServingEngine:
                         else int(learner_step)),
           slot=target)
       self.swap_count += 1
+    telemetry.event("serving.swap_state",
+                    version=self._published.version,
+                    learner_step=self._published.learner_step)
+    self._tm_swaps.inc()
 
   # ---- the hot path ----
 
@@ -343,9 +362,17 @@ class BucketedServingEngine:
       raise RuntimeError(_RELEASED)
     n = int(np.asarray(tree.leaves(features)[0]).shape[0])
     bucket = bucketing.bucket_for(n, self._table)
-    outputs, published = self._dispatch(
-        bucketing.pad_batch(features, bucket), bucket, generator)
+    t0 = time.perf_counter()
+    with telemetry.span("serving.dispatch", bucket=bucket, rows=n):
+      outputs, published = self._dispatch(
+          bucketing.pad_batch(features, bucket), bucket, generator)
+    hist = self._tm_bucket_ms.get(bucket)
+    if hist is None:
+      hist = self._tm_bucket_ms[bucket] = tmetrics.histogram(
+          f"{self._metric_prefix}bucket_{bucket}_ms")
+    hist.observe((time.perf_counter() - t0) * 1e3)
     self.dispatch_count += 1
     self.dispatches_per_bucket[bucket] = (
         self.dispatches_per_bucket.get(bucket, 0) + 1)
+    self._tm_dispatches.inc()
     return bucketing.unpad_batch(outputs, n), published

@@ -12,6 +12,12 @@ engine's device, seeded from ``(seed, dispatch_index)`` — coalesced
 callers in one dispatch share it, successive dispatches never do. A
 graphed engine seeds its bucket's registered generator from it, so the
 dispatch draws what an eager one with that generator would.
+
+Telemetry, as the JAX batcher publishes it: the
+``serving.microbatch_queue_depth`` gauge (requests still queued behind
+a dispatch), the ``serving.microbatch_rows`` histogram (rows per
+dispatch) and a ``serving.microbatch_dispatch`` span around each
+dispatch (host time; no device synchronization is added).
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch import telemetry
 from tensor2robot_tpu_torch.serving import coalesce
+from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
 from tensor2robot_tpu_torch.utils import tree
 
 
@@ -69,6 +77,9 @@ class MicroBatcher:
     self.dispatches = 0
     self.requests = 0
     self.batch_sizes: List[int] = []
+    self._tm_queue_depth = tmetrics.gauge("serving.microbatch_queue_depth")
+    self._tm_rows = tmetrics.histogram(
+        "serving.microbatch_rows", bounds=(1, 2, 4, 8, 16, 32, 64, 128, 256))
     self._thread = threading.Thread(target=self._run, name="microbatcher",
                                     daemon=True)
     self._thread.start()
@@ -112,16 +123,22 @@ class MicroBatcher:
     if not batch:
       return
     try:
+      rows = sum(r.n for r in batch)
+      self._tm_queue_depth.set(self._queue.qsize())
+      self._tm_rows.observe(rows)
       features = coalesce.concat_features(batch)
-      if self._seed is not None:
-        generator = torch.Generator(device=self._engine.device).manual_seed(
-            dispatch_seed(self._seed, self._dispatch_index))
-        outputs = self._engine.predict(features, generator=generator)
-      else:
-        outputs = self._engine.predict(features)
+      with telemetry.span("serving.microbatch_dispatch",
+                          requests=len(batch), rows=rows):
+        if self._seed is not None:
+          generator = torch.Generator(
+              device=self._engine.device).manual_seed(
+                  dispatch_seed(self._seed, self._dispatch_index))
+          outputs = self._engine.predict(features, generator=generator)
+        else:
+          outputs = self._engine.predict(features)
       self._dispatch_index += 1
       self.dispatches += 1
-      self.batch_sizes.append(sum(r.n for r in batch))
+      self.batch_sizes.append(rows)
       coalesce.deliver(batch, outputs)
     except Exception as exc:  # noqa: BLE001 — deliver to every caller
       coalesce.fail_batch(batch, exc)

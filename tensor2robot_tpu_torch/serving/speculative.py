@@ -1,0 +1,196 @@
+"""Speculative CEM: serve the iteration-1 elite NOW, refine behind it
+(port of `serving/speculative.py`).
+
+A converged QT-Opt policy's CEM distribution barely moves between
+iterations, so for latency-critical callers the tier answers with the
+ONE-iteration program and runs the full program in the background,
+publishing its refined action to a cache: a repeated observation gets
+the exact full-CEM answer at cache-lookup cost.
+
+Both programs come from one seam: `learner.build_policy(
+cem_iterations=1)` and `build_policy()`, each served by its own
+`BucketedServingEngine` over the same params (`fast_predict` and
+`full_predict` are those engines' `predict`).
+
+Correctness contract:
+
+  * A refined action NEVER crosses a param hot-swap. The version is
+    read BEFORE the fast dispatch; the refined result is stamped with
+    that version and inserted only if the current version still
+    matches when the refinement lands; `get` additionally requires a
+    stamp match at serve time. `on_publish()` clears the cache eagerly.
+  * The fast path is always a REAL engine answer for the caller's
+    exact observation under the current params.
+
+Refinement runs on one daemon worker with a bounded queue: an over-full
+refine queue DROPS work (counted) rather than backpressuring the hot
+path.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Callable, Dict, Optional
+
+from tensor2robot_tpu_torch.serving.dedup import ObservationDedupCache
+from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
+
+
+class SpeculativeCEM:
+  """Wraps a (fast, full) policy pair behind one `predict`."""
+
+  def __init__(self,
+               fast_predict: Callable[[Any], Any],
+               full_predict: Callable[[Any], Any],
+               version_fn: Callable[[], int],
+               capacity: int = 256,
+               refine_queue: int = 32,
+               quantize_scale: float = 256.0):
+    """Args:
+      fast_predict: the 1-iteration policy — called inline.
+      full_predict: the full-CEM policy — called on the refine worker.
+      version_fn: returns the CURRENT param version (monotonic; the
+        front bumps it on every publish/hot-swap).
+      capacity: refined-action cache entries (LRU).
+      refine_queue: bounded refine backlog; overflow drops (counted).
+      quantize_scale: observation-key quantization (see dedup module).
+    """
+    self._fast = fast_predict
+    self._full = full_predict
+    self._version = version_fn
+    self._cache = ObservationDedupCache(
+        capacity=capacity, quantize_scale=quantize_scale,
+        metric_prefix="serving.speculative.cache.")
+    self._queue: "queue.Queue" = queue.Queue(maxsize=refine_queue)
+    self._fast_served = tmetrics.counter(
+        "serving.speculative.fast_served")
+    self._refined_served = tmetrics.counter(
+        "serving.speculative.refined_served")
+    self._refines = tmetrics.counter("serving.speculative.refines")
+    self._discarded = tmetrics.counter(
+        "serving.speculative.refine_discarded")
+    self._dropped = tmetrics.counter(
+        "serving.speculative.refine_dropped")
+    # Telemetry counters are process-global (every SpeculativeCEM in
+    # the process shares them); stats() must describe THIS instance,
+    # so keep local tallies beside them (lock: predict thread + refine
+    # worker both bump).
+    self._n_lock = threading.Lock()
+    self._n = {"fast_served": 0, "refined_served": 0, "refines": 0,
+               "refine_discarded": 0, "refine_dropped": 0}
+    # Queued + IN-FLIGHT refinements: queue emptiness alone cannot
+    # tell flush() the backlog drained — the worker dequeues before
+    # it computes, so the last refinement is invisible to the queue
+    # while still pending.
+    self._outstanding = 0
+    self._closed = False
+    self._worker = threading.Thread(
+        target=self._refine_loop, name="speculative-refine",
+        daemon=True)
+    self._worker.start()
+
+  # ---- the serving path ----
+
+  def predict(self, features: Any) -> Any:
+    """The speculative serve: refined-cache hit under the CURRENT
+    version, else the fast program inline + a queued refinement."""
+    if self._closed:
+      raise RuntimeError("SpeculativeCEM is closed")
+    version = self._version()
+    key = self._cache.key(features)
+    refined = self._cache.get(key, version)
+    if refined is not None:
+      self._refined_served.inc()
+      self._bump("refined_served")
+      return refined
+    action = self._fast(features)
+    self._fast_served.inc()
+    self._bump("fast_served")
+    try:
+      self._queue.put_nowait((key, version, features))
+    except queue.Full:
+      self._dropped.inc()
+      self._bump("refine_dropped")
+    else:
+      with self._n_lock:
+        self._outstanding += 1
+    return action
+
+  def _bump(self, name: str) -> None:
+    with self._n_lock:
+      self._n[name] += 1
+
+  # ---- the refine worker ----
+
+  def _refine_loop(self) -> None:
+    while True:
+      try:
+        item = self._queue.get(timeout=0.2)
+      except queue.Empty:
+        if self._closed:
+          return
+        continue
+      if item is None:
+        return
+      try:
+        key, version, features = item
+        if self._version() != version:
+          # The params moved while this refinement waited; its result
+          # would be stamped with a dead version — skip the dispatch.
+          self._discarded.inc()
+          self._bump("refine_discarded")
+          continue
+        try:
+          refined = self._full(features)
+        except Exception:  # engine closing mid-shutdown; never crash
+          self._discarded.inc()
+          self._bump("refine_discarded")
+          continue
+        if self._version() == version:
+          self._cache.put(key, version, refined)
+          self._refines.inc()
+          self._bump("refines")
+        else:
+          self._discarded.inc()
+          self._bump("refine_discarded")
+      finally:
+        with self._n_lock:
+          self._outstanding -= 1
+
+  # ---- lifecycle ----
+
+  def on_publish(self, new_version: Optional[int] = None) -> None:
+    """Hot-swap notification: eagerly drop refinements for dead
+    versions (the stamp check already guarantees they cannot serve)."""
+    self._cache.invalidate(new_version)
+
+  def flush(self, timeout_secs: float = 5.0) -> bool:
+    """Waits until every queued AND in-flight refinement has landed
+    or been discarded (tests and measurements)."""
+    import time
+    deadline = time.monotonic() + timeout_secs
+    while True:
+      with self._n_lock:
+        idle = self._outstanding == 0
+      if idle:
+        return True
+      if time.monotonic() >= deadline:
+        return False
+      time.sleep(0.005)
+
+  def stats(self) -> Dict[str, int]:
+    out = self._cache.stats()
+    with self._n_lock:
+      out.update(self._n)
+    return out
+
+  def close(self) -> None:
+    if self._closed:
+      return
+    self._closed = True
+    try:
+      self._queue.put_nowait(None)  # wake the worker promptly; a
+    except queue.Full:              # full queue falls back to the
+      pass                          # timed-get closed check
+    self._worker.join(timeout=5.0)

@@ -1,0 +1,331 @@
+"""Span/event tracing core (port of `telemetry/core.py`).
+
+The recording side of a run's timeline:
+
+  * one process-global `Tracer`, configured once per process with its
+    ROLE (``host`` / ``learner`` / ``actor-3`` / ``trainer`` / ...);
+  * `span(name)` context managers stamping CLOCK_MONOTONIC start +
+    duration, pid, thread id, and role; `event(name)` for an instant;
+  * a BOUNDED ring of recent spans, appended LOCK-FREE (a
+    `collections.deque(maxlen=...)`: GIL-atomic appends, the oldest
+    spans drop when nothing flushes them);
+  * flushing to a per-process ``trace_<role>.jsonl`` by single
+    `os.write` calls on an ``O_APPEND`` fd: whole-line appends with no
+    lock on the recording path.
+
+The line format is the JAX package's (``{"ph": "X", "name", "ts",
+"dur", "pid", "tid", "role"[, "args"]}`` per span, one ``"ph": "M"``
+meta line per configure), so one merge tool reads both packages'
+traces. A span times the host: around a CUDA-graph replay it measures
+the host side of the dispatch and adds no device synchronization.
+
+Clock model: `time.monotonic` is CLOCK_MONOTONIC, system-wide on
+Linux, so same-host processes share a timeline. Across hosts a process
+learns its offset to a reference host's clock from one RPC round trip
+(`clock_offset_from_handshake`) and stamps it into its trace file.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+# Ring capacity: enough for the last ~seconds of a busy process (RPC
+# handlers run ~kHz at most) without holding more than a few MB.
+DEFAULT_RING_CAPACITY = 8192
+# Flush when this many spans are pending (only when a trace file is
+# configured): one os.write per batch amortizes the I/O to ~nothing.
+FLUSH_BATCH = 512
+
+DEFAULT_ROLE = "trainer"
+
+
+class _NullSpan:
+  """Shared no-op context manager: the disabled-tracer fast path costs
+  one attribute check + returning this singleton."""
+
+  __slots__ = ()
+
+  def __enter__(self) -> "_NullSpan":
+    return self
+
+  def __exit__(self, *exc) -> bool:
+    return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+  """One live span: records (name, t0, dur) into the tracer on exit."""
+
+  __slots__ = ("_tracer", "_name", "_args", "_t0")
+
+  def __init__(self, tracer: "Tracer", name: str,
+               args: Optional[Dict[str, Any]]):
+    self._tracer = tracer
+    self._name = name
+    self._args = args
+
+  def __enter__(self) -> "_Span":
+    self._t0 = time.monotonic()
+    return self
+
+  def __exit__(self, exc_type, exc, tb) -> bool:
+    dur = time.monotonic() - self._t0
+    args = self._args
+    if exc_type is not None:
+      args = dict(args or ())
+      args["error"] = exc_type.__name__
+    self._tracer._record(self._name, self._t0, dur, args)
+    return False
+
+
+class Tracer:
+  """Process-global span recorder (see module docstring).
+
+  Thread-safety: `_record` appends to a `deque(maxlen=...)` (GIL-atomic)
+  and `flush` drains via `popleft` (also atomic), appending whole lines
+  with one `os.write` on an O_APPEND fd — concurrent flushers pop
+  disjoint spans and interleave whole lines. The SPAN path holds no
+  lock (this code sits inside RPC handlers and train loops); only the
+  recorded/flushed statistics counters take a nanosecond mutex (a bare
+  `+=` is a read-modify-write that drops updates under preemption, and
+  `spans_dropped` is derived from them).
+  """
+
+  def __init__(self):
+    self._ring: collections.deque = collections.deque(
+        maxlen=DEFAULT_RING_CAPACITY)
+    self.enabled = False
+    self.role: Optional[str] = None
+    self.actor_id: Optional[str] = None
+    self.clock_offset = 0.0
+    self.spans_recorded = 0
+    self.spans_flushed = 0
+    self._count_lock = threading.Lock()
+    self._fd: Optional[int] = None
+    self.trace_path: Optional[str] = None
+
+  # ---- configuration ----
+
+  def configure(self, role: str,
+                trace_dir: Optional[str] = None,
+                actor_id: Optional[str] = None,
+                capacity: Optional[int] = None,
+                enabled: bool = True) -> "Tracer":
+    """Sets this process's role and (optionally) its trace file.
+
+    With ``trace_dir`` the tracer appends to
+    ``<trace_dir>/trace_<role>.jsonl`` (created if needed; restarts of
+    the same role append to the same file — O_APPEND keeps concurrent
+    incarnations' lines whole). Without it spans stay in the bounded
+    ring only (memory-mode: `snapshot_spans` still sees them).
+    Reconfiguration closes any previous file. Idempotent per
+    (role, trace_dir).
+    """
+    self.close()
+    self.role = str(role)
+    self.actor_id = actor_id
+    if capacity:
+      self._ring = collections.deque(maxlen=int(capacity))
+    self.enabled = bool(enabled)
+    if trace_dir:
+      os.makedirs(trace_dir, exist_ok=True)
+      path = os.path.join(trace_dir, f"trace_{self.role}.jsonl")
+      self._fd = os.open(path,
+                         os.O_APPEND | os.O_CREAT | os.O_WRONLY,
+                         0o644)
+      self.trace_path = path
+      self._write_meta()
+    return self
+
+  @property
+  def capacity(self) -> int:
+    return self._ring.maxlen or 0
+
+  def set_clock_offset(self, offset_secs: float) -> None:
+    """Records this process's monotonic-clock offset to a reference
+    host's clock (local_monotonic − host_monotonic); a merge subtracts
+    it. Stamped into the trace file so merging needs no side channel."""
+    self.clock_offset = float(offset_secs)
+    if self._fd is not None:
+      self._write_meta()
+
+  def _write_meta(self) -> None:
+    meta = {
+        "ph": "M",
+        "role": self.role,
+        "pid": os.getpid(),
+        "actor_id": self.actor_id,
+        "wall0": time.time(),
+        "mono0": time.monotonic(),
+        "clock_offset": self.clock_offset,
+    }
+    self._write((json.dumps(meta) + "\n").encode())
+
+  def _write(self, payload: bytes) -> bool:
+    """One O_APPEND write; on failure (ENOSPC, a yanked volume) the
+    tracer DEGRADES to memory-mode instead of raising — flushes run
+    inline on instrumented paths (RPC handlers, train loops), and
+    telemetry must never take those down. Returns success."""
+    try:
+      os.write(self._fd, payload)
+      return True
+    except OSError:
+      import logging
+      logging.getLogger(__name__).warning(
+          "trace write to %s failed; tracing degrades to memory-mode",
+          self.trace_path, exc_info=True)
+      fd, self._fd = self._fd, None
+      try:
+        os.close(fd)
+      except OSError:
+        pass
+      self.trace_path = None
+      return False
+
+  # ---- recording ----
+
+  def span(self, name: str, **args) -> Any:
+    """Context manager timing one operation; no-op when disabled."""
+    if not self.enabled:
+      return _NULL_SPAN
+    return _Span(self, name, args or None)
+
+  def event(self, name: str, **args) -> None:
+    """One instant (zero-duration) event."""
+    if not self.enabled:
+      return
+    self._record(name, time.monotonic(), 0.0, args or None)
+
+  def _record(self, name: str, t0: float, dur: float,
+              args: Optional[Dict[str, Any]]) -> None:
+    if not self.enabled:
+      return
+    self._ring.append(
+        (name, t0, dur, threading.get_ident(), args))
+    with self._count_lock:
+      self.spans_recorded += 1
+    if self._fd is not None and len(self._ring) >= FLUSH_BATCH:
+      self.flush()
+
+  # ---- draining ----
+
+  @property
+  def pending(self) -> int:
+    return len(self._ring)
+
+  @property
+  def spans_dropped(self) -> int:
+    """Spans that aged out of the ring unflushed (memory-mode churn)."""
+    return max(
+        self.spans_recorded - self.spans_flushed - len(self._ring), 0)
+
+  def _drain(self) -> List[tuple]:
+    spans = []
+    while True:
+      try:
+        spans.append(self._ring.popleft())
+      except IndexError:
+        return spans
+
+  def _encode(self, span: tuple) -> Dict[str, Any]:
+    name, t0, dur, tid, args = span
+    record = {"ph": "X", "name": name, "ts": t0, "dur": dur,
+              "pid": os.getpid(), "tid": tid, "role": self.role}
+    if args:
+      record["args"] = args
+    return record
+
+  def snapshot_spans(self) -> List[Dict[str, Any]]:
+    """A copy of the ring (most recent spans), without draining it —
+    a crash report's view; the trace file keeps its own copy via
+    the normal flush path."""
+    return [self._encode(span) for span in list(self._ring)]
+
+  def flush(self) -> int:
+    """Drains the ring to the trace file; returns spans written.
+    Without a file the ring is left alone (it IS the retention)."""
+    if self._fd is None:
+      return 0
+    spans = self._drain()
+    if not spans:
+      return 0
+    payload = "".join(
+        json.dumps(self._encode(span)) + "\n" for span in spans)
+    if not self._write(payload.encode()):
+      return 0  # degraded to memory-mode; the drained spans are lost
+    with self._count_lock:
+      self.spans_flushed += len(spans)
+    return len(spans)
+
+  def close(self) -> None:
+    """Teardown: flush the tail and release the fd. Never raises
+    (`_write` degrades instead) — close() sits in finally blocks next
+    to resource closes a failed trace write must not mask or skip."""
+    if self._fd is not None:
+      self.flush()
+    if self._fd is not None:
+      fd, self._fd = self._fd, None
+      try:
+        os.close(fd)
+      except OSError:
+        pass
+    self.trace_path = None
+
+
+_TRACER = Tracer()
+
+
+def get_tracer() -> Tracer:
+  return _TRACER
+
+
+def configure(role: str, trace_dir: Optional[str] = None,
+              **kwargs) -> Tracer:
+  """Configures the process-global tracer (see `Tracer.configure`)."""
+  return _TRACER.configure(role, trace_dir=trace_dir, **kwargs)
+
+
+def span(name: str, **args) -> Any:
+  """A span on the process-global tracer (no-op until configured)."""
+  return _TRACER.span(name, **args)
+
+
+def event(name: str, **args) -> None:
+  _TRACER.event(name, **args)
+
+
+def current_role() -> str:
+  """The configured process role, or the default ``trainer`` — the
+  `role` field of every metrics-record envelope (telemetry.records)."""
+  return _TRACER.role or DEFAULT_ROLE
+
+
+def clock_offset_from_handshake(host_monotonic: float,
+                                t_before: float,
+                                t_after: float) -> float:
+  """Offset of THIS clock to a reference host's, from one RPC roundtrip.
+
+  The host stamped ``host_monotonic`` while handling the request; the
+  caller read its own clock just before (``t_before``) and after
+  (``t_after``) the call. Midpoint estimate: the host's stamp
+  corresponds to the local midpoint, so
+  ``offset = (t_before + t_after) / 2 - host_monotonic`` (error ≤
+  rtt/2 — microseconds on loopback, and exactly the quantity the merge
+  tool needs to subtract). Same-host processes share CLOCK_MONOTONIC,
+  so the estimate lands at ~0 there by construction.
+  """
+  return (t_before + t_after) / 2.0 - float(host_monotonic)
+
+
+def reset_for_tests() -> None:
+  """Fresh process-global tracer (test isolation)."""
+  global _TRACER
+  _TRACER.close()
+  _TRACER = Tracer()

@@ -113,10 +113,6 @@ class TestBuildPolicyParity:
         noise=_jax_noise(rng, 2, (5, _CEM["cem_population"], 3)))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
 
-  def test_int8_points_to_the_roadmap(self):
-    with pytest.raises(NotImplementedError, match="A5"):
-      QTOptLearner(GraspingQModel(**_TINY), cem_inference="int8",
-                   device="cpu")
 
 
 def _learner():
@@ -195,6 +191,30 @@ class TestCEMPolicyServer:
     seeds = {dispatch_seed(0, i) for i in range(100)}
     assert len(seeds) == 100 and all(0 <= s < 2 ** 63 for s in seeds)
     assert dispatch_seed(0, 5) == dispatch_seed(0, 5) != dispatch_seed(1, 5)
+
+
+def test_int8_server_calibrates_before_its_buckets_capture():
+  """An int8 learner that was never calibrated calibrates on the
+  spec-random batch (`ensure_calibrated`) before the engine warms up its
+  buckets; the server then answers in bounds."""
+  model = GraspingQModel(device_dtype=torch.float32, **_TINY)
+  learner = QTOptLearner(model, cem_inference="int8", cem_select="fused",
+                         device="cpu", **_CEM)
+  assert learner.needs_calibration
+  state = learner.create_state(seed=0).train_state
+  with CEMPolicyServer(learner, state, max_batch=2, seed=0,
+                       device="cpu") as srv:
+    assert not learner.needs_calibration
+    assert sorted(learner.act_scales) == ["head_in_1", "torso_in_0",
+                                          "torso_in_1"]
+    obs = make_random_tensors(learner.observation_specification(),
+                              batch_size=2, seed=3)
+    actions = srv.select_actions(obs.to_flat_dict())
+  assert actions.shape == (2, 3)
+  assert np.all(np.abs(actions) <= 1.0)
+  reference = QTOptLearner(model, cem_inference="int8", device="cpu", **_CEM)
+  reference.ensure_calibrated(state)
+  assert reference.act_scales == learner.act_scales
 
 
 def test_submit_after_close_raises():

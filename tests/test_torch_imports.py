@@ -52,6 +52,9 @@ _EXPECTED = (
     "research.qtopt.train_qtopt", "utils.native", "replay.service",
     "research.qtopt.actor", "research.qtopt.grasping_env",
     "hooks.success_eval_hook", "bin.run_success_protocol",
+    "telemetry.core", "telemetry.metrics", "serving.admission",
+    "serving.arena", "serving.front", "serving.dedup", "serving.speculative",
+    "startup.compile_cache",
 )
 
 

@@ -379,8 +379,6 @@ def test_transition_specification_matches_jax():
 
 def test_unported_learner_options_raise_naming_the_roadmap_item():
   model = GraspingQModel(**_VERIFY)
-  with pytest.raises(NotImplementedError, match="A5"):
-    QTOptLearner(model, cem_inference="int8", device="cpu")
   learner = QTOptLearner(model, device="cpu", **_CEM)
   with pytest.raises(NotImplementedError, match="A11"):
     learner.train_grads(learner.create_state(), {}, axis_name="data")
