@@ -158,15 +158,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      offered 10× its rate), evictions and reloads that build no kernel,
      a single-request dispatch equal to the engine's answer,
      `SpeculativeCEM` (refined answers never cross a swap), and traced
-     windows whose launches are held per thread; then the cem_select
-     launches per path (each traced in its own run), the `kernels` JSON
-     line (cem_select's count: the CEM serving path of phase 4), the card
-     line, and the result line last.
+     windows whose launches are held per thread;
+ 30. the shipped `qtopt_int8.gin` as written through
+     `python -m tensor2robot_tpu_torch.bin.run_t2r_trainer --trainer=qtopt`
+     (1000 steps, B=256, int8 tower, lax select, `shard_weight_update =
+     True`): exit 0, a valid record envelope every 100 steps, the loss
+     falling, checkpoints at 500 and 1000, grad_steps_per_sec printed;
+ 31. the same file in-process through the port's gin registry with
+     `QTOptLearner.cem_select = "fused"` and 200 steps bound on top:
+     cem_select launched from a gin-configured learner, 2 a step + the
+     warm-up's, traced;
+ 32. the shipped `train_pose_env.gin` as written through the trainer
+     binary (200 steps, B=64, a 500-episode success hook at each
+     checkpoint): exit 0, success records at steps 100 and 200, every
+     record a valid envelope;
+ 33. the shipped `serving_multitenant.gin` parsed into the registry:
+     `ModelArena()` and `ServingFront(arena)` from its bindings, with
+     `ModelArena.cache_dir` checked as shipped and then bound on top to
+     a temporary directory (the shipped path is shared by every run on
+     the host), the admission envelope checked, two fused tenants
+     serving 2 × 64 requests in a traced window, a forced eviction and
+     reload;
+ 34. the same stack's cache contract in two new processes over one
+     temporary directory: the first builds cem_select into it at its
+     first load and nothing at its reload (cache_misses == 0), the
+     second finds the library (cache_misses == 0 at both loads);
+     then the cem_select launches per path (each traced in its own run),
+     the `kernels` JSON line (cem_select's count: the CEM serving path of
+     phase 4), the card line, and the result line last.
 
 Every run whose launches are checked (the main paths of phases 4, 5, 7,
 8, 10 and 11, the chunked forward of 13, each run of 14 and 15, the
-online window of 20, the int8 training runs of 27 and the windows of 29)
-runs
+online window of 20, the int8 training runs of 27, the windows of 29
+and the gin-configured runs of 31 and 33) runs
 under the profiler's CUDA kernel tracing: each kernel wrapper's count,
 replays included, must equal the launches of that kernel's symbols that
 the card ran (`traced_launches`), and the `kernels` line reports the
@@ -3419,6 +3443,368 @@ def phase_serving_plane():
           "speculative window": spec_window}
 
 
+_REPO = os.path.dirname(os.path.abspath(__file__))
+_GIN_INT8 = "tensor2robot_tpu/research/qtopt/configs/qtopt_int8.gin"
+_GIN_POSE = "tensor2robot_tpu/research/pose_env/configs/train_pose_env.gin"
+_GIN_SERVING = "tensor2robot_tpu/serving/configs/serving_multitenant.gin"
+
+
+def _run_trainer(label, args, model_dir):
+  """`python -m tensor2robot_tpu_torch.bin.run_t2r_trainer` with `args`
+  from the checkout's root, its output in `<model_dir>/trainer.log`;
+  fails on a non-zero exit. Returns the wall seconds."""
+  import torch
+  torch.cuda.empty_cache()
+  cmd = [sys.executable, "-m", "tensor2robot_tpu_torch.bin.run_t2r_trainer",
+         *args]
+  env = dict(os.environ, PYTHONPATH=_REPO)
+  log_path = os.path.join(model_dir, "trainer.log")
+  t0 = time.perf_counter()
+  with open(log_path, "w") as log:
+    proc = subprocess.run(cmd, cwd=_REPO, env=env, stdout=log,
+                          stderr=subprocess.STDOUT, timeout=900)
+  wall = time.perf_counter() - t0
+  with open(log_path) as f:
+    tail = f.read().splitlines()[-12:]
+  _log(f"{label}: exit {proc.returncode} in {wall:.2f} s: "
+       f"{' '.join(cmd[1:])}")
+  if proc.returncode != 0:
+    raise AssertionError(f"{label} exited {proc.returncode}:\n"
+                         + "\n".join(tail))
+  return wall
+
+
+def _checked_records(path):
+  """Every record of a `metrics_<tag>.jsonl`, each a valid envelope."""
+  from tensor2robot_tpu_torch.telemetry import records
+  with open(path) as f:
+    raw = [json.loads(line) for line in f if line.strip()]
+  for record in raw:
+    problems = records.validate_record(record)
+    if problems:
+      raise AssertionError(f"{path}: {record}: {problems}")
+  return raw
+
+
+def phase_gin_qtopt_int8():
+  """The shipped `qtopt_int8.gin` as written, through the trainer binary
+  (`--trainer=qtopt`, only `train_qtopt.model_dir` bound): 1000 steps of
+  B=256 over spec-random prefill, int8 tower, lax select,
+  `shard_weight_update = True`. Gates: exit 0, a valid envelope at every
+  100 steps to 1000, finite losses whose last three fall below the first
+  three, checkpoints at 500 and 1000. grad_steps_per_sec printed."""
+  import tempfile
+  import numpy as np
+  with tempfile.TemporaryDirectory() as model_dir:
+    wall = _run_trainer("gin qtopt_int8 (as shipped)", [
+        "--trainer=qtopt", "--gin_configs", _GIN_INT8,
+        "--gin_bindings", f"train_qtopt.model_dir='{model_dir}'"], model_dir)
+    raw = _checked_records(os.path.join(model_dir, "metrics_train.jsonl"))
+    steps = [r["step"] for r in raw]
+    losses = [r["payload"]["loss"] for r in raw]
+    rates = [r["payload"]["grad_steps_per_sec"] for r in raw]
+    ckpts = sorted(int(d) for d in os.listdir(os.path.join(model_dir,
+                                                           "ckpt")))
+  _log(f"gin qtopt_int8: wall {wall:.2f} s; steps {steps}; loss {losses}; "
+       f"grad_steps_per_sec {rates} (median after the first interval "
+       f"{statistics.median(rates[1:])}); input_wait_fraction "
+       f"{[r['payload']['input_wait_fraction'] for r in raw]}; "
+       f"checkpoints {ckpts}")
+  if steps != list(range(100, 1001, 100)):
+    raise AssertionError(f"gin qtopt_int8: record steps {steps}")
+  if not all(np.isfinite(losses)) or not (np.mean(losses[-3:])
+                                          < np.mean(losses[:3])):
+    raise AssertionError(f"gin qtopt_int8: losses {losses}")
+  if not {500, 1000} <= set(ckpts):
+    raise AssertionError(f"gin qtopt_int8: checkpoints {ckpts}")
+
+
+def phase_gin_qtopt_fused():
+  """The same shipped file in-process through the port's registry, with
+  `QTOptLearner.cem_select = "fused"`, 200 steps and checkpoints every
+  100 bound on top, then `train_qtopt()`: the fused_cem_select kernel
+  from a gin-configured learner, 2 launches a step + the graph's warm-up
+  step's, the counter held to CUPTI's in a traced window. Returns the
+  traced launches."""
+  import tempfile
+  from tensor2robot_tpu_torch import config as gin
+  from tensor2robot_tpu_torch.bin import run_t2r_trainer
+  from tensor2robot_tpu_torch.research.qtopt.train_qtopt import train_qtopt
+  run_t2r_trainer.import_configurable_families()
+  steps = 200
+  try:
+    with tempfile.TemporaryDirectory() as model_dir:
+      gin.parse_config_files_and_bindings([_GIN_INT8], [
+          "QTOptLearner.cem_select = 'fused'",
+          f"train_qtopt.max_train_steps = {steps}",
+          "train_qtopt.save_checkpoints_steps = 100",
+          f"train_qtopt.model_dir = '{model_dir}'"])
+      t0 = time.perf_counter()
+      with traced_launches("gin qtopt_int8 + fused select") as traced:
+        state = train_qtopt()
+      wall = time.perf_counter() - t0
+      raw = _checked_records(os.path.join(model_dir, "metrics_train.jsonl"))
+      ckpts = sorted(int(d) for d in os.listdir(os.path.join(model_dir,
+                                                             "ckpt")))
+    bound = {b: gin.query_parameter(b) for b in (
+        "QTOptLearner.cem_inference", "QTOptLearner.cem_select",
+        "train_qtopt.shard_weight_update", "train_qtopt.batch_size")}
+  finally:
+    gin.clear_config()
+  warm = _warm("cem_select")
+  want = 2 * steps + warm
+  _log(f"gin qtopt_int8 + fused ({json.dumps(bound)}): {state.step} steps "
+       f"in {wall:.2f} s (traced); cem_select launches "
+       f"{traced['cem_select']} (warm-up {warm}); records at "
+       f"{[r['step'] for r in raw]}, loss "
+       f"{[r['payload']['loss'] for r in raw]}, grad_steps_per_sec "
+       f"{[r['payload']['grad_steps_per_sec'] for r in raw]}; checkpoints "
+       f"{ckpts}")
+  if state.step != steps or traced["cem_select"] != want:
+    raise AssertionError(f"gin fused: step {state.step}, launches "
+                         f"{traced['cem_select']} != {want}")
+  if [r["step"] for r in raw] != [100, 200] or ckpts != [100, 200]:
+    raise AssertionError(f"gin fused: records {raw}, checkpoints {ckpts}")
+  return traced["cem_select"]
+
+
+def phase_gin_pose_env():
+  """The shipped `train_pose_env.gin` as written, through the trainer
+  binary (only `train_eval_model.model_dir` bound): 200 steps of B=64
+  on 64×64 images, filters (32, 64, 128), bf16, a 500-episode
+  `SuccessEvalHook` at each checkpoint. Gates: exit 0, success records
+  at steps 100 and 200 with success_rate, mean_pose_error and
+  num_episodes == 500, every record a valid envelope. The success rate
+  is printed, not gated (the config trains on random data); each
+  checkpoint's hook seconds are its success record's wall time less the
+  train record's of the same step (checkpoint write + hook)."""
+  import tempfile
+  with tempfile.TemporaryDirectory() as model_dir:
+    wall = _run_trainer("gin train_pose_env (as shipped)", [
+        "--gin_configs", _GIN_POSE,
+        "--gin_bindings", f"train_eval_model.model_dir='{model_dir}'"],
+        model_dir)
+    success = _checked_records(os.path.join(model_dir,
+                                            "metrics_success_eval.jsonl"))
+    train = _checked_records(os.path.join(model_dir, "metrics_train.jsonl"))
+    evals = _checked_records(os.path.join(model_dir, "metrics_eval.jsonl"))
+  train_wall = {r["step"]: r["wall"] for r in train}
+  hook_s = {r["step"]: r["wall"] - train_wall[r["step"]] for r in success}
+  _log(f"gin train_pose_env: wall {wall:.2f} s; success "
+       f"{[dict(step=r['step'], **r['payload']) for r in success]}; hook s "
+       f"per checkpoint {json.dumps(hook_s)}; train "
+       f"{[(r['step'], r['payload']['loss'], r['payload']['steps_per_sec']) for r in train]}; "
+       f"eval {[r['payload'] for r in evals]}")
+  if [r["step"] for r in success] != [100, 200]:
+    raise AssertionError(f"gin pose_env: success records {success}")
+  for r in success:
+    payload = r["payload"]
+    if (set(payload) != {"success_rate", "mean_pose_error", "num_episodes"}
+        or payload["num_episodes"] != 500):
+      raise AssertionError(f"gin pose_env: {r}")
+
+
+def _gin_serving_stack(cache):
+  """`ModelArena()` and `ServingFront(arena)` from the shipped
+  `serving_multitenant.gin`, parsed strictly into the port's registry,
+  plus one binding on top: `ModelArena.cache_dir = cache`. The shipped
+  value, a fixed path under /tmp shared by every run on the host, is
+  checked to have parsed and is not used, so that no run writes outside
+  its own temporary directory. Fails unless the arena's cache is
+  `cache`. The caller clears the config."""
+  from tensor2robot_tpu_torch import config as gin
+  from tensor2robot_tpu_torch.bin import run_t2r_trainer
+  from tensor2robot_tpu_torch.serving import ModelArena, ServingFront
+  from tensor2robot_tpu_torch.startup import compile_cache
+  run_t2r_trainer.import_configurable_families()
+  gin.parse_config_file(_GIN_SERVING)
+  shipped = gin.query_parameter("ModelArena.cache_dir")
+  if shipped != "/tmp/t2r_serving_xla_cache":
+    raise AssertionError(f"gin serving: ModelArena.cache_dir {shipped!r}")
+  gin.bind_parameter("ModelArena.cache_dir", cache)
+  arena = ModelArena()
+  front = ServingFront(arena)
+  if compile_cache.cache_dir() != cache:
+    raise AssertionError(f"gin serving: arena cache "
+                         f"{compile_cache.cache_dir()}, not {cache}")
+  return arena, front
+
+
+def _arena_cache_child(cache):
+  """Run in a fresh process (nothing built or loaded yet): the gin
+  serving stack over `cache`, one fused `GraspingQModel()` tenant loaded
+  by a request, evicted, and reloaded by another. Prints the first
+  load's and the reload's records and the libraries in `cache` as one
+  JSON line."""
+  from tensor2robot_tpu_torch import config as gin
+  from tensor2robot_tpu_torch.research.qtopt import (
+      GraspingQModel,
+      QTOptLearner,
+  )
+  from tensor2robot_tpu_torch.specs import make_random_tensors
+  try:
+    arena, front = _gin_serving_stack(cache)
+    learner = QTOptLearner(GraspingQModel(), cem_select="fused", **_CEM_KW)
+    spec = learner.observation_specification()
+    example = make_random_tensors(spec, batch_size=1, seed=0)
+    front.register_tenant("c4", _serving_loader(learner, 40, example),
+                          max_batch=8, takes_rng=True)
+    loads = []
+    for seed in (300, 301):
+      obs = make_random_tensors(spec, batch_size=1, seed=seed).to_flat_dict()
+      _check_actions("c4", front.predict("c4", obs))
+      loads.append(dict(arena.stats()["last_load"]))
+      arena.evict("c4")
+    front.close()
+  finally:
+    gin.clear_config()
+  print(json.dumps({"loads": loads, "libraries": sorted(os.listdir(cache))}),
+        flush=True)
+
+
+def _arena_cache_run(cache):
+  """`_arena_cache_child(cache)` in a new interpreter from the checkout's
+  root; its JSON line."""
+  code = ("import sys, chip_smoke; "
+          "chip_smoke._arena_cache_child(sys.argv[1])")
+  proc = subprocess.run([sys.executable, "-c", code, cache], cwd=_REPO,
+                        env=dict(os.environ, PYTHONPATH=_REPO),
+                        capture_output=True, text=True, timeout=600)
+  if proc.returncode != 0:
+    raise AssertionError(f"arena cache child exited {proc.returncode}:\n"
+                         + proc.stderr[-4000:])
+  return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_gin_cache():
+  """The shipped `ModelArena.cache_dir` binding's contract (C4), each
+  run in a new process over one fresh temporary directory: the first
+  process's first load builds cem_select into that directory
+  (cache_misses >= 1, the library there); its reload after an eviction
+  builds nothing (cache_misses == 0). A second process over the same
+  directory finds the library at its first load (cache_misses == 0,
+  cache_hits >= 1) and builds nothing at its reload either."""
+  import shutil
+  import tempfile
+  cache = tempfile.mkdtemp(prefix="t2r_arena_cache_")
+  try:
+    cold = _arena_cache_run(cache)
+    warm = _arena_cache_run(cache)
+  finally:
+    shutil.rmtree(cache, ignore_errors=True)
+  _log(f"gin serving cache: cold process {json.dumps(cold)}; warm process "
+       f"{json.dumps(warm)}")
+  first, reload_ = cold["loads"]
+  if (first["reload"] or first["cache_misses"] < 1
+      or not any(f.startswith("libcem_select-") for f in cold["libraries"])):
+    raise AssertionError(f"gin serving cache: cold first load {cold}")
+  if not reload_["reload"] or reload_["cache_misses"] != 0:
+    raise AssertionError(f"gin serving cache: cold reload {cold}")
+  first, reload_ = warm["loads"]
+  if (first["cache_misses"] != 0 or first["cache_hits"] < 1
+      or reload_["cache_misses"] != 0):
+    raise AssertionError(f"gin serving cache: warm process {warm}")
+
+
+def phase_gin_serving():
+  """The shipped `serving_multitenant.gin`, parsed strictly into the
+  port's registry; `ModelArena()` and `ServingFront(arena)` built from
+  its bindings, with `ModelArena.cache_dir` bound on top to a temporary
+  directory (`_gin_serving_stack`). Two `GraspingQModel()` tenants
+  (fused select) take 64 single-observation requests each from two
+  threads, in a traced window (cem_select 2 a dispatch, counter =
+  CUPTI's). Gates: the gin's envelope reached the `AdmissionController`
+  (200 rows/s, burst 64, queue 256, "drop", SLO 50 ms), every request
+  completes with a finite in-bounds action, a forced eviction reloads.
+  This process has cem_select loaded already, so its reload cannot
+  build: the cache contract is `phase_gin_cache`'s, in new processes.
+  The build directory is restored and the temporary one removed
+  afterwards. Returns the traced launches."""
+  import shutil
+  import tempfile
+  from tensor2robot_tpu_torch import config as gin
+  from tensor2robot_tpu_torch.research.qtopt import (
+      GraspingQModel,
+      QTOptLearner,
+  )
+  from tensor2robot_tpu_torch.specs import make_random_tensors
+  from tensor2robot_tpu_torch.startup import compile_cache
+  from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
+  build_dir = compile_cache.cache_dir()
+  cache = tempfile.mkdtemp(prefix="t2r_arena_cache_")
+  tmetrics.registry().reset()
+  try:
+    arena, front = _gin_serving_stack(cache)
+    policy = front.admission.default_policy
+    envelope = dict(rate_rps=policy.rate_rps, burst=policy.burst,
+                    max_queue=policy.max_queue, overflow=policy.overflow,
+                    slo_ms=policy.slo_ms)
+    _log(f"gin serving: admission {json.dumps(envelope)}, arena cache "
+         f"{cache}, budget {arena.stats().get('budget_bytes')}")
+    if envelope != dict(rate_rps=200.0, burst=64, max_queue=256,
+                        overflow="drop", slo_ms=50.0):
+      raise AssertionError(f"gin serving: envelope {envelope}")
+    learner = QTOptLearner(GraspingQModel(), cem_select="fused", **_CEM_KW)
+    example = make_random_tensors(learner.observation_specification(),
+                                  batch_size=1, seed=0)
+    tenants = ("gin-a", "gin-b")
+    for i, name in enumerate(tenants):
+      front.register_tenant(name, _serving_loader(learner, 40 + i, example),
+                            max_batch=8, takes_rng=True)
+    observations = [make_random_tensors(
+        learner.observation_specification(), batch_size=1,
+        seed=200 + i).to_flat_dict() for i in range(64)]
+    for name in tenants:  # loads (graph captures) before the window
+      _check_actions(name, front.predict(name, observations[0]))
+    answers = {name: [] for name in tenants}
+    errors = []
+
+    def caller(name):
+      try:
+        for obs in observations:
+          answers[name].append(front.predict(name, obs))
+      except Exception as e:  # noqa: BLE001 — raised below
+        errors.append((name, repr(e)))
+
+    d0 = front.dispatches
+    t0 = time.perf_counter()
+    with traced_launches("gin serving window") as traced:
+      threads = [threading.Thread(target=caller, args=(name,))
+                 for name in tenants]
+      for t in threads:
+        t.start()
+      for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    dispatches = front.dispatches - d0
+    if errors or any(len(a) != 64 for a in answers.values()):
+      raise AssertionError(f"gin serving: {errors[:3]} "
+                           f"{[len(a) for a in answers.values()]}")
+    for name, actions in answers.items():
+      for action in actions:
+        _check_actions(name, action)
+    if traced["cem_select"] != 2 * dispatches:
+      raise AssertionError(f"gin serving: launches {traced['cem_select']} "
+                           f"!= 2 x {dispatches} dispatches")
+    report = front.admission.slo_report()
+    arena.evict("gin-a")
+    _check_actions("gin-a", front.predict("gin-a", observations[1]))
+    stats = arena.stats()
+    _log(f"gin serving: 2 x 64 requests in {wall:.2f} s (traced), "
+         f"{dispatches} dispatches, cem_select launches "
+         f"{traced['cem_select']}; dispatch ms "
+         f"{json.dumps({n: dict(p50=report[n].get('p50_ms'), p95=report[n].get('p95_ms'), e2e_p50=report[n].get('e2e_p50_ms'), e2e_p95=report[n].get('e2e_p95_ms')) for n in tenants})}; "
+         f"arena {json.dumps(stats)}")
+    if stats["reloads"] < 1:
+      raise AssertionError(f"gin serving: arena {stats}")
+    front.close()
+  finally:
+    gin.clear_config()
+    compile_cache.configure_compilation_cache(cache_dir=build_dir)
+    shutil.rmtree(cache, ignore_errors=True)
+  return traced["cem_select"]
+
+
 def log_wgmma_kernels(logs):
   """One line per instantiation of the two CEM kernels' wgmma paths:
   ptxas's registers and spill bytes, and the dynamic shared memory a
@@ -3518,12 +3904,19 @@ def main():
   int8_launches = phase_int8_training()
   phase_int8_timings()
   plane_launches = phase_serving_plane()
+  phase_gin_qtopt_int8()
+  gin_fused_launches = phase_gin_qtopt_fused()
+  phase_gin_pose_env()
+  gin_serving_launches = phase_gin_serving()
+  phase_gin_cache()
   _log(f"cem_select launches per path (each traced in its own run): CEM "
        f"serving {launches}, Bellman training {qt_launches}, online window "
        f"{sum(online_per_path.values())} ({json.dumps(online_per_path)}), "
        f"int8 Bellman training (fused) {int8_launches}, serving front window "
        f"{plane_launches['serving front window']}, speculative window "
-       f"{plane_launches['speculative window']}")
+       f"{plane_launches['speculative window']}, qtopt_int8.gin + fused "
+       f"{gin_fused_launches}, serving_multitenant.gin window "
+       f"{gin_serving_launches}")
   main_row = rows[8]  # the serving path's largest bucket
   head_row = head_rows[256]  # the Bellman target's shape
   flash_row = flash_rows[1]  # the context policy serves one robot

@@ -8,9 +8,17 @@ from tensor2robot_tpu_torch.data.episode_input_generator import (
     SEQUENCE_LENGTH_KEY,
     EpisodeInputGenerator,
 )
+from tensor2robot_tpu_torch.data.prefetch import (
+    DevicePrefetcher,
+    TimedIterator,
+    prefetch_buffer_size,
+    stack_batches,
+)
 from tensor2robot_tpu_torch.data.random_input_generator import (
     RandomInputGenerator,
 )
 
-__all__ = ["AbstractInputGenerator", "EpisodeInputGenerator", "Mode",
-           "RandomInputGenerator", "SEQUENCE_LENGTH_KEY"]
+__all__ = ["AbstractInputGenerator", "DevicePrefetcher",
+           "EpisodeInputGenerator", "Mode", "RandomInputGenerator",
+           "SEQUENCE_LENGTH_KEY", "TimedIterator", "prefetch_buffer_size",
+           "stack_batches"]

@@ -21,11 +21,13 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 
 log = logging.getLogger(__name__)
 
 
+@gin.configurable
 def prefetch_buffer_size(buffer_size: Optional[int] = None,
                          online: bool = False) -> int:
   """The prefetcher's lookahead depth: `buffer_size` when given, else 1

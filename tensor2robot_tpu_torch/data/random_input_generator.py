@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Iterator
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.data.abstract_input_generator import (
     AbstractInputGenerator,
     Batch,
@@ -15,6 +16,7 @@ from tensor2robot_tpu_torch.data.abstract_input_generator import (
 from tensor2robot_tpu_torch.specs import make_random_tensors
 
 
+@gin.configurable
 class RandomInputGenerator(AbstractInputGenerator):
   """Yields random batches conforming to the bound specs, forever."""
 

@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.hooks.hook import Hook
 
 
@@ -46,6 +47,7 @@ def _to_numpy(outputs: Any) -> Dict[str, np.ndarray]:
           for k, v in outputs.items()}
 
 
+@gin.configurable
 class SuccessEvalHook(Hook):
   """Runs `eval_fn(predict_fn, **eval_kwargs)` after each checkpoint.
 
@@ -93,6 +95,7 @@ class SuccessEvalHook(Hook):
     _write_metrics(model_dir, self._tag, step, metrics)
 
 
+@gin.configurable
 class QTOptSuccessEvalHook(Hook):
   """CEM-policy grasp success per checkpoint (QT-Opt loop).
 

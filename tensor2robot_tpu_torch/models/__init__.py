@@ -5,5 +5,15 @@ from tensor2robot_tpu_torch.models.abstract_model import (
     TrainState,
 )
 from tensor2robot_tpu_torch.models.critic_model import Q_VALUE, CriticModel
+from tensor2robot_tpu_torch.models.optimizers import (
+    create_lr_schedule,
+    create_optimizer,
+)
+from tensor2robot_tpu_torch.models.regression_model import (
+    INFERENCE_OUTPUT,
+    RegressionModel,
+)
 
-__all__ = ["AbstractT2RModel", "CriticModel", "Q_VALUE", "TrainState"]
+__all__ = ["AbstractT2RModel", "CriticModel", "INFERENCE_OUTPUT", "Q_VALUE",
+           "RegressionModel", "TrainState", "create_lr_schedule",
+           "create_optimizer"]

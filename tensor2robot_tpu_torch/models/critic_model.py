@@ -15,6 +15,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.layers.core import MLP
 from tensor2robot_tpu_torch.models.abstract_model import AbstractT2RModel
@@ -37,6 +38,7 @@ class _QNet(nn.Module):
     return {Q_VALUE: getattr(self, "MLP_0")(features)[..., 0]}
 
 
+@gin.configurable
 class CriticModel(AbstractT2RModel):
   """Q(state, action) regression against a target-Q label."""
 

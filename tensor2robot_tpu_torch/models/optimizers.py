@@ -17,12 +17,17 @@ unchanged. `global_norm` squares the leaves in one multi-tensor launch
 and sums them leaf by leaf, in the per-leaf order.
 
 Ported: the schedules (constant, exponential, cosine and linear decay,
-each with a linear warmup), and `create_optimizer` for adam, adamw, sgd
-and momentum with the same chain order (clip by global norm → clip by
-value → decayed weights → optimizer). Adam is optax's `scale_by_adam`:
+each with a linear warmup), and `create_optimizer` for every optimizer
+the JAX one builds (adam, adamw, sgd, momentum, rmsprop, adagrad,
+lamb) with the same chain order (clip by global norm → clip by value →
+decayed weights → optimizer). Adam is optax's `scale_by_adam`:
 bias-corrected moments, eps outside the square root, eps_root 0.
-rmsprop, adagrad and lamb raise: their optax arithmetic is not ported
-yet (ROADMAP A1 rest).
+rmsprop is optax's default variant (eps inside the square root, no
+centering, accumulators from 0, then momentum), adagrad its
+`scale_by_rss` (accumulators from 0.1), and lamb Adam's moments with
+the per-leaf trust ratio ‖p‖ / ‖u‖. These three are not torch.optim's:
+its rmsprop adds eps outside the square root and its adagrad starts
+from 0.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
                     Union)
 
 import torch
+
+from tensor2robot_tpu_torch import config as gin
 
 Params = Dict[str, torch.Tensor]
 Schedule = Callable[[torch.Tensor], Union[torch.Tensor, float]]
@@ -63,6 +70,14 @@ class ScaleByScheduleState(NamedTuple):
 
 class TraceState(NamedTuple):
   trace: Params
+
+
+class ScaleByRmsState(NamedTuple):
+  nu: Params
+
+
+class ScaleByRssState(NamedTuple):
+  sum_of_squares: Params
 
 
 def _count(params: Params) -> torch.Tensor:
@@ -163,6 +178,70 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                              {k: v[2] for k, v in both.items()}))
 
   return GradientTransformation(init, update)
+
+
+def scale_by_rms(decay: float = 0.9, eps: float = 1e-8
+                 ) -> GradientTransformation:
+  """optax's default `scale_by_rms`: nu = (1−decay)·g² + decay·nu from
+  0; update = rsqrt(nu + eps)·g."""
+
+  def init(params):
+    return ScaleByRmsState(_zeros(params))
+
+  def update(updates, state, params=None):
+    def both(g, nu):
+      nu = _axpby(1 - decay, torch._foreach_mul(g, g), decay, nu)
+      scaling = torch._foreach_rsqrt(torch._foreach_add(nu, eps))
+      return list(zip(torch._foreach_mul(scaling, g), nu))
+
+    out = _tree_map(both, updates, state.nu)
+    return ({k: v[0] for k, v in out.items()},
+            ScaleByRmsState({k: v[1] for k, v in out.items()}))
+
+  return GradientTransformation(init, update)
+
+
+def scale_by_rss(initial_accumulator_value: float = 0.1,
+                 eps: float = 1e-7) -> GradientTransformation:
+  """optax's `scale_by_rss` (adagrad): s = g² + s from
+  `initial_accumulator_value`; update = rsqrt(s + eps)·g where s > 0,
+  else 0."""
+
+  def init(params):
+    return ScaleByRssState({k: torch.full_like(v, initial_accumulator_value)
+                            for k, v in params.items()})
+
+  def update(updates, state, params=None):
+    def both(g, acc):
+      acc = torch._foreach_add(torch._foreach_mul(g, g), acc)
+      inv = [torch.where(a > 0, r, torch.zeros_like(r)) for a, r in zip(
+          acc, torch._foreach_rsqrt(torch._foreach_add(acc, eps)))]
+      return list(zip(torch._foreach_mul(inv, g), acc))
+
+    out = _tree_map(both, updates, state.sum_of_squares)
+    return ({k: v[0] for k, v in out.items()},
+            ScaleByRssState({k: v[1] for k, v in out.items()}))
+
+  return GradientTransformation(init, update)
+
+
+def scale_by_trust_ratio() -> GradientTransformation:
+  """optax's `scale_by_trust_ratio()` (lamb): each leaf's update times
+  ‖p‖ / ‖u‖ (Frobenius norms), or times 1 where either norm is 0."""
+
+  def fn(updates, params):
+    if params is None:
+      raise ValueError("scale_by_trust_ratio needs the params")
+    out = {}
+    for k, u in updates.items():
+      p_norm = torch.sqrt(torch.sum(params[k] * params[k]))
+      u_norm = torch.sqrt(torch.sum(u * u))
+      ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                          torch.ones_like(p_norm), p_norm / u_norm)
+      out[k] = u * ratio
+    return out
+
+  return _stateless(fn)
 
 
 def scale(step_size: float) -> GradientTransformation:
@@ -309,6 +388,7 @@ def join_schedules(schedules, boundaries) -> Schedule:
   return schedule
 
 
+@gin.configurable
 def create_lr_schedule(learning_rate: float = 1e-4,
                        schedule: str = "constant",
                        warmup_steps: int = 0,
@@ -338,6 +418,7 @@ def create_lr_schedule(learning_rate: float = 1e-4,
   return base
 
 
+@gin.configurable
 def create_optimizer(optimizer_name: str = "adam",
                      learning_rate: ScheduleOrFloat = 1e-4,
                      momentum: float = 0.9,
@@ -366,10 +447,15 @@ def create_optimizer(optimizer_name: str = "adam",
     opt = chain(_stateless(lambda u, p: u), scale_by_learning_rate(lr))
   elif name == "momentum":
     opt = chain(trace(momentum), scale_by_learning_rate(lr))
-  elif name in ("rmsprop", "adagrad", "lamb"):
-    raise NotImplementedError(
-        f"optimizer {optimizer_name!r}: optax's arithmetic for it is not "
-        "ported yet, and torch.optim's differs (ROADMAP A1 rest).")
+  elif name == "rmsprop":
+    opt = chain(scale_by_rms(eps=epsilon), scale_by_learning_rate(lr),
+                trace(momentum))
+  elif name == "adagrad":
+    opt = chain(scale_by_rss(eps=epsilon), scale_by_learning_rate(lr))
+  elif name == "lamb":
+    opt = chain(scale_by_adam(beta1, beta2, epsilon),
+                add_decayed_weights(weight_decay), scale_by_trust_ratio(),
+                scale_by_learning_rate(lr))
   else:
     raise ValueError(f"Unknown optimizer: {optimizer_name!r}")
 
@@ -378,7 +464,8 @@ def create_optimizer(optimizer_name: str = "adam",
     parts.append(clip_by_global_norm(gradient_clip_norm))
   if gradient_clip_value is not None:
     parts.append(clip(gradient_clip_value))
-  if weight_decay and name != "adamw":
+  if weight_decay and name not in ("adamw", "lamb"):
     parts.append(add_decayed_weights(weight_decay))
   parts.append(opt)
   return chain(*parts) if len(parts) > 1 else opt
+

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.layers.core import MLP
 from tensor2robot_tpu_torch.models.abstract_model import AbstractT2RModel
@@ -39,6 +40,7 @@ def float_feature_width(specs) -> int:
              if s.dtype is torch.bfloat16 or s.dtype.kind == "f")
 
 
+@gin.configurable
 class RegressionModel(AbstractT2RModel):
   """MSE regression against a declared label key."""
 

@@ -45,6 +45,15 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 _BUILD_LISTENERS: List[Callable[[str, bool], None]] = []
 
 
+def set_build_dir(path) -> None:
+  """Builds and finds the kernel libraries in `path` from now on
+  (`startup.compile_cache.configure_compilation_cache`); a library
+  already loaded in the process stays loaded."""
+  global BUILD_DIR
+  with _LOCK:
+    BUILD_DIR = Path(path)
+
+
 def add_build_listener(listener: Callable[[str, bool], None]) -> None:
   _BUILD_LISTENERS.append(listener)
 

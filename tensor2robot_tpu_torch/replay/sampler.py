@@ -23,6 +23,7 @@ from typing import Dict, Iterable, Iterator, List, Tuple
 
 import numpy as np
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.replay.store import ReplayStore
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 
@@ -32,6 +33,7 @@ STALENESS_BUCKETS: Tuple[int, ...] = (
     0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096, 16384)
 
 
+@gin.configurable
 class ReplayBatchSampler:
   """Infinite fixed-batch sampling stream with staleness accounting."""
 

@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.replay.sampler import ReplayBatchSampler
 from tensor2robot_tpu_torch.replay.store import ReplayStore, to_flat_arrays
 
@@ -132,6 +133,7 @@ class ActorIngestSession:
     self._in_episode = False
 
 
+@gin.configurable
 class ReplayWriteService:
   """Bounded-queue ingestion front over a `ReplayStore`."""
 

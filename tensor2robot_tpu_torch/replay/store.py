@@ -41,6 +41,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 from tensor2robot_tpu_torch.specs.random_data import _flatten_specs
 from tensor2robot_tpu_torch.utils import native
@@ -77,6 +78,7 @@ class _Shard:
     self.cursor = 0  # FIFO read position (rows consumed mod size)
 
 
+@gin.configurable
 class ReplayStore:
   """Sharded, capacity-bounded transition store with seeded sampling."""
 

@@ -36,6 +36,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.hooks.hook import Hook
 from tensor2robot_tpu_torch.research.qtopt.grasping_env import ToyGraspEnv
 from tensor2robot_tpu_torch.utils.step_graph import copy_tree, tensors
@@ -43,6 +44,7 @@ from tensor2robot_tpu_torch.utils.step_graph import copy_tree, tensors
 log = logging.getLogger(__name__)
 
 
+@gin.configurable
 class GraspActor:
   """Collects ToyGraspEnv episodes with the current CEM policy.
 
@@ -248,6 +250,7 @@ def acting_copy(state):
   return copy
 
 
+@gin.configurable
 class ActorStateRefreshHook(Hook):
   """Hands each checkpoint's acting params to the actors (server-wired
   actors forward the swap to their CEMPolicyServer)."""

@@ -21,6 +21,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch import config as gin
+
 IMAGE_SIZE = 64
 
 
@@ -98,6 +100,7 @@ class ToyGraspEnv:
     }
 
 
+@gin.configurable
 def evaluate_grasp_policy(
     learner,
     state,

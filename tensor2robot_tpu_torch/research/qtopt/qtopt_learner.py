@@ -31,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.device import resolve_device
 from tensor2robot_tpu_torch.models.abstract_model import Metrics, TrainState
@@ -95,6 +96,7 @@ def _split_transitions(transitions):
   return features, next_features, flat
 
 
+@gin.configurable
 class QTOptLearner:
   """QT-Opt over a GraspingQModel: Bellman training and its CEM policy."""
 

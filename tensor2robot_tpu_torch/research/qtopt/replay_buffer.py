@@ -9,10 +9,12 @@ from __future__ import annotations
 
 from typing import Dict, Iterator, Optional
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.replay import ReplayBatchSampler, ReplayStore
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 
 
+@gin.configurable
 class ReplayBuffer:
   """Uniform-sampling ring buffer API over `ReplayStore`."""
 

@@ -9,12 +9,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.models.critic_model import CriticModel
 from tensor2robot_tpu_torch.research.qtopt.networks import GraspingQNetwork
 from tensor2robot_tpu_torch.specs import ExtendedTensorSpec, TensorSpecStruct
 
 
+@gin.configurable
 class GraspingQModel(CriticModel):
   """Q(image, action) with sigmoid grasp-success head.
 

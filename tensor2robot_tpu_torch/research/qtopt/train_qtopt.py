@@ -28,9 +28,12 @@ An int8 learner (`cem_inference="int8"`) that was never calibrated
 calibrates on one replay batch before the first dispatch, as the JAX
 loop does before it traces its step.
 
-Not ported: a mesh (ROADMAP A11), `shard_weight_update` (A11) and
-multi-process learner groups (A13) raise; the perf meter, the sentinel
-and the resource sampler (A12, A13) are left out.
+`shard_weight_update=True` on one process is the plain update: on the
+JAX package's one-device mesh every sharding constraint is a no-op and
+the step is bit for bit the plain optimizer's. Not ported: a mesh
+(ROADMAP A11) and multi-process learner groups with their sharded
+update (A13, A11) raise; the perf meter, the sentinel and the resource
+sampler (A12, A13) are left out.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.data import prefetch as prefetch_lib
 from tensor2robot_tpu_torch.hooks import Hook, HookList
 from tensor2robot_tpu_torch.research.qtopt.qtopt_learner import (
@@ -89,9 +93,10 @@ def _at_step(state: QTOptState, step: int) -> QTOptState:
       state, train_state=dataclasses.replace(state.train_state, step=step))
 
 
+@gin.configurable
 def train_qtopt(
-    learner: QTOptLearner,
-    model_dir: str,
+    learner: QTOptLearner = gin.REQUIRED,
+    model_dir: str = gin.REQUIRED,
     replay_buffer: Optional[ReplayBuffer] = None,
     max_train_steps: int = 1000,
     batch_size: int = 256,
@@ -118,14 +123,14 @@ def train_qtopt(
   `prefill_random=True` adds `min(capacity, 4·batch_size)` spec-random
   transitions drawn from `seed` first (benchmarks, smoke runs).
   """
-  if mesh is not None or shard_weight_update:
+  if mesh is not None:
     raise NotImplementedError(
-        "train_qtopt(mesh=..., shard_weight_update=True): meshes and "
-        "sharded weight updates are not ported yet (ROADMAP A11).")
+        "train_qtopt(mesh=...): meshes are not ported yet (ROADMAP A11).")
   if (torch.distributed.is_available() and torch.distributed.is_initialized()
       and torch.distributed.get_world_size() > 1):
     raise NotImplementedError(
-        "multi-process learner groups are not ported yet (ROADMAP A13).")
+        "multi-process learner groups are not ported yet (ROADMAP A13), "
+        "nor is shard_weight_update across their ranks (A11).")
   # Validate the dispatch quantization before any side effects.
   k = prefetch_lib.validate_steps_per_dispatch(
       steps_per_dispatch,

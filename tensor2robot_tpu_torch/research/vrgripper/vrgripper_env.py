@@ -21,6 +21,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
+from tensor2robot_tpu_torch import config as gin
+
 IMAGE_SIZE = 48
 WORKSPACE_LOW = np.array([-0.4, -0.4], np.float32)
 WORKSPACE_HIGH = np.array([0.4, 0.4], np.float32)
@@ -179,6 +181,7 @@ def collect_expert_episode(env: VRGripperEnv,
   }
 
 
+@gin.configurable
 def evaluate_gripper_policy(
     predict_fn: Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]],
     num_episodes: int = 50,

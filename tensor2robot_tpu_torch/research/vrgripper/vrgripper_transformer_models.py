@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.data.episode_input_generator import (
     SEQUENCE_LENGTH_KEY,
@@ -79,6 +80,7 @@ class _EpisodeTransformerNet(nn.Module):
     return {ACTION: action, INFERENCE_OUTPUT: action}
 
 
+@gin.configurable
 class VRGripperTransformerModel(AbstractT2RModel):
   """Episode-level BC: every action conditioned on the full history."""
 

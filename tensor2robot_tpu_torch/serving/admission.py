@@ -41,6 +41,7 @@ import threading
 import time
 from typing import Dict, Optional
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
 
 OVERFLOW_POLICIES = ("drop", "block")
@@ -171,6 +172,7 @@ class _TokenBucket:
       self._tokens = min(self._burst, self._tokens + n)
 
 
+@gin.configurable
 class AdmissionController:
   """Per-tenant token buckets + drop/block overflow + SLO reports.
 

@@ -9,7 +9,8 @@ of `serving/arena.py`).
   * WARM RELOADS: a reload builds a fresh engine, which captures its
     buckets' CUDA graphs again (graphs cannot be saved between loads:
     `engine.compile_count`) and builds no kernel, since every kernel
-    library is already in the build directory. `CompileWatch` counts
+    library is already in the build directory (`cache_dir`, through
+    `configure_compilation_cache`). `CompileWatch` counts
     each load's kernel builds: `cache_misses == 0` on a reload is the
     port's form of the JAX reload contract.
 
@@ -33,13 +34,13 @@ from __future__ import annotations
 
 import collections
 import logging
-import os
 import re
 import threading
 import time
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.device import resolve_device
 from tensor2robot_tpu_torch.serving import engine as engine_lib
 from tensor2robot_tpu_torch.startup import compile_cache
@@ -93,6 +94,7 @@ class _Resident:
     return self.future.done() and self.future.exception() is None
 
 
+@gin.configurable
 class ModelArena:
   """Budgeted pinned-param pool with LRU eviction + warm reloads."""
 
@@ -105,18 +107,14 @@ class ModelArena:
         tenants (None = unlimited — no eviction ever). A single tenant
         larger than the whole budget is a configuration error and
         raises at load.
-      cache_dir: the kernel build directory (`compile_cache.cache_dir()`,
-        the default). Another directory raises `NotImplementedError`:
-        a configurable persistent compile cache is ROADMAP A12.
+      cache_dir: the persistent kernel build directory for warm
+        reloads (forwarded to `configure_compilation_cache`; None keeps
+        the process's current one — gin, env, or the package's
+        `_build/`). A kernel not yet built there builds once, at its
+        first load; a reload builds none.
       device: where every tenant's engine runs; None = CUDA.
     """
-    if cache_dir is not None and (os.path.realpath(cache_dir)
-                                  != os.path.realpath(
-                                      compile_cache.cache_dir())):
-      raise NotImplementedError(
-          f"ModelArena(cache_dir={cache_dir!r}): the port builds its "
-          "kernels into one directory (compile_cache.cache_dir()); a "
-          "configurable persistent compile cache is ROADMAP A12.")
+    compile_cache.configure_compilation_cache(cache_dir=cache_dir)
     self._device = resolve_device(device)
     self._budget = None if budget_bytes is None else int(budget_bytes)
     self._specs: Dict[str, _TenantSpec] = {}

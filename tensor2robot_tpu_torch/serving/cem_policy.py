@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.serving.engine import BucketedServingEngine
 from tensor2robot_tpu_torch.serving.microbatcher import MicroBatcher
 from tensor2robot_tpu_torch.specs import TensorSpecStruct, make_random_tensors
@@ -25,6 +26,7 @@ def _struct(observations) -> TensorSpecStruct:
           else TensorSpecStruct.from_flat_dict(dict(observations)))
 
 
+@gin.configurable
 class CEMPolicyServer:
   """Serves batched CEM action selection for a QTOptLearner."""
 

@@ -50,6 +50,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch import telemetry
 from tensor2robot_tpu_torch.serving import coalesce
 from tensor2robot_tpu_torch.serving.admission import (
@@ -113,6 +114,7 @@ class _Tenant:
     return self.carry is not None or not self.queue.empty()
 
 
+@gin.configurable
 class ServingFront:
   """Multi-tenant serving entry: admission → queues → one dispatcher."""
 

@@ -1,43 +1,93 @@
 """The `metrics_<tag>.jsonl` record envelope (port of
-`telemetry/records.py`: `make_record`, `read_records`).
+`telemetry/records.py`).
 
 Every record is one envelope::
 
     {"step": int, "wall": float, "role": str, "payload": {name: float}}
 
-``role`` defaults to ``trainer``: the port has no process-role tracer
-yet. `read_records` returns records flat, the payload's scalars at the
-top level beside step, wall and role.
+``role`` defaults to the process's telemetry role
+(`telemetry.core.current_role()`: ``trainer`` until
+`telemetry.configure(role)` names another). `read_records` returns
+records flat, the payload's scalars at the top level beside step, wall
+and role; a legacy flat record (``{"step": ..., **scalars}``) reads as
+it is.
 """
 
 from __future__ import annotations
 
 import json
+import numbers
 import time
 from typing import Any, Dict, List, Optional
 
-DEFAULT_ROLE = "trainer"
+from tensor2robot_tpu_torch.telemetry import core
+
+SCHEMA_VERSION = 1
+ENVELOPE_KEYS = ("step", "wall", "role", "payload")
 
 
 def make_record(step: int, payload: Dict[str, float],
                 role: Optional[str] = None,
                 wall: Optional[float] = None) -> Dict[str, Any]:
-  """Builds one envelope record."""
+  """Builds one envelope record (role defaults to the process role)."""
   return {
       "step": int(step),
       "wall": float(time.time() if wall is None else wall),
-      "role": str(role if role is not None else DEFAULT_ROLE),
+      "role": str(role if role is not None else core.current_role()),
       "payload": dict(payload),
   }
 
 
+def validate_record(record: Any) -> List[str]:
+  """Schema problems with one parsed record ([] = valid envelope)."""
+  problems: List[str] = []
+  if not isinstance(record, dict):
+    return [f"record is {type(record).__name__}, not dict"]
+  extra = sorted(set(record) - set(ENVELOPE_KEYS))
+  missing = sorted(set(ENVELOPE_KEYS) - set(record))
+  if missing:
+    problems.append(f"missing keys {missing}")
+  if extra:
+    problems.append(f"unexpected keys {extra}")
+  if "step" in record and not (
+      isinstance(record["step"], int)
+      and not isinstance(record["step"], bool)):
+    problems.append(f"step is {type(record['step']).__name__}, not int")
+  if "wall" in record and not isinstance(record["wall"], numbers.Real):
+    problems.append("wall is not a number")
+  if "role" in record and not (
+      isinstance(record["role"], str) and record["role"]):
+    problems.append("role is not a non-empty string")
+  payload = record.get("payload")
+  if payload is not None:
+    if not isinstance(payload, dict):
+      problems.append("payload is not a dict")
+    else:
+      for key, value in payload.items():
+        if not isinstance(key, str):
+          problems.append(f"payload key {key!r} is not a string")
+        if not isinstance(value, numbers.Real) or isinstance(value, bool):
+          problems.append(
+              f"payload[{key!r}] is {type(value).__name__}, not a number")
+  return problems
+
+
+def normalize_record(record: Dict[str, Any]) -> Dict[str, Any]:
+  """Envelope or legacy-flat record → flat dict with the payload
+  scalars at top level (plus step/wall/role where present)."""
+  if "payload" in record:
+    flat = {k: record[k] for k in ("step", "wall", "role") if k in record}
+    flat.update(record["payload"])
+    return flat
+  return dict(record)
+
+
 def read_records(path: str) -> List[Dict[str, Any]]:
-  """All envelope records of one `metrics_<tag>.jsonl`, flattened."""
+  """All records of one `metrics_<tag>.jsonl`, normalized flat."""
   records = []
   with open(path) as f:
     for line in f:
-      if line.strip():
-        record = json.loads(line)
-        records.append({"step": record["step"], "wall": record["wall"],
-                        "role": record["role"], **record["payload"]})
+      line = line.strip()
+      if line:
+        records.append(normalize_record(json.loads(line)))
   return records

@@ -39,6 +39,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 import torch
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.data import prefetch as prefetch_lib
 from tensor2robot_tpu_torch.data.abstract_input_generator import (
     AbstractInputGenerator,
@@ -48,6 +49,7 @@ from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
 from tensor2robot_tpu_torch.hooks import Hook, HookList
 from tensor2robot_tpu_torch.models.abstract_model import TrainState
 from tensor2robot_tpu_torch.models.model_interface import ModelInterface
+from tensor2robot_tpu_torch.startup import compile_cache
 from tensor2robot_tpu_torch.telemetry import records
 from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
 from tensor2robot_tpu_torch.utils.step_graph import GraphCache
@@ -60,10 +62,12 @@ _DEFAULT_MIN_SIZE_TO_SHARD = 2 ** 10
 
 class MetricLogger:
   """Scalar metric sink: log line + one JSONL file per tag (train, ...),
-  each record the telemetry envelope (`telemetry.records`)."""
+  each record the telemetry envelope (`telemetry.records`). ``role``
+  defaults to the process's telemetry role."""
 
-  def __init__(self, model_dir: str):
+  def __init__(self, model_dir: str, role: Optional[str] = None):
     self._model_dir = model_dir
+    self._role = role
     os.makedirs(model_dir, exist_ok=True)
     self._files: Dict[str, Any] = {}
 
@@ -72,7 +76,7 @@ class MetricLogger:
     if tag not in self._files:
       self._files[tag] = open(
           os.path.join(self._model_dir, f"metrics_{tag}.jsonl"), "a")
-    record = records.make_record(step, scalars)
+    record = records.make_record(step, scalars, role=self._role)
     self._files[tag].write(json.dumps(record) + "\n")
     self._files[tag].flush()
     rendered = ", ".join(f"{k}={v:.5g}" for k, v in scalars.items())
@@ -198,9 +202,10 @@ def _check_unported(mesh, sharding_strategy: str, min_size_to_shard: int,
         "(ROADMAP A12, startup); the serial path is overlap_startup=False.")
 
 
+@gin.configurable
 def train_eval_model(
-    model: ModelInterface,
-    model_dir: str,
+    model: ModelInterface = gin.REQUIRED,
+    model_dir: str = gin.REQUIRED,
     input_generator_train: Optional[AbstractInputGenerator] = None,
     input_generator_eval: Optional[AbstractInputGenerator] = None,
     max_train_steps: int = 1000,
@@ -237,6 +242,7 @@ def train_eval_model(
   _check_unported(mesh, sharding_strategy, min_size_to_shard,
                   create_exporters_fn, overlap_startup)
   del init_batch_size
+  compile_cache.configure_compilation_cache()
   device = resolve_device(device)
   k = prefetch_lib.validate_steps_per_dispatch(
       steps_per_dispatch,
@@ -335,10 +341,11 @@ def train_eval_model(
   return current()
 
 
+@gin.configurable
 def continuous_eval(
-    model: ModelInterface,
-    model_dir: str,
-    input_generator_eval: AbstractInputGenerator,
+    model: ModelInterface = gin.REQUIRED,
+    model_dir: str = gin.REQUIRED,
+    input_generator_eval: AbstractInputGenerator = gin.REQUIRED,
     eval_steps: int = 10,
     eval_batch_size: Optional[int] = None,
     mesh=None,
@@ -360,6 +367,7 @@ def continuous_eval(
   """
   _check_unported(mesh, "replicated", _DEFAULT_MIN_SIZE_TO_SHARD)
   del init_batch_size
+  compile_cache.configure_compilation_cache()
   device = resolve_device(device)
   input_generator_eval.set_specification_from_model(model, Mode.EVAL)
   state = model.create_train_state(seed=seed, device=device)

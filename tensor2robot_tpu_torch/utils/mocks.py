@@ -11,12 +11,14 @@ from __future__ import annotations
 
 import numpy as np
 
+from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.models.critic_model import CriticModel
 from tensor2robot_tpu_torch.models.regression_model import RegressionModel
 from tensor2robot_tpu_torch.specs import ExtendedTensorSpec, TensorSpecStruct
 
 
+@gin.configurable
 class MockT2RModel(RegressionModel):
   """Tiny regression model: {x: (3,)} → target (2,). CPU-instant."""
 
@@ -36,6 +38,7 @@ class MockT2RModel(RegressionModel):
     return st
 
 
+@gin.configurable
 class MockCriticModel(CriticModel):
   """Tiny critic: {state: (4,), action: (2,)} → target_q scalar."""
 

@@ -1,0 +1,224 @@
+"""Every shipped `.gin` file against the port's registry.
+
+  * The three configs the port runs as written (`qtopt_int8.gin`,
+    `train_pose_env.gin`, `serving_multitenant.gin`) parse strictly in
+    the port's registry. Their bindings equal the JAX registry's,
+    binding by binding, and every name in them resolves to the port's
+    counterpart of the JAX class or function.
+  * The other seventeen report exactly the configurables and
+    parameters the port still lacks (the table in ROADMAP.md).
+  * `run_t2r_trainer --validate_only` exits 0 on the three and 1 on the
+    others; the trainers and flags that are not ported raise, naming
+    their ROADMAP item.
+"""
+
+import glob
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+from tensor2robot_tpu import config as jax_gin  # noqa: E402
+from tensor2robot_tpu.config import ginlite as jax_ginlite  # noqa: E402
+from tensor2robot_tpu_torch import config as port_gin  # noqa: E402
+from tensor2robot_tpu_torch.bin import run_t2r_trainer  # noqa: E402
+from tensor2robot_tpu_torch.config import ginlite as port_ginlite  # noqa: E402
+from tensor2robot_tpu_torch.config import validate  # noqa: E402
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CONFIGS = "tensor2robot_tpu/"
+_AS_WRITTEN = (
+    "research/qtopt/configs/qtopt_int8.gin",
+    "research/pose_env/configs/train_pose_env.gin",
+    "serving/configs/serving_multitenant.gin",
+)
+_FLEET = {"FleetConfig", "run_fleet"}
+_TFRECORD_EPISODES = {"TFRecordEpisodeInputGenerator"}
+# What each other shipped config needs that the port lacks.
+_UNPORTED = {
+    "research/pose_env/configs/train_pose_env_physics.gin":
+        {"MuJoCoPoseEnv", "collect_random_episodes"},
+    "research/grasp2vec/configs/train_grasp2vec.gin":
+        {"Grasp2VecModel", "TFRecordInputGenerator"},
+    "research/qtopt/configs/qtopt_anakin.gin": {"train_anakin"},
+    "research/qtopt/configs/qtopt_anakin_pod.gin":
+        {"train_anakin", "ScenarioSuccessEvalHook"},
+    "research/qtopt/configs/qtopt_anakin_shardmap.gin":
+        {"train_anakin", "ScenarioSuccessEvalHook"},
+    "research/qtopt/configs/qtopt_fleet.gin": _FLEET,
+    "research/qtopt/configs/qtopt_fleet_elastic.gin": _FLEET,
+    "research/qtopt/configs/qtopt_fleet_hybrid.gin": _FLEET,
+    "research/qtopt/configs/qtopt_fleet_tcp.gin": _FLEET,
+    "research/qtopt/configs/qtopt_serving_replicated.gin": _FLEET,
+    "research/qtopt/configs/qtopt_fleet_autopilot.gin":
+        _FLEET | {"fleet_rules"},
+    "research/vrgripper/configs/train_vrgripper_transformer.gin":
+        _TFRECORD_EPISODES,
+    "research/vrgripper/configs/train_vrgripper_transformer_moe.gin":
+        _TFRECORD_EPISODES | {"VRGripperTransformerModel.moe_every"},
+    "research/vrgripper/configs/train_vrgripper_transformer_pipeline.gin":
+        _TFRECORD_EPISODES | {"create_mesh", "VRGripperTransformerModel.mesh",
+                              "VRGripperTransformerModel.pipeline_microbatches"},
+    "research/vrgripper/configs/train_vrgripper_bc.gin":
+        _TFRECORD_EPISODES | {"TransitionInputGenerator",
+                              "VRGripperRegressionModel"},
+    "research/vrgripper/configs/train_vrgripper_meta.gin":
+        _TFRECORD_EPISODES | {"EpisodeMetaInputGenerator",
+                              "VRGripperSNAILModel"},
+    "research/vrgripper/configs/train_vrgripper_wtl.gin":
+        {"VRGripperWTLModel"},
+}
+_JAX_FAMILIES = ("tensor2robot_tpu.models", "tensor2robot_tpu.data",
+                 "tensor2robot_tpu.hooks", "tensor2robot_tpu.serving",
+                 "tensor2robot_tpu.train_eval",
+                 "tensor2robot_tpu.research.pose_env",
+                 "tensor2robot_tpu.research.qtopt")
+
+
+def unported_names(findings):
+  """The configurables (``Name``) and parameters (``Name.param``) that
+  findings GIN101/102/104 name: what a config needs that is missing."""
+  out = set()
+  for f in findings:
+    if f.rule in ("GIN101", "GIN104") and f.name:
+      out.add(f.name)
+    elif f.rule == "GIN102":
+      out.add(f"{f.name}.{f.param}")
+  return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def families():
+  import importlib
+  for module in _JAX_FAMILIES:
+    importlib.import_module(module)
+  run_t2r_trainer.import_configurable_families()
+
+
+@pytest.fixture(autouse=True)
+def clean():
+  jax_gin.clear_config()
+  port_gin.clear_config()
+  yield
+  jax_gin.clear_config()
+  port_gin.clear_config()
+
+
+def test_every_shipped_config_is_in_one_table():
+  shipped = sorted(os.path.relpath(p, os.path.join(_REPO, _CONFIGS))
+                   for p in glob.glob(os.path.join(_REPO, _CONFIGS, "**",
+                                                   "*.gin"), recursive=True))
+  assert len(shipped) == 20
+  assert sorted(set(_AS_WRITTEN) | set(_UNPORTED)) == shipped
+
+
+def _plain(value, ginlite):
+  """A parsed gin value with references and macros as tuples, so the
+  two registries' values compare."""
+  if isinstance(value, ginlite._Reference):
+    return ("@", value.scope, value.name, value.evaluate)
+  if isinstance(value, ginlite._Macro):
+    return ("%", value.name)
+  if isinstance(value, (list, tuple)):
+    return type(value)(_plain(v, ginlite) for v in value)
+  if isinstance(value, dict):
+    return {_plain(k, ginlite): _plain(v, ginlite) for k, v in value.items()}
+  return value
+
+
+def _bindings(ginlite):
+  return {key: {p: _plain(v, ginlite) for p, v in params.items()}
+          for key, params in ginlite._REGISTRY.bindings.items()}
+
+
+def _references(value, ginlite):
+  if isinstance(value, ginlite._Reference):
+    yield value.name
+  elif isinstance(value, (list, tuple)):
+    for v in value:
+      yield from _references(v, ginlite)
+  elif isinstance(value, dict):
+    for k, v in value.items():
+      yield from _references(k, ginlite)
+      yield from _references(v, ginlite)
+
+
+@pytest.mark.parametrize("config", _AS_WRITTEN)
+def test_config_runs_as_written_in_the_port(config):
+  path = _CONFIGS + config
+  assert validate.validate_config_file(path) == []
+  port_gin.parse_config_file(path)  # strict: skip_unknown=False
+  jax_gin.parse_config_file(path)
+  port, jax = _bindings(port_ginlite), _bindings(jax_ginlite)
+  assert port == jax and port
+  names = {name for _, name in port_ginlite._REGISTRY.bindings}
+  for params in port_ginlite._REGISTRY.bindings.values():
+    for value in params.values():
+      names.update(_references(value, port_ginlite))
+  for name in names:
+    port_fn = port_ginlite._lookup_configurable(name).fn
+    jax_fn = jax_ginlite._lookup_configurable(name).fn
+    assert port_fn.__module__ == jax_fn.__module__.replace(
+        "tensor2robot_tpu.", "tensor2robot_tpu_torch.", 1), name
+    assert port_fn.__qualname__ == jax_fn.__qualname__
+
+
+@pytest.mark.parametrize("config", sorted(_UNPORTED))
+def test_config_reports_exactly_what_the_port_lacks(config):
+  findings = validate.validate_config_file(_CONFIGS + config)
+  assert unported_names(findings) == _UNPORTED[config]
+  assert {f.rule for f in findings} <= {"GIN101", "GIN102", "GIN104"}
+
+
+@pytest.mark.parametrize("config", sorted(_AS_WRITTEN) + sorted(_UNPORTED))
+def test_validate_only_exit_code(config, capsys):
+  code = run_t2r_trainer.main(["--validate_only",
+                               "--gin_configs", _CONFIGS + config])
+  assert code == (0 if config in _AS_WRITTEN else 1)
+  assert "validate_only:" in capsys.readouterr().out
+  assert port_ginlite._REGISTRY.bindings == {}  # nothing was bound
+
+
+def test_validate_only_from_the_command_line_takes_a_comma_list():
+  configs = ",".join(_CONFIGS + c for c in _AS_WRITTEN[:2])
+  out = subprocess.run(
+      [sys.executable, "-m", "tensor2robot_tpu_torch.bin.run_t2r_trainer",
+       "--validate_only", "--gin_configs", configs,
+       "--gin_configs", _CONFIGS + _AS_WRITTEN[2]],
+      cwd=_REPO, env=dict(os.environ, PYTHONPATH=_REPO),
+      capture_output=True, text=True, timeout=300)
+  assert out.returncode == 0, out.stderr
+  assert "validate_only: 0 finding(s) in 3 config(s)" in out.stdout
+  bad = subprocess.run(
+      [sys.executable, "-m", "tensor2robot_tpu_torch.bin.run_t2r_trainer",
+       "--validate_only", "--gin_configs",
+       _CONFIGS + "research/qtopt/configs/qtopt_fleet.gin"],
+      cwd=_REPO, env=dict(os.environ, PYTHONPATH=_REPO),
+      capture_output=True, text=True, timeout=300)
+  assert bad.returncode == 1
+  assert "FleetConfig" in bad.stdout
+
+
+def test_a_typo_is_a_finding(tmp_path):
+  path = tmp_path / "typo.gin"
+  path.write_text("PoseEnvRegressionModel.image_sie = 64\n"
+                  "train_eval_model.model = @NoSuchModel()\n"
+                  "train_eval_model.batch_size = %UNDEFINED\n")
+  findings = validate.validate_config_file(str(path))
+  assert sorted(f.rule for f in findings) == ["GIN102", "GIN103", "GIN104"]
+  assert unported_names(findings) == {
+      "PoseEnvRegressionModel.image_sie", "NoSuchModel"}
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--trainer=fleet"], "A13"),
+    (["--trainer=anakin"], "A8"),
+    (["--prometheus_port=0"], "A13"),
+])
+def test_unported_trainers_and_flags_raise_naming_the_roadmap_item(argv,
+                                                                   item):
+  with pytest.raises(NotImplementedError, match=item):
+    run_t2r_trainer.main(argv)

@@ -1,4 +1,5 @@
-"""The PyTorch port imports neither JAX nor anything of the JAX package.
+"""The PyTorch port imports neither JAX, nor absl (the card's machine has
+none), nor anything of the JAX package.
 
 A subprocess imports every module of `tensor2robot_tpu_torch`, then
 lists what landed in `sys.modules`; `chip_smoke.py`'s own imports are
@@ -20,8 +21,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _FORBIDDEN = r"""
 def forbidden(m):
-    return (m in ("jax", "flax", "tensor2robot_tpu")
-            or m.startswith(("jax.", "flax.", "tensor2robot_tpu.")))
+    return (m in ("jax", "flax", "absl", "tensor2robot_tpu")
+            or m.startswith(("jax.", "flax.", "absl.", "tensor2robot_tpu.")))
 """
 exec(_FORBIDDEN)
 
@@ -54,7 +55,9 @@ _EXPECTED = (
     "hooks.success_eval_hook", "bin.run_success_protocol",
     "telemetry.core", "telemetry.metrics", "serving.admission",
     "serving.arena", "serving.front", "serving.dedup", "serving.speculative",
-    "startup.compile_cache",
+    "startup.compile_cache", "config.ginlite", "config.validate",
+    "bin.run_t2r_trainer", "research.pose_env.pose_env",
+    "research.pose_env.pose_env_models",
 )
 
 
@@ -97,9 +100,29 @@ def test_chip_smoke_imports_no_jax():
     ("tensor2robot_tpu", True),
     ("tensor2robot_tpu.ops.cem_select", True),
     ("jax", True), ("jax.numpy", True), ("jaxlib", False),
-    ("flax.linen", True),
+    ("flax.linen", True), ("absl", True), ("absl.flags", True),
+    ("abslx", False),
 ])
 def test_forbidden_matches_packages_not_prefixes(name, bad):
   """The port's own name starts with "tensor2robot_tpu" and must not
   count as the JAX package; the JAX package's modules must."""
   assert forbidden(name) is bad  # noqa: F821 — defined by exec above
+
+
+def test_trainer_binary_and_registry_load_nothing_forbidden():
+  """What `python -m tensor2robot_tpu_torch.bin.run_t2r_trainer` loads
+  before it parses a config: the package, the registry, the binary and
+  every default family."""
+  probe = _FORBIDDEN + (
+      "import sys\n"
+      "import tensor2robot_tpu_torch\n"
+      "from tensor2robot_tpu_torch import config\n"
+      "from tensor2robot_tpu_torch.bin import run_t2r_trainer\n"
+      "run_t2r_trainer.import_configurable_families()\n"
+      "print('BAD=' + ','.join(sorted(m for m in sys.modules "
+      "if forbidden(m))))\n")
+  out = subprocess.run([sys.executable, "-c", probe], cwd=_REPO,
+                       env=dict(os.environ, PYTHONPATH=_REPO),
+                       capture_output=True, text=True, timeout=120)
+  assert out.returncode == 0, out.stderr
+  assert out.stdout.split() == ["BAD="], out.stdout

@@ -594,11 +594,39 @@ def test_misaligned_cadence_raises_before_any_side_effect(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object()),
-                                    dict(shard_weight_update=True)])
+                                    dict(shard_weight_update=True,
+                                         mesh=object())])
 def test_unported_loop_options_raise_naming_the_roadmap_item(tmp_path,
                                                              kwargs):
+  """A mesh raises, with or without the sharded update (on one process
+  without a mesh the sharded update runs: the test below)."""
   with pytest.raises(NotImplementedError, match="A11"):
     train_qtopt(_learner(), str(tmp_path / "run"), **kwargs)
+
+
+def test_shard_weight_update_on_one_process_is_the_plain_update(tmp_path):
+  """`shard_weight_update=True` on one process, no mesh: the plain
+  update, as on the JAX package's one-device mesh. Three steps give
+  params bit for bit those of `shard_weight_update=False`."""
+  finals = {}
+  for flag in (False, True):
+    state = train_qtopt(_learner(), str(tmp_path / f"swu_{flag}"),
+                        max_train_steps=3, batch_size=8,
+                        save_checkpoints_steps=3, log_every_steps=3,
+                        prefill_random=True, shard_weight_update=flag)
+    finals[flag] = state.train_state.params
+  assert finals[True].keys() == finals[False].keys()
+  for key, value in finals[False].items():
+    assert torch.equal(finals[True][key], value), key
+
+
+def test_shard_weight_update_over_more_than_one_process_raises(
+    tmp_path, monkeypatch):
+  monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+  monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+  with pytest.raises(NotImplementedError, match="A13.*A11"):
+    train_qtopt(_learner(), str(tmp_path / "run"), shard_weight_update=True)
+  assert not os.path.exists(tmp_path / "run")
 
 
 def test_synthetic_bandit_learns():

@@ -221,10 +221,61 @@ class TestArena:
     assert snap["compile_cache.hits"] == 1.0
     assert compile_cache.cache_dir() == str(build_lib.BUILD_DIR)
 
-  def test_cache_dir_other_than_the_build_dir_raises(self, tmp_path):
+  def test_cache_dir_other_than_the_build_dir_raises(self, tmp_path,
+                                                     monkeypatch):
+    """Another directory no longer raises: `ModelArena(cache_dir=...)`
+    makes it the kernel build directory (`configure_compilation_cache`),
+    and a later arena without one keeps it."""
+    from tensor2robot_tpu_torch.ops import build as build_lib
+    monkeypatch.setattr(build_lib, "BUILD_DIR", build_lib.BUILD_DIR)
+    monkeypatch.setattr(compile_cache, "_configured_dir", None)
     ModelArena(cache_dir=compile_cache.cache_dir(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-      ModelArena(cache_dir=str(tmp_path / "xla_cache"), device="cpu")
+    cache = tmp_path / "xla_cache"
+    ModelArena(cache_dir=str(cache), device="cpu")
+    assert cache.is_dir()
+    assert compile_cache.cache_dir() == str(cache)
+    assert build_lib.library_path("cem_select").parent == cache
+    ModelArena(device="cpu")
+    assert compile_cache.cache_dir() == str(cache)
+
+  def test_arena_cache_dir_configures_the_build_dir_and_reloads_warm(
+      self, tmp_path, monkeypatch):
+    """The shipped `ModelArena.cache_dir` binding: the arena's build
+    directory becomes that directory, a first load there may build, a
+    reload records `cache_misses == 0`."""
+    from tensor2robot_tpu_torch.ops import build as build_lib
+    monkeypatch.setattr(build_lib, "BUILD_DIR", build_lib.BUILD_DIR)
+    monkeypatch.setattr(compile_cache, "_configured_dir", None)
+    monkeypatch.delenv(compile_cache.ENV_CACHE_DIR, raising=False)
+    cache = str(tmp_path / "serving_cache")
+    arena = ModelArena(budget_bytes=8 * 8 * 4, cache_dir=cache,
+                       device="cpu")
+    assert compile_cache.cache_dir() == cache
+    for name, scale in (("a", 1.0), ("b", 2.0)):
+      arena.register(name, make_loader(scale), max_batch=1)
+    arena.engine("a").predict(ones(1))
+    arena.engine("b").predict(ones(1))  # evicts a
+    out = arena.engine("a").predict(ones(1))  # reloads a
+    np.testing.assert_allclose(out["y"], 1.0)
+    stats = arena.stats()
+    assert stats["reloads"] >= 1 and stats["reload_cache_misses"] == 0
+
+  def test_compilation_cache_env_var_is_a_default(self, tmp_path,
+                                                  monkeypatch):
+    from tensor2robot_tpu_torch.ops import build as build_lib
+    monkeypatch.setattr(build_lib, "BUILD_DIR", build_lib.BUILD_DIR)
+    monkeypatch.setattr(compile_cache, "_configured_dir", None)
+    monkeypatch.delenv(compile_cache.ENV_CACHE_DIR, raising=False)
+    before = compile_cache.cache_dir()
+    assert compile_cache.configure_compilation_cache() is None
+    assert compile_cache.cache_dir() == before
+    monkeypatch.setenv(compile_cache.ENV_CACHE_DIR, str(tmp_path / "env"))
+    assert compile_cache.configure_compilation_cache() == str(
+        tmp_path / "env")
+    explicit = str(tmp_path / "explicit")
+    compile_cache.configure_compilation_cache(cache_dir=explicit)
+    assert compile_cache.configure_compilation_cache() == explicit
+    assert compile_cache.cache_dir() == explicit
 
   def test_single_tenant_over_budget_raises(self):
     arena = ModelArena(budget_bytes=16, device="cpu")

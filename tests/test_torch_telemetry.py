@@ -245,3 +245,70 @@ def test_engine_and_batcher_publish_their_metrics():
   swap = [s for s in core.get_tracer().snapshot_spans()
           if s["name"] == "serving.swap_state"][0]
   assert swap["args"] == {"version": 1, "learner_step": 5}
+
+
+# ---- the metrics-record envelope (records.py) ----
+
+
+def test_records_carry_the_process_role(tmp_path):
+  """`make_record` and `MetricLogger` default to the configured role,
+  as the JAX package's do; an explicit role wins."""
+  from tensor2robot_tpu_torch.telemetry import records
+  from tensor2robot_tpu_torch.train_eval import MetricLogger
+
+  assert records.make_record(1, {"x": 1.0})["role"] == "trainer"
+  telemetry.configure("learner")
+  assert records.make_record(1, {"x": 1.0})["role"] == "learner"
+  assert records.make_record(1, {}, role="actor-0")["role"] == "actor-0"
+  for role, sub in ((None, "default"), ("evaluator", "explicit")):
+    logger = MetricLogger(str(tmp_path / sub), role=role)
+    logger.write("train", 3, {"loss": 0.5})
+    logger.close()
+    [record] = _lines(tmp_path / sub / "metrics_train.jsonl")
+    assert record["role"] == (role or "learner")
+    assert records.validate_record(record) == []
+
+
+_RECORDS = [
+    {"step": 1, "wall": 2.5, "role": "trainer", "payload": {"loss": 0.1}},
+    {"step": 1, "wall": 2, "role": "learner", "payload": {}},
+    {"step": 1, "wall": 2.5, "role": "trainer"},
+    {"step": 1.0, "wall": 2.5, "role": "trainer", "payload": {}},
+    {"step": True, "wall": 2.5, "role": "trainer", "payload": {}},
+    {"step": 1, "wall": "now", "role": "", "payload": {"a": "b"}},
+    {"step": 1, "wall": 2.5, "role": "trainer", "payload": [1.0]},
+    {"step": 1, "wall": 2.5, "role": "trainer", "payload": {"ok": True},
+     "extra": 1},
+    {"step": 1, "wall": 2.5, "role": "trainer", "payload": {3: 1.0}},
+    {"step": 7, "loss": 0.25, "grad_norm": 1.5},
+    {"step": 7, "wall": 1.0, "success_rate": 0.5},
+    [1, 2],
+    "not a record",
+]
+
+
+@pytest.mark.parametrize("record", _RECORDS, ids=range(len(_RECORDS)))
+def test_validate_and_normalize_record_match_jax(record):
+  from tensor2robot_tpu.telemetry import records as jax_records
+  from tensor2robot_tpu_torch.telemetry import records
+
+  assert records.validate_record(record) == jax_records.validate_record(
+      record)
+  assert records.ENVELOPE_KEYS == jax_records.ENVELOPE_KEYS
+  if isinstance(record, dict) and not isinstance(
+      record.get("payload", {}), list):
+    assert records.normalize_record(record) == (
+        jax_records.normalize_record(record))
+
+
+def test_read_records_normalizes_legacy_flat_records(tmp_path):
+  from tensor2robot_tpu.telemetry import records as jax_records
+  from tensor2robot_tpu_torch.telemetry import records
+
+  path = tmp_path / "metrics_train.jsonl"
+  lines = [records.make_record(5, {"loss": 0.5}, wall=1.0),
+           {"step": 10, "loss": 0.25, "grad_norm": 2.0}]
+  path.write_text("".join(json.dumps(r) + "\n" for r in lines) + "\n")
+  got = records.read_records(str(path))
+  assert got == jax_records.read_records(str(path))
+  assert got[1] == {"step": 10, "loss": 0.25, "grad_norm": 2.0}
