@@ -123,14 +123,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      3); gated at success ≥ 0.50 at step 2000, online final ≥ offline
      final − 0.10, episodes collected, no actor crash, no writer error;
      each phase's rate is its steps past the first log interval over
-     their wall time; then the online phase four times from the step-2000
-     checkpoint, the store gathering by numpy's index and by the native
-     gather in turns (numpy, native, native, numpy); then a traced window
-     of the online loop (20 more steps at K=10, checkpoints every 10, the
-     actor running) whose CUPTI launches must equal the counters, with
-     cem_select's launches measured per path (learner, evaluation, the
-     server's warm-up, serving dispatches) and held to what each path
-     should launch;
+     their wall time; then the online phase twice from the step-2000
+     checkpoint, the store gathering by numpy's index, then by the
+     native gather; then a traced window of the online loop (20 more
+     steps at K=10, checkpoints every 10, the actor running) whose
+     CUPTI launches must equal the counters, with cem_select's launches
+     measured per path (learner, evaluation, the server's warm-up,
+     serving dispatches) and held to what each path should launch;
  21. the offline phase again with cem_select="lax" (printed, not gated);
  22. the native row gather (`utils/native.py`) built, loaded and equal to
      numpy on the protocol replay's dtypes, and one B=256 gather of the
@@ -183,14 +182,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      temporary directory: the first builds cem_select into it at its
      first load and nothing at its reload (cache_misses == 0), the
      second finds the library (cache_misses == 0 at both loads);
-     then the cem_select launches per path (each traced in its own run),
-     the `kernels` JSON line (cem_select's count: the CEM serving path of
-     phase 4), the card line, and the result line last.
+ 35. the data plane: `collect_demo_episodes` writes 100 seeded episodes
+     as TFRecords (SequenceExample, PNG frames) and the port's
+     `TFRecordEpisodeInputGenerator` in EVAL mode yields exactly the
+     batches `EpisodeInputGenerator` builds from the same episodes in
+     memory; then the gin's TRAIN-mode parse rate alone (batches/s, ms
+     per batch) at `num_workers` 0 and 2, over that file and over the
+     same episodes in 4 files;
+ 36. the shipped `train_vrgripper_transformer.gin` as written through
+     the trainer binary in a new process, with the header's two
+     bindings only (2000 steps from those records: exit 0, a record
+     every 100 steps, the loss falling, checkpoints at 500, 1000, 1500
+     and 2000, steps/s per interval, the wall time), then in-process
+     with 20 steps bound on top, traced (4 + 4 + 4 flash launches a
+     step);
+ 37. a capture during which the cyclic garbage collector would reclaim
+     a dead object that releases a CUDA graph (the collector's threshold
+     at 1, such garbage made as the step is captured): a bare
+     `torch.cuda.graph` capture of the step is the control (the graph's
+     destructor must invalidate it at least once), and `StepGraph`, which
+     holds the collector off, must capture every time and replay the
+     eager step; then the cem_select launches per path (each traced in
+     its own run), the wall seconds of each phase, the `kernels` JSON
+     line (cem_select's count: the CEM serving path of phase 4), the
+     card line, and the result line last.
 
 Every run whose launches are checked (the main paths of phases 4, 5, 7,
 8, 10 and 11, the chunked forward of 13, each run of 14 and 15, the
 online window of 20, the int8 training runs of 27, the windows of 29
-and the gin-configured runs of 31 and 33) runs
+and the gin-configured runs of 31, 33 and 36) runs
 under the profiler's CUDA kernel tracing: each kernel wrapper's count,
 replays included, must equal the launches of that kernel's symbols that
 the card ran (`traced_launches`), and the `kernels` line reports the
@@ -320,6 +340,7 @@ def _graph_ms(fn, iters=20, repeats=5):
   """Median device time per call, without the host's launch cost:
   `iters` calls captured in one CUDA graph, replayed between events."""
   import torch
+  from tensor2robot_tpu_torch.utils.step_graph import collector_held
   side = torch.cuda.Stream()
   side.wait_stream(torch.cuda.current_stream())
   with torch.cuda.stream(side):
@@ -327,7 +348,7 @@ def _graph_ms(fn, iters=20, repeats=5):
       fn()
   torch.cuda.current_stream().wait_stream(side)
   graph = torch.cuda.CUDAGraph()
-  with torch.cuda.graph(graph):
+  with collector_held(), torch.cuda.graph(graph):
     for _ in range(iters):
       fn()
   graph.replay()
@@ -2501,12 +2522,13 @@ def _numpy_scatter(dst, idx, src, num_threads=1):
 
 
 def _online_gather_ab(model_dir, out_dir):
-  """The protocol's online phase four times from its step-2000
-  checkpoint and the same logged replay, its store gathering and
-  scattering rows by numpy's index and by the native gather in the order
-  numpy, native, native, numpy: each run's rates (steps past the first
-  log interval over their wall time, the wait over it), steps per wall
-  second of the phase, and the actor's episodes."""
+  """The protocol's online phase twice from its step-2000 checkpoint
+  and the same logged replay, its store gathering and scattering rows by
+  numpy's index, then by the native gather (two runs, not an ABBA
+  four, to keep chip_smoke inside its time limit): each run's rates
+  (steps past the first log interval over their wall time, the wait
+  over it), steps per wall second of the phase, and the actor's
+  episodes."""
   import shutil
   from tensor2robot_tpu_torch.bin import run_success_protocol as protocol
   from tensor2robot_tpu_torch.research.qtopt import ReplayBuffer, ToyGraspEnv
@@ -2519,7 +2541,8 @@ def _online_gather_ab(model_dir, out_dir):
   gathers = {"native": (native.gather_rows, native.scatter_rows),
              "numpy": (_numpy_gather, _numpy_scatter)}
   runs = {"native": [], "numpy": []}
-  for i, name in enumerate(("numpy", "native", "native", "numpy")):
+  order = ("numpy", "native")
+  for i, name in enumerate(order):
     run_dir = os.path.join(out_dir, f"gather_ab_{i}")
     shutil.copytree(ckpt, os.path.join(run_dir, ckpt_lib.CKPT_SUBDIR,
                                        str(config.offline_steps)))
@@ -2546,14 +2569,13 @@ def _online_gather_ab(model_dir, out_dir):
         "median_grad_steps_per_sec", "median_input_wait_fraction", "wall_s",
         "episodes_collected", "episodes_dropped", "serving_dispatches")}
     runs[name].append(row)
-    _log(f"online phase with the {name} gather (run {i + 1} of 4): "
+    _log(f"online phase with the {name} gather (run {i + 1} of "
+         f"{len(order)}): "
          f"{json.dumps(row)}")
     if out["actor_crashed"] or out["episodes_collected"] <= 0:
       raise AssertionError(f"online phase with the {name} gather: {out}")
-  _log("online phase, native against numpy gather (mean of two runs each): "
-       + json.dumps({name: {key: statistics.mean(r[key] for r in rows)
-                            for key in rows[0]}
-                     for name, rows in runs.items()}))
+  _log("online phase, native against numpy gather: "
+       + json.dumps({name: rows[0] for name, rows in runs.items()}))
   return runs
 
 
@@ -3447,6 +3469,8 @@ _REPO = os.path.dirname(os.path.abspath(__file__))
 _GIN_INT8 = "tensor2robot_tpu/research/qtopt/configs/qtopt_int8.gin"
 _GIN_POSE = "tensor2robot_tpu/research/pose_env/configs/train_pose_env.gin"
 _GIN_SERVING = "tensor2robot_tpu/serving/configs/serving_multitenant.gin"
+_GIN_VRGRIPPER = ("tensor2robot_tpu/research/vrgripper/configs/"
+                  "train_vrgripper_transformer.gin")
 
 
 def _run_trainer(label, args, model_dir):
@@ -3805,6 +3829,192 @@ def phase_gin_serving():
   return traced["cem_select"]
 
 
+def _demo_episodes(num_episodes, seed):
+  """The episodes `collect_demo_episodes(num_episodes=..., seed=...)`
+  writes, rolled again in memory (its env, rng and defaults)."""
+  import numpy as np
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      VRGripperEnv,
+      collect_expert_episode,
+  )
+  env = VRGripperEnv(image_size=48, seed=seed)
+  rng = np.random.default_rng(seed + 1)
+  return [collect_expert_episode(env, action_noise=0.05, min_steps=8, rng=rng)
+          for _ in range(num_episodes)]
+
+
+def _parse_rate(model, path, num_workers, batches=100):
+  """Batches/s of the gin's `TFRecordEpisodeInputGenerator` (TRAIN:
+  shuffle buffer 1024, repeat, batch 16, sequence_length 32) over
+  `batches` batches after the first (which fills the shuffle buffer
+  and, with workers, starts them), parse alone: no device."""
+  from tensor2robot_tpu_torch.data import Mode, TFRecordEpisodeInputGenerator
+  gen = TFRecordEpisodeInputGenerator(file_patterns=path, sequence_length=32,
+                                      batch_size=16, num_workers=num_workers,
+                                      seed=0)
+  gen.set_specification_from_model(model, Mode.TRAIN)
+  stream = gen.create_dataset(Mode.TRAIN)
+  try:
+    t0 = time.perf_counter()
+    next(stream)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(batches):
+      next(stream)
+    wall = time.perf_counter() - t0
+  finally:
+    getattr(stream, "close", lambda: None)()
+  return {"num_workers": num_workers, "batches_per_s": batches / wall,
+          "ms_per_batch": wall / batches * 1e3, "first_batch_s": first_s}
+
+
+def phase_tfrecord_round_trip():
+  """The data plane on the card's host: `collect_demo_episodes` writes
+  100 seeded episodes as TFRecords (SequenceExample, PNG frames); the
+  port's `TFRecordEpisodeInputGenerator` in EVAL mode yields exactly the
+  batches `EpisodeInputGenerator` builds from the same episodes in
+  memory (pixels, poses, actions and lengths bit for bit: PNG is
+  lossless), through the native CRC-32C and PNG unfilter; then the
+  gin's TRAIN-mode parse rate alone at `num_workers` 0 and 2, over that
+  one file and over the same episodes in 4 files (the plane shards by
+  file: over one file a second worker has nothing to read). Returns the
+  rates."""
+  import tempfile
+  import numpy as np
+  from tensor2robot_tpu_torch.data import (
+      EpisodeInputGenerator,
+      Mode,
+      TFRecordEpisodeInputGenerator,
+      write_episode_tfrecord,
+  )
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      collect_demo_episodes,
+      gin_config,
+  )
+  from tensor2robot_tpu_torch.utils import native
+  model = gin_config.gin_model()
+  with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.perf_counter()
+    path = collect_demo_episodes(os.path.join(tmp, "demos.tfrecord"),
+                                 num_episodes=100, seed=0)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    records = TFRecordEpisodeInputGenerator(
+        file_patterns=path, sequence_length=32, batch_size=16)
+    episodes = _demo_episodes(100, seed=0)
+    memory = EpisodeInputGenerator(episodes, sequence_length=32,
+                                   batch_size=16, shuffle=False, repeat=False)
+    for gen in (records, memory):
+      gen.set_specification_from_model(model, Mode.EVAL)
+    got = list(records.create_dataset(Mode.EVAL))
+    want = list(memory.create_dataset(Mode.EVAL))
+    if len(got) != len(want) or len(got) != 6:
+      raise AssertionError(f"round trip: {len(got)} vs {len(want)} batches")
+    for (gf, gl), (wf, wl) in zip(got, want):
+      for g, w in ((gf, wf), (gl, wl)):
+        g, w = g.to_flat_dict(), w.to_flat_dict()
+        if sorted(g) != sorted(w) or any(
+            g[k].dtype != w[k].dtype or not np.array_equal(g[k], w[k])
+            for k in w):
+          raise AssertionError(f"round trip: a batch differs in "
+                               f"{[k for k in w if not np.array_equal(g[k], w[k])]}")
+    lengths = np.concatenate([f["sequence_length"] for f, _ in got])
+    rates = [dict(files=1, **_parse_rate(model, path, workers))
+             for workers in (0, 2)]
+    for i in range(4):
+      write_episode_tfrecord(
+          os.path.join(tmp, f"shard-{i}.tfrecord"), episodes[i::4],
+          model.get_feature_specification(Mode.TRAIN),
+          model.get_label_specification(Mode.TRAIN))
+    shards = os.path.join(tmp, "shard-*.tfrecord")
+    rates += [dict(files=4, **_parse_rate(model, shards, workers))
+              for workers in (0, 2)]
+  _log(f"tfrecord round trip: 100 episodes written in {write_s:.3f} s "
+       f"({size} bytes), 6 EVAL batches of 16 x 32 equal to the in-memory "
+       f"generator's (image, gripper_pose, action, sequence_length; lengths "
+       f"{int(lengths.min())}-{int(lengths.max())}); CRC-32C by "
+       f"{'SSE4.2' if native.crc32c_uses_hardware() else 'slice-by-8'}; "
+       f"codec {native.codec_library_path().name}")
+  for rate in rates:
+    _log(f"tfrecord parse rate (gin TRAIN stream, parse alone, host "
+         f"{os.cpu_count()} cores): {json.dumps(rate)}")
+  return rates
+
+
+def phase_gin_vrgripper_transformer():
+  """The shipped `train_vrgripper_transformer.gin` as written, through
+  the trainer binary in a new process, with only the header's two
+  bindings (`train_eval_model.model_dir`, the demos' file pattern) over
+  100 episodes `collect_demo_episodes` wrote: 2000 steps of B=16 x 32
+  at width 128, depth 4, bf16, flash attention. Gates: exit 0, a valid
+  envelope every 100 steps to 2000, finite losses whose last three fall
+  below the first three, checkpoints at 500, 1000, 1500 and 2000. Then
+  the same file in this process through the port's registry with 20
+  steps bound on top, traced: each flash kernel 4 launches a step + the
+  graph's warm-up step's, equal to CUPTI's. Returns the traced
+  launches."""
+  import tempfile
+  import numpy as np
+  from tensor2robot_tpu_torch import config as gin
+  from tensor2robot_tpu_torch import train_eval
+  from tensor2robot_tpu_torch.bin import run_t2r_trainer
+  from tensor2robot_tpu_torch.research.vrgripper import collect_demo_episodes
+  with tempfile.TemporaryDirectory() as tmp:
+    demos = collect_demo_episodes(os.path.join(tmp, "demos.tfrecord"))
+    model_dir = os.path.join(tmp, "run")
+    os.makedirs(model_dir)
+    wall = _run_trainer("gin train_vrgripper_transformer (as shipped)", [
+        "--gin_configs", _GIN_VRGRIPPER,
+        "--gin_bindings", f"train_eval_model.model_dir='{model_dir}'",
+        "--gin_bindings",
+        f"train/TFRecordEpisodeInputGenerator.file_patterns='{demos}'"],
+        model_dir)
+    raw = _checked_records(os.path.join(model_dir, "metrics_train.jsonl"))
+    ckpts = sorted(int(d) for d in os.listdir(os.path.join(model_dir,
+                                                           "ckpt")))
+    steps = [r["step"] for r in raw]
+    losses = [r["payload"]["loss"] for r in raw]
+    rates = [r["payload"]["steps_per_sec"] for r in raw]
+    _log(f"gin train_vrgripper_transformer: wall {wall:.2f} s; steps "
+         f"{steps}; loss {losses}; mse "
+         f"{[r['payload']['mse'] for r in raw]}; steps_per_sec {rates} "
+         f"(median after the first interval {statistics.median(rates[1:])}); "
+         f"checkpoints {ckpts}")
+    if steps != list(range(100, 2001, 100)):
+      raise AssertionError(f"gin vrgripper: record steps {steps}")
+    if not all(np.isfinite(losses)) or not (np.mean(losses[-3:])
+                                            < np.mean(losses[:3])):
+      raise AssertionError(f"gin vrgripper: losses {losses}")
+    if ckpts != [500, 1000, 1500, 2000]:
+      raise AssertionError(f"gin vrgripper: checkpoints {ckpts}")
+
+    run_t2r_trainer.import_configurable_families()
+    steps = 20
+    traced_dir = os.path.join(tmp, "traced")
+    try:
+      gin.parse_config_files_and_bindings([_GIN_VRGRIPPER], [
+          f"train_eval_model.model_dir = '{traced_dir}'",
+          f"train/TFRecordEpisodeInputGenerator.file_patterns = '{demos}'",
+          f"train_eval_model.max_train_steps = {steps}"])
+      t0 = time.perf_counter()
+      with traced_launches("gin train_vrgripper_transformer") as traced:
+        state = train_eval.train_eval_model()
+      traced_wall = time.perf_counter() - t0
+    finally:
+      gin.clear_config()
+  launches = {name: traced[name] for name in _FLASH_KERNELS}
+  warm = {name: _warm(name) for name in _FLASH_KERNELS}
+  _log(f"gin train_vrgripper_transformer in-process: {state.step} steps in "
+       f"{traced_wall:.2f} s (traced); launches {json.dumps(launches)} "
+       f"(warm-up {json.dumps(warm)}; CUPTI = counters)")
+  if state.step != steps or any(n != 4 * steps + warm[k] or warm[k] != 4
+                                for k, n in launches.items()):
+    raise AssertionError(f"gin vrgripper: step {state.step}, launches "
+                         f"{launches}: each should be 4 x {steps} + warm-up "
+                         f"{warm}")
+  return launches
+
+
 def log_wgmma_kernels(logs):
   """One line per instantiation of the two CEM kernels' wgmma paths:
   ptxas's registers and spill bytes, and the dynamic shared memory a
@@ -3843,6 +4053,121 @@ def log_wgmma_kernels(logs):
         entry = None
 
 
+class _GraphReleaser:
+  """Garbage in a reference cycle whose destructor drops the last
+  references to CUDA graphs, as a dead learner or engine does when the
+  collector reclaims it."""
+
+  def __init__(self, graphs):
+    self.graphs = graphs
+    self.cycle = self
+
+  def __del__(self):
+    self.graphs.clear()
+
+
+def phase_capture_under_collection(rounds=3):
+  """Phase 37: a capture survives a garbage collection that falls inside
+  it. A `CUDAGraph`'s destructor makes a CUDA call that a capture does
+  not permit: when the collector reclaims a dead object holding graphs
+  on the capturing thread, the capture is invalidated, and the error
+  shows at its end (cudaErrorStreamCaptureInvalidated). Here the step
+  makes such garbage while it is captured, with the collector's
+  threshold at 1. The control, a bare `torch.cuda.graph` capture on a
+  thread of its own, must be invalidated at least once (else the check
+  shows nothing); `StepGraph` must capture every round and replay the
+  eager step within 1e-5."""
+  import gc
+  import torch
+  from tensor2robot_tpu_torch.utils.step_graph import (
+      StepGraph,
+      collector_held,
+  )
+  dev = torch.device("cuda")
+  gen = torch.Generator(device=dev).manual_seed(0)
+  carry = {"w": torch.randn(256, 256, device=dev, generator=gen) / 16}
+  inputs = {"a": torch.randn(64, 256, device=dev, generator=gen)}
+  spare = []
+
+  def fn(carry, inputs, generators):
+    y = inputs["a"]
+    for _ in range(8):
+      if torch.cuda.is_current_stream_capturing():
+        _GraphReleaser(spare)
+        [[] for _ in range(8)]  # allocations: the collector runs
+      y = torch.tanh(y @ carry["w"])
+    return carry, {"y": y}
+
+  def refill():
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    for _ in range(4):
+      graph = torch.cuda.CUDAGraph()
+      with collector_held(), torch.cuda.graph(graph, stream=side):
+        inputs["a"].mul(2)
+      spare.append(graph)
+    torch.cuda.synchronize()
+
+  def bare(result):
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+      fn(carry, inputs, [])
+    torch.cuda.current_stream(dev).wait_stream(side)
+    try:
+      with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side,
+                            capture_error_mode="thread_local"):
+        fn(carry, inputs, [])
+      result.append(None)
+    except RuntimeError as e:
+      result.append(str(e).splitlines()[0])
+
+  eager = fn(carry, inputs, [])[1]["y"]
+  threshold = gc.get_threshold()
+  control, errs = [], []
+  try:
+    for _ in range(rounds):
+      refill()
+      gc.set_threshold(1, 1, 1)
+      result = []
+      thread = threading.Thread(target=bare, args=(result,))
+      thread.start()
+      thread.join()
+      gc.set_threshold(*threshold)
+      control.append(result[0] if result else "no result")
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+      refill()
+      gc.set_threshold(1, 1, 1)
+      graph = StepGraph(fn, carry, inputs, dev)
+      gc.set_threshold(*threshold)
+      errs.append(float((graph.replay(inputs)["y"] - eager).abs().max()))
+  finally:
+    gc.set_threshold(*threshold)
+    spare.clear()
+  invalidated = sum(e is not None for e in control)
+  _log(f"capture under collection: bare torch.cuda.graph invalidated "
+       f"{invalidated} of {rounds} ({next((e for e in control if e), None)}); "
+       f"StepGraph captured {len(errs)} of {rounds}, replay vs eager max "
+       f"abs err {max(errs)} (tol 1e-5)")
+  if not invalidated:
+    raise AssertionError("capture under collection: the bare capture was "
+                         "never invalidated, so the check shows nothing")
+  if max(errs) > 1e-5:
+    raise AssertionError(f"capture under collection: replay vs eager {errs}")
+
+
+_PHASE_S = {}
+
+
+def _timed(phase, *args):
+  """`phase(*args)`, its wall seconds kept under its name."""
+  t0 = time.perf_counter()
+  out = phase(*args)
+  _PHASE_S[phase.__name__] = round(time.perf_counter() - t0, 2)
+  return out
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -3868,47 +4193,56 @@ def main():
   _log(f"build: {json.dumps(per_kernel)} wall_s={time.perf_counter() - t0}")
   log_wgmma_kernels(logs)
 
-  max_err = phase_kernels()
-  flash_err = phase_flash_kernels()
-  launches, learner, state = phase_slice()
-  flash_launches, context_policy = phase_gripper_slice()
-  rows = phase_timings(learner, state)
-  flash_rows, _ = phase_flash_timings(context_policy)
-  bwd_errs = phase_flash_bwd_kernels()
-  train_launches, train_model, train_state, gen = phase_train_slice()
-  bwd_rows, _, _ = phase_train_timings(train_model, train_state, gen)
-  phase_default_model()
-  head_err = phase_head_kernels()
-  qt_launches, qt_learner, qt_state, replay = phase_qtopt_train()
-  head_launches, _, target_net, encoded = phase_head_bellman(
-      qt_learner, qt_state, replay)
-  phase_qtopt_card_vs_cpu()
-  head_rows, _, _, _ = phase_qtopt_timings(qt_learner, qt_state, replay,
-                                           target_net, encoded)
-  phase_flash_padded()
-  phase_bellman_graphs()
-  phase_bellman_rate(replay)
-  phase_bc_graphs()
-  phase_serving_graphs()
-  phase_context_graphs()
-  phase_launch_accounting()
-  online_err = phase_online_kernels()
-  online_per_path, _ = phase_online_protocol()
-  lax_replay = phase_lax_offline()
-  phase_native_gather(lax_replay)
+  max_err = _timed(phase_kernels)
+  flash_err = _timed(phase_flash_kernels)
+  launches, learner, state = _timed(phase_slice)
+  flash_launches, context_policy = _timed(phase_gripper_slice)
+  rows = _timed(phase_timings, learner, state)
+  flash_rows, _ = _timed(phase_flash_timings, context_policy)
+  bwd_errs = _timed(phase_flash_bwd_kernels)
+  train_launches, train_model, train_state, gen = _timed(phase_train_slice)
+  bwd_rows, _, _ = _timed(phase_train_timings, train_model, train_state,
+                          gen)
+  _timed(phase_default_model)
+  head_err = _timed(phase_head_kernels)
+  qt_launches, qt_learner, qt_state, replay = _timed(phase_qtopt_train)
+  head_launches, _, target_net, encoded = _timed(
+      phase_head_bellman, qt_learner, qt_state, replay)
+  _timed(phase_qtopt_card_vs_cpu)
+  head_rows, _, _, _ = _timed(phase_qtopt_timings, qt_learner, qt_state,
+                               replay, target_net, encoded)
+  _timed(phase_flash_padded)
+  _timed(phase_bellman_graphs)
+  _timed(phase_bellman_rate, replay)
+  _timed(phase_bc_graphs)
+  _timed(phase_serving_graphs)
+  _timed(phase_context_graphs)
+  _timed(phase_launch_accounting)
+  online_err = _timed(phase_online_kernels)
+  online_per_path, _ = _timed(phase_online_protocol)
+  lax_replay = _timed(phase_lax_offline)
+  _timed(phase_native_gather, lax_replay)
   del lax_replay
-  phase_seedcheck()
-  phase_actor_split()
-  int8_err = phase_int8_kernels()
-  phase_int8_card_vs_cpu()
-  int8_launches = phase_int8_training()
-  phase_int8_timings()
-  plane_launches = phase_serving_plane()
-  phase_gin_qtopt_int8()
-  gin_fused_launches = phase_gin_qtopt_fused()
-  phase_gin_pose_env()
-  gin_serving_launches = phase_gin_serving()
-  phase_gin_cache()
+  _timed(phase_seedcheck)
+  _timed(phase_actor_split)
+  int8_err = _timed(phase_int8_kernels)
+  _timed(phase_int8_card_vs_cpu)
+  int8_launches = _timed(phase_int8_training)
+  _timed(phase_int8_timings)
+  plane_launches = _timed(phase_serving_plane)
+  _timed(phase_gin_qtopt_int8)
+  gin_fused_launches = _timed(phase_gin_qtopt_fused)
+  _timed(phase_gin_pose_env)
+  gin_serving_launches = _timed(phase_gin_serving)
+  _timed(phase_gin_cache)
+  t_plane = time.perf_counter()
+  _timed(phase_tfrecord_round_trip)
+  t_gin = time.perf_counter()
+  gin_vrgripper_launches = _timed(phase_gin_vrgripper_transformer)
+  _log(f"phases 35-36 s: round trip and parse rates {t_gin - t_plane:.2f}, "
+       f"gin vrgripper {time.perf_counter() - t_gin:.2f}; flash launches "
+       f"on the gin's traced window {json.dumps(gin_vrgripper_launches)}")
+  _timed(phase_capture_under_collection)
   _log(f"cem_select launches per path (each traced in its own run): CEM "
        f"serving {launches}, Bellman training {qt_launches}, online window "
        f"{sum(online_per_path.values())} ({json.dumps(online_per_path)}), "
@@ -3968,6 +4302,7 @@ def main():
                                         "bound_by")},
       "library_ms": None,
   }]
+  _log(f"seconds per phase: {json.dumps(_PHASE_S)}")
   _log(f"total_s={time.perf_counter() - t_start}")
   _log(json.dumps({"kernels": kernels}))
   _log(smi)

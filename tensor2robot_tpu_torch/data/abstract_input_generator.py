@@ -11,7 +11,8 @@ import abc
 import enum
 from typing import Any, Iterator, Optional, Tuple
 
-from tensor2robot_tpu_torch.specs import ExtendedTensorSpec, TensorSpecStruct
+from tensor2robot_tpu_torch.specs import packing
+from tensor2robot_tpu_torch.specs.tensorspec import TensorSpecStruct
 
 Batch = Tuple[TensorSpecStruct, Optional[TensorSpecStruct]]
 
@@ -25,12 +26,10 @@ class Mode(str, enum.Enum):
 
 
 def _flat_specs(spec_structure: Any) -> TensorSpecStruct:
-  """A flat struct of specs; raises on a leaf that is not a spec."""
-  flat = TensorSpecStruct(spec_structure)
-  for key, spec in flat.to_flat_dict().items():
-    if not isinstance(spec, ExtendedTensorSpec):
-      raise TypeError(f"spec {key!r} is {type(spec).__name__}, not a "
-                      "tensor spec")
+  """A flat struct of specs; raises `SpecValidationError` on a leaf that
+  is not a spec."""
+  flat = packing.flatten_spec_structure(spec_structure)
+  packing.assert_valid_spec_structure(flat)
   return flat
 
 
@@ -39,8 +38,8 @@ class AbstractInputGenerator(abc.ABC):
 
   Lifecycle (mirrors the reference):
     1. `set_specification_from_model(model, mode)` copies the model's
-       feature/label specs into the generator (the port has no
-       preprocessors yet, so these are the model's own specs).
+       wire-side (preprocessor-in) feature/label specs into the
+       generator.
     2. `create_dataset(mode, batch_size)` returns an iterator of
        `(features, labels)` TensorSpecStructs of numpy arrays.
   """
@@ -71,8 +70,16 @@ class AbstractInputGenerator(abc.ABC):
     return self._label_spec
 
   def set_specification_from_model(self, model, mode: Mode) -> None:
-    self.set_specification(model.get_feature_specification(mode),
-                           model.get_label_specification(mode))
+    """Adopts the model's preprocessor-in (wire) specs; a model without
+    a preprocessor gives its own."""
+    preprocessor = getattr(model, "preprocessor", None)
+    if preprocessor is not None:
+      self.set_specification(
+          preprocessor.get_in_feature_specification(mode),
+          preprocessor.get_in_label_specification(mode))
+    else:
+      self.set_specification(model.get_feature_specification(mode),
+                             model.get_label_specification(mode))
 
   def set_specification(self, feature_spec: Any,
                         label_spec: Optional[Any] = None) -> None:

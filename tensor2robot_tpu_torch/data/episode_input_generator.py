@@ -1,10 +1,9 @@
 """Episode batches from episodes held in memory.
 
-The stand-in for the TFRecord wire until ROADMAP A9 ports
-`TFRecordEpisodeInputGenerator` and its SequenceExample parser: it
-gives the batch contract of that generator and of
-`tfexample.graph_parse_sequence_example`, fed from episode dicts instead
-of records.
+The batch contract of `TFRecordEpisodeInputGenerator` (and of
+`tfexample.graph_parse_sequence_example`), fed from episode dicts
+instead of records: tests and timing runs use it where no record file
+is wanted.
 
   * sequence specs (`is_sequence=True`) come out `[B, sequence_length,
     ...]`: each episode's first `sequence_length` steps, zero-padded;
@@ -15,8 +14,7 @@ of records.
   * batches are dropped at the remainder; in TRAIN mode the stream
     repeats and is shuffled (when asked) with a numpy generator made
     from `seed`, a new permutation per pass; other modes read the
-    episodes once, in order.
-"""
+    episodes once, in order."""
 
 from __future__ import annotations
 
@@ -29,10 +27,8 @@ from tensor2robot_tpu_torch.data.abstract_input_generator import (
     Batch,
     Mode,
 )
+from tensor2robot_tpu_torch.data.tfexample import SEQUENCE_LENGTH_KEY
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
-
-# The parser's key for the true episode lengths (`tfexample.py`).
-SEQUENCE_LENGTH_KEY = "sequence_length"
 
 
 class EpisodeInputGenerator(AbstractInputGenerator):

@@ -8,6 +8,13 @@ event, so step N's compute overlaps step N+1's transfer. The shared
 helpers keep the JAX trainers' contracts: the `steps_per_dispatch`
 cadence rule, the lookahead depth, K-batch stacking and the
 `input_wait_fraction` timer.
+
+The release protocol of the data plane (`data/plane.py`): when the host
+stream hands out views of a shared-memory ring slot
+(`source.release_after_transfer`), the prefetcher copies each batch
+(into pinned memory on a card, by a clone on the CPU) and then calls
+`source.release_consumed()`, so the slot recycles once the prefetcher
+owns the bytes, before the copy to the card has even started.
 """
 
 from __future__ import annotations
@@ -123,12 +130,14 @@ class DevicePrefetcher:
   the pinned buffer outlives it), and `__next__` makes the caller's
   stream wait on the copy's event and records the tensors on that
   stream for the caching allocator. On the CPU batches pass through as
-  tensors.
+  tensors. `source` is the host stream whose release protocol applies
+  (by default `iterator` itself; see the module docstring).
   """
 
   def __init__(self, iterator: Iterator[Any], device: torch.device,
-               buffer_size: int = 2):
+               buffer_size: int = 2, source: Any = None):
     self._iterator = iterator
+    self._source = iterator if source is None else source
     self._device = torch.device(device)
     self._cuda = self._device.type == "cuda"
     self._side = torch.cuda.Stream(self._device) if self._cuda else None
@@ -141,10 +150,17 @@ class DevicePrefetcher:
 
   def _place(self, batch):
     flat = {k: _to_tensor(v) for k, v in _flat(batch).items()}
+    views = getattr(self._source, "release_after_transfer", False)
+    if self._cuda:
+      flat = {k: v.pin_memory() for k, v in flat.items()}  # a copy
+    elif views:
+      flat = {k: v.clone() for k, v in flat.items()}
+    if views:
+      self._source.release_consumed()
     if not self._cuda:
       return flat, None
     with torch.cuda.stream(self._side):
-      placed = {k: v.pin_memory().to(self._device, non_blocking=True)
+      placed = {k: v.to(self._device, non_blocking=True)
                 for k, v in flat.items()}
       event = torch.cuda.Event()
       event.record(self._side)

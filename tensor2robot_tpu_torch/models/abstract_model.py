@@ -2,8 +2,7 @@
 
 `TrainState` holds a network's parameters, batch statistics and
 optimizer state. The model base has the inference half (`device_dtype`,
-`create_network`, `predict_step`; the JAX default preprocessor is the
-no-op one, so there is none to port), the train half
+`preprocessor`, `create_network`, `predict_step`), the train half
 (`create_train_state`, `loss_fn`, `train_grads`, `apply_gradients`,
 `train_step`) and `eval_step`. The JAX package keeps params outside its stateless flax
 modules; the port does the same, so a state can be hot-swapped
@@ -32,6 +31,14 @@ copies them back into the buffers at the end of the captured region
 outside the graph, K per dispatch; Adam's `count` is a device tensor
 and advances inside it.
 
+The preprocessor (`preprocessor_cls`, the no-op one by default) runs
+where the JAX package runs it: first thing in the train and eval steps'
+forward and in `predict_step`, over the batch already on the device.
+Input generators read its in-specs (`set_specification_from_model`).
+The JAX model draws a dummy init batch from the preprocessor's
+out-specs for `flax.init`; the port builds its networks from their
+constructor arguments and needs none.
+
 Not ported yet: `remat_policy` and `axis_name` (ROADMAP A11). Each
 raises where it is asked for.
 """
@@ -53,6 +60,9 @@ from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
 from tensor2robot_tpu_torch.layers.vision_layers import collect_batch_stats
 from tensor2robot_tpu_torch.models import optimizers as opt_lib
 from tensor2robot_tpu_torch.models.model_interface import ModelInterface
+from tensor2robot_tpu_torch.preprocessors.noop_preprocessor import (
+    NoOpPreprocessor,
+)
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 
 Metrics = Dict[str, torch.Tensor]
@@ -139,7 +149,10 @@ class AbstractT2RModel(ModelInterface):
                    [], opt_lib.GradientTransformation] = (
                        opt_lib.create_optimizer),
                aux_loss_weight: float = 0.01,
-               remat_policy: Optional[str] = None):
+               remat_policy: Optional[str] = None,
+               preprocessor_cls: Optional[Callable] = None):
+    """`preprocessor_cls` is called with the model's two spec getters;
+    None means `NoOpPreprocessor`."""
     if remat_policy not in (None, "none"):
       raise NotImplementedError(
           f"remat_policy={remat_policy!r}: rematerialization is not ported "
@@ -147,6 +160,8 @@ class AbstractT2RModel(ModelInterface):
     self._device_dtype = device_dtype
     self._aux_loss_weight = aux_loss_weight
     self._create_optimizer_fn = create_optimizer_fn
+    self._preprocessor_cls = preprocessor_cls
+    self._preprocessor = None
     self._tx: Optional[opt_lib.GradientTransformation] = None
     self._train_network: Optional[nn.Module] = None
     self._bound: "weakref.WeakKeyDictionary[TrainState, nn.Module]" = (
@@ -165,6 +180,15 @@ class AbstractT2RModel(ModelInterface):
   def device_dtype(self) -> torch.dtype:
     """Compute dtype the network casts to in its forward pass."""
     return self._device_dtype
+
+  @property
+  def preprocessor(self):
+    """The preprocessor, made once from `preprocessor_cls`."""
+    if self._preprocessor is None:
+      cls = self._preprocessor_cls or NoOpPreprocessor
+      self._preprocessor = cls(self.get_feature_specification,
+                               self.get_label_specification)
+    return self._preprocessor
 
   @abc.abstractmethod
   def create_network(self) -> nn.Module:
@@ -215,15 +239,17 @@ class AbstractT2RModel(ModelInterface):
 
   def _apply_network(self, params, batch_stats, features, labels,
                      mode: Mode):
-    """(features as the network saw them, outputs without the aux loss,
-    the aux loss or None, new batch stats) over `params`."""
+    """(features as the network saw them, the preprocessed labels,
+    outputs without the aux loss, the aux loss or None, new batch stats)
+    over `params`."""
     if self._train_network is None:
       with torch.device("meta"):
         self._train_network = self.create_network()
     train = mode == Mode.TRAIN
     self._train_network.train(train)
-    features = self.network_inputs_from_labels(_flat(features),
-                                               _flat(labels), mode)
+    features, labels = self.preprocessor.preprocess(
+        _flat(features), _flat(labels), mode)
+    features = self.network_inputs_from_labels(features, labels, mode)
     outputs = torch.func.functional_call(
         self._train_network, {**params, **batch_stats}, (features,),
         strict=True)
@@ -231,7 +257,7 @@ class AbstractT2RModel(ModelInterface):
     # Popped before the model's fns: they never see the private key.
     aux = (outputs.pop(self.AUX_LOSS_OUTPUT, None)
            if isinstance(outputs, dict) else None)
-    return (features, outputs, aux,
+    return (features, labels, outputs, aux,
             new_stats if train and batch_stats else batch_stats)
 
   def _with_aux(self, metrics: Metrics, aux, what: str) -> Metrics:
@@ -251,10 +277,9 @@ class AbstractT2RModel(ModelInterface):
     otherwise `batch_stats` come back as they were. Neither is written
     in place. A network's auxiliary loss adds `aux_loss_weight` times
     itself to the loss."""
-    features, outputs, aux, new_stats = self._apply_network(
+    features, labels, outputs, aux, new_stats = self._apply_network(
         params, batch_stats, features, labels, mode)
-    loss, scalars = self.model_train_fn(features, _flat(labels), outputs,
-                                        mode)
+    loss, scalars = self.model_train_fn(features, labels, outputs, mode)
     if aux is not None:
       loss = loss + self._aux_loss_weight * aux
       scalars = self._with_aux(scalars, aux, "model_train_fn")
@@ -265,9 +290,9 @@ class AbstractT2RModel(ModelInterface):
     in eval mode, without autograd. With an auxiliary loss: `aux_loss`
     reported and, where a `loss` is, weighted into it."""
     with torch.no_grad():
-      features, outputs, aux, _ = self._apply_network(
+      features, labels, outputs, aux, _ = self._apply_network(
           state.params, state.batch_stats, features, labels, Mode.EVAL)
-      metrics = self.model_eval_fn(features, _flat(labels), outputs)
+      metrics = self.model_eval_fn(features, labels, outputs)
       if aux is not None:
         metrics = self._with_aux(metrics, aux, "model_eval_fn")
         if "loss" in metrics:
@@ -319,8 +344,11 @@ class AbstractT2RModel(ModelInterface):
     return self.apply_gradients(state, grads, new_stats), metrics
 
   def predict_step(self, state: TrainState, features) -> Any:
-    """The bound network's outputs on `features`, without autograd."""
+    """The bound network's outputs on the preprocessed `features`,
+    without autograd."""
     with torch.inference_mode():
+      features, _ = self.preprocessor.preprocess(features, None,
+                                                 Mode.PREDICT)
       return self.bind(state)(features)
 
   def bind(self, state: TrainState) -> nn.Module:

@@ -1,9 +1,9 @@
 """The minimal model contract the trainer and predictors depend on
 (port of `models/model_interface.py`).
 
-The port has no preprocessor layer (the JAX default is the no-op one),
-and its steps take no rng (no stochastic layers are ported); a state is
-made from an integer seed on a device.
+Preprocessors live on `AbstractT2RModel` (`preprocessor`), as in the
+JAX package; the steps take no rng (no stochastic layers are ported); a
+state is made from an integer seed on a device.
 """
 
 from __future__ import annotations

@@ -3,6 +3,7 @@ encoder and the numpy gripper env it is evaluated in."""
 
 from tensor2robot_tpu_torch.research.vrgripper.vrgripper_env import (
     VRGripperEnv,
+    collect_demo_episodes,
     collect_expert_episode,
     evaluate_gripper_policy,
 )
@@ -17,4 +18,5 @@ from tensor2robot_tpu_torch.research.vrgripper.vrgripper_transformer_models impo
 
 __all__ = ["ACTION", "EpisodeContextPolicy", "GripperObsEncoder",
            "VRGripperEnv", "VRGripperTransformerModel",
-           "collect_expert_episode", "evaluate_gripper_policy"]
+           "collect_demo_episodes", "collect_expert_episode",
+           "evaluate_gripper_policy"]

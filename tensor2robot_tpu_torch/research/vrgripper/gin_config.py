@@ -1,9 +1,12 @@
-"""The shipped `train_vrgripper_transformer.gin`, as the port runs it.
+"""The widths of the shipped `train_vrgripper_transformer.gin`, for the
+runs that build its model in code.
 
-One place for the model's widths, the optimizer, the training shape and
-the seeded scripted-expert episodes that stand in for the gin's
-TFRecords (until ROADMAP A9 ports that reader), so that `chip_smoke.py`
-and `bin/profile_policy.py` measure the same configuration.
+The gin itself runs as written through `bin/run_t2r_trainer.py` (from
+TFRecords that `collect_demo_episodes` writes). This module holds the
+same model widths, optimizer and training shape, with seeded
+scripted-expert episodes in memory, so that `chip_smoke.py`'s timing
+phases and `bin/profile_policy.py` measure that configuration without
+a record file.
 """
 
 from __future__ import annotations

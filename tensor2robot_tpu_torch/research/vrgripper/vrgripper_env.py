@@ -10,18 +10,21 @@ table and close. Observation: RGB render + gripper pose
 [x, y, closed]. Action: [dx, dy, close_cmd], all in [-1, 1]. The
 scripted expert walks toward the block and closes on arrival.
 
-This slice ports the env, `collect_expert_episode` and the closed-loop
-`evaluate_gripper_policy`; the TFRecord demo writer and the meta-batch
-samplers come with the data plane (ROADMAP A9, A10).
+Ported: the env, `collect_expert_episode`, the TFRecord demo writer
+`collect_demo_episodes` and the closed-loop `evaluate_gripper_policy`;
+the meta-batch samplers come with the meta models (ROADMAP A10).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
 from tensor2robot_tpu_torch import config as gin
+from tensor2robot_tpu_torch.specs import ExtendedTensorSpec, TensorSpecStruct
+from tensor2robot_tpu_torch.specs.packing import as_sequence_specs
 
 IMAGE_SIZE = 48
 WORKSPACE_LOW = np.array([-0.4, -0.4], np.float32)
@@ -179,6 +182,57 @@ def collect_expert_episode(env: VRGripperEnv,
       "action": np.stack(actions),
       "reward": np.stack(rewards),
   }
+
+
+def _demo_specs(image_size: int, state_dim: int = 3, action_dim: int = 3):
+  """The per-step feature and label specs of `VRGripperRegressionModel
+  (image_size=image_size)` (JAX `vrgripper_models.py:183-196`), which
+  the port does not have yet (ROADMAP A10): a PNG image and the gripper
+  pose as features, the action as the label."""
+  features = TensorSpecStruct()
+  features.image = ExtendedTensorSpec(
+      shape=(image_size, image_size, 3), dtype=np.uint8, name="image",
+      data_format="png")
+  features.gripper_pose = ExtendedTensorSpec(
+      shape=(state_dim,), dtype=np.float32, name="gripper_pose")
+  labels = TensorSpecStruct()
+  labels.action = ExtendedTensorSpec(shape=(action_dim,), dtype=np.float32,
+                                     name="action")
+  return features, labels
+
+
+@gin.configurable
+def collect_demo_episodes(output_path: str,
+                          num_episodes: int = 100,
+                          image_size: int = IMAGE_SIZE,
+                          seed: int = 0,
+                          action_noise: float = 0.05,
+                          task_offset_scale: float = 0.0,
+                          min_episode_steps: int = 8) -> str:
+  """Writes scripted-expert episodes as SequenceExample TFRecords (port
+  of the JAX function: the same episodes for the same seed).
+
+  The wire layout is VRGripperRegressionModel's specs lifted to
+  sequences: image and gripper_pose per step as features, action per
+  step as the label. `min_episode_steps` defaults to 8 so the shipped
+  meta configs' 4 condition + 4 inference splits fit inside real data.
+  Returns `output_path`.
+  """
+  from tensor2robot_tpu_torch.data.tfrecord_input_generator import (
+      write_episode_tfrecord,
+  )
+  env = VRGripperEnv(image_size=image_size, seed=seed,
+                     task_offset_scale=task_offset_scale)
+  rng = np.random.default_rng(seed + 1)
+  episodes = [
+      collect_expert_episode(env, action_noise=action_noise,
+                             min_steps=min_episode_steps, rng=rng)
+      for _ in range(num_episodes)]
+  features, labels = _demo_specs(image_size)
+  os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
+  write_episode_tfrecord(output_path, episodes, as_sequence_specs(features),
+                         as_sequence_specs(labels))
+  return output_path
 
 
 @gin.configurable

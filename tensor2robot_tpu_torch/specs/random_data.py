@@ -7,31 +7,23 @@ to both packages. bfloat16 leaves come back as torch tensors.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch.specs.packing import flatten_spec_structure
 from tensor2robot_tpu_torch.specs.tensorspec import (
-    PATH_SEP,
     ExtendedTensorSpec,
     TensorSpecStruct,
 )
 
 
 def _flatten_specs(spec_structure: Any) -> dict:
+  """The flat '/'-keyed dict of a spec structure (a single spec raises)."""
   if isinstance(spec_structure, ExtendedTensorSpec):
     raise ValueError("pass a structure of specs, not a single spec")
-  if isinstance(spec_structure, TensorSpecStruct):
-    return spec_structure.to_flat_dict()
-  flat = {}
-  for key, value in dict(spec_structure).items():
-    if isinstance(value, (TensorSpecStruct, Mapping)):
-      for sub, spec in _flatten_specs(value).items():
-        flat[f"{key}{PATH_SEP}{sub}"] = spec
-    else:
-      flat[str(key)] = value
-  return flat
+  return flatten_spec_structure(spec_structure).to_flat_dict()
 
 
 def random_array_for_spec(spec: ExtendedTensorSpec,

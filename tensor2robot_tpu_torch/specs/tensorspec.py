@@ -42,6 +42,12 @@ def _normalize_dtype(dtype: Any):
   return np.dtype(dtype)
 
 
+def numpy_dtype(dtype: Any) -> np.dtype:
+  """A spec dtype as numpy holds it: bfloat16 travels as its uint16 bits."""
+  dtype = _normalize_dtype(dtype)
+  return np.dtype(np.uint16) if dtype is torch.bfloat16 else dtype
+
+
 @dataclasses.dataclass(frozen=True)
 class ExtendedTensorSpec:
   """An immutable tensor declaration with data-pipeline metadata.
@@ -195,6 +201,17 @@ class TensorSpecStruct(Mapping[str, Any]):
   def from_flat_dict(cls, flat: Mapping[str, Any]) -> "TensorSpecStruct":
     out = cls()
     out._flat.update(flat)
+    return out
+
+  def to_nested_dict(self) -> dict:
+    """The leaves as nested dicts, one level per path component."""
+    out: dict = {}
+    for path, leaf in self._flat.items():
+      *parents, last = path.split(PATH_SEP)
+      node = out
+      for p in parents:
+        node = node.setdefault(p, {})
+      node[last] = leaf
     return out
 
   def keys(self):

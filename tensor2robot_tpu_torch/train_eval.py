@@ -97,10 +97,16 @@ def _flat(struct) -> Dict[str, Any]:
 
 def _packed(stream: Iterable) -> Iterator[Dict[str, Any]]:
   """(features, labels) batches as one flat dict, keys prefixed by
-  their side, as the prefetcher and K-stacking take them."""
-  for features, labels in stream:
-    yield {**{_FEATURES + k: v for k, v in _flat(features).items()},
-           **{_LABELS + k: v for k, v in _flat(labels).items()}}
+  their side, as the prefetcher and K-stacking take them. Closing it
+  closes `stream` (a data plane's workers end with it)."""
+  try:
+    for features, labels in stream:
+      yield {**{_FEATURES + k: v for k, v in _flat(features).items()},
+             **{_LABELS + k: v for k, v in _flat(labels).items()}}
+  finally:
+    closer = getattr(stream, "close", None)
+    if callable(closer):
+      closer()
 
 
 def _unpacked(batch: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
@@ -113,9 +119,11 @@ def _device_batches(stream: Iterable, device: torch.device, k: int = 1,
                     buffer_size: int = 2) -> prefetch_lib.DevicePrefetcher:
   packed = _packed(stream)
   if k > 1:
+    # Stacking keeps K batches at once: ring views must be copies.
+    getattr(stream, "require_copies", lambda: None)()
     packed = prefetch_lib.stack_batches(packed, k)
   return prefetch_lib.DevicePrefetcher(packed, device,
-                                       buffer_size=buffer_size)
+                                       buffer_size=buffer_size, source=stream)
 
 
 def train_step_fn(model: ModelInterface, k: int = 1) -> Callable:

@@ -39,6 +39,12 @@ Rules it keeps:
     eagerly over the same static buffers and copies the carry back the
     same way; there is no capture (what a caller asking for the CPU gets).
   * No fallback. On a CUDA device a failed capture or replay raises.
+  * No collection inside a capture. Python's cyclic garbage collector is
+    held off while a capture runs: a collection there runs the
+    destructors of dead objects on the capturing thread, and a dead
+    `CUDAGraph`'s destructor makes a CUDA call that a capture does not
+    permit, which invalidates the capture (its error shows only at the
+    capture's end).
   * Launch counters stay right. The kernel wrappers count launches in
     Python, which a replay does not run: the capture (which launches
     nothing) records the counts of its stream instead of adding them
@@ -49,7 +55,10 @@ Rules it keeps:
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence
+import contextlib
+import gc
+import threading
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import torch
 
@@ -57,6 +66,36 @@ from tensor2robot_tpu_torch.ops import counters
 from tensor2robot_tpu_torch.utils import tree
 
 StepFn = Callable[[Any, Any, Sequence[torch.Generator]], Any]
+
+
+_GC_LOCK = threading.Lock()
+_GC_HOLDS = 0
+_GC_WAS_ENABLED = False
+
+
+@contextlib.contextmanager
+def collector_held() -> Iterator[None]:
+  """Holds Python's cyclic garbage collector off while a capture runs
+  (`StepGraph` and any other capture in the port wrap it in this).
+
+  A collection runs the destructors of dead objects on the thread that
+  triggered it, the capturing one included, and a dead `CUDAGraph`'s
+  destructor makes a CUDA call that a capture does not permit. Nested
+  and concurrent holds keep it off until the last one ends; it comes
+  back on only if it was on before the first."""
+  global _GC_HOLDS, _GC_WAS_ENABLED
+  with _GC_LOCK:
+    if _GC_HOLDS == 0:
+      _GC_WAS_ENABLED = gc.isenabled()
+      gc.disable()
+    _GC_HOLDS += 1
+  try:
+    yield
+  finally:
+    with _GC_LOCK:
+      _GC_HOLDS -= 1
+      if _GC_HOLDS == 0 and _GC_WAS_ENABLED:
+        gc.enable()
 
 
 def tensors(state: Any) -> List[torch.Tensor]:
@@ -169,7 +208,7 @@ class StepGraph:
     # thread_local: other threads (a server's dispatches of buckets
     # already captured) may use the card while this thread captures.
     with torch.cuda.device(self._device), counters.recording(
-        capture) as launched:
+        capture) as launched, collector_held():
       with torch.cuda.graph(graph, stream=capture,
                             capture_error_mode="thread_local"):
         self._outputs = self._step()

@@ -1,5 +1,6 @@
-"""The PyTorch port imports neither JAX, nor absl (the card's machine has
-none), nor anything of the JAX package.
+"""The PyTorch port imports neither JAX, nor absl, TensorFlow,
+protobuf, PIL or ml_dtypes (the card's machine has none of them), nor
+anything of the JAX package.
 
 A subprocess imports every module of `tensor2robot_tpu_torch`, then
 lists what landed in `sys.modules`; `chip_smoke.py`'s own imports are
@@ -20,9 +21,10 @@ pytest.importorskip("torch")
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _FORBIDDEN = r"""
+_PACKAGES = ("jax", "flax", "absl", "tensor2robot_tpu", "tensorflow",
+             "google.protobuf", "PIL", "ml_dtypes")
 def forbidden(m):
-    return (m in ("jax", "flax", "absl", "tensor2robot_tpu")
-            or m.startswith(("jax.", "flax.", "absl.", "tensor2robot_tpu.")))
+    return m in _PACKAGES or m.startswith(tuple(p + "." for p in _PACKAGES))
 """
 exec(_FORBIDDEN)
 
@@ -57,7 +59,11 @@ _EXPECTED = (
     "serving.arena", "serving.front", "serving.dedup", "serving.speculative",
     "startup.compile_cache", "config.ginlite", "config.validate",
     "bin.run_t2r_trainer", "research.pose_env.pose_env",
-    "research.pose_env.pose_env_models",
+    "research.pose_env.pose_env_models", "specs.packing",
+    "specs.serialization", "data.tfrecord_io", "data.example_proto",
+    "data.png", "data.tfexample", "data.tfrecord_input_generator",
+    "data.shm_ring", "data.plane", "preprocessors.abstract_preprocessor",
+    "preprocessors.noop_preprocessor",
 )
 
 
@@ -101,7 +107,10 @@ def test_chip_smoke_imports_no_jax():
     ("tensor2robot_tpu.ops.cem_select", True),
     ("jax", True), ("jax.numpy", True), ("jaxlib", False),
     ("flax.linen", True), ("absl", True), ("absl.flags", True),
-    ("abslx", False),
+    ("abslx", False), ("tensorflow", True), ("tensorflow.io", True),
+    ("tensorflow_probability", False), ("google.protobuf", True),
+    ("google.protobuf.message", True), ("google", False), ("PIL", True),
+    ("PIL.Image", True), ("ml_dtypes", True),
 ])
 def test_forbidden_matches_packages_not_prefixes(name, bad):
   """The port's own name starts with "tensor2robot_tpu" and must not

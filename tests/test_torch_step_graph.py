@@ -366,6 +366,30 @@ def test_launch_counters_record_a_capture_and_add_per_replay(monkeypatch):
   counters.clear_warmups()
 
 
+def test_the_collector_is_held_off_until_the_last_capture_ends():
+  """A capture holds the cyclic collector off (a dead graph's destructor
+  run by a collection inside a capture invalidates it); concurrent
+  captures keep it off until the last ends."""
+  import gc
+  assert gc.isenabled()
+  first = step_graph.collector_held()
+  second = step_graph.collector_held()
+  first.__enter__()
+  assert not gc.isenabled()
+  second.__enter__()
+  first.__exit__(None, None, None)
+  assert not gc.isenabled()  # a concurrent capture still runs
+  second.__exit__(None, None, None)
+  assert gc.isenabled()
+  gc.disable()
+  try:
+    with step_graph.collector_held():
+      pass
+    assert not gc.isenabled()  # left as the caller had it
+  finally:
+    gc.enable()
+
+
 def test_launch_counters_split_by_launching_thread(monkeypatch):
   """Launches and replays count for the thread that makes them; a
   recorded launch counts for the thread that replays it."""
