@@ -202,15 +202,44 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `torch.cuda.graph` capture of the step is the control (the graph's
      destructor must invalidate it at least once), and `StepGraph`, which
      holds the collector off, must capture every time and replay the
-     eager step; then the cem_select launches per path (each traced in
-     its own run), the wall seconds of each phase, the `kernels` JSON
-     line (cem_select's count: the CEM serving path of phase 4), the
-     card line, and the result line last.
+     eager step;
+ 38. JPEG on the card's host, which has no TensorFlow: the SHA-256 of
+     the port's bytes for two seeded images (64×64×3 and 37×53×3) and of
+     the pixels it decodes from them equal constants that
+     `tests/test_torch_jpeg.py` pins against `tf.io.encode_jpeg` /
+     `tf.io.decode_image`; a grasp2vec batch's 192 frames decoded;
+ 39. the shipped `train_grasp2vec.gin` from JPEG TFRecords:
+     `collect_grasp_triplets` writes 1024 seeded triplets (and 640 to
+     evaluate), the trainer binary runs the gin as written in a new
+     process with the model dir, the two file patterns and
+     max_train_steps 1000 bound (the gin's 10000, cut for the time
+     limit): resnet-18 at 64 filters, embedding 128, bf16, batch 64,
+     Adam 1e-4; exit 0, the loss falling, a checkpoint at 1000, eval
+     records; `CheckpointPredictor` restores it and `evaluate_retrieval`
+     over 50 held-out queries gives top-1 ≥ 0.5 (chance 1/6); then the
+     stream's parse rate alone, the graphed step's device ms, and the f32
+     model on the card against the CPU (outputs, one train step);
+ 40. goal-conditioned QT-Opt from those labels: `make_grasp2vec_reward_fn`
+     over the trained checkpoint labels 256 fresh triplets,
+     `relabel_transitions` fills a `ReplayBuffer`, and `train_qtopt`
+     takes 50 graphed Bellman steps at B=256 over `GraspingQModel(
+     extra_state_features={"goal_embedding": (128,)})` (CEM 2 × 64, 6
+     elites, fused select): the loss falls, cem_select's launches equal
+     CUPTI's, 2 a step + 2 in the warm-up step;
+     then the cem_select launches per path (each traced in its own run),
+     the wall seconds of each phase, the `kernels` JSON line
+     (cem_select's count: the CEM serving path of phase 4), the card
+     line, and the result line last.
+
+Phases 38–40 are paid for by the tracing, not by depth: every traced
+run records CUDA activity only (the counts read device kernel events;
+recording the host's ops as well cost seconds of event processing per
+traced run, most of the BC and Bellman graph phases' time).
 
 Every run whose launches are checked (the main paths of phases 4, 5, 7,
 8, 10 and 11, the chunked forward of 13, each run of 14 and 15, the
-online window of 20, the int8 training runs of 27, the windows of 29
-and the gin-configured runs of 31, 33 and 36) runs
+online window of 20, the int8 training runs of 27, the windows of 29,
+the gin-configured runs of 31, 33 and 36 and the Bellman run of 40) runs
 under the profiler's CUDA kernel tracing: each kernel wrapper's count,
 replays included, must equal the launches of that kernel's symbols that
 the card ran (`traced_launches`), and the `kernels` line reports the
@@ -282,10 +311,12 @@ def traced_launches(label):
               for name, syms in _SYMBOLS.items()}
   traced = {}
   _reset_counts()
-  acts = [torch.profiler.ProfilerActivity.CPU,
-          torch.profiler.ProfilerActivity.CUDA]
   torch.cuda.synchronize()
-  with torch.profiler.profile(activities=acts) as prof:
+  # CUDA activity only: the counts read device kernel events, and the
+  # host ops a CPU trace adds (several per kernel of an eager step) cost
+  # seconds of event processing per traced run.
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
     # A trace can lack the device events of its session's first moments:
     # on an H100 a session lost the kernels it ran 0.1 s after its start,
     # and another all 256 markers it ran at once. So the block starts
@@ -1094,10 +1125,11 @@ def phase_flash_bwd_kernels():
 _TRAIN_STEPS = 60
 
 
-def train_step_card_vs_cpu(label, model32, gen, lr):
+def train_step_card_vs_cpu(label, model32, gen, lr, shape="B=16, T=32"):
   """One f32 train step of `model32` on the card and on the CPU from the
-  same seeded weights and the same first batch of `gen`: loss,
-  grad_norm, every gradient and every parameter after the Adam update."""
+  same seeded weights and the same first batch of `gen` (`shape`, for
+  the log): loss, grad_norm, every gradient and every parameter after
+  the Adam update."""
   import torch
   from tensor2robot_tpu_torch.data import Mode
   torch.backends.cudnn.allow_tf32 = False
@@ -1135,7 +1167,7 @@ def train_step_card_vs_cpu(label, model32, gen, lr):
       far = max(far, diff[~small].max().item())
     if bool(small.any()):
       near = max(near, diff[small].max().item())
-  _log(f"card vs CPU f32 train step ({label}, B=16, T=32): loss "
+  _log(f"card vs CPU f32 train step ({label}, {shape}): loss "
        f"{m_card['loss']} vs {m_cpu['loss']}, grad_norm "
        f"{m_card['grad_norm']} vs {m_cpu['grad_norm']}; max rel metric err "
        f"{metric_err} (tol 1e-4), max per-leaf rel grad err {grad_err} over "
@@ -3829,6 +3861,28 @@ def phase_gin_serving():
   return traced["cem_select"]
 
 
+# SHA-256 of the port's JPEG bytes and of the pixels it decodes from
+# them, for two seeded images (an odd size: partial MCUs). The card's
+# host has no TensorFlow; tests/test_torch_jpeg.py pins these constants
+# against tf.io.encode_jpeg / tf.io.decode_image on a host that has it.
+JPEG_DIGESTS = {
+    (64, 64, 3): (
+        "493582f8c988fbac901b054882259098171371181e675cfecce015872a9debbc",
+        "83a07b4cbccd88646595512861f8dc01f229a7d06cf0399b236d15ed335a6351"),
+    (37, 53, 3): (
+        "1033f540836c1083c0c20567224228f3ae119a72d86fe29586caf73bb45d7f04",
+        "ae5237b130241e1e40385d11621588c8481c92c7da62da68439c8c0172744f02"),
+}
+
+
+def jpeg_digest_images():
+  """The seeded images of `JPEG_DIGESTS`, by shape."""
+  import numpy as np
+  rng = np.random.default_rng(13)
+  return {shape: rng.integers(0, 256, shape, dtype=np.uint8)
+          for shape in JPEG_DIGESTS}
+
+
 def _demo_episodes(num_episodes, seed):
   """The episodes `collect_demo_episodes(num_episodes=..., seed=...)`
   writes, rolled again in memory (its env, rng and defaults)."""
@@ -3843,20 +3897,16 @@ def _demo_episodes(num_episodes, seed):
           for _ in range(num_episodes)]
 
 
-def _parse_rate(model, path, num_workers, batches=100):
-  """Batches/s of the gin's `TFRecordEpisodeInputGenerator` (TRAIN:
-  shuffle buffer 1024, repeat, batch 16, sequence_length 32) over
-  `batches` batches after the first (which fills the shuffle buffer
-  and, with workers, starts them), parse alone: no device."""
-  from tensor2robot_tpu_torch.data import Mode, TFRecordEpisodeInputGenerator
-  gen = TFRecordEpisodeInputGenerator(file_patterns=path, sequence_length=32,
-                                      batch_size=16, num_workers=num_workers,
-                                      seed=0)
+def _stream_rate(gen, model, num_workers, batches=100):
+  """Batches/s of `gen`'s TRAIN stream over `batches` batches after the
+  first (which fills the shuffle buffer and, with workers, starts them),
+  parse alone: no device. Returns (the first batch, the rates)."""
+  from tensor2robot_tpu_torch.data import Mode
   gen.set_specification_from_model(model, Mode.TRAIN)
   stream = gen.create_dataset(Mode.TRAIN)
   try:
     t0 = time.perf_counter()
-    next(stream)
+    first = next(stream)
     first_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for _ in range(batches):
@@ -3864,8 +3914,19 @@ def _parse_rate(model, path, num_workers, batches=100):
     wall = time.perf_counter() - t0
   finally:
     getattr(stream, "close", lambda: None)()
-  return {"num_workers": num_workers, "batches_per_s": batches / wall,
-          "ms_per_batch": wall / batches * 1e3, "first_batch_s": first_s}
+  return first, {"num_workers": num_workers, "batches_per_s": batches / wall,
+                 "ms_per_batch": wall / batches * 1e3,
+                 "first_batch_s": first_s}
+
+
+def _parse_rate(model, path, num_workers, batches=100):
+  """`_stream_rate` of the gin's `TFRecordEpisodeInputGenerator` (TRAIN:
+  shuffle buffer 1024, repeat, batch 16, sequence_length 32)."""
+  from tensor2robot_tpu_torch.data import TFRecordEpisodeInputGenerator
+  gen = TFRecordEpisodeInputGenerator(file_patterns=path, sequence_length=32,
+                                      batch_size=16, num_workers=num_workers,
+                                      seed=0)
+  return _stream_rate(gen, model, num_workers, batches)[1]
 
 
 def phase_tfrecord_round_trip():
@@ -4012,6 +4073,256 @@ def phase_gin_vrgripper_transformer():
     raise AssertionError(f"gin vrgripper: step {state.step}, launches "
                          f"{launches}: each should be 4 x {steps} + warm-up "
                          f"{warm}")
+  return launches
+
+
+_GIN_GRASP2VEC = ("tensor2robot_tpu/research/grasp2vec/configs/"
+                  "train_grasp2vec.gin")
+# The one cut of the shipped grasp2vec gin: max_train_steps 10000 → 1000
+# (chip_smoke's time limit).
+_G2V_STEPS = 1000
+_G2V_BATCH = 64  # the gin's batch_size
+_GOAL_QT_STEPS = 50
+
+
+def phase_jpeg_digests():
+  """The JPEG codec on the card's host (no TensorFlow there): the port's
+  bytes for two seeded images and the pixels it decodes from them must
+  have the SHA-256 digests that `tests/test_torch_jpeg.py` pins against
+  `tf.io.encode_jpeg` / `tf.io.decode_image`; then decode alone, 192
+  frames of 64×64×3 (one grasp2vec batch) in one `decode_many` call."""
+  import hashlib
+  import numpy as np
+  from tensor2robot_tpu_torch.data import jpeg
+  for shape, image in jpeg_digest_images().items():
+    data = jpeg.encode(image)
+    pixels = jpeg.decode(data)
+    got = (hashlib.sha256(data).hexdigest(),
+           hashlib.sha256(pixels.tobytes()).hexdigest())
+    _log(f"jpeg digests {shape}: bytes {got[0]}, pixels {got[1]} "
+         f"({len(data)} bytes)")
+    if got != JPEG_DIGESTS[shape] or pixels.shape != shape:
+      raise AssertionError(f"jpeg {shape}: digests {got}, want "
+                           f"{JPEG_DIGESTS[shape]}")
+  rng = np.random.default_rng(0)
+  frames = [jpeg.encode(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8))
+            for _ in range(192)]
+  t0 = time.perf_counter()
+  for _ in range(10):
+    jpeg.decode_many(frames)
+  ms = (time.perf_counter() - t0) / 10 * 1e3
+  _log(f"jpeg decode_many: 192 frames of 64x64x3 (noise, "
+       f"{sum(map(len, frames)) // 192} bytes each) in {ms:.3f} ms")
+
+
+def phase_gin_grasp2vec():
+  """The shipped `train_grasp2vec.gin` from JPEG TFRecords:
+  `collect_grasp_triplets` writes 1024 seeded triplets (6 object types,
+  2 distractors, 64×64, the port's JPEG) to train on and 640 more to
+  evaluate, then the gin runs as written through the trainer binary in a
+  new process (resnet-18 at 64 filters, embedding 128, bf16, batch 64,
+  Adam 1e-4), its bindings only the model dir, the two file patterns
+  and max_train_steps 1000 (the gin's 10000 cut for the time limit).
+  Gates: exit 0, a valid record every 100 steps whose loss falls (the
+  last three below the first three), a checkpoint at step 1000, eval
+  records; `CheckpointPredictor` restores step 1000 and
+  `evaluate_retrieval` over 50 held-out queries gives retrieval top-1
+  ≥ 0.5 (chance 1/6). Then the stream's parse rate alone, the graphed
+  train step's device ms, and the f32 model on the card against the CPU
+  (outputs at 1e-5 of their scale; one train step). Returns the model
+  and the restored state (for the QT-Opt phase)."""
+  import dataclasses
+  import tempfile
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.data import Mode, TFRecordInputGenerator
+  from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+  from tensor2robot_tpu_torch.research import grasp2vec as g2v
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+  with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.perf_counter()
+    train = g2v.collect_grasp_triplets(
+        os.path.join(tmp, "train.tfrecord"), num_episodes=1024,
+        image_size=64, num_object_types=6, num_distractors=2, seed=0)
+    evaluation = g2v.collect_grasp_triplets(
+        os.path.join(tmp, "eval.tfrecord"), num_episodes=640, image_size=64,
+        num_object_types=6, num_distractors=2, seed=2)
+    collect_s = time.perf_counter() - t0
+    model_dir = os.path.join(tmp, "run")
+    os.makedirs(model_dir)
+    wall = _run_trainer("gin train_grasp2vec (as shipped, 1000 steps)", [
+        "--gin_configs", _GIN_GRASP2VEC,
+        "--gin_bindings", f"train_eval_model.model_dir='{model_dir}'",
+        "--gin_bindings",
+        f"train/TFRecordInputGenerator.file_patterns='{train}'",
+        "--gin_bindings",
+        f"eval/TFRecordInputGenerator.file_patterns='{evaluation}'",
+        "--gin_bindings", f"train_eval_model.max_train_steps={_G2V_STEPS}"],
+        model_dir)
+    raw = _checked_records(os.path.join(model_dir, "metrics_train.jsonl"))
+    evals = _checked_records(os.path.join(model_dir, "metrics_eval.jsonl"))
+    ckpts = ckpt_lib.list_steps(model_dir)
+    steps = [r["step"] for r in raw]
+    losses = [r["payload"]["loss"] for r in raw]
+    rates = [r["payload"]["steps_per_sec"] for r in raw]
+    _log(f"gin train_grasp2vec: collect {collect_s:.2f} s (1664 triplets); "
+         f"trainer wall {wall:.2f} s; steps {steps}; loss {losses}; "
+         f"retrieval_top1 {[r['payload']['retrieval_top1'] for r in raw]}; "
+         f"steps_per_sec {rates} (median after the first interval "
+         f"{statistics.median(rates[1:])}); checkpoints {ckpts}; eval "
+         f"{json.dumps([r['payload'] for r in evals])}")
+    if steps != list(range(100, _G2V_STEPS + 1, 100)):
+      raise AssertionError(f"gin grasp2vec: record steps {steps}")
+    if not all(np.isfinite(losses)) or not (np.mean(losses[-3:])
+                                            < np.mean(losses[:3])):
+      raise AssertionError(f"gin grasp2vec: losses {losses}")
+    if ckpts != [_G2V_STEPS]:
+      raise AssertionError(f"gin grasp2vec: checkpoints {ckpts}")
+    if [r["step"] for r in evals] != [_G2V_STEPS] or not np.isfinite(
+        evals[0]["payload"]["loss"]):
+      raise AssertionError(f"gin grasp2vec: eval records {evals}")
+
+    model = g2v.Grasp2VecModel()  # the gin's widths are its defaults
+    predictor = CheckpointPredictor(model, checkpoint_dir=model_dir)
+    if not predictor.restore(timeout_secs=0) or (
+        predictor.model_version != _G2V_STEPS):
+      raise AssertionError(f"predictor restored {predictor.model_version}")
+    t0 = time.perf_counter()
+    retrieval = g2v.evaluate_retrieval(
+        predictor.predict, num_queries=50, image_size=64, num_object_types=6,
+        num_distractors=2, seed=1)
+    _log(f"grasp2vec retrieval through CheckpointPredictor (step "
+         f"{predictor.model_version}, 50 held-out queries, "
+         f"{time.perf_counter() - t0:.2f} s): {json.dumps(retrieval)}")
+    if retrieval["retrieval_top1"] < 0.5:
+      raise AssertionError(f"grasp2vec retrieval {retrieval}")
+    like = model.create_inference_state()
+    variables = ckpt_lib.restore_variables(
+        model_dir, like={"params": like.params,
+                         "batch_stats": like.batch_stats})
+    state = dataclasses.replace(like, step=_G2V_STEPS, **variables)
+
+    # The gin's TRAIN stream (batch 64, shuffle buffer 2048, repeat; 192
+    # JPEG frames of 64×64 a batch) in this thread, as the gin runs it.
+    batch, parse = _stream_rate(TFRecordInputGenerator(
+        file_patterns=train, batch_size=_G2V_BATCH, shuffle_buffer_size=2048,
+        seed=0), model, num_workers=0)
+    _log(f"grasp2vec parse rate (gin TRAIN stream, parse alone, host "
+         f"{os.cpu_count()} cores): {json.dumps(parse)}")
+    step_ms = _g2v_step_ms(model, batch)
+    _log(f"grasp2vec train step (B=64: 128 scene + 64 goal images of "
+         f"64x64, bf16) device ms by graph replay: {step_ms}; parse "
+         f"{parse['ms_per_batch']:.3f} ms a batch")
+
+    model32 = g2v.Grasp2VecModel(device_dtype=torch.float32)
+    gen = TFRecordInputGenerator(file_patterns=evaluation, batch_size=8,
+                                 shuffle=False)
+    gen.set_specification_from_model(model32, Mode.TRAIN)
+    _g2v_outputs_card_vs_cpu(model32, gen)
+    train_step_card_vs_cpu("grasp2vec", model32, gen, 1e-4,
+                           shape="B=8 of 64x64")
+  return model, state
+
+
+def _g2v_step_ms(model, batch):
+  """Device ms of one bf16 train step at the gin's batch (graph replay
+  of 10 steps from one state, no host launch cost)."""
+  import torch
+  features, labels = batch
+  f = {k: torch.as_tensor(v).cuda() for k, v in features.to_flat_dict().items()}
+  lab = {k: torch.as_tensor(v).cuda() for k, v in labels.to_flat_dict().items()}
+  state = model.create_train_state(seed=0)
+  return _graph_ms(lambda: model.train_step(state, f, lab), iters=10)
+
+
+def _g2v_outputs_card_vs_cpu(model32, gen):
+  """The f32 model's five outputs on the card and on the CPU from the
+  same seeded weights and one batch: each within 1e-5 of its largest
+  |value| (the CPU tests' f32 tolerance), cuDNN without TF32."""
+  import torch
+  from tensor2robot_tpu_torch.data import Mode
+  torch.backends.cudnn.allow_tf32 = False
+  features, _ = next(iter(gen.create_dataset(Mode.TRAIN)))
+  out = {}
+  for device in ("cuda", "cpu"):
+    state = model32.create_inference_state(seed=0, device=device)
+    f = {k: torch.as_tensor(v).to(device)
+         for k, v in features.to_flat_dict().items()}
+    out[device] = {k: v.float().cpu()
+                   for k, v in model32.predict_step(state, f).items()}
+  torch.backends.cudnn.allow_tf32 = True
+  errs = {k: (out["cuda"][k] - v).abs().max().item()
+          / max(v.abs().max().item(), 1e-12) for k, v in out["cpu"].items()}
+  _log(f"card vs CPU f32 grasp2vec outputs (B=8): max error over each "
+       f"output's scale {json.dumps(errs)} (tol 1e-5)")
+  if max(errs.values()) > 1e-5:
+    raise AssertionError(f"grasp2vec outputs differ card vs CPU: {errs}")
+
+
+def phase_goal_qtopt(g2v_model, g2v_state):
+  """Goal-conditioned QT-Opt from grasp2vec labels: the trained
+  embedding model (`make_grasp2vec_reward_fn`, on the card) labels 256
+  fresh triplets, `relabel_transitions` turns them into transitions that
+  fill a `ReplayBuffer`, and `train_qtopt` takes 50 graphed Bellman
+  steps at B=256 over `GraspingQModel(image_size=64,
+  extra_state_features={"goal_embedding": (128,)})`, otherwise at the
+  bench's width (CEM 2 × 64, 6 elites, fused select: the cem_select
+  kernel). Gates: finite losses whose last ten fall below the first ten;
+  cem_select's launches traced by CUPTI equal the wrapper's count, 2 a
+  step + 2 in the graph's warm-up step. Returns the launches."""
+  import tempfile
+  import numpy as np
+  from tensor2robot_tpu_torch.research import grasp2vec as g2v
+  from tensor2robot_tpu_torch.research.qtopt import ReplayBuffer
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_bandit as bandit
+  from tensor2robot_tpu_torch.research.qtopt.train_qtopt import train_qtopt
+  Losses, _ = _hooks()
+
+  scenes = g2v.GraspSceneGenerator(image_size=64, num_object_types=6,
+                                   num_distractors=2, seed=3)
+  triplets = [scenes.sample() for _ in range(256)]
+  images = {k: np.stack([t[k] for t in triplets])
+            for k in ("pregrasp_image", "postgrasp_image", "goal_image")}
+  actions = np.random.default_rng(4).uniform(-1, 1, (256, 4)).astype(
+      np.float32)
+  t0 = time.perf_counter()
+  reward_fn = g2v.make_grasp2vec_reward_fn(g2v_model, g2v_state)
+  transitions = g2v.relabel_transitions(
+      reward_fn, images["pregrasp_image"], images["postgrasp_image"],
+      images["goal_image"], actions)
+  label_s = time.perf_counter() - t0
+  learner = bandit.bellman_learner(extra_state_features={
+      g2v.GOAL_EMBEDDING_FEATURE: (g2v_model.embedding_size,)})
+  spec = learner.transition_specification().to_flat_dict()
+  if set(transitions) != set(spec):
+    raise AssertionError(f"relabel keys {sorted(transitions)} != the "
+                         f"learner's transition spec {sorted(spec)}")
+  replay = ReplayBuffer(learner.transition_specification(), capacity=256,
+                        seed=0)
+  replay.add(transitions)
+  log = Losses()
+  with tempfile.TemporaryDirectory() as model_dir:
+    t0 = time.perf_counter()
+    with traced_launches("goal-conditioned Bellman training") as traced:
+      state = train_qtopt(learner, model_dir, replay_buffer=replay,
+                          max_train_steps=_GOAL_QT_STEPS, batch_size=256,
+                          save_checkpoints_steps=_GOAL_QT_STEPS,
+                          log_every_steps=10, hooks=[log])
+    wall_s = time.perf_counter() - t0
+  launches, warm = traced["cem_select"], _warm("cem_select")
+  losses = [log.by_step[s].item() for s in sorted(log.by_step)]
+  first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+  _log(f"goal-conditioned QT-Opt (grasp2vec labels, B=256, "
+       f"{_GOAL_QT_STEPS} graphed steps): labelled 256 triplets in "
+       f"{label_s:.2f} s, reward mean {float(transitions['reward'].mean())}; "
+       f"wall {wall_s:.2f} s (traced); loss first10 {first} last10 {last}; "
+       f"cem_select launches {launches} (warm-up {warm}; CUPTI = counter)")
+  if (state.step != _GOAL_QT_STEPS or warm != 2
+      or launches != 2 * _GOAL_QT_STEPS + warm):
+    raise AssertionError(f"goal QT-Opt: step {state.step}, cem_select "
+                         f"launches {launches} (warm-up {warm})")
+  if not all(np.isfinite(losses)) or not last < first:
+    raise AssertionError(f"goal QT-Opt: losses {losses}")
   return launches
 
 
@@ -4243,6 +4554,10 @@ def main():
        f"gin vrgripper {time.perf_counter() - t_gin:.2f}; flash launches "
        f"on the gin's traced window {json.dumps(gin_vrgripper_launches)}")
   _timed(phase_capture_under_collection)
+  _timed(phase_jpeg_digests)
+  g2v_model, g2v_state = _timed(phase_gin_grasp2vec)
+  goal_launches = _timed(phase_goal_qtopt, g2v_model, g2v_state)
+  del g2v_model, g2v_state
   _log(f"cem_select launches per path (each traced in its own run): CEM "
        f"serving {launches}, Bellman training {qt_launches}, online window "
        f"{sum(online_per_path.values())} ({json.dumps(online_per_path)}), "
@@ -4250,7 +4565,8 @@ def main():
        f"{plane_launches['serving front window']}, speculative window "
        f"{plane_launches['speculative window']}, qtopt_int8.gin + fused "
        f"{gin_fused_launches}, serving_multitenant.gin window "
-       f"{gin_serving_launches}")
+       f"{gin_serving_launches}, goal-conditioned Bellman training "
+       f"(grasp2vec labels) {goal_launches}")
   main_row = rows[8]  # the serving path's largest bucket
   head_row = head_rows[256]  # the Bellman target's shape
   flash_row = flash_rows[1]  # the context policy serves one robot

@@ -40,9 +40,11 @@ DEFAULT_MODULES = (
     "tensor2robot_tpu_torch.models",
     "tensor2robot_tpu_torch.data",
     "tensor2robot_tpu_torch.hooks",
+    "tensor2robot_tpu_torch.predictors",
     "tensor2robot_tpu_torch.replay",
     "tensor2robot_tpu_torch.serving",
     "tensor2robot_tpu_torch.startup.compile_cache",
+    "tensor2robot_tpu_torch.research.grasp2vec",
     "tensor2robot_tpu_torch.research.pose_env",
     "tensor2robot_tpu_torch.research.qtopt",
     "tensor2robot_tpu_torch.research.vrgripper",

@@ -1,5 +1,6 @@
 """PNG decode and encode without TensorFlow or PIL: the part of
-`tf.io.decode_image` / `tf.io.encode_png` the data plane uses.
+`tf.io.decode_image` / `tf.io.encode_png` the data plane uses, and the
+image dispatch: `decode_many` hands JPEG frames to `data/jpeg.py`.
 
 Decoding concatenates a file's IDAT chunks, inflates them with `zlib`
 and unfilters the scanlines with the native codec (`utils/native.py`),
@@ -17,8 +18,7 @@ added opaque when c has one. Colour to grey (libpng's weighted sum) is
 not ported and raises.
 
 Encoding writes filter 1 (Sub) rows, deflated by `zlib`, chunk CRCs by
-`zlib.crc32`. JPEG raises NotImplementedError in both
-directions (ROADMAP A9 rest).
+`zlib.crc32`.
 """
 
 from __future__ import annotations
@@ -29,22 +29,16 @@ from typing import List, Sequence
 
 import numpy as np
 
+from tensor2robot_tpu_torch.data import jpeg
 from tensor2robot_tpu_torch.utils import native
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_JPEG_MAGIC = b"\xff\xd8\xff"
 _FILE_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _COLOUR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
-_JPEG_TODO = ("JPEG is not ported: the data plane reads PNG, raw and "
-              "numeric features (ROADMAP A9 rest: JPEG)")
 
 
 class PNGError(ValueError):
   """Bytes that are not a PNG this decoder reads."""
-
-
-def is_jpeg(data: bytes) -> bool:
-  return bytes(data[:3]) == _JPEG_MAGIC
 
 
 class _Header:
@@ -67,10 +61,9 @@ class _Header:
 
 
 def _read_chunks(data: bytes) -> _Header:
-  if is_jpeg(data):
-    raise NotImplementedError(_JPEG_TODO)
   if data[:8] != SIGNATURE:
-    raise PNGError("not a PNG (bad signature); decodable formats: PNG")
+    raise PNGError("not a PNG (bad signature); decodable formats: PNG, "
+                   "JPEG")
   head = _Header()
   head.palette = head.alpha = None
   idat: List[bytes] = []
@@ -154,9 +147,27 @@ def _convert(image: np.ndarray, channels: int) -> np.ndarray:
 
 def decode_many(datas: Sequence[bytes], channels: int = 0,
                 unfilter=None) -> List[np.ndarray]:
-  """Decodes PNG byte strings to uint8 [h, w, c] arrays, with one
-  native unfilter call for all of them. `unfilter` replaces the native
-  call (tests pass `native.png_unfilter_plain`)."""
+  """Decodes PNG and JPEG byte strings to uint8 [h, w, c] arrays: the
+  PNGs with one native unfilter call for all of them, the JPEGs with
+  one `jpeg.decode_many` call. `unfilter` replaces the native unfilter
+  (tests pass `native.png_unfilter_plain`)."""
+  datas = [bytes(d) for d in datas]
+  at_jpeg = [i for i, d in enumerate(datas) if jpeg.is_jpeg(d)]
+  if not at_jpeg:
+    return _decode_png_many(datas, channels, unfilter)
+  out: List[np.ndarray] = [None] * len(datas)  # type: ignore[list-item]
+  for i, image in zip(at_jpeg, jpeg.decode_many(
+      [datas[i] for i in at_jpeg], channels)):
+    out[i] = image
+  at_png = [i for i in range(len(datas)) if out[i] is None]
+  for i, image in zip(at_png, _decode_png_many(
+      [datas[i] for i in at_png], channels, unfilter)):
+    out[i] = image
+  return out
+
+
+def _decode_png_many(datas: Sequence[bytes], channels: int,
+                     unfilter) -> List[np.ndarray]:
   heads: List[_Header] = []
   raws: List[bytes] = []
   table = np.zeros((len(datas), 5), np.int64)
@@ -189,7 +200,7 @@ def decode_many(datas: Sequence[bytes], channels: int = 0,
 
 
 def decode(data: bytes, channels: int = 0) -> np.ndarray:
-  """One PNG → a uint8 [h, w, c] array (see `decode_many`)."""
+  """One PNG or JPEG → a uint8 [h, w, c] array (see `decode_many`)."""
   return decode_many([data], channels)[0]
 
 
@@ -223,4 +234,5 @@ def encode(image: np.ndarray) -> bytes:
 
 
 def encode_jpeg(image: np.ndarray) -> bytes:
-  raise NotImplementedError(_JPEG_TODO)
+  """`tf.io.encode_jpeg(image)` with its defaults (`jpeg.encode`)."""
+  return jpeg.encode(image)

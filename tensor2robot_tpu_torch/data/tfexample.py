@@ -32,7 +32,7 @@ float32 and ints from int64 to the spec's dtype as `tf.cast` casts them
 bfloat16), and, for sequences, the true lengths under
 `SEQUENCE_LENGTH_KEY`: `[B]`, the max over sequence keys of min(length,
 T); int32, or int64 from the eager parser, as in JAX. A record that does not fit its specs raises ValueError
-naming the key. JPEG raises NotImplementedError (ROADMAP A9 rest).
+naming the key. Images are PNG or JPEG (`png.decode_many` dispatches).
 """
 
 from __future__ import annotations

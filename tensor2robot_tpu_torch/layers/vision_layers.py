@@ -1,9 +1,10 @@
 """Vision building blocks (port of `layers/vision_layers.py`).
 
-Conv towers, spatial-softmax keypoint pooling and the image encoder,
-in the JAX package's NHWC layout at every public function, so
+Conv towers, spatial-softmax keypoint pooling, FiLM and the image
+encoder, in the JAX package's NHWC layout at every public function, so
 converted flax weights give the same numbers. Parameter names are the
-flax names (``tower.conv_0``, ``ssoftmax.log_temperature``, ``proj``).
+flax names (``tower.conv_0``, ``ssoftmax.log_temperature``, ``proj``,
+``film.film_proj``).
 
 Shared here by every family that convolves: XLA's SAME padding
 (`conv_same`), flax batch norm in eval and train mode (`BatchNorm`,
@@ -186,11 +187,37 @@ class SpatialSoftmax(nn.Module):
     return spatial_softmax(features, torch.exp(self.log_temperature))
 
 
+class FiLM(nn.Module):
+  """Feature-wise linear modulation: x · (1 + γ) + β, with (γ, β) the
+  two halves of ``film_proj`` (a dense layer, 2C wide) of the
+  conditioning vector, broadcast over every axis between the batch and
+  the channels; all in the compute dtype. The (1 + γ) form is the
+  identity at γ = 0. Torch needs the conditioning width up front."""
+
+  def __init__(self, conditioning_size: int, channels: int,
+               dtype: torch.dtype = torch.float32):
+    super().__init__()
+    self.dtype = dtype
+    self.film_proj = nn.Linear(conditioning_size, 2 * channels)
+
+  def forward(self, x: torch.Tensor,
+              conditioning: torch.Tensor) -> torch.Tensor:
+    gb = dense(self.film_proj, conditioning.to(self.dtype), self.dtype)
+    gamma, beta = gb.chunk(2, dim=-1)
+    shape = (gamma.shape[0],) + (1,) * (x.dim() - 2) + (gamma.shape[-1],)
+    gamma, beta = gamma.reshape(shape), beta.reshape(shape)
+    return x * (1.0 + gamma) + beta
+
+
 class ImageEncoder(nn.Module):
-  """ConvTower → {spatial_softmax | mean | flatten} → dense embedding.
+  """ConvTower → [FiLM] → {spatial_softmax | mean | flatten} → dense
+  embedding.
 
   Returns f32, as the flax module does. `flatten` needs the image size
-  to size the projection (`image_size`).
+  to size the projection (`image_size`); `film=True` needs the
+  conditioning width (`conditioning_size`), and modulates the tower's
+  output when `forward` is given a conditioning (as flax, which leaves
+  FiLM out without one).
   """
 
   def __init__(self, in_channels: int = 3,
@@ -200,16 +227,18 @@ class ImageEncoder(nn.Module):
                use_batch_norm: bool = True,
                film: bool = False,
                image_size: Optional[int] = None,
+               conditioning_size: int = 0,
                dtype: torch.dtype = torch.float32):
     super().__init__()
-    if film:
-      raise NotImplementedError(
-          "ImageEncoder(film=True) is not ported yet (ROADMAP A10).")
+    if film and conditioning_size <= 0:
+      raise ValueError("ImageEncoder(film=True) needs conditioning_size")
     self.pooling = pooling
     self.dtype = dtype
     self.tower = ConvTower(in_channels, filters=filters,
                            use_batch_norm=use_batch_norm, dtype=dtype)
     channels = self.tower.filters[-1]
+    if film:
+      self.film = FiLM(conditioning_size, channels, dtype)
     if pooling == "spatial_softmax":
       self.ssoftmax = SpatialSoftmax()
       width = 2 * channels
@@ -226,8 +255,11 @@ class ImageEncoder(nn.Module):
       raise ValueError(f"Unknown pooling: {pooling}")
     self.proj = nn.Linear(width, embedding_size)
 
-  def forward(self, images: torch.Tensor) -> torch.Tensor:
+  def forward(self, images: torch.Tensor,
+              conditioning: Optional[torch.Tensor] = None) -> torch.Tensor:
     x = self.tower(images)
+    if hasattr(self, "film") and conditioning is not None:
+      x = self.film(x, conditioning)
     if self.pooling == "spatial_softmax":
       x = self.ssoftmax(x)
     elif self.pooling == "mean":

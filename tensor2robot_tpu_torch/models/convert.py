@@ -4,12 +4,15 @@
 ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
 arrays (``jax.device_get`` of a flax variables tree) — and returns a
 `TrainState` whose keys are the port network's parameter/buffer names.
-Port modules mirror the flax module paths (``trunk.block0.attn.qkv``),
-so the mapping is mechanical:
+Port modules mirror the flax module paths (``trunk.block0.attn.qkv``,
+``scene_tower.trunk.stage0_block0.film.film_proj``), so the mapping is
+mechanical, for every family (Q-networks, the transformer, pose_env,
+grasp2vec's `ResNet` towers with their FiLM layers):
 
   * conv kernel HWIO → torch OIHW ``<name>.weight``;
   * Dense kernel ``[in, out]`` → Linear ``[out, in]`` ``<name>.weight``;
-  * biases map one to one (a conv has one only without batch norm);
+  * biases map one to one (a conv has one only without batch norm, as
+    grasp2vec's 1×1 ``embed``);
   * ``scale`` of a module with batch statistics (BatchNorm) stays
     ``scale``, its ``mean``/``var`` stats map one to one (eps 1e-5 in
     both networks); ``scale`` of any other module (LayerNorm) becomes

@@ -15,6 +15,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from tensor2robot_tpu_torch.device import resolve_device
 from tensor2robot_tpu_torch.ops.cem_select import select_elites
 
 
@@ -49,7 +50,9 @@ def cem_maximize(
   `noise` `[iterations, B, P, A]`. `select_fn(samples, min_std)` is the
   fused replacement of the score → top-k → elite-stats tail
   (`ops.fused_cem_select` through the learner). `device` defaults to
-  the noise's or generator's device.
+  the noise's or generator's device; with neither, to the CUDA card
+  (`resolve_device(None)`, which raises without one): the CPU only when
+  asked for.
   """
   if score_fn is None and select_fn is None:
     raise ValueError("one of score_fn / select_fn is required")
@@ -59,7 +62,8 @@ def cem_maximize(
       raise ValueError(f"noise {tuple(noise.shape)} != {expect}")
     device = noise.device
   elif device is None:
-    device = generator.device if generator is not None else "cpu"
+    device = (generator.device if generator is not None
+              else resolve_device(None))
   f32 = dict(dtype=torch.float32, device=device)
   mean = (torch.full((batch_size, action_dim), (low + high) / 2.0, **f32)
           if init_mean is None else init_mean)

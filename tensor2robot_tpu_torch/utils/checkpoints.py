@@ -8,9 +8,9 @@ the leaf's place in the state (dataclass fields, named-tuple fields,
 dict keys and tuple positions joined by "/"); `restore_state` rebuilds
 the structure of a `like` state with the stored leaves, on each `like`
 leaf's device and dtype, and loads with `weights_only=True`. Saves are
-synchronous. The JAX package's separate inference-variables payload
-has no reader in the port yet (predictors, ROADMAP A12), so it is not
-written.
+synchronous. The JAX package writes a separate inference-variables
+payload; the port's predictors read params and batch statistics out of
+the one state file (`restore_variables`), so it is not written.
 """
 
 from __future__ import annotations
@@ -137,15 +137,29 @@ class CheckpointWriter:
       shutil.rmtree(os.path.join(self._root, str(step)), ignore_errors=True)
 
 
-def restore_state(model_dir: str, like: Any,
-                  step: Optional[int] = None) -> Any:
-  """The state saved at `step` (default: the latest), in `like`'s
-  structure, each tensor on its `like` leaf's device and dtype."""
+def _load_leaves(model_dir: str, step: Optional[int]) -> Dict[str, Any]:
   if step is None:
     step = latest_step(model_dir)
     if step is None:
       raise FileNotFoundError(
           f"No checkpoints found under {_ckpt_root(model_dir)}")
   path = os.path.join(_ckpt_root(model_dir), str(int(step)), "state.pt")
-  leaves = torch.load(path, map_location="cpu", weights_only=True)["leaves"]
-  return _rebuild(like, leaves)
+  return torch.load(path, map_location="cpu", weights_only=True)["leaves"]
+
+
+def restore_state(model_dir: str, like: Any,
+                  step: Optional[int] = None) -> Any:
+  """The state saved at `step` (default: the latest), in `like`'s
+  structure, each tensor on its `like` leaf's device and dtype."""
+  return _rebuild(like, _load_leaves(model_dir, step))
+
+
+def restore_variables(model_dir: str, like: Dict[str, Any],
+                      step: Optional[int] = None) -> Dict[str, Any]:
+  """The inference variables saved at `step` (default: the latest):
+  ``{"params": ..., "batch_stats": ...}`` in `like`'s structure, each
+  tensor on its `like` leaf's device and dtype. The optimizer state in
+  the same file is not read."""
+  return _rebuild({"params": like["params"],
+                   "batch_stats": like.get("batch_stats", {})},
+                  _load_leaves(model_dir, step))

@@ -1,6 +1,7 @@
 """Host row gather and scatter (port of `utils/native.py`), through the
 port's own copy of the C++ source, `native/gather.cc`; and the data
-plane's host codec, `native/codec.cc`: CRC-32C and PNG row unfiltering.
+plane's host codec, `native/codec.cc`: CRC-32C, PNG row unfiltering and
+the baseline JPEG codec.
 
 `gather_rows` and `scatter_rows` compute `src[idx]` and `dst[idx] = src`
 along axis 0, with the rows' memcpys striped across threads that run
@@ -247,6 +248,18 @@ def load_codec() -> ctypes.CDLL:
     lib.t2r_crc32c_hw.argtypes = []
     lib.t2r_png_unfilter.restype = ctypes.c_int64
     lib.t2r_png_unfilter.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64]
+    lib.t2r_jpeg_info.restype = ctypes.c_int32
+    lib.t2r_jpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                  ctypes.c_void_p, ctypes.c_char_p,
+                                  ctypes.c_int64]
+    lib.t2r_jpeg_decode_many.restype = ctypes.c_int64
+    lib.t2r_jpeg_decode_many.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_void_p,
+                                 ctypes.c_char_p, ctypes.c_int64])
+    lib.t2r_jpeg_encode.restype = ctypes.c_int64
+    lib.t2r_jpeg_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64]
     _CODEC_LIB = lib
     return _CODEC_LIB
 

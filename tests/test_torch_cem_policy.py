@@ -81,6 +81,21 @@ class TestCEMMaximize:
       np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6,
                                  rtol=1e-6, err_msg=name)
 
+  def test_default_device_is_the_card(self):
+    """ROADMAP fault C5: with neither noise, generator nor device,
+    `cem_maximize` resolves the card (`resolve_device(None)`) and raises
+    the resolver's RuntimeError without one; it never picks the CPU
+    unasked. `device="cpu"` runs there."""
+    assert not torch.cuda.is_available()
+    score = lambda x: x.sum(-1)  # noqa: E731
+    with pytest.raises(RuntimeError, match="is_available"):
+      cem.cem_maximize(score, 2, 2, iterations=1, population=4,
+                       num_elites=2)
+    got = cem.cem_maximize(score, 2, 2, iterations=1, population=4,
+                           num_elites=2, device="cpu")
+    assert got.best_action.device.type == "cpu"
+    assert got.best_action.shape == (2, 2)
+
   def test_noise_shape_is_checked(self):
     with pytest.raises(ValueError, match="noise"):
       cem.cem_maximize(lambda x: x.sum(-1), 2, 2, iterations=2,

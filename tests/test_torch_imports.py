@@ -63,7 +63,11 @@ _EXPECTED = (
     "specs.serialization", "data.tfrecord_io", "data.example_proto",
     "data.png", "data.tfexample", "data.tfrecord_input_generator",
     "data.shm_ring", "data.plane", "preprocessors.abstract_preprocessor",
-    "preprocessors.noop_preprocessor",
+    "preprocessors.noop_preprocessor", "data.jpeg", "layers.resnet",
+    "research.grasp2vec.grasp2vec_model", "research.grasp2vec.losses",
+    "research.grasp2vec.visualization", "research.grasp2vec.grasp_env",
+    "research.grasp2vec.goal_reward", "predictors.abstract_predictor",
+    "predictors.checkpoint_predictor",
 )
 
 

@@ -365,13 +365,21 @@ def test_encoders_refuse_missing_keys_and_ragged_episodes():
 
 
 def test_jpeg_raises_naming_the_roadmap_item():
+  """JPEG is ported (ROADMAP A9): a JPEG spec encodes as
+  `tf.io.encode_jpeg` does and parses to `tf.io.decode_image`'s pixels;
+  only the kinds the codec refuses (here progressive) still raise
+  NotImplementedError, naming what they are."""
   struct = {"image": Spec((4, 4, 3), np.uint8, data_format="jpeg")}
-  with pytest.raises(NotImplementedError, match="A9"):
-    tfexample.encode_example({"image": np.zeros((4, 4, 3), np.uint8)},
-                             struct)
-  jpeg = tf.io.encode_jpeg(np.zeros((4, 4, 3), np.uint8)).numpy()
-  serialized = [tfexample.encode_example({"image": jpeg}, struct)]
-  with pytest.raises(NotImplementedError, match="A9"):
+  image = np.random.default_rng(3).integers(0, 256, (4, 4, 3), np.uint8)
+  serialized = [tfexample.encode_example({"image": image}, struct)]
+  want = tf.io.encode_jpeg(image).numpy()
+  assert tf.train.Example.FromString(serialized[0]).features.feature[
+      "image"].bytes_list.value[0] == want
+  got = tfexample.graph_parse_example(serialized, struct)["image"][0]
+  np.testing.assert_array_equal(got, tf.io.decode_image(want).numpy())
+  progressive = tf.io.encode_jpeg(image, progressive=True).numpy()
+  serialized = [tfexample.encode_example({"image": progressive}, struct)]
+  with pytest.raises(NotImplementedError, match="progressive"):
     tfexample.graph_parse_example(serialized, struct)
 
 

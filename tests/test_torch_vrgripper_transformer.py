@@ -140,8 +140,24 @@ def test_image_encoder_matches_jax_f32(pooling, batch_norm):
 
 
 def test_image_encoder_film_raises_naming_the_roadmap_item():
-  with pytest.raises(NotImplementedError, match="A10"):
+  """FiLM is ported (ROADMAP A10): `ImageEncoder(film=True)` needs the
+  conditioning width up front (raises without it) and then matches the
+  flax encoder with a conditioning vector, in f32 at 1e-5."""
+  with pytest.raises(ValueError, match="conditioning_size"):
     ImageEncoder(3, film=True)
+  rng = np.random.default_rng(2)
+  images = rng.uniform(0, 1, (3, 12, 12, 3)).astype(np.float32)
+  cond = rng.normal(size=(3, 5)).astype(np.float32)
+  jax_enc = JaxImageEncoder(filters=(4, 8), embedding_size=16,
+                            pooling="mean", use_batch_norm=False, film=True)
+  variables = _variables(jax_enc, jnp.asarray(images), jnp.asarray(cond))
+  want = jax_enc.apply(variables, jnp.asarray(images), jnp.asarray(cond))
+  enc = _bind(ImageEncoder(3, filters=(4, 8), embedding_size=16,
+                           pooling="mean", use_batch_norm=False, film=True,
+                           conditioning_size=5), variables)
+  with torch.no_grad():
+    got = enc(torch.from_numpy(images), torch.from_numpy(cond))
+  np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=0)
 
 
 # ---- transformer trunk ----
