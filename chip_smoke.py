@@ -226,6 +226,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      extra_state_features={"goal_embedding": (128,)})` (CEM 2 × 64, 6
      elites, fused select): the loss falls, cem_select's launches equal
      CUPTI's, 2 a step + 2 in the warm-up step;
+ 41. the shipped `train_vrgripper_bc.gin` from PNG TFRecords through the
+     trainer binary (100 seeded demos; MDN BC at batch 64 of
+     transitions), bound: the model dir, the demos, and the cuts
+     max_train_steps 2000 → 1000 and the SuccessEvalHook's 500 episodes
+     → 100; exit 0, a record every 100 steps, the loss falling,
+     checkpoints at 500 and 1000, `evaluate_gripper_policy`'s
+     success_rate at each; then the train step's device ms graphed and
+     eager, and the f32 model card against CPU;
+ 42. `train_vrgripper_meta.gin` (SNAIL, 8 tasks of 4 demo + 4 query
+     steps) the same way (the loss held below the untrained model's),
+     then the same file with `@VRGripperMAMLModel()` bound, 20 graphed
+     second-order steps in this process; step times and card vs CPU of
+     both (MAML adapting on the demos);
+ 43. `train_vrgripper_wtl.gin` (the retrial policy on random batches
+     from its specs) the same way (the loss held below the untrained
+     model's), then step times and card vs CPU of both policy types on
+     scripted WTL batches; the family launches no hand-written kernel;
      then the cem_select launches per path (each traced in its own run),
      the wall seconds of each phase, the `kernels` JSON line
      (cem_select's count: the CEM serving path of phase 4), the card
@@ -4326,6 +4343,312 @@ def phase_goal_qtopt(g2v_model, g2v_state):
   return launches
 
 
+# The VRGripper BC / meta / WTL family (phases 41-43): the three shipped
+# gins as written, with these cuts for the time limit, each bound on top
+# of the file: max_train_steps 2000 -> 1000 in all three (checkpoints at
+# 500 and 1000), and the BC gin's SuccessEvalHook at 100 episodes a
+# checkpoint instead of 500 (same seed, image size and task offsets).
+_GIN_BC = "tensor2robot_tpu/research/vrgripper/configs/train_vrgripper_bc.gin"
+_GIN_META = ("tensor2robot_tpu/research/vrgripper/configs/"
+             "train_vrgripper_meta.gin")
+_GIN_WTL = ("tensor2robot_tpu/research/vrgripper/configs/"
+            "train_vrgripper_wtl.gin")
+_FAMILY_STEPS = 1000
+_BC_EVAL_EPISODES = 100
+_MAML_STEPS = 20
+
+
+def _family_checkpoints():
+  """The gins' save_checkpoints_steps (500) and the last step."""
+  return sorted(set(range(500, _FAMILY_STEPS + 1, 500)) | {_FAMILY_STEPS})
+
+
+def _gin_family_run(label, gin_file, bindings, model_dir,
+                    initial_loss=None):
+  """The shipped `gin_file` through the trainer binary in a new process
+  with `bindings` on top (the header's, and the cuts). Gates: exit 0, a
+  valid record every 100 steps to `_FAMILY_STEPS`, finite losses whose
+  last three fall below the first three (below `initial_loss`, the
+  untrained model's, where that is given), checkpoints every 500 steps
+  and at the last. Returns (records, trainer wall s)."""
+  import numpy as np
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+  args = ["--gin_configs", gin_file,
+          "--gin_bindings", f"train_eval_model.model_dir='{model_dir}'",
+          "--gin_bindings",
+          f"train_eval_model.max_train_steps={_FAMILY_STEPS}"]
+  for binding in bindings:
+    args += ["--gin_bindings", binding]
+  wall = _run_trainer(f"gin {label} ({_FAMILY_STEPS} steps)", args,
+                      model_dir)
+  raw = _checked_records(os.path.join(model_dir, "metrics_train.jsonl"))
+  steps = [r["step"] for r in raw]
+  losses = [r["payload"]["loss"] for r in raw]
+  rates = [r["payload"]["steps_per_sec"] for r in raw]
+  ckpts = ckpt_lib.list_steps(model_dir)
+  _log(f"gin {label}: trainer wall {wall:.2f} s; steps {steps}; loss "
+       f"{losses}; grad steps/s {rates} (median after the first interval "
+       f"{statistics.median(rates[1:])}); checkpoints {ckpts}")
+  if steps != list(range(100, _FAMILY_STEPS + 1, 100)):
+    raise AssertionError(f"gin {label}: record steps {steps}")
+  first = np.mean(losses[:3]) if initial_loss is None else initial_loss
+  if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < first:
+    raise AssertionError(f"gin {label}: losses {losses} (from {first})")
+  if ckpts != _family_checkpoints():
+    raise AssertionError(f"gin {label}: checkpoints {ckpts}")
+  return raw, wall
+
+
+def _on(device, flat):
+  import torch
+  return {k: torch.as_tensor(v).to(device) for k, v in flat.items()}
+
+
+def _family_step_ms(label, model, features, labels, shape, eager_iters=10):
+  """The bf16 train step's device ms at the gin's batch: graphed (10
+  steps in one graph, replayed) and eager (CUDA events around
+  `eager_iters` eager calls, the host's launch gaps included)."""
+  f, lab = _on("cuda", features), _on("cuda", labels)
+  state = model.create_train_state(seed=0)
+  graphed = _graph_ms(lambda: model.train_step(state, f, lab), iters=10)
+  eager = _median_ms(lambda: model.train_step(state, f, lab),
+                     iters=eager_iters, repeats=3)
+  _log(f"{label} train step ({shape}, bf16) device ms: graphed {graphed}, "
+       f"eager {eager}")
+  return graphed, eager
+
+
+def _family_card_vs_cpu(label, model32, features, labels):
+  """The f32 model's outputs on the card and on the CPU from the same
+  seeded weights and batch, each within 1e-5 of its largest |value|
+  (cuDNN and matmuls without TF32), and the loss of one train step
+  within 1e-4 relative."""
+  import torch
+  torch.backends.cudnn.allow_tf32 = False
+  out, loss = {}, {}
+  try:
+    for device in ("cuda", "cpu"):
+      state = model32.create_train_state(seed=0, device=device)
+      f, lab = _on(device, features), _on(device, labels)
+      predicted = model32.predict_step(state, f)
+      out[device] = {k: v.float().cpu() for k, v in predicted.items()}
+      loss[device] = model32.train_grads(state, f, lab)[2]["loss"].item()
+  finally:
+    torch.backends.cudnn.allow_tf32 = True
+  errs = {k: (out["cuda"][k] - v).abs().max().item()
+          / max(v.abs().max().item(), 1e-12) for k, v in out["cpu"].items()}
+  loss_err = abs(loss["cuda"] - loss["cpu"]) / max(abs(loss["cpu"]), 1e-12)
+  _log(f"card vs CPU f32 {label}: max error over each output's scale "
+       f"{json.dumps(errs)} (tol 1e-5); train loss {loss['cuda']} vs "
+       f"{loss['cpu']} (rel {loss_err}, tol 1e-4)")
+  if max(errs.values()) > 1e-5 or loss_err > 1e-4:
+    raise AssertionError(f"{label} differs card vs CPU: {errs}, {loss_err}")
+
+
+def _first_batch(gen, model):
+  from tensor2robot_tpu_torch.data import Mode
+  gen.set_specification_from_model(model, Mode.TRAIN)
+  stream = gen.create_dataset(Mode.TRAIN)
+  try:
+    features, labels = next(stream)
+  finally:
+    getattr(stream, "close", lambda: None)()
+  return features.to_flat_dict(), labels.to_flat_dict()
+
+
+def phase_gin_vrgripper_bc():
+  """The shipped `train_vrgripper_bc.gin` from PNG TFRecords:
+  `collect_demo_episodes` writes 100 seeded demos; the trainer binary
+  runs the gin in a new process (`VRGripperRegressionModel`, 48×48,
+  filters (32, 64), an MDN head of 5 components over 3 action dims,
+  bf16; `TransitionInputGenerator` at batch 64 over
+  `TFRecordEpisodeInputGenerator(sequence_length=12)`), bound: the
+  model dir, the demos, and the cuts (1000 steps; `SuccessEvalHook` at
+  100 episodes). Gates: those of `_gin_family_run`, and a success
+  record at each checkpoint whose `success_rate` is in [0, 1] (printed,
+  not gated: the hook evaluates under task offsets the demos lack).
+  Then the train step's device ms at batch 64 and the f32 model card
+  against CPU at B=8."""
+  import tempfile
+  import torch
+  from tensor2robot_tpu_torch.data import TFRecordEpisodeInputGenerator
+  from tensor2robot_tpu_torch.research import vrgripper as vr
+  with tempfile.TemporaryDirectory() as tmp:
+    demos = vr.collect_demo_episodes(os.path.join(tmp, "demos.tfrecord"))
+    model_dir = os.path.join(tmp, "run")
+    os.makedirs(model_dir)
+    _gin_family_run("train_vrgripper_bc", _GIN_BC, [
+        f"train/TFRecordEpisodeInputGenerator.file_patterns='{demos}'",
+        'SuccessEvalHook.eval_kwargs={"num_episodes": '
+        f'{_BC_EVAL_EPISODES}, "image_size": 48, "seed": 1009, '
+        '"task_offset_scale": 0.2}'], model_dir)
+    success = _checked_records(os.path.join(model_dir,
+                                            "metrics_success_eval.jsonl"))
+    rates = {r["step"]: r["payload"]["success_rate"] for r in success}
+    _log(f"gin train_vrgripper_bc SuccessEvalHook (evaluate_gripper_policy "
+         f"on the card, {_BC_EVAL_EPISODES} episodes, seed 1009, task "
+         f"offsets 0.2): success_rate by step {json.dumps(rates)}; "
+         f"{json.dumps([r['payload'] for r in success])}")
+    if sorted(rates) != _family_checkpoints() or not all(
+        0.0 <= v <= 1.0 for v in rates.values()) or any(
+            r["payload"]["num_episodes"] != _BC_EVAL_EPISODES
+            for r in success):
+      raise AssertionError(f"gin bc: success records {success}")
+
+    def transitions(batch_size):
+      return vr.TransitionInputGenerator(
+          TFRecordEpisodeInputGenerator(file_patterns=demos,
+                                        sequence_length=12),
+          batch_size=batch_size, seed=0)
+
+    model = vr.VRGripperRegressionModel(num_mixture_components=5)
+    _family_step_ms("train_vrgripper_bc", model,
+                    *_first_batch(transitions(64), model), "B=64")
+    model32 = vr.VRGripperRegressionModel(num_mixture_components=5,
+                                          device_dtype=torch.float32)
+    _family_card_vs_cpu("train_vrgripper_bc (B=8)", model32,
+                        *_first_batch(transitions(8), model32))
+
+
+def phase_gin_vrgripper_meta():
+  """The shipped `train_vrgripper_meta.gin` from PNG TFRecords
+  (`VRGripperSNAILModel`: 48×48, filters (16, 32), embedding 64, SNAIL
+  at 32 filters over 4 demo + 4 query steps, bf16;
+  `EpisodeMetaInputGenerator` at 8 tasks over
+  `TFRecordEpisodeInputGenerator(sequence_length=12)`), bound: the model
+  dir, the demos, the cut to 1000 steps; gates of `_gin_family_run`,
+  except that the loss is held below the untrained model's on a batch of
+  the gin's stream rather than below the first three records: one record
+  is one batch of 32 queries, and from step 100 on they scatter over
+  0.003–0.19 in a 1000-step run on an H100, around a mean that no
+  longer falls much.
+  Then the same file with `train_eval_model.model = @VRGripperMAMLModel()`
+  bound on top, in this process through the port's registry: 20 graphed
+  steps of second-order MAML (one inner step, lr 0.05), a record every 5
+  steps with finite pre-outer-step `loss` and `post_adaptation_loss`, a
+  checkpoint at 20. Then each model's train step device ms at 8 tasks and
+  its f32 outputs card against CPU (MAML adapting on the demos)."""
+  import tempfile
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch import config as gin
+  from tensor2robot_tpu_torch import train_eval
+  from tensor2robot_tpu_torch.bin import run_t2r_trainer
+  from tensor2robot_tpu_torch.data import TFRecordEpisodeInputGenerator
+  from tensor2robot_tpu_torch.meta_learning import (
+      EpisodeMetaInputGenerator,
+      MAMLModel,
+  )
+  from tensor2robot_tpu_torch.research import vrgripper as vr
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+  with tempfile.TemporaryDirectory() as tmp:
+    demos = vr.collect_demo_episodes(os.path.join(tmp, "demos.tfrecord"))
+    pattern = f"train/TFRecordEpisodeInputGenerator.file_patterns='{demos}'"
+
+    def meta_batches(model):
+      gen = EpisodeMetaInputGenerator(
+          TFRecordEpisodeInputGenerator(file_patterns=demos,
+                                        sequence_length=12), batch_size=8)
+      return _first_batch(gen, model)
+
+    snail = vr.VRGripperSNAILModel()
+    batch = meta_batches(snail)
+    initial = snail.eval_step(snail.create_train_state(seed=0),
+                              *(_on("cuda", b) for b in batch))
+    initial = initial["loss"].item()
+    _log(f"train_vrgripper_meta untrained SNAIL loss on a batch of the "
+         f"gin's stream: {initial}")
+    model_dir = os.path.join(tmp, "run")
+    os.makedirs(model_dir)
+    _gin_family_run("train_vrgripper_meta", _GIN_META, [pattern], model_dir,
+                    initial_loss=initial)
+
+    run_t2r_trainer.import_configurable_families()
+    maml_dir = os.path.join(tmp, "maml")
+    try:
+      gin.parse_config_files_and_bindings([_GIN_META], [
+          f"train_eval_model.model_dir = '{maml_dir}'",
+          pattern.replace("=", " = ", 1),
+          "train_eval_model.model = @VRGripperMAMLModel()",
+          f"train_eval_model.max_train_steps = {_MAML_STEPS}",
+          "train_eval_model.log_every_steps = 5"])
+      t0 = time.perf_counter()
+      state = train_eval.train_eval_model()
+      maml_wall = time.perf_counter() - t0
+    finally:
+      gin.clear_config()
+    raw = _checked_records(os.path.join(maml_dir, "metrics_train.jsonl"))
+    losses = [r["payload"]["loss"] for r in raw]
+    post = [r["payload"]["post_adaptation_loss"] for r in raw]
+    ckpts = ckpt_lib.list_steps(maml_dir)
+    _log(f"gin train_vrgripper_meta + @VRGripperMAMLModel() (second order, "
+         f"in-process, graphed): {state.step} steps in {maml_wall:.2f} s "
+         f"(capture included); steps {[r['step'] for r in raw]}; loss "
+         f"{losses}; post_adaptation_loss {post}; grad steps/s "
+         f"{[r['payload']['steps_per_sec'] for r in raw]}; checkpoints "
+         f"{ckpts}")
+    if (state.step != _MAML_STEPS or [r["step"] for r in raw]
+        != list(range(5, _MAML_STEPS + 1, 5)) or ckpts != [_MAML_STEPS]
+        or not all(np.isfinite(losses + post))):
+      raise AssertionError(f"gin meta MAML: step {state.step}, {raw}")
+
+    _family_step_ms("train_vrgripper_meta (SNAIL)", snail, *batch,
+                    "8 tasks of 4 + 4 steps")
+    _family_step_ms("train_vrgripper_meta + MAML (second order)",
+                    vr.VRGripperMAMLModel(), *batch,
+                    "8 tasks of 4 + 4 steps", eager_iters=3)
+    snail32 = vr.VRGripperSNAILModel()
+    snail32._base._device_dtype = torch.float32  # the trunk's dtype
+    _family_card_vs_cpu("train_vrgripper_meta SNAIL (8 tasks)", snail32,
+                        *batch)
+    maml32 = MAMLModel(vr.VRGripperRegressionModel(
+        filters=(16, 32), device_dtype=torch.float32), inner_lr=0.05)
+    features, labels = batch
+    features = dict(features, **{"condition_labels/action":
+                                 labels["condition/action"]})
+    _family_card_vs_cpu("MAML over the gin's base (8 tasks, adapted on "
+                        "the demos)", maml32, features, labels)
+
+
+def phase_gin_vrgripper_wtl():
+  """The shipped `train_vrgripper_wtl.gin` (`VRGripperWTLModel`, retrial
+  policy: demo + trial conditioned, 48×48, filters (16, 32), embedding
+  64, MDN of 5 components, bf16; `RandomInputGenerator` at 8 tasks from
+  the model's specs), bound: the model dir and the cut to 1000 steps;
+  gates of `_gin_family_run`, except that the loss is held below the
+  untrained model's on the gin's first batch (same seeds) rather than
+  below the first three records: its random targets carry nothing to
+  learn past their marginal, which the model fits before step 100 (the
+  records then scatter over 3.98–4.56 on an H100). Then
+  the train step's device ms at 8 tasks, and the f32 model card against
+  CPU on a `sample_wtl_meta_batch` of scripted demos, trials and
+  queries, both policy types."""
+  import tempfile
+  import torch
+  from tensor2robot_tpu_torch.data import Mode, RandomInputGenerator
+  from tensor2robot_tpu_torch.research import vrgripper as vr
+  model = vr.VRGripperWTLModel(num_mixture_components=5)
+  batch = _first_batch(RandomInputGenerator(batch_size=8), model)
+  state = model.create_train_state(seed=0)
+  initial = model.eval_step(state, *(_on("cuda", b) for b in batch))
+  initial = initial["loss"].item()
+  _log(f"train_vrgripper_wtl untrained loss on the gin's first batch: "
+       f"{initial}")
+  with tempfile.TemporaryDirectory() as tmp:
+    _gin_family_run("train_vrgripper_wtl", _GIN_WTL, [], tmp,
+                    initial_loss=initial)
+  _family_step_ms("train_vrgripper_wtl", model, *batch,
+                  "8 tasks of 4 + 4 + 4 steps")
+  features, labels = vr.sample_wtl_meta_batch(num_tasks=8, seed=0)
+  for policy in ("retrial", "trial"):
+    model32 = vr.VRGripperWTLModel(policy_type=policy,
+                                   num_mixture_components=5,
+                                   device_dtype=torch.float32)
+    keys = model32.get_feature_specification(Mode.TRAIN).to_flat_dict()
+    _family_card_vs_cpu(f"train_vrgripper_wtl {policy} (8 tasks)", model32,
+                        {k: v for k, v in features.items() if k in keys},
+                        labels)
+
 def log_wgmma_kernels(logs):
   """One line per instantiation of the two CEM kernels' wgmma paths:
   ptxas's registers and spill bytes, and the dynamic shared memory a
@@ -4558,6 +4881,12 @@ def main():
   g2v_model, g2v_state = _timed(phase_gin_grasp2vec)
   goal_launches = _timed(phase_goal_qtopt, g2v_model, g2v_state)
   del g2v_model, g2v_state
+  t_family = time.perf_counter()
+  _timed(phase_gin_vrgripper_bc)
+  _timed(phase_gin_vrgripper_meta)
+  _timed(phase_gin_vrgripper_wtl)
+  _log(f"phases 41-43 s (the VRGripper BC / meta / WTL gins): "
+       f"{time.perf_counter() - t_family:.2f}")
   _log(f"cem_select launches per path (each traced in its own run): CEM "
        f"serving {launches}, Bellman training {qt_launches}, online window "
        f"{sum(online_per_path.values())} ({json.dumps(online_per_path)}), "

@@ -40,6 +40,7 @@ DEFAULT_MODULES = (
     "tensor2robot_tpu_torch.models",
     "tensor2robot_tpu_torch.data",
     "tensor2robot_tpu_torch.hooks",
+    "tensor2robot_tpu_torch.meta_learning",
     "tensor2robot_tpu_torch.predictors",
     "tensor2robot_tpu_torch.replay",
     "tensor2robot_tpu_torch.serving",

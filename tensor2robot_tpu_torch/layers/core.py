@@ -44,18 +44,21 @@ def flatten_and_concat(features: Any,
 
 
 class MLP(nn.Module):
-  """Plain relu MLP; parameters named ``dense_{i}`` as in flax."""
+  """Plain relu MLP; parameters named ``dense_{i}`` as in flax. With
+  `activate_final` the last layer is followed by a relu too."""
 
   def __init__(self,
                in_features: int,
                hidden_sizes: Sequence[int],
                output_size: Optional[int] = None,
-               dtype: torch.dtype = torch.float32):
+               dtype: torch.dtype = torch.float32,
+               activate_final: bool = False):
     super().__init__()
     sizes = list(hidden_sizes)
     if output_size is not None:
       sizes.append(output_size)
     self.dtype = dtype
+    self.activate_final = activate_final
     self.num_layers = len(sizes)
     for i, (fan_in, fan_out) in enumerate(zip([in_features] + sizes[:-1],
                                               sizes)):
@@ -68,6 +71,6 @@ class MLP(nn.Module):
     x = flatten_and_concat(features).to(self.dtype)
     for i, layer in enumerate(self.layers()):
       x = dense(layer, x, self.dtype)
-      if i < self.num_layers - 1:
+      if i < self.num_layers - 1 or self.activate_final:
         x = torch.relu(x)
     return x.float()

@@ -109,13 +109,14 @@ class TrainState:
 
 def init_parameters(network: nn.Module, generator: torch.Generator) -> None:
   """flax's default init, drawn from `generator`: lecun-normal
-  (truncated normal, fan-in) conv and dense kernels, zero biases.
+  (truncated normal, fan-in) conv (1D and 2D) and dense kernels, zero
+  biases.
   A module with raw params of its own (learned positions) draws them
   in its `init_raw_parameters(generator)`."""
   for module in network.modules():
     if hasattr(module, "init_raw_parameters"):
       module.init_raw_parameters(generator)
-    if isinstance(module, (nn.Conv2d, nn.Linear)):
+    if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.Linear)):
       fan_in = module.weight[0].numel()
       # 0.8796 = std of a unit normal truncated to [-2, 2].
       std = math.sqrt(1.0 / fan_in) / 0.87962566103423978

@@ -7,9 +7,13 @@ arrays (``jax.device_get`` of a flax variables tree) — and returns a
 Port modules mirror the flax module paths (``trunk.block0.attn.qkv``,
 ``scene_tower.trunk.stage0_block0.film.film_proj``), so the mapping is
 mechanical, for every family (Q-networks, the transformer, pose_env,
-grasp2vec's `ResNet` towers with their FiLM layers):
+grasp2vec's `ResNet` towers with their FiLM layers, the MDN head's
+``mdn_proj``, SNAIL's ``query``/``key``/``value`` and causal convs, and
+MAML's base network under ``base_net`` beside its scalar
+``inner_lr_log``):
 
-  * conv kernel HWIO → torch OIHW ``<name>.weight``;
+  * conv kernel HWIO → torch OIHW ``<name>.weight``; a 1D conv's
+    (SNAIL's causal convs) ``[k, in, out]`` → ``[out, in, k]``;
   * Dense kernel ``[in, out]`` → Linear ``[out, in]`` ``<name>.weight``;
   * biases map one to one (a conv has one only without batch norm, as
     grasp2vec's 1×1 ``embed``);
@@ -17,8 +21,8 @@ grasp2vec's `ResNet` towers with their FiLM layers):
     ``scale``, its ``mean``/``var`` stats map one to one (eps 1e-5 in
     both networks); ``scale`` of any other module (LayerNorm) becomes
     torch's ``weight``;
-  * raw params (``trunk.positions``, ``...ssoftmax.log_temperature``)
-    are carried as they are.
+  * raw params (``trunk.positions``, ``...ssoftmax.log_temperature``,
+    ``inner_lr_log``) are carried as they are.
 
 A name the port network does not have fails when the state is bound
 (`AbstractT2RModel.bind` loads strictly).
@@ -68,6 +72,8 @@ def convert_params(params: Mapping[str, Any],
       if name == "kernel":
         if t.ndim == 4:      # HWIO → OIHW
           t = t.permute(3, 2, 0, 1)
+        elif t.ndim == 3:    # [k, in, out] → [out, in, k]
+          t = t.permute(2, 1, 0)
         elif t.ndim == 2:    # [in, out] → [out, in]
           t = t.t()
         else:

@@ -10,20 +10,19 @@ table and close. Observation: RGB render + gripper pose
 [x, y, closed]. Action: [dx, dy, close_cmd], all in [-1, 1]. The
 scripted expert walks toward the block and closes on arrival.
 
-Ported: the env, `collect_expert_episode`, the TFRecord demo writer
-`collect_demo_episodes` and the closed-loop `evaluate_gripper_policy`;
-the meta-batch samplers come with the meta models (ROADMAP A10).
+The env, `collect_expert_episode`, the TFRecord demo writer
+`collect_demo_episodes`, the Watch-Try-Learn meta-batch sampler
+`sample_wtl_meta_batch` and the closed-loop `evaluate_gripper_policy`.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from tensor2robot_tpu_torch import config as gin
-from tensor2robot_tpu_torch.specs import ExtendedTensorSpec, TensorSpecStruct
 from tensor2robot_tpu_torch.specs.packing import as_sequence_specs
 
 IMAGE_SIZE = 48
@@ -186,19 +185,17 @@ def collect_expert_episode(env: VRGripperEnv,
 
 def _demo_specs(image_size: int, state_dim: int = 3, action_dim: int = 3):
   """The per-step feature and label specs of `VRGripperRegressionModel
-  (image_size=image_size)` (JAX `vrgripper_models.py:183-196`), which
-  the port does not have yet (ROADMAP A10): a PNG image and the gripper
-  pose as features, the action as the label."""
-  features = TensorSpecStruct()
-  features.image = ExtendedTensorSpec(
-      shape=(image_size, image_size, 3), dtype=np.uint8, name="image",
-      data_format="png")
-  features.gripper_pose = ExtendedTensorSpec(
-      shape=(state_dim,), dtype=np.float32, name="gripper_pose")
-  labels = TensorSpecStruct()
-  labels.action = ExtendedTensorSpec(shape=(action_dim,), dtype=np.float32,
-                                     name="action")
-  return features, labels
+  (image_size=image_size)`: a PNG image and the gripper pose as
+  features, the action as the label."""
+  from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
+  from tensor2robot_tpu_torch.research.vrgripper.vrgripper_models import (
+      VRGripperRegressionModel,
+  )
+  model = VRGripperRegressionModel(image_size=image_size,
+                                   state_dim=state_dim,
+                                   action_dim=action_dim)
+  return (model.get_feature_specification(Mode.TRAIN),
+          model.get_label_specification(Mode.TRAIN))
 
 
 @gin.configurable
@@ -233,6 +230,69 @@ def collect_demo_episodes(output_path: str,
   write_episode_tfrecord(output_path, episodes, as_sequence_specs(features),
                          as_sequence_specs(labels))
   return output_path
+
+
+def _sample_steps(episode: Dict[str, np.ndarray], n: int,
+                  rng: np.random.Generator) -> Dict[str, np.ndarray]:
+  """Samples n timesteps (with replacement when the episode is short)."""
+  t = len(episode["action"])
+  idx = np.sort(rng.choice(t, size=n, replace=t < n))
+  return {k: v[idx] for k, v in episode.items()}
+
+
+def sample_wtl_meta_batch(
+    num_tasks: int,
+    num_condition: int = 4,
+    num_trial: int = 4,
+    num_inference: int = 4,
+    image_size: int = IMAGE_SIZE,
+    seed: int = 0,
+    task_offset_scale: float = 0.15,
+    trial_noise: float = 0.4,
+) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+  """Builds one Watch-Try-Learn meta batch from scripted rollouts.
+
+  Per task (a random offset the policy can only learn from the demo):
+  a clean expert demo (condition), a noisy suboptimal rollout with its
+  rewards (trial), and held-out expert steps to imitate (inference).
+  Returns flat (features, labels) dicts matching VRGripperWTLModel's
+  retrial specs; trial keys are simply dropped for the trial policy.
+  """
+  rng = np.random.default_rng(seed)
+  env = VRGripperEnv(image_size=image_size, seed=seed)
+  f: Dict[str, List[np.ndarray]] = {}
+  l: Dict[str, List[np.ndarray]] = {}
+
+  def put(store, key, value):
+    store.setdefault(key, []).append(value)
+
+  for _ in range(num_tasks):
+    offset = rng.uniform(-task_offset_scale, task_offset_scale,
+                         2).astype(np.float32)
+    demo = _sample_steps(
+        collect_expert_episode(env, task_offset=offset, rng=rng),
+        num_condition, rng)
+    trial = _sample_steps(
+        collect_expert_episode(env, task_offset=offset,
+                               action_noise=trial_noise, rng=rng),
+        num_trial, rng)
+    query = _sample_steps(
+        collect_expert_episode(env, task_offset=offset, rng=rng),
+        num_inference, rng)
+    put(f, "condition/image", demo["image"])
+    put(f, "condition/gripper_pose", demo["gripper_pose"])
+    put(f, "trial/image", trial["image"])
+    put(f, "trial/gripper_pose", trial["gripper_pose"])
+    put(f, "trial/action", trial["action"])
+    put(f, "trial/reward", trial["reward"])
+    put(f, "inference/image", query["image"])
+    put(f, "inference/gripper_pose", query["gripper_pose"])
+    put(l, "condition/action", demo["action"])
+    put(l, "inference/action", query["action"])
+
+  features = {k: np.stack(v) for k, v in f.items()}
+  labels = {k: np.stack(v) for k, v in l.items()}
+  return features, labels
 
 
 @gin.configurable

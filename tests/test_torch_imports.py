@@ -67,7 +67,13 @@ _EXPECTED = (
     "research.grasp2vec.grasp2vec_model", "research.grasp2vec.losses",
     "research.grasp2vec.visualization", "research.grasp2vec.grasp_env",
     "research.grasp2vec.goal_reward", "predictors.abstract_predictor",
-    "predictors.checkpoint_predictor",
+    "predictors.checkpoint_predictor", "layers.mdn", "layers.snail",
+    "meta_learning.maml_model", "meta_learning.meta_data",
+    "meta_learning.meta_policies",
+    "research.vrgripper.episode_to_transitions",
+    "research.vrgripper.vrgripper_meta_models",
+    "research.vrgripper.vrgripper_wtl_models",
+    "research.pose_env.pose_env_maml_models",
 )
 
 
@@ -139,3 +145,25 @@ def test_trainer_binary_and_registry_load_nothing_forbidden():
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
   assert out.stdout.split() == ["BAD="], out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "tensor2robot_tpu_torch.meta_learning",
+    "tensor2robot_tpu_torch.research.vrgripper",
+    "tensor2robot_tpu_torch.layers.snail",
+    "tensor2robot_tpu_torch.layers.mdn",
+    "tensor2robot_tpu_torch.research.pose_env.pose_env_maml_models",
+])
+def test_meta_and_vrgripper_families_alone_load_nothing_forbidden(module):
+  """Each of the meta-learning / VRGripper family's packages, imported
+  first in a fresh process."""
+  probe = _FORBIDDEN + (
+      "import importlib, sys\n"
+      f"importlib.import_module({module!r})\n"
+      "print('BAD=' + ','.join(sorted(m for m in sys.modules "
+      "if forbidden(m))))\n")
+  out = subprocess.run([sys.executable, "-c", probe], cwd=_REPO,
+                       env=dict(os.environ, PYTHONPATH=_REPO),
+                       capture_output=True, text=True, timeout=120)
+  assert out.returncode == 0, out.stderr
+  assert out.stdout.split("BAD=", 1)[1].strip() == "", out.stdout
