@@ -135,7 +135,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      numpy on the protocol replay's dtypes, and one B=256 gather of the
      Bellman transition timed native against numpy;
  23. the protocol's seedcheck on the card: two synchronous collect →
-     flush → sample passes with the same digests;
+     flush → sample passes with the same digests, two procedural sweeps
+     and two Anakin runs (cuDNN deterministic) with the same digests;
  24. an actor batch's split (env, CEM dispatch of 32, commit);
  25. cem_select against its plain version on the int8 CEM tower's pooled
      features (`quantized_pool_population`, `GraspingQModel()` width,
@@ -243,6 +244,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      from its specs) the same way (the loss held below the untrained
      model's), then step times and card vs CPU of both policy types on
      scripted WTL batches; the family launches no hand-written kernel;
+ 44. the functional envs (envs/) on the card against the CPU: 1024 pose
+     and procgen envs at 64×64 (noisy and at noise 0) reset on the CPU
+     and copied over, their frames and one step's poses, frames, rewards
+     and dones bit for bit; the noisy table from the same normals; the
+     env steps/s of render + auto-reset step alone, graphed and eager;
+ 45. cem_select against its plain version at the Anakin path's shapes
+     (B = 1024 with A = 2 and C = 64; B = 256 with C = 32; C = 8 at B = 64
+     and 8), rerun for identical bits, the B = 1024 case timed;
+ 46. the shipped `qtopt_anakin.gin` as written through the trainer binary
+     (`--trainer=anakin`, 1000 steps, lax select), then in this process
+     with `QTOptLearner.cem_select = "fused"` (1000 steps, steps 401-412
+     traced: cem_select's launches = CUPTI's = 16 an iteration, and no
+     host-to-device copy above 1 KiB); every record's
+     `param_refresh_lag_steps` 0.0 and finite loss and rates;
+ 47. the shipped `qtopt_anakin_pod.gin` as written on this one card (the
+     pod program at D = 1), with `ScenarioSuccessEvalHook`'s line per
+     checkpoint;
+ 48. the success protocol's `envs` mode at full size (success per bucket
+     above the random baseline), `gripper --small`, and the new envs and
+     Anakin halves of phase 23's seedcheck;
      then the cem_select launches per path (each traced in its own run),
      the wall seconds of each phase, the `kernels` JSON line
      (cem_select's count: the CEM serving path of phase 4), the card
@@ -256,7 +277,8 @@ traced run, most of the BC and Bellman graph phases' time).
 Every run whose launches are checked (the main paths of phases 4, 5, 7,
 8, 10 and 11, the chunked forward of 13, each run of 14 and 15, the
 online window of 20, the int8 training runs of 27, the windows of 29,
-the gin-configured runs of 31, 33 and 36 and the Bellman run of 40) runs
+the gin-configured runs of 31, 33 and 36, the Bellman run of 40 and the
+Anakin window of 46) runs
 under the profiler's CUDA kernel tracing: each kernel wrapper's count,
 replays included, must equal the launches of that kernel's symbols that
 the card ran (`traced_launches`), and the `kernels` line reports the
@@ -315,13 +337,14 @@ _FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
 
 
 @contextlib.contextmanager
-def traced_launches(label):
+def traced_launches(label, trace_path=None):
   """Sets every launch count to 0, runs the block under the profiler's
   CUDA kernel tracing (CUPTI, which also traces each kernel that a graph
   replay launches), and fills the dict it yields with the launches the
   card ran per kernel, matched by symbol. Fails unless every wrapper's
   count equals its kernel's traced launches: a replay adds the counts
-  its capture recorded, so this holds that tally to what ran."""
+  its capture recorded, so this holds that tally to what ran. With
+  `trace_path` the trace is also written there (chrome format)."""
   import torch
   from tensor2robot_tpu_torch.ops import launch_counts
   patterns = {name: re.compile(r"(?<!\w)(?:%s)(?=[<(])" % "|".join(syms))
@@ -345,6 +368,8 @@ def traced_launches(label):
     yield traced
     torch.cuda.synchronize()
     time.sleep(_TRACE_MARGIN_S)
+  if trace_path is not None:
+    prof.export_chrome_trace(trace_path)
   counted = launch_counts()
   traced.update({name: 0 for name in patterns})
   device_events = {}
@@ -2794,7 +2819,9 @@ def phase_native_gather(replay):
 def phase_seedcheck():
   """The protocol's seedcheck on the card (fused select): two
   synchronous collect → flush → sample passes draw the same sample
-  schedule and the same action stream."""
+  schedule and the same action stream; two procedural sweeps give the
+  same scenario and action digests, and two `train_anakin` runs (cuDNN
+  deterministic) the same final params. Phase 48 reads the halves."""
   from tensor2robot_tpu_torch.bin import run_success_protocol as protocol
   out = protocol.run_seedcheck(device="cuda", cem_select="fused")
   if not out["reproducible"]:
@@ -4649,6 +4676,371 @@ def phase_gin_vrgripper_wtl():
                         {k: v for k, v in features.items() if k in keys},
                         labels)
 
+_ENVS_N = 1024
+_GIN_ANAKIN = "tensor2robot_tpu/research/qtopt/configs/qtopt_anakin.gin"
+_GIN_ANAKIN_POD = "tensor2robot_tpu/research/qtopt/configs/qtopt_anakin_pod.gin"
+_ANAKIN_STEPS = 1000
+# The fused run's traced window: the replays of steps 401-412 (three
+# iterations of K = 4), well after the capture.
+_ANAKIN_WINDOW = (400, 412)
+_HTOD_LIMIT = 1024  # bytes: no transition may cross from the host
+
+
+def phase_envs_card_vs_cpu():
+  """44. The envs on the card against the CPU on the same states: 1024
+  envs at 64×64 of the pose bandit and of the procgen scenarios (each
+  with its sensor noise and at noise 0, two-step episodes) reset on the
+  CPU and copied over; their frames, and after one step (half the
+  actions exact grasps, the procgen drift direction given) the next
+  poses, frames, rewards and dones must be equal bit for bit. The noisy
+  table from the same normals on both devices (the f64 multiply-add).
+  Then a reset on the card, and the env steps/s of render + auto-reset
+  step alone at 1024 envs, graphed and eager (CUDA events). Returns the
+  rates."""
+  import torch
+  from tensor2robot_tpu_torch import envs
+  from tensor2robot_tpu_torch.envs.pose import sensor_table
+  from tensor2robot_tpu_torch.utils import tree
+  to_card = lambda state: tree.map_structure(  # noqa: E731
+      lambda t: t.to("cuda"), state)
+  cases = (
+      ("pose", envs.PoseBanditEnv(max_episode_steps=2)),
+      ("pose noise 0", envs.PoseBanditEnv(noise=0.0, max_episode_steps=2)),
+      ("procgen", envs.ProcGenGraspEnv(max_episode_steps=2)),
+      ("procgen noise 0", envs.ProcGenGraspEnv(noise_range=(0.0, 0.0),
+                                               max_episode_steps=2)))
+  for name, env in cases:
+    g = torch.Generator().manual_seed(44)
+    cpu = env.reset(g, _ENVS_N)
+    actions = torch.rand((_ENVS_N, 2), generator=g) * 2 - 1
+    actions[::2] = cpu.pose[::2] / 0.4
+    angle = torch.rand((_ENVS_N,), generator=g) * 6.283185307179586
+    extra = ({} if name.startswith("pose") else
+             {"direction": torch.stack([torch.cos(angle), torch.sin(angle)],
+                                       dim=-1)})
+    card = to_card(cpu)
+    want = (env.observe(cpu)["image"],) + env.step(cpu, actions, **extra)
+    got = (env.observe(card)["image"],) + env.step(
+        card, actions.cuda(), **{k: v.cuda() for k, v in extra.items()})
+    torch.cuda.synchronize()
+    checks = {
+        "frames": torch.equal(want[0], got[0].cpu()),
+        "next_pose": torch.equal(want[1].pose, got[1].pose.cpu()),
+        "next_frames": torch.equal(want[2]["image"], got[2]["image"].cpu()),
+        "reward": torch.equal(want[3], got[3].cpu()),
+        "done": torch.equal(want[4], got[4].cpu()),
+    }
+    _log(f"envs card vs CPU, {name} ({_ENVS_N} envs, 64x64): "
+         f"{json.dumps(checks)}; reward mean {want[3].mean().item()}, done "
+         f"{want[4].float().mean().item()}")
+    if not all(checks.values()):
+      raise AssertionError(f"envs card vs CPU, {name}: {checks}")
+  g = torch.Generator().manual_seed(45)
+  normal = torch.randn((256, 64, 64, 3), generator=g)
+  sigma = torch.rand((256,), generator=g) * 0.05
+  if not torch.equal(sensor_table(normal, sigma),
+                     sensor_table(normal.cuda(), sigma.cuda()).cpu()):
+    raise AssertionError("sensor table: card and CPU differ")
+  rates = {}
+  for name, env in (("procgen", envs.ProcGenGraspEnv()),
+                    ("pose", envs.PoseBanditEnv())):
+    wrapped = envs.AutoResetEnv(env)
+    gen = torch.cuda.default_generators[0]
+    state = wrapped.reset(gen, _ENVS_N)
+    frames = env.observe(state)["image"]
+    if (frames.shape != (_ENVS_N, 64, 64, 3) or frames.dtype != torch.uint8
+        or not bool((frames == 40).any())):
+      raise AssertionError(f"{name}: card reset frames {frames.shape}")
+    actions = torch.zeros((_ENVS_N, 2), device="cuda")
+
+    def one_step(env=env, wrapped=wrapped, state=state, actions=actions):
+      env.observe(state)
+      wrapped.step(state, actions, gen)
+
+    graphed = _graph_ms(one_step)
+    eager = _median_ms(one_step, iters=20)
+    rates[name] = {"graphed_ms": graphed, "eager_ms": eager,
+                   "env_steps_per_sec": _ENVS_N / (graphed / 1e3),
+                   "eager_env_steps_per_sec": _ENVS_N / (eager / 1e3)}
+  _log(f"envs render + auto-reset step alone, {_ENVS_N} envs at 64x64: "
+       f"{json.dumps(rates)}")
+  return rates
+
+
+def phase_anakin_select_kernels():
+  """45. cem_select against its plain version at the Anakin path's
+  shapes: `qtopt_anakin.gin`'s acting CEM (B = 1024 envs, P = 64, C = 64,
+  dense 64-64-1, A = 2, 6 elites, bf16: wgmma), the envs protocol's (B =
+  256, C = 32, dense 32-32-1), and the seedcheck's (C = 8, dense 16, P =
+  8, 2 elites at B = 64 and 8: CUDA cores), each rerun for identical
+  bits; the B = 1024 case timed against the plain version (graph
+  replays) beside its bound. Returns (max error, the timing row)."""
+  import torch
+  from tensor2robot_tpu_torch.ops import cem_select as ops
+  bf16 = torch.bfloat16
+  cases = [
+      ("qtopt_anakin acting B=1024", _select_inputs(1024, 64, 64, (64, 64),
+                                                    2, bf16, seed=45), 6),
+      ("envs protocol B=256 C=32", _select_inputs(256, 64, 32, (32, 32), 2,
+                                                  bf16, seed=46), 6),
+      ("seedcheck B=64 C=8", _select_inputs(64, 8, 8, (16,), 2, bf16,
+                                            seed=47), 2),
+      ("seedcheck B=8 C=8", _select_inputs(8, 8, 8, (16,), 2, bf16,
+                                           seed=48), 2),
+  ]
+  errs = {}
+  for name, args, elites in cases:
+    errs[name] = check_select(name, *args, num_elites=elites, sigmoid=True,
+                              score_tol=1e-2)
+    _same_bits(f"cem_select {name}", lambda: ops.fused_cem_select(
+        *args, elites, sigmoid=True))
+    _log(f"cem_select {name}: path {_select_path(*args, elites)}, "
+         f"identical bits on a rerun")
+  pooled, samples, dense = cases[0][1]
+  bound_ms, bound_by = _bound(pooled, samples, dense)
+  row = {
+      "ms": _graph_ms(lambda: ops.fused_cem_select(pooled, samples, dense, 6,
+                                                   sigmoid=True)),
+      "plain_ms": _graph_ms(lambda: ops.cem_select_reference(
+          pooled, samples, dense, 6, sigmoid=True)),
+      "bound_ms": bound_ms, "bound_by": bound_by}
+  _log(f"cem_select at B=1024, P=64, C=64, A=2 (bf16): {json.dumps(row)}")
+  return max(errs.values()), row
+
+
+def _anakin_records(label, model_dir, pod):
+  """The run's train records, each a valid envelope: a record every 100
+  steps to `_ANAKIN_STEPS`, `param_refresh_lag_steps` 0.0, finite loss,
+  collect_reward_mean, env_steps_per_sec and grad_steps_per_sec (and the
+  pod records' devices 1, global_batch_size, bellman_batches_per_sec
+  where `pod`); checkpoints at 500 and 1000. Logs the rates."""
+  import math
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+  raw = _checked_records(os.path.join(model_dir, "metrics_train.jsonl"))
+  steps = [r["step"] for r in raw]
+  payloads = [r["payload"] for r in raw]
+  ckpts = ckpt_lib.list_steps(model_dir)
+  grad = [p["grad_steps_per_sec"] for p in payloads]
+  env = [p["env_steps_per_sec"] for p in payloads]
+  _log(f"{label}: steps {steps}; loss {[p['loss'] for p in payloads]}; "
+       f"collect_reward_mean {[p['collect_reward_mean'] for p in payloads]}; "
+       f"grad_steps_per_sec {grad} (median after the first "
+       f"{statistics.median(grad[1:])}); env_steps_per_sec {env} (median "
+       f"after the first {statistics.median(env[1:])}); replay_fill "
+       f"{payloads[-1]['replay_fill']}; checkpoints {ckpts}")
+  if steps != list(range(100, _ANAKIN_STEPS + 1, 100)):
+    raise AssertionError(f"{label}: record steps {steps}")
+  for p in payloads:
+    finite = all(math.isfinite(p[k]) for k in (
+        "loss", "collect_reward_mean", "env_steps_per_sec",
+        "grad_steps_per_sec"))
+    if p["param_refresh_lag_steps"] != 0.0 or not finite:
+      raise AssertionError(f"{label}: record {p}")
+    if pod and (p["devices"] != 1 or p["global_batch_size"] != 64
+                or p["bellman_batches_per_sec"] != p["grad_steps_per_sec"]):
+      raise AssertionError(f"{label}: pod record {p}")
+  if ckpts != [500, 1000]:
+    raise AssertionError(f"{label}: checkpoints {ckpts}")
+  return raw
+
+
+class _TracedWindow:
+  """A trainer hook that runs `traced_launches` over the replays between
+  two steps (`_ANAKIN_WINDOW`), writing the trace to `trace_path`."""
+
+  def __init__(self, label, trace_path):
+    self._label = label
+    self._trace_path = trace_path
+    self._cm = None
+    self.traced = None
+    self.seconds = None
+
+  def begin(self, model, model_dir):
+    pass
+
+  def after_step(self, step, metrics):
+    if step == _ANAKIN_WINDOW[0]:
+      self._cm = traced_launches(self._label, self._trace_path)
+      self.traced = self._cm.__enter__()
+      self._t0 = time.perf_counter()
+    elif step == _ANAKIN_WINDOW[1]:
+      self._cm.__exit__(None, None, None)
+      self.seconds = time.perf_counter() - self._t0
+
+  def after_checkpoint(self, step, state, model_dir):
+    pass
+
+  def end(self, step, state, model_dir):
+    pass
+
+
+def _trace_window(trace_path):
+  """What a chrome trace of graph replays shows: the bytes of each
+  host-to-device copy (fails where a copy's size is not recorded), the
+  copies by name, and the device timeline of the kernels (the marker
+  spins excluded): span from the first start to the last end, busy time,
+  count, and the five largest by total time."""
+  with open(trace_path) as f:
+    events = json.load(f)["traceEvents"]
+  htod, copies = [], {}
+  kernels = []
+  for e in events:
+    if e.get("cat") == "gpu_memcpy":
+      copies[e["name"]] = copies.get(e["name"], 0) + 1
+      if "HtoD" in e["name"]:
+        if "bytes" not in e.get("args", {}):
+          raise AssertionError(f"a copy without its size: {e}")
+        htod.append(int(e["args"]["bytes"]))
+    elif e.get("cat") == "kernel" and "spin_kernel" not in e.get("name", ""):
+      kernels.append(e)
+  by_name = {}
+  for e in kernels:
+    by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+  top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+  start = min(e["ts"] for e in kernels)
+  end = max(e["ts"] + e["dur"] for e in kernels)
+  return htod, copies, {
+      "span_ms": (end - start) / 1e3,
+      "busy_ms": sum(by_name.values()),
+      "kernels": len(kernels),
+      "top_ms": [(name[:60], round(ms, 3)) for name, ms in top]}
+
+
+def phase_gin_qtopt_anakin():
+  """46. The shipped `qtopt_anakin.gin` as written through
+  `python -m tensor2robot_tpu_torch.bin.run_t2r_trainer --trainer=anakin`
+  (only `train_anakin.model_dir` bound): 1000 steps of procgen
+  collection (1024 envs, rollout 4, ε 0.1) into a 16384-row ring on the
+  card, 4 Bellman steps of B = 256 an iteration, `GraspingQModel` at 64×64
+  with action 2, CEM 2 × 64, lax select. Then the same file in this
+  process through the port's registry with `QTOptLearner.cem_select =
+  "fused"` bound on top, 1000 steps, its replays of steps 401-412 traced:
+  cem_select's launches must equal CUPTI's and the wrapper's counter and
+  (rollout 4 × CEM 2 + K 4 × 2) per iteration, and no host-to-device copy
+  in the window may exceed 1 KiB (no transition crosses from the host).
+  Gates on both runs' records (`_anakin_records`). Returns the window's
+  cem_select launches."""
+  import tempfile
+  from tensor2robot_tpu_torch import config as gin
+  from tensor2robot_tpu_torch.bin import run_t2r_trainer
+  from tensor2robot_tpu_torch.envs import train_anakin
+  with tempfile.TemporaryDirectory() as model_dir:
+    wall = _run_trainer("gin qtopt_anakin (as shipped, lax select)", [
+        "--trainer=anakin", "--gin_configs", _GIN_ANAKIN,
+        "--gin_bindings", f"train_anakin.model_dir='{model_dir}'"],
+        model_dir)
+    _anakin_records(f"gin qtopt_anakin lax (wall {wall:.2f} s)", model_dir,
+                    pod=False)
+  run_t2r_trainer.import_configurable_families()
+  try:
+    with tempfile.TemporaryDirectory() as model_dir:
+      gin.parse_config_files_and_bindings([_GIN_ANAKIN], [
+          "QTOptLearner.cem_select = 'fused'",
+          f"train_anakin.model_dir = '{model_dir}'"])
+      per_iter = (gin.query_parameter("train_anakin.rollout_length")
+                  * gin.query_parameter("QTOptLearner.cem_iterations")
+                  + gin.query_parameter("train_anakin.train_batches_per_iter")
+                  * gin.query_parameter("QTOptLearner.cem_iterations"))
+      k = gin.query_parameter("train_anakin.train_batches_per_iter")
+      trace_path = os.path.join(model_dir, "window.json")
+      window = _TracedWindow("gin qtopt_anakin + fused select, steps "
+                             f"{_ANAKIN_WINDOW[0] + 1}-{_ANAKIN_WINDOW[1]}",
+                             trace_path)
+      t0 = time.perf_counter()
+      state = train_anakin(hooks=[window])
+      wall = time.perf_counter() - t0
+      _anakin_records(f"gin qtopt_anakin fused (in-process {wall:.2f} s, "
+                      "one interval traced)", model_dir, pod=False)
+      sizes, copies, timeline = _trace_window(trace_path)
+  finally:
+    gin.clear_config()
+  iters = (_ANAKIN_WINDOW[1] - _ANAKIN_WINDOW[0]) // k
+  want = iters * per_iter
+  traced = window.traced
+  _log(f"gin qtopt_anakin fused window: {iters} iterations in "
+       f"{window.seconds:.3f} s with the trace's lead; cem_select launches "
+       f"{traced['cem_select']} (want {want}: {per_iter} an iteration); "
+       f"copies {json.dumps(copies)}, host-to-device bytes {sizes}; device "
+       f"per iteration: span {timeline['span_ms'] / iters:.3f} ms, busy "
+       f"{timeline['busy_ms'] / iters:.3f} ms, "
+       f"{timeline['kernels'] / iters:.1f} kernels; top kernels over the "
+       f"window (ms) {timeline['top_ms']}; final step {state.step}")
+  if traced["cem_select"] != want or state.step != _ANAKIN_STEPS:
+    raise AssertionError(f"anakin fused: launches {traced}, step "
+                         f"{state.step}")
+  if any(n > _HTOD_LIMIT for n in sizes):
+    raise AssertionError(f"anakin fused: host-to-device copies {sizes}")
+  return traced["cem_select"]
+
+
+def phase_gin_qtopt_anakin_pod():
+  """47. The shipped `qtopt_anakin_pod.gin` as written through the
+  trainer binary on this one card (`num_devices = 0` resolves to 1: the
+  single program; batch 64, lax select): 1000 steps, the pod records
+  (`_anakin_records`), and `ScenarioSuccessEvalHook`'s 256-scenario
+  sweep at each checkpoint: a metrics line and one appended
+  success-protocol line per checkpoint, every sweep on the same
+  scenarios."""
+  import tempfile
+  with tempfile.TemporaryDirectory() as model_dir:
+    wall = _run_trainer("gin qtopt_anakin_pod (as shipped, one card)", [
+        "--trainer=anakin", "--gin_configs", _GIN_ANAKIN_POD,
+        "--gin_bindings", f"train_anakin.model_dir='{model_dir}'"],
+        model_dir)
+    _anakin_records(f"gin qtopt_anakin_pod (wall {wall:.2f} s)", model_dir,
+                    pod=True)
+    evals = _checked_records(os.path.join(model_dir,
+                                          "metrics_scenario_eval.jsonl"))
+    with open(os.path.join(model_dir, "success_protocol",
+                           "scenarios_by_checkpoint.jsonl")) as f:
+      sweeps = [json.loads(line) for line in f if line.strip()]
+  _log(f"gin qtopt_anakin_pod sweeps: "
+       f"{[dict(step=r['step'], **r['payload']) for r in evals]}; "
+       f"per bucket {[s['per_bucket'] for s in sweeps]}")
+  if ([r["step"] for r in evals] != [500, 1000]
+      or [s["step"] for s in sweeps] != [500, 1000]
+      or len({s["scenario_digest"] for s in sweeps}) != 1
+      or any(s["num_scenarios"] != 256 for s in sweeps)):
+    raise AssertionError(f"anakin pod sweeps: {evals} {sweeps}")
+
+
+def phase_success_protocol(seedcheck):
+  """48. The success protocol's new modes on the card: `envs` at its full
+  size (2000 Anakin steps of 256 procgen envs at 32×32, fused select,
+  then the 512-scenario sweep): success per bucket and the random
+  baseline on the same scenarios, the success gated above the baseline;
+  `gripper --small`; and the seedcheck of phase 23, whose envs and
+  Anakin halves must be there and reproducible (one card: count 2
+  skipped)."""
+  import tempfile
+  from tensor2robot_tpu_torch.bin import run_success_protocol as protocol
+  with tempfile.TemporaryDirectory() as out:
+    t0 = time.perf_counter()
+    envs_row = protocol.run_envs(out, device="cuda", cem_select="fused")
+    envs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gripper = protocol.run_gripper(out, device="cuda",
+                                   config=protocol.GRIPPER_SMALL)
+    gripper_s = time.perf_counter() - t0
+  _log(f"success protocol envs ({envs_s:.2f} s): "
+       f"{json.dumps({k: v for k, v in envs_row.items() if k != 'records'})}"
+       f"; per bucket {json.dumps(envs_row['records'])}")
+  _log(f"success protocol gripper --small ({gripper_s:.2f} s): "
+       f"{json.dumps(gripper)}")
+  if not envs_row["success_rate"] > envs_row["random_baseline_success_rate"]:
+    raise AssertionError(f"envs protocol: {envs_row}")
+  if set(gripper) != {"vrgripper_bc_success_eval.jsonl",
+                      "vrgripper_transformer_success_eval.jsonl"}:
+    raise AssertionError(f"gripper protocol: {gripper}")
+  halves = ("scenario_sweep_action_sha256", "scenario_sweep_scenario_sha256",
+            "pod_params_sha256_devices_1", "pod_params_sha256_devices_2")
+  run_a = seedcheck["run_a"]
+  _log(f"seedcheck halves: {json.dumps({k: run_a.get(k) for k in halves})}")
+  if not seedcheck["reproducible"] or not all(k in run_a for k in halves):
+    raise AssertionError(f"seedcheck: {seedcheck}")
+  return envs_row
+
+
 def log_wgmma_kernels(logs):
   """One line per instantiation of the two CEM kernels' wgmma paths:
   ptxas's registers and spill bytes, and the dynamic shared memory a
@@ -4857,7 +5249,7 @@ def main():
   lax_replay = _timed(phase_lax_offline)
   _timed(phase_native_gather, lax_replay)
   del lax_replay
-  _timed(phase_seedcheck)
+  seedcheck = _timed(phase_seedcheck)
   _timed(phase_actor_split)
   int8_err = _timed(phase_int8_kernels)
   _timed(phase_int8_card_vs_cpu)
@@ -4887,6 +5279,14 @@ def main():
   _timed(phase_gin_vrgripper_wtl)
   _log(f"phases 41-43 s (the VRGripper BC / meta / WTL gins): "
        f"{time.perf_counter() - t_family:.2f}")
+  t_anakin = time.perf_counter()
+  _timed(phase_envs_card_vs_cpu)
+  anakin_err, _ = _timed(phase_anakin_select_kernels)
+  anakin_launches = _timed(phase_gin_qtopt_anakin)
+  _timed(phase_gin_qtopt_anakin_pod)
+  _timed(phase_success_protocol, seedcheck)
+  _log(f"phases 44-48 s (envs, Anakin, the success protocol): "
+       f"{time.perf_counter() - t_anakin:.2f}")
   _log(f"cem_select launches per path (each traced in its own run): CEM "
        f"serving {launches}, Bellman training {qt_launches}, online window "
        f"{sum(online_per_path.values())} ({json.dumps(online_per_path)}), "
@@ -4895,7 +5295,8 @@ def main():
        f"{plane_launches['speculative window']}, qtopt_int8.gin + fused "
        f"{gin_fused_launches}, serving_multitenant.gin window "
        f"{gin_serving_launches}, goal-conditioned Bellman training "
-       f"(grasp2vec labels) {goal_launches}")
+       f"(grasp2vec labels) {goal_launches}, qtopt_anakin.gin + fused "
+       f"(3 iterations) {anakin_launches}")
   main_row = rows[8]  # the serving path's largest bucket
   head_row = head_rows[256]  # the Bellman target's shape
   flash_row = flash_rows[1]  # the context policy serves one robot
@@ -4905,7 +5306,7 @@ def main():
       "source": "tensor2robot_tpu_torch/csrc/cem_select.cu",
       "replaces": "tensor2robot_tpu/ops/cem_select.py:181",
       "launches": launches,
-      "max_abs_err": max(max_err, online_err, int8_err),
+      "max_abs_err": max(max_err, online_err, int8_err, anakin_err),
       "ms": main_row["ms"],
       "plain_ms": main_row["plain_ms"],
       "bound_ms": main_row["bound_ms"],

@@ -5,6 +5,8 @@
     python -m tensor2robot_tpu_torch.bin.profile_policy --model vrgripper_train
     python -m tensor2robot_tpu_torch.bin.profile_policy --model qtopt_train \
         [--cem_inference bf16|int8] [--cem_select fused|lax]
+    python -m tensor2robot_tpu_torch.bin.profile_policy --model anakin \
+        [--cem_select fused|lax]
     python -m tensor2robot_tpu_torch.bin.profile_policy --graphs [--model ...]
 
 `--model qtopt` (the default) runs `QTOptLearner.build_policy()` at
@@ -24,7 +26,14 @@ steps, the gin's training shape. `--model qtopt_train` runs
 2 × 64 with the fused select, Adam 1e-4) on one batch of its synthetic
 bandit transitions, each step from the same state; `--cem_inference
 int8` runs the int8 CEM tower (calibrated on that batch) and
-`--cem_select lax` the sort + gather select.
+`--cem_select lax` the sort + gather select. `--model anakin` profiles
+the Anakin iteration at `qtopt_anakin.gin`'s configuration
+(`GraspingQModel(image_size=64, action_dim=2)`, CEM 2 × 64, 6 elites,
+1024 procgen envs × rollout 4, ε 0.1, 4 Bellman steps of batch 256
+from a full 16384-row ring) in three parts, each one graph replay as
+`train_anakin` runs it: the collection alone, the 4 Bellman steps
+alone, and the whole iteration (`envs.rollout.make_iteration`); and
+the envs' render + auto-reset step alone.
 
 `--graphs` runs each call as the product path graphs it: one replay of
 a CUDA graph (`utils.step_graph.StepGraph`) of the CEM dispatch, of the
@@ -103,7 +112,7 @@ def profile_calls(call: Callable[[], None], calls: int = 20,
       "kernel_launches_per_call": launches / calls,
       "host_launches_per_call": host_launches / calls,
       "graph_launches_per_call": graph_launches / calls,
-      "top_kernels": [{"name": e.key[:80],
+      "top_kernels": [{"name": e.key[:160],
                        "ms_per_call": _device_time_us(e) / calls / 1e3,
                        "calls_per_call": e.count / calls}
                       for e in ranked],
@@ -231,10 +240,63 @@ def profile_qtopt_train_step(graphs: bool = False,
           "graphs": graphs, **profile_calls(step)}
 
 
+def profile_anakin(cem_select: str = "fused") -> dict:
+  from tensor2robot_tpu_torch import envs
+  from tensor2robot_tpu_torch.envs import rollout
+  learner = QTOptLearner(GraspingQModel(image_size=64, action_dim=2),
+                         cem_iterations=2, cem_population=64, cem_elites=6,
+                         cem_select=cem_select)
+  num_envs, length, k, batch = 1024, 4, 4, 256
+  env = envs.ProcGenGraspEnv(image_size=64, action_dim=2)
+  init_fn, collect_fn = envs.make_collect_fn(learner, env, num_envs, length,
+                                             epsilon=0.1)
+  state = learner.create_state(seed=0)
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  states = init_fn(gen)
+  spec = learner.transition_specification().to_flat_dict()
+  capacity = rollout.ring_capacity(16384, batch, num_envs * length)
+  ring = rollout.empty_ring(spec, capacity, "cuda")
+  fill = ptr = torch.zeros((), dtype=torch.int64, device="cuda")
+  for _ in range(capacity // (num_envs * length)):  # a full ring
+    states, collected = collect_fn(state, states, gen)
+    fill, ptr = rollout.ring_insert(ring, collected, fill, ptr)
+
+  def collect(carry, _, gens):
+    new_states, collected = collect_fn(carry[0], carry[1], gens[0])
+    return (carry[0], new_states), {"reward": collected["reward"].mean()}
+
+  def bellman(qstate, _, gens):
+    return rollout.anakin_train_steps(learner, qstate, ring, fill, batch,
+                                      gens)
+
+  iteration = rollout.make_iteration(learner, collect_fn, batch, capacity)
+  wrapped = envs.AutoResetEnv(env)
+  actions = torch.zeros((num_envs, 2), device="cuda")
+
+  def env_step(carry, _, gens):
+    env.observe(carry)
+    return wrapped.step(carry, actions, gens[0])[0], {}
+
+  parts = {
+      "collect": _replayer(collect, (state, states), {}, num_generators=1),
+      "bellman": _replayer(bellman, state, {}, num_generators=k),
+      "iteration": _replayer(iteration, (state, states, ring, fill, ptr),
+                             {}, num_generators=k + 1),
+      "env_step": _replayer(env_step, states, {}, num_generators=1),
+  }
+  out = {"model": "anakin", "num_envs": num_envs, "rollout_length": length,
+         "train_batches_per_iter": k, "batch": batch,
+         "cem_select": cem_select, "graphs": True}
+  for name, replay in parts.items():
+    out[name] = profile_calls(replay, calls=10)
+  return out
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--model", choices=("qtopt", "vrgripper_transformer",
-                                          "vrgripper_train", "qtopt_train"),
+                                          "vrgripper_train", "qtopt_train",
+                                          "anakin"),
                       default="qtopt")
   parser.add_argument("--batches", type=int, nargs="+", default=[8, 256],
                       help="CEM batch sizes (--model qtopt)")
@@ -243,7 +305,8 @@ def main():
   parser.add_argument("--cem_inference", choices=("bf16", "int8"),
                       default="bf16", help="CEM tower (--model qtopt_train)")
   parser.add_argument("--cem_select", choices=("fused", "lax"),
-                      default="fused", help="CEM select (--model qtopt_train)")
+                      default="fused",
+                      help="CEM select (--model qtopt_train, anakin)")
   args = parser.parse_args()
   if not torch.cuda.is_available():
     raise SystemExit("profile_policy needs a CUDA card")
@@ -253,6 +316,8 @@ def main():
       print(json.dumps(profile_cem(batch, args.graphs)), flush=True)
   elif args.model == "vrgripper_transformer":
     print(json.dumps(profile_context_policy(args.graphs)), flush=True)
+  elif args.model == "anakin":
+    print(json.dumps(profile_anakin(args.cem_select)), flush=True)
   elif args.model == "qtopt_train":
     print(json.dumps(profile_qtopt_train_step(
         args.graphs, args.cem_inference, args.cem_select)), flush=True)

@@ -10,7 +10,7 @@ the working directory, then from the repository root) and parsed into
 the port's own registry. The configured entry point runs on the CUDA
 card; on the CPU add ``--gin_bindings "train_eval_model.device='cpu'"``
 (``--trainer=train_eval``) or ``"QTOptLearner.device='cpu'"``
-(``--trainer=qtopt``).
+(``--trainer=qtopt`` and ``--trainer=anakin``).
 
 The flags keep the JAX binary's names. `--validate_only` resolves every
 statement of each config against the port's registry (the JAX rules
@@ -18,8 +18,8 @@ GIN101–GIN107: unknown configurables, parameters and references,
 undefined macros, unresolvable includes) and exits 1 on any finding; it
 is narrower than the JAX flag, which also runs the JAX package's source
 lints (t2rcheck, which covers JAX code only). Not ported: the `fleet`
-(ROADMAP A13) and `anakin` (A8) trainers, the Prometheus endpoint (A13)
-and the multi-host `jax_*` flags (A11).
+trainer (ROADMAP A13), the Prometheus endpoint (A13) and the multi-host
+`jax_*` flags (A11).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from tensor2robot_tpu_torch.config import validate
 DEFAULT_MODULES = (
     "tensor2robot_tpu_torch.models",
     "tensor2robot_tpu_torch.data",
+    "tensor2robot_tpu_torch.envs",
     "tensor2robot_tpu_torch.hooks",
     "tensor2robot_tpu_torch.meta_learning",
     "tensor2robot_tpu_torch.predictors",
@@ -82,8 +83,8 @@ def parser() -> argparse.ArgumentParser:
   p.add_argument("--trainer", default="train_eval",
                  choices=("train_eval", "qtopt", "fleet", "anakin"),
                  help="Entry point after parsing: train_eval_model() "
-                      "(default) or train_qtopt(); fleet (ROADMAP A13) "
-                      "and anakin (A8) are not ported yet.")
+                      "(default), train_qtopt() or train_anakin(); fleet "
+                      "(ROADMAP A13) is not ported yet.")
   p.add_argument("--prometheus_port", type=int, default=None,
                  help="Not ported yet (ROADMAP A13): raises when set.")
   return p
@@ -109,16 +110,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     raise NotImplementedError(
         "--trainer=fleet: the learner/actor fleet is not ported yet "
         "(ROADMAP A13).")
-  if args.trainer == "anakin":
-    raise NotImplementedError(
-        "--trainer=anakin: the on-device envs and Anakin are not ported "
-        "yet (ROADMAP A8).")
   gin.parse_config_files_and_bindings(configs, args.gin_bindings)
   if args.trainer == "qtopt":
     from tensor2robot_tpu_torch.research.qtopt.train_qtopt import (
         train_qtopt,
     )
     train_qtopt()
+  elif args.trainer == "anakin":
+    from tensor2robot_tpu_torch.envs import train_anakin
+    train_anakin()
   else:
     train_eval.train_eval_model()
   return 0

@@ -12,7 +12,9 @@ registered configurables without binding anything or running a step:
     registered configurable; a ``%macro`` must be defined somewhere in
     the config's include closure;
   * ``include`` and ``import`` statements must resolve, through the
-    search order the parser uses.
+    search order the parser uses;
+  * a parameter the port declares not ported (`unported_parameters`)
+    is a finding when a config binds it, as a missing one is.
 
 The rule names are those of the JAX package's static gin rules
 (GIN101–GIN107). The JAX flag also runs that package's source lints
@@ -25,7 +27,7 @@ import dataclasses
 import importlib
 import inspect
 import os
-from typing import List, Optional, Set, Tuple
+from typing import Callable, List, Optional, Set, Tuple
 
 from tensor2robot_tpu_torch.config import ginlite
 
@@ -44,6 +46,20 @@ class Finding:
 
   def render(self) -> str:
     return f"{self.path}:{self.line}: {self.rule} {self.message}"
+
+
+def unported_parameters(**items: str) -> Callable:
+  """Declares parameters of a configurable that the port keeps in its
+  signature (a call with a value it cannot serve raises, naming the
+  ROADMAP item) but does not serve: `--validate_only` reports a binding
+  of one as GIN102, naming the item. Apply it under
+  `@gin.configurable`."""
+
+  def mark(fn):
+    fn.gin_unported_parameters = dict(items)
+    return fn
+
+  return mark
 
 
 def accepted_parameters(fn) -> Tuple[Set[str], bool]:
@@ -131,6 +147,12 @@ def validate_config_file(path: str,
       findings.append(Finding(
           "GIN105", rel, lineno,
           f"{cfg.full_name}.{param} is denylisted and cannot be configured",
+          name=cfg.name, param=param))
+    elif param in getattr(cfg.fn, "gin_unported_parameters", {}):
+      findings.append(Finding(
+          "GIN102", rel, lineno,
+          f"{cfg.full_name}.{param} is not ported yet "
+          f"({cfg.fn.gin_unported_parameters[param]})",
           name=cfg.name, param=param))
     else:
       params, has_kwargs = accepted_parameters(cfg.fn)

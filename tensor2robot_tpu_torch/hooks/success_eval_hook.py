@@ -11,12 +11,14 @@ line lands in `metrics_<tag>.jsonl` next to the train metrics.
     paid.
   * `QTOptSuccessEvalHook` wraps `evaluate_grasp_policy(learner, state,
     ...)`: the CEM policy needs the learner, not `predict_step`.
-
-`ScenarioSuccessEvalHook` needs the on-device envs (ROADMAP A8).
+  * `ScenarioSuccessEvalHook` runs `envs.evaluate_scenarios`, the
+    seeded procedural sweep, for the Anakin trainer.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
@@ -93,6 +95,91 @@ class SuccessEvalHook(Hook):
 
     metrics = self._eval_fn(predict, **self._eval_kwargs)
     _write_metrics(model_dir, self._tag, step, metrics)
+
+
+@gin.configurable
+class ScenarioSuccessEvalHook(Hook):
+  """Per-checkpoint procedural-scenario robustness sweep (envs family).
+
+  After each checkpoint it runs `envs.evaluate_scenarios` (the seeded
+  procgen sweep of `run_success_protocol envs`: success grouped by
+  scenario bucket, the distractor count, with the random-policy baseline
+  on the SAME scenarios) against the checkpointed critic, then
+
+    * logs the headline metrics (overall and per-bucket success, the
+      random baseline) to ``metrics_<tag>.jsonl`` next to the train
+      metrics,
+    * appends one success-protocol record per checkpoint to
+      ``artifacts_path`` (default
+      ``<model_dir>/success_protocol/scenarios_by_checkpoint.jsonl``).
+
+  The sweep is seeded: every checkpoint is scored on the same scenarios.
+  `train_anakin` hands hooks the critic `TrainState`, which
+  `build_policy` takes directly.
+  """
+
+  def __init__(self,
+               learner=None,
+               env=None,
+               num_scenarios: int = 256,
+               seed: int = 0,
+               cem_population: Optional[int] = None,
+               cem_iterations: Optional[int] = None,
+               tag: str = "scenario_eval",
+               every_n_checkpoints: int = 1,
+               artifacts_path: Optional[str] = None):
+    self._learner = learner
+    self._env = env
+    self._num_scenarios = int(num_scenarios)
+    self._seed = int(seed)
+    self._cem_population = cem_population
+    self._cem_iterations = cem_iterations
+    self._tag = tag
+    self._every = max(1, every_n_checkpoints)
+    self._artifacts_path = artifacts_path
+    self._checkpoints_seen = 0
+
+  def begin(self, model, model_dir: str) -> None:
+    self._checkpoints_seen = 0
+
+  def after_checkpoint(self, step: int, state: Any,
+                       model_dir: str) -> None:
+    self._checkpoints_seen += 1
+    if (self._checkpoints_seen - 1) % self._every:
+      return
+    from tensor2robot_tpu_torch.envs import evaluate_scenarios
+
+    sweep = evaluate_scenarios(
+        self._learner, state, env=self._env,
+        num_scenarios=self._num_scenarios, seed=self._seed,
+        cem_population=self._cem_population,
+        cem_iterations=self._cem_iterations)
+    metrics = {
+        "success_rate": sweep["success_rate"],
+        "random_baseline_success_rate":
+            sweep["random_baseline_success_rate"],
+        "num_scenarios": sweep["num_scenarios"],
+    }
+    for bucket, stats in sorted(sweep["per_bucket"].items()):
+      if stats["success_rate"] is not None:
+        metrics[f"bucket_{bucket}_success_rate"] = stats["success_rate"]
+    _write_metrics(model_dir, self._tag, step, metrics)
+
+    path = self._artifacts_path or os.path.join(
+        model_dir, "success_protocol", "scenarios_by_checkpoint.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    record = {
+        "phase": "checkpoint_sweep",
+        "step": int(step),
+        "scenario_family": (type(self._env).__name__
+                            if self._env is not None else "procgen"),
+        **{k: sweep[k] for k in (
+            "success_rate", "random_baseline_success_rate",
+            "num_scenarios", "per_bucket", "action_digest",
+            "scenario_digest")},
+    }
+    with open(path, "a") as f:
+      f.write(json.dumps(record) + "\n")
 
 
 @gin.configurable

@@ -6,13 +6,15 @@ numpy-rendered RGB image, the label the pose. `PoseEnv` draws from the
 same `numpy.random.default_rng(seed)` stream in the same order as the
 JAX package's, so a seed gives the same images and poses bit for bit.
 `evaluate_pose_model` scores a predictor by its mean pose error and
-success rate. `collect_random_episodes` writes TFRecords and waits for
-the port's record writer (ROADMAP A9); the physics-backed
-`MuJoCoPoseEnv` is ROADMAP A10a.
+success rate. `collect_random_episodes` writes TFRecords of {image,
+target_pose} with the port's record writer (the same bytes as the JAX
+package's for a seed); the physics-backed `MuJoCoPoseEnv` is ROADMAP
+A10a.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -72,6 +74,39 @@ class PoseEnv:
     if self._pose is None:
       raise RuntimeError("Call reset() first.")
     return self._pose
+
+
+@gin.configurable
+def collect_random_episodes(
+    output_path: str,
+    num_episodes: int = 100,
+    image_size: int = IMAGE_SIZE,
+    seed: int = 0,
+    env_cls: type = None,
+) -> str:
+  """Renders random poses into a TFRecord file of {image, target_pose}
+  (`PoseEnvRegressionModel`'s specs: the image as JPEG); returns the
+  path."""
+  from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
+  from tensor2robot_tpu_torch.data.tfrecord_input_generator import (
+      write_tfrecord,
+  )
+  from tensor2robot_tpu_torch.research.pose_env.pose_env_models import (
+      PoseEnvRegressionModel,
+  )
+
+  env = (env_cls or PoseEnv)(image_size=image_size, seed=seed)
+  model = PoseEnvRegressionModel(image_size=image_size)
+  examples = []
+  for _ in range(num_episodes):
+    obs = env.reset()
+    examples.append({"image": obs["image"], "target_pose": env.pose})
+  os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
+  write_tfrecord(
+      output_path, examples,
+      model.get_feature_specification(Mode.TRAIN),
+      model.get_label_specification(Mode.TRAIN))
+  return output_path
 
 
 @gin.configurable

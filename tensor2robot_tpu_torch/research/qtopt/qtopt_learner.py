@@ -405,7 +405,8 @@ class QTOptLearner:
   # ---- on-robot / actor policy ----
 
   def build_policy(self, cem_population: Optional[int] = None,
-                   cem_iterations: Optional[int] = None):
+                   cem_iterations: Optional[int] = None,
+                   no_grad: bool = False):
     """Returns (state, observations, generator=None, noise=None) →
     best actions [B, A] (f32, on the state's device).
 
@@ -414,7 +415,11 @@ class QTOptLearner:
     tensors or numpy arrays with a leading batch dim; numpy leaves are
     moved to the state's device. Noise comes from `generator` (on that
     device) or is given whole as `noise` `[iterations, B, P, A]`.
+    The CEM runs in inference mode, or under `no_grad` with `no_grad`:
+    then its actions may enter tensors that a later autograd step reads
+    (the Anakin collection writes them into its replay ring).
     """
+    grad_mode = torch.no_grad if no_grad else torch.inference_mode
 
     def policy(state, observations, generator=None, noise=None):
       ts = state.train_state if isinstance(state, QTOptState) else state
@@ -422,7 +427,7 @@ class QTOptLearner:
       obs = tree.map_structure(
           lambda x: torch.as_tensor(x, device=device), observations)
       batch = tree.leaves(obs)[0].shape[0]
-      with torch.inference_mode():
+      with grad_mode():
         result = self._cem(*self._cem_fns(self._model.bind(ts), obs), batch,
                            generator, noise, device,
                            population=cem_population,

@@ -190,7 +190,11 @@ class StepGraph:
   def _step(self) -> Any:
     new_carry, outputs = self._fn(self.carry, self.inputs, self.generators)
     if self._carries:
-      copy_into(tensors(self.carry), tensors(new_carry))
+      # A leaf the step wrote in place (a replay ring) is its own new
+      # value: no copy.
+      pairs = [(d, s) for d, s in zip(tensors(self.carry),
+                                      tensors(new_carry)) if d is not s]
+      copy_into([d for d, _ in pairs], [s for _, s in pairs])
     return outputs
 
   def _capture(self, warmup: int) -> None:

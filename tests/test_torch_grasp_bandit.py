@@ -1,0 +1,114 @@
+"""The port's pose grasp bandit and random-episode collection against the
+JAX package: `grade_grasp`, `PoseGraspBandit(physics=False)` (the same
+images, poses, grades and random transitions for a seed), the refusal of
+the physics env that is not ported, and `collect_random_episodes`,
+whose file must equal the JAX package's byte for byte up to the order of
+the tf.Example feature map: the JAX package serializes through
+protobuf, whose map order follows a hash seed drawn per process, so the
+records are compared as written where the orders agree and after a
+deterministic re-serialization (keys sorted) in any case."""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+tf = pytest.importorskip("tensorflow")
+
+from tensor2robot_tpu.research.pose_env import grasp_bandit as jax_bandit  # noqa: E402
+from tensor2robot_tpu.research.pose_env import pose_env as jax_pose_env  # noqa: E402
+from tensor2robot_tpu_torch.data import tfrecord_io  # noqa: E402
+from tensor2robot_tpu_torch.research.pose_env import (  # noqa: E402
+    PoseGraspBandit,
+    collect_random_episodes,
+    grade_grasp,
+)
+from tensor2robot_tpu_torch.research.pose_env.pose_env import PoseEnv  # noqa: E402
+
+
+def test_grade_grasp_equals_jax():
+  rng = np.random.default_rng(0)
+  positions = rng.uniform(-0.4, 0.4, (512, 2)).astype(np.float32)
+  actions = rng.uniform(-1, 1, (512, 3)).astype(np.float32)
+  actions[:256, :2] = (positions[:256]
+                       + rng.normal(0, 0.05, (256, 2)).astype(np.float32)
+                       ) / np.float32(0.4)
+  for threshold in (0.05, 0.1, 0.15):
+    got = grade_grasp(actions, positions, threshold)
+    want = jax_bandit.grade_grasp(actions, positions, threshold)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.float32 and 0.0 < got.mean() < 1.0
+
+
+@pytest.mark.parametrize("kwargs", [dict(), dict(action_dim=4,
+                                                 success_threshold=0.15)])
+def test_host_bandit_equals_jax(kwargs):
+  port = PoseGraspBandit(image_size=16, physics=False, seed=3, **kwargs)
+  ref = jax_bandit.PoseGraspBandit(image_size=16, physics=False, seed=3,
+                                   **kwargs)
+  assert port.action_dim == ref.action_dim
+  assert port.success_threshold == ref.success_threshold
+  obs, poses = port.reset_batch(8)
+  want_obs, want_poses = ref.reset_batch(8)
+  np.testing.assert_array_equal(obs["image"], want_obs["image"])
+  np.testing.assert_array_equal(poses, want_poses)
+  actions = np.random.default_rng(1).uniform(
+      -1, 1, (8, port.action_dim)).astype(np.float32)
+  actions[::2, :2] = poses[::2] / np.float32(0.4)
+  np.testing.assert_array_equal(port.grade(actions, poses),
+                                ref.grade(actions, poses))
+  got, want = port.sample_transitions(6), ref.sample_transitions(6)
+  assert set(got) == set(want)
+  for key in want:
+    np.testing.assert_array_equal(got[key], want[key])
+
+
+def test_physics_bandit_is_not_ported():
+  with pytest.raises(NotImplementedError, match="A10a"):
+    PoseGraspBandit(image_size=16)
+  # An env passed in stands in for the physics one.
+  bandit = PoseGraspBandit(env=PoseEnv(image_size=16, seed=0))
+  assert bandit.reset_batch(2)[0]["image"].shape == (2, 16, 16, 3)
+  with pytest.raises(ValueError, match="grasp point"):
+    PoseGraspBandit(action_dim=1, physics=False)
+
+
+def _first_key(record: bytes) -> bytes:
+  """The first feature name as written: the key of the first entry of
+  the Features map (three nested length-delimited field-1 tags)."""
+  pos = 0
+  for _ in range(3):
+    assert record[pos] == 0x0A
+    pos += 1
+    length, shift = 0, 0
+    while True:
+      byte = record[pos]
+      pos += 1
+      length |= (byte & 0x7F) << shift
+      shift += 7
+      if byte < 0x80:
+        break
+  return record[pos:pos + length]
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_collect_random_episodes_bytes_equal_jax(tmp_path, seed):
+  got = collect_random_episodes(str(tmp_path / "port" / "pose.tfrecord"),
+                                num_episodes=6, image_size=16, seed=seed)
+  want = jax_pose_env.collect_random_episodes(
+      str(tmp_path / "jax" / "pose.tfrecord"), num_episodes=6,
+      image_size=16, seed=seed)
+  with open(got, "rb") as f_got, open(want, "rb") as f_want:
+    data, want_data = f_got.read(), f_want.read()
+  assert len(data) == len(want_data) > 6 * 100
+  records = list(tfrecord_io.iterate_records(got))  # CRCs checked
+  want_records = list(tfrecord_io.iterate_records(want))
+  assert len(records) == len(want_records) == 6
+  for record, want_record in zip(records, want_records):
+    assert _first_key(record) == b"image"
+    if _first_key(want_record) == b"image":
+      assert record == want_record
+    assert (tf.train.Example.FromString(record).SerializeToString(
+        deterministic=True) == tf.train.Example.FromString(
+            want_record).SerializeToString(deterministic=True))
+  if all(_first_key(r) == b"image" for r in want_records):
+    assert data == want_data
