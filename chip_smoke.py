@@ -258,12 +258,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      traced: cem_select's launches = CUPTI's = 16 an iteration, and no
      host-to-device copy above 1 KiB); every record's
      `param_refresh_lag_steps` 0.0 and finite loss and rates;
- 47. the shipped `qtopt_anakin_pod.gin` as written on this one card (the
-     pod program at D = 1), with `ScenarioSuccessEvalHook`'s line per
-     checkpoint;
+ 47. the shipped `qtopt_anakin_pod.gin` on this one card (the pod
+     program at D = 1; 500 of its 1000 steps, the one cut: phase 51 runs
+     the same program to 1000), with `ScenarioSuccessEvalHook`'s line at
+     the checkpoint;
  48. the success protocol's `envs` mode at full size (success per bucket
      above the random baseline), `gripper --small`, and the new envs and
      Anakin halves of phase 23's seedcheck;
+ 49. the MoE layer at `train_vrgripper_transformer_moe.gin`'s shape (512
+     tokens, 8 experts, top-2, C = 256, width 128 → 512) on the card
+     against the CPU: the same dispatch tensor, the output within 1e-5
+     (f32) and 2e-2 (bf16) of its scale; its device ms beside the dense
+     MLP's;
+ 50. the shipped `train_vrgripper_transformer_moe.gin` as written through
+     the trainer binary from the demos (2000 steps, the overlapped
+     startup, the aux loss in every record, the perf plane's `perf.mfu`,
+     `perf.flops_per_sec`, `perf.device_time_fraction`, `stall_fraction`,
+     `input_wait_fraction` and `rsrc.device0_mem_bytes` in every record),
+     then 20 steps in this process traced (flash launches = CUPTI), then
+     the trained checkpoint serving 32 graphed context-policy steps;
+ 51. the shipped `qtopt_anakin_shardmap.gin` as written through the
+     trainer binary (the shard_map pod program at D = 1, the qtopt rules
+     table, 1000 steps): the pod records, two sweeps on one scenario
+     digest, `perf.mfu` from the analytic count;
+ 52. the pod gin and the shardmap gin 16 steps each under cuDNN's
+     deterministic algorithms, equal bit for bit; the shardmap gin with
+     the fused select traced (cem_select = CUPTI);
+ 53. `train_vrgripper_bc.gin` resumed 20 → 40 steps overlapped and
+     serial, equal bit for bit, with each start's phase seconds and wall
+     to the first step; (phase 30 also gates `qtopt_int8.gin`'s
+     `perf.mfu`);
      then the cem_select launches per path (each traced in its own run),
      the wall seconds of each phase, the `kernels` JSON line
      (cem_select's count: the CEM serving path of phase 4), the card
@@ -277,8 +301,8 @@ traced run, most of the BC and Bellman graph phases' time).
 Every run whose launches are checked (the main paths of phases 4, 5, 7,
 8, 10 and 11, the chunked forward of 13, each run of 14 and 15, the
 online window of 20, the int8 training runs of 27, the windows of 29,
-the gin-configured runs of 31, 33 and 36, the Bellman run of 40 and the
-Anakin window of 46) runs
+the gin-configured runs of 31, 33, 36 and 50, the Bellman run of 40, the
+Anakin window of 46 and the fused shardmap run of 52) runs
 under the profiler's CUDA kernel tracing: each kernel wrapper's count,
 replays included, must equal the launches of that kernel's symbols that
 the card ran (`traced_launches`), and the `kernels` line reports the
@@ -2179,6 +2203,13 @@ def phase_bellman_rate(replay):
   return rates, profiles
 
 
+# Record keys that measure the run (wall time, rates, shares of time,
+# resources) rather than compute the step: never equal run to run.
+_MEASURED_KEYS = ("wall", "role", "steps_per_sec", "stall_fraction",
+                  "input_wait_fraction")
+_MEASURED_PREFIXES = ("perf.", "rsrc.", "compile_cache.")
+
+
 def _bc_models():
   """(label, model of a dtype) of the two BC configurations."""
   from tensor2robot_tpu_torch.research.vrgripper import (
@@ -2238,7 +2269,9 @@ def phase_bc_graphs():
 
         def metric_diff(got, want):
           """Largest |difference| of the logged metrics (all but the
-          rate and the record's wall time), record by record, train and
+          record's wall time and the loop's measurements: its rates,
+          stall and input-wait fractions and the perf plane's `perf.*`,
+          `rsrc.*` and `compile_cache.*`), record by record, train and
           eval."""
           if any(len(got[t]) != len(want[t]) for t in want):
             raise AssertionError(f"BC {label}: {len(got['train'])} train "
@@ -2247,8 +2280,8 @@ def phase_bc_graphs():
                                  f"{len(want['eval'])}")
           return max(abs(a[m] - b[m]) for t in want
                      for a, b in zip(got[t], want[t])
-                     for m in b if m not in ("wall", "role",
-                                             "steps_per_sec"))
+                     for m in b if m not in _MEASURED_KEYS
+                     and not m.startswith(_MEASURED_PREFIXES))
 
         ref, ref_logged = run("eager", 1, False)
         lines = {}
@@ -3603,13 +3636,18 @@ def phase_gin_qtopt_int8():
     steps = [r["step"] for r in raw]
     losses = [r["payload"]["loss"] for r in raw]
     rates = [r["payload"]["grad_steps_per_sec"] for r in raw]
+    mfu = [r["payload"].get("perf.mfu") for r in raw]
     ckpts = sorted(int(d) for d in os.listdir(os.path.join(model_dir,
                                                            "ckpt")))
   _log(f"gin qtopt_int8: wall {wall:.2f} s; steps {steps}; loss {losses}; "
        f"grad_steps_per_sec {rates} (median after the first interval "
        f"{statistics.median(rates[1:])}); input_wait_fraction "
-       f"{[r['payload']['input_wait_fraction'] for r in raw]}; "
+       f"{[r['payload']['input_wait_fraction'] for r in raw]}; perf.mfu "
+       f"{mfu}; perf.device_time_fraction "
+       f"{[r['payload'].get('perf.device_time_fraction') for r in raw]}; "
        f"checkpoints {ckpts}")
+  if not all(m is not None and 0.0 < m < 1.0 for m in mfu):
+    raise AssertionError(f"gin qtopt_int8: perf.mfu {mfu}")
   if steps != list(range(100, 1001, 100)):
     raise AssertionError(f"gin qtopt_int8: record steps {steps}")
   if not all(np.isfinite(losses)) or not (np.mean(losses[-3:])
@@ -4080,6 +4118,8 @@ def phase_gin_vrgripper_transformer():
     steps = [r["step"] for r in raw]
     losses = [r["payload"]["loss"] for r in raw]
     rates = [r["payload"]["steps_per_sec"] for r in raw]
+    _RATES["train_vrgripper_transformer.gin"] = statistics.median(
+        rates[1:])
     _log(f"gin train_vrgripper_transformer: wall {wall:.2f} s; steps "
          f"{steps}; loss {losses}; mse "
          f"{[r['payload']['mse'] for r in raw]}; steps_per_sec {rates} "
@@ -4808,12 +4848,13 @@ def phase_anakin_select_kernels():
   return max(errs.values()), row
 
 
-def _anakin_records(label, model_dir, pod):
+def _anakin_records(label, model_dir, pod, steps_to=_ANAKIN_STEPS):
   """The run's train records, each a valid envelope: a record every 100
-  steps to `_ANAKIN_STEPS`, `param_refresh_lag_steps` 0.0, finite loss,
+  steps to `steps_to`, `param_refresh_lag_steps` 0.0, finite loss,
   collect_reward_mean, env_steps_per_sec and grad_steps_per_sec (and the
   pod records' devices 1, global_batch_size, bellman_batches_per_sec
-  where `pod`); checkpoints at 500 and 1000. Logs the rates."""
+  where `pod`); checkpoints every 500 steps to `steps_to`. Logs the
+  rates."""
   import math
   from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
   raw = _checked_records(os.path.join(model_dir, "metrics_train.jsonl"))
@@ -4828,7 +4869,7 @@ def _anakin_records(label, model_dir, pod):
        f"{statistics.median(grad[1:])}); env_steps_per_sec {env} (median "
        f"after the first {statistics.median(env[1:])}); replay_fill "
        f"{payloads[-1]['replay_fill']}; checkpoints {ckpts}")
-  if steps != list(range(100, _ANAKIN_STEPS + 1, 100)):
+  if steps != list(range(100, steps_to + 1, 100)):
     raise AssertionError(f"{label}: record steps {steps}")
   for p in payloads:
     finite = all(math.isfinite(p[k]) for k in (
@@ -4839,7 +4880,7 @@ def _anakin_records(label, model_dir, pod):
     if pod and (p["devices"] != 1 or p["global_batch_size"] != 64
                 or p["bellman_batches_per_sec"] != p["grad_steps_per_sec"]):
       raise AssertionError(f"{label}: pod record {p}")
-  if ckpts != [500, 1000]:
+  if ckpts != list(range(500, steps_to + 1, 500)):
     raise AssertionError(f"{label}: checkpoints {ckpts}")
   return raw
 
@@ -4973,22 +5014,28 @@ def phase_gin_qtopt_anakin():
   return traced["cem_select"]
 
 
+# The one cut of the pod gin: max_train_steps 1000 → 500 (chip_smoke's
+# time limit); phase 51 runs the same program, the shardmap gin's, to
+# 1000 with a sweep at each checkpoint.
+_POD_STEPS = 500
+
+
 def phase_gin_qtopt_anakin_pod():
-  """47. The shipped `qtopt_anakin_pod.gin` as written through the
-  trainer binary on this one card (`num_devices = 0` resolves to 1: the
-  single program; batch 64, lax select): 1000 steps, the pod records
-  (`_anakin_records`), and `ScenarioSuccessEvalHook`'s 256-scenario
-  sweep at each checkpoint: a metrics line and one appended
-  success-protocol line per checkpoint, every sweep on the same
-  scenarios."""
+  """47. The shipped `qtopt_anakin_pod.gin` through the trainer binary on
+  this one card (`num_devices = 0` resolves to 1: the single program;
+  batch 64, lax select), `_POD_STEPS` steps bound on top: the pod
+  records (`_anakin_records`), and `ScenarioSuccessEvalHook`'s
+  256-scenario sweep at the checkpoint: a metrics line and one appended
+  success-protocol line."""
   import tempfile
   with tempfile.TemporaryDirectory() as model_dir:
-    wall = _run_trainer("gin qtopt_anakin_pod (as shipped, one card)", [
+    wall = _run_trainer("gin qtopt_anakin_pod (one card)", [
         "--trainer=anakin", "--gin_configs", _GIN_ANAKIN_POD,
-        "--gin_bindings", f"train_anakin.model_dir='{model_dir}'"],
+        "--gin_bindings", f"train_anakin.model_dir='{model_dir}'",
+        "--gin_bindings", f"train_anakin.max_train_steps={_POD_STEPS}"],
         model_dir)
     _anakin_records(f"gin qtopt_anakin_pod (wall {wall:.2f} s)", model_dir,
-                    pod=True)
+                    pod=True, steps_to=_POD_STEPS)
     evals = _checked_records(os.path.join(model_dir,
                                           "metrics_scenario_eval.jsonl"))
     with open(os.path.join(model_dir, "success_protocol",
@@ -4997,9 +5044,8 @@ def phase_gin_qtopt_anakin_pod():
   _log(f"gin qtopt_anakin_pod sweeps: "
        f"{[dict(step=r['step'], **r['payload']) for r in evals]}; "
        f"per bucket {[s['per_bucket'] for s in sweeps]}")
-  if ([r["step"] for r in evals] != [500, 1000]
-      or [s["step"] for s in sweeps] != [500, 1000]
-      or len({s["scenario_digest"] for s in sweeps}) != 1
+  if ([r["step"] for r in evals] != [_POD_STEPS]
+      or [s["step"] for s in sweeps] != [_POD_STEPS]
       or any(s["num_scenarios"] != 256 for s in sweeps)):
     raise AssertionError(f"anakin pod sweeps: {evals} {sweeps}")
 
@@ -5183,6 +5229,463 @@ def phase_capture_under_collection(rounds=3):
     raise AssertionError(f"capture under collection: replay vs eager {errs}")
 
 
+_GIN_MOE = ("tensor2robot_tpu/research/vrgripper/configs/"
+            "train_vrgripper_transformer_moe.gin")
+_GIN_SHARDMAP = ("tensor2robot_tpu/research/qtopt/configs/"
+                 "qtopt_anakin_shardmap.gin")
+# The MoE gin's layer: 16 episodes × 32 steps of width 128, 8 experts of
+# hidden width 512, top-2, capacity factor 2.0 (C = 256).
+_MOE_SHAPE = dict(tokens=16 * 32, model_dim=128, experts=8, hidden=512, k=2,
+                  capacity_factor=2.0)
+_MOE_STEPS = 2000
+_MOE_SERVE_STEPS = 32
+# The perf plane's scalars every record of a train_eval gin carries.
+_PLANE_KEYS = ("perf.mfu", "perf.flops_per_sec", "perf.device_time_fraction",
+               "stall_fraction", "input_wait_fraction",
+               "rsrc.device0_mem_bytes")
+_RATES = {}  # grad steps/s medians by gin, printed beside each other
+
+
+def _moe_params(dtype, device, seed=1):
+  import torch
+  from tensor2robot_tpu_torch.models.abstract_model import init_parameters
+  from tensor2robot_tpu_torch.parallel import moe
+  s = _MOE_SHAPE
+  module = moe.MoEMLP(s["model_dim"], s["experts"], s["hidden"], k=s["k"],
+                      capacity_factor=s["capacity_factor"], dtype=dtype)
+  init_parameters(module, torch.Generator().manual_seed(seed))
+  return module.to(device)
+
+
+def phase_moe_card_vs_cpu():
+  """49. The MoE layer at `train_vrgripper_transformer_moe.gin`'s shape
+  (N = 512 tokens, E = 8, k = 2, capacity factor 2.0: C = 256, M = 128,
+  H = 512) on the card against the CPU: `top_k_routing` on the same f32
+  logits gives the same dispatch tensor exactly and the combine weights
+  and aux loss within 1e-6; `moe_mlp` in f32 within 1e-5 of the output's
+  largest |value| (matmuls without TF32), in bf16 within 2e-2 of it.
+  Then the layer's device ms (graph replay, bf16) beside the dense MLP's
+  of the same widths (M → 4M → M). Returns the timing row."""
+  import torch
+  import torch.nn.functional as F
+  from tensor2robot_tpu_torch.parallel import moe
+  s = _MOE_SHAPE
+  capacity = moe.expert_capacity(s["tokens"], s["experts"], s["k"],
+                                 s["capacity_factor"])
+  gen = torch.Generator().manual_seed(0)
+  x = torch.randn(s["tokens"], s["model_dim"], generator=gen)
+  logits = torch.randn(s["tokens"], s["experts"], generator=gen)
+  routed = {d: moe.top_k_routing(logits.to(d), capacity, s["k"])
+            for d in ("cpu", "cuda")}
+  dispatch_equal = torch.equal(routed["cuda"][0].cpu(), routed["cpu"][0])
+  route_err = max((routed["cuda"][i].cpu() - routed["cpu"][i]).abs().max()
+                  .item() for i in (1, 2))
+  errs = {}
+  for name, dtype, tol in (("f32", torch.float32, 1e-5),
+                           ("bf16", torch.bfloat16, 2e-2)):
+    out = {}
+    for device in ("cpu", "cuda"):
+      layer = _moe_params(dtype, device)
+      with torch.no_grad():
+        y, aux = layer(x.to(device)[None])
+      out[device] = (y.float().cpu(), aux.cpu())
+    scale = out["cpu"][0].abs().max().item()
+    errs[name] = ((out["cuda"][0] - out["cpu"][0]).abs().max().item()
+                  / scale, abs(out["cuda"][1] - out["cpu"][1]).item(), tol)
+  _log(f"MoE card vs CPU (N={s['tokens']}, E={s['experts']}, k={s['k']}, "
+       f"C={capacity}, M={s['model_dim']}, H={s['hidden']}): dispatch "
+       f"equal {dispatch_equal}, combine/aux max error {route_err} (tol "
+       f"1e-6); output error over its scale, aux error, tol "
+       f"{json.dumps(errs)}")
+  if not dispatch_equal or route_err > 1e-6:
+    raise AssertionError(f"MoE routing differs card vs CPU: {route_err}")
+  if any(err > tol for err, _, tol in errs.values()) or errs["f32"][1] > 1e-6:
+    raise AssertionError(f"MoE layer differs card vs CPU: {errs}")
+  layer = _moe_params(torch.bfloat16, "cuda")
+  xb = x.to("cuda", torch.bfloat16)[None]
+  w1 = torch.randn(s["model_dim"], 4 * s["model_dim"], generator=gen).to(
+      "cuda", torch.bfloat16) * 0.05
+  w2 = torch.randn(4 * s["model_dim"], s["model_dim"], generator=gen).to(
+      "cuda", torch.bfloat16) * 0.05
+  b1 = torch.zeros(4 * s["model_dim"], device="cuda", dtype=torch.bfloat16)
+  b2 = torch.zeros(s["model_dim"], device="cuda", dtype=torch.bfloat16)
+  with torch.no_grad():
+    row = {"moe_ms": _graph_ms(lambda: layer(xb)),
+           "dense_mlp_ms": _graph_ms(
+               lambda: F.gelu(xb @ w1 + b1, approximate="tanh") @ w2 + b2)}
+  _log(f"MoE layer device ms (bf16, graph replay, the gin's shape): "
+       f"{json.dumps(row)}")
+  return row
+
+
+def _plane_gates(label, raw):
+  """Every record carries the perf plane's scalars, finite."""
+  import math
+  for record in raw:
+    p = record["payload"]
+    missing = [k for k in _PLANE_KEYS if k not in p
+               or not math.isfinite(p[k])]
+    if missing:
+      raise AssertionError(f"{label}: step {record['step']} lacks "
+                           f"{missing}: {sorted(p)}")
+
+
+def phase_gin_vrgripper_moe():
+  """50. The shipped `train_vrgripper_transformer_moe.gin` as written,
+  through the trainer binary in a new process with the header's two
+  bindings only, from 100 demos `collect_demo_episodes` wrote: the
+  transformer gin's width with 8 experts on blocks 1 and 3, 2000 steps
+  of B=16 × 32, bf16, flash attention, the default overlapped startup.
+  Gates: those of `phase_gin_vrgripper_transformer` (a valid record
+  every 100 steps, the loss falling, checkpoints at 500, 1000, 1500 and
+  2000), `aux_loss` finite in (0, 8], `startup_timings.json` in mode
+  "overlapped", and the perf plane's scalars (`_PLANE_KEYS`) finite in
+  every record. Then the file in this process with 20 steps bound on
+  top, traced: each flash kernel 4 launches a step + the graph's
+  warm-up step's, equal to CUPTI's; then the trained checkpoint serves
+  `_MOE_SERVE_STEPS` steps through `EpisodeContextPolicy`, graphed,
+  with finite actions and 4 flash launches a step + the warm-up's."""
+  import tempfile
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch import config as gin
+  from tensor2robot_tpu_torch import train_eval
+  from tensor2robot_tpu_torch.bin import run_t2r_trainer
+  from tensor2robot_tpu_torch.ops import launch_counts
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      VRGripperTransformerModel,
+      collect_demo_episodes,
+  )
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+  with tempfile.TemporaryDirectory() as tmp:
+    demos = collect_demo_episodes(os.path.join(tmp, "demos.tfrecord"))
+    model_dir = os.path.join(tmp, "run")
+    os.makedirs(model_dir)
+    wall = _run_trainer("gin train_vrgripper_transformer_moe (as shipped)", [
+        "--gin_configs", _GIN_MOE,
+        "--gin_bindings", f"train_eval_model.model_dir='{model_dir}'",
+        "--gin_bindings",
+        f"train/TFRecordEpisodeInputGenerator.file_patterns='{demos}'"],
+        model_dir)
+    raw = _checked_records(os.path.join(model_dir, "metrics_train.jsonl"))
+    ckpts = ckpt_lib.list_steps(model_dir)
+    with open(os.path.join(model_dir, "startup_timings.json")) as f:
+      timings = json.load(f)
+    steps = [r["step"] for r in raw]
+    payloads = [r["payload"] for r in raw]
+    losses = [p["loss"] for p in payloads]
+    aux = [p["aux_loss"] for p in payloads]
+    rates = [p["steps_per_sec"] for p in payloads]
+    _RATES["train_vrgripper_transformer_moe.gin"] = statistics.median(
+        rates[1:])
+    _log(f"gin train_vrgripper_transformer_moe: wall {wall:.2f} s; steps "
+         f"{steps}; loss {losses}; aux_loss {aux}; steps_per_sec {rates} "
+         f"(median after the first interval {statistics.median(rates[1:])}); "
+         f"checkpoints {ckpts}; startup {json.dumps(timings)}")
+    for key in _PLANE_KEYS:
+      _log(f"  {key}: {[p[key] for p in payloads]}")
+    if steps != list(range(100, _MOE_STEPS + 1, 100)):
+      raise AssertionError(f"gin moe: record steps {steps}")
+    if not all(np.isfinite(losses)) or not (np.mean(losses[-3:])
+                                            < np.mean(losses[:3])):
+      raise AssertionError(f"gin moe: losses {losses}")
+    if not all(np.isfinite(aux)) or not all(0.0 < a <= 8.0 for a in aux):
+      raise AssertionError(f"gin moe: aux_loss {aux}")
+    if ckpts != list(range(500, _MOE_STEPS + 1, 500)):
+      raise AssertionError(f"gin moe: checkpoints {ckpts}")
+    if timings["mode"] != "overlapped" or set(timings["phase_seconds"]) != {
+        "compile", "input"}:
+      raise AssertionError(f"gin moe: startup {timings}")
+    _plane_gates("gin moe", raw)
+
+    run_t2r_trainer.import_configurable_families()
+    steps = 20
+    traced_dir = os.path.join(tmp, "traced")
+    try:
+      gin.parse_config_files_and_bindings([_GIN_MOE], [
+          f"train_eval_model.model_dir = '{traced_dir}'",
+          f"train/TFRecordEpisodeInputGenerator.file_patterns = '{demos}'",
+          f"train_eval_model.max_train_steps = {steps}"])
+      t0 = time.perf_counter()
+      with traced_launches("gin train_vrgripper_transformer_moe") as traced:
+        state = train_eval.train_eval_model()
+      traced_wall = time.perf_counter() - t0
+      model = VRGripperTransformerModel()
+      trained = ckpt_lib.restore_state(
+          model_dir, like=model.create_train_state(seed=0),
+          step=_MOE_STEPS)
+    finally:
+      gin.clear_config()
+    launches = {name: traced[name] for name in _FLASH_KERNELS}
+    warm = {name: _warm(name) for name in _FLASH_KERNELS}
+    _log(f"gin train_vrgripper_transformer_moe in-process: {state.step} "
+         f"steps in {traced_wall:.2f} s (traced); launches "
+         f"{json.dumps(launches)} (warm-up {json.dumps(warm)}; CUPTI = "
+         "counters)")
+    if state.step != steps or any(n != 4 * steps + warm[k] or warm[k] != 4
+                                  for k, n in launches.items()):
+      raise AssertionError(f"gin moe: step {state.step}, launches "
+                           f"{launches}: each should be 4 x {steps} + "
+                           f"warm-up {warm}")
+
+  policy = model.make_context_policy(trained)
+  rng = np.random.default_rng(0)
+  _reset_counts()
+  actions = []
+  t0 = time.perf_counter()
+  for _ in range(_MOE_SERVE_STEPS):
+    actions.append(policy({
+        "image": rng.integers(0, 256, (1, 48, 48, 3), dtype=np.uint8),
+        "gripper_pose": rng.uniform(-1, 1, (1, 3)).astype(np.float32)}
+                          )["action"])
+  torch.cuda.synchronize()
+  serve_s = time.perf_counter() - t0
+  served = launch_counts()["flash_attention_fwd"]
+  warm = _warm("flash_attention_fwd")
+  _log(f"MoE context policy (trained checkpoint, graphed): "
+       f"{_MOE_SERVE_STEPS} steps in {serve_s:.3f} s; flash launches "
+       f"{served} (warm-up {warm}); last action {actions[-1].tolist()}")
+  if not np.isfinite(np.concatenate(actions)).all() or (
+      served != 4 * _MOE_SERVE_STEPS + warm):
+    raise AssertionError(f"MoE policy: launches {served}, actions finite "
+                         f"{np.isfinite(np.concatenate(actions)).all()}")
+  _log(f"grad steps/s from records (median after the first interval): "
+       f"{json.dumps(_RATES)}")
+  return launches
+
+
+def _shardmap_learner():
+  """The shardmap gin's learner, for its analytic FLOPs."""
+  from tensor2robot_tpu_torch.research.qtopt import (
+      GraspingQModel,
+      QTOptLearner,
+  )
+  return QTOptLearner(GraspingQModel(image_size=64, action_dim=2),
+                      cem_iterations=2, cem_population=64, cem_elites=6)
+
+
+def phase_gin_qtopt_anakin_shardmap():
+  """51. The shipped `qtopt_anakin_shardmap.gin` as written through the
+  trainer binary (`--trainer=anakin`): the shard_map pod program at D = 1
+  on this card, the qtopt rules table on the pod mesh, the weight-update
+  sharding, batch 64, 1000 steps: the pod records (`_anakin_records`),
+  the scenario sweep at 500 and 1000 on one scenario digest, and in
+  every record `perf.mfu` = the analytic count
+  (`utils.profiling.qtopt_step_flops`, D = 1) × grad steps/s over the
+  card's peak."""
+  import tempfile
+  from tensor2robot_tpu_torch.utils import profiling
+  learner = _shardmap_learner()
+  flops = profiling.qtopt_step_flops(
+      learner, 64, params=learner.create_state(0).train_state.params)
+  peak = profiling.device_peak_flops()
+  with tempfile.TemporaryDirectory() as model_dir:
+    wall = _run_trainer("gin qtopt_anakin_shardmap (as shipped, one card)", [
+        "--trainer=anakin", "--gin_configs", _GIN_SHARDMAP,
+        "--gin_bindings", f"train_anakin.model_dir='{model_dir}'"],
+        model_dir)
+    raw = _anakin_records(f"gin qtopt_anakin_shardmap (wall {wall:.2f} s)",
+                          model_dir, pod=True)
+    evals = _checked_records(os.path.join(model_dir,
+                                          "metrics_scenario_eval.jsonl"))
+    with open(os.path.join(model_dir, "success_protocol",
+                           "scenarios_by_checkpoint.jsonl")) as f:
+      sweeps = [json.loads(line) for line in f if line.strip()]
+  payloads = [r["payload"] for r in raw]
+  mfu = [p.get("perf.mfu") for p in payloads]
+  want = [p["grad_steps_per_sec"] * flops / peak for p in payloads]
+  _log(f"gin qtopt_anakin_shardmap: qtopt_step_flops {flops} at B=64, peak "
+       f"{peak}; perf.mfu {mfu}; perf.device_time_fraction "
+       f"{[p.get('perf.device_time_fraction') for p in payloads]}; "
+       f"rsrc.device0_mem_bytes "
+       f"{[p.get('rsrc.device0_mem_bytes') for p in payloads]}; sweeps "
+       f"{[dict(step=r['step'], **r['payload']) for r in evals]}")
+  if any(m is None or abs(m - w) > 1e-9 * w for m, w in zip(mfu, want)):
+    raise AssertionError(f"shardmap perf.mfu {mfu}, want {want}")
+  if ([r["step"] for r in evals] != [500, 1000]
+      or [s["step"] for s in sweeps] != [500, 1000]
+      or len({s["scenario_digest"] for s in sweeps}) != 1):
+    raise AssertionError(f"shardmap sweeps: {evals} {sweeps}")
+
+
+def _anakin_in_process(gin_file, bindings, hooks=()):
+  """`train_anakin()` of `gin_file` in this process with `bindings` on
+  top (and no hooks); returns the final state."""
+  import tempfile
+  from tensor2robot_tpu_torch import config as gin
+  from tensor2robot_tpu_torch.envs import train_anakin
+  try:
+    with tempfile.TemporaryDirectory() as model_dir:
+      gin.parse_config_files_and_bindings([gin_file], [
+          f"train_anakin.model_dir = '{model_dir}'",
+          "train_anakin.hooks = []", *bindings])
+      return train_anakin(hooks=list(hooks))
+  finally:
+    gin.clear_config()
+
+
+def phase_shardmap_is_the_single_program():
+  """52. On the card, under cuDNN's deterministic algorithms (its default
+  convolution backward is not deterministic), `qtopt_anakin_pod.gin`
+  and `qtopt_anakin_shardmap.gin` train 16 steps each in this process:
+  their final params, Adam state, batch statistics and target params
+  are equal bit for bit (the shard_map program at D = 1 is the single
+  program). Then the shardmap file with `cem_select = "fused"` bound on
+  top trains 12 steps traced: cem_select's launches equal CUPTI's and
+  (rollout 4 × CEM 2 + K 4 × 2) an iteration + the warm-up iteration's."""
+  import torch
+  from tensor2robot_tpu_torch.bin import run_t2r_trainer
+  run_t2r_trainer.import_configurable_families()
+  torch.backends.cudnn.deterministic = True
+  try:
+    short = ["train_anakin.max_train_steps = 16"]
+    pod = _anakin_in_process(_GIN_ANAKIN_POD, short)
+    shardmap = _anakin_in_process(_GIN_SHARDMAP, short)
+  finally:
+    torch.backends.cudnn.deterministic = False
+  diffs = []
+  for name in ("params", "batch_stats"):
+    a, b = getattr(pod.train_state, name), getattr(shardmap.train_state, name)
+    diffs += [f"{name}.{k}" for k in a if not torch.equal(a[k], b[k])]
+  adam_a, adam_b = pod.train_state.opt_state[0], shardmap.train_state.opt_state[0]
+  diffs += [f"adam.{k}" for k in adam_a.mu
+            if not (torch.equal(adam_a.mu[k], adam_b.mu[k])
+                    and torch.equal(adam_a.nu[k], adam_b.nu[k]))]
+  diffs += [f"target.{k}" for k in pod.target_params
+            if not torch.equal(pod.target_params[k],
+                               shardmap.target_params[k])]
+  _log(f"pod gin vs shardmap gin, 16 steps each (cuDNN deterministic): "
+       f"{len(pod.train_state.params)} params, step {pod.train_state.step} "
+       f"/ {shardmap.train_state.step}, Adam count "
+       f"{int(adam_a.count)} / {int(adam_b.count)}; leaves that differ "
+       f"{diffs}")
+  if diffs or not int(adam_a.count) == int(adam_b.count) == 16:
+    raise AssertionError(f"shardmap != pod program: {diffs}")
+  per_iter = 4 * 2 + 4 * 2
+  with traced_launches("gin qtopt_anakin_shardmap + fused select") as traced:
+    state = _anakin_in_process(_GIN_SHARDMAP, [
+        "QTOptLearner.cem_select = 'fused'",
+        "train_anakin.max_train_steps = 12"])
+  warm = _warm("cem_select")
+  want = per_iter * 3 + warm
+  _log(f"gin qtopt_anakin_shardmap + fused, 12 steps traced: cem_select "
+       f"launches {traced['cem_select']} (want {want}: {per_iter} an "
+       f"iteration + warm-up {warm}; CUPTI = counter); step "
+       f"{state.train_state.step}")
+  if traced["cem_select"] != want or warm != per_iter:
+    raise AssertionError(f"shardmap fused launches {traced}")
+  return traced["cem_select"]
+
+
+class _FirstStep:
+  """A trainer hook noting the wall clock of the first step's end."""
+
+  def __init__(self):
+    self.at = None
+
+  def begin(self, model, model_dir):
+    pass
+
+  def after_step(self, step, metrics):
+    if self.at is None:
+      self.at = time.perf_counter()
+
+  def after_checkpoint(self, step, state, model_dir):
+    pass
+
+  def end(self, step, state, model_dir):
+    pass
+
+
+def phase_overlapped_is_serial():
+  """53. The overlapped startup against the serial one on the card:
+  `train_vrgripper_bc.gin` from 100 demos in this process (its
+  SuccessEvalHook left out, checkpoints every 20 steps, its shuffles
+  seeded) trains 20 steps,
+  then resumes to 40 twice from copies of that directory, overlapped and
+  serial, under cuDNN's deterministic algorithms: the final params and
+  Adam state equal bit for bit. Prints each start's phase seconds (the
+  serial start's restore and input spin-up timed around its calls) and
+  its wall from the call to the first step's end."""
+  import shutil
+  import tempfile
+  import torch
+  from tensor2robot_tpu_torch import config as gin
+  from tensor2robot_tpu_torch import train_eval
+  from tensor2robot_tpu_torch.bin import run_t2r_trainer
+  from tensor2robot_tpu_torch.research.vrgripper import collect_demo_episodes
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+  run_t2r_trainer.import_configurable_families()
+  timed = {}
+
+  def timing(fn, name):
+    def wrapped(*args, **kwargs):
+      t0 = time.perf_counter()
+      try:
+        return fn(*args, **kwargs)
+      finally:
+        timed[name] = time.perf_counter() - t0
+    return wrapped
+
+  def run(model_dir, demos, steps, overlap):
+    hook = _FirstStep()
+    try:
+      gin.parse_config_files_and_bindings([_GIN_BC], [
+          f"train_eval_model.model_dir = '{model_dir}'",
+          f"train/TFRecordEpisodeInputGenerator.file_patterns = '{demos}'",
+          # Seeded shuffles (the gin's are fresh per run), so the two
+          # resumes read the same batches.
+          "train/TFRecordEpisodeInputGenerator.seed = 0",
+          "train/TransitionInputGenerator.seed = 0",
+          f"train_eval_model.max_train_steps = {steps}",
+          "train_eval_model.save_checkpoints_steps = 20",
+          "train_eval_model.log_every_steps = 20",
+          f"train_eval_model.overlap_startup = {overlap}"])
+      t0 = time.perf_counter()
+      state = train_eval.train_eval_model(hooks=[hook])
+    finally:
+      gin.clear_config()
+    return state, hook.at - t0
+
+  torch.backends.cudnn.deterministic = True
+  real_restore, real_batches = ckpt_lib.restore_state, train_eval._device_batches
+  try:
+    with tempfile.TemporaryDirectory() as tmp:
+      demos = collect_demo_episodes(os.path.join(tmp, "demos.tfrecord"))
+      base = os.path.join(tmp, "overlapped")
+      run(base, demos, 20, True)
+      serial_dir = os.path.join(tmp, "serial")
+      shutil.copytree(base, serial_dir)
+      overlapped, overlapped_first = run(base, demos, 40, True)
+      with open(os.path.join(base, "startup_timings.json")) as f:
+        timings = json.load(f)
+      ckpt_lib.restore_state = timing(real_restore, "restore")
+      train_eval._device_batches = timing(real_batches, "input")
+      serial, serial_first = run(serial_dir, demos, 40, False)
+  finally:
+    ckpt_lib.restore_state, train_eval._device_batches = (real_restore,
+                                                          real_batches)
+    torch.backends.cudnn.deterministic = False
+  diffs = [k for k, v in serial.params.items()
+           if not torch.equal(v, overlapped.params[k])]
+  adam_s, adam_o = serial.opt_state[0], overlapped.opt_state[0]
+  diffs += [f"adam.{k}" for k in adam_s.mu
+            if not (torch.equal(adam_s.mu[k], adam_o.mu[k])
+                    and torch.equal(adam_s.nu[k], adam_o.nu[k]))]
+  _log(f"overlapped vs serial resume of train_vrgripper_bc.gin (20 → 40 "
+       f"steps, cuDNN deterministic): steps {overlapped.step} / "
+       f"{serial.step}; leaves that differ {diffs}; overlapped startup "
+       f"{json.dumps(timings)}, wall to the first step "
+       f"{overlapped_first:.3f} s; serial restore {timed.get('restore')} s, "
+       f"input spin-up {timed.get('input')} s, wall to the first step "
+       f"{serial_first:.3f} s")
+  if diffs or not serial.step == overlapped.step == 40:
+    raise AssertionError(f"overlapped != serial: {diffs}")
+  if timings["mode"] != "overlapped" or set(timings["phase_seconds"]) != {
+      "compile", "restore", "input"}:
+    raise AssertionError(f"overlapped startup timings: {timings}")
+
+
 _PHASE_S = {}
 
 
@@ -5287,6 +5790,15 @@ def main():
   _timed(phase_success_protocol, seedcheck)
   _log(f"phases 44-48 s (envs, Anakin, the success protocol): "
        f"{time.perf_counter() - t_anakin:.2f}")
+  t_slice = time.perf_counter()
+  _timed(phase_moe_card_vs_cpu)
+  moe_launches = _timed(phase_gin_vrgripper_moe)
+  _timed(phase_gin_qtopt_anakin_shardmap)
+  shardmap_launches = _timed(phase_shardmap_is_the_single_program)
+  _timed(phase_overlapped_is_serial)
+  _log(f"phases 49-53 s (MoE, the shardmap gin, the overlapped startup): "
+       f"{time.perf_counter() - t_slice:.2f}; flash launches on the MoE "
+       f"gin's traced window {json.dumps(moe_launches)}")
   _log(f"cem_select launches per path (each traced in its own run): CEM "
        f"serving {launches}, Bellman training {qt_launches}, online window "
        f"{sum(online_per_path.values())} ({json.dumps(online_per_path)}), "
@@ -5296,7 +5808,8 @@ def main():
        f"{gin_fused_launches}, serving_multitenant.gin window "
        f"{gin_serving_launches}, goal-conditioned Bellman training "
        f"(grasp2vec labels) {goal_launches}, qtopt_anakin.gin + fused "
-       f"(3 iterations) {anakin_launches}")
+       f"(3 iterations) {anakin_launches}, qtopt_anakin_shardmap.gin + "
+       f"fused (3 iterations + warm-up) {shardmap_launches}")
   main_row = rows[8]  # the serving path's largest bucket
   head_row = head_rows[256]  # the Bellman target's shape
   flash_row = flash_rows[1]  # the context policy serves one robot

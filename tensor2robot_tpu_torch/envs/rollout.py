@@ -40,7 +40,6 @@ import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import config as gin
-from tensor2robot_tpu_torch.config.validate import unported_parameters
 from tensor2robot_tpu_torch.data import prefetch as prefetch_lib
 from tensor2robot_tpu_torch.device import resolve_device
 from tensor2robot_tpu_torch.envs.core import (
@@ -50,8 +49,12 @@ from tensor2robot_tpu_torch.envs.core import (
 )
 from tensor2robot_tpu_torch.envs.pose import PoseBanditEnv
 from tensor2robot_tpu_torch.envs.procgen import ProcGenGraspEnv
+from tensor2robot_tpu_torch.parallel import rules as rules_lib
 from tensor2robot_tpu_torch.serving.microbatcher import dispatch_seed
+from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
+from tensor2robot_tpu_torch.telemetry import perf as perf_lib
 from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+from tensor2robot_tpu_torch.utils import profiling
 from tensor2robot_tpu_torch.utils.step_graph import StepGraph, copy_tree
 
 log = logging.getLogger(__name__)
@@ -300,8 +303,27 @@ def _at_step(state, step: int):
       state, train_state=dataclasses.replace(state.train_state, step=step))
 
 
+def _check_pod_rules(learner, params, sharding_rules: str,
+                    num_devices: int) -> None:
+  """The rules seam of the shard_map pod program: every param's
+  placement under the `sharding_rules` family table on the pod mesh
+  must be replicated (the collect stage broadcasts the params). Raises
+  ValueError on an unknown family, on a param no rule matches, and on a
+  table that shards a param."""
+  with torch.device("meta"):
+    network = learner.model.create_network()
+  specs = rules_lib.match_state_rules(
+      rules_lib.family_rules(sharding_rules), params, network,
+      rules_lib.MeshShape({rules_lib.POD_AXIS: num_devices}))
+  bad = [name for name, spec in specs.items() if spec != rules_lib.P()]
+  if bad:
+    raise ValueError(
+        "the shard_map pod program broadcasts params into the collect "
+        f"stage; rules table {sharding_rules!r} shards {bad[:3]} on the "
+        "pod mesh")
+
+
 @gin.configurable
-@unported_parameters(pod_program="ROADMAP A11", sharding_rules="ROADMAP A11")
 def train_anakin(
     learner=gin.REQUIRED,
     model_dir: str = gin.REQUIRED,
@@ -356,28 +378,32 @@ def train_anakin(
   ``num_devices``: None runs the single program; 0 or 1 on one card is
   the JAX pod program at D = 1, which is the single program bit for bit,
   and only adds the pod records' ``devices``, ``global_batch_size`` and
-  ``bellman_batches_per_sec``. More devices raise (ROADMAP A11), and so
-  do ``pod_program="shard_map"`` and ``sharding_rules`` (the shard_map
-  pod program and the rules seam); `--validate_only` reports a config
-  that binds either.
+  ``bellman_batches_per_sec``. More devices raise (ROADMAP A11).
+  ``pod_program``: "pmap" or "shard_map", the JAX pod program's two
+  substrates; at D = 1 both are the single program (JAX pins its
+  shard_map program there bit for bit to the pmap one), so the port runs
+  that one for either. ``sharding_rules`` names a `parallel.rules`
+  family table; with the shard_map pod program the learner's params are
+  matched through it on the pod mesh (`{"pod": D}`), where every
+  placement must resolve to replicated (the collect stage broadcasts
+  the params): a table that places a param on the pod raises, as does an
+  unknown family. Other programs ignore it, as in JAX.
   ``shard_weight_update=True`` on one device is the plain update, bit
   for bit (the JAX one-device mesh's sharding constraints are no-ops),
   whatever ``update_shard_min_size``.
 
   Records carry the last step's metrics, ``collect_reward_mean``,
-  ``replay_fill``, ``grad_steps_per_sec``, ``env_steps_per_sec`` and
-  ``param_refresh_lag_steps`` (0.0 by construction). Not ported: the
-  perf meter, the sentinel and the resource sampler (ROADMAP A12, A13).
+  ``replay_fill``, ``grad_steps_per_sec``, ``env_steps_per_sec``,
+  ``param_refresh_lag_steps`` (0.0 by construction), the resource
+  sampler's ``rsrc.*`` gauges and the perf meter's ``perf.*``
+  (`telemetry.perf`; ``perf.mfu`` from `utils.profiling.
+  qtopt_step_flops` × D over the peak × D). Not ported: the sentinel
+  (ROADMAP A13).
   """
   del shard_weight_update, update_shard_min_size  # the plain update
   if pod_program not in ("pmap", "shard_map"):
     raise ValueError(f"pod_program={pod_program!r} not in "
                      "('pmap', 'shard_map')")
-  if pod_program == "shard_map" or sharding_rules is not None:
-    raise NotImplementedError(
-        f"train_anakin(pod_program={pod_program!r}, sharding_rules="
-        f"{sharding_rules!r}): the shard_map pod program and the rules "
-        "seam are not ported yet (ROADMAP A11).")
   k = prefetch_lib.validate_steps_per_dispatch(
       train_batches_per_iter,
       log_every_steps=log_every_steps,
@@ -398,6 +424,8 @@ def train_anakin(
 
   os.makedirs(model_dir, exist_ok=True)
   state = learner.create_state(seed)
+  if pod and pod_program == "shard_map" and sharding_rules is not None:
+    _check_pod_rules(learner, state.train_state.params, sharding_rules, d)
   resume_step = ckpt_lib.latest_step(model_dir)
   if resume_step is not None:
     log.info("Resuming anakin QT-Opt from step %d", resume_step)
@@ -442,6 +470,18 @@ def train_anakin(
   hook_list = HookList(list(hooks))
   writer = ckpt_lib.CheckpointWriter(model_dir,
                                      max_to_keep=max_checkpoints_to_keep)
+  registry = tmetrics.registry()
+  perf_lib.start_resource_sampler(
+      sources=[profiling.device_memory_source()])
+  # One optimizer step takes `batch_size` rows per device (global batch
+  # D·B): the per-device count × D over the peak × D keeps perf.mfu the
+  # per-card share of peak of the Bellman model (the collection's FLOPs
+  # are not model FLOPs).
+  per_device_flops = profiling.qtopt_step_flops(
+      learner, batch_size, params=state.train_state.params)
+  perf_meter = perf_lib.PerfMeter(
+      flops_per_step=per_device_flops * d if per_device_flops else None,
+      peak_flops=profiling.device_peak_flops(device), devices=d)
   graph = None
   eager_gens = [torch.Generator(device=device) for _ in range(k + 1)]
 
@@ -456,16 +496,18 @@ def train_anakin(
     steps_since_log = 0
     last_saved = resume_step
     while step < max_train_steps:
-      if graphs:
-        if graph is None:
-          graph = StepGraph(iteration, carry, {}, device,
-                            num_generators=k + 1)
-          carry = None  # the graph's static buffers hold it from here
-        seed_generators(graph.generators)
-        metrics = graph.replay()
-      else:
-        seed_generators(eager_gens)
-        carry, metrics = iteration(carry, {}, eager_gens)
+      with perf_meter.dispatch("anakin.dispatch", step=step, k=k,
+                               devices=d):
+        if graphs:
+          if graph is None:
+            graph = StepGraph(iteration, carry, {}, device,
+                              num_generators=k + 1)
+            carry = None  # the graph's static buffers hold it from here
+          seed_generators(graph.generators)
+          metrics = graph.replay()
+        else:
+          seed_generators(eager_gens)
+          carry, metrics = iteration(carry, {}, eager_gens)
       step += k
       steps_since_log += k
       hook_list.after_step(step, metrics)
@@ -481,6 +523,11 @@ def train_anakin(
               scalars["grad_steps_per_sec"] * d)
         # Zero by construction: acting params are the training params.
         scalars["param_refresh_lag_steps"] = 0.0
+        scalars.update(registry.scalars("compile_cache."))
+        scalars.update(registry.scalars("rsrc."))
+        registry.gauge("train.grad_steps_per_sec").set(
+            scalars["grad_steps_per_sec"])
+        scalars.update(perf_meter.publish(scalars["grad_steps_per_sec"], dt))
         metric_logger.write("train", step, scalars)
         t_last = time.time()
         steps_since_log = 0

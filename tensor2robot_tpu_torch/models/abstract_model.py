@@ -21,8 +21,9 @@ written.
 
 An auxiliary loss that a network returns under `AUX_LOSS_OUTPUT` is
 popped before `model_train_fn` / `model_eval_fn` see the outputs and
-weighted into the loss by `aux_loss_weight`, reported as `aux_loss`, as
-the JAX package does (no port network returns one yet: MoE is A11).
+weighted into the loss by `aux_loss_weight`, reported as `aux_loss`, in
+every mode, and stripped from `predict_step`'s outputs, as the JAX
+package does (the VRGripper transformer's MoE trunk returns one).
 
 Under `utils.step_graph` a step's carry is a `TrainState` whose tensors
 are static buffers: the step still returns fresh tensors, and the graph
@@ -346,11 +347,14 @@ class AbstractT2RModel(ModelInterface):
 
   def predict_step(self, state: TrainState, features) -> Any:
     """The bound network's outputs on the preprocessed `features`,
-    without autograd."""
+    without autograd and without the auxiliary loss."""
     with torch.inference_mode():
       features, _ = self.preprocessor.preprocess(features, None,
                                                  Mode.PREDICT)
-      return self.bind(state)(features)
+      outputs = self.bind(state)(features)
+    if isinstance(outputs, dict):
+      outputs.pop(self.AUX_LOSS_OUTPUT, None)
+    return outputs
 
   def bind(self, state: TrainState) -> nn.Module:
     """The network in eval mode over `state`'s own tensors.

@@ -22,7 +22,13 @@ MAML's base network under ``base_net`` beside its scalar
     both networks); ``scale`` of any other module (LayerNorm) becomes
     torch's ``weight``;
   * raw params (``trunk.positions``, ``...ssoftmax.log_temperature``,
-    ``inner_lr_log``) are carried as they are.
+    ``inner_lr_log``) and the MoE layer's ``router`` and
+    ``moe_expert_{w_in,b_in,w_out,b_out}`` (stored in the einsum layout
+    in both packages, so not transposed) are carried as they are.
+
+`flax_param_paths` is the map's inverse on names: each port param's
+'/'-joined flax path, which the sharding rules tables read
+(`parallel.rules`).
 
 A name the port network does not have fails when the state is bound
 (`AbstractT2RModel.bind` loads strictly).
@@ -38,6 +44,7 @@ from typing import Any, Collection, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from tensor2robot_tpu_torch.models.abstract_model import TrainState
 
@@ -105,3 +112,37 @@ def convert_variables(variables: Mapping[str, Any],
       params=convert_params(variables["params"],
                             {module for module, _ in _walk(stats)}),
       batch_stats=convert_batch_stats(stats))
+
+
+_FLAX_KERNEL_ORDER = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
+
+
+def _flax_leaves(network: nn.Module):
+  """Yields (port name, flax path, flax shape) of each parameter."""
+  modules = dict(network.named_modules())
+  for name, param in network.named_parameters():
+    module_path, _, leaf = name.rpartition(".")
+    shape = tuple(param.shape)
+    if leaf == "weight" and isinstance(modules[module_path], (
+        nn.Linear, nn.Conv1d, nn.Conv2d)):
+      leaf = "kernel"
+      shape = tuple(shape[i] for i in _FLAX_KERNEL_ORDER[len(shape)])
+    elif leaf == "weight":
+      leaf = "scale"
+    path = module_path.split(".") + [leaf] if module_path else [leaf]
+    yield name, "/".join(path), shape
+
+
+def flax_param_paths(network: nn.Module) -> Dict[str, str]:
+  """{port param name: '/'-joined flax param path} for `network`'s
+  parameters: the module path's dots become slashes, a Linear's or a
+  conv's ``weight`` is flax's ``kernel``, any other module's ``weight``
+  (the LayerNorm's) is flax's ``scale``, and every other leaf name is
+  the flax one."""
+  return {name: path for name, path, _ in _flax_leaves(network)}
+
+
+def flax_param_shapes(network: nn.Module) -> Dict[str, tuple]:
+  """{port param name: the flax param's shape}: kernels in flax's layout
+  (``[in, out]``, HWIO, ``[k, in, out]``), every other leaf as it is."""
+  return {name: shape for name, _, shape in _flax_leaves(network)}

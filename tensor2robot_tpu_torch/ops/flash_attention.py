@@ -406,6 +406,13 @@ def _bwd_operand(x):
   return x
 
 
+def load_libraries() -> None:
+  """Builds (where not built yet) and loads the forward and backward
+  kernel libraries, ahead of a first launch (no capture may be open)."""
+  build.load("flash_attention", _ARGTYPES)
+  build.load("flash_attention_bwd", _BWD_ARGTYPES)
+
+
 def _launch(q, k, v, causal, scale=None):
   """One forward launch at a kernel head dim; `scale` defaults to 1/√D."""
   _check_launch(q, k, v)

@@ -30,10 +30,16 @@ loop does before it traces its step.
 
 `shard_weight_update=True` on one process is the plain update: on the
 JAX package's one-device mesh every sharding constraint is a no-op and
-the step is bit for bit the plain optimizer's. Not ported: a mesh
-(ROADMAP A11) and multi-process learner groups with their sharded
-update (A13, A11) raise; the perf meter, the sentinel and the resource
-sampler (A12, A13) are left out.
+the step is bit for bit the plain optimizer's.
+
+The perf plane (`telemetry.perf`) rides the loop as in JAX: the process's
+resource sampler (host RSS, the card's allocator bytes), and a
+`PerfMeter` around each dispatch whose ``perf.device_time_fraction``,
+``perf.flops_per_sec`` and ``perf.mfu`` (from `utils.profiling.
+qtopt_step_flops`, the analytic count, over the card's peak) join every
+record with the ``rsrc.*`` and ``compile_cache.*`` gauges. Not ported: a
+mesh (ROADMAP A11) and multi-process learner groups with their sharded
+update (A13, A11) raise; the alert sentinel (A13) is left out.
 """
 
 from __future__ import annotations
@@ -56,8 +62,11 @@ from tensor2robot_tpu_torch.research.qtopt.qtopt_learner import (
 from tensor2robot_tpu_torch.research.qtopt.replay_buffer import ReplayBuffer
 from tensor2robot_tpu_torch.serving.microbatcher import dispatch_seed
 from tensor2robot_tpu_torch.specs import make_random_tensors
+from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
+from tensor2robot_tpu_torch.telemetry import perf as perf_lib
 from tensor2robot_tpu_torch.train_eval import MetricLogger
 from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+from tensor2robot_tpu_torch.utils import profiling
 from tensor2robot_tpu_torch.utils.step_graph import StepGraph
 
 log = logging.getLogger(__name__)
@@ -164,6 +173,13 @@ def train_qtopt(
   metric_logger = MetricLogger(model_dir)
   writer = ckpt_lib.CheckpointWriter(model_dir,
                                      max_to_keep=max_checkpoints_to_keep)
+  registry = tmetrics.registry()
+  perf_lib.start_resource_sampler(
+      sources=[profiling.device_memory_source()])
+  perf_meter = perf_lib.PerfMeter(
+      flops_per_step=profiling.qtopt_step_flops(
+          learner, batch_size, params=state.train_state.params),
+      peak_flops=profiling.device_peak_flops(device), devices=1)
   prefetcher = None
   graph = None
 
@@ -195,20 +211,22 @@ def train_qtopt(
     for transitions in prefetch_iter:
       if step >= max_train_steps:
         break
-      if graphs:
-        if graph is None:
-          graph = StepGraph(k_step_fn(learner, k), state, transitions,
-                            device, num_generators=k)
-        for i, generator in enumerate(graph.generators):
-          generator.manual_seed(dispatch_seed(seed + 1, step + i))
-        metrics = graph.replay(transitions)
-      else:
-        batches = ([transitions] if k == 1 else
-                   [{key: v[i] for key, v in transitions.items()}
-                    for i in range(k)])
-        for i, batch in enumerate(batches):
-          state, metrics = learner.train_step(
-              state, batch, generator=step_generator(seed, step + i, device))
+      with perf_meter.dispatch("qtopt.dispatch", step=step, k=k):
+        if graphs:
+          if graph is None:
+            graph = StepGraph(k_step_fn(learner, k), state, transitions,
+                              device, num_generators=k)
+          for i, generator in enumerate(graph.generators):
+            generator.manual_seed(dispatch_seed(seed + 1, step + i))
+          metrics = graph.replay(transitions)
+        else:
+          batches = ([transitions] if k == 1 else
+                     [{key: v[i] for key, v in transitions.items()}
+                      for i in range(k)])
+          for i, batch in enumerate(batches):
+            state, metrics = learner.train_step(
+                state, batch,
+                generator=step_generator(seed, step + i, device))
       step += k
       steps_since_log += k
       replay_buffer.set_learner_step(step)
@@ -219,6 +237,11 @@ def train_qtopt(
         scalars["grad_steps_per_sec"] = steps_since_log / max(dt, 1e-9)
         scalars["input_wait_fraction"] = prefetch_iter.wait_fraction(dt)
         scalars.update(replay_buffer.metrics_scalars())
+        scalars.update(registry.scalars("compile_cache."))
+        scalars.update(registry.scalars("rsrc."))
+        registry.gauge("train.grad_steps_per_sec").set(
+            scalars["grad_steps_per_sec"])
+        scalars.update(perf_meter.publish(scalars["grad_steps_per_sec"], dt))
         metric_logger.write("train", step, scalars)
         t_last = time.time()
         steps_since_log = 0

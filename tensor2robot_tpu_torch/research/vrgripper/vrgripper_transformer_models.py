@@ -8,8 +8,13 @@ is the hand-written flash kernel (`attention_impl="auto"`).
 
 Ported: the network, the model's specs, the length-masked per-step BC
 loss (`model_train_fn`) that trains it, and `EpisodeContextPolicy`, the
-on-robot loop that feeds the growing history. Pipelined trunks, MoE and
-ring attention wait for ROADMAP A11.
+on-robot loop that feeds the growing history. `moe_experts` and
+`moe_every` make every `moe_every`-th trunk block a MoE layer on one
+device (`parallel.moe`); the network then returns the trunk's
+load-balance loss under `AbstractT2RModel.AUX_LOSS_OUTPUT`, which the
+base model weights into the loss by `aux_loss_weight` and strips from
+`predict_step`. Pipelined trunks, expert parallelism and ring attention
+wait for ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ class _EpisodeTransformerNet(nn.Module):
                filters: Sequence[int], embedding_size: int, width: int,
                depth: int, num_heads: int, max_len: int,
                attention_impl: str, dtype: torch.dtype = torch.bfloat16,
-               moe_experts: int = 0, pipeline_stages: int = 0):
+               moe_experts: int = 0, moe_every: int = 2,
+               pipeline_stages: int = 0):
     super().__init__()
     if pipeline_stages:
       raise NotImplementedError(
@@ -61,7 +67,7 @@ class _EpisodeTransformerNet(nn.Module):
     self.trunk = CausalTransformer(
         embedding_size, width=width, depth=depth, num_heads=num_heads,
         max_len=max_len, attention_impl=attention_impl, dtype=dtype,
-        moe_experts=moe_experts)
+        moe_experts=moe_experts, moe_every=moe_every)
     self.action_head = nn.Linear(width, action_dim)
 
   def forward(self, features) -> Dict[str, torch.Tensor]:
@@ -75,9 +81,12 @@ class _EpisodeTransformerNet(nn.Module):
         "image": image.reshape((b * t,) + tuple(image.shape[2:])),
         "gripper_pose": pose.reshape((b * t,) + tuple(pose.shape[2:])),
     })
-    trunk = self.trunk(emb.reshape(b, t, -1))
+    trunk, aux = self.trunk(emb.reshape(b, t, -1), return_aux=True)
     action = dense(self.action_head, trunk, self.dtype).float()
-    return {ACTION: action, INFERENCE_OUTPUT: action}
+    outputs = {ACTION: action, INFERENCE_OUTPUT: action}
+    if aux is not None:
+      outputs[AbstractT2RModel.AUX_LOSS_OUTPUT] = aux
+    return outputs
 
 
 @gin.configurable
@@ -96,10 +105,14 @@ class VRGripperTransformerModel(AbstractT2RModel):
                max_context_length: int = 512,
                attention_impl: str = "auto",
                moe_experts: int = 0,
+               moe_every: int = 2,
                pipeline_stages: int = 0,
                device_dtype: torch.dtype = torch.bfloat16,
                **kwargs):
-    """`kwargs` go to `AbstractT2RModel` (`create_optimizer_fn`)."""
+    """`moe_experts` / `moe_every`: every `moe_every`-th trunk block's
+    MLP becomes that many routed experts (one device); the load-balance
+    loss joins training by `aux_loss_weight`. `kwargs` go to
+    `AbstractT2RModel` (`create_optimizer_fn`, `aux_loss_weight`)."""
     super().__init__(device_dtype=device_dtype, **kwargs)
     self._image_size = image_size
     self._state_dim = state_dim
@@ -112,6 +125,7 @@ class VRGripperTransformerModel(AbstractT2RModel):
     self._max_len = max_context_length
     self._attention_impl = attention_impl
     self._moe_experts = moe_experts
+    self._moe_every = moe_every
     self._pipeline_stages = pipeline_stages
     with torch.device("meta"):
       self.create_network()  # unsupported options raise here, not later
@@ -150,6 +164,7 @@ class VRGripperTransformerModel(AbstractT2RModel):
         attention_impl=self._attention_impl,
         dtype=self.device_dtype,
         moe_experts=self._moe_experts,
+        moe_every=self._moe_every,
         pipeline_stages=self._pipeline_stages,
     )
 

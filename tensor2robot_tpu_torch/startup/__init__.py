@@ -1,2 +1,3 @@
-"""Start-up plumbing: the kernel build cache's watch (the rest of the
-JAX package's `startup/` is ROADMAP A12)."""
+"""Start-up plumbing: the kernel build cache's watch and the overlapped
+startup phases (`orchestrator`); the cold-start probes
+(`startup/coldstart.py`) are ROADMAP A12."""

@@ -1,10 +1,11 @@
-"""Telemetry: the span tracer, the metrics registry and the
-metrics-record envelope (ports of the JAX package's `telemetry/core.py`,
-`metrics.py` and `records.py`; the rest of that package is ROADMAP
-A13)."""
+"""Telemetry: the span tracer, the metrics registry, the metrics-record
+envelope and the perf plane (ports of the JAX package's
+`telemetry/core.py`, `metrics.py`, `records.py` and `perf.py`; the rest
+of that package is ROADMAP A13)."""
 
 from tensor2robot_tpu_torch.telemetry import core
 from tensor2robot_tpu_torch.telemetry import metrics
+from tensor2robot_tpu_torch.telemetry import perf
 from tensor2robot_tpu_torch.telemetry import records
 from tensor2robot_tpu_torch.telemetry.core import (
     clock_offset_from_handshake,
@@ -24,6 +25,7 @@ __all__ = [
     "event",
     "get_tracer",
     "metrics",
+    "perf",
     "records",
     "registry",
     "span",

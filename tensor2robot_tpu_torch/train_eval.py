@@ -23,9 +23,33 @@ resumes from the latest checkpoint in `model_dir`. Hooks and the
 checkpoint writer get copies of the state: nothing they keep is a
 buffer that a later replay writes, and the returned state is a copy.
 
-Not ported yet: meshes and sharding strategies (ROADMAP A11), exporters
-(A12 export) and the overlapped startup (A12 startup); each raises where
-it is asked for.
+Startup (`overlap_startup`, True by default, as in JAX): the restore of
+the latest checkpoint, the input pipeline's spin-up (its prefetcher
+starts copying batches to the card) and the "compile" phase run
+together on threads (`startup.orchestrator.run_overlapped`), and each
+phase's seconds go to `<model_dir>/startup_timings.json`. The JAX
+package's compile phase is XLA's ahead-of-time compilation; the port's
+is the kernel libraries the network launches on the card, built if
+needed and loaded (`kernel_libraries`). All three are host work and
+copies: each step's CUDA graph is captured at its first dispatch, after
+the join, on the loop's thread. A failed phase is raised after every
+phase has joined, and the input phase's prefetcher (and a data plane's
+workers) are closed first. Overlapped and serial starts give the same
+states bit for bit.
+
+The records: the step's metrics, `steps_per_sec` over the interval
+without its stalls (checkpoint saves, interleaved evaluations and the
+record writes), `stall_fraction` (their share of the interval),
+`input_wait_fraction` (the share spent waiting for the prefetcher), the
+kernel build cache's `compile_cache.*` counters, the resource sampler's
+`rsrc.*` gauges and the perf meter's `perf.*` (`telemetry.perf`):
+`perf.device_time_fraction` always, and `perf.flops_per_sec` and
+`perf.mfu` where the step's FLOPs could be counted
+(`utils.profiling.train_step_flops`: one eager step on the first batch,
+results dropped) and the card's peak is known.
+
+Not ported yet: meshes and sharding strategies (ROADMAP A11) and
+exporters (A12 export); each raises where it is asked for.
 """
 
 from __future__ import annotations
@@ -49,9 +73,12 @@ from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
 from tensor2robot_tpu_torch.hooks import Hook, HookList
 from tensor2robot_tpu_torch.models.abstract_model import TrainState
 from tensor2robot_tpu_torch.models.model_interface import ModelInterface
-from tensor2robot_tpu_torch.startup import compile_cache
+from tensor2robot_tpu_torch.startup import compile_cache, orchestrator
+from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
+from tensor2robot_tpu_torch.telemetry import perf as perf_lib
 from tensor2robot_tpu_torch.telemetry import records
 from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+from tensor2robot_tpu_torch.utils import profiling
 from tensor2robot_tpu_torch.utils.step_graph import GraphCache
 
 log = logging.getLogger(__name__)
@@ -192,8 +219,28 @@ class _Evaluator:
     return {k: v / count for k, v in totals.items()} if count else {}
 
 
+def kernel_libraries(model: ModelInterface, device: torch.device) -> list:
+  """Builds (where not built yet) and loads the kernel libraries that
+  `model`'s network launches on `device`: what each module's
+  ``kernel_libraries(device)`` names. Returns their names; none off the
+  card."""
+  create = getattr(model, "create_network", None)
+  if device.type != "cuda" or create is None:
+    return []
+  with torch.device("meta"):
+    network = create()
+  names = {}
+  for module in network.modules():
+    for name, load in getattr(module, "kernel_libraries",
+                              lambda d: {})(device).items():
+      names.setdefault(name, load)
+  for load in names.values():
+    load()
+  return sorted(names)
+
+
 def _check_unported(mesh, sharding_strategy: str, min_size_to_shard: int,
-                    create_exporters_fn=None, overlap_startup: bool = False):
+                    create_exporters_fn=None):
   if (mesh is not None or sharding_strategy != "replicated"
       or min_size_to_shard != _DEFAULT_MIN_SIZE_TO_SHARD):
     raise NotImplementedError(
@@ -204,10 +251,6 @@ def _check_unported(mesh, sharding_strategy: str, min_size_to_shard: int,
     raise NotImplementedError(
         "create_exporters_fn: exporters are not ported yet (ROADMAP A12, "
         "export).")
-  if overlap_startup:
-    raise NotImplementedError(
-        "overlap_startup=True: the overlapped startup is not ported yet "
-        "(ROADMAP A12, startup); the serial path is overlap_startup=False.")
 
 
 @gin.configurable
@@ -232,7 +275,7 @@ def train_eval_model(
     seed: int = 0,
     init_batch_size: int = 2,
     steps_per_dispatch: int = 1,
-    overlap_startup: bool = False,
+    overlap_startup: bool = True,
     device: DeviceLike = None,
     graphs: bool = True,
 ) -> TrainState:
@@ -243,12 +286,14 @@ def train_eval_model(
   `steps_per_dispatch` K runs K steps per dispatch (one graph replay):
   the log, checkpoint and eval cadences and `max_train_steps` must be
   multiples of K, and per-step hooks see each dispatch's last metrics.
-  Each train record holds the step's metrics and `steps_per_sec` over
-  the interval. `init_batch_size` is accepted for the JAX signature: the
-  port builds its networks from their specs. Returns the final state.
+  `overlap_startup` runs the startup phases together (the module
+  docstring); False runs them one after the other, the input phase at
+  the loop's start. `init_batch_size` is accepted for the JAX signature:
+  the port builds its networks from their specs. Returns the final
+  state.
   """
   _check_unported(mesh, sharding_strategy, min_size_to_shard,
-                  create_exporters_fn, overlap_startup)
+                  create_exporters_fn)
   del init_batch_size
   compile_cache.configure_compilation_cache()
   device = resolve_device(device)
@@ -267,12 +312,47 @@ def train_eval_model(
 
   state = model.create_train_state(seed=seed, device=device)
   resume_step = ckpt_lib.latest_step(model_dir)
+  will_train = input_generator_train is not None and max_train_steps > 0
+
+  def restore_phase() -> TrainState:
+    return ckpt_lib.restore_state(model_dir, like=state, step=resume_step)
+
+  def input_phase() -> prefetch_lib.DevicePrefetcher:
+    return _device_batches(
+        input_generator_train.create_dataset(Mode.TRAIN,
+                                             batch_size=batch_size),
+        device, k)
+
+  phases: Dict[str, Callable[[], Any]] = {}
+  if overlap_startup:
+    if will_train or input_generator_eval is not None:
+      phases["compile"] = lambda: kernel_libraries(model, device)
+    if resume_step is not None:
+      phases["restore"] = restore_phase
+    if will_train:
+      phases["input"] = input_phase
   if resume_step is not None:
     log.info("Resuming from checkpoint at step %d in %s", resume_step,
              model_dir)
-    state = ckpt_lib.restore_state(model_dir, like=state, step=resume_step)
+  train_prefetcher = None
+  if phases:
+    report = orchestrator.run_overlapped(phases)
+    if report.errors:
+      # A failed phase must not leak the input phase's prefetcher.
+      orchestrator.close_quietly(report.results.get("input"))
+      report.raise_first(order=("restore", "input", "compile"))
+    state = report.results.get("restore", state)
+    train_prefetcher = report.results.get("input")
+    try:
+      report.write(model_dir)
+    except OSError:
+      log.warning("Could not write %s", orchestrator.STARTUP_TIMINGS_FILE,
+                  exc_info=True)
+  elif resume_step is not None:
+    state = restore_phase()
   step = int(state.step)
   if k > 1 and step % k and step < max_train_steps:
+    orchestrator.close_quietly(train_prefetcher)
     raise ValueError(
         f"Resumed at step {step}, not a multiple of "
         f"steps_per_dispatch={k}: boundaries would never align.")
@@ -282,8 +362,14 @@ def train_eval_model(
                                      max_to_keep=max_checkpoints_to_keep)
   evaluator = _Evaluator(model, device, graphs)
   eval_batch = eval_batch_size or batch_size
-  prefetcher = None
+  prefetcher = train_prefetcher
   graphs_by_shape: Optional[GraphCache] = None
+  registry = tmetrics.registry()
+  perf_lib.start_resource_sampler(
+      sources=[profiling.device_memory_source()])
+  # The step's FLOPs are counted on the first batch's shapes.
+  perf_meter = perf_lib.PerfMeter(
+      peak_flops=profiling.device_peak_flops(device), devices=1)
 
   def current() -> TrainState:
     """The state as of `step`, a copy no later replay writes."""
@@ -293,43 +379,72 @@ def train_eval_model(
   try:
     hook_list.begin(model, model_dir)
     if input_generator_train is not None and step < max_train_steps:
-      prefetcher = _device_batches(
-          input_generator_train.create_dataset(Mode.TRAIN,
-                                               batch_size=batch_size),
-          device, k)
+      if prefetcher is None:
+        prefetcher = input_phase()
       train_fn = train_step_fn(model, k)
       if graphs:
         graphs_by_shape = GraphCache(train_fn, state, device)
       t_last = time.time()
       steps_since_log = 0
+      # Wall spent in checkpoint saves, interleaved evaluations and
+      # record writes in the interval: `steps_per_sec` leaves it out,
+      # `stall_fraction` is its share.
+      stall_secs = 0.0
       last_saved = resume_step
-      for packed in prefetcher:
+      prefetch_iter = prefetch_lib.TimedIterator(prefetcher)
+      counted = False
+      for packed in prefetch_iter:
         if step >= max_train_steps:
           break
         batch = _unpacked(packed)
-        if graphs_by_shape is not None:
-          metrics = graphs_by_shape.replay(batch)
-        else:
-          state, metrics = train_fn(state, batch, ())
+        if not counted:
+          one = batch if k == 1 else {side: {key: v[0] for key, v in
+                                             leaves.items()}
+                                      for side, leaves in batch.items()}
+          perf_meter.flops_per_step = profiling.train_step_flops(
+              train_step_fn(model), state, one, ())
+          counted = True
+        with perf_meter.dispatch("train.dispatch", step=step):
+          if graphs_by_shape is not None:
+            metrics = graphs_by_shape.replay(batch)
+          else:
+            state, metrics = train_fn(state, batch, ())
         step += k
         steps_since_log += k
         hook_list.after_step(step, metrics)
         if step % log_every_steps == 0 or step == max_train_steps:
           scalars = {key: v.item() for key, v in metrics.items()}
           dt = time.time() - t_last
-          scalars["steps_per_sec"] = steps_since_log / max(dt, 1e-9)
-          metric_logger.write("train", step, scalars)
+          scalars["steps_per_sec"] = steps_since_log / max(
+              dt - stall_secs, 1e-9)
+          scalars["stall_fraction"] = min(
+              max(stall_secs / max(dt, 1e-9), 0.0), 1.0)
+          scalars["input_wait_fraction"] = prefetch_iter.wait_fraction(dt)
+          scalars.update(registry.scalars("compile_cache."))
+          scalars.update(registry.scalars("rsrc."))
+          registry.gauge("train.steps_per_sec").set(scalars["steps_per_sec"])
+          registry.gauge("train.stall_fraction").set(
+              scalars["stall_fraction"])
+          scalars.update(perf_meter.publish(scalars["steps_per_sec"], dt))
           t_last = time.time()
           steps_since_log = 0
+          t_write = time.perf_counter()
+          metric_logger.write("train", step, scalars)
+          # The write is a stall of the interval that just began.
+          stall_secs = time.perf_counter() - t_write
         if step % save_checkpoints_steps == 0 or step == max_train_steps:
+          t_save = time.perf_counter()
           saved = current()
           writer.save(step, saved)
           last_saved = step
           hook_list.after_checkpoint(step, saved, model_dir)
+          stall_secs += time.perf_counter() - t_save
         if (input_generator_eval is not None and eval_every_steps
             and step % eval_every_steps == 0 and step != max_train_steps):
+          t_eval = time.perf_counter()
           metric_logger.write("eval", step, evaluator.run(
               current(), input_generator_eval, eval_steps, eval_batch))
+          stall_secs += time.perf_counter() - t_eval
       state = current()
       if last_saved != step:
         writer.save(step, state)

@@ -8,7 +8,8 @@ iteration against `QTOptLearner.train_step` on the same rows with the
 same noise injected (that step is pinned against JAX in
 `test_torch_qtopt_train.py`); `train_anakin` end to end with records,
 checkpoints and exact resume; the pod and weight-update options on one
-device; cadence validation; each ROADMAP A11 raise; a statistical
+device, the shard_map pod program and the rules seam at D = 1; cadence
+validation; each ROADMAP A11 raise; a statistical
 check that Anakin training beats the random baseline on the pose
 bandit, as the JAX package's slow test does; and the success protocol's
 `envs` and `gripper` modes and `seedcheck` halves at test size.
@@ -258,6 +259,65 @@ def test_one_device_options_are_the_single_program(tmp_path, option):
       assert row["bellman_batches_per_sec"] == row["grad_steps_per_sec"]
 
 
+def _tree_equal(a, b):
+  if isinstance(a, torch.Tensor):
+    return torch.equal(a, b)
+  if isinstance(a, dict):
+    return set(a) == set(b) and all(_tree_equal(a[k], b[k]) for k in a)
+  if isinstance(a, (tuple, list)):
+    return len(a) == len(b) and all(map(_tree_equal, a, b))
+  return a == b
+
+
+def test_shard_map_at_one_device_is_the_single_program(tmp_path):
+  """`qtopt_anakin_shardmap.gin`'s options at D = 1 (the shard_map pod
+  program, the qtopt rules table, the weight-update sharding) train bit
+  for bit what the default single program trains: params, Adam state,
+  batch statistics and target params (JAX pins its shard_map program at
+  D = 1 to the pmap one, which is the single program)."""
+  base = envs.train_anakin(learner=_tiny_learner(),
+                           model_dir=str(tmp_path / "base"), **RUN)
+  shard_map = envs.train_anakin(
+      learner=_tiny_learner(), model_dir=str(tmp_path / "shard_map"),
+      **dict(RUN, num_devices=1, pod_program="shard_map",
+             sharding_rules="qtopt", shard_weight_update=True))
+  a, b = base.train_state, shard_map.train_state
+  assert a.step == b.step == 16
+  for name in ("params", "batch_stats", "opt_state"):
+    assert _tree_equal(getattr(a, name), getattr(b, name)), name
+  assert _tree_equal(base.target_params, shard_map.target_params)
+  rows = read_records(str(tmp_path / "shard_map" / "metrics_train.jsonl"))
+  assert [r["devices"] for r in rows] == [1, 1]
+
+
+@pytest.mark.parametrize("table,error", [
+    ("nope", "unknown model family"),
+    ("sharded", "shards"),
+    ("uncovered", "no partition rule matched")])
+def test_the_rules_seam_refuses_what_jax_refuses(tmp_path, monkeypatch,
+                                                 table, error):
+  """An unknown family, a table that places a param on the pod axis, and
+  a table that leaves a param unmatched raise before training."""
+  from tensor2robot_tpu_torch.parallel import rules
+  tables = dict(rules.FAMILY_RULES)
+  tables["sharded"] = ((r"torso_conv_0/kernel$", rules.P("pod")),
+                       (r".*", rules.Replicate()))
+  tables["uncovered"] = ((r"/kernel$", rules.Replicate()),)
+  monkeypatch.setattr(rules, "FAMILY_RULES", tables)
+  with pytest.raises(ValueError, match=error):
+    envs.train_anakin(learner=_tiny_learner(), model_dir=str(tmp_path),
+                      **dict(RUN, num_devices=0, pod_program="shard_map",
+                             sharding_rules=table))
+  assert not os.path.exists(tmp_path / "metrics_train.jsonl")
+
+
+def test_rules_are_ignored_outside_the_shard_map_program(tmp_path):
+  """As in JAX, only the shard_map pod program reads `sharding_rules`."""
+  state = envs.train_anakin(learner=_tiny_learner(), model_dir=str(tmp_path),
+                            **dict(RUN, sharding_rules="nope"))
+  assert int(state.step) == 16
+
+
 def test_cadences_must_divide(tmp_path):
   with pytest.raises(ValueError):
     envs.train_anakin(learner=_tiny_learner(), model_dir=str(tmp_path),
@@ -266,10 +326,13 @@ def test_cadences_must_divide(tmp_path):
                       save_checkpoints_steps=4)
 
 
-@pytest.mark.parametrize("kwargs", [dict(num_devices=2),
-                                    dict(pod_program="shard_map"),
-                                    dict(sharding_rules="qtopt")])
+@pytest.mark.parametrize("kwargs", [
+    dict(num_devices=2),
+    dict(num_devices=2, pod_program="shard_map"),
+    dict(num_devices=2, pod_program="shard_map", sharding_rules="qtopt")])
 def test_pod_programs_raise_naming_a11(tmp_path, kwargs):
+  """Both pod programs over more than one device are A11 (at D = 1 they
+  are the single program: the tests below)."""
   with pytest.raises(NotImplementedError, match="A11"):
     envs.train_anakin(learner=_tiny_learner(), model_dir=str(tmp_path),
                       **dict(RUN, **kwargs))

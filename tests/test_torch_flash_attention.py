@@ -33,6 +33,7 @@ from tensor2robot_tpu.parallel import (  # noqa: E402
 )
 from tensor2robot_tpu_torch.layers import transformer  # noqa: E402
 from tensor2robot_tpu_torch.parallel import attention_reference  # noqa: E402
+from tensor2robot_tpu_torch.parallel.rules import MeshShape  # noqa: E402
 
 # The module (the package exports its function under the same name).
 fa = importlib.import_module("tensor2robot_tpu_torch.ops.flash_attention")
@@ -146,10 +147,13 @@ def test_attend_backend_choice_on_cpu(monkeypatch, impl, want):
       name: int(name == want) for name in spies}
 
 
-@pytest.mark.parametrize("kwargs", [dict(attention_impl="ring"),
-                                    dict(attention_impl="ring_flash"),
-                                    dict(moe_experts=4)])
+@pytest.mark.parametrize("kwargs", [
+    dict(attention_impl="ring"), dict(attention_impl="ring_flash"),
+    dict(moe_experts=4, moe_every=1,
+         mesh=MeshShape({"data": 1, "expert": 2}))])
 def test_ring_and_moe_raise_naming_the_roadmap_item(kwargs):
+  """Ring attention and MoE over a mesh `expert` axis (expert
+  parallelism) are A11; MoE on one device is ported."""
   with pytest.raises(NotImplementedError, match="A11"):
     transformer.CausalTransformer(8, width=16, depth=1, num_heads=2,
                                   max_len=8, **kwargs)

@@ -75,7 +75,8 @@ _EXPECTED = (
     "research.vrgripper.vrgripper_wtl_models",
     "research.pose_env.pose_env_maml_models",
     "envs.core", "envs.pose", "envs.procgen", "envs.rollout",
-    "research.pose_env.grasp_bandit",
+    "research.pose_env.grasp_bandit", "parallel.moe", "parallel.rules",
+    "startup.orchestrator", "telemetry.perf", "utils.profiling",
 )
 
 

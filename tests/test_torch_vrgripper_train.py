@@ -518,8 +518,18 @@ def test_train_eval_model_on_the_cpu_writes_the_envelope(tmp_path):
   for record in raw:  # the JAX package's own schema check
     assert jax_records.validate_record(record) == []
     assert record["role"] == "trainer"
-    assert set(record["payload"]) == {"loss", "grad_norm", "mse",
-                                      "action_error", "steps_per_sec"}
+    # The step's metrics and the loop's rates, as the JAX trainer
+    # writes them, beside the perf plane's gauges.
+    payload = set(record["payload"])
+    assert {"loss", "grad_norm", "mse", "action_error", "steps_per_sec",
+            "stall_fraction", "input_wait_fraction",
+            "perf.device_time_fraction", "perf.flops_per_sec",
+            "rsrc.host_rss_bytes", "rsrc.host_rss_bytes_peak"} <= payload
+    assert all(key.startswith(("rsrc.", "perf.", "compile_cache."))
+               for key in payload - {"loss", "grad_norm", "mse",
+                                     "action_error", "steps_per_sec",
+                                     "stall_fraction",
+                                     "input_wait_fraction"})
   flat = read_records(path)
   assert flat == jax_records.read_records(path)
   assert all(np.isfinite(r["loss"]) for r in flat)

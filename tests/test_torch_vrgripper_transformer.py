@@ -202,12 +202,13 @@ def test_causal_transformer_bf16_keeps_a_bf16_residual_stream():
   jax_net, variables, net, x = _trunk_pair(_BF16, seed=2)
   want = jax_net.apply(variables, jnp.asarray(x))
   seen = []
+  # A block returns (residual stream, MoE aux loss or None).
   hook = net.block1.register_forward_hook(
-      lambda mod, inp, out: seen.append(out.dtype))
+      lambda mod, inp, out: seen.append((out[0].dtype, out[1])))
   with torch.no_grad():
     got = net(torch.from_numpy(x))
   hook.remove()
-  assert seen == [torch.bfloat16] and got.dtype == torch.float32
+  assert seen == [(torch.bfloat16, None)] and got.dtype == torch.float32
   np.testing.assert_allclose(_np(got), _np(want), atol=2e-2, rtol=2e-2)
 
 
@@ -363,9 +364,11 @@ def test_create_inference_state_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("kwargs", [dict(pipeline_stages=2),
-                                    dict(moe_experts=4),
+                                    dict(moe_experts=4, pipeline_stages=2),
                                     dict(attention_impl="ring")])
 def test_unported_options_raise_at_construction(kwargs):
+  """Pipelined trunks (with or without MoE) and ring attention are A11;
+  MoE on one device is ported (tests/test_torch_vrgripper_moe.py)."""
   with pytest.raises(NotImplementedError, match="A11"):
     VRGripperTransformerModel(**dict(_SMALL, **kwargs))
 
