@@ -254,7 +254,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and 8), rerun for identical bits, the B = 1024 case timed;
  46. the shipped `qtopt_anakin.gin` as written through the trainer binary
      (`--trainer=anakin`, 1000 steps, lax select), then in this process
-     with `QTOptLearner.cem_select = "fused"` (1000 steps, steps 401-412
+     with `QTOptLearner.cem_select = "fused"` (500 steps, the cut, steps 401-412
      traced: cem_select's launches = CUPTI's = 16 an iteration, and no
      host-to-device copy above 1 KiB); every record's
      `param_refresh_lag_steps` 0.0 and finite loss and rates;
@@ -271,7 +271,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (f32) and 2e-2 (bf16) of its scale; its device ms beside the dense
      MLP's;
  50. the shipped `train_vrgripper_transformer_moe.gin` as written through
-     the trainer binary from the demos (2000 steps, the overlapped
+     the trainer binary from the demos (1000 of its 2000 steps, the cut;
+     the overlapped
      startup, the aux loss in every record, the perf plane's `perf.mfu`,
      `perf.flops_per_sec`, `perf.device_time_fraction`, `stall_fraction`,
      `input_wait_fraction` and `rsrc.device0_mem_bytes` in every record),
@@ -288,6 +289,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      serial, equal bit for bit, with each start's phase seconds and wall
      to the first step; (phase 30 also gates `qtopt_int8.gin`'s
      `perf.mfu`);
+ 54. the flash forward through the operator `torch.ops.t2r.
+     flash_attention_fwd` at the gin's shapes (B = 1, T = 512 and B =
+     16, T = 32; H = 4, D = 32, bf16) against the plain version; its
+     fake implementation's shapes, dtypes and strides = the kernel's;
+ 55. the model handoff at the gin's width: 20 graphed steps with
+     `create_exporters_fn = @create_default_exporters` and an async
+     `AsyncExportHook`, each export traced for the card and the CPU;
+     `SavedModelPredictor()` polls and loads the newest on the card and
+     serves B = 1, 8 × T = 32, 512, equal to `CheckpointPredictor` on
+     the same checkpoint (2e-2 of scale), the CPU's program within 6e-2
+     of the card's, the flash launches inside the loaded program =
+     CUPTI, `parse_tf_sequence_example` over serialized episodes =
+     `serving_default`; export, load, first-prediction seconds and the
+     graphed p50;
+ 56. three async exports of the card's program while the training
+     thread captures eval graphs: no capture invalidated;
+ 57. `GraspingQModel()` warm-started from a checkpoint: params and BN
+     statistics equal bit for bit on the card before the first step;
+ 58. the cold-start probes (`startup/coldstart.py` trainer and serving,
+     full size; cold and warm probes in processes of their own): the
+     warm ones build no kernel (`cache_misses == 0`); time to the first
+     step and prediction;
+ 59. `ProfilerHook` over 5 of the gin's graphed training steps:
+     `utils.xplane.top_ops(compute_only=True)` names the three flash
+     kernels, their sum within 1.05 × the device's busy time;
      then the cem_select launches per path (each traced in its own run),
      the wall seconds of each phase, the `kernels` JSON line
      (cem_select's count: the CEM serving path of phase 4), the card
@@ -302,7 +328,8 @@ Every run whose launches are checked (the main paths of phases 4, 5, 7,
 8, 10 and 11, the chunked forward of 13, each run of 14 and 15, the
 online window of 20, the int8 training runs of 27, the windows of 29,
 the gin-configured runs of 31, 33, 36 and 50, the Bellman run of 40, the
-Anakin window of 46 and the fused shardmap run of 52) runs
+Anakin window of 46, the fused shardmap run of 52, the operator's calls
+of 54 and the loaded program's of 55) runs
 under the profiler's CUDA kernel tracing: each kernel wrapper's count,
 replays included, must equal the launches of that kernel's symbols that
 the card ran (`traced_launches`), and the `kernels` line reports the
@@ -4720,6 +4747,9 @@ _ENVS_N = 1024
 _GIN_ANAKIN = "tensor2robot_tpu/research/qtopt/configs/qtopt_anakin.gin"
 _GIN_ANAKIN_POD = "tensor2robot_tpu/research/qtopt/configs/qtopt_anakin_pod.gin"
 _ANAKIN_STEPS = 1000
+# The in-process fused run's cut (chip_smoke's time limit): 1000 →
+# 500 steps; the window stays inside it.
+_ANAKIN_FUSED_STEPS = 500
 # The fused run's traced window: the replays of steps 401-412 (three
 # iterations of K = 4), well after the capture.
 _ANAKIN_WINDOW = (400, 412)
@@ -4955,7 +4985,8 @@ def phase_gin_qtopt_anakin():
   card, 4 Bellman steps of B = 256 an iteration, `GraspingQModel` at 64×64
   with action 2, CEM 2 × 64, lax select. Then the same file in this
   process through the port's registry with `QTOptLearner.cem_select =
-  "fused"` bound on top, 1000 steps, its replays of steps 401-412 traced:
+  "fused"` bound on top, 500 steps (the cut), its replays of steps
+  401-412 traced:
   cem_select's launches must equal CUPTI's and the wrapper's counter and
   (rollout 4 × CEM 2 + K 4 × 2) per iteration, and no host-to-device copy
   in the window may exceed 1 KiB (no transition crosses from the host).
@@ -4977,7 +5008,8 @@ def phase_gin_qtopt_anakin():
     with tempfile.TemporaryDirectory() as model_dir:
       gin.parse_config_files_and_bindings([_GIN_ANAKIN], [
           "QTOptLearner.cem_select = 'fused'",
-          f"train_anakin.model_dir = '{model_dir}'"])
+          f"train_anakin.model_dir = '{model_dir}'",
+          f"train_anakin.max_train_steps = {_ANAKIN_FUSED_STEPS}"])
       per_iter = (gin.query_parameter("train_anakin.rollout_length")
                   * gin.query_parameter("QTOptLearner.cem_iterations")
                   + gin.query_parameter("train_anakin.train_batches_per_iter")
@@ -4991,7 +5023,8 @@ def phase_gin_qtopt_anakin():
       state = train_anakin(hooks=[window])
       wall = time.perf_counter() - t0
       _anakin_records(f"gin qtopt_anakin fused (in-process {wall:.2f} s, "
-                      "one interval traced)", model_dir, pod=False)
+                      "one interval traced)", model_dir, pod=False,
+                      steps_to=_ANAKIN_FUSED_STEPS)
       sizes, copies, timeline = _trace_window(trace_path)
   finally:
     gin.clear_config()
@@ -5006,7 +5039,7 @@ def phase_gin_qtopt_anakin():
        f"{timeline['busy_ms'] / iters:.3f} ms, "
        f"{timeline['kernels'] / iters:.1f} kernels; top kernels over the "
        f"window (ms) {timeline['top_ms']}; final step {state.step}")
-  if traced["cem_select"] != want or state.step != _ANAKIN_STEPS:
+  if traced["cem_select"] != want or state.step != _ANAKIN_FUSED_STEPS:
     raise AssertionError(f"anakin fused: launches {traced}, step "
                          f"{state.step}")
   if any(n > _HTOD_LIMIT for n in sizes):
@@ -5237,7 +5270,9 @@ _GIN_SHARDMAP = ("tensor2robot_tpu/research/qtopt/configs/"
 # hidden width 512, top-2, capacity factor 2.0 (C = 256).
 _MOE_SHAPE = dict(tokens=16 * 32, model_dim=128, experts=8, hidden=512, k=2,
                   capacity_factor=2.0)
-_MOE_STEPS = 2000
+# The MoE gin's cut (chip_smoke's time limit): max_train_steps
+# 2000 → 1000.
+_MOE_STEPS = 1000
 _MOE_SERVE_STEPS = 32
 # The perf plane's scalars every record of a train_eval gin carries.
 _PLANE_KEYS = ("perf.mfu", "perf.flops_per_sec", "perf.device_time_fraction",
@@ -5333,12 +5368,13 @@ def _plane_gates(label, raw):
 def phase_gin_vrgripper_moe():
   """50. The shipped `train_vrgripper_transformer_moe.gin` as written,
   through the trainer binary in a new process with the header's two
-  bindings only, from 100 demos `collect_demo_episodes` wrote: the
-  transformer gin's width with 8 experts on blocks 1 and 3, 2000 steps
-  of B=16 × 32, bf16, flash attention, the default overlapped startup.
-  Gates: those of `phase_gin_vrgripper_transformer` (a valid record
-  every 100 steps, the loss falling, checkpoints at 500, 1000, 1500 and
-  2000), `aux_loss` finite in (0, 8], `startup_timings.json` in mode
+  bindings and one cut (`_MOE_STEPS`, 1000 of its 2000 steps), from 100
+  demos `collect_demo_episodes` wrote: the transformer gin's width with
+  8 experts on blocks 1 and 3, B=16 × 32, bf16, flash attention, the
+  default overlapped startup. Gates: those of
+  `phase_gin_vrgripper_transformer` (a valid record every 100 steps, the
+  loss falling, checkpoints every 500 steps), `aux_loss` finite in (0,
+  8], `startup_timings.json` in mode
   "overlapped", and the perf plane's scalars (`_PLANE_KEYS`) finite in
   every record. Then the file in this process with 20 steps bound on
   top, traced: each flash kernel 4 launches a step + the graph's
@@ -5361,11 +5397,13 @@ def phase_gin_vrgripper_moe():
     demos = collect_demo_episodes(os.path.join(tmp, "demos.tfrecord"))
     model_dir = os.path.join(tmp, "run")
     os.makedirs(model_dir)
-    wall = _run_trainer("gin train_vrgripper_transformer_moe (as shipped)", [
+    wall = _run_trainer("gin train_vrgripper_transformer_moe (as shipped, "
+                        f"cut to {_MOE_STEPS} steps)", [
         "--gin_configs", _GIN_MOE,
         "--gin_bindings", f"train_eval_model.model_dir='{model_dir}'",
         "--gin_bindings",
-        f"train/TFRecordEpisodeInputGenerator.file_patterns='{demos}'"],
+        f"train/TFRecordEpisodeInputGenerator.file_patterns='{demos}'",
+        "--gin_bindings", f"train_eval_model.max_train_steps={_MOE_STEPS}"],
         model_dir)
     raw = _checked_records(os.path.join(model_dir, "metrics_train.jsonl"))
     ckpts = ckpt_lib.list_steps(model_dir)
@@ -5686,6 +5724,433 @@ def phase_overlapped_is_serial():
     raise AssertionError(f"overlapped startup timings: {timings}")
 
 
+# ---- phases 54-59: the model handoff (export, predictor, warm start,
+# cold start, traces) ----
+
+_HANDOFF_STEPS = 20
+_HANDOFF_SEQUENCE_LENGTH = 32
+# bf16 outputs, as a share of their largest |value|: one program against
+# the eager step it was traced from, both on the card (the same kernels
+# in the same order), and the CPU's program against the card's (other
+# bf16 GEMM and convolution roundings through four layers).
+_HANDOFF_TOL_CARD = 2e-2
+_HANDOFF_TOL_CPU = 6e-2
+_CAPTURE_ROUNDS = 3
+# Eval metrics of a graph replay against the eager step, over their
+# scale: cuDNN may pick another algorithm for a capture than for an
+# eager call (bf16; phase 15 compares bit for bit under its
+# deterministic algorithms).
+_CAPTURE_TOL = 1e-3
+_CAPTURES_PER_ROUND = 8
+_TRACE_WINDOW = (3, 5)  # ProfilerHook start_step, num_steps
+_BUSY_SLACK = 1.05
+
+
+def phase_flash_operator():
+  """Phase 54: the flash forward through `torch.ops.t2r.
+  flash_attention_fwd` at the gin's shapes (B = 1, T = 512 and B = 16,
+  T = 32; H = 4, D = 32, bf16) against the plain version; the fake
+  implementation's shapes, dtypes and strides equal the kernel's; the
+  operator's launches = CUPTI's."""
+  import torch
+  from torch._subclasses.fake_tensor import FakeTensorMode
+  from tensor2robot_tpu_torch.ops.flash_attention import (
+      flash_attention_reference,
+  )
+  errs = {}
+  with traced_launches("flash operator") as traced:
+    for b, t in ((1, 512), (16, 32)):
+      q, k, v = _flash_inputs(b, t, 4, 32, torch.bfloat16, seed=5400 + t)
+      out, lse = torch.ops.t2r.flash_attention_fwd(q, k, v, True)
+      torch.cuda.synchronize()
+      want_out, want_lse = flash_attention_reference(q, k, v, causal=True)
+      errs[f"B={b} T={t}"] = (
+          (out.float() - want_out.float()).abs().max().item(),
+          (lse - want_lse).abs().max().item())
+      with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = torch.ops.t2r.flash_attention_fwd(
+            *(mode.from_tensor(x) for x in (q, k, v)), True)
+      for real, f in zip((out, lse), fake):
+        if (real.shape, real.dtype, real.stride()) != (
+            f.shape, f.dtype, f.stride()):
+          raise AssertionError(
+              f"flash operator B={b} T={t}: the kernel gives "
+              f"{tuple(real.shape)} {real.dtype} {real.stride()}, the fake "
+              f"implementation {tuple(f.shape)} {f.dtype} {f.stride()}")
+  tol_out, tol_lse = _FLASH_TOL["torch.bfloat16"]
+  if any(o > tol_out or l > tol_lse for o, l in errs.values()):
+    raise AssertionError(f"flash operator against its plain version: "
+                         f"{errs} (tol {tol_out}, {tol_lse})")
+  if traced["flash_attention_fwd"] != 2:
+    raise AssertionError(f"flash operator: {traced} launches, want 2")
+  _log(f"flash operator torch.ops.t2r.flash_attention_fwd: max_abs_err "
+       f"(out, lse) {json.dumps(errs)} (tol {tol_out}, {tol_lse}); fake "
+       f"shapes, dtypes and strides = the kernel's; launches "
+       f"{traced['flash_attention_fwd']} = CUPTI")
+
+
+def _handoff_episodes(b, t, seed):
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  return {"image": rng.integers(0, 256, (b, t, 48, 48, 3), dtype=np.uint8),
+          "gripper_pose": rng.normal(size=(b, t, 3)).astype(np.float32)}
+
+
+def _rel_err(got, want):
+  import numpy as np
+  got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+  if got.shape != want.shape or not np.isfinite(got).all():
+    raise AssertionError(f"outputs {got.shape} against {want.shape}, "
+                         f"finite {bool(np.isfinite(got).all())}")
+  return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+
+
+def phase_export_handoff():
+  """Phase 55: the gin's model (width 128, depth 4, 4 heads, context
+  512, bf16, attention "auto") trains 20 graphed steps with
+  `create_exporters_fn = @create_default_exporters` bound and an async
+  `AsyncExportHook` on top; `SavedModelPredictor()` polls, loads the
+  newest export on the card and serves `serving_default` at B = 1, 8
+  and T = 32, 512 against `CheckpointPredictor` on the step-20
+  checkpoint; the CPU's program against the card's; the flash launches
+  inside the loaded program = CUPTI's; `parse_tf_sequence_example` over
+  serialized episodes = `serving_default` on the same episodes."""
+  import tempfile
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch import config as gin
+  from tensor2robot_tpu_torch.data import EpisodeInputGenerator, tfexample
+  from tensor2robot_tpu_torch.export import (
+      SavedModelExportGenerator,
+      create_default_exporters,
+      load_signatures,
+  )
+  from tensor2robot_tpu_torch.hooks import AsyncExportHook
+  from tensor2robot_tpu_torch.predictors import (
+      CheckpointPredictor,
+      SavedModelPredictor,
+  )
+  from tensor2robot_tpu_torch.research.vrgripper import gin_config
+  from tensor2robot_tpu_torch.train_eval import train_eval_model
+
+  model = gin_config.gin_model()
+  gen = EpisodeInputGenerator(gin_config.expert_episodes(32, seed=55),
+                              sequence_length=gin_config.GIN_SEQUENCE_LENGTH,
+                              batch_size=gin_config.GIN_BATCH_SIZE, seed=0)
+  model_dir = tempfile.mkdtemp(prefix="handoff_")
+  hook_generator = SavedModelExportGenerator(
+      sequence_example_length=_HANDOFF_SEQUENCE_LENGTH)
+  hook = AsyncExportHook(hook_generator)
+  final = []
+
+  def exporters(m):
+    final.extend(create_default_exporters(m))
+    return final
+
+  gin.parse_config("create_default_exporters.sequence_example_length = "
+                   f"{_HANDOFF_SEQUENCE_LENGTH}")
+  try:
+    t0 = time.perf_counter()
+    state = train_eval_model(model, model_dir, gen,
+                             max_train_steps=_HANDOFF_STEPS,
+                             save_checkpoints_steps=_HANDOFF_STEPS,
+                             batch_size=gin_config.GIN_BATCH_SIZE,
+                             log_every_steps=_HANDOFF_STEPS, seed=0,
+                             hooks=[hook], create_exporters_fn=exporters)
+    train_s = time.perf_counter() - t0
+  finally:
+    gin.clear_config()
+  if state.step != _HANDOFF_STEPS or not hook.export_paths or not final:
+    raise AssertionError(f"handoff: step {state.step}, hook exports "
+                         f"{hook.export_paths}, final {final}")
+  export_base = os.path.join(model_dir, "export")
+
+  # ---- the robot side: poll, load the newest export on the card ----
+  t0 = time.perf_counter()
+  predictor = SavedModelPredictor(export_base)
+  if not predictor.restore(timeout_secs=0):
+    raise AssertionError("handoff: the predictor restored nothing")
+  if predictor.device.type != "cuda":
+    raise AssertionError(f"handoff: the predictor serves on "
+                         f"{predictor.device}, not the card")
+  first = predictor.predict(_handoff_episodes(1, 32, seed=0))
+  first_s = time.perf_counter() - t0
+  manifest = load_signatures(os.path.join(export_base,
+                                          str(predictor.model_version)))
+  if (predictor.global_step != _HANDOFF_STEPS
+      or set(manifest["platforms"]) != {"cuda", "cpu"}
+      or "parse_tf_sequence_example" not in manifest["signatures"]):
+    raise AssertionError(f"handoff: export at step {predictor.global_step}, "
+                         f"manifest {manifest}")
+  checkpoint = CheckpointPredictor(model, checkpoint_dir=model_dir)
+  if not checkpoint.restore(timeout_secs=0):
+    raise AssertionError("handoff: no checkpoint to compare with")
+  shapes = [(1, 32), (8, 32), (1, 512), (8, 512)]
+  batches = {s: _handoff_episodes(*s, seed=550 + s[0] + s[1])
+             for s in shapes}
+  errs = {}
+  with traced_launches("exported program on the card") as traced:
+    served = {s: predictor.predict(batches[s]) for s in shapes}
+  warm = _warm("flash_attention_fwd")
+  for s in shapes:
+    want = checkpoint.predict(batches[s])["action"]
+    errs[f"B={s[0]} T={s[1]}"] = _rel_err(served[s]["action"], want)
+  if max(errs.values()) > _HANDOFF_TOL_CARD:
+    raise AssertionError(f"exported program against CheckpointPredictor: "
+                         f"{errs} (tol {_HANDOFF_TOL_CARD} of max |action|)")
+  if traced["flash_attention_fwd"] == 0:
+    raise AssertionError("the loaded program launched no flash forward")
+
+  # ---- the CPU's program against the card's ----
+  cpu = SavedModelPredictor(export_base, device="cpu")
+  cpu.restore(timeout_secs=0)
+  cpu_errs = {f"B={b} T={t}": _rel_err(
+      cpu.predict(batches[(b, t)])["action"], served[(b, t)]["action"])
+              for b, t in ((1, 32), (8, 32))}
+  if max(cpu_errs.values()) > _HANDOFF_TOL_CPU:
+    raise AssertionError(f"program.cpu.pt2 against program.cuda.pt2: "
+                         f"{cpu_errs} (tol {_HANDOFF_TOL_CPU})")
+
+  # ---- the proto signature over serialized episodes ----
+  proto = SavedModelPredictor(export_base,
+                              signature="parse_tf_sequence_example")
+  proto.restore(timeout_secs=0)
+  episodes = batches[(8, 32)]
+  serialized = [tfexample.encode_sequence_example(
+      {k: v[i] for k, v in episodes.items()}, proto.feature_specification)
+                for i in range(8)]
+  proto_err = _rel_err(proto.predict({"examples": serialized})["action"],
+                       served[(8, 32)]["action"])
+  if proto_err > 0.0:
+    raise AssertionError(f"parse_tf_sequence_example against "
+                         f"serving_default: {proto_err} (want equal)")
+
+  # ---- p50 per call, graphed (B = 1, T = 32: one robot's step) ----
+  one = batches[(1, 32)]
+  walls = []
+  for _ in range(50):
+    t0 = time.perf_counter()
+    predictor.predict(one)
+    walls.append((time.perf_counter() - t0) * 1e3)
+  _log(f"handoff (train_vrgripper_transformer.gin's model, {_HANDOFF_STEPS} "
+       f"graphed steps in {train_s:.2f} s, async hook exports "
+       f"{len(hook.export_paths)} + final {len(final)}): export seconds "
+       f"per platform (hook) {json.dumps(hook_generator.export_seconds)}, "
+       f"(final) {json.dumps(final[0].export_seconds)}; load "
+       f"{predictor.load_seconds:.3f} s; time to the first prediction "
+       f"{first_s:.3f} s (poll + load + first graph capture); p50 "
+       f"{statistics.median(walls):.3f} ms per call graphed (B=1, T=32, "
+       f"host wall incl. copies); exported vs CheckpointPredictor "
+       f"{json.dumps(errs)} (tol {_HANDOFF_TOL_CARD}); cpu program vs card "
+       f"{json.dumps(cpu_errs)} (tol {_HANDOFF_TOL_CPU}); "
+       f"parse_tf_sequence_example = serving_default (err {proto_err}); "
+       f"flash launches in the loaded program {traced['flash_attention_fwd']}"
+       f" = CUPTI (warm-up {warm}); accepted dims "
+       f"{json.dumps(manifest['dims']['cuda'])}; first action "
+       f"{np.asarray(first['action'])[0, 0].tolist()}")
+  return model, state, traced["flash_attention_fwd"]
+
+
+def phase_export_under_capture(model, state):
+  """Phase 56: the async hook exports the card's program while the
+  training thread captures eval graphs (`StepGraph`, thread_local, the
+  collector held), 3 rounds: each round's captures begin while the
+  worker exports (up to 8 a round, each counted if the worker is still
+  exporting when it ends, at least one in all), no capture is
+  invalidated, and each graph replays its eager step (within 1e-3 of its
+  scale)."""
+  import tempfile
+  import torch
+  from tensor2robot_tpu_torch.data import EpisodeInputGenerator, Mode
+  from tensor2robot_tpu_torch.export import SavedModelExportGenerator
+  from tensor2robot_tpu_torch.hooks import AsyncExportHook
+  from tensor2robot_tpu_torch.research.vrgripper import gin_config
+  from tensor2robot_tpu_torch.train_eval import eval_step_fn
+  from tensor2robot_tpu_torch.utils.step_graph import StepGraph
+
+  dev = torch.device("cuda")
+  gen = EpisodeInputGenerator(gin_config.expert_episodes(8, seed=56),
+                              sequence_length=32, batch_size=4, seed=0)
+  gen.set_specification_from_model(model, Mode.EVAL)
+  features, labels = next(gen.create_dataset(Mode.EVAL))
+  batch = {"features": {k: torch.as_tensor(v, device=dev)
+                        for k, v in features.items()},
+           "labels": {k: torch.as_tensor(v, device=dev)
+                      for k, v in labels.items()}}
+  fn = eval_step_fn(model)
+  eager = fn(state, batch, ())[1]
+  model_dir = tempfile.mkdtemp(prefix="capture_export_")
+  hook = AsyncExportHook(SavedModelExportGenerator(platforms=("cuda",)))
+  hook.begin(model, model_dir)
+  overlapped, errs, export_s, began = [], [], [], []
+  for round_ in range(_CAPTURE_ROUNDS):
+    t0 = time.perf_counter()
+    hook.after_checkpoint(round_ + 1, state, model_dir)
+    worker = hook._worker  # noqa: SLF001
+    began.append(worker is not None and worker.is_alive())
+    captures = 0
+    while (worker is not None and worker.is_alive()
+           and captures < _CAPTURES_PER_ROUND):
+      graph = StepGraph(fn, state, batch, dev, carries=False)
+      if worker.is_alive():
+        captures += 1
+      out = graph.replay(batch)
+      errs.append(max(float((out[k] - eager[k]).abs().max())
+                      / max(float(eager[k].abs().max()), 1e-12)
+                      for k in eager))
+    if worker is not None:
+      worker.join()
+    export_s.append(round(time.perf_counter() - t0, 2))
+    overlapped.append(captures)
+  hook.end(_CAPTURE_ROUNDS, state, model_dir)
+  if len(hook.export_paths) != _CAPTURE_ROUNDS:
+    raise AssertionError(f"export under capture: {hook.export_paths}")
+  if not all(began) or sum(overlapped) < 1:
+    raise AssertionError(f"export under capture: captures begun while the "
+                         f"worker exported {began}, ended before it "
+                         f"{overlapped}")
+  if max(errs) > _CAPTURE_TOL:
+    raise AssertionError(f"export under capture: replay vs eager {errs} "
+                         f"(tol {_CAPTURE_TOL} of scale)")
+  _log(f"export under capture: {_CAPTURE_ROUNDS} async exports of the "
+       f"card's program, eval graphs captured during each "
+       f"{overlapped} (none invalidated; seconds a round {export_s}); "
+       f"replay vs eager max {max(errs)} of scale (tol {_CAPTURE_TOL})")
+
+
+def phase_warm_start():
+  """Phase 57: `GraspingQModel()` with batch statistics warm-starts from
+  a checkpoint (`init_from_checkpoint_path`): before the first step its
+  params and BN statistics equal the checkpoint's bit for bit on the
+  card; then 2 graphed steps train from there."""
+  import dataclasses
+  import tempfile
+  import torch
+  from tensor2robot_tpu_torch.data import RandomInputGenerator
+  from tensor2robot_tpu_torch.research.qtopt import GraspingQModel
+  from tensor2robot_tpu_torch.train_eval import train_eval_model
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+
+  source = GraspingQModel().create_train_state(seed=3)
+  g = torch.Generator(device="cuda").manual_seed(57)
+  source = dataclasses.replace(source, step=7, batch_stats={
+      k: v + torch.rand(v.shape, device=v.device, generator=g).to(v.dtype)
+      for k, v in source.batch_stats.items()})
+  ckpt_dir = tempfile.mkdtemp(prefix="warm_source_")
+  ckpt_lib.CheckpointWriter(ckpt_dir).save(7, source)
+  warm = GraspingQModel(init_from_checkpoint_path=ckpt_dir)
+  state = warm.create_train_state(seed=0)
+  for name, got, want in (("params", state.params, source.params),
+                          ("batch_stats", state.batch_stats,
+                           source.batch_stats)):
+    if set(got) != set(want) or not all(
+        got[k].device.type == "cuda" and torch.equal(got[k], want[k])
+        for k in want):
+      raise AssertionError(f"warm start: {name} differ from the checkpoint")
+  trained = train_eval_model(
+      warm, tempfile.mkdtemp(prefix="warm_"),
+      RandomInputGenerator(batch_size=8, seed=1), max_train_steps=2,
+      save_checkpoints_steps=2, log_every_steps=2)
+  if trained.step != 2 or not all(bool(torch.isfinite(v).all())
+                                  for v in trained.params.values()):
+    raise AssertionError(f"warm-started training: step {trained.step}")
+  _log(f"warm start (GraspingQModel(), {len(source.params)} params, "
+       f"{len(source.batch_stats)} BN statistics): equal to the checkpoint "
+       f"bit for bit on the card before the first step; 2 graphed steps "
+       f"from there")
+
+
+def _coldstart(args):
+  out = subprocess.run(
+      [sys.executable, "-m", "tensor2robot_tpu_torch.startup.coldstart",
+       *args], cwd=_REPO, capture_output=True, text=True, timeout=300)
+  if out.returncode != 0:
+    raise AssertionError(f"coldstart {args}: exit {out.returncode}\n"
+                         f"{out.stderr[-3000:]}")
+  marker = [l for l in out.stdout.splitlines()
+            if l.startswith("COLDSTART_JSON ")]
+  return json.loads(marker[-1][len("COLDSTART_JSON "):])
+
+
+def phase_cold_start():
+  """Phase 58: the cold-start probes at full size (`trainer`, `serving`):
+  the seed checkpoint made here, then a cold probe against a fresh cache
+  dir and a warm one, each a process of its own; the warm probes report
+  `cache_misses == 0`."""
+  import shutil
+  import tempfile
+  from tensor2robot_tpu_torch.startup import coldstart
+  work = tempfile.mkdtemp(prefix="coldstart_")
+  results = {}
+  setups = {"trainer": coldstart.trainer_setup,
+            "serving": coldstart.serving_setup}
+  for probe in ("trainer", "serving"):
+    seed_dir = os.path.join(work, f"{probe}_seed")
+    cache = os.path.join(work, f"{probe}_cache")
+    # The seed is untimed: made in this process.
+    setups[probe](seed_dir, tiny=False)
+    for tag in ("cold", "warm"):
+      run_dir = seed_dir
+      if probe == "trainer":  # each probe resumes its own copy
+        run_dir = os.path.join(work, f"{probe}_{tag}")
+        shutil.copytree(seed_dir, run_dir)
+      results[f"{probe}_{tag}"] = _coldstart(
+          [probe, "--model-dir", run_dir, "--cache-dir", cache])
+  for tag in ("trainer_warm", "serving_warm"):
+    if results[tag]["compile_watch"]["cache_misses"] != 0:
+      raise AssertionError(f"coldstart {tag}: {results[tag]}")
+  keys = {"trainer": "time_to_first_step_secs",
+          "serving": "time_to_first_prediction_secs"}
+  _log("cold start: " + "; ".join(
+      f"{tag} {keys[tag.split('_')[0]]}={r[keys[tag.split('_')[0]]]} "
+      f"compile_watch={json.dumps(r['compile_watch'])} "
+      f"cache_entries_after={r['cache_entries_after']}"
+      for tag, r in results.items()))
+  _log(f"cold start results: {json.dumps(results)}")
+
+
+def phase_profiler_trace():
+  """Phase 59: `ProfilerHook` over 5 of the gin's graphed training steps;
+  `utils.xplane.top_ops(compute_only=True)` over its trace names the
+  three flash kernels, and the compute ops' sum lies within the window's
+  device busy time (at most 1.05×)."""
+  import tempfile
+  from tensor2robot_tpu_torch.data import EpisodeInputGenerator
+  from tensor2robot_tpu_torch.research.vrgripper import gin_config
+  from tensor2robot_tpu_torch.train_eval import train_eval_model
+  from tensor2robot_tpu_torch.utils import profiling, xplane
+
+  model = gin_config.gin_model()
+  gen = EpisodeInputGenerator(gin_config.expert_episodes(16, seed=59),
+                              sequence_length=gin_config.GIN_SEQUENCE_LENGTH,
+                              batch_size=gin_config.GIN_BATCH_SIZE, seed=0)
+  start, num = _TRACE_WINDOW
+  logdir = tempfile.mkdtemp(prefix="profile_")
+  train_eval_model(model, tempfile.mkdtemp(prefix="traced_"), gen,
+                   max_train_steps=start + num + 2,
+                   batch_size=gin_config.GIN_BATCH_SIZE,
+                   hooks=[profiling.ProfilerHook(start_step=start,
+                                                 num_steps=num,
+                                                 logdir=logdir)])
+  top = xplane.top_ops(logdir, k=1000, compute_only=True)
+  found = {}
+  for name in _FLASH_KERNELS:
+    pattern = re.compile(r"(?<!\w)(?:%s)(?=[<(])" % "|".join(_SYMBOLS[name]))
+    found[name] = sum(ms for op, ms in top if pattern.search(op))
+  compute = sum(ms for _, ms in top)
+  busy = xplane.device_busy_ms(logdir)
+  if not all(found.values()):
+    raise AssertionError(f"traced window: flash kernels {found} among "
+                         f"{top[:10]}")
+  if not 0 < compute <= _BUSY_SLACK * busy:
+    raise AssertionError(f"traced window: compute {compute} ms against "
+                         f"device busy {busy} ms")
+  _log(f"profiler trace ({num} graphed steps of the gin's model): compute "
+       f"ops {compute:.3f} ms within device busy {busy:.3f} ms "
+       f"({compute / busy:.3f}x, limit {_BUSY_SLACK}); flash kernels ms "
+       f"{json.dumps(found)}; top 5 {json.dumps(top[:5])}")
+
+
 _PHASE_S = {}
 
 
@@ -5799,6 +6264,18 @@ def main():
   _log(f"phases 49-53 s (MoE, the shardmap gin, the overlapped startup): "
        f"{time.perf_counter() - t_slice:.2f}; flash launches on the MoE "
        f"gin's traced window {json.dumps(moe_launches)}")
+  t_handoff = time.perf_counter()
+  _timed(phase_flash_operator)
+  handoff_model, handoff_state, handoff_launches = _timed(
+      phase_export_handoff)
+  _timed(phase_export_under_capture, handoff_model, handoff_state)
+  del handoff_model, handoff_state
+  _timed(phase_warm_start)
+  _timed(phase_cold_start)
+  _timed(phase_profiler_trace)
+  _log(f"phases 54-59 s (the model handoff): "
+       f"{time.perf_counter() - t_handoff:.2f}; flash launches in the "
+       f"loaded program {handoff_launches}")
   _log(f"cem_select launches per path (each traced in its own run): CEM "
        f"serving {launches}, Bellman training {qt_launches}, online window "
        f"{sum(online_per_path.values())} ({json.dumps(online_per_path)}), "

@@ -40,12 +40,14 @@ DEFAULT_MODULES = (
     "tensor2robot_tpu_torch.models",
     "tensor2robot_tpu_torch.data",
     "tensor2robot_tpu_torch.envs",
+    "tensor2robot_tpu_torch.export",
     "tensor2robot_tpu_torch.hooks",
     "tensor2robot_tpu_torch.meta_learning",
     "tensor2robot_tpu_torch.predictors",
     "tensor2robot_tpu_torch.replay",
     "tensor2robot_tpu_torch.serving",
     "tensor2robot_tpu_torch.startup.compile_cache",
+    "tensor2robot_tpu_torch.utils.profiling",
     "tensor2robot_tpu_torch.research.grasp2vec",
     "tensor2robot_tpu_torch.research.pose_env",
     "tensor2robot_tpu_torch.research.qtopt",

@@ -215,8 +215,11 @@ class MAMLModel(AbstractT2RModel):
 
   Works with any base model whose network carries no batch statistics
   (per-task adapted statistics are ill-defined): `loss_fn` refuses a
-  state that has them.
+  state that has them. Its `predict_step` adapts with `torch.func.grad`,
+  which the exporter records with `make_fx` at a fixed task batch.
   """
+
+  predict_step_has_function_transforms = True
 
   def __init__(self,
                base_model: AbstractT2RModel,

@@ -60,7 +60,9 @@ class MetaPolicy:
   dict of single (unbatched) base feature arrays.
 
   Zero-shot (no demonstrations) requires a predictor whose serving path
-  treats condition labels as optional, as `CheckpointPredictor` does.
+  treats condition labels as optional, as `CheckpointPredictor` does; an
+  exported program takes fixed inputs, so exported serving
+  (`SavedModelPredictor`) always conditions (`set_task` first).
   """
 
   def __init__(self, predictor):

@@ -145,6 +145,10 @@ class AbstractT2RModel(ModelInterface):
   """
 
   AUX_LOSS_OUTPUT = "_aux_loss"
+  # True where `predict_step` takes `torch.func` transforms, which
+  # `torch.export` cannot trace: the exporter records such a step with
+  # `make_fx` first (`export/savedmodel_export_generator.py`).
+  predict_step_has_function_transforms = False
 
   def __init__(self, device_dtype: torch.dtype = torch.float32,
                create_optimizer_fn: Callable[
@@ -152,9 +156,14 @@ class AbstractT2RModel(ModelInterface):
                        opt_lib.create_optimizer),
                aux_loss_weight: float = 0.01,
                remat_policy: Optional[str] = None,
-               preprocessor_cls: Optional[Callable] = None):
+               preprocessor_cls: Optional[Callable] = None,
+               init_from_checkpoint_path: Optional[str] = None):
     """`preprocessor_cls` is called with the model's two spec getters;
-    None means `NoOpPreprocessor`."""
+    None means `NoOpPreprocessor`. `init_from_checkpoint_path` warm-starts
+    every new state from a checkpoint of the port's (a model_dir, a step
+    directory or a state file): params present there override the fresh
+    initializers, batch statistics ride along
+    (`maybe_init_from_checkpoint`)."""
     if remat_policy not in (None, "none"):
       raise NotImplementedError(
           f"remat_policy={remat_policy!r}: rematerialization is not ported "
@@ -163,6 +172,7 @@ class AbstractT2RModel(ModelInterface):
     self._aux_loss_weight = aux_loss_weight
     self._create_optimizer_fn = create_optimizer_fn
     self._preprocessor_cls = preprocessor_cls
+    self._init_from_checkpoint_path = init_from_checkpoint_path
     self._preprocessor = None
     self._tx: Optional[opt_lib.GradientTransformation] = None
     self._train_network: Optional[nn.Module] = None
@@ -199,11 +209,37 @@ class AbstractT2RModel(ModelInterface):
   def create_inference_state(self, seed: int = 0,
                              device: DeviceLike = None) -> TrainState:
     """Fresh params + batch stats from `seed` (no optimizer state), on
-    `device` (None = the CUDA card; raises without one)."""
+    `device` (None = the CUDA card; raises without one); warm-started
+    when `init_from_checkpoint_path` is set."""
     device = resolve_device(device)
     network = self.create_network()
     init_parameters(network, torch.Generator().manual_seed(seed))
-    return TrainState.from_network(network).to(device)
+    state = TrainState.from_network(network).to(device)
+    if self._init_from_checkpoint_path:
+      params, batch_stats = self.maybe_init_from_checkpoint(
+          state.params, state.batch_stats)
+      state = dataclasses.replace(state, params=params,
+                                  batch_stats=batch_stats)
+    return state
+
+  def maybe_init_from_checkpoint(self, params, batch_stats=None):
+    """Warm-starts params (and BN statistics) from
+    `init_from_checkpoint_path`: (params, batch_stats), each leaf on its
+    `params` / `batch_stats` leaf's device and dtype.
+
+    BN moving averages ride along when the model carries batch statistics:
+    trained weights with fresh-init statistics would silently degrade the
+    model. Reads the port's checkpoints (`utils/checkpoints.py`), not
+    orbax's."""
+    from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+    if batch_stats:
+      variables = ckpt_lib.restore_variables(
+          self._init_from_checkpoint_path,
+          like={"params": params, "batch_stats": batch_stats})
+      return variables["params"], variables["batch_stats"]
+    restored = ckpt_lib.restore_params(
+        self._init_from_checkpoint_path, like=params)
+    return restored, batch_stats
 
   @property
   def tx(self) -> opt_lib.GradientTransformation:

@@ -33,7 +33,12 @@ hands over with odd strides, is copied dense first; f32: on CUDA
 cores). `flash_attention` and `flash_attention_with_lse` go through the
 `torch.autograd.Function` `FlashAttention` whenever autograd records
 (grad mode on and an input requiring grad); otherwise they call the
-forward alone.
+forward alone. The forward is one `torch.library` operator,
+`torch.ops.t2r.flash_attention_fwd(q, k, v, causal) -> (out, lse)`: its
+CUDA implementation pads, chunks and launches the kernel (and counts
+each launch), its CPU implementation is the plain version, and its fake
+implementation gives the shapes, so `torch.export` keeps it as one node
+of an exported program and the kernel launches when that program runs.
 
 Head dims: the kernels take D ∈ {16, 32, 64, 128}. The public path
 (`_forward`, `FlashAttention`, `flash_attention_backward`) takes any D ≤
@@ -56,6 +61,7 @@ import torch
 from tensor2robot_tpu_torch.ops import build, counters
 
 _NEG_INF = -1e30
+FORWARD_OP = "t2r::flash_attention_fwd"
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_Y = 65535
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -241,12 +247,38 @@ def _padded_chunked_forward(launch, q, k, v, causal,
   return (out if kd == d else out[..., :d]), lse
 
 
+@torch.library.custom_op(
+    FORWARD_OP, mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, bool causal) -> (Tensor, Tensor)")
+def _forward_op(q, k, v, causal):
+  """The forward as one opaque operator (`torch.ops.t2r.
+  flash_attention_fwd`), so a `torch.export` program holds one node that
+  launches the kernel when the program runs. CPU: the plain version."""
+  out, lse = flash_attention_reference(q, k, v, causal=causal)
+  return out.contiguous(), lse.contiguous()
+
+
+@_forward_op.register_kernel("cuda")
+def _forward_op_cuda(q, k, v, causal):
+  """CUDA: the kernel (each launch counted where it happens, so a loaded
+  program's launches count when it runs, not when it was traced)."""
+  out, lse = _padded_chunked_forward(_launch, q, k, v, causal)
+  return out.contiguous(), lse
+
+
+@_forward_op.register_fake
+def _forward_op_fake(q, k, v, causal):
+  """Shapes and dtypes for tracing: out like q (dense), lse [B, H, T]
+  f32."""
+  b, t, h, _ = q.shape
+  return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+          torch.empty((b, h, t), dtype=torch.float32, device=q.device))
+
+
 def _forward(q, k, v, causal):
-  if q.device.type == "cpu":
-    return flash_attention_reference(q, k, v, causal=causal)
-  if q.device.type != "cuda":
+  if q.device.type not in ("cpu", "cuda"):
     raise ValueError(f"flash_attention: unsupported device {q.device}")
-  return _padded_chunked_forward(_launch, q, k, v, causal)
+  return torch.ops.t2r.flash_attention_fwd(q, k, v, causal)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -208,6 +208,9 @@ class VRGripperSNAILModel(MAMLModel):
     return action_supervision_loss(outputs,
                                    labels[f"{INFERENCE}/{ACTION}"])
 
+  # Its predict_step conditions in context, without the inner gradient.
+  predict_step_has_function_transforms = False
+
   def predict_step(self, state, features) -> Any:
     # Demonstration actions, when supplied, already ride in the features
     # under condition_labels/ through the MAML preprocessor.

@@ -1,3 +1,3 @@
-"""Start-up plumbing: the kernel build cache's watch and the overlapped
-startup phases (`orchestrator`); the cold-start probes
-(`startup/coldstart.py`) are ROADMAP A12."""
+"""Start-up plumbing: the kernel build cache and its watch
+(`compile_cache`), the overlapped startup phases (`orchestrator`) and
+the cold-start probes (`coldstart`, run as `python -m`)."""

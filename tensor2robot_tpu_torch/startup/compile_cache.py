@@ -77,6 +77,15 @@ def configure_compilation_cache(cache_dir: Optional[str] = None
   return cache_dir
 
 
+def cache_entry_count(cache_dir: str) -> int:
+  """Number of kernel libraries built into `cache_dir` (one
+  `lib<name>-<hash>.so` per source, header and flag hash)."""
+  if not os.path.isdir(cache_dir):
+    return 0
+  return sum(1 for name in os.listdir(cache_dir)
+             if name.startswith("lib") and name.endswith(".so"))
+
+
 class CompileWatch:
   """Counts kernel builds (misses) and already-built libraries (hits)
   while the watch is open::
@@ -105,6 +114,17 @@ class CompileWatch:
           watch.cache_misses += 1
         else:
           watch.cache_hits += 1
+
+  def counts(self) -> dict:
+    """The JAX watch's fields: `cache_requests` is the kernel libraries
+    asked for, `backend_compiles` the `nvcc` builds among them (=
+    `cache_misses`)."""
+    return {
+        "cache_hits": self.cache_hits,
+        "cache_misses": self.cache_misses,
+        "cache_requests": self.cache_hits + self.cache_misses,
+        "backend_compiles": self.cache_misses,
+    }
 
   def __enter__(self) -> "CompileWatch":
     with type(self)._lock:

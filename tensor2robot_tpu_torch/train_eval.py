@@ -48,8 +48,11 @@ kernel build cache's `compile_cache.*` counters, the resource sampler's
 (`utils.profiling.train_step_flops`: one eager step on the first batch,
 results dropped) and the card's peak is known.
 
-Not ported yet: meshes and sharding strategies (ROADMAP A11) and
-exporters (A12 export); each raises where it is asked for.
+After training, each exporter of `create_exporters_fn(model)` exports
+the final state (`export/`), as the JAX trainer does.
+
+Not ported yet: meshes and sharding strategies (ROADMAP A11); they raise
+where they are asked for.
 """
 
 from __future__ import annotations
@@ -239,18 +242,13 @@ def kernel_libraries(model: ModelInterface, device: torch.device) -> list:
   return sorted(names)
 
 
-def _check_unported(mesh, sharding_strategy: str, min_size_to_shard: int,
-                    create_exporters_fn=None):
+def _check_unported(mesh, sharding_strategy: str, min_size_to_shard: int):
   if (mesh is not None or sharding_strategy != "replicated"
       or min_size_to_shard != _DEFAULT_MIN_SIZE_TO_SHARD):
     raise NotImplementedError(
         "train_eval_model(mesh=..., sharding_strategy=..., "
         "min_size_to_shard=...): meshes and sharding strategies are not "
         "ported yet (ROADMAP A11).")
-  if create_exporters_fn is not None:
-    raise NotImplementedError(
-        "create_exporters_fn: exporters are not ported yet (ROADMAP A12, "
-        "export).")
 
 
 @gin.configurable
@@ -292,8 +290,7 @@ def train_eval_model(
   the port builds its networks from their specs. Returns the final
   state.
   """
-  _check_unported(mesh, sharding_strategy, min_size_to_shard,
-                  create_exporters_fn)
+  _check_unported(mesh, sharding_strategy, min_size_to_shard)
   del init_batch_size
   compile_cache.configure_compilation_cache()
   device = resolve_device(device)
@@ -456,6 +453,9 @@ def train_eval_model(
                                    eval_batch)
       if eval_metrics:
         metric_logger.write("eval", step, eval_metrics)
+    if create_exporters_fn is not None:
+      for exporter in create_exporters_fn(model):
+        exporter.export(model, state, model_dir)
     hook_list.end(step, state, model_dir)
   finally:
     if prefetcher is not None:

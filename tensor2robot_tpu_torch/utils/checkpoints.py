@@ -9,8 +9,10 @@ dict keys and tuple positions joined by "/"); `restore_state` rebuilds
 the structure of a `like` state with the stored leaves, on each `like`
 leaf's device and dtype, and loads with `weights_only=True`. Saves are
 synchronous. The JAX package writes a separate inference-variables
-payload; the port's predictors read params and batch statistics out of
-the one state file (`restore_variables`), so it is not written.
+payload; the port's predictors and warm starts read params and batch
+statistics out of the one state file (`restore_variables`,
+`restore_params`: a model_dir, a step directory or the file itself), so
+it is not written.
 """
 
 from __future__ import annotations
@@ -137,13 +139,20 @@ class CheckpointWriter:
       shutil.rmtree(os.path.join(self._root, str(step)), ignore_errors=True)
 
 
+def _step_file(model_dir: str, step: int) -> str:
+  return os.path.join(_ckpt_root(model_dir), str(int(step)), "state.pt")
+
+
 def _load_leaves(model_dir: str, step: Optional[int]) -> Dict[str, Any]:
   if step is None:
     step = latest_step(model_dir)
     if step is None:
       raise FileNotFoundError(
           f"No checkpoints found under {_ckpt_root(model_dir)}")
-  path = os.path.join(_ckpt_root(model_dir), str(int(step)), "state.pt")
+  return _read(_step_file(model_dir, step))
+
+
+def _read(path: str) -> Dict[str, Any]:
   return torch.load(path, map_location="cpu", weights_only=True)["leaves"]
 
 
@@ -154,12 +163,78 @@ def restore_state(model_dir: str, like: Any,
   return _rebuild(like, _load_leaves(model_dir, step))
 
 
-def restore_variables(model_dir: str, like: Dict[str, Any],
+def _find_params_path(path_or_model_dir: str,
+                      step: Optional[int] = None) -> str:
+  """The state file of a model_dir (at `step`, else its latest step), of
+  a step directory, or a direct path to a state file."""
+  candidates = []
+  if step is not None:
+    candidates.append(_step_file(path_or_model_dir, step))
+  else:
+    found = latest_step(path_or_model_dir)
+    if found is not None:
+      candidates.append(_step_file(path_or_model_dir, found))
+    candidates.append(os.path.join(path_or_model_dir, "state.pt"))
+    candidates.append(path_or_model_dir)
+  for path in candidates:
+    if os.path.isfile(path):
+      return path
+  raise FileNotFoundError(
+      f"No params checkpoint found at any of: {candidates}")
+
+
+def _subtree(leaves: Dict[str, Any], name: str) -> Dict[str, Any]:
+  prefix = name + "/"
+  return {k[len(prefix):]: v for k, v in leaves.items()
+          if k.startswith(prefix)}
+
+
+def _adopt_like(like: Dict[str, Any], restored: Dict[str, Any],
+                path: str) -> Dict[str, Any]:
+  """`restored`'s leaves, keyed and typed like `like` (each on its
+  `like` leaf's device and dtype)."""
+  missing = sorted(set(like) - set(restored))
+  if missing:
+    raise KeyError(f"Checkpoint {path} lacks {missing}")
+  return {k: restored[k].to(device=v.device, dtype=v.dtype)
+          for k, v in like.items()}
+
+
+def restore_variables(path_or_model_dir: str, like: Dict[str, Any],
                       step: Optional[int] = None) -> Dict[str, Any]:
-  """The inference variables saved at `step` (default: the latest):
-  ``{"params": ..., "batch_stats": ...}`` in `like`'s structure, each
-  tensor on its `like` leaf's device and dtype. The optimizer state in
-  the same file is not read."""
-  return _rebuild({"params": like["params"],
-                   "batch_stats": like.get("batch_stats", {})},
-                  _load_leaves(model_dir, step))
+  """The inference variables ``{"params": ..., "batch_stats": ...}`` of
+  a model_dir (at `step`, else the latest), a step directory or a state
+  file, in `like`'s structure, each tensor on its `like` leaf's device
+  and dtype. The optimizer state in the same file is not read. A payload
+  without batch statistics keeps `like`'s, with a warning (the JAX
+  package's rule for payloads that predate them)."""
+  path = _find_params_path(path_or_model_dir, step)
+  leaves = _read(path)
+  restored = _subtree(leaves, "params")
+  if not restored:
+    restored = dict(leaves)  # a bare params payload
+  out = {"params": _adopt_like(like["params"], restored, path)}
+  like_stats = like.get("batch_stats", {})
+  stats = _subtree(leaves, "batch_stats")
+  if like_stats and not stats:
+    import logging
+    logging.getLogger(__name__).warning(
+        "Params payload at %s carries no batch_stats; BN stats keep their "
+        "current (init) values.", path)
+  out["batch_stats"] = (_adopt_like(like_stats, stats, path)
+                        if like_stats and stats else like_stats)
+  return out
+
+
+def restore_params(path_or_model_dir: str, like: Dict[str, Any],
+                   step: Optional[int] = None) -> Dict[str, Any]:
+  """Just the params, for warm starts: `like` is the params dict alone.
+
+  Accepts a model_dir (the latest step, or `step`), a step directory, or
+  a direct state file. A payload that also carries batch statistics (or
+  a whole state) yields its params subtree; the leaves take `like`'s
+  dtype and device."""
+  path = _find_params_path(path_or_model_dir, step)
+  leaves = _read(path)
+  restored = _subtree(leaves, "params") or dict(leaves)
+  return _adopt_like(like, restored, path)

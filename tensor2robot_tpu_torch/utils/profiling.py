@@ -18,8 +18,10 @@
     whatever backend `attention_impl` picks on whichever device.
   * `device_memory_source`: a `telemetry.perf.ResourceSampler` source
     of the caching allocator's bytes in use per card.
-
-Traces, step annotations and the profiler hook are ROADMAP A12.
+  * `trace`, `step_annotation` and `ProfilerHook`: `torch.profiler`
+    traces (CPU and CUDA activities) written as chrome traces,
+    `<logdir>/<host>_<pid>.<ns>.pt.trace.json`, which `utils/xplane.py`
+    reads (the JAX package's `jax.profiler` traces and XPlane protos).
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from tensor2robot_tpu_torch import config as gin
+from tensor2robot_tpu_torch.hooks.hook import Hook
 from tensor2robot_tpu_torch.telemetry import perf as perf_lib
 
 log = logging.getLogger(__name__)
@@ -307,3 +311,83 @@ def device_memory_source() -> Callable[[], Dict[str, float]]:
     return out
 
   return sample
+
+
+@contextlib.contextmanager
+def trace(logdir: str, host_tracer_level: int = 2):
+  """Captures a `torch.profiler` trace into `logdir` (a chrome trace,
+  `*.pt.trace.json`; Perfetto or chrome://tracing open it).
+
+  CUDA activity where the process has a card; `host_tracer_level` > 0
+  adds the host's operators (the CPU activity), 0 traces the device
+  only. Wrap the steps of interest; pair with `step_annotation` so
+  per-step spans are visible.
+  """
+  os.makedirs(logdir, exist_ok=True)
+  activities = []
+  if host_tracer_level > 0:
+    activities.append(torch.profiler.ProfilerActivity.CPU)
+  if torch.cuda.is_available():
+    activities.append(torch.profiler.ProfilerActivity.CUDA)
+  if not activities:
+    raise ValueError("trace(host_tracer_level=0) traces the device only, "
+                     "and this process has no card")
+  with torch.profiler.profile(
+      activities=activities,
+      on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
+    yield
+  log.info("Profiler trace written to %s", logdir)
+
+
+def step_annotation(step: int):
+  """Names one training step inside an active trace."""
+  return torch.profiler.record_function("train", f"step_num={step}")
+
+
+@gin.configurable
+class ProfilerHook(Hook):
+  """Captures a `torch.profiler` trace for a window of training steps.
+
+  The trace lands in `<model_dir>/profile` (or `logdir`).
+
+  Args:
+    start_step: first profiled step (absolute step count, so resumed
+      runs profile at the same point in training).
+    num_steps: window length.
+    logdir: override output dir; defaults to `<model_dir>/profile`.
+  """
+
+  def __init__(self, start_step: int = 10, num_steps: int = 5,
+               logdir: Optional[str] = None):
+    self._start = start_step
+    self._num = num_steps
+    self._logdir = logdir
+    self._cm: Optional[Any] = None
+    self._opened = False
+
+  def begin(self, model, model_dir: str) -> None:
+    if self._logdir is None:
+      self._logdir = os.path.join(model_dir, "profile")
+    self._opened = False
+
+  def after_step(self, step: int, metrics: dict) -> None:
+    # `>=` + the opened flag, not `==`: under steps_per_dispatch > 1
+    # hooks only observe every K-th step, so an exact-match trigger
+    # would never fire when start_step isn't a multiple of K.
+    if self._cm is None and not self._opened and step >= self._start:
+      self._opened = True
+      self._cm = trace(self._logdir)
+      self._cm.__enter__()
+    elif self._cm is not None and step >= self._start + self._num:
+      self._close()
+
+  def _close(self) -> None:
+    # Drain the card's queue so the trace covers whole steps.
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+      torch.cuda.synchronize()
+    self._cm.__exit__(None, None, None)
+    self._cm = None
+
+  def end(self, step: int, state, model_dir: str) -> None:
+    if self._cm is not None:  # run ended inside the window
+      self._close()

@@ -305,7 +305,6 @@ def test_completed_run_reinvoked_with_k_noops(tmp_path):
     (dict(mesh=object()), "A11"),
     (dict(sharding_strategy="fsdp"), "A11"),
     (dict(min_size_to_shard=64), "A11"),
-    (dict(create_exporters_fn=lambda m: []), "A12"),
 ])
 def test_unported_arguments_raise_naming_the_roadmap_item(tmp_path, kwargs,
                                                           item):
