@@ -109,8 +109,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (each answer that of its params version), p50/p95 wall per dispatch;
  17. the context policy graphed against eager over one episode (the
      same actions), p50/p95 wall per step;
- 18. every path's profile graphed and eager (device busy, idle share,
-     wall, kernels and host launch calls per call);
+ 18. not run here (the time limit): each path's profile graphed and
+     eager is `python -m tensor2robot_tpu_torch.bin.profile_policy
+     [--graphs]`'s;
  19. cem_select against its plain version at the online path's shapes:
      the serving buckets 2, 4, 16 and 32, the evaluation's B=512, and
      the seedcheck's test-size widths (C=8: CUDA cores), rerun for
@@ -123,14 +124,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      3); gated at success ≥ 0.50 at step 2000, online final ≥ offline
      final − 0.10, episodes collected, no actor crash, no writer error;
      each phase's rate is its steps past the first log interval over
-     their wall time; then the online phase twice from the step-2000
-     checkpoint, the store gathering by numpy's index, then by the
-     native gather; then a traced window of the online loop (20 more
-     steps at K=10, checkpoints every 10, the actor running) whose
-     CUPTI launches must equal the counters, with cem_select's launches
+     their wall time; then a traced window of the online loop (20 more
+     steps at K=10, checkpoints every 10, the actor running) whose CUPTI
+     launches must equal the counters, with cem_select's launches
      measured per path (learner, evaluation, the server's warm-up,
      serving dispatches) and held to what each path should launch;
- 21. the offline phase again with cem_select="lax" (printed, not gated);
+ 21. the offline phase again with cem_select="lax", 100 of its 2000
+     steps (the cut; printed, not gated);
  22. the native row gather (`utils/native.py`) built, loaded and equal to
      numpy on the protocol replay's dtypes, and one B=256 gather of the
      Bellman transition timed native against numpy;
@@ -188,13 +188,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `TFRecordEpisodeInputGenerator` in EVAL mode yields exactly the
      batches `EpisodeInputGenerator` builds from the same episodes in
      memory; then the gin's TRAIN-mode parse rate alone (batches/s, ms
-     per batch) at `num_workers` 0 and 2, over that file and over the
-     same episodes in 4 files;
+     per batch) at `num_workers` 0 over that file and over the same
+     episodes in 4 files, and at `num_workers` 2 (worker processes over
+     the shm ring) over the 4 files for 20 batches, each batch laid out
+     as the serial stream's;
  36. the shipped `train_vrgripper_transformer.gin` as written through
      the trainer binary in a new process, with the header's two
-     bindings only (2000 steps from those records: exit 0, a record
-     every 100 steps, the loss falling, checkpoints at 500, 1000, 1500
-     and 2000, steps/s per interval, the wall time), then in-process
+     bindings and one cut (400 of its 2000 steps: exit 0, a record
+     every 100 steps, the loss falling, a checkpoint at 400, steps/s per
+     interval, the wall time), then in-process
      with 20 steps bound on top, traced (4 + 4 + 4 flash launches a
      step);
  37. a capture during which the cyclic garbage collector would reclaim
@@ -213,9 +215,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `collect_grasp_triplets` writes 1024 seeded triplets (and 640 to
      evaluate), the trainer binary runs the gin as written in a new
      process with the model dir, the two file patterns and
-     max_train_steps 1000 bound (the gin's 10000, cut for the time
+     max_train_steps 400 bound (the gin's 10000, cut for the time
      limit): resnet-18 at 64 filters, embedding 128, bf16, batch 64,
-     Adam 1e-4; exit 0, the loss falling, a checkpoint at 1000, eval
+     Adam 1e-4; exit 0, the loss falling, a checkpoint at 400, eval
      records; `CheckpointPredictor` restores it and `evaluate_retrieval`
      over 50 held-out queries gives top-1 ≥ 0.5 (chance 1/6); then the
      stream's parse rate alone, the graphed step's device ms, and the f32
@@ -230,10 +232,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  41. the shipped `train_vrgripper_bc.gin` from PNG TFRecords through the
      trainer binary (100 seeded demos; MDN BC at batch 64 of
      transitions), bound: the model dir, the demos, and the cuts
-     max_train_steps 2000 → 1000 and the SuccessEvalHook's 500 episodes
-     → 100; exit 0, a record every 100 steps, the loss falling,
-     checkpoints at 500 and 1000, `evaluate_gripper_policy`'s
-     success_rate at each; then the train step's device ms graphed and
+     max_train_steps 2000 → 400 and the
+     SuccessEvalHook's 500 episodes → 100; exit 0, a record every 100
+     steps, the loss falling, a checkpoint at 400,
+     `evaluate_gripper_policy`'s success_rate at each; then the train
+     step's device ms graphed and
      eager, and the f32 model card against CPU;
  42. `train_vrgripper_meta.gin` (SNAIL, 8 tasks of 4 demo + 4 query
      steps) the same way (the loss held below the untrained model's),
@@ -253,7 +256,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (B = 1024 with A = 2 and C = 64; B = 256 with C = 32; C = 8 at B = 64
      and 8), rerun for identical bits, the B = 1024 case timed;
  46. the shipped `qtopt_anakin.gin` as written through the trainer binary
-     (`--trainer=anakin`, 1000 steps, lax select), then in this process
+     (`--trainer=anakin`, lax select, 500 of its 1000 steps: the cut),
+     then in this process
      with `QTOptLearner.cem_select = "fused"` (500 steps, the cut, steps 401-412
      traced: cem_select's launches = CUPTI's = 16 an iteration, and no
      host-to-device copy above 1 KiB); every record's
@@ -271,7 +275,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (f32) and 2e-2 (bf16) of its scale; its device ms beside the dense
      MLP's;
  50. the shipped `train_vrgripper_transformer_moe.gin` as written through
-     the trainer binary from the demos (1000 of its 2000 steps, the cut;
+     the trainer binary from the demos (500 of its 2000 steps, the cut;
      the overlapped
      startup, the aux loss in every record, the perf plane's `perf.mfu`,
      `perf.flops_per_sec`, `perf.device_time_fraction`, `stall_fraction`,
@@ -310,10 +314,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  58. the cold-start probes (`startup/coldstart.py` trainer and serving,
      full size; cold and warm probes in processes of their own): the
      warm ones build no kernel (`cache_misses == 0`); time to the first
-     step and prediction;
+     step and prediction (the seeds are made here; the probes run
+     beside phases 60–62, contended);
  59. `ProfilerHook` over 5 of the gin's graphed training steps:
      `utils.xplane.top_ops(compute_only=True)` names the three flash
      kernels, their sum within 1.05 × the device's busy time;
+ 60. the in-process `train_qtopt` at `qtopt_fleet.gin`'s widths (B =
+     64, 500 steps) as the yardstick, then the shipped `qtopt_fleet.gin`
+     through `run_t2r_trainer --trainer=fleet` with `FleetConfig.env =
+     "pose"` bound (the gin's `mujoco_pose` is not ported): a host, two
+     actors and a learner
+     process, 500 steps; exit 0 and no child alive after; the processes
+     holding the card, sampled every second (each child's open
+     `/dev/nvidia<N>`) and self-reported
+     (`proc.cuda_initialized`), exactly the host and the learner; the
+     served params' digests equal the learner's final checkpoint's;
+     10 publications; the `FleetResult`'s rates, lag and staleness
+     (mean, p50, p99);
+ 61. `qtopt_fleet_elastic.gin` (the same binding, 200 steps) with one
+     actor crashing mid-episode after 3 batches and the learner after
+     125 steps (a fault plan's `learner_crash`, bound through
+     `--import_modules`): one actor restart and one learner resume, each in
+     `recoveries` with its MTTR, the resume from the step-100
+     checkpoint, no partial episode rows, a clean shutdown;
+ 62. `qtopt_fleet_tcp.gin` (TCP, 2 serving hosts, 2 replay shards, 4
+     actors; 200 steps): the card held by exactly the two hosts and
+     the learner, both hosts serving the last publication (the same
+     version and digests as the final checkpoint), a clean shutdown;
+     60, 61 and 62 run side by side, three fleets on the card at once,
+     after the yardstick ran alone, so their printed rates are
+     contended;
      then the cem_select launches per path (each traced in its own run),
      the wall seconds of each phase, the `kernels` JSON line
      (cem_select's count: the CEM serving path of phase 4), the card
@@ -2533,25 +2563,6 @@ def phase_context_graphs():
   return walls
 
 
-def phase_launch_accounting():
-  """Per path, graphed and eager, by `bin/profile_policy`'s profiler
-  (calls in a row): device busy and idle share, wall, the kernels run
-  and the host's launch calls per call, graph launches among them."""
-  from tensor2robot_tpu_torch.bin import profile_policy as pp
-  rows = {}
-  for name, fn in (("cem_dispatch_B8", lambda g: pp.profile_cem(8, g)),
-                   ("context_policy_step", pp.profile_context_policy),
-                   ("bc_train_step", pp.profile_train_step),
-                   ("bellman_step_B256", pp.profile_qtopt_train_step)):
-    for graphs in (False, True):
-      prof = fn(graphs)
-      prof.pop("top_kernels")
-      rows[f"{name} {'graphed' if graphs else 'eager'}"] = prof
-      _log(f"profile {name} {'graphed' if graphs else 'eager'}: "
-           f"{json.dumps(prof)}")
-  return rows
-
-
 # ---- the online QT-Opt path (replay plane, actor, success protocol) ----
 
 
@@ -2600,10 +2611,8 @@ def phase_online_protocol():
   with the server-wired actor, the write service and the refresh hook.
   Gates: success ≥ 0.50 at step 2000, online final ≥ offline final −
   0.10, episodes collected, no actor crash (a latched writer error
-  raises). Then the online phase again from the step-2000 checkpoint
-  with numpy's row index in place of the native gather, and with the
-  native gather (`_online_gather_ab`). Last, a traced window of the
-  online loop (`_online_window`). Returns the window's cem_select
+  raises). Last, a traced window of the online loop
+  (`_online_window`). Returns the window's cem_select
   launches per path and the protocol's summary."""
   import tempfile
   from tensor2robot_tpu_torch.bin import run_success_protocol as protocol
@@ -2634,83 +2643,8 @@ def phase_online_protocol():
       raise AssertionError(f"the actor crashed: "
                            f"{summary['online']['actor_crash_error']}")
     model_dir = os.path.join(out_dir, "qtopt_online")
-    _online_gather_ab(model_dir, out_dir)
     per_path = _online_window(model_dir, out_dir)
   return per_path, summary
-
-
-def _numpy_gather(src, idx, out=None, num_threads=1):
-  """numpy's row index in `native.gather_rows`' place."""
-  import numpy as np
-  del num_threads
-  if out is None:
-    return src[idx]
-  np.take(src, idx, axis=0, out=out)
-  return out
-
-
-def _numpy_scatter(dst, idx, src, num_threads=1):
-  """numpy's row assignment in `native.scatter_rows`' place."""
-  del num_threads
-  dst[idx] = src
-
-
-def _online_gather_ab(model_dir, out_dir):
-  """The protocol's online phase twice from its step-2000 checkpoint
-  and the same logged replay, its store gathering and scattering rows by
-  numpy's index, then by the native gather (two runs, not an ABBA
-  four, to keep chip_smoke inside its time limit): each run's rates
-  (steps past the first log interval over their wall time, the wait
-  over it), steps per wall second of the phase, and the actor's
-  episodes."""
-  import shutil
-  from tensor2robot_tpu_torch.bin import run_success_protocol as protocol
-  from tensor2robot_tpu_torch.research.qtopt import ReplayBuffer, ToyGraspEnv
-  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
-  from tensor2robot_tpu_torch.utils import native
-  config = protocol.FULL
-  ckpt = os.path.join(model_dir, ckpt_lib.CKPT_SUBDIR,
-                      str(config.offline_steps))
-  transitions = None
-  gathers = {"native": (native.gather_rows, native.scatter_rows),
-             "numpy": (_numpy_gather, _numpy_scatter)}
-  runs = {"native": [], "numpy": []}
-  order = ("numpy", "native")
-  for i, name in enumerate(order):
-    run_dir = os.path.join(out_dir, f"gather_ab_{i}")
-    shutil.copytree(ckpt, os.path.join(run_dir, ckpt_lib.CKPT_SUBDIR,
-                                       str(config.offline_steps)))
-    learner = protocol.build_learner(config, config.finetune_lr, "cuda",
-                                     "fused")
-    if transitions is None:
-      transitions = ToyGraspEnv(
-          image_size=learner.model.image_size,
-          action_dim=learner.model.action_dim,
-          seed=protocol.PROTOCOL_SEED).sample_transitions(
-              config.offline_transitions)
-    replay = ReplayBuffer(learner.transition_specification(),
-                          capacity=config.replay_capacity,
-                          seed=protocol.PROTOCOL_SEED)
-    replay.add(transitions)
-    saved = native.gather_rows, native.scatter_rows
-    native.gather_rows, native.scatter_rows = gathers[name]
-    try:
-      out = protocol.online_phase(learner, replay, run_dir, config)
-    finally:
-      native.gather_rows, native.scatter_rows = saved
-    row = {key: out[key] for key in (
-        "grad_steps_per_sec", "input_wait_fraction", "grad_steps_per_wall_sec",
-        "median_grad_steps_per_sec", "median_input_wait_fraction", "wall_s",
-        "episodes_collected", "episodes_dropped", "serving_dispatches")}
-    runs[name].append(row)
-    _log(f"online phase with the {name} gather (run {i + 1} of "
-         f"{len(order)}): "
-         f"{json.dumps(row)}")
-    if out["actor_crashed"] or out["episodes_collected"] <= 0:
-      raise AssertionError(f"online phase with the {name} gather: {out}")
-  _log("online phase, native against numpy gather: "
-       + json.dumps({name: rows[0] for name, rows in runs.items()}))
-  return runs
 
 
 def _online_window(model_dir, out_dir):
@@ -2800,14 +2734,22 @@ def _online_window(model_dir, out_dir):
   return per_path
 
 
+# The lax offline run's steps (the protocol's 2000, cut for the time
+# limit).
+_LAX_OFFLINE_STEPS = 100
+
+
 def phase_lax_offline():
   """The offline phase once more with cem_select="lax" (the JAX
-  protocol's own configuration): printed, not gated. Returns its replay
-  (16384 grasps at `GraspingQModel()` width) for the gather timing."""
+  protocol's own configuration), `_LAX_OFFLINE_STEPS` steps: printed,
+  not gated. Returns its replay (16384 grasps at `GraspingQModel()`
+  width) for the gather timing."""
+  import dataclasses
   import tempfile
   from tensor2robot_tpu_torch.bin import run_success_protocol as protocol
   from tensor2robot_tpu_torch.telemetry.records import read_records
-  config = protocol.FULL
+  config = dataclasses.replace(protocol.FULL,
+                               offline_steps=_LAX_OFFLINE_STEPS)
   learner = protocol.build_learner(config, config.lr, "cuda", "lax")
   replay = protocol.offline_replay(learner, config)
   with tempfile.TemporaryDirectory() as model_dir:
@@ -4006,10 +3948,13 @@ def _demo_episodes(num_episodes, seed):
           for _ in range(num_episodes)]
 
 
-def _stream_rate(gen, model, num_workers, batches=100):
+def _stream_rate(gen, model, num_workers, batches=100, on_first=None):
   """Batches/s of `gen`'s TRAIN stream over `batches` batches after the
   first (which fills the shuffle buffer and, with workers, starts them),
-  parse alone: no device. Returns (the first batch, the rates)."""
+  parse alone: no device. `on_first` is called on the first batch while
+  the stream is open (with workers, a batch lives in the shm ring: it
+  is not read after the stream moves on or closes). Returns (the first
+  batch, the rates)."""
   from tensor2robot_tpu_torch.data import Mode
   gen.set_specification_from_model(model, Mode.TRAIN)
   stream = gen.create_dataset(Mode.TRAIN)
@@ -4017,6 +3962,8 @@ def _stream_rate(gen, model, num_workers, batches=100):
     t0 = time.perf_counter()
     first = next(stream)
     first_s = time.perf_counter() - t0
+    if on_first is not None:
+      on_first(first)
     t0 = time.perf_counter()
     for _ in range(batches):
       next(stream)
@@ -4038,6 +3985,10 @@ def _parse_rate(model, path, num_workers, batches=100):
   return _stream_rate(gen, model, num_workers, batches)[1]
 
 
+# Batches of the two-worker read (phase 35), after the first.
+_WORKER_BATCHES = 20
+
+
 def phase_tfrecord_round_trip():
   """The data plane on the card's host: `collect_demo_episodes` writes
   100 seeded episodes as TFRecords (SequenceExample, PNG frames); the
@@ -4045,10 +3996,12 @@ def phase_tfrecord_round_trip():
   batches `EpisodeInputGenerator` builds from the same episodes in
   memory (pixels, poses, actions and lengths bit for bit: PNG is
   lossless), through the native CRC-32C and PNG unfilter; then the
-  gin's TRAIN-mode parse rate alone at `num_workers` 0 and 2, over that
+  gin's TRAIN-mode parse rate alone at `num_workers` 0, over that
   one file and over the same episodes in 4 files (the plane shards by
-  file: over one file a second worker has nothing to read). Returns the
-  rates."""
+  file: over one file a second worker has nothing to read), and at
+  `num_workers` 2 (worker processes over the shm ring) over the 4 files
+  for `_WORKER_BATCHES` batches, whose batches must have the serial
+  stream's keys, shapes and dtypes. Returns the rates."""
   import tempfile
   import numpy as np
   from tensor2robot_tpu_torch.data import (
@@ -4089,16 +4042,35 @@ def phase_tfrecord_round_trip():
           raise AssertionError(f"round trip: a batch differs in "
                                f"{[k for k in w if not np.array_equal(g[k], w[k])]}")
     lengths = np.concatenate([f["sequence_length"] for f, _ in got])
-    rates = [dict(files=1, **_parse_rate(model, path, workers))
-             for workers in (0, 2)]
+    rates = [dict(files=1, **_parse_rate(model, path, 0))]
     for i in range(4):
       write_episode_tfrecord(
           os.path.join(tmp, f"shard-{i}.tfrecord"), episodes[i::4],
           model.get_feature_specification(Mode.TRAIN),
           model.get_label_specification(Mode.TRAIN))
     shards = os.path.join(tmp, "shard-*.tfrecord")
-    rates += [dict(files=4, **_parse_rate(model, shards, workers))
-              for workers in (0, 2)]
+    serial_first, serial_rate = _stream_rate(TFRecordEpisodeInputGenerator(
+        file_patterns=shards, sequence_length=32, batch_size=16, seed=0),
+        model, 0)
+    rates += [dict(files=4, **serial_rate)]
+    # The multi-process plane: two workers over the shm ring, short.
+
+    def check_workers_batch(batch):
+      for got, want in zip(batch, serial_first):
+        got, want = got.to_flat_dict(), want.to_flat_dict()
+        layout = {k: (tuple(v.shape), v.dtype) for k, v in want.items()}
+        if {k: (tuple(v.shape), v.dtype) for k, v in got.items()} != layout:
+          raise AssertionError(f"2 workers: a batch of {sorted(got)} "
+                               f"unlike the serial stream's {layout}")
+      lengths = np.array(batch[0]["sequence_length"])
+      if not (np.all(lengths >= 1) and np.all(lengths <= 32)):
+        raise AssertionError(f"2 workers: sequence lengths {lengths}")
+
+    _, workers_rate = _stream_rate(TFRecordEpisodeInputGenerator(
+        file_patterns=shards, sequence_length=32, batch_size=16,
+        num_workers=2, seed=0), model, 2, batches=_WORKER_BATCHES,
+        on_first=check_workers_batch)
+    rates += [dict(files=4, **workers_rate)]
   _log(f"tfrecord round trip: 100 episodes written in {write_s:.3f} s "
        f"({size} bytes), 6 EVAL batches of 16 x 32 equal to the in-memory "
        f"generator's (image, gripper_pose, action, sequence_length; lengths "
@@ -4111,14 +4083,20 @@ def phase_tfrecord_round_trip():
   return rates
 
 
+# The transformer gin's cut (chip_smoke's time limit): max_train_steps
+# 2000 → 400.
+_VRGRIPPER_STEPS = 400
+
+
 def phase_gin_vrgripper_transformer():
   """The shipped `train_vrgripper_transformer.gin` as written, through
-  the trainer binary in a new process, with only the header's two
-  bindings (`train_eval_model.model_dir`, the demos' file pattern) over
-  100 episodes `collect_demo_episodes` wrote: 2000 steps of B=16 x 32
-  at width 128, depth 4, bf16, flash attention. Gates: exit 0, a valid
-  envelope every 100 steps to 2000, finite losses whose last three fall
-  below the first three, checkpoints at 500, 1000, 1500 and 2000. Then
+  the trainer binary in a new process, with the header's two bindings
+  (`train_eval_model.model_dir`, the demos' file pattern) and the cut
+  (`_VRGRIPPER_STEPS` of its 2000 steps) over 100 episodes
+  `collect_demo_episodes` wrote: B=16 x 32 at width 128, depth 4, bf16,
+  flash attention. Gates: exit 0, a valid envelope every 100 steps,
+  finite losses whose last three fall below the first three,
+  checkpoints every 500 steps and at the last. Then
   the same file in this process through the port's registry with 20
   steps bound on top, traced: each flash kernel 4 launches a step + the
   graph's warm-up step's, equal to CUPTI's. Returns the traced
@@ -4133,11 +4111,15 @@ def phase_gin_vrgripper_transformer():
     demos = collect_demo_episodes(os.path.join(tmp, "demos.tfrecord"))
     model_dir = os.path.join(tmp, "run")
     os.makedirs(model_dir)
-    wall = _run_trainer("gin train_vrgripper_transformer (as shipped)", [
-        "--gin_configs", _GIN_VRGRIPPER,
-        "--gin_bindings", f"train_eval_model.model_dir='{model_dir}'",
-        "--gin_bindings",
-        f"train/TFRecordEpisodeInputGenerator.file_patterns='{demos}'"],
+    wall = _run_trainer(
+        f"gin train_vrgripper_transformer (as shipped, cut to "
+        f"{_VRGRIPPER_STEPS} steps)", [
+            "--gin_configs", _GIN_VRGRIPPER,
+            "--gin_bindings", f"train_eval_model.model_dir='{model_dir}'",
+            "--gin_bindings",
+            f"train/TFRecordEpisodeInputGenerator.file_patterns='{demos}'",
+            "--gin_bindings",
+            f"train_eval_model.max_train_steps={_VRGRIPPER_STEPS}"],
         model_dir)
     raw = _checked_records(os.path.join(model_dir, "metrics_train.jsonl"))
     ckpts = sorted(int(d) for d in os.listdir(os.path.join(model_dir,
@@ -4152,12 +4134,13 @@ def phase_gin_vrgripper_transformer():
          f"{[r['payload']['mse'] for r in raw]}; steps_per_sec {rates} "
          f"(median after the first interval {statistics.median(rates[1:])}); "
          f"checkpoints {ckpts}")
-    if steps != list(range(100, 2001, 100)):
+    if steps != list(range(100, _VRGRIPPER_STEPS + 1, 100)):
       raise AssertionError(f"gin vrgripper: record steps {steps}")
     if not all(np.isfinite(losses)) or not (np.mean(losses[-3:])
                                             < np.mean(losses[:3])):
       raise AssertionError(f"gin vrgripper: losses {losses}")
-    if ckpts != [500, 1000, 1500, 2000]:
+    if ckpts != sorted(set(range(500, _VRGRIPPER_STEPS + 1, 500))
+                       | {_VRGRIPPER_STEPS}):
       raise AssertionError(f"gin vrgripper: checkpoints {ckpts}")
 
     run_t2r_trainer.import_configurable_families()
@@ -4189,9 +4172,9 @@ def phase_gin_vrgripper_transformer():
 
 _GIN_GRASP2VEC = ("tensor2robot_tpu/research/grasp2vec/configs/"
                   "train_grasp2vec.gin")
-# The one cut of the shipped grasp2vec gin: max_train_steps 10000 → 1000
+# The one cut of the shipped grasp2vec gin: max_train_steps 10000 → 400
 # (chip_smoke's time limit).
-_G2V_STEPS = 1000
+_G2V_STEPS = 400
 _G2V_BATCH = 64  # the gin's batch_size
 _GOAL_QT_STEPS = 50
 
@@ -4233,10 +4216,10 @@ def phase_gin_grasp2vec():
   evaluate, then the gin runs as written through the trainer binary in a
   new process (resnet-18 at 64 filters, embedding 128, bf16, batch 64,
   Adam 1e-4), its bindings only the model dir, the two file patterns
-  and max_train_steps 1000 (the gin's 10000 cut for the time limit).
-  Gates: exit 0, a valid record every 100 steps whose loss falls (the
-  last three below the first three), a checkpoint at step 1000, eval
-  records; `CheckpointPredictor` restores step 1000 and
+  and max_train_steps `_G2V_STEPS` (the gin's 10000 cut for the time
+  limit). Gates: exit 0, a valid record every 100 steps whose loss
+  falls (the last three below the first three), a checkpoint at the
+  last step, eval records; `CheckpointPredictor` restores that step and
   `evaluate_retrieval` over 50 held-out queries gives retrieval top-1
   ≥ 0.5 (chance 1/6). Then the stream's parse rate alone, the graphed
   train step's device ms, and the f32 model on the card against the CPU
@@ -4261,7 +4244,8 @@ def phase_gin_grasp2vec():
     collect_s = time.perf_counter() - t0
     model_dir = os.path.join(tmp, "run")
     os.makedirs(model_dir)
-    wall = _run_trainer("gin train_grasp2vec (as shipped, 1000 steps)", [
+    wall = _run_trainer(f"gin train_grasp2vec (as shipped, {_G2V_STEPS} "
+                        "steps)", [
         "--gin_configs", _GIN_GRASP2VEC,
         "--gin_bindings", f"train_eval_model.model_dir='{model_dir}'",
         "--gin_bindings",
@@ -4447,7 +4431,8 @@ _GIN_META = ("tensor2robot_tpu/research/vrgripper/configs/"
              "train_vrgripper_meta.gin")
 _GIN_WTL = ("tensor2robot_tpu/research/vrgripper/configs/"
             "train_vrgripper_wtl.gin")
-_FAMILY_STEPS = 1000
+# The family gins' cut (chip_smoke's time limit): max_train_steps → 400.
+_FAMILY_STEPS = 400
 _BC_EVAL_EPISODES = 100
 _MAML_STEPS = 20
 
@@ -4557,7 +4542,7 @@ def phase_gin_vrgripper_bc():
   filters (32, 64), an MDN head of 5 components over 3 action dims,
   bf16; `TransitionInputGenerator` at batch 64 over
   `TFRecordEpisodeInputGenerator(sequence_length=12)`), bound: the
-  model dir, the demos, and the cuts (1000 steps; `SuccessEvalHook` at
+  model dir, the demos, and the cuts (`_FAMILY_STEPS`; `SuccessEvalHook` at
   100 episodes). Gates: those of `_gin_family_run`, and a success
   record at each checkpoint whose `success_rate` is in [0, 1] (printed,
   not gated: the hook evaluates under task offsets the demos lack).
@@ -4610,7 +4595,7 @@ def phase_gin_vrgripper_meta():
   at 32 filters over 4 demo + 4 query steps, bf16;
   `EpisodeMetaInputGenerator` at 8 tasks over
   `TFRecordEpisodeInputGenerator(sequence_length=12)`), bound: the model
-  dir, the demos, the cut to 1000 steps; gates of `_gin_family_run`,
+  dir, the demos, the cut to `_FAMILY_STEPS`; gates of `_gin_family_run`,
   except that the loss is held below the untrained model's on a batch of
   the gin's stream rather than below the first three records: one record
   is one batch of 32 queries, and from step 100 on they scatter over
@@ -4708,7 +4693,7 @@ def phase_gin_vrgripper_wtl():
   """The shipped `train_vrgripper_wtl.gin` (`VRGripperWTLModel`, retrial
   policy: demo + trial conditioned, 48×48, filters (16, 32), embedding
   64, MDN of 5 components, bf16; `RandomInputGenerator` at 8 tasks from
-  the model's specs), bound: the model dir and the cut to 1000 steps;
+  the model's specs), bound: the model dir and the cut to `_FAMILY_STEPS`;
   gates of `_gin_family_run`, except that the loss is held below the
   untrained model's on the gin's first batch (same seeds) rather than
   below the first three records: its random targets carry nothing to
@@ -4747,6 +4732,9 @@ _ENVS_N = 1024
 _GIN_ANAKIN = "tensor2robot_tpu/research/qtopt/configs/qtopt_anakin.gin"
 _GIN_ANAKIN_POD = "tensor2robot_tpu/research/qtopt/configs/qtopt_anakin_pod.gin"
 _ANAKIN_STEPS = 1000
+# The binary's lax run of the same gin, cut (chip_smoke's time limit):
+# 1000 → 500 steps.
+_ANAKIN_LAX_STEPS = 500
 # The in-process fused run's cut (chip_smoke's time limit): 1000 →
 # 500 steps; the window stays inside it.
 _ANAKIN_FUSED_STEPS = 500
@@ -4980,8 +4968,8 @@ def _trace_window(trace_path):
 def phase_gin_qtopt_anakin():
   """46. The shipped `qtopt_anakin.gin` as written through
   `python -m tensor2robot_tpu_torch.bin.run_t2r_trainer --trainer=anakin`
-  (only `train_anakin.model_dir` bound): 1000 steps of procgen
-  collection (1024 envs, rollout 4, ε 0.1) into a 16384-row ring on the
+  (`train_anakin.model_dir` and the cut to `_ANAKIN_LAX_STEPS` bound):
+  procgen collection (1024 envs, rollout 4, ε 0.1) into a 16384-row ring on the
   card, 4 Bellman steps of B = 256 an iteration, `GraspingQModel` at 64×64
   with action 2, CEM 2 × 64, lax select. Then the same file in this
   process through the port's registry with `QTOptLearner.cem_select =
@@ -4997,12 +4985,14 @@ def phase_gin_qtopt_anakin():
   from tensor2robot_tpu_torch.bin import run_t2r_trainer
   from tensor2robot_tpu_torch.envs import train_anakin
   with tempfile.TemporaryDirectory() as model_dir:
-    wall = _run_trainer("gin qtopt_anakin (as shipped, lax select)", [
+    wall = _run_trainer("gin qtopt_anakin (as shipped, lax select, cut to "
+                        f"{_ANAKIN_LAX_STEPS} steps)", [
         "--trainer=anakin", "--gin_configs", _GIN_ANAKIN,
-        "--gin_bindings", f"train_anakin.model_dir='{model_dir}'"],
-        model_dir)
+        "--gin_bindings", f"train_anakin.model_dir='{model_dir}'",
+        "--gin_bindings",
+        f"train_anakin.max_train_steps={_ANAKIN_LAX_STEPS}"], model_dir)
     _anakin_records(f"gin qtopt_anakin lax (wall {wall:.2f} s)", model_dir,
-                    pod=False)
+                    pod=False, steps_to=_ANAKIN_LAX_STEPS)
   run_t2r_trainer.import_configurable_families()
   try:
     with tempfile.TemporaryDirectory() as model_dir:
@@ -5271,8 +5261,8 @@ _GIN_SHARDMAP = ("tensor2robot_tpu/research/qtopt/configs/"
 _MOE_SHAPE = dict(tokens=16 * 32, model_dim=128, experts=8, hidden=512, k=2,
                   capacity_factor=2.0)
 # The MoE gin's cut (chip_smoke's time limit): max_train_steps
-# 2000 → 1000.
-_MOE_STEPS = 1000
+# 2000 → 500.
+_MOE_STEPS = 500
 _MOE_SERVE_STEPS = 32
 # The perf plane's scalars every record of a train_eval gin carries.
 _PLANE_KEYS = ("perf.mfu", "perf.flops_per_sec", "perf.device_time_fraction",
@@ -5368,7 +5358,7 @@ def _plane_gates(label, raw):
 def phase_gin_vrgripper_moe():
   """50. The shipped `train_vrgripper_transformer_moe.gin` as written,
   through the trainer binary in a new process with the header's two
-  bindings and one cut (`_MOE_STEPS`, 1000 of its 2000 steps), from 100
+  bindings and one cut (`_MOE_STEPS`, 500 of its 2000 steps), from 100
   demos `collect_demo_episodes` wrote: the transformer gin's width with
   8 experts on blocks 1 and 3, B=16 × 32, bf16, flash attention, the
   default overlapped startup. Gates: those of
@@ -6072,23 +6062,29 @@ def _coldstart(args):
   return json.loads(marker[-1][len("COLDSTART_JSON "):])
 
 
-def phase_cold_start():
-  """Phase 58: the cold-start probes at full size (`trainer`, `serving`):
-  the seed checkpoint made here, then a cold probe against a fresh cache
-  dir and a warm one, each a process of its own; the warm probes report
-  `cache_misses == 0`."""
-  import shutil
+def phase_cold_start_seeds():
+  """Phase 58's seeds, made in this process (untimed by the probes): a
+  checkpoint for each cold-start probe at full size (`trainer`,
+  `serving`). Returns their work dir."""
   import tempfile
   from tensor2robot_tpu_torch.startup import coldstart
   work = tempfile.mkdtemp(prefix="coldstart_")
+  coldstart.trainer_setup(os.path.join(work, "trainer_seed"), tiny=False)
+  coldstart.serving_setup(os.path.join(work, "serving_seed"), tiny=False)
+  return work
+
+
+def phase_cold_start(work):
+  """Phase 58: the cold-start probes on `work`'s seeds: for `trainer`
+  and `serving`, a cold probe against a fresh cache dir and a warm one,
+  each a process of its own; the warm probes report `cache_misses ==
+  0`. It runs beside the fleets of phases 60-62 (no CUDA in this
+  process while it runs), so its times are contended."""
+  import shutil
   results = {}
-  setups = {"trainer": coldstart.trainer_setup,
-            "serving": coldstart.serving_setup}
   for probe in ("trainer", "serving"):
     seed_dir = os.path.join(work, f"{probe}_seed")
     cache = os.path.join(work, f"{probe}_cache")
-    # The seed is untimed: made in this process.
-    setups[probe](seed_dir, tiny=False)
     for tag in ("cold", "warm"):
       run_dir = seed_dir
       if probe == "trainer":  # each probe resumes its own copy
@@ -6101,12 +6097,13 @@ def phase_cold_start():
       raise AssertionError(f"coldstart {tag}: {results[tag]}")
   keys = {"trainer": "time_to_first_step_secs",
           "serving": "time_to_first_prediction_secs"}
-  _log("cold start: " + "; ".join(
+  _log("cold start (beside the fleets): " + "; ".join(
       f"{tag} {keys[tag.split('_')[0]]}={r[keys[tag.split('_')[0]]]} "
       f"compile_watch={json.dumps(r['compile_watch'])} "
       f"cache_entries_after={r['cache_entries_after']}"
       for tag, r in results.items()))
   _log(f"cold start results: {json.dumps(results)}")
+  shutil.rmtree(work, ignore_errors=True)
 
 
 def phase_profiler_trace():
@@ -6150,6 +6147,462 @@ def phase_profiler_trace():
        f"({compute / busy:.3f}x, limit {_BUSY_SLACK}); flash kernels ms "
        f"{json.dumps(found)}; top 5 {json.dumps(top[:5])}")
 
+
+_GIN_FLEET = "tensor2robot_tpu/research/qtopt/configs/qtopt_fleet.gin"
+_GIN_FLEET_ELASTIC = ("tensor2robot_tpu/research/qtopt/configs/"
+                      "qtopt_fleet_elastic.gin")
+_GIN_FLEET_TCP = "tensor2robot_tpu/research/qtopt/configs/qtopt_fleet_tcp.gin"
+# The shipped fleet gins bind the physics env, which is ROADMAP A10a.
+_FLEET_POSE = 'FleetConfig.env = "pose"'
+_FLEET_CUT_STEPS = 200  # phases 61-62: the gins' 500 steps cut
+_CUDA_SAMPLE_S = 1.0
+
+
+def _fleet_metas(model_dir):
+  """The meta lines of a fleet run's trace files (each child writes one
+  when it configures its trace, at start), oldest first."""
+  metas = []
+  telemetry_dir = os.path.join(model_dir, "telemetry")
+  if not os.path.isdir(telemetry_dir):
+    return metas
+  for name in os.listdir(telemetry_dir):
+    if not (name.startswith("trace_") and name.endswith(".jsonl")):
+      continue
+    with open(os.path.join(telemetry_dir, name)) as f:
+      for line in f:
+        if '"ph": "M"' not in line:
+          continue
+        try:
+          metas.append(json.loads(line))
+        except ValueError:
+          continue  # a line still being written
+  return sorted(metas, key=lambda m: m["mono0"])
+
+
+def _fleet_pids(model_dir):
+  """{pid: role} of every process of a fleet run."""
+  return {int(m["pid"]): m["role"] for m in _fleet_metas(model_dir)}
+
+
+def _fleet_timeline(model_dir, t_start, result):
+  """Seconds from the binary's start (`t_start`, monotonic) to: the
+  orchestrator's launch (after the gin parse and the launch gate), each
+  role's first trace line (its process up, imports done), the learner's
+  first and last step, and the end of the run."""
+  out = {}
+  for meta in _fleet_metas(model_dir):
+    out.setdefault(f"{meta['role']} up", round(meta["mono0"] - t_start, 2))
+  window = result["metrics"]["learner_window"]
+  out["first step"] = round(window["first_time"] - t_start, 2)
+  out["last step"] = round(window["last_time"] - t_start, 2)
+  return out
+
+
+def _holds_card(pid):
+  """Whether process `pid` has a GPU device file (`/dev/nvidia<N>`)
+  open: what a CUDA context keeps open."""
+  try:
+    fds = os.listdir(f"/proc/{pid}/fd")
+  except OSError:
+    return False
+  for fd in fds:
+    try:
+      target = os.readlink(f"/proc/{pid}/fd/{fd}")
+    except OSError:
+      continue
+    if re.fullmatch(r"/dev/nvidia\d+", target):
+      return True
+  return False
+
+
+def _run_fleet_gin(label, gin_file, model_dir, bindings=(), flags=(),
+                   python_path=(), timeout_s=600):
+  """`run_t2r_trainer --trainer=fleet` on `gin_file` with the pose env
+  and `bindings` bound (and `flags`, with `python_path` on the path), as
+  a subprocess writing to `model_dir`. While it runs, every second: the
+  fleet's pids by role (trace meta lines) and which of them hold the
+  card (an open `/dev/nvidia<N>`). Fails on a non-zero exit or a child
+  alive after it. Returns (the run's `fleet_result.json`, {role: held
+  the card}, the roles seen, wall s, model_dir)."""
+  os.makedirs(model_dir)
+  cmd = [sys.executable, "-m", "tensor2robot_tpu_torch.bin.run_t2r_trainer",
+         "--trainer=fleet", "--gin_configs", gin_file, *flags,
+         "--gin_bindings", f"run_fleet.model_dir = '{model_dir}'",
+         "--gin_bindings", _FLEET_POSE]
+  for binding in bindings:
+    cmd += ["--gin_bindings", binding]
+  env = dict(os.environ, PYTHONPATH=os.pathsep.join((_REPO, *python_path)))
+  log_path = os.path.join(model_dir, "fleet.log")
+  roles = {}
+  held = {}
+  samples = 0
+  t0 = time.perf_counter()
+  t_start = time.monotonic()
+  with open(log_path, "w") as log:
+    proc = subprocess.Popen(cmd, cwd=_REPO, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    try:
+      while proc.poll() is None:
+        if time.perf_counter() - t0 > timeout_s:
+          raise AssertionError(f"{label}: no exit in {timeout_s} s")
+        pids = _fleet_pids(model_dir)
+        roles.update(pids)
+        for pid, role in pids.items():
+          held[role] = held.get(role, False) or _holds_card(pid)
+        samples += 1
+        time.sleep(_CUDA_SAMPLE_S)
+    finally:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+  wall = time.perf_counter() - t0
+  roles.update(_fleet_pids(model_dir))
+  with open(log_path) as f:
+    tail = f.read().splitlines()[-20:]
+  _log(f"{label}: exit {proc.returncode} in {wall:.2f} s "
+       f"({samples} samples of the card's processes): {' '.join(cmd[1:])}")
+  if proc.returncode != 0:
+    raise AssertionError(f"{label} exited {proc.returncode}:\n"
+                         + "\n".join(tail))
+  alive = sorted(role for pid, role in roles.items()
+                 if os.path.exists(f"/proc/{pid}"))
+  if alive:
+    raise AssertionError(f"{label}: children alive after the run: {alive}")
+  with open(os.path.join(model_dir, "fleet_result.json")) as f:
+    result = json.load(f)
+  timeline = _fleet_timeline(model_dir, t_start, result)
+  timeline["exit"] = round(wall, 2)
+  _log(f"{label}: timeline s {json.dumps(timeline)}")
+  return result, held, set(roles.values()), wall, model_dir
+
+
+def _checkpoint_digests(model_dir):
+  """SHA-256 of every param and batch statistic of the latest
+  checkpoint, by name (the host's `served_params_sha256` keys): (step,
+  digests)."""
+  import hashlib
+
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+  step = ckpt_lib.latest_step(model_dir)
+  leaves = ckpt_lib._load_leaves(model_dir, step)
+  digests = {}
+  for path, leaf in leaves.items():
+    for prefix in ("train_state/params/", "train_state/batch_stats/"):
+      if path.startswith(prefix):
+        digests[path[len(prefix):]] = hashlib.sha256(
+            leaf.contiguous().numpy().tobytes()).hexdigest()
+  return step, digests
+
+
+def _self_reported_cuda(metrics, model_dir):
+  """{role: proc.cuda_initialized} of a fleet run: the hosts' and
+  shards' own final reads, every snapshot pushed to the root host, and
+  the orchestrator's last aggregated poll (`fleet_metrics.jsonl`, which
+  holds what actors pushed to the other serving hosts). True if any
+  source says so."""
+  out = {}
+
+  def report(role, value):
+    out[role] = out.get(role, False) or bool(value)
+
+  report("host", metrics["cuda_initialized"])
+  for i, replica in enumerate(metrics.get("serving_replicas") or ()):
+    report(f"host{replica.get('host_index', i + 1)}",
+           replica["cuda_initialized"])
+  for i, shard in enumerate(metrics.get("replay_shards") or ()):
+    report(f"shard{shard.get('shard_index', i)}", shard["cuda_initialized"])
+  for role, pushed in (metrics.get("pushed_telemetry") or {}).items():
+    gauges = (pushed.get("snapshot") or {}).get("gauges") or {}
+    if "proc.cuda_initialized" in gauges:
+      report(role, gauges["proc.cuda_initialized"])
+  with open(os.path.join(model_dir, "telemetry", "fleet_metrics.jsonl")) as f:
+    last = [json.loads(line) for line in f if line.strip()][-1]["payload"]
+  for key, value in last.items():
+    if key == "proc.cuda_initialized":
+      report("host", value)
+    elif key.endswith("/proc.cuda_initialized"):
+      report(key.rsplit("/", 1)[0], value)
+  return out
+
+
+def _bucket_quantiles(histograms, qs=(0.5, 0.99)):
+  """The bucket (`"<=b"` or `">b"`) holding each quantile of the summed
+  `{label: count}` histograms (all with one bucket table)."""
+  total = {}
+  for histogram in histograms:
+    for label, n in histogram.items():
+      total[label] = total.get(label, 0) + n
+  rows = sum(total.values())
+  out = []
+  for q in qs:
+    seen = 0
+    for label, n in total.items():
+      seen += n
+      if seen >= q * rows:
+        out.append(label)
+        break
+  return out
+
+
+def _check_fleet(label, result, held, seen, model_dir, card_roles, steps):
+  """The gates every fleet phase shares; logs the `FleetResult` (its
+  rates taken beside the other fleets', under their load)."""
+  metrics = result["metrics"]
+  if not result["clean_shutdown"]:
+    raise AssertionError(f"{label}: no clean shutdown")
+  holders = {role for role, h in held.items() if h}
+  reported = _self_reported_cuda(metrics, model_dir)
+  on_card = {role for role, r in reported.items() if r}
+  _log(f"{label}: roles {sorted(seen)}; holding /dev/nvidia<N> "
+       f"{sorted(holders)}; self-reported CUDA {json.dumps(reported, sort_keys=True)}")
+  if holders != card_roles or on_card != card_roles:
+    raise AssertionError(
+        f"{label}: the card's processes are {sorted(holders)} (device "
+        f"files) / {sorted(on_card)} (self-reported), expected "
+        f"{sorted(card_roles)}")
+  missing = seen - {"orchestrator"} - set(reported)
+  if missing:
+    raise AssertionError(f"{label}: no CUDA report from {sorted(missing)}")
+  ckpt_step, digests = _checkpoint_digests(model_dir)
+  if ckpt_step != steps or metrics["learner_window"]["last_step"] != steps:
+    raise AssertionError(f"{label}: final checkpoint {ckpt_step}, learner "
+                         f"window {metrics['learner_window']}, expected "
+                         f"{steps}")
+  if metrics["served_params_sha256"] != digests:
+    raise AssertionError(f"{label}: the root host's served params differ "
+                         f"from the learner's step-{steps} checkpoint")
+  if metrics["params_learner_step"] != steps:
+    raise AssertionError(f"{label}: served params are from step "
+                         f"{metrics['params_learner_step']}")
+  committed = metrics["service"]["replay_committed_transitions"]
+  batch_episodes = 16  # the gins' FleetConfig.batch_episodes
+  if committed <= 0 or committed % batch_episodes:
+    raise AssertionError(f"{label}: {committed} committed transitions (a "
+                         f"partial episode, or none)")
+  lag, staleness = result["param_refresh_lag"], result["replay_staleness"]
+  stale_rows = sum(s.get("rows", 0) for s in staleness.values() if s)
+  if not lag.get("rows") or not stale_rows:
+    raise AssertionError(f"{label}: no lag ({lag}) or staleness rows")
+  stale_p95 = max(s["batch_mean_age_p95_steps"]
+                  for s in staleness.values() if s)
+  lag_q = _bucket_quantiles([lag["histogram"]])
+  stale_q = _bucket_quantiles([s["histogram"] for s in staleness.values()
+                               if s])
+  stale_mean = (sum(s["mean_age_steps"] * s["rows"]
+                    for s in staleness.values() if s) / stale_rows)
+  _log(f"{label}: FleetResult (contended: three fleets and the cold-start "
+       f"probes side by side) env_steps_per_sec "
+       f"{result['env_steps_per_sec']:.2f}, learner_steps_per_sec "
+       f"{result['learner_steps_per_sec']:.2f}, param_refresh_lag mean "
+       f"{lag['mean']:.3f} max {lag['max']} p50 {lag_q[0]} p99 {lag_q[1]} "
+       f"(rows {lag['rows']}, histogram {json.dumps(lag['histogram'])}), "
+       f"replay_staleness mean {stale_mean:.3f} p50 {stale_q[0]} p99 "
+       f"{stale_q[1]} batch-mean p95 {stale_p95:.3f} (rows {stale_rows}), "
+       f"publishes {result['publishes']}, params_version "
+       f"{result['params_version']}, actor_restarts "
+       f"{result['actor_restarts']}, learner_restarts "
+       f"{result['learner_restarts']}, recoveries "
+       f"{json.dumps(result['recoveries'])}, clean_shutdown "
+       f"{result['clean_shutdown']}, wall_secs {result['wall_secs']:.2f}; "
+       f"served = checkpoint {ckpt_step} ({len(digests)} tensors) bit for "
+       f"bit; committed {committed:.0f}; serving dispatches "
+       f"{metrics['serving_dispatches']}")
+  return metrics
+
+
+def _fleet_yardstick(steps=500, batch=64, publish_every=50):
+  """The in-process `train_qtopt` at `qtopt_fleet.gin`'s widths (64
+  transitions a batch from a prefilled in-memory buffer, checkpoints at
+  the gin's publish cadence): the rate the fleet's learner is held
+  beside. Returns (steps / wall of the call, median grad steps/s of the
+  records after the first)."""
+  import tempfile
+
+  import torch
+
+  from tensor2robot_tpu_torch.research.qtopt import (
+      GraspingQModel,
+      QTOptLearner,
+      ReplayBuffer,
+      train_qtopt,
+  )
+  torch.cuda.empty_cache()
+  learner = QTOptLearner(
+      GraspingQModel(image_size=32, action_dim=2, torso_filters=(16, 32),
+                     head_filters=(32, 32), dense_sizes=(32, 32)),
+      cem_population=64, cem_iterations=2, cem_elites=6)
+  replay = ReplayBuffer(learner.transition_specification(), capacity=4096)
+  with tempfile.TemporaryDirectory(prefix="fleet_yardstick_") as model_dir:
+    t0 = time.perf_counter()
+    train_qtopt(learner=learner, model_dir=model_dir, replay_buffer=replay,
+                max_train_steps=steps, batch_size=batch,
+                save_checkpoints_steps=publish_every,
+                log_every_steps=publish_every, prefill_random=True)
+    wall = time.perf_counter() - t0
+    rates = [r["payload"]["grad_steps_per_sec"] for r in _checked_records(
+        os.path.join(model_dir, "metrics_train.jsonl"))][1:]
+  return steps / wall, statistics.median(rates)
+
+
+def _run_fleet(root):
+  """Phase 60's run: `qtopt_fleet.gin` as shipped but for the pose env."""
+  return _run_fleet_gin("phase 60 qtopt_fleet.gin", _GIN_FLEET,
+                        os.path.join(root, "fleet"))
+
+
+def _check_fleet_main(run):
+  """Phase 60's gates: those of every fleet phase, 10 publications, the
+  gin's roles."""
+  result, held, seen, wall, model_dir = run
+  _check_fleet("phase 60", result, held, seen, model_dir,
+               {"host", "learner"}, steps=500)
+  if result["publishes"] != 10 or result["params_version"] != 10:
+    raise AssertionError(f"phase 60: {result['publishes']} publishes, "
+                         f"version {result['params_version']}; want 10")
+  if seen != {"host", "learner", "actor-0", "actor-1", "orchestrator"}:
+    raise AssertionError(f"phase 60: roles {sorted(seen)}")
+
+
+_ELASTIC_CRASH_AT = 125  # the learner's crash (phase 61), steps
+
+# Phase 61's learner crash: a fault plan's `learner_crash` event, which
+# fires in the learner's first incarnation only, registered for the gin
+# through the binary's `--import_modules`. (`learner_crash_after_steps`
+# fires in every incarnation, so under the resume policy it crash-loops
+# until the restart budget trips.)
+_ELASTIC_FAULTS_MODULE = "fleet_elastic_faults"
+_ELASTIC_FAULTS_SOURCE = f"""\
+from tensor2robot_tpu_torch import config as gin
+from tensor2robot_tpu_torch.fleet import faults
+
+
+@gin.configurable
+def elastic_learner_crash(at={_ELASTIC_CRASH_AT}):
+  return faults.FaultPlan(seed=0, events=(faults.FaultEvent(
+      fault=faults.LEARNER_CRASH, target="learner", at=at, mode="raise"),))
+"""
+
+
+def _run_fleet_elastic(root):
+  """Phase 61's run: `qtopt_fleet_elastic.gin` with an actor crash (mid
+  episode, after 3 batches) and a learner crash (a fault plan's, after
+  `_ELASTIC_CRASH_AT` steps)."""
+  modules = os.path.join(root, "modules")
+  os.makedirs(modules)
+  with open(os.path.join(modules, f"{_ELASTIC_FAULTS_MODULE}.py"), "w") as f:
+    f.write(_ELASTIC_FAULTS_SOURCE)
+  return _run_fleet_gin(
+      "phase 61 qtopt_fleet_elastic.gin", _GIN_FLEET_ELASTIC,
+      os.path.join(root, "fleet_elastic"), (
+          f"FleetConfig.max_train_steps = {_FLEET_CUT_STEPS}",
+          "FleetConfig.actor_crash_after_episodes = 3",
+          'FleetConfig.actor_crash_mode = "mid_episode"',
+          "FleetConfig.fault_plan = @elastic_learner_crash()"),
+      flags=("--import_modules", _ELASTIC_FAULTS_MODULE),
+      python_path=(modules,))
+
+
+def _check_fleet_elastic(run):
+  """Phase 61's gates: one actor restart and one learner resume, each
+  in `recoveries` with its MTTR; the resume from the checkpoint before
+  the crash; the staged half-episode aborted."""
+  result, held, seen, wall, model_dir = run
+  metrics = _check_fleet("phase 61", result, held, seen, model_dir,
+                         {"host", "learner"}, steps=_FLEET_CUT_STEPS)
+  faults = sorted((r["fault"], r["target"]) for r in result["recoveries"])
+  if faults != [("actor_crash", "actor-0"), ("learner_crash", "learner")]:
+    raise AssertionError(f"phase 61: recoveries {result['recoveries']}")
+  if not all(r["mttr_ms"] > 0 for r in result["recoveries"]):
+    raise AssertionError(f"phase 61: recoveries {result['recoveries']}")
+  if result["actor_restarts"] != 1 or result["learner_restarts"] != 1:
+    raise AssertionError(f"phase 61: {result['actor_restarts']} actor "
+                         f"restarts, {result['learner_restarts']} resumes")
+  publish_every = 50  # the gin's FleetConfig.publish_every_steps
+  restored = _ELASTIC_CRASH_AT // publish_every * publish_every
+  resumes = metrics["learner_resumes"]
+  if len(resumes) != 1 or resumes[0]["to_step"] != restored:
+    raise AssertionError(f"phase 61: resumes {resumes}, expected one to "
+                         f"step {restored}")
+  if metrics["service"]["replay_aborted_episodes"] < 1:
+    raise AssertionError("phase 61: the staged half-episode was not "
+                         "aborted")
+  _log(f"phase 61: the learner resumed {json.dumps(resumes)}; aborted "
+       f"episodes {metrics['service']['replay_aborted_episodes']:.0f}, "
+       f"actor restarts seen by the replay service "
+       f"{metrics['service']['replay_actor_restarts']:.0f}")
+
+
+def _run_fleet_tcp(root):
+  """Phase 62's run: `qtopt_fleet_tcp.gin` (TCP, 2 serving hosts, 2
+  replay shards, 4 actors)."""
+  return _run_fleet_gin("phase 62 qtopt_fleet_tcp.gin", _GIN_FLEET_TCP,
+                        os.path.join(root, "fleet_tcp"),
+                        (f"FleetConfig.max_train_steps = {_FLEET_CUT_STEPS}",))
+
+
+def _check_fleet_tcp(run):
+  """Phase 62's gates: the card held by the two hosts and the learner;
+  both hosts serve the last publication (the same version and digests);
+  both shards served."""
+  result, held, seen, wall, model_dir = run
+  steps = _FLEET_CUT_STEPS
+  metrics = _check_fleet("phase 62", result, held, seen, model_dir,
+                         {"host", "host1", "learner"}, steps=steps)
+  (replica,) = metrics["serving_replicas"]
+  if (replica["params_version"] != metrics["params_version"]
+      or replica["params_learner_step"] != steps
+      or replica["served_params_sha256"] != metrics["served_params_sha256"]):
+    raise AssertionError(
+        f"phase 62: host1 serves version {replica['params_version']} "
+        f"(step {replica['params_learner_step']}), the root "
+        f"{metrics['params_version']}")
+  shards = {s["shard_index"] for s in metrics["replay_shards"]}
+  if shards != {0, 1} or {"shard0", "shard1"} - seen:
+    raise AssertionError(f"phase 62: shards {shards}, roles {sorted(seen)}")
+  _log(f"phase 62: both hosts serve version {metrics['params_version']} "
+       f"(learner step {steps}); broadcast {json.dumps(metrics['broadcast'])}"
+       f" / host1 {json.dumps(replica['broadcast'])}; lag by hop "
+       f"{json.dumps(result['param_refresh_lag'].get('by_hop'))}")
+
+
+def phase_gin_qtopt_fleets(beside=None):
+  """Phases 60-62: the in-process learner at `qtopt_fleet.gin`'s widths
+  alone (the yardstick), then the three fleets at once on the one card
+  (each with its own authkey, ports and model dir), each held to its
+  own gates, and `beside` (a callable: phase 58's probes) on a thread
+  of its own. Their rates and recovery times are taken side by side,
+  under each other's load."""
+  whole, median = _fleet_yardstick()
+  _log(f"phase 60 yardstick: in-process train_qtopt at the gin's widths "
+       f"(B=64, 500 steps, checkpoints every 50) {whole:.2f} steps/s over "
+       f"the call, {median:.2f} grad steps/s (records' median past the "
+       f"first)")
+  import tempfile
+  runs, errors = {}, {}
+
+  def run(name, fn, root):
+    try:
+      runs[name] = fn(root)
+    except BaseException as e:  # noqa: BLE001 — re-raised below
+      errors[name] = e
+
+  jobs = [("60", _run_fleet), ("61", _run_fleet_elastic),
+          ("62", _run_fleet_tcp)]
+  if beside is not None:
+    jobs.append(("58", lambda root: beside()))
+  with tempfile.TemporaryDirectory(prefix="t2r_fleets_") as root:
+    threads = [threading.Thread(target=run,
+                                args=(name, fn, os.path.join(root, name)))
+               for name, fn in jobs]
+    for thread in threads:
+      thread.start()
+    for thread in threads:
+      thread.join()
+    for name in sorted(errors):
+      raise AssertionError(f"phase {name} failed") from errors[name]
+    _check_fleet_main(runs["60"])
+    _check_fleet_elastic(runs["61"])
+    _check_fleet_tcp(runs["62"])
 
 _PHASE_S = {}
 
@@ -6211,7 +6664,6 @@ def main():
   _timed(phase_bc_graphs)
   _timed(phase_serving_graphs)
   _timed(phase_context_graphs)
-  _timed(phase_launch_accounting)
   online_err = _timed(phase_online_kernels)
   online_per_path, _ = _timed(phase_online_protocol)
   lax_replay = _timed(phase_lax_offline)
@@ -6271,11 +6723,16 @@ def main():
   _timed(phase_export_under_capture, handoff_model, handoff_state)
   del handoff_model, handoff_state
   _timed(phase_warm_start)
-  _timed(phase_cold_start)
+  cold_start_work = _timed(phase_cold_start_seeds)
   _timed(phase_profiler_trace)
-  _log(f"phases 54-59 s (the model handoff): "
-       f"{time.perf_counter() - t_handoff:.2f}; flash launches in the "
-       f"loaded program {handoff_launches}")
+  _log(f"phases 54-59 s (the model handoff; phase 58's probes run with "
+       f"the fleets): {time.perf_counter() - t_handoff:.2f}; flash "
+       f"launches in the loaded program {handoff_launches}")
+  t_fleet = time.perf_counter()
+  _timed(phase_gin_qtopt_fleets,
+         lambda: _timed(phase_cold_start, cold_start_work))
+  _log(f"phases 60-62 s (the fleet gins, phase 58's probes beside): "
+       f"{time.perf_counter() - t_fleet:.2f}")
   _log(f"cem_select launches per path (each traced in its own run): CEM "
        f"serving {launches}, Bellman training {qt_launches}, online window "
        f"{sum(online_per_path.values())} ({json.dumps(online_per_path)}), "

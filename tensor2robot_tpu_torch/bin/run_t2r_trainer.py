@@ -9,17 +9,22 @@ The shipped `.gin` files are read in place (relative paths resolve from
 the working directory, then from the repository root) and parsed into
 the port's own registry. The configured entry point runs on the CUDA
 card; on the CPU add ``--gin_bindings "train_eval_model.device='cpu'"``
-(``--trainer=train_eval``) or ``"QTOptLearner.device='cpu'"``
-(``--trainer=qtopt`` and ``--trainer=anakin``).
+(``--trainer=train_eval``), ``"QTOptLearner.device='cpu'"``
+(``--trainer=qtopt`` and ``--trainer=anakin``) or
+``"FleetConfig.device='cpu'"`` (``--trainer=fleet``, which also needs
+``"run_fleet.model_dir='...'"``; the shipped fleet configs bind
+``FleetConfig.env = "mujoco_pose"``, which is ROADMAP A10a, so bind
+``FleetConfig.env = "pose"`` on top).
 
 The flags keep the JAX binary's names. `--validate_only` resolves every
 statement of each config against the port's registry (the JAX rules
 GIN101–GIN107: unknown configurables, parameters and references,
 undefined macros, unresolvable includes) and exits 1 on any finding; it
 is narrower than the JAX flag, which also runs the JAX package's source
-lints (t2rcheck, which covers JAX code only). Not ported: the `fleet`
-trainer (ROADMAP A13), the Prometheus endpoint (A13) and the multi-host
-`jax_*` flags (A11).
+lints (t2rcheck, which covers JAX code only). `--trainer=fleet` runs
+`run_fleet(gin_configs=...)`, whose launch gate reruns the configs
+through `--validate_only`. Not ported: the Prometheus endpoint (ROADMAP
+A13 rest) and the multi-host `jax_*` flags (A11).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ DEFAULT_MODULES = (
     "tensor2robot_tpu_torch.data",
     "tensor2robot_tpu_torch.envs",
     "tensor2robot_tpu_torch.export",
+    "tensor2robot_tpu_torch.fleet",
     "tensor2robot_tpu_torch.hooks",
     "tensor2robot_tpu_torch.meta_learning",
     "tensor2robot_tpu_torch.predictors",
@@ -85,10 +91,11 @@ def parser() -> argparse.ArgumentParser:
   p.add_argument("--trainer", default="train_eval",
                  choices=("train_eval", "qtopt", "fleet", "anakin"),
                  help="Entry point after parsing: train_eval_model() "
-                      "(default), train_qtopt() or train_anakin(); fleet "
-                      "(ROADMAP A13) is not ported yet.")
+                      "(default), train_qtopt(), run_fleet() or "
+                      "train_anakin().")
   p.add_argument("--prometheus_port", type=int, default=None,
-                 help="Not ported yet (ROADMAP A13): raises when set.")
+                 help="Not ported yet (ROADMAP A13 rest): raises when "
+                      "set.")
   return p
 
 
@@ -107,17 +114,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
   if args.prometheus_port is not None:
     raise NotImplementedError(
         "--prometheus_port: the scrape endpoint is not ported yet "
-        "(ROADMAP A13).")
-  if args.trainer == "fleet":
-    raise NotImplementedError(
-        "--trainer=fleet: the learner/actor fleet is not ported yet "
-        "(ROADMAP A13).")
+        "(ROADMAP A13 rest).")
   gin.parse_config_files_and_bindings(configs, args.gin_bindings)
   if args.trainer == "qtopt":
     from tensor2robot_tpu_torch.research.qtopt.train_qtopt import (
         train_qtopt,
     )
     train_qtopt()
+  elif args.trainer == "fleet":
+    # The orchestrator reruns these configs through --validate_only as
+    # its pre-spawn launch gate.
+    from tensor2robot_tpu_torch.fleet import run_fleet
+    run_fleet(gin_configs=configs)
   elif args.trainer == "anakin":
     from tensor2robot_tpu_torch.envs import train_anakin
     train_anakin()

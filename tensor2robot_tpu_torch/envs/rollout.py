@@ -53,6 +53,7 @@ from tensor2robot_tpu_torch.parallel import rules as rules_lib
 from tensor2robot_tpu_torch.serving.microbatcher import dispatch_seed
 from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
 from tensor2robot_tpu_torch.telemetry import perf as perf_lib
+from tensor2robot_tpu_torch.telemetry import sentinel as sentinel_lib
 from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
 from tensor2robot_tpu_torch.utils import profiling
 from tensor2robot_tpu_torch.utils.step_graph import StepGraph, copy_tree
@@ -397,8 +398,8 @@ def train_anakin(
   ``param_refresh_lag_steps`` (0.0 by construction), the resource
   sampler's ``rsrc.*`` gauges and the perf meter's ``perf.*``
   (`telemetry.perf`; ``perf.mfu`` from `utils.profiling.
-  qtopt_step_flops` × D over the peak × D). Not ported: the sentinel
-  (ROADMAP A13).
+  qtopt_step_flops` × D over the peak × D). The alert sentinel
+  (`telemetry.sentinel.build_for_run`) evaluates each record, as in JAX.
   """
   del shard_weight_update, update_shard_min_size  # the plain update
   if pod_program not in ("pmap", "shard_map"):
@@ -473,6 +474,7 @@ def train_anakin(
   registry = tmetrics.registry()
   perf_lib.start_resource_sampler(
       sources=[profiling.device_memory_source()])
+  watch_sentinel = sentinel_lib.build_for_run(model_dir)
   # One optimizer step takes `batch_size` rows per device (global batch
   # D·B): the per-device count × D over the peak × D keeps perf.mfu the
   # per-card share of peak of the Bellman model (the collection's FLOPs
@@ -529,6 +531,9 @@ def train_anakin(
             scalars["grad_steps_per_sec"])
         scalars.update(perf_meter.publish(scalars["grad_steps_per_sec"], dt))
         metric_logger.write("train", step, scalars)
+        if watch_sentinel is not None:
+          watch_sentinel.evaluate({**registry.scalars(), **scalars},
+                                  step=step)
         t_last = time.time()
         steps_since_log = 0
       if step % save_checkpoints_steps == 0 or step == max_train_steps:
@@ -545,6 +550,8 @@ def train_anakin(
       hook_list.end(step, current().train_state, model_dir)
     except Exception:  # noqa: BLE001 — don't mask the original error
       log.exception("hook end() failed during teardown")
+    if watch_sentinel is not None:
+      watch_sentinel.close()
     metric_logger.close()
   return state
 

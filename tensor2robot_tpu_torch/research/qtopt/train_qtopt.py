@@ -37,9 +37,11 @@ resource sampler (host RSS, the card's allocator bytes), and a
 `PerfMeter` around each dispatch whose ``perf.device_time_fraction``,
 ``perf.flops_per_sec`` and ``perf.mfu`` (from `utils.profiling.
 qtopt_step_flops`, the analytic count, over the card's peak) join every
-record with the ``rsrc.*`` and ``compile_cache.*`` gauges. Not ported: a
-mesh (ROADMAP A11) and multi-process learner groups with their sharded
-update (A13, A11) raise; the alert sentinel (A13) is left out.
+record with the ``rsrc.*`` and ``compile_cache.*`` gauges; the alert
+sentinel (`telemetry.sentinel.build_for_run`) evaluates the registry
+and each record at log cadence, as in JAX. Not ported: a mesh (ROADMAP
+A11) and multi-process learner groups with their sharded update (A13,
+A11) raise.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ from tensor2robot_tpu_torch.serving.microbatcher import dispatch_seed
 from tensor2robot_tpu_torch.specs import make_random_tensors
 from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
 from tensor2robot_tpu_torch.telemetry import perf as perf_lib
+from tensor2robot_tpu_torch.telemetry import sentinel as sentinel_lib
 from tensor2robot_tpu_torch.train_eval import MetricLogger
 from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
 from tensor2robot_tpu_torch.utils import profiling
@@ -176,6 +179,7 @@ def train_qtopt(
   registry = tmetrics.registry()
   perf_lib.start_resource_sampler(
       sources=[profiling.device_memory_source()])
+  watch_sentinel = sentinel_lib.build_for_run(model_dir)
   perf_meter = perf_lib.PerfMeter(
       flops_per_step=profiling.qtopt_step_flops(
           learner, batch_size, params=state.train_state.params),
@@ -243,6 +247,9 @@ def train_qtopt(
             scalars["grad_steps_per_sec"])
         scalars.update(perf_meter.publish(scalars["grad_steps_per_sec"], dt))
         metric_logger.write("train", step, scalars)
+        if watch_sentinel is not None:
+          watch_sentinel.evaluate({**registry.scalars(), **scalars},
+                                  step=step)
         t_last = time.time()
         steps_since_log = 0
       if step % save_checkpoints_steps == 0 or step == max_train_steps:
@@ -261,5 +268,7 @@ def train_qtopt(
       log.exception("hook end() failed during teardown")
     if prefetcher is not None:
       prefetcher.close()
+    if watch_sentinel is not None:
+      watch_sentinel.close()
     metric_logger.close()
   return state

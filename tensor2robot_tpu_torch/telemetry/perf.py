@@ -21,9 +21,9 @@
     skipped, never raised out.
 
 One switch turns the plane off: `set_plane_enabled(False)` or
-``T2R_PERF_PLANE=0`` (the JAX package's meaning). The alert sentinel is
-ROADMAP A13. This module reads no device itself: device sources arrive
-as callables.
+``T2R_PERF_PLANE=0`` (the JAX package's meaning); it turns the alert
+sentinel (`telemetry.sentinel`) off with it. This module reads no device
+itself: device sources arrive as callables.
 """
 
 from __future__ import annotations

@@ -80,6 +80,7 @@ from tensor2robot_tpu_torch.startup import compile_cache, orchestrator
 from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
 from tensor2robot_tpu_torch.telemetry import perf as perf_lib
 from tensor2robot_tpu_torch.telemetry import records
+from tensor2robot_tpu_torch.telemetry import sentinel as sentinel_lib
 from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
 from tensor2robot_tpu_torch.utils import profiling
 from tensor2robot_tpu_torch.utils.step_graph import GraphCache
@@ -364,6 +365,7 @@ def train_eval_model(
   registry = tmetrics.registry()
   perf_lib.start_resource_sampler(
       sources=[profiling.device_memory_source()])
+  watch_sentinel = sentinel_lib.build_for_run(model_dir)
   # The step's FLOPs are counted on the first batch's shapes.
   perf_meter = perf_lib.PerfMeter(
       peak_flops=profiling.device_peak_flops(device), devices=1)
@@ -427,6 +429,9 @@ def train_eval_model(
           steps_since_log = 0
           t_write = time.perf_counter()
           metric_logger.write("train", step, scalars)
+          if watch_sentinel is not None:
+            watch_sentinel.evaluate({**registry.scalars(), **scalars},
+                                    step=step)
           # The write is a stall of the interval that just began.
           stall_secs = time.perf_counter() - t_write
         if step % save_checkpoints_steps == 0 or step == max_train_steps:
@@ -460,6 +465,8 @@ def train_eval_model(
   finally:
     if prefetcher is not None:
       prefetcher.close()
+    if watch_sentinel is not None:
+      watch_sentinel.close()
     metric_logger.close()
   return current()
 

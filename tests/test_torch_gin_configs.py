@@ -10,11 +10,18 @@
     Their bindings equal the JAX registry's, binding by binding, and
     every name in them resolves to the port's counterpart of the JAX
     class or function.
-  * The other eight report exactly the configurables and parameters the
+  * Five fleet configs (`qtopt_fleet.gin`, `qtopt_fleet_elastic.gin`,
+    `qtopt_fleet_tcp.gin`, `qtopt_serving_replicated.gin`,
+    `qtopt_fleet_hybrid.gin`) parse strictly, with JAX's bindings, and
+    are refused at `Fleet` construction, before any process is spawned,
+    by a `FleetUnported` naming what the port lacks: the `mujoco_pose`
+    env they bind (A10a), and for the last two their fronts, pods and
+    learner group (A13 rest, A11).
+  * The other three report exactly the configurables and parameters the
     port still lacks (the table in ROADMAP.md).
-  * `run_t2r_trainer --validate_only` exits 0 on the twelve and 1 on the
-    others; the trainers, flags and programs that are not ported raise,
-    naming their ROADMAP item; `--trainer=anakin` trains
+  * `run_t2r_trainer --validate_only` exits 0 on the twelve and the five
+    and 1 on the others; the trainers, flags and programs that are not
+    ported raise, naming their ROADMAP item; `--trainer=anakin` trains
     `qtopt_anakin.gin` (CPU, small widths bound on top).
 """
 
@@ -50,18 +57,24 @@ _AS_WRITTEN = (
     "research/vrgripper/configs/train_vrgripper_transformer_moe.gin",
     "research/qtopt/configs/qtopt_anakin_shardmap.gin",
 )
-_FLEET = {"FleetConfig", "run_fleet"}
+# Fleet configs that parse in the port's registry, and what `Fleet`
+# refuses in each: as written (the physics env), and with
+# `FleetConfig.env = "pose"` bound on top.
+_POSE = 'FleetConfig.env = "pose"'
+_FLEET_REFUSED = {
+    "research/qtopt/configs/qtopt_fleet.gin": ("A10a", None),
+    "research/qtopt/configs/qtopt_fleet_elastic.gin": ("A10a", None),
+    "research/qtopt/configs/qtopt_fleet_tcp.gin": ("A10a", None),
+    "research/qtopt/configs/qtopt_serving_replicated.gin":
+        ("A10a.*front", "front.*A13 rest"),
+    "research/qtopt/configs/qtopt_fleet_hybrid.gin":
+        ("A10a.*pods.*A11", "pods.*A13 rest.*learner group.*A11"),
+}
 # What each other shipped config needs that the port lacks.
 _UNPORTED = {
     "research/pose_env/configs/train_pose_env_physics.gin":
         {"MuJoCoPoseEnv"},
-    "research/qtopt/configs/qtopt_fleet.gin": _FLEET,
-    "research/qtopt/configs/qtopt_fleet_elastic.gin": _FLEET,
-    "research/qtopt/configs/qtopt_fleet_hybrid.gin": _FLEET,
-    "research/qtopt/configs/qtopt_fleet_tcp.gin": _FLEET,
-    "research/qtopt/configs/qtopt_serving_replicated.gin": _FLEET,
-    "research/qtopt/configs/qtopt_fleet_autopilot.gin":
-        _FLEET | {"fleet_rules"},
+    "research/qtopt/configs/qtopt_fleet_autopilot.gin": {"fleet_rules"},
     "research/vrgripper/configs/train_vrgripper_transformer_pipeline.gin":
         {"create_mesh", "VRGripperTransformerModel.mesh",
          "VRGripperTransformerModel.pipeline_microbatches"},
@@ -111,7 +124,8 @@ def test_every_shipped_config_is_in_one_table():
                    for p in glob.glob(os.path.join(_REPO, _CONFIGS, "**",
                                                    "*.gin"), recursive=True))
   assert len(shipped) == 20
-  assert sorted(set(_AS_WRITTEN) | set(_UNPORTED)) == shipped
+  assert sorted(set(_AS_WRITTEN) | set(_FLEET_REFUSED)
+                | set(_UNPORTED)) == shipped
 
 
 def _plain(value, ginlite):
@@ -165,18 +179,52 @@ def test_config_runs_as_written_in_the_port(config):
     assert port_fn.__qualname__ == jax_fn.__qualname__
 
 
-@pytest.mark.parametrize("config", sorted(_UNPORTED))
+@pytest.mark.parametrize("config", sorted(_UNPORTED) + sorted(_FLEET_REFUSED))
 def test_config_reports_exactly_what_the_port_lacks(config):
+  """The fleet configs lack nothing in the registry (they are refused
+  at `Fleet` construction instead: the test below)."""
   findings = validate.validate_config_file(_CONFIGS + config)
-  assert unported_names(findings) == _UNPORTED[config]
+  assert unported_names(findings) == _UNPORTED.get(config, set())
   assert {f.rule for f in findings} <= {"GIN101", "GIN102", "GIN104"}
 
 
-@pytest.mark.parametrize("config", sorted(_AS_WRITTEN) + sorted(_UNPORTED))
+@pytest.mark.parametrize("config", sorted(_FLEET_REFUSED))
+def test_fleet_config_is_refused_before_any_spawn(config, tmp_path):
+  """Parsed with JAX's bindings, every name the port's counterpart;
+  `Fleet` (and `run_fleet`) then refuse it before any process or
+  directory is made, naming what the port lacks, as written and with
+  the pose env bound."""
+  import multiprocessing as mp
+
+  from tensor2robot_tpu_torch.fleet import orchestrator
+  path = _CONFIGS + config
+  port_gin.parse_config_file(path)  # strict
+  jax_gin.parse_config_file(path)
+  assert _bindings(port_ginlite) == _bindings(jax_ginlite)
+  for name in ("FleetConfig", "run_fleet"):
+    fn = port_ginlite._lookup_configurable(name).fn
+    assert fn.__module__ == "tensor2robot_tpu_torch.fleet.orchestrator"
+  children = set(mp.active_children())
+  model_dir = str(tmp_path / "fleet")
+  as_written, with_pose = _FLEET_REFUSED[config]
+  for bindings, item in (((), as_written), ((_POSE,), with_pose)):
+    port_gin.clear_config()
+    port_gin.parse_config_files_and_bindings([path], list(bindings))
+    if item is None:
+      assert orchestrator.unported(orchestrator.FleetConfig()) == []
+      continue
+    with pytest.raises(orchestrator.FleetUnported, match=item):
+      orchestrator.run_fleet(model_dir=model_dir)
+  assert set(mp.active_children()) == children
+  assert not os.path.exists(model_dir)
+
+
+@pytest.mark.parametrize("config", sorted(_AS_WRITTEN) + sorted(_UNPORTED)
+                         + sorted(_FLEET_REFUSED))
 def test_validate_only_exit_code(config, capsys):
   code = run_t2r_trainer.main(["--validate_only",
                                "--gin_configs", _CONFIGS + config])
-  assert code == (0 if config in _AS_WRITTEN else 1)
+  assert code == (1 if config in _UNPORTED else 0)
   assert "validate_only:" in capsys.readouterr().out
   assert port_ginlite._REGISTRY.bindings == {}  # nothing was bound
 
@@ -194,11 +242,11 @@ def test_validate_only_from_the_command_line_takes_a_comma_list():
   bad = subprocess.run(
       [sys.executable, "-m", "tensor2robot_tpu_torch.bin.run_t2r_trainer",
        "--validate_only", "--gin_configs",
-       _CONFIGS + "research/qtopt/configs/qtopt_fleet.gin"],
+       _CONFIGS + "research/qtopt/configs/qtopt_fleet_autopilot.gin"],
       cwd=_REPO, env=dict(os.environ, PYTHONPATH=_REPO),
       capture_output=True, text=True, timeout=300)
   assert bad.returncode == 1
-  assert "FleetConfig" in bad.stdout
+  assert "fleet_rules" in bad.stdout
 
 
 def test_a_typo_is_a_finding(tmp_path):
@@ -228,7 +276,10 @@ def _bindings_argv(bindings):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--trainer=fleet"], "A13"),
+    (["--trainer=fleet", "--gin_configs",
+      _CONFIGS + "research/qtopt/configs/qtopt_serving_replicated.gin",
+      "--gin_bindings", "run_fleet.model_dir = '/nonexistent'",
+      "--gin_bindings", _POSE], "A13"),
     (["--prometheus_port=0"], "A13"),
     (["--trainer=anakin", "--gin_configs",
       _CONFIGS + "research/qtopt/configs/qtopt_anakin_shardmap.gin",

@@ -77,6 +77,9 @@ _EXPECTED = (
     "envs.core", "envs.pose", "envs.procgen", "envs.rollout",
     "research.pose_env.grasp_bandit", "parallel.moe", "parallel.rules",
     "startup.orchestrator", "telemetry.perf", "utils.profiling",
+    "telemetry.sentinel", "telemetry.flightrec", "fleet.proc",
+    "fleet.transport", "fleet.rpc", "fleet.faults", "fleet.actor",
+    "fleet.host", "fleet.learner", "fleet.orchestrator",
 )
 
 
@@ -169,4 +172,28 @@ def test_meta_and_vrgripper_families_alone_load_nothing_forbidden(module):
                        env=dict(os.environ, PYTHONPATH=_REPO),
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
+  assert out.stdout.split("BAD=", 1)[1].strip() == "", out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "tensor2robot_tpu_torch.fleet",
+    "tensor2robot_tpu_torch.fleet.actor",
+    "tensor2robot_tpu_torch.telemetry.sentinel",
+])
+def test_fleet_alone_loads_nothing_forbidden(module):
+  """The fleet package (what the binary and every spawned fleet child
+  import) and the actor's module, imported first in a fresh process:
+  nothing forbidden, and no CUDA initialized by the import."""
+  probe = _FORBIDDEN + (
+      "import importlib, sys\n"
+      f"importlib.import_module({module!r})\n"
+      "import torch\n"
+      "print('CUDA=%d' % torch.cuda.is_initialized())\n"
+      "print('BAD=' + ','.join(sorted(m for m in sys.modules "
+      "if forbidden(m))))\n")
+  out = subprocess.run([sys.executable, "-c", probe], cwd=_REPO,
+                       env=dict(os.environ, PYTHONPATH=_REPO),
+                       capture_output=True, text=True, timeout=120)
+  assert out.returncode == 0, out.stderr
+  assert "CUDA=0" in out.stdout.split()
   assert out.stdout.split("BAD=", 1)[1].strip() == "", out.stdout

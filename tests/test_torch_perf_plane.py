@@ -1,6 +1,6 @@
 """The port's perf plane (`telemetry/perf.py`, `utils/profiling.py`)
-against the JAX package's, mirroring `tests/test_perf_plane.py` (not the
-sentinel, ROADMAP A13), on the CPU.
+against the JAX package's, mirroring `tests/test_perf_plane.py` (the
+sentinel's half is `tests/test_torch_sentinel.py`), on the CPU.
 
   * `mfu_value` equals JAX's for the same inputs, the unknowables
     included; `PerfMeter.publish` sets the gauges, publishes no mfu
