@@ -23,8 +23,8 @@ undefined macros, unresolvable includes) and exits 1 on any finding; it
 is narrower than the JAX flag, which also runs the JAX package's source
 lints (t2rcheck, which covers JAX code only). `--trainer=fleet` runs
 `run_fleet(gin_configs=...)`, whose launch gate reruns the configs
-through `--validate_only`. Not ported: the Prometheus endpoint (ROADMAP
-A13 rest) and the multi-host `jax_*` flags (A11).
+through `--validate_only`. `--prometheus_port` serves the registry for
+the run's length. Not ported: the multi-host `jax_*` flags (A11).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import argparse
 import importlib
 import logging
 import sys
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch import train_eval
@@ -94,16 +94,35 @@ def parser() -> argparse.ArgumentParser:
                       "(default), train_qtopt(), run_fleet() or "
                       "train_anakin().")
   p.add_argument("--prometheus_port", type=int, default=None,
-                 help="Not ported yet (ROADMAP A13 rest): raises when "
-                      "set.")
+                 help="Serve the process's metrics registry as a "
+                      "Prometheus scrape endpoint (GET /metrics) on this "
+                      "port for the run (0 = a free port, printed). Unset: "
+                      "the gin default `default_port.port`, else off.")
   return p
+
+
+def config_files(gin_configs: Sequence[str]) -> List[str]:
+  """The `--gin_configs` values as a list of files (each value may be a
+  comma-separated list)."""
+  return [c for entry in gin_configs for c in entry.split(",") if c]
+
+
+def parse_configs(gin_configs: Sequence[str], gin_bindings: Sequence[str],
+                  import_modules: Sequence[str] = ()) -> List[str]:
+  """The binary's parse: imports the configurable families and
+  `import_modules`, parses the configs and bindings into the port's
+  registry and returns the config files."""
+  configs = config_files(gin_configs)
+  import_configurable_families(import_modules)
+  gin.parse_config_files_and_bindings(configs, gin_bindings)
+  return configs
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
   args = parser().parse_args(argv)
-  configs = [c for entry in args.gin_configs for c in entry.split(",") if c]
-  import_configurable_families(args.import_modules)
   if args.validate_only:
+    configs = config_files(args.gin_configs)
+    import_configurable_families(args.import_modules)
     findings = [f for config in configs
                 for f in validate.validate_config_file(config)]
     for finding in findings:
@@ -111,27 +130,45 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"validate_only: {len(findings)} finding(s) in {len(configs)} "
           "config(s)")
     return 1 if findings else 0
-  if args.prometheus_port is not None:
-    raise NotImplementedError(
-        "--prometheus_port: the scrape endpoint is not ported yet "
-        "(ROADMAP A13 rest).")
-  gin.parse_config_files_and_bindings(configs, args.gin_bindings)
-  if args.trainer == "qtopt":
+  configs = parse_configs(args.gin_configs, args.gin_bindings,
+                          args.import_modules)
+  # The scrape endpoint: the flag wins, else the gin-backed default.
+  # Started before the entry point so every trainer and the fleet's
+  # supervising process serve /metrics off their live registry.
+  from tensor2robot_tpu_torch.telemetry import prometheus as prometheus_lib
+  prometheus_port = args.prometheus_port
+  if prometheus_port is None:
+    prometheus_port = prometheus_lib.default_port()
+  endpoint = None
+  if prometheus_port is not None and prometheus_port >= 0:
+    endpoint = prometheus_lib.serve(port=prometheus_port)
+    print(f"prometheus: serving /metrics on port {endpoint.port}",
+          flush=True)
+  try:
+    _run_trainer(args.trainer, configs)
+  finally:
+    if endpoint is not None:
+      endpoint.close()
+  return 0
+
+
+def _run_trainer(trainer: str, configs: Sequence[str]) -> None:
+  """Runs the entry point `--trainer` names over the parsed bindings."""
+  if trainer == "qtopt":
     from tensor2robot_tpu_torch.research.qtopt.train_qtopt import (
         train_qtopt,
     )
     train_qtopt()
-  elif args.trainer == "fleet":
+  elif trainer == "fleet":
     # The orchestrator reruns these configs through --validate_only as
     # its pre-spawn launch gate.
     from tensor2robot_tpu_torch.fleet import run_fleet
     run_fleet(gin_configs=configs)
-  elif args.trainer == "anakin":
+  elif trainer == "anakin":
     from tensor2robot_tpu_torch.envs import train_anakin
     train_anakin()
   else:
     train_eval.train_eval_model()
-  return 0
 
 
 if __name__ == "__main__":

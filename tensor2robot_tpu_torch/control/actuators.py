@@ -1,0 +1,207 @@
+"""Actuator adapters (port of `control/actuators.py`): the levers the
+control plane may pull.
+
+Every actuator wraps an existing seam (`Fleet.scale_to`, the front
+tier's respawn and scale machinery, admission retuning) behind one
+uniform surface, so the controller drives them by name from a
+gin-configured rule table. An actuator never decides; it applies one
+decision and reports what it did (the detail dict lands in the
+decision record).
+
+The catalog:
+
+  scale_actors      Fleet.scale_to ± delta, clamped to [min, max]
+  scale_fronts      Fleet.scale_fronts_to ± delta, clamped
+  respawn_role      targeted kill of the decision's role; the fleet's
+                    supervision respawns it under the restart budget
+                    (fronts rejoin routers via the observer seam)
+  retune_admission  multiply a tenant's token rate by `factor`,
+                    clamped to [min_rate_rps, max_rate_rps]
+  shed_tenant       graceful degradation: clamp the next tenant on
+                    the priority ladder (lowest first) to
+                    `shed_rate_rps`
+  restore_tenants   undo every shed (pressure cleared)
+  page              the FALLBACK tier: invoke the page hook (flight
+                    records)
+
+`fleet_actuators(fleet)` builds the standard set over a live
+`fleet.orchestrator.Fleet`; tests compose their own `Actuator`
+instances over whatever they drive (a FrontTier, a fake). The Fleet is
+duck-typed, never imported; the module imports neither torch nor CUDA.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from typing import Any, Callable, Dict, Optional
+
+log = logging.getLogger(__name__)
+
+
+class ActuationError(RuntimeError):
+  """An actuator could not apply its decision (the controller counts
+  it and records the failure; the fleet keeps running)."""
+
+
+class Actuator:
+  """One named lever: ``fn(params, decision) -> detail dict``.
+
+  `params` are the rule's `action_params`; `decision` is the
+  controller's in-flight decision dict (rule, metric, role, value) so
+  a targeted actuator can read WHO breached. The returned detail is
+  logged verbatim into the decision record.
+  """
+
+  def __init__(self, name: str,
+               fn: Callable[[Dict[str, Any], Dict[str, Any]],
+                            Optional[Dict[str, Any]]],
+               description: str = ""):
+    self.name = name
+    self.description = description
+    self._fn = fn
+
+  def apply(self, params: Dict[str, Any],
+            decision: Dict[str, Any]) -> Dict[str, Any]:
+    detail = self._fn(dict(params or {}), decision)
+    return detail if isinstance(detail, dict) else {}
+
+
+def _clamped(current: int, delta: int, lo: int, hi: int) -> int:
+  return max(lo, min(hi, current + delta))
+
+
+class DegradationLadder:
+  """Shed bookkeeping for graceful degradation.
+
+  `priorities` orders tenants LOWEST priority first — the shed order.
+  Each shed clamps the next unshed tenant's admission rate to
+  `shed_rate_rps`; `restore()` undoes every shed (back to
+  `restore_rate_rps`, None = unlimited). The ladder only tracks; the
+  retune itself goes through the caller's `retune` callable so the
+  same ladder drives a Fleet, a FrontTier, or a fake.
+  """
+
+  def __init__(self, priorities, retune: Callable[..., Any],
+               shed_rate_rps: float = 1.0,
+               restore_rate_rps: Optional[float] = None):
+    self.priorities = tuple(priorities)
+    self._retune = retune
+    self.shed_rate_rps = float(shed_rate_rps)
+    self.restore_rate_rps = restore_rate_rps
+    self._lock = threading.Lock()
+    self._shed: list = []
+
+  @property
+  def shed(self) -> tuple:
+    with self._lock:
+      return tuple(self._shed)
+
+  def shed_next(self) -> Optional[str]:
+    """Sheds the lowest-priority tenant not yet shed; None when the
+    ladder is exhausted (every tenant already shed — the controller
+    falls through to its next rule, typically `page`)."""
+    with self._lock:
+      victim = next((t for t in self.priorities
+                     if t not in self._shed), None)
+      if victim is None:
+        return None
+      self._shed.append(victim)
+    self._retune(victim, rate_rps=self.shed_rate_rps)
+    return victim
+
+  def restore(self) -> tuple:
+    with self._lock:
+      restored = tuple(self._shed)
+      self._shed = []
+    for tenant in restored:
+      self._retune(tenant, rate_rps=self.restore_rate_rps)
+    return restored
+
+
+def fleet_actuators(
+    fleet: Any,
+    on_page: Optional[Callable[[Dict[str, Any]], None]] = None,
+    degradation: Optional[DegradationLadder] = None,
+) -> Dict[str, Actuator]:
+  """The standard actuator set over a live Fleet (duck-typed:
+  `scale_to`, `scale_fronts_to`, `kick`, `retune_admission`,
+  `num_actors`, `num_fronts`)."""
+
+  def scale_actors(params, decision):
+    current = int(fleet.num_actors)
+    target = _clamped(current, int(params.get("delta", 1)),
+                      int(params.get("min", 1)),
+                      int(params.get("max", 64)))
+    if target == current:
+      return {"noop": "at_bound", "actors": current}
+    fleet.scale_to(target)
+    return {"actors_before": current, "actors_after": target}
+
+  def scale_fronts(params, decision):
+    current = int(fleet.num_fronts)
+    target = _clamped(current, int(params.get("delta", 1)),
+                      int(params.get("min", 1)),
+                      int(params.get("max", 16)))
+    if target == current:
+      return {"noop": "at_bound", "fronts": current}
+    fleet.scale_fronts_to(target)
+    return {"fronts_before": current, "fronts_after": target}
+
+  def respawn_role(params, decision):
+    role = str(params.get("role") or decision.get("role") or "")
+    if not role or "/" in role or role == "fleet":
+      raise ActuationError(
+          f"respawn_role needs a concrete role, got {role!r} "
+          f"(rule aggregate should be 'each')")
+    fleet.kick(role)
+    return {"kicked": role}
+
+  def retune_admission(params, decision):
+    tenant = str(params.get("tenant") or "")
+    if not tenant:
+      raise ActuationError("retune_admission needs a 'tenant' param")
+    factor = float(params.get("factor", 0.8))
+    lo = float(params.get("min_rate_rps", 1.0))
+    hi = float(params.get("max_rate_rps", 1e9))
+    replies = fleet.retune_admission(tenant, factor=factor,
+                                     min_rate_rps=lo, max_rate_rps=hi)
+    return {"tenant": tenant, "factor": factor, "fronts": replies}
+
+  def shed_tenant(params, decision):
+    if degradation is None:
+      raise ActuationError("no degradation ladder configured")
+    victim = degradation.shed_next()
+    if victim is None:
+      raise ActuationError("degradation ladder exhausted")
+    return {"shed": victim,
+            "rate_rps": degradation.shed_rate_rps,
+            "ladder": list(degradation.shed)}
+
+  def restore_tenants(params, decision):
+    if degradation is None:
+      raise ActuationError("no degradation ladder configured")
+    return {"restored": list(degradation.restore())}
+
+  def page(params, decision):
+    if on_page is None:
+      raise ActuationError("no page hook configured")
+    on_page(decision)
+    return {"paged": True}
+
+  return {a.name: a for a in (
+      Actuator("scale_actors", scale_actors,
+               "Fleet.scale_to ± delta within [min, max]"),
+      Actuator("scale_fronts", scale_fronts,
+               "Fleet.scale_fronts_to ± delta within [min, max]"),
+      Actuator("respawn_role", respawn_role,
+               "targeted kill-and-respawn of the offending role"),
+      Actuator("retune_admission", retune_admission,
+               "multiply a tenant's admission token rate by factor"),
+      Actuator("shed_tenant", shed_tenant,
+               "shed the lowest-priority unshed tenant"),
+      Actuator("restore_tenants", restore_tenants,
+               "restore every shed tenant"),
+      Actuator("page", page,
+               "the fallback tier: flight records via the page hook"),
+  )}

@@ -1,0 +1,370 @@
+"""The Controller loop (port of `control/controller.py`): poll →
+evaluate → actuate → record.
+
+One controller owns an ORDERED rule table (`rules.ControlRule`) and a
+named actuator set (`actuators.Actuator`). Each `step()` evaluates
+every rule over one aggregated scalar view — the same payload the
+orchestrator appends to `fleet_metrics.jsonl`, so the controller sees
+exactly what the operator's dashboard would — and drives at most a
+budgeted number of actuations:
+
+  * PER-RULE cooldown/hysteresis live in the rule state (rules.py);
+  * the GLOBAL actuation budget is rate-based, exactly like the
+    fleet's restart budget: at most `max_actions` actuations per
+    `budget_window_secs` sliding window (0 = lifetime cap) across
+    ALL rules — a flapping signal can never thrash the fleet, it can
+    only exhaust the budget and fall back to paging;
+  * DRY-RUN mode evaluates everything, charges the budget, and
+    records `would_act` decisions without touching an actuator — the
+    rollout workflow: run dry, read the decision
+    log, then flip live.
+
+Every decision — actuated or skipped — is recorded three ways:
+
+  * a `control.decision` telemetry event + the `control.*` counters
+    (the metric names are the JAX package's);
+  * one envelope record appended to ``control_decisions.jsonl``,
+    schema-valid under `telemetry.records.validate_record` (numeric
+    payload keyed ``control.<rule>.<field>``; outcome codes in
+    `OUTCOMES` order);
+  * the in-memory `decisions` ring, surfaced via `flight_extra()` so
+    a flight record shows what the controller saw and did.
+
+`handle_alert()` is the sentinel's act-tier entry: a page-severity
+alert whose rule name matches some rule's `alert` binding is
+remediated here (same cooldown/budget discipline), and a successful
+actuation DEMOTES the page — flight records stay the terminal tier.
+
+The package imports neither torch nor CUDA: the supervising process
+that steps it never opens a CUDA context.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import logging
+import os
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+from tensor2robot_tpu_torch.control import actuators as actuators_lib
+from tensor2robot_tpu_torch.control import rules as rules_lib
+from tensor2robot_tpu_torch.telemetry import core as tcore
+from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
+from tensor2robot_tpu_torch.telemetry import records as trecords
+
+log = logging.getLogger(__name__)
+
+DECISIONS_FILENAME = "control_decisions.jsonl"
+# Decision outcomes, in envelope-record code order (payload field
+# `control.<rule>.outcome`): the index IS the recorded code.
+OUTCOMES = ("actuated", "would_act", "cooldown", "budget", "error")
+
+
+class Controller:
+  """Ordered rule evaluation with a global actuation budget.
+
+  One owner thread by design (the orchestrator's poll loop or another
+  caller runs `step()`/`handle_alert()`); like the sentinel, no lock is held
+  across actuator calls or file I/O.
+  """
+
+  def __init__(self,
+               rules: Sequence[rules_lib.ControlRule],
+               actuators: Dict[str, actuators_lib.Actuator],
+               cadence_secs: float = 0.0,
+               dry_run: bool = False,
+               max_actions: int = 4,
+               budget_window_secs: float = 300.0,
+               decisions_path: Optional[str] = None,
+               registry: Optional[tmetrics.MetricsRegistry] = None,
+               tracer: Optional[tcore.Tracer] = None):
+    """Args:
+      rules: the ORDERED table — evaluation order is list order, and
+        `handle_alert` picks the FIRST rule bound to an alert, so
+        rule precedence is deterministic by construction.
+      actuators: name → Actuator; every rule's `action` must resolve
+        here at construction (a typo'd rule table must fail the
+        launch gate, not the first 3am breach).
+      cadence_secs: `maybe_step()`'s minimum spacing (0 = every call).
+      max_actions / budget_window_secs: the global rate-based
+        actuation budget (window 0 = lifetime cap).
+    """
+    self.rules = list(rules)
+    names = [rule.name for rule in self.rules]
+    if len(set(names)) != len(names):
+      raise ValueError(f"duplicate rule names: {sorted(names)}")
+    self.actuators = dict(actuators)
+    for rule in self.rules:
+      if rule.action not in self.actuators:
+        raise ValueError(
+            f"rule {rule.name!r} names unknown actuator "
+            f"{rule.action!r} (have {sorted(self.actuators)})")
+    if max_actions < 1:
+      raise ValueError(f"max_actions must be >= 1, got {max_actions}")
+    self.dry_run = bool(dry_run)
+    self._cadence = float(cadence_secs)
+    self._max_actions = int(max_actions)
+    self._budget_window = float(budget_window_secs)
+    self._action_times: collections.deque = collections.deque()
+    self._decisions_path = decisions_path
+    self._registry = registry or tmetrics.registry()
+    self._tracer = tracer
+    self._states: Dict[tuple, rules_lib.RuleState] = {}
+    self._file: Optional[Any] = None
+    self._t_last_step = float("-inf")
+    self._steps = 0
+    self.decisions: collections.deque = collections.deque(maxlen=1024)
+    self._tm = {
+        "decisions": self._registry.counter("control.decisions"),
+        "actuated": self._registry.counter("control.actuated"),
+        "would_act": self._registry.counter("control.would_act"),
+        "cooldown": self._registry.counter("control.skipped.cooldown"),
+        "budget": self._registry.counter("control.skipped.budget"),
+        "error": self._registry.counter("control.errors"),
+        "alert_handled": self._registry.counter(
+            "control.alert_handled"),
+        "alert_unhandled": self._registry.counter(
+            "control.alert_unhandled"),
+    }
+    self._n = {key: 0 for key in self._tm}
+
+  # ---- the global actuation budget ----
+
+  def budget_remaining(self, now: Optional[float] = None) -> int:
+    if now is None:
+      now = time.monotonic()
+    if self._budget_window:
+      while (self._action_times
+             and now - self._action_times[0] > self._budget_window):
+        self._action_times.popleft()
+    return max(0, self._max_actions - len(self._action_times))
+
+  def _charge_budget(self, now: float) -> None:
+    self._action_times.append(now)
+
+  # ---- evaluation ----
+
+  def _state_for(self, rule: rules_lib.ControlRule,
+                 key: str) -> rules_lib.RuleState:
+    state = self._states.get((rule.name, key))
+    if state is None:
+      state = self._states[(rule.name, key)] = rules_lib.RuleState(
+          rule.window)
+    return state
+
+  def maybe_step(self, scalars: Dict[str, float],
+                 step: Optional[int] = None) -> List[Dict[str, Any]]:
+    """`step()` behind the cadence gate — callers on a faster clock
+    (the orchestrator's 0.05s supervision poll) call this freely."""
+    now = time.monotonic()
+    if now - self._t_last_step < self._cadence:
+      return []
+    return self.step(scalars, step=step, now=now)
+
+  def step(self, scalars: Dict[str, float],
+           step: Optional[int] = None,
+           now: Optional[float] = None) -> List[Dict[str, Any]]:
+    """One evaluation pass over one aggregated scalar view; returns
+    the decisions recorded this pass (triggered rules only — a rule
+    whose condition holds but which is cooling down or over budget
+    still records, with the skip outcome)."""
+    if now is None:
+      now = time.monotonic()
+    self._t_last_step = now
+    self._steps += 1
+    decisions: List[Dict[str, Any]] = []
+    for rule in self.rules:
+      targets = rules_lib.resolve_metric(rule.metric, rule.aggregate,
+                                         scalars)
+      for key, observed in targets:
+        state = self._state_for(rule, key)
+        result = rules_lib.evaluate(rule, state, observed, now=now)
+        if not result["triggered"]:
+          continue
+        role = (key.rsplit("/", 1)[0] if "/" in key else "fleet")
+        decision = {
+            "rule": rule.name, "action": rule.action, "metric": key,
+            "role": role, "kind": rule.kind,
+            "value": result["value"], "baseline": result["baseline"],
+            "threshold": rule.threshold, "trigger": "rule",
+            "wall": time.time(),
+        }
+        if step is not None:
+          decision["step"] = int(step)
+        self._decide(rule, decision, state, now)
+        decisions.append(decision)
+    return decisions
+
+  def handle_alert(self, alert: Dict[str, Any]) -> bool:
+    """The sentinel's act tier: remediate a paging alert through the
+    FIRST rule bound to it (`ControlRule.alert`). True only when a
+    remediation actually actuated — a cooldown/budget skip, an
+    actuator error, or dry-run mode returns False so the page
+    proceeds (paging is the fallback, and a dry controller must
+    neither act nor silence pages)."""
+    name = str(alert.get("rule", ""))
+    rule = next((r for r in self.rules if r.alert and r.alert == name),
+                None)
+    if rule is None:
+      return False
+    now = time.monotonic()
+    state = self._state_for(rule, "@alert")
+    decision = {
+        "rule": rule.name, "action": rule.action,
+        "metric": str(alert.get("metric", "")),
+        "role": str(alert.get("role", "fleet")) or "fleet",
+        "kind": rule.kind,
+        "value": float(alert.get("value", 0.0)),
+        "baseline": alert.get("baseline"),
+        "threshold": rule.threshold, "trigger": f"alert.{name}",
+        "wall": time.time(),
+    }
+    if alert.get("step") is not None:
+      decision["step"] = int(alert["step"])
+    self._decide(rule, decision, state, now)
+    handled = decision["outcome"] == "actuated"
+    tally = "alert_handled" if handled else "alert_unhandled"
+    self._tm[tally].inc()
+    self._n[tally] += 1
+    return handled
+
+  # ---- the decision path ----
+
+  def _decide(self, rule: rules_lib.ControlRule,
+              decision: Dict[str, Any], state: rules_lib.RuleState,
+              now: float) -> None:
+    """Cooldown → budget → (dry-run | actuate); records the decision
+    whatever the outcome."""
+    if now - state.last_fired < rule.cooldown_secs:
+      decision["outcome"] = "cooldown"
+      decision["cooldown_remaining_secs"] = round(
+          rule.cooldown_secs - (now - state.last_fired), 3)
+    elif self.budget_remaining(now) <= 0:
+      decision["outcome"] = "budget"
+    elif self.dry_run:
+      # Dry-run charges cooldown AND budget so the would-act log is
+      # exactly the live actuation schedule, just without the acting.
+      state.last_fired = now
+      self._charge_budget(now)
+      decision["outcome"] = "would_act"
+    else:
+      state.last_fired = now
+      self._charge_budget(now)
+      try:
+        detail = self.actuators[rule.action].apply(
+            rule.action_params, decision)
+      except Exception as e:  # noqa: BLE001 — a broken lever must
+        # not take down the loop that would pull the next one.
+        decision["outcome"] = "error"
+        decision["error"] = repr(e)
+        log.warning("control actuator %r failed for rule %r",
+                    rule.action, rule.name, exc_info=True)
+      else:
+        decision["outcome"] = "actuated"
+        decision["detail"] = detail
+    decision["dry_run"] = self.dry_run
+    decision["budget_remaining"] = self.budget_remaining(now)
+    self._record(decision)
+
+  def _record(self, decision: Dict[str, Any]) -> None:
+    outcome = decision["outcome"]
+    self._tm["decisions"].inc()
+    self._n["decisions"] += 1
+    self._tm[outcome].inc()
+    self._n[outcome] += 1
+    self._registry.counter(f"control.rule.{decision['rule']}").inc()
+    self.decisions.append(decision)
+    (self._tracer.event if self._tracer is not None else tcore.event)(
+        "control.decision", rule=decision["rule"],
+        action=decision["action"], outcome=outcome,
+        role=decision["role"], value=round(decision["value"], 6))
+    log.log(
+        logging.INFO if outcome in ("cooldown", "budget")
+        else logging.WARNING,
+        "control decision %s: rule=%s action=%s role=%s value=%.6g",
+        outcome, decision["rule"], decision["action"],
+        decision["role"], decision["value"])
+    self._append(self.decision_record(decision))
+
+  @staticmethod
+  def decision_record(decision: Dict[str, Any]) -> Dict[str, Any]:
+    """One decision as a telemetry ENVELOPE record ({step, wall,
+    role, payload}) — numeric payload keyed `control.<rule>.<field>`,
+    valid under `telemetry.records.validate_record`, so the decision
+    log reads with the same tooling as every other metrics file."""
+    rule = decision["rule"]
+    payload: Dict[str, float] = {
+        f"control.{rule}.value": float(decision["value"]),
+        f"control.{rule}.threshold": float(decision["threshold"]),
+        f"control.{rule}.outcome": float(
+            OUTCOMES.index(decision["outcome"])),
+        f"control.{rule}.actuated": float(
+            decision["outcome"] == "actuated"),
+        f"control.{rule}.dry_run": float(decision["dry_run"]),
+        f"control.{rule}.budget_remaining": float(
+            decision["budget_remaining"]),
+    }
+    if decision.get("baseline") is not None:
+      payload[f"control.{rule}.baseline"] = float(decision["baseline"])
+    return trecords.make_record(
+        int(decision.get("step", 0)), payload,
+        role=str(decision.get("role", "fleet")),
+        wall=float(decision["wall"]))
+
+  def _append(self, record: Dict[str, Any]) -> None:
+    if not self._decisions_path:
+      return
+    try:
+      if self._file is None:
+        os.makedirs(os.path.dirname(self._decisions_path) or ".",
+                    exist_ok=True)
+        self._file = open(self._decisions_path, "a")
+      self._file.write(json.dumps(record) + "\n")
+      self._file.flush()
+    except OSError:
+      log.warning("could not append to %s; decision kept in memory",
+                  self._decisions_path, exc_info=True)
+
+  # ---- observability / lifecycle ----
+
+  def stats(self) -> Dict[str, Any]:
+    out: Dict[str, Any] = dict(self._n)
+    out.update({
+        "steps": self._steps,
+        "rules": len(self.rules),
+        "dry_run": self.dry_run,
+        "budget_remaining": self.budget_remaining(),
+    })
+    return out
+
+  def flight_extra(self, last: int = 50) -> Dict[str, Any]:
+    """What a post-mortem needs: the recent decision tail + the
+    budget state (the orchestrator folds this into its flight-record
+    `extra`)."""
+    return {"stats": self.stats(),
+            "recent_decisions": list(self.decisions)[-last:]}
+
+  def close(self) -> None:
+    if self._file is not None:
+      self._file.close()
+      self._file = None
+
+
+def read_decisions(path: str) -> List[Dict[str, Any]]:
+  """All decision envelopes of one ``control_decisions.jsonl`` ([]
+  for a missing file — a quiet run writes none)."""
+  out: List[Dict[str, Any]] = []
+  if not os.path.exists(path):
+    return out
+  with open(path) as f:
+    for line in f:
+      line = line.strip()
+      if not line:
+        continue
+      try:
+        out.append(json.loads(line))
+      except ValueError:
+        continue  # a torn line from a dying writer
+  return out

@@ -1,0 +1,169 @@
+"""The standing fleet rule table, gin-tunable (port of
+`control/policies.py`; registered under the JAX names, so
+`fleet_rules.*` bindings parse into the port's registry).
+
+`fleet_rules()` is the autopilot's default policy, every rule a
+composition of existing seams:
+
+  * a sustained `slow_host`-shaped MFU drop that ISOLATES to one role
+    (aggregate="each") is a targeted kill-and-respawn, not a page —
+    and the same rule is bound to the sentinel's `mfu_drop` alert, so
+    an alert-tier breach remediates instead of paging;
+  * serving p95 / queue-depth pressure scales FRONT replicas (the
+    router re-places tenants over the grown set);
+  * the replay commit rate autoscales ACTORS toward a configured
+    env-steps/s band (0 = off: there is no universal target — set it
+    per deployment, like the sentinel's RSS budget);
+  * sustained deep SLO breach retunes the tenant's admission token
+    rate DOWN (shed at the door beats queueing past the deadline),
+    and past that the degradation ladder sheds whole tenants,
+    lowest priority first — paging is what happens only when every
+    lever above is exhausted (the controller's budget fallback).
+
+Thresholds, tenants, and bands are gin-bindable per deployment
+(`qtopt_fleet_autopilot.gin` is the shipped example). Rule ORDER is
+actuation priority under the global budget: cheap/reversible levers
+first, degradation last.
+
+The package imports neither torch nor CUDA.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+from tensor2robot_tpu_torch import config as gin
+from tensor2robot_tpu_torch.control.rules import ControlRule
+
+
+@gin.configurable
+def fleet_rules(
+    tenant: str = "policy",
+    slo_ms: float = 100.0,
+    queue_depth_max: float = 64.0,
+    max_fronts: int = 4,
+    min_fronts: int = 1,
+    max_actors: int = 8,
+    min_actors: int = 1,
+    env_steps_per_sec_min: float = 0.0,
+    env_steps_per_sec_max: float = 0.0,
+    mfu_drop_fraction: float = 0.35,
+    retune_factor: float = 0.8,
+    cooldown_secs: float = 60.0,
+    offered_load_slope_max: float = 0.0,
+) -> List[ControlRule]:
+  """The ordered autopilot table over the aggregated fleet view.
+
+  Latency rules key on the e2e `request_ms` histogram's p95 scalar
+  (`serving.<tenant>.request_ms_p95` — queueing included, the latency
+  a caller experiences); `aggregate="max"` holds the WORST front
+  replica to the SLO, not the average.
+  """
+  p95 = f"serving.{tenant}.request_ms_p95"
+  rules = [
+      # A sustained per-role MFU drop isolates a slow host: kick that
+      # role and let supervision respawn it under the restart budget.
+      # Doubles as the remediation for the sentinel's `mfu_drop`
+      # page (the alert binding).
+      ControlRule(
+          name="slow_host_respawn", metric="perf.mfu",
+          kind="ewma_drop", threshold=mfu_drop_fraction,
+          warmup=4, sustain=3, aggregate="each",
+          action="respawn_role", cooldown_secs=3 * cooldown_secs,
+          alert="mfu_drop"),
+  ]
+  if offered_load_slope_max > 0.0:
+    # Predictive pre-scale: the
+    # admitted-rows counter's per-second rate IS the offered load the
+    # front tier absorbs, so a sustained climb past the slope bound
+    # grows the tier BEFORE queueing pushes the p95 over the SLO —
+    # the reactive p95/queue rules below remain the backstop. Rows/s
+    # across the worst replica; default off (0.0): the right slope is
+    # per deployment, like the env-steps band.
+    rules.append(ControlRule(
+        name="front_offered_prescale",
+        metric=f"serving.{tenant}.admission.admitted",
+        kind="rate_above", threshold=offered_load_slope_max,
+        warmup=1, sustain=2, aggregate="max",
+        action="scale_fronts",
+        action_params={"delta": 1, "min": min_fronts,
+                       "max": max_fronts},
+        cooldown_secs=cooldown_secs))
+  rules.extend([
+      # Goodput pressure: the worst replica's e2e p95 over the SLO
+      # grows the front tier; hysteresis re-arms at 80% of the SLO.
+      ControlRule(
+          name="front_p95_scale_up", metric=p95,
+          kind="above", threshold=slo_ms, clear=0.8 * slo_ms,
+          window=2, sustain=2, aggregate="max",
+          action="scale_fronts",
+          action_params={"delta": 1, "min": min_fronts,
+                         "max": max_fronts},
+          cooldown_secs=cooldown_secs),
+      ControlRule(
+          name="front_queue_scale_up",
+          metric=f"serving.{tenant}.queue_depth",
+          kind="above", threshold=queue_depth_max,
+          clear=0.5 * queue_depth_max, window=2, sustain=2,
+          aggregate="max", action="scale_fronts",
+          action_params={"delta": 1, "min": min_fronts,
+                         "max": max_fronts},
+          cooldown_secs=cooldown_secs),
+  ])
+  if env_steps_per_sec_min > 0.0:
+    # Hold the collection rate: the replay commit counter's
+    # per-second rate under the band adds an actor...
+    rules.append(ControlRule(
+        name="actors_scale_up", metric="replay.adds",
+        kind="rate_below", threshold=env_steps_per_sec_min,
+        warmup=1, sustain=2, action="scale_actors",
+        action_params={"delta": 1, "min": min_actors,
+                       "max": max_actors},
+        cooldown_secs=cooldown_secs))
+  if env_steps_per_sec_max > 0.0:
+    # ...and over the band drains one (device-seconds are the gated
+    # cost: goodput per device-second, not peak throughput).
+    rules.append(ControlRule(
+        name="actors_scale_down", metric="replay.adds",
+        kind="rate_above", threshold=env_steps_per_sec_max,
+        warmup=1, sustain=3, action="scale_actors",
+        action_params={"delta": -1, "min": min_actors,
+                       "max": max_actors},
+        cooldown_secs=2 * cooldown_secs))
+  rules.extend([
+      # Deep sustained breach (1.5× SLO): shed at the door — retune
+      # the tenant's token rate down so queueing stops amplifying.
+      ControlRule(
+          name="tenant_slo_retune", metric=p95,
+          kind="above", threshold=1.5 * slo_ms, clear=slo_ms,
+          window=2, sustain=3, aggregate="max",
+          action="retune_admission",
+          action_params={"tenant": tenant, "factor": retune_factor},
+          cooldown_secs=2 * cooldown_secs),
+      # Past 2× SLO the degradation ladder sheds whole tenants,
+      # lowest priority first (FleetConfig.control_shed_priorities).
+      ControlRule(
+          name="overload_shed", metric=p95,
+          kind="above", threshold=2.0 * slo_ms, clear=slo_ms,
+          window=2, sustain=3, aggregate="max",
+          action="shed_tenant", cooldown_secs=2 * cooldown_secs),
+      # Recovery: sustained healthy latency restores every shed
+      # tenant (long cooldown — restore/shed must not oscillate).
+      ControlRule(
+          name="recovered_restore", metric=p95,
+          kind="below", threshold=0.5 * slo_ms, clear=0.75 * slo_ms,
+          window=3, sustain=5, aggregate="max",
+          action="restore_tenants", cooldown_secs=5 * cooldown_secs),
+  ])
+  return rules
+
+
+@gin.configurable
+def degradation_priorities(
+    priorities: Tuple[str, ...] = (),
+    shed_rate_rps: float = 1.0,
+) -> Tuple[Tuple[str, ...], float]:
+  """The gin seam for the shed ladder when rules come from gin but
+  the ladder is built by its caller; the orchestrator
+  reads `FleetConfig.control_shed_priorities` instead."""
+  return tuple(priorities), float(shed_rate_rps)

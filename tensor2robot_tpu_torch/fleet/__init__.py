@@ -7,13 +7,20 @@ episodes into, a replay/serving host process (`CEMPolicyServer` and
 running the unmodified `train_qtopt`; each checkpoint's params flow back
 as a publication the host copies into its serving engine's idle slot,
 stamped with the learner step so `param_refresh_lag` is measured next to
-replay staleness. Only the host(s) and the learner touch the card.
+replay staleness. Front replicas serve external callers through a
+`ServingRouter`, fed by the same publications; a controller can steer the
+fleet (`control/`). Only the host(s), the fronts and the learner touch
+the card.
 
   * `orchestrator`: `FleetConfig` / `Fleet` / `run_fleet`: the launch
     gate, the refusals of what is not ported, heartbeat and exit-code
     supervision, the crash policies and restart budgets, and the
     zero-leak shutdown barrier.
   * `host`: the replay/serving host, serving replicas and replay shards.
+  * `front`: the front replicas (`front_main`) and the standalone
+    `FrontTier`.
+  * `traffic`: a fleet run with router traffic on its fronts
+    (`drive_fleet`, and a command line).
   * `actor`: the actor process and its RPC policy-server and
     replay-session seams.
   * `learner`: `RemoteReplay` and `ParamPublishHook` around
@@ -21,8 +28,8 @@ replay staleness. Only the host(s) and the learner touch the card.
   * `rpc` / `transport`: loopback and TCP request/response.
   * `faults`: the deterministic fault plan.
 
-Not ported (ROADMAP A13 rest): the front replicas, the Anakin pods and
-the control plane; learner groups are A11.
+Not ported: the Anakin pods (ROADMAP A13 rest) and learner groups
+(A11).
 
 This package init stays light: `run_t2r_trainer` imports it for gin
 registration in every mode, `--validate_only` included.

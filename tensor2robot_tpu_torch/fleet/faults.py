@@ -29,8 +29,8 @@ Non-recurring events (the default) fire only in a process's first
 incarnation: a respawned actor replays a fault-free schedule, so
 recovery converges instead of crash-looping. `recurring=True` events
 fire in every incarnation: the crash-loop fixture the rate-based restart
-budget is tested against. `serving_replica_crash` plans generate as in
-JAX; their seam (the front replicas) is ROADMAP A13 rest.
+budget is tested against. `serving_replica_crash` fires through
+`on_serve`, called per predict by a front replica.
 """
 
 from __future__ import annotations
@@ -260,6 +260,23 @@ class FaultInjector:
         event = armed.event
         if (event.fault in (ACTOR_CRASH, ACTOR_HANG)
             and armed.remaining > 0 and batch_index >= event.at):
+          armed.remaining = 0
+          break
+      else:
+        return None
+    self._record_injection(event, flight_record=True)
+    return event
+
+  def on_serve(self, serve_index: int) -> Optional[FaultEvent]:
+    """Serving-front seam: called per predict dispatch by a front
+    replica (`fleet.front`). Returns the due serving_replica_crash event
+    (recorded and flight-dumped) once, or None; the front then
+    hard-exits and the router and the orchestrator recover."""
+    with self._lock:
+      for armed in self._armed:
+        event = armed.event
+        if (event.fault == SERVING_REPLICA_CRASH
+            and armed.remaining > 0 and serve_index >= event.at):
           armed.remaining = 0
           break
       else:

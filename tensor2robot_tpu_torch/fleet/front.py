@@ -1,0 +1,571 @@
+"""Replicated serving-front host (port of `fleet/front.py`): the
+multi-tenant front on the wire.
+
+Each `front_main` process owns one complete front stack, `ModelArena`
+(budgeted params) + `AdmissionController` (per-tenant token buckets) +
+`ServingFront` (one continuous-batching dispatcher), behind the same
+`fleet.rpc` server every other fleet host uses, so remote callers get
+admission, fair-share batching and arena budgets over the
+deadline/retry envelope actors already ride.
+
+Topology:
+
+  * N front hosts sit behind `serving.router.ServingRouter`, which
+    places tenants by rendezvous hashing (the rule that homes actors on
+    replay shards), so arena budgets shard across hosts and a hot
+    tenant spreads over `front_spread` replicas.
+  * Learner publications reach every front over the broadcast tree:
+    front hosts implement the serving hosts' `publish` /
+    `configure_broadcast` surface and forward to their tree children,
+    so one fan-out spans both host kinds. A publication is host numpy;
+    the front copies it into each tenant engine's idle params slot
+    (`ModelArena.swap_state`, the buffers its captured graphs read), so
+    a swap lands between dispatches and never tears a batch. A front
+    that joins mid-run (respawned or added) gets the root host's current
+    publication at once (`catch_up`, dropped if the tree's next one got
+    there first).
+  * A front replica death is survivable: the router fails its tenants
+    over to HRW survivors on the caller side while the orchestrator
+    respawns the replica or records the membership change.
+
+With `speculative_cem` on, each tenant serves the 1-iteration CEM
+program inline and refines with the full program in the background
+(`serving.speculative.SpeculativeCEM`: refined actions are
+version-stamped and never cross a params swap).
+
+Chaos: the `serving_replica_crash` fault class triggers through
+`FaultInjector.on_serve`, consulted once per predict: the replica
+flight-records and hard-exits.
+
+The front's engines run on `FleetConfig.device` (None = the card,
+through `device.resolve_device`, which raises without one: a front that
+finds no card fails its launch). Only numpy and plain Python cross its
+RPC surface. The model and serving stack load inside `_FrontState`, in
+the front process: the orchestrator imports this module and opens no
+CUDA context.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from tensor2robot_tpu_torch import telemetry
+from tensor2robot_tpu_torch.fleet import faults as faults_lib
+from tensor2robot_tpu_torch.fleet import proc
+from tensor2robot_tpu_torch.fleet import rpc as rpc_lib
+from tensor2robot_tpu_torch.fleet.actor import CRASH_EXIT_CODE
+from tensor2robot_tpu_torch.fleet.host import (
+    _SURVIVABLE_CONNECT_SECS,
+    _build_learner,
+    _client_kwargs,
+    _handshake_clock,
+    _server_kwargs,
+    _train_state,
+    served_params_digests,
+)
+from tensor2robot_tpu_torch.telemetry import flightrec
+from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
+
+log = logging.getLogger(__name__)
+
+
+class _FrontState:
+  """One front replica's serving stack + RPC method table."""
+
+  def __init__(self, config, front_index: int,
+               injector: Optional[faults_lib.FaultInjector] = None):
+    from tensor2robot_tpu_torch.serving.admission import AdmissionController
+    from tensor2robot_tpu_torch.serving.arena import ModelArena
+    from tensor2robot_tpu_torch.serving.front import ServingFront
+    from tensor2robot_tpu_torch.serving.speculative import SpeculativeCEM
+    from tensor2robot_tpu_torch.specs import (
+        TensorSpecStruct,
+        make_random_tensors,
+    )
+
+    self._config = config
+    self.front_index = int(front_index)
+    self._injector = injector
+    self._struct_cls = TensorSpecStruct
+    telemetry.configure(
+        f"front{front_index}",
+        trace_dir=getattr(config, "telemetry_dir", "") or None)
+    from tensor2robot_tpu_torch.telemetry import perf as perf_lib
+    from tensor2robot_tpu_torch.utils import profiling
+    learner = _build_learner(config)
+    perf_lib.start_resource_sampler(
+        sources=[profiling.device_memory_source()])
+    acting0 = learner.create_state(config.seed).train_state
+    learner.ensure_calibrated(acting0)
+    example = make_random_tensors(
+        learner.observation_specification(), batch_size=1, seed=0)
+    full_policy = learner.build_policy()
+    self.arena = ModelArena(device=learner.device)
+    self.front = ServingFront(
+        self.arena,
+        AdmissionController(
+            slo_ms=float(getattr(config, "front_slo_ms", 100.0))))
+    self.tenants: Tuple[str, ...] = tuple(
+        getattr(config, "front_tenants", ("policy",)))
+    self._speculative: Dict[str, SpeculativeCEM] = {}
+    speculative_on = bool(getattr(config, "speculative_cem", False))
+    fast_policy = (learner.build_policy(cem_iterations=1)
+                   if speculative_on else None)
+    self._registered: List[str] = []
+    for tenant in self.tenants:
+      self.front.register_tenant(
+          tenant, (lambda p=full_policy: (p, acting0, example)),
+          max_batch=config.serve_max_batch, takes_rng=True,
+          preload=True)
+      self._registered.append(tenant)
+      if speculative_on:
+        # The fast twin serves the 1-iteration program from its own
+        # engine (its own params slots; the arena counts both).
+        fast_name = f"{tenant}-fast"
+        self.front.register_tenant(
+            fast_name, (lambda p=fast_policy: (p, acting0, example)),
+            max_batch=config.serve_max_batch, takes_rng=True,
+            preload=True)
+        self._registered.append(fast_name)
+        self._speculative[tenant] = SpeculativeCEM(
+            fast_predict=(
+                lambda feats, t=fast_name: self.front.predict(t, feats)),
+            full_predict=(
+                lambda feats, t=tenant: self.front.predict(t, feats)),
+            version_fn=lambda: self.params_version)
+    self._lock = threading.Lock()
+    self._version = 0
+    self.publishes = 0
+    self.serves = 0
+    self.ready_secs: Optional[float] = None
+    self._children: List[Tuple[str, int]] = []
+    self._survivable: List[Tuple[str, int]] = []
+    self._tree_depth = 0
+    self._tm_depth = tmetrics.gauge("fleet.broadcast.depth")
+    self._tm_forwards = tmetrics.counter("fleet.broadcast.forwards")
+    self._tm_publish_ms = tmetrics.histogram(
+        "fleet.broadcast.publish_ms", faults_lib.RECOVERY_MS_BOUNDS)
+    self.shutdown_requested = threading.Event()
+
+  @property
+  def params_version(self) -> int:
+    with self._lock:
+      return self._version
+
+  # ---- broadcast fan-out (the serving hosts' contract) ----
+
+  def _forward_publish(self, payload: Dict[str, Any],
+                       ctx: dict) -> None:
+    with self._lock:
+      children = list(self._children)
+      survivable = set(self._survivable)
+    if not children:
+      return
+    forwarded = dict(payload)
+    forwarded["hop"] = int(payload.get("hop", 0)) + 1
+    clients = ctx.setdefault("broadcast_clients", {})
+    for child in children:
+      try:
+        client = clients.get(child)
+        if client is None:
+          client = clients[child] = rpc_lib.RpcClient(
+              child,
+              call_timeout_secs=getattr(
+                  self._config, "rpc_call_timeout_secs",
+                  rpc_lib.DEFAULT_CALL_TIMEOUT_SECS),
+              max_retries=getattr(self._config, "rpc_max_retries",
+                                  rpc_lib.DEFAULT_MAX_RETRIES),
+              # A tree child is up when it is configured: a front that
+              # refuses connections is dead, not warming.
+              **(dict(connect_timeout_secs=_SURVIVABLE_CONNECT_SECS)
+                 if child in survivable else {}),
+              **_client_kwargs(self._config))
+        client.call("publish", forwarded)
+      except Exception:  # noqa: BLE001 — re-raised unless survivable
+        if child not in survivable:
+          raise
+        # A front replica that died before supervision pruned it from
+        # the tree: skipped, so the learner's publish does not fail.
+        stale = clients.pop(child, None)
+        if stale is not None:
+          stale.close()
+        tmetrics.counter("fleet.broadcast.forward_failures").inc()
+        log.warning("publish forward to front %s failed; skipped",
+                    child, exc_info=True)
+        continue
+      self._tm_forwards.inc()
+
+  # ---- the RPC method table ----
+
+  def _predict(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+    tenant = str(payload["tenant"])
+    features = payload["features"]
+    if isinstance(features, dict):
+      features = self._struct_cls.from_flat_dict(dict(features))
+    with self._lock:
+      self.serves += 1
+      serve_index = self.serves
+    if self._injector is not None:
+      event = self._injector.on_serve(serve_index)
+      if event is not None:
+        # The injected replica death: the injector already dumped the
+        # flight record; exit hard so the router sees a socket error,
+        # not a clean close.
+        os._exit(CRASH_EXIT_CODE)
+    speculative = self._speculative.get(tenant)
+    if speculative is not None:
+      action = speculative.predict(features)
+    else:
+      action = self.front.predict(tenant, features)
+    return {"action": np.asarray(action),
+            "params_version": self.params_version,
+            "front_index": self.front_index}
+
+  def served_digests(self) -> Dict[str, Dict[str, str]]:
+    """Per registered tenant, the SHA-256 of every served tensor."""
+    return {tenant: served_params_digests(
+        self.arena.engine(tenant).publication.state)
+            for tenant in self._registered}
+
+  def handle(self, method: str, payload: Any, ctx: dict) -> Any:
+    if method == "predict":
+      return self._predict(payload)
+    if method == "publish":
+      step = int(payload["step"])
+      if payload.get("catch_up") and step <= self.params_version:
+        # A catch-up from the root host (`publish_to`) that the tree's
+        # own publication already overtook.
+        return self.params_version
+      state = _train_state(payload["state"])
+      for tenant in self._registered:
+        self.arena.swap_state(tenant, state, learner_step=step)
+      with self._lock:
+        self._version = step
+        self.publishes += 1
+      for speculative in self._speculative.values():
+        speculative.on_publish(step)
+      tmetrics.counter("fleet.param_publishes").inc()
+      if payload.get("origin_wall") is not None:
+        self._tm_publish_ms.observe(
+            max(0.0, (time.time() - float(payload["origin_wall"]))
+                * 1e3))
+      self._forward_publish(payload, ctx)
+      return self.params_version
+    if method == "configure_broadcast":
+      with self._lock:
+        self._children = [tuple(c) for c in payload.get("children", ())]
+        self._survivable = [tuple(c)
+                            for c in payload.get("survivable", ())]
+        self._tree_depth = int(payload.get("depth", 0))
+      self._tm_depth.set(self._tree_depth)
+      return True
+    if method == "hello":
+      return {"kind": "front",
+              "front_index": self.front_index,
+              "tenants": list(self.tenants),
+              "speculative": sorted(self._speculative),
+              "params_version": self.params_version,
+              "ready_secs": self.ready_secs,
+              "monotonic": time.monotonic()}
+    if method == "metrics_scalars":
+      return {"front_serves": float(self.serves),
+              "front_publishes": float(self.publishes)}
+    if method == "metrics":
+      with self._lock:
+        broadcast = {"depth": self._tree_depth,
+                     "children": len(self._children)}
+      return {
+          "front_index": self.front_index,
+          "tenants": list(self.tenants),
+          "serves": self.serves,
+          "publishes": self.publishes,
+          "params_version": self.params_version,
+          "dispatches": self.front.dispatches,
+          "arena": self.arena.stats(),
+          "speculative": {t: s.stats()
+                          for t, s in self._speculative.items()},
+          "broadcast": broadcast,
+          "ready_secs": self.ready_secs,
+          "served_params_sha256": self.served_digests(),
+          "cuda_initialized": proc.record_cuda_state(),
+      }
+    if method == "telemetry":
+      proc.record_cuda_state()
+      return {"host": tmetrics.registry().snapshot(),
+              "pushed": {},
+              "monotonic": time.monotonic()}
+    if method == "slo_report":
+      # The control plane's SLO scorecard pull: per-tenant dispatch and
+      # e2e views off this replica's own histograms.
+      return self.front.admission.slo_report()
+    if method == "admission_retune":
+      # The `retune_admission` actuator lands here; kwargs pass through
+      # to `AdmissionController.retune` (absolute rate or factor,
+      # clamped). Unknown tenants raise: the RPC error surfaces in the
+      # controller's decision record.
+      kwargs = {k: payload[k]
+                for k in ("rate_rps", "factor", "burst",
+                          "min_rate_rps", "max_rate_rps")
+                if k in payload}
+      policy = self.front.admission.retune(str(payload["tenant"]),
+                                           **kwargs)
+      return {"tenant": str(payload["tenant"]),
+              "rate_rps": policy.rate_rps,
+              "burst": policy.burst}
+    if method == "flight_record":
+      return flightrec.dump(payload["out_dir"],
+                            payload.get("reason", "requested"))
+    if method == "shutdown":
+      self.shutdown_requested.set()
+      return True
+    if method == rpc_lib.DISCONNECT_METHOD:
+      for client in ctx.get("broadcast_clients", {}).values():
+        client.close()
+      return None
+    raise ValueError(f"unknown front rpc method {method!r}")
+
+  def close(self) -> None:
+    for speculative in self._speculative.values():
+      speculative.close()
+    self.front.close()
+
+
+def front_main(config, front_index: int, root_address,
+               ready_conn, stop_event, heartbeat,
+               incarnation: int = 0) -> None:
+  """Child-process entry for one front replica.
+
+  The lifecycle contract of `host_main`/`replay_shard_main`: address
+  handshake over `ready_conn` once every tenant's engine is warm,
+  heartbeat while serving, drain on `stop_event` or the RPC `shutdown`.
+  `root_address` is the root serving host's address, a pipe end that
+  delivers it (`proc.await_address`), or None (no clock handshake).
+  The fault role is `front-<i>` (the `serving_replica_crash` target
+  name); `incarnation` counts the replica's respawns, so a plan's
+  non-recurring events fire in its first incarnation only.
+  """
+  t0 = time.monotonic()
+  proc.scrub_inherited_distributed_env()
+  role = f"front-{front_index}"
+  injector = faults_lib.install(config, role, incarnation)
+  try:
+    state = _FrontState(config, front_index, injector)
+    server = rpc_lib.RpcServer(state.handle, **_server_kwargs(config))
+  except BaseException as e:
+    if getattr(config, "flightrec_dir", ""):
+      flightrec.dump(config.flightrec_dir,
+                     f"{role} launch failed: {e!r}")
+    raise
+  try:
+    state.ready_secs = time.monotonic() - t0
+    ready_conn.send({"address": server.address})
+    ready_conn.close()
+    _handshake_clock(config, proc.await_address(root_address))
+    while not (stop_event.is_set() or state.shutdown_requested.is_set()):
+      proc.beat(heartbeat)
+      time.sleep(0.1)
+  finally:
+    from tensor2robot_tpu_torch.telemetry import perf as perf_lib
+    perf_lib.stop_resource_sampler()
+    server.close()
+    state.close()
+    telemetry.get_tracer().close()
+
+
+class FrontTier:
+  """A standalone replicated front tier: N `front_main` processes and
+  their broadcast wiring, without the rest of the fleet.
+
+  Tests and load generators use it for the replicated tier alone: fronts
+  and a router, no actors, shards or learner. `launch()` spawns every
+  front, awaits the ready handshakes and wires the
+  `broadcast_degree`-ary publish tree over the front list (front 0 is
+  the tree root: `publish()` sends to it only, like the learner's
+  single uplink).
+  """
+
+  def __init__(self, config, num_fronts: int):
+    import multiprocessing as mp
+    if num_fronts < 1:
+      raise ValueError(f"num_fronts must be >= 1, got {num_fronts}")
+    self._config = config
+    self._num = int(num_fronts)
+    self._ctx = mp.get_context("spawn")
+    self._stop = self._ctx.Event()
+    self.processes: Dict[int, Any] = {}
+    self.addresses: Dict[int, Tuple[str, int]] = {}
+    self._heartbeats: Dict[int, Any] = {}
+    self._root_client: Optional[rpc_lib.RpcClient] = None
+
+  def launch(self, timeout_secs: float = 240.0) -> "FrontTier":
+    pending = [self._start_front(i) for i in range(self._num)]
+    deadline = time.monotonic() + timeout_secs
+    for i, parent_conn, process in pending:
+      remaining = max(0.0, deadline - time.monotonic())
+      self._await_front(i, parent_conn, process, remaining,
+                        timeout_secs)
+    self._configure_broadcast()
+    return self
+
+  def _start_front(self, index: int):
+    """Starts one front replica; returns the pending ready handshake."""
+    parent_conn, child_conn = self._ctx.Pipe()
+    heartbeat = self._ctx.Value("d", time.monotonic())
+    process = self._ctx.Process(
+        target=front_main,
+        args=(self._config, index, None, child_conn, self._stop,
+              heartbeat),
+        name=f"t2r-front-{index}", daemon=True)
+    process.start()
+    child_conn.close()
+    self.processes[index] = process
+    self._heartbeats[index] = heartbeat
+    return index, parent_conn, process
+
+  def _await_front(self, index: int, parent_conn, process,
+                   remaining: float, timeout_secs: float) -> None:
+    if not parent_conn.poll(max(0.0, remaining)):
+      raise RuntimeError(
+          f"front {index} did not report ready within "
+          f"{timeout_secs:.0f}s (exitcode={process.exitcode})")
+    try:
+      info = parent_conn.recv()
+    except (EOFError, OSError):
+      process.join(timeout=10.0)
+      raise RuntimeError(
+          f"front {index} died before reporting ready "
+          f"(exitcode={process.exitcode})") from None
+    parent_conn.close()
+    self.addresses[index] = tuple(info["address"])
+
+  # ---- elastic surface (the control plane's front levers) ----
+
+  def scale_to(self, num_fronts: int,
+               timeout_secs: float = 240.0) -> List[int]:
+    """Grows or shrinks the live tier to `num_fronts` replicas (inside a
+    whole fleet the orchestrator's `scale_fronts_to` owns this).
+
+    Growth spawns at fresh indices past the highest ever used; shrink
+    drains the highest-indexed live replicas through the RPC `shutdown`
+    (front 0, the broadcast root, is never shed). Dead replicas are
+    pruned from the address book and the publish tree is rewired over
+    the survivors. Returns the live index list."""
+    if num_fronts < 1:
+      raise ValueError(f"num_fronts must be >= 1, got {num_fronts}")
+    self._prune_dead()
+    live = self.alive()
+    if len(live) < num_fronts:
+      base = max(self.processes, default=-1) + 1
+      pending = [self._start_front(base + k)
+                 for k in range(num_fronts - len(live))]
+      deadline = time.monotonic() + timeout_secs
+      for i, parent_conn, process in pending:
+        self._await_front(i, parent_conn, process,
+                          deadline - time.monotonic(), timeout_secs)
+    elif len(live) > num_fronts:
+      for index in sorted(live, reverse=True)[:len(live) - num_fronts]:
+        client = self._client(index)
+        try:
+          client.call("shutdown", {})
+        finally:
+          if index != 0:
+            client.close()
+        self.processes[index].join(timeout=timeout_secs)
+        self._forget(index)
+    self._configure_broadcast()
+    return self.alive()
+
+  def respawn(self, index: int, timeout_secs: float = 240.0
+              ) -> Tuple[str, int]:
+    """Respawns a dead replica at its original index and rewires the
+    tree; returns the new address (the caller re-routes through the
+    router's `mark_alive`). Raises if the old process still runs:
+    respawn is recovery, not restart."""
+    process = self.processes.get(index)
+    if process is not None and process.exitcode is None:
+      raise RuntimeError(f"front {index} is still alive")
+    self._forget(index)
+    i, parent_conn, new_process = self._start_front(index)
+    self._await_front(i, parent_conn, new_process, timeout_secs,
+                      timeout_secs)
+    self._configure_broadcast()
+    return self.addresses[index]
+
+  def _forget(self, index: int) -> None:
+    self.processes.pop(index, None)
+    self.addresses.pop(index, None)
+    self._heartbeats.pop(index, None)
+    if index == 0 and self._root_client is not None:
+      self._root_client.close()
+      self._root_client = None
+
+  def _prune_dead(self) -> None:
+    for index, process in list(self.processes.items()):
+      if process.exitcode is not None:
+        self._forget(index)
+
+  def _configure_broadcast(self) -> None:
+    from tensor2robot_tpu_torch.fleet.orchestrator import (
+        broadcast_children,
+        broadcast_depths,
+    )
+    degree = int(getattr(self._config, "broadcast_degree", 2))
+    order = sorted(self.addresses)
+    depths = broadcast_depths(len(order), degree)
+    for pos, index in enumerate(order):
+      children = [list(self.addresses[order[c]])
+                  for c in broadcast_children(pos, len(order), degree)]
+      client = self._client(index)
+      try:
+        client.call("configure_broadcast",
+                    {"children": children, "depth": depths[pos]})
+      finally:
+        if index != 0:
+          client.close()
+
+  def _client(self, index: int) -> rpc_lib.RpcClient:
+    if index == 0:
+      if self._root_client is None:
+        self._root_client = rpc_lib.RpcClient(
+            self.addresses[0], **_client_kwargs(self._config))
+      return self._root_client
+    return rpc_lib.RpcClient(
+        self.addresses[index], **_client_kwargs(self._config))
+
+  def publish(self, state: Any, step: int) -> int:
+    """One uplink send to the tree root; the tree fans it out. `state`
+    is a publication's host numpy (`{"step", "params",
+    "batch_stats"}`)."""
+    return self._client(0).call(
+        "publish", {"state": state, "step": int(step), "hop": 0,
+                    "origin_wall": time.time()})
+
+  def kill(self, index: int) -> None:
+    """Hard-kills one front replica (the chaos shed leg)."""
+    process = self.processes[index]
+    process.kill()
+    process.join(timeout=10.0)
+
+  def alive(self) -> List[int]:
+    return [i for i, p in self.processes.items()
+            if p.exitcode is None]
+
+  def close(self, timeout_secs: float = 30.0) -> None:
+    if self._root_client is not None:
+      self._root_client.close()
+      self._root_client = None
+    self._stop.set()
+    for process in self.processes.values():
+      process.join(timeout=timeout_secs)
+      if process.is_alive():
+        process.terminate()
+        process.join(timeout=5.0)
+      if process.is_alive():
+        process.kill()
+        process.join(timeout=5.0)

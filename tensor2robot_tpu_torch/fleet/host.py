@@ -71,6 +71,11 @@ from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
 
 log = logging.getLogger(__name__)
 
+# Connect window of a publication forward to a front replica (a
+# survivable tree child): it is up when it is configured, so a refused
+# connection means it died; the publish must not wait out the default.
+_SURVIVABLE_CONNECT_SECS = 2.0
+
 
 def _server_kwargs(config) -> Dict[str, Any]:
   """The transport-seam kwargs every fleet RpcServer shares."""
@@ -199,6 +204,7 @@ class _HostState:
     # connection's handler thread, rebuilt free on reconnect — only
     # the address list is shared state.
     self._children: List[Tuple[str, int]] = []
+    self._survivable: List[Tuple[str, int]] = []
     self._tree_depth = 0
     self._broadcast_forwards = 0
     self._tm_depth = tmetrics.gauge("fleet.broadcast.depth")
@@ -214,34 +220,81 @@ class _HostState:
     """Forwards a publication to this host's tree children.
 
     Runs on the publishing connection's handler thread with its own
-    per-child clients (in `ctx`: lock-free by ownership). A child that
-    cannot be reached raises out of the handler: the learner's publish
-    call sees the error, as if its own direct publish had failed;
-    broadcast does not silently narrow the fleet.
+    per-child clients (in `ctx`: lock-free by ownership). A serving
+    host that cannot be reached raises out of the handler: the learner's
+    publish call sees the error, as if its own direct publish had
+    failed; broadcast does not silently narrow the fleet. A front
+    replica (`survivable` in `configure_broadcast`) that cannot be
+    reached is skipped and counted: fronts only serve, and supervision
+    respawns them.
     """
     with self._lock:
       children = list(self._children)
+      survivable = set(self._survivable)
     if not children:
       return
     forwarded = dict(payload)
     forwarded["hop"] = int(payload.get("hop", 0)) + 1
     clients = ctx.setdefault("broadcast_clients", {})
     for child in children:
-      client = clients.get(child)
-      if client is None:
-        client = rpc_lib.RpcClient(
-            child,
-            call_timeout_secs=getattr(
-                self._config, "rpc_call_timeout_secs",
-                rpc_lib.DEFAULT_CALL_TIMEOUT_SECS),
-            max_retries=getattr(self._config, "rpc_max_retries",
-                                rpc_lib.DEFAULT_MAX_RETRIES),
-            **_client_kwargs(self._config))
-        clients[child] = client
-      client.call("publish", forwarded)
+      try:
+        client = clients.get(child)
+        if client is None:
+          client = clients[child] = rpc_lib.RpcClient(
+              child,
+              call_timeout_secs=getattr(
+                  self._config, "rpc_call_timeout_secs",
+                  rpc_lib.DEFAULT_CALL_TIMEOUT_SECS),
+              max_retries=getattr(self._config, "rpc_max_retries",
+                                  rpc_lib.DEFAULT_MAX_RETRIES),
+              # A tree child is up when it is configured: a front that
+              # refuses connections is dead, not warming.
+              **(dict(connect_timeout_secs=_SURVIVABLE_CONNECT_SECS)
+                 if child in survivable else {}),
+              **_client_kwargs(self._config))
+        client.call("publish", forwarded)
+      except Exception:  # noqa: BLE001 — re-raised unless survivable
+        if child not in survivable:
+          raise
+        # A front replica that died before supervision pruned it from
+        # the tree: skipped, so the learner's publish does not fail.
+        stale = clients.pop(child, None)
+        if stale is not None:
+          stale.close()
+        tmetrics.counter("fleet.broadcast.forward_failures").inc()
+        log.warning("publish forward to front %s failed; skipped",
+                    child, exc_info=True)
+        continue
       self._tm_forwards.inc()
       with self._lock:
         self._broadcast_forwards += 1
+
+  def _publish_to(self, address: Tuple[str, int]) -> Optional[int]:
+    """Sends the engine's current publication to one new front replica
+    (respawned or added), marked `catch_up`: it would otherwise serve
+    its seed's params until the learner's next publication. Returns the
+    learner step sent, or None before the first publication."""
+    from tensor2robot_tpu_torch.fleet.learner import publication
+
+    engine = self.policy_server.engine
+    while True:
+      published = engine.publication
+      if published.version < 1:
+        return None
+      arrays = publication(published.state)
+      # The slot read was not reused by two swaps since (a swap writes
+      # the idle slot, so one swap leaves it whole).
+      if engine.publication.version - published.version < 2:
+        break
+    client = rpc_lib.RpcClient(address, **_client_kwargs(self._config))
+    try:
+      client.call("publish", {"state": arrays,
+                              "step": int(published.learner_step),
+                              "hop": self._tree_depth + 1,
+                              "catch_up": True})
+    finally:
+      client.close()
+    return int(published.learner_step)
 
   # ---- the RPC method table ----
 
@@ -314,9 +367,13 @@ class _HostState:
                 * 1e3))
       self._forward_publish(payload, ctx)
       return self.policy_server.params_version
+    if method == "publish_to":
+      return self._publish_to(tuple(payload["address"]))
     if method == "configure_broadcast":
       with self._lock:
         self._children = [tuple(c) for c in payload.get("children", ())]
+        self._survivable = [tuple(c)
+                            for c in payload.get("survivable", ())]
         self._tree_depth = int(payload.get("depth", 0))
       self._tm_depth.set(self._tree_depth)
       return True

@@ -9,10 +9,15 @@ RL" as a process-supervising orchestrator on one host:
         │ commit          │  + ReplayWriteService │ ◀─publish─ learner
         └────────────────▶│  + ReplayStore        │ ──sample─▶ (train_qtopt)
                           └───────────────────────┘
+                                     │ publish (broadcast tree)
+    callers ──ServingRouter──▶ front 0..F-1 (ModelArena + admission)
 
-Only the host(s) and the learner touch the card; actors, replay shard
-hosts and this process do not (spawned children, `mp.get_context
-("spawn")`: a forked child would inherit the parent's CUDA state).
+Only the host(s), the fronts and the learner touch the card; actors,
+replay shard hosts and this process do not (spawned children,
+`mp.get_context("spawn")`: a forked child would inherit the parent's
+CUDA state). Front replicas serve external callers through a
+`serving.router.ServingRouter` over `addresses["fronts"]`; actors act
+against the serving hosts only.
 
 Lifecycle contract (the JAX package's):
 
@@ -22,9 +27,8 @@ Lifecycle contract (the JAX package's):
     source lints cover JAX code only).
   * Refusals: what the port does not run yet is refused at `Fleet`
     construction, before anything is spawned, by a `FleetUnported`
-    naming its ROADMAP item: `env="mujoco_pose"` (A10a), front replicas
-    (A13 rest), Anakin pods (A13 rest), the control plane (A13 rest) and
-    learner groups (`learner_hosts > 1`, A11).
+    naming its ROADMAP item: `env="mujoco_pose"` (A10a), Anakin pods
+    (A13 rest) and learner groups (`learner_hosts > 1`, A11).
   * Heartbeat and exit-code supervision: child exit codes are polled and
     the first failure is latched (later teardown noise never masks it);
     each child also stamps a shared monotonic heartbeat so a silently
@@ -36,6 +40,15 @@ Lifecycle contract (the JAX package's):
   * Learner death: fatal, or under `learner_crash_policy="resume"` a
     respawn that resumes from the latest checkpoint while the host keeps
     the store and the engine. Host death is always fatal.
+  * Front death is survivable: the replica is respawned at its index
+    under its own budget (`max_front_restarts`), or the membership
+    shrinks; front observers (`add_front_observer`) tell a router's
+    owner either way.
+  * The control plane (`control=True`): a `control.Controller` over
+    `fleet_rules()` is stepped after every aggregated telemetry poll and
+    pulls the fleet's levers (`scale_to`, `scale_fronts_to`, `kick`,
+    `retune_admission`, the degradation ladder); the sentinel's pages
+    go to it first.
   * Shutdown barrier: stop events → actors drain and exit → final
     metrics are read → hosts flush replay and exit → every child is
     joined (terminate, then kill, on timeout). `shutdown` checks that no
@@ -50,16 +63,19 @@ import json
 import logging
 import multiprocessing as mp
 import os
+import re
 import secrets
 import subprocess
 import sys
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from tensor2robot_tpu_torch import config as gin
+from tensor2robot_tpu_torch import control as control_lib
 from tensor2robot_tpu_torch.fleet import actor as actor_lib
 from tensor2robot_tpu_torch.fleet import faults as faults_lib
+from tensor2robot_tpu_torch.fleet import front as front_lib
 from tensor2robot_tpu_torch.fleet import host as host_lib
 from tensor2robot_tpu_torch.fleet import learner as learner_lib
 from tensor2robot_tpu_torch.fleet.rpc import RpcClient, TRANSPORTS
@@ -176,8 +192,9 @@ class FleetConfig:
   pod_hosts: int = 0
   envs_per_pod: int = 64
   pod_rollout_length: int = 4
-  # Replicated serving-front tier (front_hosts > 0, A13 rest): checked
-  # here as in JAX, refused by `Fleet`.
+  # Replicated serving-front tier: front_hosts > 0 spawns front replica
+  # hosts (`fleet/front.py`), each serving `front_tenants` behind
+  # admission; they join the broadcast tree after the serving hosts.
   front_hosts: int = 0
   front_tenants: Tuple[str, ...] = ("policy",)
   front_spread: int = 1
@@ -222,8 +239,9 @@ class FleetConfig:
   # (`telemetry.sentinel.fleet_watches`), evaluated at every poll; a
   # page-severity breach dumps flight records naming the offending role.
   sentinel: bool = True
-  # The closed-loop control plane (A13 rest): checked here as in JAX,
-  # `control=True` is refused by `Fleet`.
+  # The closed-loop control plane: `control=True` steps a
+  # `control.Controller` over `control.fleet_rules()` after every
+  # aggregated poll (needs the telemetry plane and a poll cadence).
   control: bool = False
   control_dry_run: bool = False
   control_cadence_secs: float = 0.0
@@ -395,15 +413,9 @@ def unported(config: FleetConfig) -> List[str]:
   if config.env == "mujoco_pose":
     out.append("env='mujoco_pose' needs MuJoCoPoseEnv (ROADMAP A10a); "
                "bind FleetConfig.env = 'pose' for the numpy PoseEnv")
-  if config.front_hosts > 0:
-    out.append(f"front_hosts={config.front_hosts}: the replicated "
-               "serving fronts (fleet/front.py, ROADMAP A13 rest)")
   if config.pod_hosts > 0:
     out.append(f"pod_hosts={config.pod_hosts}: the Anakin pods "
                "(fleet/pod.py, ROADMAP A13 rest)")
-  if config.control:
-    out.append("control=True: the closed-loop control plane (control/, "
-               "ROADMAP A13 rest)")
   if config.learner_hosts > 1:
     out.append(f"learner_hosts={config.learner_hosts}: a multi-process "
                "learner group (ROADMAP A11)")
@@ -438,6 +450,10 @@ class Fleet:
     # sharing `_host_stop`.
     self._serving: Dict[int, mp.Process] = {}
     self._shards: Dict[int, mp.Process] = {}
+    # Front replicas: the one survivable host-class failure (respawned,
+    # or moved to `front_failures` as the membership shrinks).
+    self._fronts: Dict[int, mp.Process] = {}
+    self.front_failures: List[Dict[str, Any]] = []
     # One persistent control entry per extra host: {name, address,
     # client}; the client is opened lazily and dropped on poisoning
     # like the root control channel.
@@ -479,6 +495,16 @@ class Fleet:
     self._telemetry_file: Optional[Any] = None
     self._t_last_poll = 0.0
     self._sentinel: Optional[sentinel_lib.Sentinel] = None
+    # The control plane, built at launch when `config.control` is on and
+    # stepped after every telemetry poll.
+    self._controller: Optional[control_lib.Controller] = None
+    self._degradation: Optional[control_lib.DegradationLadder] = None
+    # Front membership callbacks `(event, index, address)`, event in
+    # {"respawned", "lost", "added", "removed"}: a ServingRouter's owner
+    # calls `mark_alive`/`mark_dead` from them.
+    self._front_observers: List[Callable[[str, int, Any], None]] = []
+    self._front_restarts: Dict[int, int] = {}
+    self._next_front_index = config.front_hosts
 
   # ---- launch ----
 
@@ -616,7 +642,32 @@ class Fleet:
                "address": None, "client": None}
       self._aux_hosts.append(entry)
       pending.append((entry, parent_conn, process, f"replay shard {i}"))
+    for i in range(config.front_hosts):
+      pending.append(self._spawn_front(config, i))
     return pending
+
+  def _spawn_front(self, config: FleetConfig, index: int,
+                   incarnation: int = 0):
+    """Starts one front replica and registers its bookkeeping; returns
+    the `(entry, parent_conn, process, what)` pending handshake (launch,
+    respawn and front scale-up all await it the same way). At launch
+    the root's address comes later, down a pipe. `incarnation` counts
+    the index's respawns: a fault plan's non-recurring events fire in
+    incarnation 0 only, as an actor's do (JAX's front takes none, so a
+    respawned JAX front re-arms the plan; ROADMAP Queue C)."""
+    name = f"t2r-fleet-front-{index}"
+    parent_conn, child_conn = self._ctx.Pipe()
+    root = (self._address if self._address is not None
+            else self._later(self._root_pipes, name))
+    process = self._fronts[index] = self._start(self._ctx.Process(
+        target=front_lib.front_main,
+        args=(config, index, root, child_conn, self._host_stop,
+              self._heartbeat(name), incarnation),
+        name=name, daemon=True), child_conn, root)
+    entry = {"kind": "front", "index": index, "name": f"front{index}",
+             "address": None, "client": None}
+    self._aux_hosts.append(entry)
+    return entry, parent_conn, process, f"front host {index}"
 
   def _aux_client(self, entry: Dict[str, Any]) -> Optional[RpcClient]:
     """The entry's control client, (re)connected on demand. Same
@@ -652,28 +703,43 @@ class Fleet:
       raise
 
   def _configure_broadcast(self, config: FleetConfig) -> None:
-    """Wires the d-ary publication tree over the serving hosts: each
-    host learns its forward set and its depth (stamped into act replies
-    as `params_hop` for per-hop lag attribution)."""
+    """Wires the d-ary publication tree over the serving hosts and the
+    front replicas: one heap layout (serving hosts first, fronts after),
+    so the learner's single uplink fans to every engine and every front
+    arena. Each host learns its forward set and its depth (stamped into
+    act replies as `params_hop` for per-hop lag attribution)."""
     serving = list(self._addresses["serving"])
-    if len(serving) < 2:
+    front_entries = [entry for entry in self._aux_hosts
+                     if entry["kind"] == "front"]
+    combined = serving + [entry["address"] for entry in front_entries]
+    if len(combined) < 2:
       return  # single serving host: root defaults (no children, hop 0)
-    depths = broadcast_depths(len(serving), config.broadcast_degree)
+    depths = broadcast_depths(len(combined), config.broadcast_degree)
     replicas = [entry for entry in self._aux_hosts
                 if entry["kind"] == "serving"]
-    for i in range(len(serving)):
-      children = [list(serving[c]) for c in broadcast_children(
-          i, len(serving), config.broadcast_degree)]
-      payload = {"children": children, "depth": depths[i]}
+    for i in range(len(combined)):
+      children = broadcast_children(i, len(combined),
+                                    config.broadcast_degree)
+      # A front child is survivable: a forward that fails on it (a
+      # replica that died before supervision pruned it) is skipped, not
+      # raised into the learner's publish.
+      payload = {"children": [list(combined[c]) for c in children],
+                 "survivable": [list(combined[c]) for c in children
+                                if c >= len(serving)],
+                 "depth": depths[i]}
       if i == 0:
         self._control.call("configure_broadcast", payload,
                            timeout_secs=30.0)
-      else:
+      elif i < len(serving):
         self._aux_call(replicas[i - 1], "configure_broadcast", payload,
+                       timeout_secs=30.0)
+      else:
+        self._aux_call(front_entries[i - len(serving)],
+                       "configure_broadcast", payload,
                        timeout_secs=30.0)
     if self._tracer is not None:
       self._tracer.event("fleet.broadcast_configured",
-                         hosts=len(serving),
+                         hosts=len(combined),
                          degree=config.broadcast_degree,
                          max_depth=max(depths))
 
@@ -711,15 +777,41 @@ class Fleet:
       # a test with its own telemetry identity).
       self._tracer = tcore.Tracer().configure(
           "orchestrator", trace_dir=config.telemetry_dir)
+    if (config.control and config.telemetry_dir
+        and config.telemetry_poll_secs):
+      # The closed-loop control plane: the gin-tunable rule table over
+      # the standard actuator set, stepped after every aggregated poll.
+      # Built before the sentinel, whose act tier routes alerts to it.
+      if config.control_shed_priorities:
+        self._degradation = control_lib.DegradationLadder(
+            config.control_shed_priorities,
+            retune=self._shed_retune,
+            shed_rate_rps=config.control_shed_rate_rps)
+      self._controller = control_lib.Controller(
+          control_lib.fleet_rules(),
+          control_lib.fleet_actuators(
+              self, on_page=self._control_page,
+              degradation=self._degradation),
+          cadence_secs=config.control_cadence_secs,
+          dry_run=config.control_dry_run,
+          max_actions=config.control_max_actions,
+          budget_window_secs=config.control_budget_window_secs,
+          decisions_path=os.path.join(
+              config.telemetry_dir, control_lib.DECISIONS_FILENAME),
+          tracer=self._tracer)
     if (config.telemetry_dir and config.sentinel
         and config.telemetry_poll_secs and perf_lib.plane_enabled()):
       # The fleet sentinel: gin-tunable rules evaluated over every
-      # aggregated poll; a page-severity breach triggers the
-      # flight-recorder path below, role-named like the hang path.
+      # aggregated poll; a page-severity breach first offers itself to
+      # the controller's act tier (a successful remediation demotes the
+      # page), and only an unremediated one triggers the flight-recorder
+      # path below, role-named like the hang path.
       self._sentinel = sentinel_lib.Sentinel(
           sentinel_lib.fleet_watches(),
           alerts_path=os.path.join(config.telemetry_dir,
                                    sentinel_lib.ALERTS_FILENAME),
+          on_act=(self._controller.handle_alert
+                  if self._controller is not None else None),
           on_page=self._sentinel_page,
           tracer=self._tracer)
     parent_conn, child_conn = self._ctx.Pipe()
@@ -754,6 +846,11 @@ class Fleet:
             if entry["kind"] == "serving"],
         "shards": [entry["address"] for entry in self._aux_hosts
                    if entry["kind"] == "shard"],
+        # Front replicas are not act-traffic targets (actors round-robin
+        # over "serving" only); routers read this map.
+        "fronts": {entry["index"]: entry["address"]
+                   for entry in self._aux_hosts
+                   if entry["kind"] == "front"},
     }
     # The control channel rides the deadline half of the envelope only:
     # every control call sits on a latency-bounded path (supervision,
@@ -798,6 +895,8 @@ class Fleet:
     window = self.config.restart_window_secs
     if target == "learner":
       limit = self.config.max_learner_restarts
+    elif target.startswith("front-"):
+      limit = self.config.max_front_restarts
     else:
       limit = self.config.max_actor_restarts
     stamps = self._restart_times.setdefault(
@@ -885,6 +984,155 @@ class Fleet:
         f"actor {index} died ({fault}, {detail}) under "
         f"policy={self.config.actor_crash_policy!r}")
 
+  def _handle_front_failure(self, index: int, fault: str,
+                            t_detected: Optional[float] = None,
+                            **detail: Any) -> None:
+    """One lost front replica: respawn under the front budget, else the
+    membership shrinks.
+
+    Fronts only serve (no replay rows, no training lease, no actor act
+    traffic), so a death is never fatal. With `front_respawn` on and
+    budget left, the replica is respawned at its original index; the
+    new address replaces the old one in the broadcast tree and the
+    front observers are told "respawned", so a router's owner re-admits
+    it through `mark_alive(index, address)`. Otherwise (respawn off,
+    budget spent, shutting down) routers fail the replica's tenants
+    over to HRW survivors on their side, and the broadcast tree is
+    pruned so the next publish fans over the survivors.
+    """
+    if t_detected is None:
+      t_detected = time.monotonic()
+    # The dead incarnation's bookkeeping goes either way.
+    self._fronts.pop(index, None)
+    name = f"t2r-fleet-front-{index}"
+    self._heartbeats.pop(name, None)
+    self._spawned_at.pop(name, None)
+    entry = next(
+        (e for e in self._aux_hosts
+         if e["kind"] == "front" and e["index"] == index), None)
+    if entry is not None:
+      if entry["client"] is not None:
+        entry["client"].close()
+        entry["client"] = None
+      self._aux_hosts.remove(entry)
+    if self._addresses is not None:
+      self._addresses.get("fronts", {}).pop(index, None)
+    if not self._closed:
+      # Prune the dead replica from the publication tree now: a respawn
+      # takes the length of a front's build.
+      try:
+        self._configure_broadcast(self._run_config)
+      except Exception:  # noqa: BLE001 — best-effort rewire
+        log.warning("broadcast rewire after front %d died failed", index,
+                    exc_info=True)
+    target = f"front-{index}"
+    if (self.config.front_respawn and not self._closed
+        and self._budget_ok(target)):
+      try:
+        address = self._respawn_front(index, fault, t_detected, detail)
+      except FleetError:
+        log.warning("front %d respawn failed; falling back to "
+                    "membership shrink", index, exc_info=True)
+      else:
+        self._notify_front_observers("respawned", index, address)
+        return
+    event = {"fault": fault, "target": target,
+             "t_detected": t_detected}
+    event.update(detail)
+    self.front_failures.append(event)
+    if self._tracer is not None:
+      self._tracer.event("fleet.front_replica_lost", **event)
+    log.warning("front replica %d lost (%s %s); %d replica(s) "
+                "remain; routers reshed its tenants to survivors",
+                index, fault, detail, len(self._fronts))
+    self._notify_front_observers("lost", index, None)
+
+  def _respawn_front(self, index: int, fault: str, t_detected: float,
+                     detail: Dict[str, Any]) -> Tuple[str, int]:
+    """Respawns one front replica at its original index; returns the
+    new address. A failed respawn unwinds its half-spawn bookkeeping and
+    raises `FleetError` (the caller falls back to the shrink)."""
+    self._front_restarts[index] = self._front_restarts.get(index, 0) + 1
+    self._charge_restart(f"front-{index}")
+    log.warning(
+        "front %d failed (%s %s); respawn %d (budget %d per %.0fs "
+        "window)", index, fault, detail, self._front_restarts[index],
+        self.config.max_front_restarts,
+        self.config.restart_window_secs)
+    entry, parent_conn, process, what = self._spawn_front(
+        self._run_config, index, incarnation=self._front_restarts[index])
+    try:
+      entry["address"] = self._await_ready(
+          parent_conn, process, what,
+          self._run_config.launch_timeout_secs)
+    except FleetError:
+      self._fronts.pop(index, None)
+      self._heartbeats.pop(f"t2r-fleet-front-{index}", None)
+      self._spawned_at.pop(f"t2r-fleet-front-{index}", None)
+      if entry in self._aux_hosts:
+        self._aux_hosts.remove(entry)
+      if process.is_alive():
+        process.kill()
+        process.join(timeout=5.0)
+      raise
+    if self._addresses is not None:
+      self._addresses.setdefault("fronts", {})[index] = entry["address"]
+    self._begin_recovery(fault, f"front-{index}",
+                         f"t2r-fleet-front-{index}",
+                         t_detected=t_detected, **detail)
+    try:
+      self._configure_broadcast(self._run_config)
+    except Exception:  # noqa: BLE001 — best-effort rewire
+      log.warning("broadcast rewire after front respawn failed",
+                  exc_info=True)
+    self._catch_up_front(entry)
+    return entry["address"]
+
+  def _catch_up_front(self, entry: Dict[str, Any]) -> None:
+    """Has the root host send its current publication to a front that
+    joined mid-run (after it is in the broadcast tree, so no later
+    publication can pass it by). Best-effort: a front that misses it
+    serves the next publication."""
+    config = self._run_config
+    try:
+      client = RpcClient(
+          self._address, authkey=config.authkey, connect_timeout_secs=10.0,
+          call_timeout_secs=config.rpc_call_timeout_secs, max_retries=0,
+          transport=config.transport, sndbuf=config.tcp_sndbuf,
+          rcvbuf=config.tcp_rcvbuf)
+      try:
+        step = client.call("publish_to",
+                           {"address": list(entry["address"])},
+                           timeout_secs=60.0)
+      finally:
+        client.close()
+    except Exception:  # noqa: BLE001 — the next publication catches up
+      log.warning("catch-up publication to %s failed", entry["name"],
+                  exc_info=True)
+      return
+    if self._tracer is not None and step is not None:
+      self._tracer.event("fleet.front_caught_up", front=entry["name"],
+                         step=step)
+
+  def add_front_observer(
+      self, fn: Callable[[str, int, Any], None]) -> None:
+    """Registers a front-membership callback `(event, index, address)`,
+    event in {"respawned", "lost", "added", "removed"}: the seam a
+    `ServingRouter`'s owner uses to call `mark_alive(index, address)` /
+    `mark_dead(index)`, so placement tracks supervision. Callbacks run
+    on the supervising thread."""
+    self._front_observers.append(fn)
+
+  def _notify_front_observers(self, event: str, index: int,
+                              address: Any) -> None:
+    for fn in list(self._front_observers):
+      try:
+        fn(event, index, address)
+      except Exception:  # noqa: BLE001 — an observer must never break
+        # supervision (it runs on the supervising thread).
+        log.warning("front observer failed on %s front %d", event,
+                    index, exc_info=True)
+
   def _check_heartbeats(self) -> None:
     """Hang detection. A stale actor heartbeat is a recoverable fault
     under the restart policy (kill-and-respawn, the `actor_hang`
@@ -902,6 +1150,26 @@ class Fleet:
       last = max(value.value, self._spawned_at.get(name, 0.0))
       stale = now - last
       if stale <= timeout:
+        continue
+      if name.startswith("t2r-fleet-front-"):
+        # A hung front replica is handled like a dead one: killed, then
+        # respawned or shed (`_handle_front_failure`).
+        index = int(name.rsplit("-", 1)[1])
+        process = self._fronts.get(index)
+        if process is None:
+          continue
+        log.warning("front %d heartbeat stale for %.0fs; killing the "
+                    "hung replica", index, stale)
+        # MTTR starts at detection, like the actor hang path.
+        t_detected = time.monotonic()
+        process.terminate()
+        process.join(timeout=5.0)
+        if process.is_alive():
+          process.kill()
+          process.join(timeout=5.0)
+        self._handle_front_failure(
+            index, faults_lib.SERVING_REPLICA_CRASH,
+            t_detected=t_detected, stale_secs=round(stale, 1))
         continue
       if is_actor and self.config.actor_crash_policy == "restart":
         index = int(name.rsplit("-", 1)[1])
@@ -990,9 +1258,8 @@ class Fleet:
       for role, pushed in (aux_view.get("pushed") or {}).items():
         payload.update(tmetrics.scalars_from_snapshot(
             pushed.get("snapshot") or {}, prefix=f"{role}/"))
-    record = trecords.make_record(
-        int(payload.get("replay.learner_step", 0)), payload,
-        role="orchestrator")
+    step = learner_step(payload)
+    record = trecords.make_record(step, payload, role="orchestrator")
     if self._telemetry_file is None:
       self._telemetry_file = open(
           os.path.join(self._run_config.telemetry_dir,
@@ -1004,8 +1271,15 @@ class Fleet:
                          metrics=len(payload))
     if self._sentinel is not None:
       # Watch rules over the same aggregated view that just landed in
-      # fleet_metrics.jsonl.
+      # fleet_metrics.jsonl; page-severity breaches route through the
+      # controller's act tier (on_act) here, before its rule pass.
       self._sentinel.evaluate(payload)
+    if self._controller is not None:
+      try:
+        self._controller.maybe_step(payload, step=step)
+      except Exception:  # noqa: BLE001 — the policy plane must never
+        # take down the supervision loop it advises.
+        log.warning("control step failed", exc_info=True)
 
   def _heartbeat_ages(self) -> Dict[str, float]:
     now = time.monotonic()
@@ -1027,6 +1301,10 @@ class Fleet:
     extra: Dict[str, Any] = {"alert": alert,
                              "heartbeat_ages_secs": self._heartbeat_ages(),
                              "actor_restarts": dict(self._restarts)}
+    if self._controller is not None:
+      # An escalated page means the act tier did not remediate; the
+      # decision tail shows why (cooldown, budget, actuator error).
+      extra["control"] = self._controller.flight_extra()
     flightrec.dump(
         self._run_config.flightrec_dir, reason, extra=extra,
         role="orchestrator")
@@ -1043,6 +1321,24 @@ class Fleet:
         self._control.close()
         self._control = self._fresh_control()
 
+  def _control_page(self, decision: Dict[str, Any]) -> None:
+    """The control plane's terminal lever (the `page` actuator): a rule
+    ran out of cheaper actions, so the decision escalates with the
+    flight-record artifact a sentinel page produces, plus the
+    controller's recent decisions."""
+    if not self._run_config.flightrec_dir:
+      return
+    reason = (f"control page: rule {decision.get('rule')} on "
+              f"{decision.get('metric')} (role {decision.get('role')})")
+    extra = {"decision": {k: v for k, v in decision.items()
+                          if k != "detail"},
+             "heartbeat_ages_secs": self._heartbeat_ages(),
+             "actor_restarts": dict(self._restarts)}
+    if self._controller is not None:
+      extra["control"] = self._controller.flight_extra()
+    flightrec.dump(self._run_config.flightrec_dir, reason,
+                   extra=extra, role="orchestrator")
+
   def _flight_record(self, error: BaseException) -> None:
     """The latched-error / hang-detection flight-recorder trigger: dump
     the orchestrator's view (heartbeat ages name a hung process, one
@@ -1053,6 +1349,9 @@ class Fleet:
       return
     extra: Dict[str, Any] = {"heartbeat_ages_secs": self._heartbeat_ages(),
                              "actor_restarts": dict(self._restarts)}
+    if self._controller is not None:
+      # What the control plane saw and did before the latch.
+      extra["control"] = self._controller.flight_extra()
     flightrec.dump(
         self._run_config.flightrec_dir, f"fleet latched: {error!r}",
         extra=extra, role="orchestrator")
@@ -1128,6 +1427,12 @@ class Fleet:
         if process.exitcode is not None:
           raise FleetError(
               f"replay shard {index} died (exit {process.exitcode})")
+      # Front replicas only serve: a death is survivable.
+      for index, process in list(self._fronts.items()):
+        if process.exitcode is not None:
+          self._handle_front_failure(
+              index, faults_lib.SERVING_REPLICA_CRASH,
+              exitcode=process.exitcode)
       for index, process in list(self._actors.items()):
         if process.exitcode is None:
           continue
@@ -1190,8 +1495,205 @@ class Fleet:
       log.info("fleet scaled to %d actors", len(self._actors))
 
   @property
+  def closed(self) -> bool:
+    """True once `shutdown` began (the end of `run`, or an abort)."""
+    return self._closed
+
+  @property
   def num_actors(self) -> int:
     return len(self._actors)
+
+  @property
+  def num_fronts(self) -> int:
+    return len(self._fronts)
+
+  @property
+  def front_addresses(self) -> Dict[int, Tuple[str, int]]:
+    """The live front replicas' RPC addresses, by index (a router's
+    replica map)."""
+    if self._addresses is None:
+      return {}
+    return dict(self._addresses.get("fronts", {}))
+
+  def scale_fronts_to(self, num_fronts: int) -> None:
+    """Elastic front-tier membership: grow under fresh indices (each
+    caught up with the current publication, then observers told
+    "added"), shrink by draining the highest-indexed
+    replicas through their RPC `shutdown` (observers told "removed"
+    first, so routers stop placing tenants on a leaving replica). The
+    broadcast tree is rewired over the result. Safe from another thread
+    while `wait()` supervises, like `scale_to`."""
+    if num_fronts < 1:
+      raise ValueError(f"num_fronts must be >= 1, got {num_fronts}")
+    with self._scale_lock:
+      if not self._launched or self._closed:
+        raise FleetError("scale_fronts_to() needs a launched, open "
+                         "fleet")
+      current = sorted(self._fronts)
+      delta = num_fronts - len(current)
+      if delta == 0:
+        return
+      now = time.monotonic()
+      if delta > 0:
+        pending = []
+        for _ in range(delta):
+          index = self._next_front_index
+          self._next_front_index += 1
+          pending.append(self._spawn_front(self._run_config, index))
+        deadline = (time.monotonic()
+                    + self._run_config.launch_timeout_secs)
+        for entry, parent_conn, process, what in pending:
+          entry["address"] = self._await_ready(
+              parent_conn, process, what,
+              max(0.0, deadline - time.monotonic()))
+          if self._addresses is not None:
+            self._addresses.setdefault(
+                "fronts", {})[entry["index"]] = entry["address"]
+          self.scale_events.append(
+              {"action": "add_front", "index": entry["index"],
+               "t": now})
+      else:
+        for index in current[delta:]:
+          self._notify_front_observers("removed", index, None)
+          process = self._fronts.pop(index)
+          entry = next(
+              (e for e in self._aux_hosts
+               if e["kind"] == "front" and e["index"] == index), None)
+          if entry is not None:
+            try:
+              self._aux_call(entry, "shutdown", timeout_secs=10.0)
+            except Exception:  # noqa: BLE001 — join/kill below wins
+              log.warning("front %d shutdown rpc failed", index,
+                          exc_info=True)
+            if entry["client"] is not None:
+              entry["client"].close()
+              entry["client"] = None
+            self._aux_hosts.remove(entry)
+          if self._addresses is not None:
+            self._addresses.get("fronts", {}).pop(index, None)
+          self._heartbeats.pop(f"t2r-fleet-front-{index}", None)
+          self._spawned_at.pop(f"t2r-fleet-front-{index}", None)
+          self._join_or_kill(process, 30.0, f"front host {index}")
+          self.scale_events.append(
+              {"action": "remove_front", "index": index, "t": now})
+      try:
+        self._configure_broadcast(self._run_config)
+      except Exception:  # noqa: BLE001 — best-effort rewire
+        log.warning("broadcast rewire after front scale failed",
+                    exc_info=True)
+      if delta > 0:
+        # In the tree now: catch each new front up, then admit it.
+        for entry, _, _, _ in pending:
+          self._catch_up_front(entry)
+          self._notify_front_observers("added", entry["index"],
+                                       entry["address"])
+      tmetrics.gauge("fleet.fronts").set(len(self._fronts))
+      if self._tracer is not None:
+        self._tracer.event("fleet.fronts_scaled",
+                           fronts=len(self._fronts))
+      log.info("fleet scaled to %d fronts", len(self._fronts))
+
+  def kick(self, role: str) -> None:
+    """Targeted kill-and-respawn of one recoverable role (the
+    `respawn_role` actuator's seam): the process is terminated and the
+    existing failure paths take over, so an actor respawns under the
+    actor budget and a front under the front budget, with the MTTR
+    accounting of an organic crash. Accepts telemetry role names
+    (`actor-3`, `front1`); a pod (`pod-N`) raises until the pods are
+    ported (ROADMAP A13 rest), and anything else (learner, host, shard,
+    "fleet") raises: kicking a load-bearing role is an outage."""
+    match = re.fullmatch(r"(actor|front|pod)-?(\d+)", role)
+    if match is None:
+      raise FleetError(
+          f"role {role!r} is not kickable (only actor-N / front-N / "
+          f"pod-N are recoverable by respawn)")
+    kind, index = match.group(1), int(match.group(2))
+    if kind == "pod":
+      raise FleetUnported(
+          f"kick({role!r}): the Anakin pods (fleet/pod.py) are not "
+          "ported (ROADMAP A13 rest)")
+    with self._scale_lock:
+      if not self._launched or self._closed:
+        raise FleetError("kick() needs a launched, open fleet")
+      processes = {"actor": self._actors, "front": self._fronts}[kind]
+      process = processes.get(index)
+      if process is None or process.exitcode is not None:
+        raise FleetError(f"{role} is not running (already respawned "
+                         f"or scaled away?)")
+      target = f"{kind}-{index}"
+      if not self._budget_ok(target):
+        # Checked before the kill: a kick with no respawn budget would
+        # turn a remediation into an outage.
+        raise FleetError(
+            f"no restart budget left for {target}; refusing to kick")
+      t_detected = time.monotonic()
+      log.warning("control plane kicking %s (slow-host remediation)",
+                  target)
+      process.terminate()
+      process.join(timeout=5.0)
+      if process.is_alive():
+        process.kill()
+        process.join(timeout=5.0)
+      if kind == "actor":
+        self._handle_actor_failure(index, faults_lib.ACTOR_HANG,
+                                   t_detected=t_detected, kicked=True)
+      else:
+        self._handle_front_failure(
+            index, faults_lib.SERVING_REPLICA_CRASH,
+            t_detected=t_detected, kicked=True)
+
+  def retune_admission(self, tenant: str,
+                       rate_rps: Optional[float] = None,
+                       factor: Optional[float] = None,
+                       min_rate_rps: float = 1.0,
+                       max_rate_rps: Optional[float] = None,
+                       ) -> Dict[str, Any]:
+    """Fans one admission retune to every front replica (each owns its
+    own `AdmissionController`; a tenant's budget is per replica, as the
+    router spreads a tenant). `factor` scales the current rate;
+    otherwise `rate_rps` is absolute (None = unlimited). Returns the
+    per-front replies; a failed front reports its error instead of
+    aborting the fan-out."""
+    payload: Dict[str, Any] = {"tenant": str(tenant),
+                               "min_rate_rps": float(min_rate_rps)}
+    if factor is not None:
+      payload["factor"] = float(factor)
+    else:
+      payload["rate_rps"] = rate_rps
+    if max_rate_rps is not None:
+      payload["max_rate_rps"] = float(max_rate_rps)
+    replies: Dict[str, Any] = {}
+    for entry in [e for e in self._aux_hosts if e["kind"] == "front"]:
+      try:
+        replies[entry["name"]] = self._aux_call(
+            entry, "admission_retune", payload, timeout_secs=15.0)
+      except Exception as e:  # noqa: BLE001 — partial fan-out reported
+        log.warning("admission retune on %s failed", entry["name"],
+                    exc_info=True)
+        replies[entry["name"]] = {"error": repr(e)}
+    if self._tracer is not None:
+      self._tracer.event("fleet.admission_retuned", tenant=tenant,
+                         fronts=len(replies))
+    return replies
+
+  def _shed_retune(self, tenant: str,
+                   rate_rps: Optional[float] = None) -> None:
+    """The degradation ladder's retune: clamp (or restore, rate None =
+    unlimited) one tenant on every front."""
+    self.retune_admission(tenant, rate_rps=rate_rps)
+
+  def admission_slo_reports(self) -> Dict[str, Any]:
+    """Per-front SLO scorecards (`AdmissionController.slo_report`),
+    keyed by front name."""
+    reports: Dict[str, Any] = {}
+    for entry in [e for e in self._aux_hosts if e["kind"] == "front"]:
+      try:
+        reports[entry["name"]] = self._aux_call(
+            entry, "slo_report", timeout_secs=15.0)
+      except Exception:  # noqa: BLE001 — instrumentation only
+        log.warning("slo report from %s failed", entry["name"],
+                    exc_info=True)
+    return reports
 
   def wait(self) -> None:
     """Blocks until the learner exits cleanly; on any latched failure
@@ -1238,6 +1740,7 @@ class Fleet:
       procs.append(self._host)
     procs.extend(self._serving.values())
     procs.extend(self._shards.values())
+    procs.extend(self._fronts.values())
     return [p for p in procs if p is not None]
 
   def shutdown(self, timeout_secs: float = 60.0,
@@ -1301,6 +1804,7 @@ class Fleet:
       # `_result_from_metrics`-shaped dict.
       replica_metrics: List[Dict[str, Any]] = []
       shard_metrics: List[Dict[str, Any]] = []
+      front_metrics: List[Dict[str, Any]] = []
       for entry in self._aux_hosts:
         try:
           aux = self._aux_call(entry, "metrics", timeout_secs=30.0)
@@ -1310,10 +1814,18 @@ class Fleet:
           continue
         if entry["kind"] == "serving":
           replica_metrics.append(aux)
+        elif entry["kind"] == "front":
+          front_metrics.append(aux)
         else:
           shard_metrics.append(aux)
       metrics = _merge_fleet_metrics(
           metrics, replica_metrics, shard_metrics)
+      if front_metrics:
+        # Fronts report beside the training-plane merge (a serving-only
+        # tier).
+        metrics["front_hosts"] = front_metrics
+      if self.front_failures:
+        metrics["front_failures"] = list(self.front_failures)
     self._host_stop.set()
     if self._control is not None:
       if self._host is not None and self._host.is_alive():
@@ -1334,13 +1846,20 @@ class Fleet:
     for index, process in self._shards.items():
       self._join_or_kill(process, timeout_secs / 2,
                          f"replay shard {index}")
+    for index, process in self._fronts.items():
+      self._join_or_kill(process, timeout_secs / 2,
+                         f"front host {index}")
     for entry in self._aux_hosts:
       if entry["client"] is not None:
         entry["client"].close()
         entry["client"] = None
+    if metrics is not None and self._controller is not None:
+      metrics["control"] = self._controller.stats()
     if self._telemetry_file is not None:
       self._telemetry_file.close()
       self._telemetry_file = None
+    if self._controller is not None:
+      self._controller.close()
     if self._sentinel is not None:
       self._sentinel.close()
     if self._tracer is not None:
@@ -1365,10 +1884,16 @@ class Fleet:
     self.launch()
     self.wait()
     metrics = self.shutdown()
-    wall = time.monotonic() - t0
     if metrics is None:
       raise FleetError("fleet completed but final metrics were lost")
-    result = _result_from_metrics(metrics, wall,
+    return self.result(metrics, time.monotonic() - t0)
+
+  def result(self, metrics: Dict[str, Any],
+             wall_secs: float) -> FleetResult:
+    """The `FleetResult` of a run from its final metrics (`shutdown`'s
+    return) and its wall seconds, with this fleet's recovery and
+    membership accounting."""
+    result = _result_from_metrics(metrics, wall_secs,
                                   sum(self._restarts.values()))
     result.recoveries = list(self.recoveries)
     result.learner_restarts = self._learner_restarts
@@ -1504,6 +2029,19 @@ def write_result(result: FleetResult, model_dir: str) -> str:
   with open(path, "w") as f:
     json.dump(dataclasses.asdict(result), f, default=_jsonable)
   return path
+
+
+def learner_step(payload: Dict[str, float]) -> int:
+  """The learner step of an aggregated poll: the root store's
+  `replay.learner_step`, or, where replay hosts own every shard (the
+  root then holds no store), the largest `<shard>/replay.learner_step`.
+  JAX's orchestrator reads the root's key alone, so its records and
+  control decisions in such a fleet carry step 0."""
+  if "replay.learner_step" in payload:
+    return int(payload["replay.learner_step"])
+  steps = [value for key, value in payload.items()
+           if key.endswith("/replay.learner_step")]
+  return int(max(steps, default=0))
 
 
 @gin.configurable

@@ -22,9 +22,12 @@ silently halting intake.
 
 `LagStats` accumulates the param-refresh lag (learner step now minus the
 step of the params an actor acted with) per committed row; `ReplayFront`
-is the plane's RPC-facing surface over one store. The JAX module's
-telemetry-registry twins and `jax.monitoring` events come with the
-telemetry plane (ROADMAP A13); the counters here are plain fields.
+is the plane's RPC-facing surface over one store. The counters are
+plain fields with twins in the process's telemetry registry
+(`replay.dropped_transitions`, `replay.aborted_episodes`,
+`replay.ingest_queue_depth`, `fleet.param_refresh_lag_steps` and its
+`.hop<k>` family), updated at the JAX module's sites; its
+`jax.monitoring` events have no counterpart here.
 """
 
 from __future__ import annotations
@@ -40,13 +43,13 @@ import numpy as np
 from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.replay.sampler import ReplayBatchSampler
 from tensor2robot_tpu_torch.replay.store import ReplayStore, to_flat_arrays
+from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
 
 log = logging.getLogger(__name__)
 
-# Lag histogram bucket upper bounds, in learner steps: the values of the
-# JAX package's telemetry step buckets (`DEFAULT_STEP_BOUNDS`), so the
-# two packages' snapshots have the same labels.
-LAG_BUCKETS = (0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096)
+# Lag histogram bucket upper bounds, in learner steps: the registry's
+# step-bucket family, so the snapshot and its registry twin agree.
+LAG_BUCKETS = tuple(int(b) for b in tmetrics.DEFAULT_STEP_BOUNDS)
 
 OVERFLOW_POLICIES = ("drop", "block")
 
@@ -170,6 +173,9 @@ class ReplayWriteService:
     self.dropped_transitions = 0
     self.aborted_episodes = 0
     self.restarts = 0
+    self._tm_drops = tmetrics.counter("replay.dropped_transitions")
+    self._tm_aborts = tmetrics.counter("replay.aborted_episodes")
+    self._tm_queue_depth = tmetrics.gauge("replay.ingest_queue_depth")
     self._writer = threading.Thread(
         target=self._drain, name="replay-writer", daemon=True)
     self._writer.start()
@@ -222,9 +228,11 @@ class ReplayWriteService:
       with self._lock:
         self.dropped_batches += 1
         self.dropped_transitions += n
+      self._tm_drops.inc(n)
       return False
     with self._lock:
       self.enqueued_batches += 1
+    self._tm_queue_depth.set(self._queue.qsize())
     return True
 
   def _put_blocking(self, item: _Enqueued) -> None:
@@ -257,6 +265,7 @@ class ReplayWriteService:
   def _count_abort(self, actor_id: str) -> None:
     with self._lock:
       self.aborted_episodes += 1
+    self._tm_aborts.inc()
 
   # ---- writer thread ----
 
@@ -334,6 +343,8 @@ class LagStats:
     self._max = 0
     self._n = 0
     self._by_hop: Dict[int, List[int]] = {}  # hop -> [rows, sum, max]
+    self._tm_lag = tmetrics.histogram(
+        "fleet.param_refresh_lag_steps", tmetrics.DEFAULT_STEP_BOUNDS)
 
   def record(self, lag: int, rows: int,
              hop: Optional[int] = None) -> None:
@@ -349,6 +360,12 @@ class LagStats:
         acc[0] += rows
         acc[1] += lag * rows
         acc[2] = max(acc[2], lag)
+    # Registry twins with the same row weighting; the per-hop twin rides
+    # the same family under a `.hop<k>` suffix.
+    self._tm_lag.observe(lag, n=rows)
+    if hop is not None:
+      tmetrics.histogram(f"fleet.param_refresh_lag_steps.hop{int(hop)}",
+                         tmetrics.DEFAULT_STEP_BOUNDS).observe(lag, n=rows)
 
   def snapshot(self) -> Dict[str, Any]:
     with self._lock:

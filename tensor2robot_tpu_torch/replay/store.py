@@ -28,8 +28,11 @@ row carries the learner step at which it was added (`set_learner_step`),
 from which `sample_with_ages` measures each sampled row's staleness.
 
 Counters are this store's own fields (read by `metrics_snapshot` and
-`metrics_scalars`); the JAX store's telemetry-registry twins and its
-`jax.monitoring` events come with the telemetry plane (ROADMAP A13).
+`metrics_scalars`), each with a twin in the process's telemetry
+registry (`replay.adds`, `replay.samples`, `replay.evictions`,
+`replay.fill`, `replay.learner_step`), updated at the same sites as the
+JAX store's. The JAX store also taps `jax.monitoring` on evictions; that
+channel has no counterpart here, so nothing is recorded for it.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import numpy as np
 from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 from tensor2robot_tpu_torch.specs.random_data import _flatten_specs
+from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
 from tensor2robot_tpu_torch.utils import native
 
 SAMPLING_MODES = ("uniform", "fifo", "prioritized")
@@ -135,6 +139,12 @@ class ReplayStore:
     self.evictions_total = 0
     self.spilled_total = 0
     self._last_snapshot = (time.monotonic(), 0, 0)
+    # Registry twins, resolved once: the hot paths call .inc()/.set().
+    self._tm_adds = tmetrics.counter("replay.adds")
+    self._tm_samples = tmetrics.counter("replay.samples")
+    self._tm_evictions = tmetrics.counter("replay.evictions")
+    self._tm_fill = tmetrics.gauge("replay.fill")
+    self._tm_learner_step = tmetrics.gauge("replay.learner_step")
 
   # ---- shape / introspection ----
 
@@ -170,6 +180,7 @@ class ReplayStore:
     """Tags subsequent adds with the learner's current step (one int
     assignment: safe from the trainer while actors add)."""
     self._learner_step = int(step)
+    self._tm_learner_step.set(self._learner_step)
 
   @property
   def learner_step(self) -> int:
@@ -239,6 +250,10 @@ class ReplayStore:
       self.adds_total += n
       self.add_calls += 1
       self.evictions_total += evicted
+    self._tm_adds.inc(n)
+    self._tm_fill.set(len(self) / max(self._capacity, 1))
+    if evicted:
+      self._tm_evictions.inc(evicted)
     return n
 
   def _write_spill(self, arrays: Dict[str, np.ndarray]) -> None:
@@ -338,6 +353,7 @@ class ReplayStore:
     with self._stats_lock:
       self.samples_total += batch_size
       self.sample_calls += 1
+    self._tm_samples.inc(batch_size)
     np.maximum(ages, 0, out=ages)
     return TensorSpecStruct.from_flat_dict(out), ages, row_ids
 

@@ -21,8 +21,10 @@ The multi-tenant front:
   * `dedup.ObservationDedupCache` — quantized-observation hash + params
     version → cached action.
 
-The replicated tier's `router.ServingRouter` (front replicas over the
-fleet's RPC) is ROADMAP A13.
+The replicated tier:
+
+  * `router.ServingRouter` — rendezvous-hash tenant placement over N
+    front replicas, with failover inside the call and the dedup cache.
 """
 
 from tensor2robot_tpu_torch.serving.bucketing import (
@@ -46,6 +48,10 @@ from tensor2robot_tpu_torch.serving.dedup import (
     observation_key,
 )
 from tensor2robot_tpu_torch.serving.speculative import SpeculativeCEM
+from tensor2robot_tpu_torch.serving.router import (
+    NoReplicasError,
+    ServingRouter,
+)
 
 __all__ = [
     "AdmissionController",
@@ -53,9 +59,11 @@ __all__ = [
     "CEMPolicyServer",
     "MicroBatcher",
     "ModelArena",
+    "NoReplicasError",
     "ObservationDedupCache",
     "RequestRejected",
     "ServingFront",
+    "ServingRouter",
     "SpeculativeCEM",
     "TenantPolicy",
     "bucket_for",

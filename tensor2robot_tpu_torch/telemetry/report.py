@@ -1,0 +1,364 @@
+"""Single-run report (port of `telemetry/report.py`): every telemetry
+artifact folded into one page.
+
+    python -m tensor2robot_tpu_torch.telemetry.report --run-dir DIR \
+        [--out report.md] [--json report.json]
+
+The human-readable face of the whole plane: one command
+turns a run directory — `metrics_<tag>.jsonl` envelopes, the
+orchestrator's aggregated `fleet_metrics.jsonl`, per-process
+`trace_<role>.jsonl` files (or an already-merged
+`merged_trace.json[.gz]` / `fleet_trace.json.gz`), `flightrec/`
+dumps, and the sentinel's `alerts.jsonl` — into one markdown/JSON run
+report: throughput rates, the MFU timeline, resource watermarks, the
+alert log, and a per-role span summary. Every section is optional;
+the report renders whatever the directory holds (a run that kept only
+its merged trace still reports).
+
+A standalone post-mortem tool like `telemetry.merge`: the same run
+directory gives the JAX tool's report.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import sys
+from typing import Any, Dict, List, Optional
+
+from tensor2robot_tpu_torch.telemetry import merge as merge_lib
+from tensor2robot_tpu_torch.telemetry import records as trecords
+from tensor2robot_tpu_torch.telemetry import sentinel as sentinel_lib
+
+# Throughput scalars worth a headline row, in display order.
+RATE_KEYS = ("steps_per_sec", "grad_steps_per_sec",
+             "env_steps_per_sec", "bellman_batches_per_sec",
+             "perf.flops_per_sec", "perf.mfu",
+             "perf.device_time_fraction", "stall_fraction",
+             "input_wait_fraction")
+MERGED_TRACE_NAMES = ("merged_trace.json", "merged_trace.json.gz",
+                      "fleet_trace.json.gz", "fleet_trace.json")
+
+
+def _search_dirs(run_dir: str) -> List[str]:
+  """The run dir itself plus its `telemetry/` subdir (fleet layout)."""
+  dirs = [run_dir]
+  sub = os.path.join(run_dir, "telemetry")
+  if os.path.isdir(sub):
+    dirs.append(sub)
+  return dirs
+
+
+def _find(run_dir: str, name: str) -> Optional[str]:
+  for d in _search_dirs(run_dir):
+    path = os.path.join(d, name)
+    if os.path.exists(path):
+      return path
+  return None
+
+
+def _load_trace_events(run_dir: str) -> List[Dict[str, Any]]:
+  """Span events: raw per-process traces merged in memory, else a
+  pre-merged Chrome-trace file (`.gz` ok)."""
+  for d in _search_dirs(run_dir):
+    if glob.glob(os.path.join(d, merge_lib.TRACE_GLOB)):
+      return merge_lib.merge_traces(d).get("traceEvents", [])
+  for name in MERGED_TRACE_NAMES:
+    path = _find(run_dir, name)
+    if path is None:
+      continue
+    try:
+      if path.endswith(".gz"):
+        import gzip
+        with gzip.open(path, "rt") as f:
+          trace = json.load(f)
+      else:
+        with open(path) as f:
+          trace = json.load(f)
+    except (OSError, ValueError):
+      continue
+    return trace.get("traceEvents", [])
+  return []
+
+
+def _span_summary(events: List[Dict[str, Any]]
+                  ) -> List[Dict[str, Any]]:
+  """Per (role, span name): count + total/mean duration (ms)."""
+  table: Dict[tuple, List[float]] = {}
+  for event in events:
+    if event.get("ph") != "X":
+      continue
+    key = (event.get("cat", "?"), event.get("name", "?"))
+    entry = table.setdefault(key, [0.0, 0.0])
+    entry[0] += 1
+    entry[1] += float(event.get("dur", 0.0)) / 1e3  # µs → ms
+  rows = []
+  for (role, name), (count, total_ms) in table.items():
+    rows.append({
+        "role": role,
+        "span": name,
+        "count": int(count),
+        "total_ms": round(total_ms, 1),
+        "mean_ms": round(total_ms / count, 3) if count else 0.0,
+    })
+  rows.sort(key=lambda r: -r["total_ms"])
+  return rows
+
+
+def _metrics_summaries(run_dir: str) -> tuple:
+  """(per-tag envelope summaries + perf.mfu timelines, rsrc.*
+  watermarks) — ONE parse of each metrics file feeds both sections
+  (the sampler's peaks are monotone, so last-seen == peak)."""
+  out: Dict[str, Any] = {}
+  marks: Dict[str, float] = {}
+  for path in sorted(glob.glob(os.path.join(run_dir,
+                                            "metrics_*.jsonl"))):
+    tag = os.path.basename(path)[len("metrics_"):-len(".jsonl")]
+    try:
+      records = trecords.read_records(path)
+    except (OSError, ValueError):
+      continue
+    if not records:
+      continue
+    for record in records:
+      for key, value in record.items():
+        if isinstance(key, str) and "rsrc." in key and isinstance(
+            value, (int, float)):
+          marks[key] = float(value)
+    last = records[-1]
+    summary: Dict[str, Any] = {
+        "records": len(records),
+        "first_step": records[0].get("step"),
+        "last_step": last.get("step"),
+        "role": last.get("role"),
+        "last": {k: last[k] for k in RATE_KEYS if k in last},
+    }
+    timeline = [(r.get("step"), r["perf.mfu"])
+                for r in records if "perf.mfu" in r]
+    if timeline:
+      values = [v for _, v in timeline]
+      summary["mfu_timeline"] = timeline
+      summary["mfu"] = {"min": min(values), "max": max(values),
+                        "mean": sum(values) / len(values),
+                        "last": values[-1]}
+    out[tag] = summary
+  return out, marks
+
+
+def _fleet_watermarks(fleet_rows: List[Dict[str, Any]]
+                      ) -> Dict[str, float]:
+  """Last-seen role-prefixed ``rsrc.*`` values from the aggregated
+  fleet poll records."""
+  marks: Dict[str, float] = {}
+  for record in fleet_rows:
+    for key, value in record.items():
+      if isinstance(key, str) and "rsrc." in key and isinstance(
+          value, (int, float)):
+        marks[key] = float(value)
+  return marks
+
+
+def build_report(run_dir: str) -> Dict[str, Any]:
+  """Everything the run dir holds, as one JSON-able dict."""
+  run_dir = os.path.abspath(run_dir)
+  fleet_path = _find(run_dir, "fleet_metrics.jsonl")
+  fleet_rows: List[Dict[str, Any]] = []
+  if fleet_path:
+    try:
+      fleet_rows = trecords.read_records(fleet_path)
+    except (OSError, ValueError):
+      fleet_rows = []
+  alerts_path = _find(run_dir, sentinel_lib.ALERTS_FILENAME)
+  alerts = sentinel_lib.read_alerts(alerts_path) if alerts_path else []
+  from tensor2robot_tpu_torch.telemetry import flightrec
+  dumps = flightrec.read_dumps(flightrec.flightrec_dir(run_dir))
+  events = _load_trace_events(run_dir)
+  metrics, watermarks = _metrics_summaries(run_dir)
+  watermarks.update(_fleet_watermarks(fleet_rows))
+  report = {
+      "run_dir": run_dir,
+      "metrics": metrics,
+      "fleet_polls": len(fleet_rows),
+      "fleet_last": ({k: v for k, v in fleet_rows[-1].items()
+                      if isinstance(v, (int, float))}
+                     if fleet_rows else {}),
+      "watermarks": watermarks,
+      "alerts": alerts,
+      "flight_records": [
+          {"role": d.get("role"), "pid": d.get("pid"),
+           "reason": str(d.get("reason", ""))[:200],
+           "wall": d.get("wall")} for d in dumps],
+      "span_summary": _span_summary(events),
+      "sources": {
+          "metrics_files": sorted(
+              os.path.basename(p) for p in glob.glob(
+                  os.path.join(run_dir, "metrics_*.jsonl"))),
+          "fleet_metrics": bool(fleet_path),
+          "alerts": bool(alerts_path),
+          "flight_records": len(dumps),
+          "trace_events": len(events),
+      },
+  }
+  return report
+
+
+def _fmt(value: Any) -> str:
+  if isinstance(value, float):
+    return f"{value:.6g}"
+  return str(value)
+
+
+def render_markdown(report: Dict[str, Any],
+                    max_span_rows: int = 15,
+                    max_timeline_rows: int = 12) -> str:
+  """The human-readable face: one markdown page."""
+  lines: List[str] = [f"# Run report: `{report['run_dir']}`", ""]
+  sources = report["sources"]
+  lines.append(
+      f"Sources: {len(sources['metrics_files'])} metrics file(s), "
+      f"{report['fleet_polls']} fleet poll(s), "
+      f"{sources['trace_events']} trace event(s), "
+      f"{len(report['alerts'])} alert(s), "
+      f"{sources['flight_records']} flight record(s).")
+  lines.append("")
+
+  if report["metrics"]:
+    lines.append("## Rates")
+    lines.append("")
+    lines.append("| tag | role | steps | " + " | ".join(RATE_KEYS)
+                 + " |")
+    lines.append("|---" * (3 + len(RATE_KEYS)) + "|")
+    for tag, summary in sorted(report["metrics"].items()):
+      last = summary.get("last", {})
+      cells = [_fmt(last[k]) if k in last else "—" for k in RATE_KEYS]
+      lines.append(
+          f"| {tag} | {summary.get('role', '?')} "
+          f"| {summary.get('first_step')}→{summary.get('last_step')} | "
+          + " | ".join(cells) + " |")
+    lines.append("")
+
+  for tag, summary in sorted(report["metrics"].items()):
+    timeline = summary.get("mfu_timeline")
+    if not timeline:
+      continue
+    stats = summary["mfu"]
+    lines.append(f"## MFU timeline ({tag})")
+    lines.append("")
+    lines.append(
+        f"min {stats['min']:.4f} · mean {stats['mean']:.4f} · "
+        f"max {stats['max']:.4f} · last {stats['last']:.4f}")
+    lines.append("")
+    lines.append("| step | perf.mfu |")
+    lines.append("|---|---|")
+    shown = timeline[-max_timeline_rows:]
+    if len(timeline) > len(shown):
+      lines.append(f"| … | ({len(timeline) - len(shown)} earlier "
+                   "rows elided) |")
+    for step, value in shown:
+      lines.append(f"| {step} | {value:.4f} |")
+    lines.append("")
+
+  if report["watermarks"]:
+    lines.append("## Resource watermarks")
+    lines.append("")
+    lines.append("| metric | value |")
+    lines.append("|---|---|")
+    for name, value in sorted(report["watermarks"].items()):
+      lines.append(f"| `{name}` | {_fmt(value)} |")
+    lines.append("")
+
+  lines.append("## Alerts")
+  lines.append("")
+  if report["alerts"]:
+    lines.append("| rule | metric | role | value | baseline | "
+                 "severity |")
+    lines.append("|---|---|---|---|---|---|")
+    for alert in report["alerts"]:
+      lines.append(
+          f"| alert.{alert.get('rule')} | `{alert.get('metric')}` "
+          f"| {alert.get('role')} | {_fmt(alert.get('value'))} "
+          f"| {_fmt(alert.get('baseline'))} "
+          f"| {alert.get('severity')} |")
+  else:
+    lines.append("No alerts fired (quiet run).")
+  lines.append("")
+
+  if report["flight_records"]:
+    lines.append("## Flight records")
+    lines.append("")
+    lines.append("| role | pid | reason |")
+    lines.append("|---|---|---|")
+    for dump in report["flight_records"]:
+      lines.append(f"| {dump['role']} | {dump['pid']} | "
+                   f"{dump['reason']} |")
+    lines.append("")
+
+  if report["span_summary"]:
+    lines.append("## Span summary (per role, by total time)")
+    lines.append("")
+    lines.append("| role | span | count | total ms | mean ms |")
+    lines.append("|---|---|---|---|---|")
+    for row in report["span_summary"][:max_span_rows]:
+      lines.append(
+          f"| {row['role']} | `{row['span']}` | {row['count']} "
+          f"| {row['total_ms']} | {row['mean_ms']} |")
+    remaining = len(report["span_summary"]) - max_span_rows
+    if remaining > 0:
+      lines.append(f"| … | ({remaining} more span kinds) | | | |")
+    lines.append("")
+  return "\n".join(lines)
+
+
+def has_content(report: Dict[str, Any]) -> bool:
+  sources = report["sources"]
+  return bool(sources["metrics_files"] or report["fleet_polls"]
+              or sources["trace_events"] or report["alerts"]
+              or report["flight_records"])
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+  parser = argparse.ArgumentParser(
+      description="Fold a run directory's telemetry artifacts into "
+                  "one markdown/JSON report.")
+  parser.add_argument("--run-dir", required=True,
+                      help="model_dir of a run (or any directory "
+                      "holding telemetry artifacts, e.g. "
+                      "artifacts/telemetry)")
+  parser.add_argument("--out", default=None,
+                      help="markdown output path (default: stdout)")
+  parser.add_argument("--json", dest="json_out", default=None,
+                      help="also write the raw report dict as JSON")
+  args = parser.parse_args(argv)
+  if not os.path.isdir(args.run_dir):
+    print(f"report: {args.run_dir!r} is not a directory",
+          file=sys.stderr)
+    return 2
+  report = build_report(args.run_dir)
+  markdown = render_markdown(report)
+  if args.json_out:
+    with open(args.json_out, "w") as f:
+      json.dump(report, f, indent=2)
+  if args.out:
+    with open(args.out, "w") as f:
+      f.write(markdown + "\n")
+    print(json.dumps({
+        "out": args.out,
+        "sections": {
+            "metrics_tags": sorted(report["metrics"]),
+            "alerts": len(report["alerts"]),
+            "flight_records": len(report["flight_records"]),
+            "span_rows": len(report["span_summary"]),
+        }}))
+  else:
+    print(markdown)
+  if not has_content(report):
+    print(f"report: nothing to report under {args.run_dir!r}",
+          file=sys.stderr)
+    return 1
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

@@ -8,10 +8,10 @@ process is spawned here.
     defaults; for a table of invalid configs it raises JAX's exception
     type with JAX's message, and the shipped fleet gins parse into the
     same config in both registries.
-  * What the port does not run yet (the `mujoco_pose` env, front
-    replicas, pods, the control plane, learner groups) is refused at
-    `Fleet` construction by a `FleetUnported` naming its ROADMAP item,
-    before any process or directory is made.
+  * What the port does not run yet (the `mujoco_pose` env, pods,
+    learner groups) is refused at `Fleet` construction by a
+    `FleetUnported` naming its ROADMAP item, before any process or
+    directory is made; front replicas and the control plane are not.
   * `_merge_fleet_metrics` and `_result_from_metrics` equal JAX's on the
     same seeded snapshot dicts.
 """
@@ -19,6 +19,7 @@ process is spawned here.
 import dataclasses
 import multiprocessing as mp
 import os
+import re
 
 import numpy as np
 import pytest
@@ -145,9 +146,13 @@ def test_shipped_gins_parse_to_jax_configs(gin_file):
 
 _REFUSED = [
     (dict(), "A10a"),  # the JAX default env: mujoco_pose
-    (dict(env="pose", front_hosts=2), "front.*A13 rest"),
+    # Fronts and the control plane run: beside pods or a learner group,
+    # only those are refused.
+    (dict(env="pose", front_hosts=2, pod_hosts=1),
+     "yet: pod_hosts=1: the Anakin pods"),
     (dict(env="pose", pod_hosts=1), "pods.*A13 rest"),
-    (dict(env="pose", control=True), "control.*A13 rest"),
+    (dict(env="pose", control=True, learner_hosts=2),
+     "yet: learner_hosts=2: a multi-process"),
     (dict(env="pose", learner_hosts=2), "learner group.*A11"),
     (dict(pod_hosts=1, learner_hosts=2), "A10a.*pods.*A11"),
 ]
@@ -161,6 +166,7 @@ def test_refusals_raise_before_anything_is_made(tmp_path, kwargs, item):
   model_dir = str(tmp_path / "fleet")
   with pytest.raises(orch.FleetUnported, match=item) as info:
     orch.Fleet(config, model_dir)
+  assert not re.search("front|control", str(info.value))
   assert isinstance(info.value, FleetError)
   assert isinstance(info.value, NotImplementedError)
   with pytest.raises(orch.FleetUnported, match=item):
@@ -174,9 +180,40 @@ def test_a_runnable_config_is_not_refused(tmp_path):
   assert orch.unported(orch.FleetConfig(
       env="toy_grasp", transport="tcp", serving_hosts=2,
       replay_hosts=2)) == []
+  assert orch.unported(orch.FleetConfig(
+      env="pose", front_hosts=2, front_spread=2, control=True)) == []
   fleet = orch.Fleet(orch.FleetConfig(env="pose", device="cpu"),
                      str(tmp_path))
   assert fleet.num_actors == 0  # nothing spawned before launch()
+
+
+def test_front_and_control_levers_before_launch(tmp_path):
+  """The levers the control plane pulls, on a fleet not launched yet:
+  the front tier is empty, membership changes need a launched fleet,
+  only actor-N / front-N are kickable, and a pod names its ROADMAP
+  item."""
+  fleet = orch.Fleet(orch.FleetConfig(env="pose", device="cpu",
+                                      front_hosts=2, control=True),
+                     str(tmp_path))
+  assert fleet.num_fronts == 0 and fleet.front_addresses == {}
+  assert fleet.retune_admission("policy", factor=0.5) == {}
+  assert fleet.admission_slo_reports() == {}
+  with pytest.raises(orch.FleetUnported, match="A13 rest"):
+    fleet.kick("pod-0")
+  for role in ("learner", "host", "shard0", "fleet"):
+    with pytest.raises(FleetError, match="not kickable"):
+      fleet.kick(role)
+  with pytest.raises(FleetError, match="launched"):
+    fleet.kick("front1")
+  with pytest.raises(FleetError, match="launched"):
+    fleet.scale_fronts_to(3)
+  with pytest.raises(ValueError):
+    fleet.scale_fronts_to(0)
+  events = []
+  fleet.add_front_observer(lambda *event: events.append(event))
+  fleet.add_front_observer(lambda *event: 1 / 0)  # never breaks the loop
+  fleet._notify_front_observers("added", 2, ("127.0.0.1", 1))
+  assert events == [("added", 2, ("127.0.0.1", 1))]
 
 
 def _lag(rng, hops=(0,)):
@@ -242,6 +279,19 @@ def test_metric_merges_equal_jax(seed, shards, replicas):
     assert dataclasses.asdict(port_result) == dataclasses.asdict(jax_result)
   assert orch._merge_lag_snapshots([]) is None
   assert jax_faults.FAULT_CLASSES == faults.FAULT_CLASSES
+
+
+@pytest.mark.parametrize("payload, step", [
+    ({}, 0),
+    ({"replay.learner_step": 7.0, "shard0/replay.learner_step": 9.0}, 7),
+    ({"shard0/replay.learner_step": 12.0,
+      "shard1/replay.learner_step": 15.0, "replay.adds": 3.0}, 15),
+])
+def test_the_learner_step_of_a_poll(payload, step):
+  """The step a poll's record and the controller's decisions carry: the
+  root store's, else (replay hosts own every shard) the largest shard's.
+  JAX's orchestrator reads the root's key alone."""
+  assert orch.learner_step(payload) == step
 
 
 def test_a_learner_group_raises_naming_a11():

@@ -8,6 +8,17 @@ every 8).
     publications, the served params the learner's final checkpoint bit
     for bit, whole episodes only, `fleet_result.json` written, and no
     child alive after.
+  * Tier 1, the two configs of the front tier and the control plane,
+    parsed from the shipped gins with the pose env, the CPU and test
+    widths bound on top, each with robots on its fronts' tenants
+    (`fleet.traffic.drive_fleet`): `qtopt_serving_replicated.gin` with a
+    non-recurring `serving_replica_crash` (the front respawns and serves
+    past the fault in its second incarnation, the routers re-admit it
+    through the observer, every request is answered, the fronts serve
+    the final checkpoint), and `qtopt_fleet_autopilot.gin` with a short
+    poll (the decision log validates, an actuated `scale_actors` shows in
+    `FleetResult.scale_events`, the budget holds, the records carry the
+    replay host's learner step).
   * Slow (as JAX's slow fleet tests): an actor crashing mid-episode is
     restarted and lands no partial rows; the learner's death is detected
     and the fleet torn down; the abort policy takes the fleet down; a
@@ -31,9 +42,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tensor2robot_tpu_torch import config as port_gin  # noqa: E402
+from tensor2robot_tpu_torch import control  # noqa: E402
 from tensor2robot_tpu_torch.fleet import Fleet, FleetConfig, FleetError  # noqa: E402
 from tensor2robot_tpu_torch.fleet import faults  # noqa: E402
 from tensor2robot_tpu_torch.fleet import orchestrator as orch  # noqa: E402
+from tensor2robot_tpu_torch.fleet import traffic  # noqa: E402
+from tensor2robot_tpu_torch.telemetry import records as trecords  # noqa: E402
 from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib  # noqa: E402
 
 _TINY = dict(
@@ -112,6 +126,126 @@ def test_a_fleet_without_a_card_fails_its_launch(tmp_path):
     fleet.run()
   assert _fleet_children() == []
   assert fleet._address is None
+
+
+_CONFIGS = "tensor2robot_tpu/research/qtopt/configs/"
+# The shipped fleet gins at test width, on the CPU, with the pose env.
+_GIN_TINY = (
+    'FleetConfig.env = "pose"', 'FleetConfig.device = "cpu"',
+    "FleetConfig.image_size = 16", "FleetConfig.torso_filters = (8,)",
+    "FleetConfig.head_filters = (8,)", "FleetConfig.dense_sizes = (16,)",
+    "FleetConfig.cem_population = 8", "FleetConfig.cem_iterations = 1",
+    "FleetConfig.cem_elites = 2", "FleetConfig.batch_size = 16",
+    "FleetConfig.min_replay_size = 32", "FleetConfig.batch_episodes = 8",
+    "FleetConfig.serve_max_batch = 4", "FleetConfig.replay_capacity = 512",
+    "FleetConfig.replay_shards = 1", "FleetConfig.heartbeat_timeout_secs = 0.0",
+    "FleetConfig.run_timeout_secs = 420.0")
+
+
+def _drive_gin(gin_file, bindings, model_dir, robots, **overrides):
+  """`drive_fleet` on a shipped gin with `bindings` on top (the launch
+  gate is the gin tests') and robots on the `robots` tenants; the
+  bindings stay parsed through the launch, which builds the
+  controller's rule table from them."""
+  port_gin.clear_config()
+  try:
+    port_gin.parse_config_files_and_bindings(
+        [_CONFIGS + gin_file], list(_GIN_TINY) + list(bindings))
+    config = dataclasses.replace(orch.FleetConfig(), **overrides)
+    return traffic.drive_fleet(model_dir, config, robots=robots)
+  finally:
+    port_gin.clear_config()
+
+
+def test_serving_replicated_gin_with_a_front_crash(tmp_path):
+  plan = faults.FaultPlan(seed=0, events=(faults.FaultEvent(
+      fault=faults.SERVING_REPLICA_CRASH, target="front-0", at=3,
+      recurring=False),))
+  model_dir = str(tmp_path / "replicated")
+  steps = 48
+  result, seen = _drive_gin(
+      "qtopt_serving_replicated.gin",
+      (f"FleetConfig.max_train_steps = {steps}",
+       "FleetConfig.publish_every_steps = 8",
+       "FleetConfig.log_every_steps = 8"),
+      model_dir, ("policy",), fault_plan=plan)
+  assert result.clean_shutdown and _fleet_children() == []
+  (recovery,) = result.recoveries
+  assert recovery["target"] == "front-0" and recovery["mttr_ms"] > 0
+  assert recovery["fault"] == faults.SERVING_REPLICA_CRASH
+  assert seen["membership_events"][0]["event"] == "respawned"
+  assert seen["router"]["alive"] == [0, 1] and seen["num_fronts"] == 2
+  assert seen["router"]["failovers"] >= 1
+  policy = seen["tenants"]["policy"]
+  assert policy["errors"] == 0 and policy["nonfinite"] == 0
+  assert policy["shed"] == 0 and seen["errors"] == []
+  # One robot a tenant per actor of the gin (4), each with its router.
+  assert seen["robots_per_tenant"] == 4 and seen["router"]["routers"] == 4
+  # A request in flight as the fleet began its shutdown may be cut.
+  assert policy["answered"] + policy["cut"] == policy["offered"] == seen[
+      "router"]["requests"] > 3
+  assert seen["failover_latency_ms"]["n"] >= 1
+  fronts = {f["front_index"]: f for f in result.metrics["front_hosts"]}
+  assert sorted(fronts) == [0, 1]
+  # The plan is not recurring: the respawned front (incarnation 1) served
+  # past the serve the first incarnation died at. JAX's respawned front
+  # installs the plan as incarnation 0 and dies there again.
+  assert fronts[0]["serves"] > 3
+  digests = _checkpoint_digests(model_dir)
+  # Both replicas serve the final checkpoint: the respawned one was
+  # caught up with the root host's publication as it rejoined.
+  for front in fronts.values():
+    assert front["params_version"] == steps
+    assert front["served_params_sha256"]["policy"] == digests
+    assert front["cuda_initialized"] is False
+    assert front["ready_secs"] > 0
+  assert result.metrics["served_params_sha256"] == digests
+  assert "front_failures" not in result.metrics
+  assert result.metrics["serving_replicas"][0]["params_learner_step"] == steps
+
+
+def test_fleet_autopilot_gin_actuates_scale_actors(tmp_path):
+  model_dir = str(tmp_path / "autopilot")
+  result, seen = _drive_gin(
+      "qtopt_fleet_autopilot.gin",
+      ("FleetConfig.max_train_steps = 64",
+       "FleetConfig.publish_every_steps = 16",
+       "FleetConfig.log_every_steps = 16",
+       "FleetConfig.telemetry_poll_secs = 0.5",
+       # Any collection rate is over this band: one actor is drained.
+       "fleet_rules.env_steps_per_sec_max = 1.0",
+       "fleet_rules.env_steps_per_sec_min = 0.0"),
+      model_dir, ("policy", "batch"))
+  assert result.clean_shutdown and _fleet_children() == []
+  records = control.read_decisions(os.path.join(
+      model_dir, "telemetry", control.DECISIONS_FILENAME))
+  assert records
+  assert all(trecords.validate_record(r) == [] for r in records)
+  down = [r for r in records
+          if "control.actors_scale_down.actuated" in r["payload"]]
+  assert down and down[0]["payload"]["control.actors_scale_down.actuated"] == 1
+  assert {"action": "remove", "index": 1} in [
+      {k: e[k] for k in ("action", "index")} for e in result.scale_events]
+  assert seen["num_actors"] == 1 and seen["num_fronts"] == 2
+  stats = result.metrics["control"]
+  assert 1 <= stats["actuated"] <= 4  # control_max_actions per window
+  for tenant in ("policy", "batch"):
+    assert seen["tenants"][tenant]["errors"] == 0
+    assert seen["tenants"][tenant]["answered"] > 0
+  with open(os.path.join(model_dir, "telemetry", "fleet_metrics.jsonl")) as f:
+    polls = [json.loads(line)["payload"] for line in f if line.strip()]
+  # The shard's replay twins reach the aggregated view the rules read.
+  assert polls[-1]["shard0/replay.adds"] > 0
+  assert "shard0/replay.fill" in polls[-1]
+  # The root holds no store (`replay_hosts = 1`): the records and the
+  # decisions carry the shard's learner step (JAX's carry 0).
+  with open(os.path.join(model_dir, "telemetry", "fleet_metrics.jsonl")) as f:
+    steps = [(json.loads(line)["step"], json.loads(line)["payload"])
+             for line in f if line.strip()]
+  assert "replay.learner_step" not in steps[-1][1]
+  assert all(step == int(payload.get("shard0/replay.learner_step", 0))
+             for step, payload in steps)
+  assert steps[-1][0] > 0 and max(r["step"] for r in records) > 0
 
 
 @pytest.mark.slow

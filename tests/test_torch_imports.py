@@ -80,6 +80,10 @@ _EXPECTED = (
     "telemetry.sentinel", "telemetry.flightrec", "fleet.proc",
     "fleet.transport", "fleet.rpc", "fleet.faults", "fleet.actor",
     "fleet.host", "fleet.learner", "fleet.orchestrator",
+    "fleet.front", "fleet.traffic", "serving.router", "control",
+    "control.rules", "control.policies", "control.actuators",
+    "control.controller", "telemetry.merge", "telemetry.report",
+    "telemetry.prometheus",
 )
 
 
