@@ -102,8 +102,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      over 200 steps graphed at K=1 and 8 and eager, and its idle share;
  15. BC training (`train_eval_model`) of the gin-width and the default
      model in f32 and bf16: eager against K=1 and K=4 graphed, with
-     evaluations and a resume, every state leaf and logged metric bit
-     for bit; steps_per_sec graphed and eager;
+     evaluations and a resume (the gin width's in bf16 only), every
+     state leaf and logged metric bit for bit; steps_per_sec graphed and
+     eager;
  16. CEM serving: every bucket graphed against eager (actions, scores),
      compile_count, warmup_async, swap_state under four robots' traffic
      (each answer that of its params version), p50/p95 wall per dispatch;
@@ -325,12 +326,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      through `run_t2r_trainer --trainer=fleet` with `FleetConfig.env =
      "pose"` bound (the gin's `mujoco_pose` is not ported): a host, two
      actors and a learner
-     process, 500 steps; exit 0 and no child alive after; the processes
-     holding the card, sampled every second (each child's open
-     `/dev/nvidia<N>`) and self-reported
+     process, 200 steps (the gin's 500 cut); exit 0 and no child alive
+     after; the processes holding the card, sampled every second (each
+     child's open `/dev/nvidia<N>`) and self-reported
      (`proc.cuda_initialized`), exactly the host and the learner; the
      served params' digests equal the learner's final checkpoint's;
-     10 publications; the `FleetResult`'s rates, lag and staleness
+     4 publications; the `FleetResult`'s rates, lag and staleness
      (mean, p50, p99);
  61. `qtopt_fleet_elastic.gin` (the same binding, 200 steps) with one
      actor crashing mid-episode after 3 batches and the learner after
@@ -360,8 +361,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      most 4 actuations, no control page, every request answered or
      refused by a live front's admission, the card held by the hosts,
      the learner and the fronts only, a clean shutdown;
-     60–63 run side by side, four fleets on the card at once, after
-     the yardstick ran alone, so their printed rates are contended;
+ 64. `qtopt_fleet_hybrid.gin` (200 steps; `qtopt_fleet_tcp.gin`'s 2
+     serving and 2 shard hosts with a 2-process learner group, each
+     rank 32 of the 64 rows, and one Anakin pod of 32 pose envs × 4
+     steps beside one process actor): the card held by exactly the two
+     serving hosts, both learner ranks and the pod (not the actor nor
+     the shards); only rank 0 publishes (`publishes ==
+     params_version`); both ranks end at the final checkpoint's params
+     by digest, which the root host serves; the pod's rows whole
+     128-row segments; `param_refresh_lag` rows from the actor and the
+     pod; the group's learner steps/s and the pod's env steps/s;
+ 65. the learner group's step on the card: two gloo ranks on `cuda:0`,
+     each on 32 of 64 seeded rows with the CEM noise injected, against
+     one process's step on the 64 rows (f32 within the CPU tests'
+     tolerances, bf16 by gradient cosine ≥ 0.99, the ranks equal bit
+     for bit);
+     60–64 run side by side, five fleets on the card at once, after
+     the yardstick ran alone, so their printed rates are contended
+     (65, 58's probes and 34's cache contract run beside them);
      then the cem_select launches per path (each traced in its own run),
      the wall seconds of each phase, the `kernels` JSON line
      (cem_select's count: the CEM serving path of phase 4), the card
@@ -2301,7 +2318,8 @@ def phase_bc_graphs():
   dim 32) and the default model (head dim 16), each in f32 and bf16, 8
   steps over the same seeded episodes: eager K=1 against graphed K=1
   and K=4, with an eval every 4 steps (2 batches); then a resume (4
-  steps at K=4, resumed to 8) graphed against the same resume eager.
+  steps at K=4, resumed to 8) graphed against the same resume eager, in
+  both dtypes for the default model and in bf16 for the gin width.
   In both dtypes every state leaf and every logged train and eval
   metric must equal the eager run's bit for bit, and each run's kernel
   counts the launches traced on the card; and `steps_per_sec` over 40 steps
@@ -2371,6 +2389,13 @@ def phase_bc_graphs():
           if not equal or lines[name]["max_metric_diff"] != 0.0:
             raise AssertionError(f"BC {dtype} {label} {name} differs from "
                                  f"eager: {lines[name]}")
+        out[f"{label} {dtype}"] = lines
+        if label == "gin width" and dtype == torch.float32:
+          # The f32 resume runs on the default model only (the time
+          # limit): the gin width's is its bf16 resume.
+          _log(f"BC graphed vs eager ({label}, {dtype}, {_GRAPH_STEPS} "
+               f"steps, eval every 4; no resume): {json.dumps(lines)}")
+          continue
         # Resume: 4 steps at K=4, then resumed to 8 at K=4 (graphed) and
         # at K=1 (eager) from copies of the same checkpoint.
         half = os.path.join(root, f"{label}{dtype}half")
@@ -6184,7 +6209,7 @@ _GIN_FLEET_AUTOPILOT = ("tensor2robot_tpu/research/qtopt/configs/"
                         "qtopt_fleet_autopilot.gin")
 # The shipped fleet gins bind the physics env, which is ROADMAP A10a.
 _FLEET_POSE = 'FleetConfig.env = "pose"'
-_FLEET_CUT_STEPS = 200  # phases 61-62: the gins' 500 steps cut
+_FLEET_CUT_STEPS = 200  # phases 60-62 and 64: the gins' 500 steps cut
 # Phase 63: the gin's 500 steps cut to 400 and its 10 s poll to 1 s, so
 # the rules' warmup and sustain polls fit in the run (a poll under the
 # ramp's overload takes ~3.5 s).
@@ -6467,8 +6492,9 @@ def _check_fleet(label, result, held, seen, model_dir, card_roles, steps):
                                if s])
   stale_mean = (sum(s["mean_age_steps"] * s["rows"]
                     for s in staleness.values() if s) / stale_rows)
-  _log(f"{label}: FleetResult (contended: four fleets, the cold-start "
-       f"probes and the cache contract side by side) env_steps_per_sec "
+  _log(f"{label}: FleetResult (contended: five fleets, the cold-start "
+       f"probes, the cache contract and the group parity side by side) "
+       f"env_steps_per_sec "
        f"{result['env_steps_per_sec']:.2f}, learner_steps_per_sec "
        f"{result['learner_steps_per_sec']:.2f}, param_refresh_lag mean "
        f"{lag['mean']:.3f} max {lag['max']} p50 {lag_q[0]} p99 {lag_q[1]} "
@@ -6522,20 +6548,25 @@ def _fleet_yardstick(steps=500, batch=64, publish_every=50):
 
 
 def _run_fleet(root):
-  """Phase 60's run: `qtopt_fleet.gin` as shipped but for the pose env."""
+  """Phase 60's run: `qtopt_fleet.gin` as shipped but for the pose env,
+  its 500 steps cut to `_FLEET_CUT_STEPS`."""
   return _run_fleet_gin("phase 60 qtopt_fleet.gin", _GIN_FLEET,
-                        os.path.join(root, "fleet"))
+                        os.path.join(root, "fleet"),
+                        (f"FleetConfig.max_train_steps = {_FLEET_CUT_STEPS}",))
 
 
 def _check_fleet_main(run):
-  """Phase 60's gates: those of every fleet phase, 10 publications, the
-  gin's roles."""
+  """Phase 60's gates: those of every fleet phase, a publication every 50
+  steps, the gin's roles."""
   result, held, seen, wall, model_dir = run
   _check_fleet("phase 60", result, held, seen, model_dir,
-               {"host", "learner"}, steps=500)
-  if result["publishes"] != 10 or result["params_version"] != 10:
+               {"host", "learner"}, steps=_FLEET_CUT_STEPS)
+  publishes = _FLEET_CUT_STEPS // 50  # the gin's publish_every_steps
+  if result["publishes"] != publishes or result["params_version"] != (
+      publishes):
     raise AssertionError(f"phase 60: {result['publishes']} publishes, "
-                         f"version {result['params_version']}; want 10")
+                         f"version {result['params_version']}; want "
+                         f"{publishes}")
   if seen != {"host", "learner", "actor-0", "actor-1", "orchestrator"}:
     raise AssertionError(f"phase 60: roles {sorted(seen)}")
 
@@ -6904,6 +6935,315 @@ def _check_fleet_autopilot(run):
     raise AssertionError(f"phase 63: control pages {pages}")
 
 
+_GIN_FLEET_HYBRID = ("tensor2robot_tpu/research/qtopt/configs/"
+                     "qtopt_fleet_hybrid.gin")
+# Phase 64: the processes that hold the card (the serving hosts, both
+# learner ranks and the pod); the actor and the shard hosts must not.
+_HYBRID_CARD = {"host", "host1", "learner", "learner-r1", "pod-0"}
+_HYBRID_SEGMENT = 32 * 4  # the gin's envs_per_pod × pod_rollout_length
+
+
+def _run_fleet_hybrid(root):
+  """Phase 64's run: `qtopt_fleet_hybrid.gin` (`qtopt_fleet_tcp.gin`'s
+  hosts with a 2-process learner group and one Anakin pod beside one
+  process actor), its 500 steps cut to `_FLEET_CUT_STEPS`."""
+  return _run_fleet_gin(
+      "phase 64 qtopt_fleet_hybrid.gin", _GIN_FLEET_HYBRID,
+      os.path.join(root, "fleet_hybrid"),
+      (f"FleetConfig.max_train_steps = {_FLEET_CUT_STEPS}",))
+
+
+def _check_fleet_hybrid(run):
+  """Phase 64's gates: those of every fleet phase with the card held by
+  exactly the two serving hosts, both learner ranks and the pod; the
+  gin's roles; only rank 0 publishes (`publishes == params_version`);
+  both ranks end at the final checkpoint's params by digest (rank 0's
+  `learner_group.json`), which the root host serves; the pod's env
+  steps > 0 and the rows the shards accepted from it whole 128-row
+  segments; `param_refresh_lag` rows from both collectors. Logs the group's learner steps/s, the pod's env steps/s
+  and each role's ready time."""
+  result, held, seen, wall, model_dir = run
+  metrics = _check_fleet("phase 64", result, held, seen, model_dir,
+                         _HYBRID_CARD, steps=_FLEET_CUT_STEPS)
+  roles = _HYBRID_CARD | {"shard0", "shard1", "actor-0", "orchestrator"}
+  if seen != roles:
+    raise AssertionError(f"phase 64: roles {sorted(seen)}, want "
+                         f"{sorted(roles)}")
+  publishes = _FLEET_CUT_STEPS // 50  # the gin's publish_every_steps
+  if result["publishes"] != publishes or result["params_version"] != (
+      publishes):
+    raise AssertionError(f"phase 64: {result['publishes']} publishes, "
+                         f"version {result['params_version']}; want "
+                         f"{publishes} (rank 0 alone publishes)")
+  _, digests = _checkpoint_digests(model_dir)
+  with open(os.path.join(model_dir, "learner_group.json")) as f:
+    group = json.load(f)
+  if group["world_size"] != 2 or group["rank_digests"] != [digests] * 2:
+    raise AssertionError(f"phase 64: the ranks' final params differ from "
+                         f"each other or from the checkpoint: world "
+                         f"{group['world_size']}, equal to it "
+                         f"{[d == digests for d in group['rank_digests']]}")
+  pod = metrics["pushed_telemetry"]["pod-0"]["snapshot"]["counters"]
+  env_steps = pod.get("fleet.pod.env_steps", 0)
+  if env_steps <= 0:
+    raise AssertionError(f"phase 64: the pod stepped {env_steps} envs")
+  with open(os.path.join(model_dir, "telemetry", "fleet_metrics.jsonl")) as f:
+    last = [json.loads(line) for line in f if line.strip()][-1]["payload"]
+  # The rows the shards accepted, by collector: the replay side's count.
+  lag_rows = {c: sum(v for k, v in last.items()
+                     if k.endswith(f"fleet.param_refresh_lag_rows.{c}"))
+              for c in ("actor-0", "pod-0")}
+  if not all(lag_rows.values()):
+    raise AssertionError(f"phase 64: param_refresh_lag rows by collector "
+                         f"{lag_rows}")
+  if lag_rows["pod-0"] % _HYBRID_SEGMENT:
+    raise AssertionError(f"phase 64: the shards accepted "
+                         f"{lag_rows['pod-0']} rows from the pod, not "
+                         f"whole {_HYBRID_SEGMENT}-row segments")
+  segments = collect_s = 0.0
+  with open(os.path.join(model_dir, "telemetry", "trace_pod-0.jsonl")) as f:
+    for line in f:
+      span = json.loads(line)
+      if span.get("name") == "pod.collect_segment":
+        segments += 1
+        collect_s += span["dur"]
+  from tensor2robot_tpu_torch.telemetry.records import read_records
+  # The group's `perf.mfu` over the one card both ranks share.
+  mfu = read_records(os.path.join(model_dir, "metrics_train.jsonl"))[-1].get(
+      "perf.mfu")
+  _log(f"phase 64: learner group (2 ranks, 32 rows each, eager steps, "
+       f"gloo through host memory) {result['learner_steps_per_sec']:.2f} "
+       f"learner steps/s, perf.mfu {mfu}; pod {env_steps:.0f} env steps in "
+       f"{segments:.0f} segments, {env_steps / max(collect_s, 1e-9):.1f} "
+       f"env steps/s while collecting ({collect_s:.2f} s); lag rows by "
+       f"collector {json.dumps(lag_rows)}; rank digests equal the "
+       f"step-{group['step']} checkpoint")
+
+
+# The group-parity phase: `qtopt_fleet_hybrid.gin`'s model and CEM.
+_PARITY_MODEL = dict(image_size=32, action_dim=2, torso_filters=(16, 32),
+                     head_filters=(32, 32), dense_sizes=(32, 32))
+_PARITY_CEM = dict(cem_population=64, cem_iterations=2, cem_elites=6)
+_PARITY_ROWS = 64
+
+
+def _parity_step(role, address, dtype_names, batch, noise, state, out,
+                 go, device="cuda"):
+  """One Bellman step per dtype on `cuda:0` in a process of its own:
+  `role` "reference" on the whole batch, or rank 0 / 1 of a gloo group
+  on its half inside `collectives.data_parallel`. TF32 off. Puts (role,
+  {dtype: (grads, params, batch stats, target, metrics)} as numpy, ms a
+  step); the reference times its steps once `go` is set (the ranks
+  timed theirs), alone on the card."""
+  import torch
+
+  from tensor2robot_tpu_torch.parallel import collectives, distributed
+  from tensor2robot_tpu_torch.research.qtopt import (
+      GraspingQModel,
+      QTOptLearner,
+  )
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+  torch.backends.cudnn.allow_tf32 = False
+  rows = slice(None)
+  if role != "reference":
+    if not distributed.maybe_initialize_distributed(address, 2, role):
+      raise AssertionError(f"rank {role} joined no group")
+    half = _PARITY_ROWS // 2
+    rows = slice(role * half, (role + 1) * half)
+  results = {}
+  for name in dtype_names:
+    learner = QTOptLearner(GraspingQModel(
+        device_dtype=getattr(torch, name), **_PARITY_MODEL), device=device,
+                           **_PARITY_CEM)
+    start = ckpt_lib.unflatten_state(learner.create_state(seed=1), state)
+    local = {k: torch.from_numpy(v[rows]).to(device)
+             for k, v in batch.items()}
+    with collectives.data_parallel():
+      grads, stats, metrics = learner.train_grads(
+          start, local, noise=noise[:, rows].to(device))
+    new = learner.apply_gradients(start, grads, stats)
+    host = lambda d: {k: v.detach().float().cpu().numpy()  # noqa: E731
+                      for k, v in d.items()}
+    results[name] = (host(grads), host(new.train_state.params),
+                     host(new.train_state.batch_stats),
+                     host(new.target_params), host(metrics))
+  if role == "reference":
+    go.wait(300)
+  out.put((role, results, _parity_step_ms(learner, start, local, role,
+                                          device)))
+  if role != "reference":
+    torch.distributed.destroy_process_group()
+
+
+_PARITY_TIMED_STEPS = 20
+
+
+def _parity_step_ms(learner, state, batch, role, device):
+  """ms per Bellman step over `_PARITY_TIMED_STEPS` steps after one
+  warm-up, the noise from a step generator: a rank's eager group step
+  (the global draw, its rows), and the reference's eager and graphed
+  (`StepGraph`, `train_qtopt`'s K = 1 dispatch) one-process steps."""
+  import torch
+
+  from tensor2robot_tpu_torch.parallel import collectives
+  from tensor2robot_tpu_torch.research.qtopt.train_qtopt import (
+      group_noise,
+      k_step_fn,
+      step_generator,
+  )
+  from tensor2robot_tpu_torch.utils.step_graph import StepGraph
+
+  def timed(step):
+    step(0)
+    torch.cuda.synchronize() if device == "cuda" else None
+    t0 = time.perf_counter()
+    for i in range(1, _PARITY_TIMED_STEPS + 1):
+      step(i)
+    torch.cuda.synchronize() if device == "cuda" else None
+    return round((time.perf_counter() - t0) * 1e3 / _PARITY_TIMED_STEPS, 3)
+
+  if role != "reference":
+    def group_step(i):
+      with collectives.data_parallel():
+        learner.train_step(state, batch, noise=group_noise(
+            learner, step_generator(0, i, learner.device),
+            _PARITY_ROWS // 2, role, 2))
+    return {"group eager": timed(group_step)}
+  graph = StepGraph(k_step_fn(learner, 1), state, batch, learner.device,
+                    num_generators=1)
+
+  def graphed(i):
+    graph.generators[0].manual_seed(i)
+    graph.replay(batch)
+
+  return {"one process eager": timed(lambda i: learner.train_step(
+      state, batch, generator=step_generator(0, i, learner.device))),
+          "one process graphed": timed(graphed)}
+
+
+def phase_learner_group_parity(device="cuda"):
+  """Phase 65: two gloo ranks on `cuda:0` each take one Bellman step on
+  32 of 64 seeded rows (`qtopt_fleet_hybrid.gin`'s model and CEM, the
+  CEM noise injected, batch norm over the global batch, gradients
+  averaged through host memory), against one process's step on the 64
+  rows (each in a process of its own, TF32 off). f32 (the CPU tests'
+  limits, `tests/test_torch_distributed.py`): the metrics to 1e-4
+  relative, each gradient and new batch statistic to 1e-4 / 1e-5 of its
+  leaf's largest |value|, the params 2e-6 (+ 1e-7) where |g| ≥ 1e-4 of
+  the leaf's largest (2·lr below), the Polyak target τ times that +
+  1e-7.
+  bf16: each gradient's direction (cosine ≥ 0.99), the loss to 2e-2.
+  The ranks equal each other bit for bit. Then the cost of the group's
+  eager step: ms a bf16 step, the group's against one process's eager
+  and graphed (`_parity_step_ms`)."""
+  import multiprocessing as mp
+
+  import numpy as np
+  import torch
+
+  from tensor2robot_tpu_torch.parallel.distributed import (
+      ephemeral_coordinator_address,
+  )
+  from tensor2robot_tpu_torch.research.qtopt import (
+      GraspingQModel,
+      QTOptLearner,
+  )
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+  learner = QTOptLearner(GraspingQModel(**_PARITY_MODEL), device="cpu",
+                         **_PARITY_CEM)
+  batch = make_random_tensors_flat(learner.transition_specification(),
+                                   _PARITY_ROWS, seed=64)
+  noise = torch.randn((2, _PARITY_ROWS, 64, 2),
+                      generator=torch.Generator().manual_seed(65))
+  state = ckpt_lib.flatten_state(learner.create_state(seed=1))
+  dtypes = ("float32", "bfloat16")
+  ctx = mp.get_context("spawn")
+  out = ctx.Queue()
+  go = ctx.Event()
+  address = ephemeral_coordinator_address()
+  t0 = time.perf_counter()
+  procs = [ctx.Process(target=_parity_step,
+                       args=(role, address, dtypes, batch, noise, state, out,
+                             go, device),
+                       daemon=True) for role in ("reference", 0, 1)]
+  for p in procs:
+    p.start()
+  got, step_ms = {}, {}
+  try:
+    for _ in procs:
+      role, results, ms = out.get(timeout=300)
+      got[role] = results
+      step_ms[role] = ms
+      if 0 in got and 1 in got:
+        go.set()
+  finally:
+    for p in procs:
+      p.join(timeout=60)
+      if p.is_alive():
+        p.kill()
+        p.join()
+  if [p.exitcode for p in procs] != [0, 0, 0]:
+    raise AssertionError(f"phase 65: exit codes {[p.exitcode for p in procs]}")
+  wall = time.perf_counter() - t0
+  lr, tau = 1e-4, 0.05
+  report = {}
+  for name in dtypes:
+    ref, r0, r1 = got["reference"][name], got[0][name], got[1][name]
+    for a, b in zip(r0, r1):
+      for k in a:
+        if not np.array_equal(a[k], b[k]):
+          raise AssertionError(f"phase 65 {name}: the ranks differ at {k}")
+    grads, params, stats, target, metrics = r0
+    w_grads, w_params, w_stats, w_target, w_metrics = ref
+    scale = lambda x: max(float(np.abs(x).max()), 1e-12)  # noqa: E731
+    if name == "bfloat16":
+      cos = min(float(np.dot(grads[k].ravel(), w_grads[k].ravel())
+                      / max(np.linalg.norm(grads[k]) * np.linalg.norm(
+                          w_grads[k]), 1e-30)) for k in w_grads)
+      loss_err = abs(metrics["loss"] - w_metrics["loss"]) / abs(
+          w_metrics["loss"])
+      report[name] = dict(min_grad_cosine=round(cos, 6),
+                          loss_rel_err=float(loss_err))
+      if cos < 0.99 or loss_err > 2e-2:
+        raise AssertionError(f"phase 65 bf16: {report[name]}")
+      continue
+    metric_err = max(abs(float(metrics[k]) - float(w_metrics[k]))
+                     / max(abs(float(w_metrics[k])), 1e-12)
+                     for k in w_metrics)
+    grad_err = max(float(np.abs(grads[k] - w_grads[k]).max())
+                   / scale(w_grads[k]) for k in w_grads)
+    stat_err = max(float(np.abs(stats[k] - w_stats[k]).max())
+                   / scale(w_stats[k]) for k in w_stats)
+    # (far, near) limits: where |g| ≥ 1e-4 of its leaf's largest, and
+    # below it (Adam's first step normalizes each element, so summation
+    # noise there can move it by up to 2·lr).
+    limits = {"params": (2e-6 + 1e-7, 2 * lr + 1e-7),
+              "target": (tau * 2e-6 + 1e-7, tau * 2 * lr + 1e-7)}
+    errs = {"params": [0.0, 0.0], "target": [0.0, 0.0]}
+    for k in w_params:
+      small = np.abs(w_grads[k]) < 1e-4 * scale(w_grads[k])
+      for what, got_p, want_p in (("params", params[k], w_params[k]),
+                                  ("target", target[k], w_target[k])):
+        diff = np.abs(got_p - want_p)
+        errs[what][0] = max(errs[what][0],
+                            float(diff[~small].max(initial=0.0)))
+        errs[what][1] = max(errs[what][1],
+                            float(diff[small].max(initial=0.0)))
+    report[name] = dict(metric_rel_err=metric_err, grad_err=grad_err,
+                        batch_stat_err=stat_err, param_err=errs)
+    if (metric_err > 1e-4 or grad_err > 1e-4 or stat_err > 1e-5
+        or any(e > lim for what in errs
+               for e, lim in zip(errs[what], limits[what]))):
+      raise AssertionError(f"phase 65 f32: {report[name]}")
+  _log(f"phase 65: a 2-rank gloo group on cuda:0 (32 + 32 rows) against "
+       f"one process on the 64 rows, one Bellman step at "
+       f"qtopt_fleet_hybrid.gin's width, ranks equal bit for bit: "
+       f"{json.dumps(report)} ({wall:.2f} s with the three processes' "
+       f"start); bf16 ms a step over {_PARITY_TIMED_STEPS} (each rank "
+       f"while the other steps, the reference alone) "
+       f"{json.dumps({str(k): v for k, v in step_ms.items()})}")
+
+
 def phase_gin_qtopt_fleets(beside=()):
   """Phases 60-63: the in-process learner at `qtopt_fleet.gin`'s widths
   alone (the yardstick), then the four fleets at once on the one card
@@ -6927,7 +7267,8 @@ def phase_gin_qtopt_fleets(beside=()):
       errors[name] = e
 
   jobs = [("60", _run_fleet), ("61", _run_fleet_elastic),
-          ("62", _run_fleet_replicated), ("63", _run_fleet_autopilot)]
+          ("62", _run_fleet_replicated), ("63", _run_fleet_autopilot),
+          ("64", _run_fleet_hybrid)]
   jobs += [(name, lambda root, fn=fn: fn()) for name, fn in beside]
   with tempfile.TemporaryDirectory(prefix="t2r_fleets_") as root:
     threads = [threading.Thread(target=run,
@@ -6943,6 +7284,7 @@ def phase_gin_qtopt_fleets(beside=()):
     _check_fleet_elastic(runs["61"])
     _check_fleet_replicated(runs["62"])
     _check_fleet_autopilot(runs["63"])
+    _check_fleet_hybrid(runs["64"])
 
 _PHASE_S = {}
 
@@ -7070,9 +7412,11 @@ def main():
   t_fleet = time.perf_counter()
   _timed(phase_gin_qtopt_fleets, (
       ("58", lambda: _timed(phase_cold_start, cold_start_work)),
-      ("34", lambda: _timed(phase_gin_cache))))
-  _log(f"phases 60-63 s (the fleet gins, phase 58's probes and phase 34's "
-       f"cache contract beside): {time.perf_counter() - t_fleet:.2f}")
+      ("34", lambda: _timed(phase_gin_cache)),
+      ("65", lambda: _timed(phase_learner_group_parity))))
+  _log(f"phases 60-65 s (the fleet gins, phase 58's probes, phase 34's "
+       f"cache contract and phase 65's group parity beside): "
+       f"{time.perf_counter() - t_fleet:.2f}")
   _log(f"cem_select launches per path (each traced in its own run): CEM "
        f"serving {launches}, Bellman training {qt_launches}, online window "
        f"{sum(online_per_path.values())} ({json.dumps(online_per_path)}), "

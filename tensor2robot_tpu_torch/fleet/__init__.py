@@ -9,8 +9,10 @@ as a publication the host copies into its serving engine's idle slot,
 stamped with the learner step so `param_refresh_lag` is measured next to
 replay staleness. Front replicas serve external callers through a
 `ServingRouter`, fed by the same publications; a controller can steer the
-fleet (`control/`). Only the host(s), the fronts and the learner touch
-the card.
+fleet (`control/`). Anakin pods collect whole rollout segments on the
+card beside (or instead of) the actors, and the learner may be a group
+of processes that average their gradients. Only the host(s), the fronts,
+the learner's ranks and the pods touch the card.
 
   * `orchestrator`: `FleetConfig` / `Fleet` / `run_fleet`: the launch
     gate, the refusals of what is not ported, heartbeat and exit-code
@@ -24,12 +26,13 @@ the card.
   * `actor`: the actor process and its RPC policy-server and
     replay-session seams.
   * `learner`: `RemoteReplay` and `ParamPublishHook` around
-    `train_qtopt`.
+    `train_qtopt`, and the learner group's per-rank plan.
+  * `pod`: the Anakin pod process (`pod_main`) and its `acting_state`
+    param client.
   * `rpc` / `transport`: loopback and TCP request/response.
   * `faults`: the deterministic fault plan.
 
-Not ported: the Anakin pods (ROADMAP A13 rest) and learner groups
-(A11).
+Not ported: the `mujoco_pose` env (ROADMAP A10a).
 
 This package init stays light: `run_t2r_trainer` imports it for gin
 registration in every mode, `--validate_only` included.

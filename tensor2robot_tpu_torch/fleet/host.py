@@ -50,7 +50,6 @@ lands partial rows.
 
 from __future__ import annotations
 
-import hashlib
 import logging
 import threading
 import time
@@ -274,18 +273,9 @@ class _HostState:
     (respawned or added), marked `catch_up`: it would otherwise serve
     its seed's params until the learner's next publication. Returns the
     learner step sent, or None before the first publication."""
-    from tensor2robot_tpu_torch.fleet.learner import publication
-
-    engine = self.policy_server.engine
-    while True:
-      published = engine.publication
-      if published.version < 1:
-        return None
-      arrays = publication(published.state)
-      # The slot read was not reused by two swaps since (a swap writes
-      # the idle slot, so one swap leaves it whole).
-      if engine.publication.version - published.version < 2:
-        break
+    published, arrays = self._read_publication()
+    if published.version < 1:
+      return None
     client = rpc_lib.RpcClient(address, **_client_kwargs(self._config))
     try:
       client.call("publish", {"state": arrays,
@@ -295,6 +285,20 @@ class _HostState:
     finally:
       client.close()
     return int(published.learner_step)
+
+  def _read_publication(self):
+    """(the engine's current publication, its state as host numpy):
+    the copy is retried until the slot it read was not reused by two
+    swaps since (a swap writes the idle slot, so one swap leaves it
+    whole)."""
+    from tensor2robot_tpu_torch.fleet.learner import publication
+
+    engine = self.policy_server.engine
+    while True:
+      published = engine.publication
+      arrays = publication(published.state)
+      if engine.publication.version - published.version < 2:
+        return published, arrays
 
   # ---- the RPC method table ----
 
@@ -314,6 +318,26 @@ class _HostState:
               # The acting host's broadcast-tree depth: actors stamp
               # it into commits so lag is attributable PER HOP.
               "params_hop": self._tree_depth}
+    if method == "acting_state":
+      # Whole-params refresh for Anakin pods: a pod acts on its own
+      # device (the envs and the Q-network run in one collection), so
+      # instead of per-step `act` RPCs it pulls the published acting
+      # state and runs with it until the version moves. An unchanged
+      # `have_version` returns the stamp alone, no state payload.
+      published = self.policy_server.engine.publication
+      have = (int(payload.get("have_version", -1))
+              if isinstance(payload, dict) else -1)
+      reply: Dict[str, Any] = {
+          "params_version": published.version,
+          "params_learner_step": published.learner_step,
+          "params_hop": self._tree_depth,
+          "state": None,
+      }
+      if published.version != have and published.state is not None:
+        published, reply["state"] = self._read_publication()
+        reply["params_version"] = published.version
+        reply["params_learner_step"] = published.learner_step
+      return reply
     if method in ("commit", "begin_episode", "append", "end_episode",
                   "sample", "size"):
       if self.replay is None:
@@ -616,11 +640,9 @@ def served_params_digests(state) -> Dict[str, str]:
   """SHA-256 of every served tensor's bytes (params and batch stats of
   an engine publication), keyed by name: the run's proof that the
   served params are the learner's, bit for bit."""
-  digests = {}
-  for name, value in sorted({**state.params, **state.batch_stats}.items()):
-    digests[name] = hashlib.sha256(
-        value.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
-  return digests
+  from tensor2robot_tpu_torch.utils.checkpoints import tensor_digests
+
+  return tensor_digests({**state.params, **state.batch_stats})
 
 
 def host_main(config, ready_conn, stop_event, heartbeat,

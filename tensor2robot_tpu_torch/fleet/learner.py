@@ -20,9 +20,14 @@ instead of an in-process buffer:
     `drives_online_collection`, so the trainer's prefetch depth drops to
     the online-correct 1.
 
-The learner runs on `FleetConfig.device` (None = the card). It is one
-process: `distributed_learner=True` is the plain learner at world size
-1, bit for bit, and a learner group (world size > 1) is ROADMAP A11.
+The learner runs on `FleetConfig.device` (None = the card).
+`distributed_learner=True` is the plain learner at world size 1, bit for
+bit. `FleetConfig.learner_hosts = N > 1` makes it a learner group: N
+processes (rank 0 is "learner", the others "learner-r<rank>") join one
+gloo group at an orchestrator-issued coordinator address, each samples
+`batch_size / N` rows and `train_qtopt` averages the gradients over the
+group (`learner_group_plan` is the per-rank contract). Only rank 0
+publishes, checkpoints and logs, and carries the crash hooks.
 """
 
 from __future__ import annotations
@@ -43,6 +48,12 @@ from tensor2robot_tpu_torch.telemetry import flightrec
 from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
 
 log = logging.getLogger(__name__)
+
+# A learner rank waits this long for its peers: at the group's
+# rendezvous and at every collective (gloo's timeout). A rank that died
+# is caught sooner by the orchestrator's supervision, which takes the
+# group down.
+GROUP_TIMEOUT_SECS = 300.0
 
 
 class RemoteReplay:
@@ -202,6 +213,25 @@ class ParamPublishHook(Hook):
       log.warning("learner telemetry push failed", exc_info=True)
 
 
+class _TelemetryPushHook(Hook):
+  """A non-chief rank's registry snapshot at each checkpoint (the chief
+  pushes with its publication): its `proc.cuda_initialized` and
+  `fleet.learner_group.*` reach the aggregated view under its role."""
+
+  def __init__(self, control: RpcClient, role: str):
+    self._control = control
+    self._role = role
+
+  def after_checkpoint(self, step: int, state, model_dir: str) -> None:
+    proc.record_cuda_state()
+    try:
+      self._control.call("telemetry_push", {
+          "role": self._role,
+          "snapshot": tmetrics.registry().snapshot()})
+    except Exception:  # noqa: BLE001 — instrumentation only
+      log.warning("%s telemetry push failed", self._role, exc_info=True)
+
+
 class _HeartbeatHook(Hook):
   """Stamps the orchestrator-visible heartbeat every train step."""
 
@@ -243,35 +273,72 @@ class _FaultPlanHook(Hook):
           f"injected learner crash (fault plan, step {step})")
 
 
+def learner_group_plan(config, world_size: int = 1,
+                       rank: int = 0) -> Dict[str, Any]:
+  """The learner group's per-rank contract, as pure math.
+
+  Every rank samples and feeds `local_batch_size` rows (`train_qtopt`
+  averages the gradients over the group), but only rank 0 publishes
+  params and owns the host-side surfaces. At `world_size == 1` this is
+  the single-learner path: the same role name, the same batch,
+  publishing on."""
+  world_size = int(world_size)
+  rank = int(rank)
+  if world_size < 1:
+    raise ValueError(f"world_size must be >= 1, got {world_size}")
+  if not 0 <= rank < world_size:
+    raise ValueError(
+        f"rank must be in [0, {world_size}), got {rank}")
+  if config.batch_size % world_size != 0:
+    raise ValueError(
+        f"batch_size ({config.batch_size}) must divide evenly "
+        f"across the learner group (world_size={world_size})")
+  return {
+      "role": "learner" if rank == 0 else f"learner-r{rank}",
+      "local_batch_size": config.batch_size // world_size,
+      "publishes": rank == 0,
+  }
+
+
 def learner_main(config, model_dir: str, address, heartbeat,
-                 incarnation: int = 0, world_size: int = 1) -> None:
+                 coordinator_address: Optional[str] = None,
+                 incarnation: int = 0, world_size: int = 1,
+                 rank: int = 0) -> None:
   """Child-process entry: connect → train_qtopt → clean exit.
 
   ``incarnation`` > 0 is the `learner_crash_policy="resume"` respawn:
   `train_qtopt` restores from the latest checkpoint in `model_dir` (the
   host kept the replay store and serving engine alive), and
-  non-recurring planned faults do not re-fire. ``world_size`` > 1 (a
-  learner group) raises: it is ROADMAP A11. `address` is the address
+  non-recurring planned faults do not re-fire. `address` is the address
   book, or a pipe end that delivers it once the hosts are up
   (`proc.await_address`); the model stack loads and the learner is
   built first, while they come up.
+
+  ``world_size`` > 1 makes this process rank ``rank`` of a learner
+  group: every rank adopts the same ``coordinator_address`` and joins
+  one gloo group (`parallel.distributed.maybe_initialize_distributed`),
+  then runs `train_qtopt` on its `batch_size / world_size` rows. Rank 0
+  is the chief: the only rank that publishes params, writes checkpoints
+  and logs.
   """
-  if world_size > 1:
-    raise NotImplementedError(
-        f"a learner group of {world_size} processes is not ported yet "
-        "(ROADMAP A11); the fleet's learner is one process.")
+  plan = learner_group_plan(config, world_size, rank)
   proc.scrub_inherited_distributed_env()
+  if coordinator_address and world_size > 1:
+    proc.adopt_coordinator(coordinator_address,
+                           num_processes=world_size, process_id=rank)
   from tensor2robot_tpu_torch.fleet.host import _build_learner
   from tensor2robot_tpu_torch.research.qtopt.train_qtopt import (
       train_qtopt,
   )
   learner = _build_learner(config)
+  if world_size > 1:
+    proc.pin_single_host_device(learner.device)
   address = proc.await_address(address)
   if address is None:
     return  # the launch was aborted before the hosts were up
   telemetry.configure(
-      "learner", trace_dir=getattr(config, "telemetry_dir", "") or None)
-  injector = faults_lib.install(config, "learner",
+      plan["role"], trace_dir=getattr(config, "telemetry_dir", "") or None)
+  injector = faults_lib.install(config, plan["role"],
                                 incarnation=incarnation)
   if incarnation:
     log.warning("learner incarnation %d: resuming from the latest "
@@ -293,6 +360,15 @@ def learner_main(config, model_dir: str, address, heartbeat,
   shard_controls = [RpcClient(a, **rpc_kwargs) for a in book["shards"]]
   shard_streams = [RpcClient(a, **rpc_kwargs) for a in book["shards"]]
   try:
+    from tensor2robot_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    if world_size > 1 and not maybe_initialize_distributed(
+        timeout_secs=GROUP_TIMEOUT_SECS):
+      raise RuntimeError(
+          f"learner rank {rank} of {world_size} joined no process group")
+    tmetrics.gauge("fleet.learner_group.size").set(world_size)
+    tmetrics.gauge("fleet.learner_group.rank").set(rank)
     t_before = time.monotonic()
     hello = control.call("hello")
     t_after = time.monotonic()
@@ -303,13 +379,18 @@ def learner_main(config, model_dir: str, address, heartbeat,
     replay = RemoteReplay(control, stream, capacity=hello["capacity"],
                           shard_controls=shard_controls,
                           shard_streams=shard_streams)
-    hooks: List[Hook] = [
-        ParamPublishHook(
-            control,
-            telemetry_push=bool(getattr(config, "telemetry_dir", ""))),
-        _HeartbeatHook(heartbeat)]
-    if config.learner_crash_after_steps:
-      hooks.append(_CrashAfterHook(config.learner_crash_after_steps))
+    hooks: List[Hook] = [_HeartbeatHook(heartbeat)]
+    if plan["publishes"]:
+      # Rank 0 only: publication, and the crash hooks that model "the
+      # learner" dying (any rank's death is fatal to a group either
+      # way).
+      hooks.insert(0, ParamPublishHook(
+          control,
+          telemetry_push=bool(getattr(config, "telemetry_dir", ""))))
+      if config.learner_crash_after_steps:
+        hooks.append(_CrashAfterHook(config.learner_crash_after_steps))
+    elif getattr(config, "telemetry_dir", ""):
+      hooks.append(_TelemetryPushHook(control, plan["role"]))
     if injector.active:
       hooks.append(_FaultPlanHook(injector))
     train_qtopt(
@@ -317,7 +398,9 @@ def learner_main(config, model_dir: str, address, heartbeat,
         model_dir=model_dir,
         replay_buffer=replay,
         max_train_steps=config.max_train_steps,
-        batch_size=config.batch_size,
+        # The per-process batch: the group trains on `batch_size` rows
+        # a step in all, as the single learner does.
+        batch_size=plan["local_batch_size"],
         min_replay_size=config.min_replay_size,
         save_checkpoints_steps=config.publish_every_steps,
         log_every_steps=config.log_every_steps,
@@ -327,7 +410,7 @@ def learner_main(config, model_dir: str, address, heartbeat,
     # The latched-error flight record: the learner's last spans and
     # metrics survive its death.
     if getattr(config, "flightrec_dir", ""):
-      flightrec.dump(config.flightrec_dir, f"learner: {e!r}")
+      flightrec.dump(config.flightrec_dir, f"{plan['role']}: {e!r}")
     raise
   finally:
     # Stop the perf plane's sampler thread before the process exits: a

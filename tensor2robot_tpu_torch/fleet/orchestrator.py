@@ -12,12 +12,13 @@ RL" as a process-supervising orchestrator on one host:
                                      │ publish (broadcast tree)
     callers ──ServingRouter──▶ front 0..F-1 (ModelArena + admission)
 
-Only the host(s), the fronts and the learner touch the card; actors,
-replay shard hosts and this process do not (spawned children,
-`mp.get_context("spawn")`: a forked child would inherit the parent's
-CUDA state). Front replicas serve external callers through a
-`serving.router.ServingRouter` over `addresses["fronts"]`; actors act
-against the serving hosts only.
+Only the host(s), the fronts, the learner (every rank of a learner group)
+and the Anakin pods touch the card; actors, replay shard hosts and this
+process do not. Children start from a forkserver that imported torch and
+the fleet's modules once (`proc.children_context`); a plain fork of
+this process would inherit its CUDA state. Front replicas serve
+external callers through a `serving.router.ServingRouter` over
+`addresses["fronts"]`; actors act against the serving hosts only.
 
 Lifecycle contract (the JAX package's):
 
@@ -27,8 +28,13 @@ Lifecycle contract (the JAX package's):
     source lints cover JAX code only).
   * Refusals: what the port does not run yet is refused at `Fleet`
     construction, before anything is spawned, by a `FleetUnported`
-    naming its ROADMAP item: `env="mujoco_pose"` (A10a), Anakin pods
-    (A13 rest) and learner groups (`learner_hosts > 1`, A11).
+    naming its ROADMAP item: `env="mujoco_pose"` (A10a).
+  * Learner groups (`learner_hosts > 1`): N learner processes adopt one
+    orchestrator-issued coordinator address and join one gloo group;
+    any rank's death tears the collective and is fatal.
+  * Anakin pods (`pod_hosts > 0`, `fleet/pod.py`): on-device collectors
+    supervised like actors (crash policy, restart budget, heartbeats,
+    `scale_pods_to`, `kick("pod-N")`).
   * Heartbeat and exit-code supervision: child exit codes are polled and
     the first failure is latched (later teardown noise never masks it);
     each child also stamps a shared monotonic heartbeat so a silently
@@ -78,6 +84,8 @@ from tensor2robot_tpu_torch.fleet import faults as faults_lib
 from tensor2robot_tpu_torch.fleet import front as front_lib
 from tensor2robot_tpu_torch.fleet import host as host_lib
 from tensor2robot_tpu_torch.fleet import learner as learner_lib
+from tensor2robot_tpu_torch.fleet import pod as pod_lib
+from tensor2robot_tpu_torch.fleet import proc
 from tensor2robot_tpu_torch.fleet.rpc import RpcClient, TRANSPORTS
 from tensor2robot_tpu_torch.telemetry import core as tcore
 from tensor2robot_tpu_torch.telemetry import flightrec
@@ -99,6 +107,11 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 RESULT_FILENAME = "fleet_result.json"
+
+# Once rank 0 of a learner group has exited cleanly, each peer must exit
+# cleanly within this many seconds (its hooks' `end`, the prefetcher's
+# close and its telemetry flush come after the final collective).
+PEER_EXIT_SECS = 60.0
 
 
 class FleetError(RuntimeError):
@@ -185,9 +198,12 @@ class FleetConfig:
   serving_hosts: int = 1
   replay_hosts: int = 0
   broadcast_degree: int = 2
-  # Learner groups (learner_hosts > 1, ROADMAP A11) and Anakin pods
-  # (pod_hosts > 0, A13 rest): checked here as in JAX, refused by
-  # `Fleet` before anything is spawned.
+  # Learner groups: learner_hosts > 1 spawns N learner processes in one
+  # gloo group (each samples batch_size / N rows, gradients averaged,
+  # rank 0 alone publishes and checkpoints); a member's death is fatal.
+  # Anakin pods: pod_hosts > 0 spawns on-device collectors of
+  # envs_per_pod functional envs rolling pod_rollout_length steps a
+  # segment, committing whole segments to their home shard.
   learner_hosts: int = 1
   pod_hosts: int = 0
   envs_per_pod: int = 64
@@ -413,12 +429,6 @@ def unported(config: FleetConfig) -> List[str]:
   if config.env == "mujoco_pose":
     out.append("env='mujoco_pose' needs MuJoCoPoseEnv (ROADMAP A10a); "
                "bind FleetConfig.env = 'pose' for the numpy PoseEnv")
-  if config.pod_hosts > 0:
-    out.append(f"pod_hosts={config.pod_hosts}: the Anakin pods "
-               "(fleet/pod.py, ROADMAP A13 rest)")
-  if config.learner_hosts > 1:
-    out.append(f"learner_hosts={config.learner_hosts}: a multi-process "
-               "learner group (ROADMAP A11)")
   return out
 
 
@@ -437,7 +447,7 @@ class Fleet:
     self._run_config = config
     self.model_dir = model_dir
     self.gin_configs = tuple(gin_configs)
-    self._ctx = mp.get_context("spawn")
+    self._ctx = proc.children_context()
     # Stop signals: the hosts have their own (they must outlive the
     # actor/learner drain so the final metrics read has someone to
     # talk to), and every actor gets a per-actor event so elastic
@@ -465,6 +475,14 @@ class Fleet:
     self._root_pipes: Dict[str, Any] = {}
     self._book_pipes: Dict[str, Any] = {}
     self._learner: Optional[mp.Process] = None
+    # A learner group's ranks > 0, by rank.
+    self._learner_peers: Dict[int, mp.Process] = {}
+    # Anakin pods: collectors supervised like actors, with their own
+    # stop events and restart counts.
+    self._pods: Dict[int, mp.Process] = {}
+    self._pod_stops: Dict[int, Any] = {}
+    self._pod_restarts: Dict[int, int] = {}
+    self._next_pod_index = config.pod_hosts
     self._actors: Dict[int, mp.Process] = {}
     self._actor_stops: Dict[int, Any] = {}
     self._draining: List[Tuple[int, mp.Process]] = []
@@ -580,14 +598,44 @@ class Fleet:
               incarnation),
         name=name, daemon=True), address)
 
-  def _spawn_learner(self, incarnation: int = 0) -> None:
-    name = "t2r-fleet-learner"
+  def _spawn_pod(self, index: int, incarnation: int) -> None:
+    name = f"t2r-fleet-pod-{index}"
+    heartbeat = self._heartbeat(name)
+    stop = self._pod_stops.get(index)
+    if stop is None:
+      stop = self._pod_stops[index] = self._ctx.Event()
     address = self._book(name)
-    self._learner = self._start(self._ctx.Process(
-        target=learner_lib.learner_main,
-        args=(self._run_config, self.model_dir, address,
-              self._heartbeat(name), incarnation),
+    self._pods[index] = self._start(self._ctx.Process(
+        target=pod_lib.pod_main,
+        args=(self._run_config, index, address, stop, heartbeat,
+              incarnation),
         name=name, daemon=True), address)
+
+  def _spawn_learner(self, incarnation: int = 0) -> None:
+    """The learner, and with `learner_hosts` = N > 1 its N − 1 peers:
+    every rank adopts one fresh coordinator address (two fleets on one
+    machine never share a port)."""
+    config = self._run_config
+    world = int(config.learner_hosts)
+    coordinator = None
+    if world > 1:
+      from tensor2robot_tpu_torch.parallel.distributed import (
+          ephemeral_coordinator_address,
+      )
+      coordinator = ephemeral_coordinator_address()
+    for rank in range(world):
+      name = ("t2r-fleet-learner" if rank == 0
+              else f"t2r-fleet-learner-r{rank}")
+      address = self._book(name)
+      process = self._start(self._ctx.Process(
+          target=learner_lib.learner_main,
+          args=(config, self.model_dir, address, self._heartbeat(name),
+                coordinator, incarnation, world, rank),
+          name=name, daemon=True), address)
+      if rank == 0:
+        self._learner = process
+      else:
+        self._learner_peers[rank] = process
 
   def _await_ready(self, parent_conn: Any, process: mp.Process,
                    what: str, timeout_secs: float) -> Tuple[str, int]:
@@ -824,6 +872,9 @@ class Fleet:
     for index in range(config.num_actors):
       self._restarts[index] = 0
       self._spawn_actor(index, incarnation=0)
+    for index in range(config.pod_hosts):
+      self._pod_restarts[index] = 0
+      self._spawn_pod(index, incarnation=0)
     self._spawn_learner(incarnation=0)
     deadline = time.monotonic() + config.launch_timeout_secs
     try:
@@ -874,7 +925,9 @@ class Fleet:
     self._t_launched = time.monotonic()
     if self._tracer is not None:
       self._tracer.event("orchestrator.launched",
-                         actors=config.num_actors)
+                         actors=config.num_actors,
+                         pods=config.pod_hosts,
+                         learner_hosts=config.learner_hosts)
 
   # ---- supervision ----
 
@@ -982,6 +1035,40 @@ class Fleet:
         f"{self.config.restart_window_secs:.0f}s window) exhausted"
         if self.config.actor_crash_policy == "restart" else
         f"actor {index} died ({fault}, {detail}) under "
+        f"policy={self.config.actor_crash_policy!r}")
+
+  def _handle_pod_failure(self, index: int, fault: str,
+                          t_detected: Optional[float] = None,
+                          **detail: Any) -> None:
+    """One dead/hung Anakin pod: the actor contract. A segment is one
+    atomic commit (or staged rows the shard aborts on disconnect), so a
+    respawn reopens a fresh session and no partial segment ever lands
+    (`adds_total % (envs_per_pod * pod_rollout_length) == 0`)."""
+    target = f"pod-{index}"
+    if (self.config.actor_crash_policy == "restart"
+        and self._budget_ok(target)):
+      self._pod_restarts[index] += 1
+      self._charge_restart(target)
+      log.warning(
+          "pod %d failed (%s %s); restart %d (budget %d per %.0fs "
+          "window); segments are committed atomically, so no partial "
+          "rows survive", index, fault, detail,
+          self._pod_restarts[index], self.config.max_actor_restarts,
+          self.config.restart_window_secs)
+      if t_detected is None:
+        t_detected = time.monotonic()
+      self._spawn_pod(index, incarnation=self._pod_restarts[index])
+      self._begin_recovery(fault, target, f"t2r-fleet-pod-{index}",
+                           t_detected=t_detected, **detail)
+      return
+    raise FleetError(
+        f"pod {index} died ({fault}, {detail}) under "
+        f"policy={self.config.actor_crash_policy!r} after "
+        f"{self._pod_restarts[index]} restart(s) — restart budget "
+        f"({self.config.max_actor_restarts} per "
+        f"{self.config.restart_window_secs:.0f}s window) exhausted"
+        if self.config.actor_crash_policy == "restart" else
+        f"pod {index} died ({fault}, {detail}) under "
         f"policy={self.config.actor_crash_policy!r}")
 
   def _handle_front_failure(self, index: int, fault: str,
@@ -1144,7 +1231,10 @@ class Fleet:
     now = time.monotonic()
     for name, value in list(self._heartbeats.items()):
       is_actor = name.startswith("t2r-fleet-actor-")
-      timeout = actor_timeout if is_actor else global_timeout
+      # Pods beat per segment as actors beat per batch: they share the
+      # collector timeout and the kill-and-respawn policy.
+      is_pod = name.startswith("t2r-fleet-pod-")
+      timeout = actor_timeout if (is_actor or is_pod) else global_timeout
       if not timeout:
         continue
       last = max(value.value, self._spawned_at.get(name, 0.0))
@@ -1170,6 +1260,23 @@ class Fleet:
         self._handle_front_failure(
             index, faults_lib.SERVING_REPLICA_CRASH,
             t_detected=t_detected, stale_secs=round(stale, 1))
+        continue
+      if is_pod and self.config.actor_crash_policy == "restart":
+        index = int(name.rsplit("-", 1)[1])
+        process = self._pods.get(index)
+        if process is None:
+          continue  # drained by a concurrent scale_pods_to
+        log.warning("pod %d heartbeat stale for %.0fs; killing the "
+                    "hung process for respawn", index, stale)
+        t_detected = time.monotonic()
+        process.terminate()
+        process.join(timeout=5.0)
+        if process.is_alive():
+          process.kill()
+          process.join(timeout=5.0)
+        self._handle_pod_failure(index, faults_lib.ACTOR_HANG,
+                                 t_detected=t_detected,
+                                 stale_secs=round(stale, 1))
         continue
       if is_actor and self.config.actor_crash_policy == "restart":
         index = int(name.rsplit("-", 1)[1])
@@ -1300,7 +1407,8 @@ class Fleet:
               f"(role {alert['role']})")
     extra: Dict[str, Any] = {"alert": alert,
                              "heartbeat_ages_secs": self._heartbeat_ages(),
-                             "actor_restarts": dict(self._restarts)}
+                             "actor_restarts": dict(self._restarts),
+                             "pod_restarts": dict(self._pod_restarts)}
     if self._controller is not None:
       # An escalated page means the act tier did not remediate; the
       # decision tail shows why (cooldown, budget, actuator error).
@@ -1333,7 +1441,8 @@ class Fleet:
     extra = {"decision": {k: v for k, v in decision.items()
                           if k != "detail"},
              "heartbeat_ages_secs": self._heartbeat_ages(),
-             "actor_restarts": dict(self._restarts)}
+             "actor_restarts": dict(self._restarts),
+             "pod_restarts": dict(self._pod_restarts)}
     if self._controller is not None:
       extra["control"] = self._controller.flight_extra()
     flightrec.dump(self._run_config.flightrec_dir, reason,
@@ -1348,7 +1457,8 @@ class Fleet:
     if not self._run_config.flightrec_dir:
       return
     extra: Dict[str, Any] = {"heartbeat_ages_secs": self._heartbeat_ages(),
-                             "actor_restarts": dict(self._restarts)}
+                             "actor_restarts": dict(self._restarts),
+                             "pod_restarts": dict(self._pod_restarts)}
     if self._controller is not None:
       # What the control plane saw and did before the latch.
       extra["control"] = self._controller.flight_extra()
@@ -1380,12 +1490,38 @@ class Fleet:
                     process.exitcode)
     self._draining = still
 
+  def _join_learner_peers(self) -> None:
+    """Rank 0 ended cleanly: the run is clean only if every peer rank
+    ends cleanly too, within `PEER_EXIT_SECS`."""
+    deadline = time.monotonic() + PEER_EXIT_SECS
+    for rank, process in self._learner_peers.items():
+      process.join(timeout=max(0.0, deadline - time.monotonic()))
+      if process.exitcode is None:
+        raise FleetError(
+            f"learner group rank {rank} did not exit within "
+            f"{PEER_EXIT_SECS:.0f}s of rank 0's clean end")
+      if process.exitcode != 0:
+        raise FleetError(
+            f"learner group rank {rank} failed after rank 0's clean end "
+            f"(exit {process.exitcode})")
+
   def _supervise_once(self) -> bool:
     """One poll; returns True when the learner finished cleanly."""
     with self._scale_lock:
+      # Learner-group peers first: a dead rank tears the collective, so
+      # rank 0 is (or soon will be) stuck in a reduction; the peer's
+      # exit code is the root cause.
+      for rank, process in self._learner_peers.items():
+        if process.exitcode is not None and process.exitcode != 0:
+          raise FleetError(
+              f"learner group rank {rank} died (exit {process.exitcode}): "
+              "the collective is torn, so the whole group is lost "
+              "(learner_crash_policy='fatal' is the only sound policy for "
+              "learner_hosts > 1)")
       learner = self._learner
       if learner.exitcode is not None:
         if learner.exitcode == 0:
+          self._join_learner_peers()
           return True
         if (self.config.learner_crash_policy == "resume"
             and self._budget_ok("learner")):
@@ -1441,6 +1577,11 @@ class Fleet:
         # scale-down drain, both of which remove the actor first).
         self._handle_actor_failure(index, faults_lib.ACTOR_CRASH,
                                    exitcode=process.exitcode)
+      for index, process in list(self._pods.items()):
+        if process.exitcode is None:
+          continue
+        self._handle_pod_failure(index, faults_lib.ACTOR_CRASH,
+                                 exitcode=process.exitcode)
       self._reap_draining()
       self._check_heartbeats()
       self._complete_recoveries()
@@ -1502,6 +1643,53 @@ class Fleet:
   @property
   def num_actors(self) -> int:
     return len(self._actors)
+
+  @property
+  def num_pods(self) -> int:
+    return len(self._pods)
+
+  def scale_pods_to(self, num_pods: int) -> None:
+    """Elastic pod membership, as `scale_to`: grow under fresh indices,
+    shrink by setting the highest-indexed pods' stop events (each
+    finishes and commits its current segment, then exits, joined by the
+    supervision drain). 0 is allowed while process actors remain: the
+    fleet needs one collector tier non-empty."""
+    if num_pods < 0:
+      raise ValueError(f"num_pods must be >= 0, got {num_pods}")
+    with self._scale_lock:
+      if not self._launched or self._closed:
+        raise FleetError("scale_pods_to() needs a launched, open fleet")
+      if num_pods == 0 and not self._actors:
+        raise FleetError(
+            "scale_pods_to(0) would leave the fleet with no collectors "
+            "(no process actors remain)")
+      current = sorted(self._pods)
+      delta = num_pods - len(current)
+      if delta == 0:
+        return
+      now = time.monotonic()
+      if delta > 0:
+        for _ in range(delta):
+          index = self._next_pod_index
+          self._next_pod_index += 1
+          self._pod_restarts[index] = 0
+          self._spawn_pod(index, incarnation=0)
+          self.scale_events.append(
+              {"action": "add_pod", "index": index, "t": now})
+      else:
+        for index in current[delta:]:
+          process = self._pods.pop(index)
+          self._pod_stops.pop(index).set()
+          name = f"t2r-fleet-pod-{index}"
+          self._heartbeats.pop(name, None)
+          self._spawned_at.pop(name, None)
+          self._draining.append((index, process))
+          self.scale_events.append(
+              {"action": "remove_pod", "index": index, "t": now})
+      tmetrics.gauge("fleet.pods").set(len(self._pods))
+      if self._tracer is not None:
+        self._tracer.event("fleet.scaled_pods", pods=len(self._pods))
+      log.info("fleet scaled to %d pods", len(self._pods))
 
   @property
   def num_fronts(self) -> int:
@@ -1599,8 +1787,7 @@ class Fleet:
     existing failure paths take over, so an actor respawns under the
     actor budget and a front under the front budget, with the MTTR
     accounting of an organic crash. Accepts telemetry role names
-    (`actor-3`, `front1`); a pod (`pod-N`) raises until the pods are
-    ported (ROADMAP A13 rest), and anything else (learner, host, shard,
+    (`actor-3`, `front1`, `pod-0`); anything else (learner, host, shard,
     "fleet") raises: kicking a load-bearing role is an outage."""
     match = re.fullmatch(r"(actor|front|pod)-?(\d+)", role)
     if match is None:
@@ -1608,14 +1795,11 @@ class Fleet:
           f"role {role!r} is not kickable (only actor-N / front-N / "
           f"pod-N are recoverable by respawn)")
     kind, index = match.group(1), int(match.group(2))
-    if kind == "pod":
-      raise FleetUnported(
-          f"kick({role!r}): the Anakin pods (fleet/pod.py) are not "
-          "ported (ROADMAP A13 rest)")
     with self._scale_lock:
       if not self._launched or self._closed:
         raise FleetError("kick() needs a launched, open fleet")
-      processes = {"actor": self._actors, "front": self._fronts}[kind]
+      processes = {"actor": self._actors, "front": self._fronts,
+                   "pod": self._pods}[kind]
       process = processes.get(index)
       if process is None or process.exitcode is not None:
         raise FleetError(f"{role} is not running (already respawned "
@@ -1637,6 +1821,9 @@ class Fleet:
       if kind == "actor":
         self._handle_actor_failure(index, faults_lib.ACTOR_HANG,
                                    t_detected=t_detected, kicked=True)
+      elif kind == "pod":
+        self._handle_pod_failure(index, faults_lib.ACTOR_HANG,
+                                 t_detected=t_detected, kicked=True)
       else:
         self._handle_front_failure(
             index, faults_lib.SERVING_REPLICA_CRASH,
@@ -1733,9 +1920,11 @@ class Fleet:
 
   def _all_processes(self) -> List[mp.Process]:
     procs = list(self._actors.values())
+    procs.extend(self._pods.values())
     procs.extend(process for _, process in self._draining)
     if self._learner is not None:
       procs.append(self._learner)
+    procs.extend(self._learner_peers.values())
     if self._host is not None:
       procs.append(self._host)
     procs.extend(self._serving.values())
@@ -1766,11 +1955,19 @@ class Fleet:
       self._book_pipes.clear()
       for stop in self._actor_stops.values():
         stop.set()
+      for stop in self._pod_stops.values():
+        stop.set()
       actors = list(self._actors.items())
+      pods = list(self._pods.items())
       draining = list(self._draining)
     for index, process in actors + draining:
       self._join_or_kill(process, timeout_secs / 2,
                          f"actor {index}")
+    # Pods drain before the final metrics read, as actors do: their last
+    # segment commit and telemetry push must land on the hosts the reads
+    # below aggregate.
+    for index, process in pods:
+      self._join_or_kill(process, timeout_secs / 2, f"pod {index}")
     metrics = None
     if (collect_metrics and self._host is not None
         and self._host.is_alive()):
@@ -1838,6 +2035,8 @@ class Fleet:
       self._control = None
     if self._learner is not None:
       self._join_or_kill(self._learner, timeout_secs / 2, "learner")
+    for rank, process in self._learner_peers.items():
+      self._join_or_kill(process, timeout_secs / 2, f"learner rank {rank}")
     if self._host is not None:
       self._join_or_kill(self._host, timeout_secs / 2, "host")
     for index, process in self._serving.items():
@@ -1893,8 +2092,9 @@ class Fleet:
     """The `FleetResult` of a run from its final metrics (`shutdown`'s
     return) and its wall seconds, with this fleet's recovery and
     membership accounting."""
-    result = _result_from_metrics(metrics, wall_secs,
-                                  sum(self._restarts.values()))
+    result = _result_from_metrics(
+        metrics, wall_secs,
+        sum(self._restarts.values()) + sum(self._pod_restarts.values()))
     result.recoveries = list(self.recoveries)
     result.learner_restarts = self._learner_restarts
     result.scale_events = list(self.scale_events)

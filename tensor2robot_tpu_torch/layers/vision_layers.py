@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tensor2robot_tpu_torch.layers.core import dense
+from tensor2robot_tpu_torch.parallel import collectives
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm default
 
@@ -67,7 +68,10 @@ class BatchNorm(nn.Module):
   running statistics. In train mode (`use_running_average=False`) it
   normalizes with the batch's own: mean and biased variance over every
   axis but the last, in f32 from the compute-dtype input, as
-  E[x²] − E[x]² floored at 0 (flax's `use_fast_variance`). The running
+  E[x²] − E[x]² floored at 0 (flax's `use_fast_variance`); inside
+  `parallel.collectives.data_parallel` over a group of more than one
+  process, over the global batch (every rank's rows, as the JAX
+  package's GSPMD step computes them), with an exact backward. The running
   statistics it would move to, 0.9·old + 0.1·batch in f32, are left in
   `self.update` (and the buffers are never written): the caller's state
   stays as it was, as under JAX (`collect_batch_stats`).
@@ -89,9 +93,15 @@ class BatchNorm(nn.Module):
       return _normalize(x, self.mean, self.var, self.scale, self.bias,
                         self.dtype)
     xf = x.to(self.dtype).float()
-    axes = tuple(range(xf.dim() - 1))
-    mean = xf.mean(dim=axes)
-    var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+    group = collectives.active_group()
+    if group is None:
+      axes = tuple(range(xf.dim() - 1))
+      mean = xf.mean(dim=axes)
+      mean_sq = (xf * xf).mean(dim=axes)
+    else:
+      # One rank of a data-parallel step: the global batch's moments.
+      mean, mean_sq = collectives.global_moments(xf, group)
+    var = torch.clamp_min(mean_sq - mean * mean, 0.0)
     # The running statistics carry no gradient (flax returns them as
     # mutated state, outside the differentiated loss).
     m = self.MOMENTUM

@@ -440,7 +440,7 @@ class ReplayFront:
   # ---- commits ----
 
   def _record_commit(self, rows: int, policy_learner_step,
-                     hop: Optional[int]) -> None:
+                     hop: Optional[int], collector: str) -> None:
     now = time.monotonic()
     with self._lock:
       first = self._commit_window[0] if self._commit_window else now
@@ -449,6 +449,10 @@ class ReplayFront:
       self.lag.record(
           self.store.learner_step - int(policy_learner_step), rows,
           hop=hop)
+      # The lag's rows by collector (an actor or a pod): which collectors
+      # the distribution covers.
+      tmetrics.counter(
+          f"fleet.param_refresh_lag_rows.{collector}").inc(rows)
 
   def commit(self, payload: Dict[str, Any], ctx: dict) -> bool:
     session = self.session_for(payload["actor_id"], ctx)
@@ -456,7 +460,7 @@ class ReplayFront:
     if accepted:
       rows = int(next(iter(payload["transitions"].values())).shape[0])
       self._record_commit(rows, payload.get("policy_learner_step"),
-                          payload.get("policy_hop"))
+                          payload.get("policy_hop"), payload["actor_id"])
     return bool(accepted)
 
   def begin_episode(self, actor_id: str, ctx: dict) -> bool:
@@ -476,7 +480,7 @@ class ReplayFront:
       self._record_commit(
           session.transitions_committed - committed_before,
           payload.get("policy_learner_step"),
-          payload.get("policy_hop"))
+          payload.get("policy_hop"), payload["actor_id"])
     return bool(accepted)
 
   # ---- sampling / learner tag ----

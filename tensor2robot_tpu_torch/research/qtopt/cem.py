@@ -86,6 +86,17 @@ def cem_maximize(
   return CEMResult(best_action, best_score, mean, std)
 
 
+def draw_noise(generator: torch.Generator, iterations: int, batch_size: int,
+               population: int, action_dim: int) -> torch.Tensor:
+  """The `[iterations, B, P, A]` noise `cem_maximize` draws from
+  `generator` (one `[B, P, A]` standard-normal draw per iteration), as a
+  tensor to pass as its `noise`."""
+  return torch.stack([torch.randn(
+      (batch_size, population, action_dim), generator=generator,
+      dtype=torch.float32, device=generator.device)
+                      for _ in range(iterations)])
+
+
 def make_encoded_q_score_fn(network, state_features
                             ) -> Callable[[torch.Tensor], torch.Tensor]:
   """Score fn over an encode/head-split Q-network (a bound module).

@@ -19,7 +19,12 @@ scoring tail as sort + gather or in the fused kernel (`cem_select`):
 four paths. The int8 tower needs activation scales from `calibrate()`
 (or `ensure_calibrated()`) before a step or policy runs.
 
-Not ported: data-parallel steps (`axis_name`, ROADMAP A11) raise.
+Inside `parallel.collectives.data_parallel` over a learner group, a
+step is one rank's shard of the global batch: batch norm normalizes with
+the global batch's moments and the gradients and metrics are averaged
+over the group before the optimizer step (the JAX mesh's implicit
+all-reduce), so every rank applies the same update. Not ported:
+pmap-style steps (`axis_name`, ROADMAP A11 rest) raise.
 """
 
 from __future__ import annotations
@@ -34,8 +39,10 @@ import torch
 from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.device import resolve_device
+from tensor2robot_tpu_torch.models import optimizers as opt_lib
 from tensor2robot_tpu_torch.models.abstract_model import Metrics, TrainState
 from tensor2robot_tpu_torch.ops import fused_cem_select
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.research.qtopt import cem
 from tensor2robot_tpu_torch.research.qtopt import networks as net_lib
 from tensor2robot_tpu_torch.research.qtopt.t2r_models import GraspingQModel
@@ -375,8 +382,9 @@ class QTOptLearner:
     (grads, new batch stats, metrics)."""
     if axis_name is not None:
       raise NotImplementedError(
-          f"axis_name={axis_name!r}: data-parallel steps are not ported "
-          "yet (ROADMAP A11).")
+          f"axis_name={axis_name!r}: pmap-style steps are not ported "
+          "yet (ROADMAP A11 rest); a learner group's step runs inside "
+          "parallel.collectives.data_parallel.")
     features, next_features, flat = _split_transitions(transitions)
     ts = state.train_state
     q_next = self._target_q_values(state.target_params, ts.batch_stats,
@@ -391,6 +399,15 @@ class QTOptLearner:
         ts, features, {"target_q": target[:, None]})
     metrics["q_next_mean"] = torch.mean(q_next)
     metrics["target_mean"] = torch.mean(target)
+    group = collectives.active_group()
+    if group is not None:
+      # One rank of a learner group: its rows' gradients (batch norm
+      # already normalized with the global batch's moments) and metrics
+      # averaged over the group, so every rank applies the gradient of
+      # the global batch's mean loss, as the JAX mesh's step does.
+      grads = collectives.all_reduce_mean(grads, group)
+      metrics = collectives.all_reduce_mean(metrics, group)
+      metrics["grad_norm"] = opt_lib.global_norm(grads)
     return grads, new_stats, metrics
 
   def apply_gradients(self, state: QTOptState, grads, new_stats

@@ -39,14 +39,34 @@ resource sampler (host RSS, the card's allocator bytes), and a
 qtopt_step_flops`, the analytic count, over the card's peak) join every
 record with the ``rsrc.*`` and ``compile_cache.*`` gauges; the alert
 sentinel (`telemetry.sentinel.build_for_run`) evaluates the registry
-and each record at log cadence, as in JAX. Not ported: a mesh (ROADMAP
-A11) and multi-process learner groups with their sharded update (A13,
-A11) raise.
+and each record at log cadence, as in JAX.
+
+A learner group (a `torch.distributed` group of more than one process,
+`parallel.distributed.maybe_initialize_distributed`) trains over the
+data axis of `parallel.mesh.create_mesh`: `batch_size` is per process,
+every rank samples its own rows and runs each step inside
+`parallel.collectives.data_parallel` (batch norm over the global batch,
+gradients and metrics averaged over the group), rank 0's initial state
+is every rank's, and each step's CEM noise is the global batch's draw
+from the step's generator, this rank's rows of it, so the group's step
+is the one-process step on the global batch. Only rank 0 (the chief)
+owns the host-side surfaces: the checkpoints, the metric log, the
+sentinel and the replay's learner-step tags; every rank runs its hooks.
+At the end the ranks' params and batch statistics are gathered by digest
+and must be equal; the chief writes them to `learner_group.json`.
+The group's steps run eagerly (a collective cannot sit inside a CUDA
+graph capture); the analytic FLOPs count the global batch, and
+`perf.mfu` divides them by the peak of the distinct devices the group
+spans (one for a group on one card). At world size 1 the path is the
+one-process path, graphed, bit for bit. Not ported: a mesh other than
+the data axis and `shard_weight_update` across a group's ranks (ROADMAP
+A11 rest) raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import time
@@ -57,6 +77,9 @@ import torch
 from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.data import prefetch as prefetch_lib
 from tensor2robot_tpu_torch.hooks import Hook, HookList
+from tensor2robot_tpu_torch.parallel import collectives, distributed
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+from tensor2robot_tpu_torch.research.qtopt import cem
 from tensor2robot_tpu_torch.research.qtopt.qtopt_learner import (
     QTOptLearner,
     QTOptState,
@@ -100,6 +123,39 @@ def k_step_fn(learner: QTOptLearner, k: int) -> Callable:
   return fn
 
 
+def group_noise(learner: QTOptLearner, generator: torch.Generator,
+                local_batch: int, rank: int, world: int) -> torch.Tensor:
+  """A learner-group rank's CEM noise `[iterations, local_batch, P, A]`:
+  its rows of the draws a one-process step on the global batch
+  (`world · local_batch` rows) takes from `generator`."""
+  noise = cem.draw_noise(generator, learner.cem_iterations,
+                         world * local_batch, learner.cem_population,
+                         learner.model.action_dim)
+  return noise[:, rank * local_batch:(rank + 1) * local_batch]
+
+
+GROUP_FILENAME = "learner_group.json"
+
+
+def _check_ranks_agree(state: QTOptState, step: int, world: int,
+                       chief: bool, model_dir: str) -> None:
+  """A learner group's end: every rank's params and batch statistics,
+  by digest, gathered and held equal (ranks that drifted apart raise);
+  the chief writes them to `<model_dir>/learner_group.json`."""
+  ts = state.train_state
+  ranks = collectives.all_gather_object(
+      ckpt_lib.tensor_digests({**ts.params, **ts.batch_stats}))
+  if any(r != ranks[0] for r in ranks):
+    differ = sorted(k for k in ranks[0]
+                    if len({r.get(k) for r in ranks}) > 1)
+    raise RuntimeError(f"learner group ranks ended apart at step {step}: "
+                       f"{differ}")
+  if chief:
+    with open(os.path.join(model_dir, GROUP_FILENAME), "w") as f:
+      json.dump({"world_size": world, "step": step,
+                 "rank_digests": ranks}, f)
+
+
 def _at_step(state: QTOptState, step: int) -> QTOptState:
   return dataclasses.replace(
       state, train_state=dataclasses.replace(state.train_state, step=step))
@@ -135,22 +191,33 @@ def train_qtopt(
   `prefill_random=True` adds `min(capacity, 4·batch_size)` spec-random
   transitions drawn from `seed` first (benchmarks, smoke runs).
   """
-  if mesh is not None:
+  if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
     raise NotImplementedError(
-        "train_qtopt(mesh=...): meshes are not ported yet (ROADMAP A11).")
-  if (torch.distributed.is_available() and torch.distributed.is_initialized()
-      and torch.distributed.get_world_size() > 1):
+        f"train_qtopt(mesh={type(mesh).__name__}): only the data-axis "
+        "mesh of parallel.mesh.create_mesh is ported (ROADMAP A11 rest).")
+  world = collectives.group_size()
+  if world > 1 and shard_weight_update:
     raise NotImplementedError(
-        "multi-process learner groups are not ported yet (ROADMAP A13), "
-        "nor is shard_weight_update across their ranks (A11).")
+        "shard_weight_update across a learner group's ranks is a sharded "
+        "optimizer (ROADMAP A11 rest).")
   # Validate the dispatch quantization before any side effects.
   k = prefetch_lib.validate_steps_per_dispatch(
       steps_per_dispatch,
       log_every_steps=log_every_steps,
       save_checkpoints_steps=save_checkpoints_steps,
       max_train_steps=max_train_steps)
-  os.makedirs(model_dir, exist_ok=True)
   device = learner.device
+  if mesh is not None and mesh.size != world:
+    raise ValueError(f"mesh {mesh.shape} spans {mesh.size} devices; the "
+                     f"process group has {world}")
+  rank = distributed.process_index()
+  # Only the chief owns the host-side surfaces (files and replay tags).
+  chief = rank == 0
+  if chief:
+    os.makedirs(model_dir, exist_ok=True)
+  group = world > 1
+  # A collective cannot sit inside a capture: the group steps eagerly.
+  graphs = graphs and not group
   hook_list = HookList(list(hooks))
 
   spec = learner.transition_specification()
@@ -161,10 +228,15 @@ def train_qtopt(
         spec, batch_size=min(replay_buffer.capacity, 4 * batch_size),
         seed=seed))
   state = learner.create_state(seed)
-  resume_step = ckpt_lib.latest_step(model_dir)
+  resume_step = ckpt_lib.latest_step(model_dir) if chief else None
   if resume_step is not None:
     log.info("Resuming QT-Opt from step %d", resume_step)
     state = ckpt_lib.restore_state(model_dir, like=state, step=resume_step)
+  if group:
+    # Every rank starts from the chief's state (and its resume step).
+    resume_step, leaves = collectives.broadcast_object(
+        (resume_step, ckpt_lib.flatten_state(state) if chief else None))
+    state = ckpt_lib.unflatten_state(state, leaves)
   step = int(state.step)
   if k > 1 and step % k and step < max_train_steps:
     raise ValueError(
@@ -173,17 +245,22 @@ def train_qtopt(
         "never align. Resume with K=1 (or a K dividing the resume step) "
         "first.")
 
-  metric_logger = MetricLogger(model_dir)
-  writer = ckpt_lib.CheckpointWriter(model_dir,
-                                     max_to_keep=max_checkpoints_to_keep)
+  metric_logger = MetricLogger(model_dir) if chief else None
+  writer = (ckpt_lib.CheckpointWriter(model_dir,
+                                      max_to_keep=max_checkpoints_to_keep)
+            if chief else None)
   registry = tmetrics.registry()
   perf_lib.start_resource_sampler(
       sources=[profiling.device_memory_source()])
-  watch_sentinel = sentinel_lib.build_for_run(model_dir)
+  watch_sentinel = sentinel_lib.build_for_run(model_dir) if chief else None
+  # `batch_size` is per process: the step's work is the global batch's,
+  # over the peak of the devices the group spans (ranks sharing a card
+  # share its peak).
   perf_meter = perf_lib.PerfMeter(
       flops_per_step=profiling.qtopt_step_flops(
-          learner, batch_size, params=state.train_state.params),
-      peak_flops=profiling.device_peak_flops(device), devices=1)
+          learner, batch_size * world, params=state.train_state.params),
+      peak_flops=profiling.device_peak_flops(device),
+      devices=collectives.distinct_devices(device))
   prefetcher = None
   graph = None
 
@@ -199,7 +276,12 @@ def train_qtopt(
     # The int8 tower's activation scales calibrate on a real replay batch
     # before the first dispatch (a captured step reads them).
     if learner.needs_calibration:
-      learner.calibrate(state, replay_buffer.sample(batch_size))
+      calibration = replay_buffer.sample(batch_size)
+      if group:
+        # One calibration for the group: the scales are the step's.
+        calibration = collectives.broadcast_object(
+            calibration if chief else None)
+      learner.calibrate(state, calibration)
     stream = replay_buffer.as_stream(batch_size)
     if k > 1:
       stream = prefetch_lib.stack_batches(stream, k)
@@ -207,7 +289,8 @@ def train_qtopt(
         prefetch_buffer_size, online=hook_list.drives_online_collection)
     prefetcher = prefetch_lib.DevicePrefetcher(stream, device,
                                                buffer_size=depth)
-    replay_buffer.set_learner_step(step)
+    if chief:
+      replay_buffer.set_learner_step(step)
     prefetch_iter = prefetch_lib.TimedIterator(prefetcher)
     t_last = time.time()
     steps_since_log = 0
@@ -228,14 +311,21 @@ def train_qtopt(
                      [{key: v[i] for key, v in transitions.items()}
                       for i in range(k)])
           for i, batch in enumerate(batches):
-            state, metrics = learner.train_step(
-                state, batch,
-                generator=step_generator(seed, step + i, device))
+            generator = step_generator(seed, step + i, device)
+            if not group:
+              state, metrics = learner.train_step(state, batch,
+                                                  generator=generator)
+              continue
+            with collectives.data_parallel():
+              state, metrics = learner.train_step(
+                  state, batch, noise=group_noise(
+                      learner, generator, batch_size, rank, world))
       step += k
       steps_since_log += k
-      replay_buffer.set_learner_step(step)
+      if chief:
+        replay_buffer.set_learner_step(step)
       hook_list.after_step(step, metrics)
-      if step % log_every_steps == 0 or step == max_train_steps:
+      if chief and (step % log_every_steps == 0 or step == max_train_steps):
         scalars = {key: v.item() for key, v in metrics.items()}
         dt = time.time() - t_last
         scalars["grad_steps_per_sec"] = steps_since_log / max(dt, 1e-9)
@@ -254,13 +344,17 @@ def train_qtopt(
         steps_since_log = 0
       if step % save_checkpoints_steps == 0 or step == max_train_steps:
         saved = current()
-        writer.save(step, saved)
+        if chief:
+          writer.save(step, saved)
         last_saved = step
         hook_list.after_checkpoint(step, saved.train_state, model_dir)
     state = current()
     if last_saved != step:
-      writer.save(step, state)
+      if chief:
+        writer.save(step, state)
       hook_list.after_checkpoint(step, state.train_state, model_dir)
+    if group:
+      _check_ranks_agree(state, step, world, chief, model_dir)
   finally:
     try:
       hook_list.end(step, current().train_state, model_dir)
@@ -270,5 +364,6 @@ def train_qtopt(
       prefetcher.close()
     if watch_sentinel is not None:
       watch_sentinel.close()
-    metric_logger.close()
+    if metric_logger is not None:
+      metric_logger.close()
   return state

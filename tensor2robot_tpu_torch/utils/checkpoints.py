@@ -18,6 +18,7 @@ it is not written.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import re
 import shutil
@@ -57,6 +58,19 @@ def flatten_state(state: Any, prefix: str = "") -> Dict[str, Any]:
   for name, child in children.items():
     out.update(flatten_state(child, f"{prefix}/{name}" if prefix else name))
   return out
+
+
+def tensor_digests(tensors: Dict[str, torch.Tensor]) -> Dict[str, str]:
+  """SHA-256 of each tensor's bytes (on the CPU), keyed by name."""
+  return {name: hashlib.sha256(
+      value.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+          for name, value in sorted(tensors.items())}
+
+
+def unflatten_state(like: Any, leaves: Dict[str, Any]) -> Any:
+  """`flatten_state`'s inverse: `leaves` in `like`'s structure, each
+  tensor on its `like` leaf's device and dtype."""
+  return _rebuild(like, leaves)
 
 
 def _rebuild(like: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:

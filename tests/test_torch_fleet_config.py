@@ -8,10 +8,11 @@ process is spawned here.
     defaults; for a table of invalid configs it raises JAX's exception
     type with JAX's message, and the shipped fleet gins parse into the
     same config in both registries.
-  * What the port does not run yet (the `mujoco_pose` env, pods,
-    learner groups) is refused at `Fleet` construction by a
-    `FleetUnported` naming its ROADMAP item, before any process or
-    directory is made; front replicas and the control plane are not.
+  * What the port does not run yet (the `mujoco_pose` env) is refused
+    at `Fleet` construction by a `FleetUnported` naming its ROADMAP item
+    (A10a only, beside pods or a learner group), before any process or
+    directory is made; front replicas, the control plane, Anakin pods
+    and learner groups are not.
   * `_merge_fleet_metrics` and `_result_from_metrics` equal JAX's on the
     same seeded snapshot dicts.
 """
@@ -144,17 +145,17 @@ def test_shipped_gins_parse_to_jax_configs(gin_file):
   assert port is not None and jax is not None
 
 
+# The physics env is the one refusal left: beside fronts, the control
+# plane, pods or a learner group, the message names A10a alone.
+_A10A_ONLY = r"yet: env='mujoco_pose' needs MuJoCoPoseEnv \(ROADMAP A10a\)"
 _REFUSED = [
     (dict(), "A10a"),  # the JAX default env: mujoco_pose
-    # Fronts and the control plane run: beside pods or a learner group,
-    # only those are refused.
-    (dict(env="pose", front_hosts=2, pod_hosts=1),
-     "yet: pod_hosts=1: the Anakin pods"),
-    (dict(env="pose", pod_hosts=1), "pods.*A13 rest"),
-    (dict(env="pose", control=True, learner_hosts=2),
-     "yet: learner_hosts=2: a multi-process"),
-    (dict(env="pose", learner_hosts=2), "learner group.*A11"),
-    (dict(pod_hosts=1, learner_hosts=2), "A10a.*pods.*A11"),
+    (dict(front_hosts=2, pod_hosts=1), "A10a beside fronts and pods"),
+    (dict(pod_hosts=1), "A10a beside pods"),
+    (dict(control=True, learner_hosts=2),
+     "A10a beside the control plane and a learner group"),
+    (dict(learner_hosts=2), "A10a beside a learner group"),
+    (dict(pod_hosts=1, learner_hosts=2), "A10a beside pods and a group"),
 ]
 
 
@@ -164,12 +165,13 @@ def test_refusals_raise_before_anything_is_made(tmp_path, kwargs, item):
   config = orch.FleetConfig(**kwargs)
   children = set(mp.active_children())
   model_dir = str(tmp_path / "fleet")
-  with pytest.raises(orch.FleetUnported, match=item) as info:
+  with pytest.raises(orch.FleetUnported, match=_A10A_ONLY) as info:
     orch.Fleet(config, model_dir)
-  assert not re.search("front|control", str(info.value))
+  assert not re.search("front|control|pod|learner|A11|A13",
+                       str(info.value))
   assert isinstance(info.value, FleetError)
   assert isinstance(info.value, NotImplementedError)
-  with pytest.raises(orch.FleetUnported, match=item):
+  with pytest.raises(orch.FleetUnported, match=_A10A_ONLY):
     orch.run_fleet(model_dir=model_dir, config=config)
   assert set(mp.active_children()) == children
   assert not os.path.exists(model_dir)
@@ -182,6 +184,9 @@ def test_a_runnable_config_is_not_refused(tmp_path):
       replay_hosts=2)) == []
   assert orch.unported(orch.FleetConfig(
       env="pose", front_hosts=2, front_spread=2, control=True)) == []
+  assert orch.unported(orch.FleetConfig(
+      env="pose", pod_hosts=1, learner_hosts=2, transport="tcp",
+      serving_hosts=2, replay_hosts=2)) == []
   fleet = orch.Fleet(orch.FleetConfig(env="pose", device="cpu"),
                      str(tmp_path))
   assert fleet.num_actors == 0  # nothing spawned before launch()
@@ -189,17 +194,21 @@ def test_a_runnable_config_is_not_refused(tmp_path):
 
 def test_front_and_control_levers_before_launch(tmp_path):
   """The levers the control plane pulls, on a fleet not launched yet:
-  the front tier is empty, membership changes need a launched fleet,
-  only actor-N / front-N are kickable, and a pod names its ROADMAP
-  item."""
+  the front tier and the pods are empty, membership changes need a
+  launched fleet, and only actor-N / front-N / pod-N are kickable."""
   fleet = orch.Fleet(orch.FleetConfig(env="pose", device="cpu",
                                       front_hosts=2, control=True),
                      str(tmp_path))
   assert fleet.num_fronts == 0 and fleet.front_addresses == {}
   assert fleet.retune_admission("policy", factor=0.5) == {}
   assert fleet.admission_slo_reports() == {}
-  with pytest.raises(orch.FleetUnported, match="A13 rest"):
+  assert fleet.num_pods == 0
+  with pytest.raises(FleetError, match="launched"):
     fleet.kick("pod-0")
+  with pytest.raises(FleetError, match="launched"):
+    fleet.scale_pods_to(1)
+  with pytest.raises(ValueError):
+    fleet.scale_pods_to(-1)
   for role in ("learner", "host", "shard0", "fleet"):
     with pytest.raises(FleetError, match="not kickable"):
       fleet.kick(role)
@@ -294,11 +303,16 @@ def test_the_learner_step_of_a_poll(payload, step):
   assert orch.learner_step(payload) == step
 
 
-def test_a_learner_group_raises_naming_a11():
-  """The learner is one process; a group (JAX's `learner_hosts > 1`,
-  refused by `Fleet` first) raises in the learner's entry too."""
+def test_a_learner_rank_checks_its_plan_before_anything_else():
+  """A learner group's rank validates its plan (JAX's
+  `learner_group_plan`) before it scrubs, builds or connects: a batch
+  that does not divide, or a rank outside the group, raises there."""
   from tensor2robot_tpu_torch.fleet import learner as learner_lib
-  config = orch.FleetConfig(env="pose", device="cpu")
-  with pytest.raises(NotImplementedError, match="A11"):
+  config = orch.FleetConfig(env="pose", device="cpu", batch_size=15)
+  with pytest.raises(ValueError, match="divide"):
     learner_lib.learner_main(config, "/nonexistent", None, None,
                              world_size=2)
+  with pytest.raises(ValueError, match="rank"):
+    learner_lib.learner_main(orch.FleetConfig(env="pose", device="cpu"),
+                             "/nonexistent", None, None, world_size=2,
+                             rank=2)

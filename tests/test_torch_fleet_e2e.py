@@ -205,7 +205,16 @@ def test_serving_replicated_gin_with_a_front_crash(tmp_path):
 
 
 def test_fleet_autopilot_gin_actuates_scale_actors(tmp_path):
+  """The actor rule needs four polls of a rising `replay.adds` (warm-up
+  and three sustained breaches) before the learner's last step, and the
+  learner's 64 steps at this width can end within about as many polls.
+  The learner is held for it: each of its 64 `set_learner_step` calls
+  waits 0.15 s (a fault plan's `rpc_delay`), so its steps take at least
+  9.6 s, about 19 polls at 0.5 s."""
   model_dir = str(tmp_path / "autopilot")
+  hold = faults.FaultPlan(seed=0, events=(faults.FaultEvent(
+      fault=faults.RPC_DELAY, target="learner", at=1,
+      method="set_learner_step", duration_secs=0.15, count=64),))
   result, seen = _drive_gin(
       "qtopt_fleet_autopilot.gin",
       ("FleetConfig.max_train_steps = 64",
@@ -214,8 +223,15 @@ def test_fleet_autopilot_gin_actuates_scale_actors(tmp_path):
        "FleetConfig.telemetry_poll_secs = 0.5",
        # Any collection rate is over this band: one actor is drained.
        "fleet_rules.env_steps_per_sec_max = 1.0",
-       "fleet_rules.env_steps_per_sec_min = 0.0"),
-      model_dir, ("policy", "batch"))
+       "fleet_rules.env_steps_per_sec_min = 0.0",
+       # The latency rules out of reach: on a loaded host the fronts'
+       # first requests put the cumulative p95 over the SLO, a front
+       # scale-up follows, and it holds the supervision loop until the
+       # new front is ready, past the learner's last step, so the actor
+       # rule never decides. The card's run exercises those rules.
+       "fleet_rules.slo_ms = 1e9",
+       "fleet_rules.queue_depth_max = 1e9"),
+      model_dir, ("policy", "batch"), fault_plan=hold)
   assert result.clean_shutdown and _fleet_children() == []
   records = control.read_decisions(os.path.join(
       model_dir, "telemetry", control.DECISIONS_FILENAME))

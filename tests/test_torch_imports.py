@@ -83,7 +83,8 @@ _EXPECTED = (
     "fleet.front", "fleet.traffic", "serving.router", "control",
     "control.rules", "control.policies", "control.actuators",
     "control.controller", "telemetry.merge", "telemetry.report",
-    "telemetry.prometheus",
+    "telemetry.prometheus", "fleet.pod", "parallel.distributed",
+    "parallel.mesh", "parallel.collectives",
 )
 
 
@@ -182,6 +183,7 @@ def test_meta_and_vrgripper_families_alone_load_nothing_forbidden(module):
 @pytest.mark.parametrize("module", [
     "tensor2robot_tpu_torch.fleet",
     "tensor2robot_tpu_torch.fleet.actor",
+    "tensor2robot_tpu_torch.fleet.pod",
     "tensor2robot_tpu_torch.telemetry.sentinel",
 ])
 def test_fleet_alone_loads_nothing_forbidden(module):
