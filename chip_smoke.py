@@ -6128,22 +6128,38 @@ def phase_cold_start_seeds():
 
 def phase_cold_start(work):
   """Phase 58: the cold-start probes on `work`'s seeds: for `trainer`
-  and `serving`, a cold probe against a fresh cache dir and a warm one,
-  each a process of its own; the warm probes report `cache_misses ==
-  0`. It runs beside the fleets of phases 60-62 (no CUDA in this
-  process while it runs), so its times are contended."""
+  and `serving` (the two side by side, each on a thread of its own), a
+  cold probe against a fresh cache dir and then a warm one, each a
+  process of its own; the warm probes report `cache_misses == 0`. It
+  runs beside the fleets of phases 60-64 (no CUDA in this process while
+  it runs), so its times are contended."""
   import shutil
-  results = {}
-  for probe in ("trainer", "serving"):
+  results, errors = {}, []
+
+  def probes(probe):
     seed_dir = os.path.join(work, f"{probe}_seed")
     cache = os.path.join(work, f"{probe}_cache")
-    for tag in ("cold", "warm"):
-      run_dir = seed_dir
-      if probe == "trainer":  # each probe resumes its own copy
-        run_dir = os.path.join(work, f"{probe}_{tag}")
-        shutil.copytree(seed_dir, run_dir)
-      results[f"{probe}_{tag}"] = _coldstart(
-          [probe, "--model-dir", run_dir, "--cache-dir", cache])
+    try:
+      for tag in ("cold", "warm"):
+        run_dir = seed_dir
+        if probe == "trainer":  # each probe resumes its own copy
+          run_dir = os.path.join(work, f"{probe}_{tag}")
+          shutil.copytree(seed_dir, run_dir)
+        results[f"{probe}_{tag}"] = _coldstart(
+            [probe, "--model-dir", run_dir, "--cache-dir", cache])
+    except BaseException as e:  # noqa: BLE001 — re-raised below
+      errors.append(e)
+
+  # The trainer's pair and the serving pair side by side (each warm probe
+  # reads its cold probe's cache): half the sequential wall.
+  threads = [threading.Thread(target=probes, args=(probe,))
+             for probe in ("trainer", "serving")]
+  for thread in threads:
+    thread.start()
+  for thread in threads:
+    thread.join()
+  if errors:
+    raise errors[0]
   for tag in ("trainer_warm", "serving_warm"):
     if results[tag]["compile_watch"]["cache_misses"] != 0:
       raise AssertionError(f"coldstart {tag}: {results[tag]}")
@@ -7286,6 +7302,581 @@ def phase_gin_qtopt_fleets(beside=()):
     _check_fleet_autopilot(runs["63"])
     _check_fleet_hybrid(runs["64"])
 
+# ---- phases 66-67: the pipeline gin ----
+
+_GIN_PIPELINE = ("tensor2robot_tpu/research/vrgripper/configs/"
+                 "train_vrgripper_transformer_pipeline.gin")
+# The gin's model (train_vrgripper_transformer.gin's widths, 4 stages of
+# one block, 2 microbatches) and batch.
+_PIPE_MODEL = dict(image_size=48, action_dim=3, width=128, depth=4,
+                   num_heads=4, max_context_length=512, pipeline_stages=4,
+                   pipeline_microbatches=2)
+_PIPE_B, _PIPE_T = 16, 32
+_PIPE_WORLD = 8
+_PIPE_LR = 3e-4
+_PIPE_TIMED_STEPS = 10
+# The gin's 2000 steps cut (chip_smoke's time limit); it logs every 100.
+_PIPELINE_STEPS = 200
+_PIPE_PROBE_MODULE = "pipeline_probe"
+_PIPE_PROBE_SOURCE = """\
+from tensor2robot_tpu_torch import config as gin
+from tensor2robot_tpu_torch.hooks import Hook
+
+
+@gin.configurable
+class PipelineProbeHook(Hook):
+  \"\"\"Phase 66's parity step after the first training step (the rank's
+  kernels loaded), then the flash launches of the trainer's own steps
+  from there to the end, and phase 67's probe forward after training, in
+  each rank of the pipeline gin's run.\"\"\"
+
+  def __init__(self, out_dir=gin.REQUIRED):
+    self._out_dir = out_dir
+    self._since = None
+
+  def begin(self, model, model_dir):
+    self._model = model
+
+  def after_step(self, step, metrics):
+    import chip_smoke
+    from tensor2robot_tpu_torch.ops import reset_launch_counts
+    if self._since is None:
+      chip_smoke.pipeline_parity_rank(self._model, self._out_dir)
+      self._since = step
+      reset_launch_counts()
+
+  def end(self, step, state, model_dir):
+    import chip_smoke
+    chip_smoke.pipeline_launches_rank(self._model, step - self._since,
+                                      self._out_dir)
+    chip_smoke.pipeline_probe(self._model, state, self._out_dir)
+"""
+
+
+def _pipe_batch(seed=66):
+  """The gin's global batch, seeded: 16 episodes of 32 steps, lengths
+  8-32, as numpy (features, labels)."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  b, t, size = _PIPE_B, _PIPE_T, _PIPE_MODEL["image_size"]
+  features = {
+      "image": rng.integers(0, 256, (b, t, size, size, 3), dtype=np.uint8),
+      "gripper_pose": rng.standard_normal((b, t, 3)).astype(np.float32),
+      "sequence_length": rng.integers(8, t + 1, (b,)).astype(np.int64)}
+  labels = {"action": rng.standard_normal((b, t, 3)).astype(np.float32)}
+  return features, labels
+
+
+def _pipe_parity_steps(mesh, params):
+  """One train step of the gin's model per dtype on the card from the
+  one-device `params` (TF32 off): over `mesh` this rank's stage of them
+  on its data rows of `_pipe_batch()`, or without a mesh the sequential
+  fallback on the 16 rows (the f32 step with cuDNN off). Returns ({dtype:
+  (grads, new params, metrics, the step's flash launches)} as numpy, and
+  "seconds": each dtype's model and state, its gradients, its update;
+  ms a bf16 eager step over `_PIPE_TIMED_STEPS` after one)."""
+  import dataclasses
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.models import optimizers as opt_lib
+  from tensor2robot_tpu_torch.ops import launch_counts, reset_launch_counts
+  from tensor2robot_tpu_torch.parallel import pipeline, sharding
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      VRGripperTransformerModel,
+  )
+  flags = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  rows = np.arange(_PIPE_B)
+  flat = dict(params)
+  if mesh is not None:
+    rows = pipeline.data_rows(_PIPE_B, _PIPE_MODEL["pipeline_microbatches"],
+                              mesh.axis_size("data"),
+                              mesh.axis_index("data"))
+    flat = sharding.shard_state(flat, mesh)
+  features, labels = _pipe_batch()
+  cuda = lambda d: {k: torch.from_numpy(v[rows]).cuda()  # noqa: E731
+                    for k, v in d.items()}
+  features, labels = cuda(features), cuda(labels)
+  host = lambda d: {k: v.detach().float().cpu().numpy()  # noqa: E731
+                    for k, v in d.items()}
+  results = {}
+  secs = {}
+  try:
+    for name in ("float32", "bfloat16"):
+      t_step = time.perf_counter()
+      # The f32 step takes torch's own convolution (cuDNN off), in the
+      # ranks and the reference alike: one algorithm on both sides,
+      # whatever the rows each holds.
+      torch.backends.cudnn.enabled = name != "float32"
+      model = VRGripperTransformerModel(
+          mesh=mesh, device_dtype=getattr(torch, name),
+          create_optimizer_fn=lambda: opt_lib.create_optimizer(
+              learning_rate=_PIPE_LR), **_PIPE_MODEL)
+      like = model.create_inference_state(seed=0, device="cuda")
+      leaves = {k: flat[k].cuda() for k in like.params}
+      state = dataclasses.replace(like, params=leaves,
+                                  opt_state=model.tx.init(leaves))
+      torch.cuda.synchronize()
+      t_built = time.perf_counter()
+      reset_launch_counts()
+      grads, stats, metrics = model.train_grads(state, features, labels)
+      torch.cuda.synchronize()
+      t_grads = time.perf_counter()
+      counts = {k: launch_counts()[k] for k in _FLASH_KERNELS}
+      new = model.apply_gradients(state, grads, stats)
+      results[name] = (host(grads), host(new.params), host(metrics), counts)
+      secs[name] = [round(t_built - t_step, 2), round(t_grads - t_built, 2),
+                    round(time.perf_counter() - t_grads, 2)]
+    for i in range(_PIPE_TIMED_STEPS + 1):
+      if i == 1:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+      state, _ = model.train_step(state, features, labels)
+    torch.cuda.synchronize()
+  finally:
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.enabled) = flags
+  results["seconds"] = secs
+  return results, round((time.perf_counter() - t0) * 1e3
+                        / _PIPE_TIMED_STEPS, 3)
+
+
+def pipeline_parity_rank(model, out_dir):
+  """Phase 66's rank side, run by the probe hook after the first
+  training step in each of phase 67's 8 ranks: `_pipe_parity_steps`
+  over the run's mesh from `<out_dir>/params.pt`, written to
+  `<out_dir>/parity_r<rank>.pt` with the rank's coordinates and its
+  seconds."""
+  import torch
+  t0 = time.perf_counter()
+  params = torch.load(os.path.join(out_dir, "params.pt"), weights_only=True)
+  results, ms = _pipe_parity_steps(model.mesh, params)
+  torch.save((dict(model.mesh.coords), results, ms,
+              time.perf_counter() - t0),
+             os.path.join(out_dir, f"parity_r{model.mesh.rank}.pt"))
+
+
+def pipeline_launches_rank(model, steps, out_dir):
+  """Writes the rank's flash launches since the counts were reset, over
+  the trainer's last `steps` steps, to `<out_dir>/launches_r<rank>.json`."""
+  from tensor2robot_tpu_torch.ops import launch_counts
+  counts = {k: launch_counts()[k] for k in _FLASH_KERNELS}
+  with open(os.path.join(out_dir, f"launches_r{model.mesh.rank}.json"),
+            "w") as f:
+    json.dump({"steps": steps, "counts": counts}, f)
+
+
+def _check_pipeline_launches(out_dir):
+  """Phase 67: each rank's flash launches over the trainer's own steps
+  after its first (the probe hook's counts) are 2 of each kernel a step,
+  as phase 66's step launches them. Returns {rank: counts}."""
+  launches = {}
+  for r in range(_PIPE_WORLD):
+    with open(os.path.join(out_dir, f"launches_r{r}.json")) as f:
+      got = json.load(f)
+    want = {k: 2 * got["steps"] for k in _FLASH_KERNELS}
+    if got["steps"] != _PIPELINE_STEPS - 1 or got["counts"] != want:
+      raise AssertionError(f"phase 67: rank {r} launched {got['counts']} "
+                           f"in {got['steps']} trainer steps; the schedule "
+                           f"launches {want} in {_PIPELINE_STEPS - 1}")
+    launches[r] = got["counts"]
+  return launches
+
+
+def _check_pipeline_parity(out_dir, params):
+  """Phase 66: the one train step the 8 gloo ranks of phase 67's run took
+  after their first training step on `cuda:0` (`data 2 x stage 4`, each
+  its stage of the same params and its data rows of B = 16 x T = 32
+  seeded rows with lengths 8-32) held
+  against the same model's sequential fallback on the 16 rows in this
+  process on the card (TF32 off). f32: the loss to 1e-5 relative, every
+  gradient leaf (the stages gathered from the stage ring) within 1e-5 of
+  its leaf's largest |value|, the post-Adam params within 1e-5 of the
+  leaf's scale where |g| ≥ 1e-4 of its leaf's largest (2·lr below:
+  Adam's first step normalizes each element). bf16: every gradient
+  leaf's cosine ≥ 0.999 against the one-process bf16 step. The two data
+  rows' ranks of one stage equal each other bit for bit. Each rank's
+  flash launches in a step are M·b = 2 of each kernel (its stage's one
+  block on two microbatches, no bubble tick computed); the reference's
+  4. Then ms a bf16 eager step: the ranks all at once, the reference
+  alone."""
+  import numpy as np
+  import torch
+  got, coords, rank_ms, rank_s = {}, {}, {}, {}
+  for r in range(_PIPE_WORLD):
+    coords[r], got[r], rank_ms[r], rank_s[r] = torch.load(
+        os.path.join(out_dir, f"parity_r{r}.pt"), weights_only=False)
+  ref, ref_ms = _pipe_parity_steps(None, params)
+  stage_of = {r: coords[r]["stage"] for r in range(_PIPE_WORLD)}
+  row0 = sorted((r for r in range(_PIPE_WORLD) if coords[r]["data"] == 0),
+                key=lambda r: stage_of[r])
+  report = {}
+  for name in ("float32", "bfloat16"):
+    ref_grads, ref_params, ref_metrics, ref_counts = ref[name]
+    for r in range(_PIPE_WORLD):
+      twin = [q for q in range(_PIPE_WORLD)
+              if stage_of[q] == stage_of[r] and q != r][0]
+      for a, b in zip(got[r][name][:3], got[twin][name][:3]):
+        for k in a:
+          if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"phase 66 {name}: ranks {r} and {twin} "
+                                 f"differ at {k}")
+      if got[r][name][3] != {k: 2 for k in _FLASH_KERNELS}:
+        raise AssertionError(f"phase 66 {name}: rank {r} launched "
+                             f"{got[r][name][3]}; the schedule launches 2 "
+                             "of each kernel a step")
+    if ref_counts != {k: 4 for k in _FLASH_KERNELS}:
+      raise AssertionError(f"phase 66 {name}: reference {ref_counts}")
+
+    def gathered(which):
+      out = {}
+      for k in got[0][name][which]:
+        if ".stages." in k:
+          out[k] = np.concatenate([got[r][name][which][k] for r in row0])
+        else:
+          out[k] = got[0][name][which][k]
+      return out
+
+    grads, new_params = gathered(0), gathered(1)
+    metrics = got[0][name][2]
+    scale = lambda x: max(float(np.abs(x).max()), 1e-12)  # noqa: E731
+    loss_err = float(abs(metrics["loss"] - ref_metrics["loss"])
+                     / abs(ref_metrics["loss"]))
+    if name == "bfloat16":
+      cos = min(float(np.dot(grads[k].ravel(), ref_grads[k].ravel())
+                      / max(np.linalg.norm(grads[k])
+                            * np.linalg.norm(ref_grads[k]), 1e-30))
+                for k in ref_grads if np.linalg.norm(ref_grads[k]) > 0)
+      report[name] = dict(min_grad_cosine=round(cos, 6),
+                          loss_rel_err=loss_err)
+      if cos < 0.999:
+        raise AssertionError(f"phase 66 bf16: {report[name]}")
+      continue
+    grad_err = max(float(np.abs(grads[k] - ref_grads[k]).max())
+                   / scale(ref_grads[k]) for k in ref_grads)
+    far = near = 0.0
+    for k in ref_params:
+      small = np.abs(ref_grads[k]) < 1e-4 * scale(ref_grads[k])
+      diff = np.abs(new_params[k] - ref_params[k])
+      far = max(far, float(diff[~small].max(initial=0.0))
+                / scale(ref_params[k]))
+      near = max(near, float(diff[small].max(initial=0.0)))
+    report[name] = dict(loss_rel_err=loss_err, grad_err=grad_err,
+                        param_err=far, param_err_small_grad=near,
+                        grad_norm=(float(metrics["grad_norm"]),
+                                   float(ref_metrics["grad_norm"])))
+    if (loss_err > 1e-5 or grad_err > 1e-5 or far > 1e-5
+        or near > 2 * _PIPE_LR + 1e-7):
+      raise AssertionError(f"phase 66 f32: {report[name]}")
+  ms = [rank_ms[r] for r in range(_PIPE_WORLD)]
+  _log(f"phase 66 seconds a dtype's build, gradients and update, by rank "
+       f"{json.dumps([got[r]['seconds'] for r in range(_PIPE_WORLD)])}, "
+       f"reference {json.dumps(ref['seconds'])}")
+  _log(f"phase 66: the 8 gloo ranks of phase 67's run on cuda:0 (data 2 x "
+       f"stage 4) against one process's sequential fallback, one step of "
+       f"the pipeline gin's model on 16 x 32 rows: {json.dumps(report)}; "
+       f"flash launches a step: 2 of each kernel a rank, 4 the reference; "
+       f"bf16 ms an eager step: ranks {ms} (all 8 at once), reference "
+       f"{ref_ms} alone; a rank's parity work "
+       f"{max(rank_s.values()):.2f} s after its first training step")
+
+
+def pipeline_probe(model, state, out_dir):
+  """The probe a rank of phase 67's run makes at the run's end: the
+  trained state's forward on `_pipe_batch(67)`'s features in f32 (the
+  gin's model with `device_dtype` f32 on the same mesh, TF32 off), on
+  the rank's data rows; the stage-0 rank of each data row writes
+  `<out_dir>/probe_d<d>.npz` (rows, actions)."""
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.parallel import pipeline
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      VRGripperTransformerModel,
+  )
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  mesh = model.mesh
+  f32 = VRGripperTransformerModel(device_dtype=torch.float32)
+  rows = pipeline.data_rows(_PIPE_B, f32.pipeline_microbatches,
+                            mesh.axis_size("data"), mesh.axis_index("data"))
+  features, _ = _pipe_batch(seed=67)
+  features = {k: torch.from_numpy(v[rows]).cuda()
+              for k, v in features.items() if k != "sequence_length"}
+  actions = f32.predict_step(state, features)["action"].cpu().numpy()
+  if mesh.axis_index("stage") == 0:
+    np.savez(os.path.join(out_dir, f"probe_d{mesh.axis_index('data')}.npz"),
+             rows=rows, actions=actions)
+
+
+def _watch_ranks(proc, log, seen):
+  """Streams the binary's output into `log`; from its `ranks:` line on,
+  samples which processes hold the card (device files, trap 52): each
+  rank, the binary and the binary's other children (the forkserver)."""
+  pids = []
+  stop = threading.Event()
+
+  def sample():
+    while not stop.is_set():
+      for pid in pids:
+        if _holds_card(pid):
+          seen.setdefault("held", set()).add(pid)
+      others = [proc.pid] + [c for c in _children(proc.pid) if c not in pids]
+      for pid in others:
+        if _holds_card(pid):
+          seen.setdefault("others", set()).add(pid)
+      stop.wait(0.5)
+
+  sampler = threading.Thread(target=sample, daemon=True)
+  for line in proc.stdout:
+    log.write(line)
+    if line.startswith("ranks: ") and not pids:
+      seen["ranks"] = json.loads(line[len("ranks: "):])
+      seen["t_ranks"] = time.time()
+      pids.extend(seen["ranks"]["pids"])
+      sampler.start()
+    elif line.startswith("ranks exited: "):
+      seen["exited"] = json.loads(line[len("ranks exited: "):])
+  stop.set()
+  if sampler.is_alive():
+    sampler.join()
+
+
+def _children(pid):
+  try:
+    with open(f"/proc/{pid}/task/{pid}/children") as f:
+      return [int(c) for c in f.read().split()]
+  except OSError:
+    return []
+
+
+def _log_times(path, t0):
+  """{event: seconds after `t0`} read off the ranks' log lines (their
+  `asctime` stamps): the last rank's gloo group, the last rank's
+  startup, the first record."""
+  marks = {"group": "torch.distributed initialized",
+           "startup": "Startup (overlapped)", "record": "[train] step"}
+  out = {}
+  with open(path) as f:
+    for line in f:
+      m = re.match(r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3}) rank ", line)
+      if not m:
+        continue
+      t = time.mktime(time.strptime(m.group(1), "%Y-%m-%d %H:%M:%S")) + int(
+          m.group(2)) / 1e3 - t0
+      for name, text in marks.items():
+        if text in line and (name != "record" or name not in out):
+          out[name] = round(t, 2)
+  return out
+
+
+class _PipelineRun:
+  """Phase 67's binary, started in the background (`start`) and checked
+  later in the foreground (`phase_gin_pipeline`): it runs beside phases
+  37-43, single-process phases that leave the host's cores to its 8
+  ranks. `stop` ends the binary and its ranks if a phase in between
+  fails."""
+
+  def __init__(self):
+    import tempfile
+    import torch
+    from tensor2robot_tpu_torch.research.vrgripper import (
+        VRGripperTransformerModel,
+        collect_demo_episodes,
+    )
+    self.tmp = tempfile.mkdtemp(prefix="t2r_pipeline_")
+    self.demos = collect_demo_episodes(os.path.join(self.tmp,
+                                                    "demos.tfrecord"))
+    self.model_dir = os.path.join(self.tmp, "run")
+    self.probe_dir = os.path.join(self.tmp, "probe")
+    os.makedirs(self.model_dir)
+    os.makedirs(self.probe_dir)
+    with open(os.path.join(self.tmp, _PIPE_PROBE_MODULE + ".py"), "w") as f:
+      f.write(_PIPE_PROBE_SOURCE)
+    self.params = VRGripperTransformerModel(
+        device_dtype=torch.float32, **_PIPE_MODEL).create_inference_state(
+            seed=21, device="cpu").params
+    torch.save(self.params, os.path.join(self.probe_dir, "params.pt"))
+    self.seen = {}
+    self.log_path = os.path.join(self.model_dir, "trainer.log")
+    self.proc = None
+    self.thread = None
+
+  def start(self):
+    cmd = [sys.executable, "-m", "tensor2robot_tpu_torch.bin.run_t2r_trainer",
+           "--gin_configs", _GIN_PIPELINE,
+           "--gin_bindings",
+           f"train_eval_model.model_dir='{self.model_dir}'",
+           "--gin_bindings",
+           f"train/TFRecordEpisodeInputGenerator.file_patterns='{self.demos}'",
+           "--gin_bindings",
+           f"train_eval_model.max_train_steps={_PIPELINE_STEPS}",
+           "--gin_bindings",
+           "train_eval_model.hooks=[@PipelineProbeHook()]",
+           "--gin_bindings", f"PipelineProbeHook.out_dir='{self.probe_dir}'",
+           "--import_modules", _PIPE_PROBE_MODULE]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join((_REPO, self.tmp)))
+    self.t_wall = time.time()
+    self.t0 = time.perf_counter()
+    log = open(self.log_path, "w")
+    self.proc = subprocess.Popen(cmd, cwd=_REPO, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+    def watch():
+      try:
+        _watch_ranks(self.proc, log, self.seen)
+        self.code = self.proc.wait()
+        self.wall = time.perf_counter() - self.t0
+      finally:
+        log.close()
+
+    self.thread = threading.Thread(target=watch, daemon=True)
+    self.thread.start()
+    return self
+
+  def stop(self):
+    """Ends the binary and its ranks; removes the run's directory."""
+    import shutil
+    if self.proc is not None and self.proc.poll() is None:
+      self.proc.kill()
+    for pid in self.seen.get("ranks", {}).get("pids", []):
+      try:
+        os.kill(pid, 9)
+      except OSError:
+        pass
+    shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def phase_gin_pipeline(run):
+  """Phases 66-67: the shipped `train_vrgripper_transformer_pipeline.gin`
+  as written, through the trainer binary in a new process (`run`, a
+  started `_PipelineRun`), with the header's two bindings (the model
+  dir, the demos' file pattern), the cut (`_PIPELINE_STEPS` of its 2000
+  steps) and a probe hook: the binary starts the mesh's 8 ranks on the
+  card (gloo, `data 2 x stage 4`), and after its first training step
+  each takes phase 66's parity step (`_check_pipeline_parity`). Gates
+  (67): exit 0 from the binary and from every rank; a valid envelope
+  every 100 steps; finite losses whose last falls below the first; the
+  final checkpoint in the one-device layout (every `stages` leaf and its
+  Adam mirrors with a leading 4); the 8 ranks, and no other process of
+  the run, hold the card. Then the checkpoint in this process, in the
+  mesh-free model (the sequential fallback, f32, TF32 off): its forward
+  on the probe batch equals the ranks' f32 forward (the probe hook) to
+  1e-4 of the largest |action|, and a graphed `make_context_policy`
+  serves episode 0 step by step with each action equal to the ranks' at
+  that step (the same tolerance), its flash forward launches (4 a step
+  + the capture's warm-up 4) equal to CUPTI's. Returns the traced
+  launches."""
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      VRGripperTransformerModel,
+  )
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+  try:
+    run.thread.join(timeout=700)
+    if run.thread.is_alive():
+      raise AssertionError("phase 67: the binary outlived 700 s")
+    model_dir, probe_dir, params = run.model_dir, run.probe_dir, run.params
+    seen, wall, code = run.seen, run.wall, run.code
+    with open(run.log_path) as f:
+      tail = f.read().splitlines()[-15:]
+    if code != 0 or seen.get("exited") != [0] * _PIPE_WORLD:
+      raise AssertionError(f"phase 67: exit {code}, ranks "
+                           f"{seen.get('exited')}:\n" + "\n".join(tail))
+    times = _log_times(run.log_path, run.t_wall)
+    times["ranks_line"] = round(seen["t_ranks"] - run.t_wall, 2)
+    _check_pipeline_parity(probe_dir, params)
+    rank_launches = _check_pipeline_launches(probe_dir)
+    pids = set(seen["ranks"]["pids"])
+    if seen.get("held") != pids or seen.get("others"):
+      raise AssertionError(f"phase 67: the card held by ranks "
+                           f"{seen.get('held')} of {pids}, others "
+                           f"{seen.get('others')}")
+    raw = _checked_records(os.path.join(model_dir, "metrics_train.jsonl"))
+    steps = [r["step"] for r in raw]
+    losses = [r["payload"]["loss"] for r in raw]
+    rates = [r["payload"]["steps_per_sec"] for r in raw]
+    mfu = [r["payload"].get("perf.mfu") for r in raw]
+    if steps != list(range(100, _PIPELINE_STEPS + 1, 100)):
+      raise AssertionError(f"phase 67: record steps {steps}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+      raise AssertionError(f"phase 67: losses {losses}")
+    ckpts = ckpt_lib.list_steps(model_dir)
+    leaves = torch.load(os.path.join(model_dir, "ckpt",
+                                     str(_PIPELINE_STEPS), "state.pt"),
+                        weights_only=True)["leaves"]
+    stacked = {k: tuple(v.shape) for k, v in leaves.items()
+               if ".stages." in k}
+    stage_params = [k for k in params if ".stages." in k]
+    # Each stage param and its two Adam moments, whole.
+    if (ckpts != [_PIPELINE_STEPS] or len(stacked) != 3 * len(stage_params)
+        or any(shape[0] != 4 for shape in stacked.values())):
+      raise AssertionError(f"phase 67: checkpoints {ckpts}, stacked "
+                           f"leaves {stacked}")
+    _log(f"phase 67 gin train_vrgripper_transformer_pipeline (as shipped, "
+         f"cut to {_PIPELINE_STEPS} steps, 8 ranks): exit {code} in "
+         f"{wall:.2f} s, ranks exited {seen['exited']}; s after the "
+         f"binary's start {json.dumps(times)}; steps {steps}; loss "
+         f"{losses}; steps_per_sec {rates}; perf.mfu {mfu}; checkpoints "
+         f"{ckpts}, {len(stacked)} stage-stacked leaves, leading dim 4; "
+         f"the card held by the 8 ranks only ({len(seen['held'])} pids); "
+         f"flash launches of the trainer's steps 2-{_PIPELINE_STEPS} by "
+         f"rank {json.dumps(rank_launches)}")
+    probe = {}
+    for d in range(2):
+      with np.load(os.path.join(probe_dir, f"probe_d{d}.npz")) as z:
+        probe.update(zip(z["rows"].tolist(), z["actions"]))
+    ranks_actions = np.stack([probe[r] for r in range(_PIPE_B)])
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+      serving = VRGripperTransformerModel(device_dtype=torch.float32,
+                                          **_PIPE_MODEL)
+      state = serving.create_inference_state(seed=0, device="cuda")
+      variables = ckpt_lib.restore_variables(
+          model_dir, like={"params": state.params,
+                           "batch_stats": state.batch_stats})
+      state = state.__class__(step=_PIPELINE_STEPS,
+                              params=variables["params"],
+                              batch_stats=variables["batch_stats"])
+      features, _ = _pipe_batch(seed=67)
+      feats = {k: torch.from_numpy(v).cuda() for k, v in features.items()
+               if k != "sequence_length"}
+      mesh_free = serving.predict_step(state, feats)["action"].cpu().numpy()
+      tol = 1e-4 * max(float(np.abs(ranks_actions).max()), 1e-12)
+      forward_err = float(np.abs(mesh_free - ranks_actions).max())
+      policy = serving.make_context_policy(state, context_length=_PIPE_T)
+      served = []
+      with traced_launches("phase 67 context policy") as traced:
+        for t in range(_PIPE_T):
+          served.append(policy({
+              "image": features["image"][0:1, t],
+              "gripper_pose": features["gripper_pose"][0:1, t]})[
+                  "action"][0])
+      warm = _warm("flash_attention_fwd")
+    finally:
+      torch.backends.cudnn.allow_tf32 = True  # torch's default
+    policy_err = float(np.abs(np.stack(served) - ranks_actions[0]).max())
+  finally:
+    run.stop()
+  launches = traced["flash_attention_fwd"]
+  _log(f"phase 67 serving: the checkpoint mesh-free (sequential fallback, "
+       f"f32): forward vs the ranks' max |diff| {forward_err:.3e}, the "
+       f"graphed context policy's {_PIPE_T} steps vs the ranks' "
+       f"{policy_err:.3e} (tolerance {tol:.3e}); flash forward launches "
+       f"{launches} (warm-up {warm}; CUPTI = counters)")
+  if forward_err > tol or policy_err > tol:
+    raise AssertionError(f"phase 67: serving differs from the ranks "
+                         f"({forward_err}, {policy_err} > {tol})")
+  if launches != 4 * _PIPE_T + warm or warm != 4:
+    raise AssertionError(f"phase 67: flash forward launches {launches}, "
+                         f"warm-up {warm}")
+  return traced
+
+
 _PHASE_S = {}
 
 
@@ -7366,20 +7957,35 @@ def main():
   _timed(phase_tfrecord_round_trip)
   t_gin = time.perf_counter()
   gin_vrgripper_launches = _timed(phase_gin_vrgripper_transformer)
-  _log(f"phases 35-36 s: round trip and parse rates {t_gin - t_plane:.2f}, "
-       f"gin vrgripper {time.perf_counter() - t_gin:.2f}; flash launches "
-       f"on the gin's traced window {json.dumps(gin_vrgripper_launches)}")
-  _timed(phase_capture_under_collection)
-  _timed(phase_jpeg_digests)
-  g2v_model, g2v_state = _timed(phase_gin_grasp2vec)
-  goal_launches = _timed(phase_goal_qtopt, g2v_model, g2v_state)
-  del g2v_model, g2v_state
-  t_family = time.perf_counter()
-  _timed(phase_gin_vrgripper_bc)
-  _timed(phase_gin_vrgripper_meta)
-  _timed(phase_gin_vrgripper_wtl)
-  _log(f"phases 41-43 s (the VRGripper BC / meta / WTL gins): "
-       f"{time.perf_counter() - t_family:.2f}")
+  _log(f"phases 35-36 s: round trip and parse rates "
+       f"{t_gin - t_plane:.2f}, gin vrgripper "
+       f"{time.perf_counter() - t_gin:.2f}; flash launches on the gin's "
+       f"traced window {json.dumps(gin_vrgripper_launches)}")
+  # Phases 66-67's binary (8 ranks) runs beside phases 37-43, which use a
+  # core or two each; its checks follow phase 43. Phase 36, the
+  # unpipelined gin whose rate phase 67's is held against, runs alone.
+  pipeline_run = _PipelineRun().start()
+  t_pipeline = time.perf_counter()
+  try:
+    _timed(phase_capture_under_collection)
+    _timed(phase_jpeg_digests)
+    g2v_model, g2v_state = _timed(phase_gin_grasp2vec)
+    goal_launches = _timed(phase_goal_qtopt, g2v_model, g2v_state)
+    del g2v_model, g2v_state
+    t_family = time.perf_counter()
+    _timed(phase_gin_vrgripper_bc)
+    _timed(phase_gin_vrgripper_meta)
+    _timed(phase_gin_vrgripper_wtl)
+    _log(f"phases 41-43 s (the VRGripper BC / meta / WTL gins): "
+         f"{time.perf_counter() - t_family:.2f}")
+  except BaseException:
+    pipeline_run.stop()
+    raise
+  pipe_launches = _timed(phase_gin_pipeline, pipeline_run)
+  _log(f"phases 37-43 with 66-67 beside, 66-67's checks included s: "
+       f"{time.perf_counter() - t_pipeline:.2f}; the binary's wall "
+       f"{pipeline_run.wall:.2f} s; flash forward launches serving the "
+       f"pipeline gin's checkpoint {pipe_launches['flash_attention_fwd']}")
   t_anakin = time.perf_counter()
   _timed(phase_envs_card_vs_cpu)
   anakin_err, _ = _timed(phase_anakin_select_kernels)

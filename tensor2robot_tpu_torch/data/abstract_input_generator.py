@@ -57,6 +57,16 @@ class AbstractInputGenerator(abc.ABC):
   def batch_size(self, value: int):
     self._batch_size = int(value)
 
+  def fix_seed(self, seed: int) -> None:
+    """Makes a generator whose shuffle seed was left None (a fresh one
+    per process) draw from `seed`, so that every rank of a group, each
+    reading from its own generator, reads the same global batches; a
+    generator with a seed keeps it. A generator whose batch order does
+    not follow its seed raises (`train_eval` also compares each step's
+    global batch across the ranks)."""
+    if getattr(self, "_seed", 0) is None:
+      self._seed = int(seed)
+
   @property
   def feature_spec(self) -> TensorSpecStruct:
     if self._feature_spec is None:

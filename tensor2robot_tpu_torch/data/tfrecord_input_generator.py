@@ -217,6 +217,17 @@ class TFRecordInputGenerator(AbstractInputGenerator):
     self._plane_copy = plane_copy
     self._files_override: Optional[List[str]] = None
 
+  def fix_seed(self, seed: int) -> None:
+    """`AbstractInputGenerator.fix_seed`; raises with `num_workers` > 1,
+    whose batches arrive in the data plane's completion order, which no
+    seed fixes."""
+    if self._num_workers > 1:
+      raise ValueError(
+          f"num_workers={self._num_workers}: the workers' batches arrive "
+          "in completion order, so the ranks of a group would read "
+          "different global batches; bind num_workers 0 or 1")
+    super().fix_seed(seed)
+
   def _file_list(self) -> List[str]:
     if self._files_override is not None:
       return list(self._files_override)

@@ -330,9 +330,13 @@ def learner_main(config, model_dir: str, address, heartbeat,
   from tensor2robot_tpu_torch.research.qtopt.train_qtopt import (
       train_qtopt,
   )
-  learner = _build_learner(config)
-  if world_size > 1:
-    proc.pin_single_host_device(learner.device)
+  # The build runs while the hosts come up (trap 54), before the role's
+  # telemetry: a build that raises still leaves the rank's flight record.
+  with flightrec.recorded(getattr(config, "flightrec_dir", ""),
+                          plan["role"], "build"):
+    learner = _build_learner(config)
+    if world_size > 1:
+      proc.pin_single_host_device(learner.device)
   address = proc.await_address(address)
   if address is None:
     return  # the launch was aborted before the hosts were up

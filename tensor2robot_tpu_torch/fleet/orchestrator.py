@@ -28,7 +28,10 @@ Lifecycle contract (the JAX package's):
     source lints cover JAX code only).
   * Refusals: what the port does not run yet is refused at `Fleet`
     construction, before anything is spawned, by a `FleetUnported`
-    naming its ROADMAP item: `env="mujoco_pose"` (A10a).
+    naming its ROADMAP item: `env="mujoco_pose"` with process actors
+    (A10a), at construction and in `scale_to`. A pods-only
+    `mujoco_pose` fleet runs: pods collect on the functional `pose`
+    family.
   * Learner groups (`learner_hosts > 1`): N learner processes adopt one
     orchestrator-issued coordinator address and join one gloo group;
     any rank's death tears the collective and is fatal.
@@ -426,10 +429,15 @@ def unported(config: FleetConfig) -> List[str]:
   """What of `config` the port does not run yet, each naming its
   ROADMAP item ([] when the port runs it)."""
   out = []
-  if config.env == "mujoco_pose":
-    out.append("env='mujoco_pose' needs MuJoCoPoseEnv (ROADMAP A10a); "
-               "bind FleetConfig.env = 'pose' for the numpy PoseEnv")
+  if config.env == "mujoco_pose" and config.num_actors > 0:
+    out.append(_A10A_ACTORS)
   return out
+
+
+# Only process actors build the physics env: pods map `mujoco_pose` to
+# the functional `pose` family (`pod.pod_env_family`), as JAX's do.
+_A10A_ACTORS = ("env='mujoco_pose' needs MuJoCoPoseEnv (ROADMAP A10a); "
+                "bind FleetConfig.env = 'pose' for the numpy PoseEnv")
 
 
 class Fleet:
@@ -1601,6 +1609,9 @@ class Fleet:
     """
     if num_actors < 1:
       raise ValueError(f"num_actors must be >= 1, got {num_actors}")
+    if self.config.env == "mujoco_pose":
+      raise FleetUnported(
+          "the port does not run this fleet yet: " + _A10A_ACTORS)
     with self._scale_lock:
       # Checked under the lock shutdown() closes the fleet under: a
       # scale-up can never slip between the `_closed` flip and the

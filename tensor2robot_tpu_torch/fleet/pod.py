@@ -177,11 +177,15 @@ def pod_main(config, pod_index: int, address, stop_event,
 
   from tensor2robot_tpu_torch.envs.rollout import flatten_devices
 
-  learner, init_fn, collect_fn = _build_collector(config)
+  pod_id = f"pod-{pod_index}"
+  # The build runs while the hosts come up (trap 54), before the role's
+  # telemetry: a build that raises still leaves the pod's flight record.
+  with flightrec.recorded(getattr(config, "flightrec_dir", ""), pod_id,
+                          "build"):
+    learner, init_fn, collect_fn = _build_collector(config)
   address = proc.await_address(address)
   if address is None:
     return  # the launch was aborted before the hosts were up
-  pod_id = f"pod-{pod_index}"
   telemetry.configure(
       pod_id, trace_dir=getattr(config, "telemetry_dir", "") or None,
       actor_id=pod_id)

@@ -26,6 +26,9 @@ from tensor2robot_tpu_torch.layers.snail import (
     SNAIL,
     TCBlock,
 )
+from tensor2robot_tpu_torch.layers.pipelined_transformer import (
+    PipelinedCausalTransformer,
+)
 from tensor2robot_tpu_torch.layers.transformer import CausalTransformer
 from tensor2robot_tpu_torch.layers.vision_layers import (
     ConvTower,
@@ -37,7 +40,8 @@ from tensor2robot_tpu_torch.layers.vision_layers import (
 
 __all__ = ["AttentionBlock", "BottleneckBlock", "CausalConv1D",
            "CausalTransformer", "ConvTower", "DenseBlock", "FiLM",
-           "ImageEncoder", "MDNHead", "MDNParams", "MLP", "ResNet",
+           "ImageEncoder", "MDNHead", "MDNParams", "MLP",
+           "PipelinedCausalTransformer", "ResNet",
            "ResNetBlock", "SNAIL", "SpatialSoftmax", "TCBlock", "dense",
            "flatten_and_concat", "max_pool_same", "mdn_log_prob", "mdn_loss",
            "mdn_mean", "mdn_mode", "mdn_sample", "resnet18", "resnet34",

@@ -47,6 +47,7 @@ raises where it is asked for.
 from __future__ import annotations
 
 import abc
+import copy
 
 import dataclasses
 import math
@@ -112,11 +113,14 @@ def init_parameters(network: nn.Module, generator: torch.Generator) -> None:
   """flax's default init, drawn from `generator`: lecun-normal
   (truncated normal, fan-in) conv (1D and 2D) and dense kernels, zero
   biases.
-  A module with raw params of its own (learned positions) draws them
-  in its `init_raw_parameters(generator)`."""
+  A module with raw params of its own (learned positions, a pipelined
+  trunk's stacked stages, whose modules are marked `stage_stacked`)
+  draws them in its `init_raw_parameters(generator)`."""
   for module in network.modules():
     if hasattr(module, "init_raw_parameters"):
       module.init_raw_parameters(generator)
+    if getattr(module, "stage_stacked", False):
+      continue  # a pipelined trunk's stacked stages: drawn by the trunk
     if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.Linear)):
       fan_in = module.weight[0].numel()
       # 0.8796 = std of a unit normal truncated to [-2, 2].
@@ -178,6 +182,7 @@ class AbstractT2RModel(ModelInterface):
     self._train_network: Optional[nn.Module] = None
     self._bound: "weakref.WeakKeyDictionary[TrainState, nn.Module]" = (
         weakref.WeakKeyDictionary())
+    self._mesh = None
 
   @abc.abstractmethod
   def get_feature_specification(self, mode: Mode) -> TensorSpecStruct:
@@ -192,6 +197,25 @@ class AbstractT2RModel(ModelInterface):
   def device_dtype(self) -> torch.dtype:
     """Compute dtype the network casts to in its forward pass."""
     return self._device_dtype
+
+  @property
+  def mesh(self):
+    """The mesh (`parallel.mesh`) the model's steps reduce over; None
+    on one device."""
+    return self._mesh
+
+  def without_mesh(self) -> "AbstractT2RModel":
+    """The same model on one device: a copy without the mesh, its
+    networks built anew at their first use (a pipelined trunk then holds
+    every stage, and no step runs a collective). A model without a mesh
+    is its own."""
+    if self._mesh is None:
+      return self
+    twin = copy.copy(self)
+    twin._mesh = None
+    twin._train_network = None
+    twin._bound = weakref.WeakKeyDictionary()
+    return twin
 
   @property
   def preprocessor(self):

@@ -21,6 +21,9 @@ MAML's base network under ``base_net`` beside its scalar
     ``scale``, its ``mean``/``var`` stats map one to one (eps 1e-5 in
     both networks); ``scale`` of any other module (LayerNorm) becomes
     torch's ``weight``;
+  * a pipelined trunk's ``stages`` leaves (a leading stage dim) convert
+    per stage, the stage dim kept in front (``[S, in, out]`` kernels →
+    ``[S, out, in]``);
   * raw params (``trunk.positions``, ``...ssoftmax.log_temperature``,
     ``inner_lr_log``) and the MoE layer's ``router`` and
     ``moe_expert_{w_in,b_in,w_out,b_out}`` (stored in the einsum layout
@@ -68,23 +71,30 @@ def _walk(tree: Mapping[str, Any], prefix: str = ""):
       yield from _walk(value, f"{prefix}.{key}" if prefix else key)
 
 
+# flax kernel → torch weight: HWIO → OIHW; [k, in, out] → [out, in, k];
+# [in, out] → [out, in].
+_KERNEL_ORDER = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
+# `layers.pipelined_transformer.STAGE_PARAMS_NAME`.
+_STAGES = "stages"
+
+
 def convert_params(params: Mapping[str, Any],
                    stats_modules: Collection[str] = ()
                    ) -> Dict[str, torch.Tensor]:
   """`stats_modules`: module paths that hold batch statistics."""
   out = {}
   for module, leaves in _walk(params):
+    # A pipelined trunk's `stages` leaves carry a leading stage dim: each
+    # stage's slice converts as the leaf of one module.
+    lead = 1 if _STAGES in module.split(".") else 0
     for name, leaf in leaves.items():
       t = to_tensor(leaf)
       if name == "kernel":
-        if t.ndim == 4:      # HWIO → OIHW
-          t = t.permute(3, 2, 0, 1)
-        elif t.ndim == 3:    # [k, in, out] → [out, in, k]
-          t = t.permute(2, 1, 0)
-        elif t.ndim == 2:    # [in, out] → [out, in]
-          t = t.t()
-        else:
-          raise ValueError(f"{module}.kernel has rank {t.ndim}")
+        rank = t.ndim - lead
+        if rank not in _KERNEL_ORDER:
+          raise ValueError(f"{module}.kernel has rank {rank}")
+        t = t.permute(tuple(range(lead)) + tuple(
+            lead + i for i in _KERNEL_ORDER[rank]))
         name = "weight"
       elif name == "scale" and module not in stats_modules:
         name = "weight"      # LayerNorm
@@ -126,7 +136,10 @@ def _flax_leaves(network: nn.Module):
     if leaf == "weight" and isinstance(modules[module_path], (
         nn.Linear, nn.Conv1d, nn.Conv2d)):
       leaf = "kernel"
-      shape = tuple(shape[i] for i in _FLAX_KERNEL_ORDER[len(shape)])
+      lead = 1 if getattr(modules[module_path], "stage_stacked",
+                          False) else 0
+      shape = shape[:lead] + tuple(
+          shape[lead + i] for i in _FLAX_KERNEL_ORDER[len(shape) - lead])
     elif leaf == "weight":
       leaf = "scale"
     path = module_path.split(".") + [leaf] if module_path else [leaf]

@@ -52,6 +52,11 @@ class GradientTransformation:
 
   init: Callable[[Params], Any]
   update: Callable[[Params, Any, Optional[Params]], Tuple[Params, Any]]
+  # Whether an update reads a norm over whole leaves or over every leaf
+  # (clipping by the global norm, lamb's trust ratio): such an update
+  # differs on a pipeline stage rank, which holds one slice of the
+  # stage-stacked leaves.
+  reads_norms: bool = False
 
 
 class EmptyState(NamedTuple):
@@ -139,14 +144,16 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
       new_state.append(s)
     return updates, tuple(new_state)
 
-  return GradientTransformation(init, update)
+  return GradientTransformation(init, update,
+                                any(t.reads_norms for t in transforms))
 
 
-def _stateless(fn: Callable[[Params, Optional[Params]], Params]
-               ) -> GradientTransformation:
+def _stateless(fn: Callable[[Params, Optional[Params]], Params],
+               reads_norms: bool = False) -> GradientTransformation:
   return GradientTransformation(
       lambda params: EmptyState(),
-      lambda updates, state, params=None: (fn(updates, params), state))
+      lambda updates, state, params=None: (fn(updates, params), state),
+      reads_norms)
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -241,7 +248,7 @@ def scale_by_trust_ratio() -> GradientTransformation:
       out[k] = u * ratio
     return out
 
-  return _stateless(fn)
+  return _stateless(fn, reads_norms=True)
 
 
 def scale(step_size: float) -> GradientTransformation:
@@ -323,7 +330,7 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
       out.update(zip(keys, scaled))
     return {k: out[k] for k in updates}
 
-  return _stateless(fn)
+  return _stateless(fn, reads_norms=True)
 
 
 # ---- learning-rate schedules (optax's, as functions of a count) ----

@@ -23,6 +23,12 @@ only the flat reduction runs on the host. A failed collective raises
     int8 calibration batch, and each rank's final params digests).
   * `distinct_devices(device)`: how many physical devices the group
     spans (the peak `perf.mfu` divides by).
+  * `all_equal(values)`: whether every rank holds the same integers
+    (a pipeline group's digests of each step's global batch).
+  * `all_reduce_sum_dict`: the pipeline's gradient sums over a data
+    group; `StageShift`, `StageBroadcast`, `StageReplicate`: the stage
+    ring's hops and edges (`parallel.pipeline`), each an
+    `autograd.Function` whose backward runs the hop in reverse.
 
 Outside `data_parallel`, or in a group of one process, nothing changes.
 """
@@ -32,7 +38,7 @@ from __future__ import annotations
 import contextlib
 import socket
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Sequence
 
 import torch
 
@@ -113,18 +119,138 @@ def all_reduce_mean(tensors: Dict[str, torch.Tensor],
                     group=None) -> Dict[str, torch.Tensor]:
   """Each tensor's mean over `group`, from one flat f32 buffer summed
   once; each comes back in its own shape, dtype and device."""
+  return _all_reduce_flat(tensors, group, mean=True)
+
+
+def all_reduce_sum_dict(tensors: Dict[str, torch.Tensor],
+                        group=None) -> Dict[str, torch.Tensor]:
+  """Each tensor's sum over `group`, from one flat f32 buffer summed
+  once; each comes back in its own shape, dtype and device."""
+  return _all_reduce_flat(tensors, group, mean=False)
+
+
+def _all_reduce_flat(tensors, group, mean: bool):
   if not tensors:
     return {}
   keys = list(tensors)
   flat = torch.cat([tensors[k].detach().float().reshape(-1) for k in keys])
-  mean = all_reduce_sum(flat, group) / float(group_size(group))
+  total = all_reduce_sum(flat, group)
+  if mean:
+    total = total / float(group_size(group))
   out, offset = {}, 0
   for k in keys:
     t = tensors[k]
     n = t.numel()
-    out[k] = mean[offset:offset + n].reshape(t.shape).to(t.dtype)
+    out[k] = total[offset:offset + n].reshape(t.shape).to(t.dtype)
     offset += n
   return out
+
+
+# ---- the stage ring (parallel.pipeline's GPipe schedule) ----
+#
+# The pipeline's values are replicated over the stage ring where JAX's
+# shard_map declares them so (the trunk's input and output): every stage
+# rank of a data row computes the same loss, and a replicated value's
+# cotangent is the same on every rank (JAX's convention). So the output
+# edge (`StageBroadcast`) sums in the forward and passes the rank's own
+# cotangent back, and the input edge (`StageReplicate`) passes the value
+# through and sums the cotangents, of which only stage 0's is not zero.
+
+
+def _wire(tensor: torch.Tensor) -> torch.Tensor:
+  """A host copy gloo moves: bf16 travels as its int16 bits."""
+  host = tensor.detach().to("cpu", copy=True).contiguous()
+  return host.view(torch.int16) if host.dtype == torch.bfloat16 else host
+
+
+def _exact_sum(tensor: torch.Tensor, group) -> torch.Tensor:
+  """`all_reduce_sum` in f32 for a bf16 tensor (one rank's value plus
+  zeros, so exact), in the tensor's own dtype otherwise."""
+  if tensor.dtype == torch.bfloat16:
+    return all_reduce_sum(tensor.float(), group).to(torch.bfloat16)
+  return all_reduce_sum(tensor, group)
+
+
+def exchange(send: Optional[torch.Tensor], dst: Optional[int],
+             like: torch.Tensor, src: Optional[int]) -> Optional[torch.Tensor]:
+  """Sends `send` to global rank `dst` and receives a tensor shaped and
+  typed as `like` from `src` (either may be None), on `like`'s device.
+  Both are posted before either is waited on (`isend` / `irecv`), so two
+  neighbours that send to each other cannot deadlock (ROADMAP trap 65).
+  Returns the received tensor, or None."""
+  import torch.distributed as dist
+
+  works = []
+  if send is not None and dst is not None:
+    works.append(dist.isend(_wire(send), dst))
+  box = None
+  if src is not None:
+    box = torch.empty(like.shape, dtype=like.dtype)
+    wire = box.view(torch.int16) if box.dtype == torch.bfloat16 else box
+    works.append(dist.irecv(wire, src))
+  for work in works:
+    work.wait()
+  return None if box is None else box.to(like.device)
+
+
+class StageShift(torch.autograd.Function):
+  """One tick's hop of the GPipe schedule: sends `y` (this stage's
+  output) to the next stage's rank `dst` and returns what the previous
+  stage's rank `src` sent, or `fallback` where nothing is received
+  (`dst` / `src` None). The backward runs the hop in reverse: the
+  cotangent of the received value goes back to `src`, and `y`'s
+  cotangent comes from `dst` (zeros where `y` was not sent, so the
+  rank's chain of hops stays connected to its loss)."""
+
+  @staticmethod
+  def forward(ctx, y, fallback, dst, src):
+    ctx.dst, ctx.src = dst, src
+    received = exchange(y, dst, y, src)
+    return fallback.clone() if received is None else received
+
+  @staticmethod
+  def backward(ctx, grad):
+    grad_y = exchange(grad if ctx.src is not None else None, ctx.src,
+                      grad, ctx.dst)
+    if grad_y is None:
+      grad_y = torch.zeros_like(grad)
+    grad_fallback = grad if ctx.src is None else None
+    return grad_y, grad_fallback, None, None
+
+
+class StageBroadcast(torch.autograd.Function):
+  """The pipeline's output edge: the last stage's collected rows summed
+  over the stage ring (`out` is zeros elsewhere), so every stage rank
+  holds them. The backward gives each rank's own cotangent back to its
+  `out` (only the last stage's reached real rows) and zeros to `tail`,
+  the rank's last schedule value, whose graph runs the rank's hops
+  backward."""
+
+  @staticmethod
+  def forward(ctx, out, tail, group):
+    ctx.tail = (tail.shape, tail.dtype, tail.device)
+    return _exact_sum(out, group)
+
+  @staticmethod
+  def backward(ctx, grad):
+    shape, dtype, device = ctx.tail
+    return grad, torch.zeros(shape, dtype=dtype, device=device), None
+
+
+class StageReplicate(torch.autograd.Function):
+  """The pipeline's input edge: the value as it is on every stage rank;
+  the backward sums the cotangents over the stage ring (stage 0 ingests
+  the microbatches, so only its cotangent is not zero), so every stage
+  rank's layers before the trunk get the whole gradient."""
+
+  @staticmethod
+  def forward(ctx, x, group):
+    ctx.group = group
+    return x.view_as(x)
+
+  @staticmethod
+  def backward(ctx, grad):
+    return _exact_sum(grad.contiguous(), ctx.group), None
 
 
 def broadcast_object(obj, src: int = 0, group=None):
@@ -149,6 +275,18 @@ def distinct_devices(device, group=None) -> int:
     props = torch.cuda.get_device_properties(device)
     key = (key[0], str(getattr(props, "uuid", "")) or str(device))
   return len(set(all_gather_object(key, group)))
+
+
+def all_equal(values: Sequence[int], group=None) -> bool:
+  """Whether every rank of `group` holds the same `values` (ints that
+  fit int64), by one max-reduction of the values and their negations;
+  every rank gets the same answer."""
+  import torch.distributed as dist
+
+  n = len(values)
+  host = torch.tensor([*values, *(-v for v in values)], dtype=torch.int64)
+  dist.all_reduce(host, op=dist.ReduceOp.MAX, group=group)
+  return bool(torch.equal(host[:n], -host[n:]))
 
 
 def all_gather_object(obj, group=None) -> list:

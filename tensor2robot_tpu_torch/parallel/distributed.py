@@ -22,7 +22,9 @@ import datetime
 import logging
 import os
 import socket
-from typing import Optional
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
 
 log = logging.getLogger(__name__)
 
@@ -94,3 +96,31 @@ def process_index() -> int:
   import torch.distributed as dist
 
   return dist.get_rank() if dist.is_initialized() else 0
+
+
+def new_subgroups(names: Sequence[str], shape: Dict[str, int],
+                  rank: int) -> Dict[str, Any]:
+  """{axis: the gloo group of the ranks that share `rank`'s coordinates on
+  every other axis} over a row-major mesh of `shape` (in `names`' order).
+
+  `dist.new_group` is collective over the whole default group: every
+  rank calls it for every group of every axis, in the same order (axes
+  in `names`' order, groups by their lowest rank), and keeps the groups
+  it belongs to (ROADMAP trap 64)."""
+  import torch.distributed as dist
+
+  from tensor2robot_tpu_torch.parallel.mesh import axis_ranks
+
+  world = int(np.prod([shape[n] for n in names]))
+  out = {}
+  for axis in names:
+    seen = set()
+    for r in range(world):
+      ranks = axis_ranks(names, shape, r, axis)
+      if ranks in seen:
+        continue
+      seen.add(ranks)
+      group = dist.new_group(list(ranks), backend=BACKEND)
+      if rank in ranks:
+        out[axis] = group
+  return out

@@ -191,10 +191,12 @@ def train_qtopt(
   `prefill_random=True` adds `min(capacity, 4·batch_size)` spec-random
   transitions drawn from `seed` first (benchmarks, smoke runs).
   """
-  if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
+  if mesh is not None and (not isinstance(mesh, mesh_lib.Mesh) or set(
+      mesh.axis_names) - {mesh_lib.DATA_AXIS}):
     raise NotImplementedError(
-        f"train_qtopt(mesh={type(mesh).__name__}): only the data-axis "
-        "mesh of parallel.mesh.create_mesh is ported (ROADMAP A11 rest).")
+        f"train_qtopt(mesh={getattr(mesh, 'shape', type(mesh).__name__)})"
+        ": only a data-axis mesh of parallel.mesh.create_mesh is ported "
+        "for QT-Opt (ROADMAP A11 rest).")
   world = collectives.group_size()
   if world > 1 and shard_weight_update:
     raise NotImplementedError(

@@ -13,8 +13,19 @@ on-robot loop that feeds the growing history. `moe_experts` and
 device (`parallel.moe`); the network then returns the trunk's
 load-balance loss under `AbstractT2RModel.AUX_LOSS_OUTPUT`, which the
 base model weights into the loss by `aux_loss_weight` and strips from
-`predict_step`. Pipelined trunks, expert parallelism and ring attention
-wait for ROADMAP A11.
+`predict_step`.
+
+`pipeline_stages` splits the trunk's depth into that many GPipe stages
+(`layers.pipelined_transformer`); with a `mesh` whose `stage` axis has
+that many ranks each rank holds one stage and the microbatches hop along
+the stage ring, and without one the same stacked params run the
+sequential fallback, so a checkpoint of the pipeline gin serves on one
+device. On a mesh of more than one rank the masked loss keeps JAX's
+global denominator (ROADMAP trap 63): each rank's loss is its rows'
+share, sum(sq·mask) over its rows / max(sum(mask) over the data group,
+1), the data group sums the shares' gradients, and the reported loss and
+scalars are the shares summed over the group. Expert parallelism and
+ring attention wait for ROADMAP A11 rest.
 """
 
 from __future__ import annotations
@@ -32,12 +43,20 @@ from tensor2robot_tpu_torch.data.episode_input_generator import (
 )
 from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
 from tensor2robot_tpu_torch.layers.core import dense
+from tensor2robot_tpu_torch.layers.pipelined_transformer import (
+    STAGE_PARAMS_NAME,
+    PipelinedCausalTransformer,
+)
 from tensor2robot_tpu_torch.layers.transformer import CausalTransformer
 from tensor2robot_tpu_torch.models.abstract_model import (
     AbstractT2RModel,
     TrainState,
 )
+from tensor2robot_tpu_torch.models import optimizers as opt_lib
 from tensor2robot_tpu_torch.models.regression_model import INFERENCE_OUTPUT
+from tensor2robot_tpu_torch.parallel import collectives
+from tensor2robot_tpu_torch.parallel import pipeline as pipeline_lib
+from tensor2robot_tpu_torch.parallel.mesh import DATA_AXIS, STAGE_AXIS
 from tensor2robot_tpu_torch.research.vrgripper.vrgripper_models import (
     ACTION,
     GripperObsEncoder,
@@ -54,20 +73,24 @@ class _EpisodeTransformerNet(nn.Module):
                depth: int, num_heads: int, max_len: int,
                attention_impl: str, dtype: torch.dtype = torch.bfloat16,
                moe_experts: int = 0, moe_every: int = 2,
-               pipeline_stages: int = 0):
+               pipeline_stages: int = 0, pipeline_microbatches: int = 2,
+               pipeline_remat: bool = False, mesh=None):
     super().__init__()
-    if pipeline_stages:
-      raise NotImplementedError(
-          f"pipeline_stages={pipeline_stages}: the pipelined trunk is not "
-          "ported yet (ROADMAP A11).")
     self.dtype = dtype
     self.obs_encoder = GripperObsEncoder(
         state_dim, filters=tuple(filters), embedding_size=embedding_size,
         use_batch_norm=False, dtype=dtype)
-    self.trunk = CausalTransformer(
-        embedding_size, width=width, depth=depth, num_heads=num_heads,
-        max_len=max_len, attention_impl=attention_impl, dtype=dtype,
-        moe_experts=moe_experts, moe_every=moe_every)
+    if pipeline_stages:
+      self.trunk = PipelinedCausalTransformer(
+          embedding_size, width=width, depth=depth, num_heads=num_heads,
+          max_len=max_len, num_stages=pipeline_stages,
+          num_microbatches=pipeline_microbatches, remat=pipeline_remat,
+          attention_impl=attention_impl, mesh=mesh, dtype=dtype)
+    else:
+      self.trunk = CausalTransformer(
+          embedding_size, width=width, depth=depth, num_heads=num_heads,
+          max_len=max_len, attention_impl=attention_impl, dtype=dtype,
+          moe_experts=moe_experts, moe_every=moe_every)
     self.action_head = nn.Linear(width, action_dim)
 
   def forward(self, features) -> Dict[str, torch.Tensor]:
@@ -81,7 +104,10 @@ class _EpisodeTransformerNet(nn.Module):
         "image": image.reshape((b * t,) + tuple(image.shape[2:])),
         "gripper_pose": pose.reshape((b * t,) + tuple(pose.shape[2:])),
     })
-    trunk, aux = self.trunk(emb.reshape(b, t, -1), return_aux=True)
+    if isinstance(self.trunk, PipelinedCausalTransformer):
+      trunk, aux = self.trunk(emb.reshape(b, t, -1)), None
+    else:
+      trunk, aux = self.trunk(emb.reshape(b, t, -1), return_aux=True)
     action = dense(self.action_head, trunk, self.dtype).float()
     outputs = {ACTION: action, INFERENCE_OUTPUT: action}
     if aux is not None:
@@ -104,16 +130,42 @@ class VRGripperTransformerModel(AbstractT2RModel):
                num_heads: int = 4,
                max_context_length: int = 512,
                attention_impl: str = "auto",
+               mesh=None,
                moe_experts: int = 0,
                moe_every: int = 2,
                pipeline_stages: int = 0,
+               pipeline_microbatches: int = 2,
+               pipeline_remat: bool = False,
                device_dtype: torch.dtype = torch.bfloat16,
                **kwargs):
     """`moe_experts` / `moe_every`: every `moe_every`-th trunk block's
     MLP becomes that many routed experts (one device); the load-balance
-    loss joins training by `aux_loss_weight`. `kwargs` go to
-    `AbstractT2RModel` (`create_optimizer_fn`, `aux_loss_weight`)."""
+    loss joins training by `aux_loss_weight`. `pipeline_stages`: split
+    the trunk's depth into that many GPipe stages of
+    `pipeline_microbatches` microbatches (`pipeline_remat` recomputes a
+    stage's activations in the backward); with `mesh`
+    (`parallel.mesh.create_mesh`) carrying a `stage` axis of the same
+    size each rank holds one stage, and without one the same params run
+    the sequential fallback. The global batch must divide into
+    `pipeline_microbatches` × the mesh's data-axis size. Exclusive with
+    `moe_experts`. `kwargs` go to `AbstractT2RModel`
+    (`create_optimizer_fn`, `aux_loss_weight`)."""
     super().__init__(device_dtype=device_dtype, **kwargs)
+    if pipeline_stages and moe_experts:
+      raise ValueError(
+          "pipeline_stages and moe_experts are mutually exclusive: the "
+          "pipelined trunk stacks dense blocks (stage-stacked MoE routing "
+          "is not implemented).")
+    if (pipeline_stages and mesh is not None
+        and STAGE_AXIS in mesh.axis_names
+        and mesh.shape[STAGE_AXIS] != pipeline_stages):
+      raise ValueError(
+          f"pipeline_stages={pipeline_stages} must equal the mesh's "
+          f"{STAGE_AXIS!r} axis size {mesh.shape[STAGE_AXIS]} (each "
+          "device materializes exactly one stage).")
+    self._mesh = mesh
+    self._pipeline_microbatches = pipeline_microbatches
+    self._pipeline_remat = pipeline_remat
     self._image_size = image_size
     self._state_dim = state_dim
     self._action_dim = action_dim
@@ -133,6 +185,19 @@ class VRGripperTransformerModel(AbstractT2RModel):
   @property
   def depth(self) -> int:
     return self._depth
+
+  @property
+  def pipeline_microbatches(self) -> int:
+    """M: how a data rank's rows of the global batch are laid out
+    (`parallel.pipeline.data_rows`); 1 without a pipelined trunk."""
+    return self._pipeline_microbatches if self._pipeline_stages else 1
+
+  def _data_group(self):
+    """(whether the loss spans a data group of ranks, its group)."""
+    mesh = self._mesh
+    if mesh is None or mesh.world_size < 2 or mesh.axis_size(DATA_AXIS) < 2:
+      return False, None
+    return True, mesh.group(DATA_AXIS)
 
   def get_feature_specification(self, mode: Mode) -> TensorSpecStruct:
     st = TensorSpecStruct()
@@ -166,13 +231,18 @@ class VRGripperTransformerModel(AbstractT2RModel):
         moe_experts=self._moe_experts,
         moe_every=self._moe_every,
         pipeline_stages=self._pipeline_stages,
+        pipeline_microbatches=self._pipeline_microbatches,
+        pipeline_remat=self._pipeline_remat,
+        mesh=self._mesh,
     )
 
   def model_train_fn(self, features, labels, outputs, mode
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Per-step action MSE over the real steps: a step counts when its
     index is below the episode's `sequence_length` (all steps count
-    when the key is absent), averaged over max(counted steps, 1)."""
+    when the key is absent), averaged over max(counted steps, 1). Over a
+    data group the count is the group's (the module docstring), and the
+    loss and scalars are this rank's shares of the global ones."""
     target = labels[ACTION].float()                  # [B, T, A]
     predicted = outputs[ACTION].float()
     b, t = target.shape[:2]
@@ -182,11 +252,53 @@ class VRGripperTransformerModel(AbstractT2RModel):
               < lengths[:, None]).float()
     else:
       mask = torch.ones((b, t), device=target.device)
-    denom = mask.sum().clamp_min(1.0)
+    spans, group = self._data_group()
+    count = mask.sum()
+    if spans:
+      count = collectives.all_reduce_sum(count, group)
+    denom = count.clamp_min(1.0)
     diff = predicted - target
     loss = ((diff * diff).sum(dim=-1) * mask).sum() / denom
     action_error = (diff.abs().sum(dim=-1) * mask).sum() / denom
     return loss, {"mse": loss, "action_error": action_error}
+
+  def train_grads(self, state: TrainState, features, labels,
+                  axis_name: Optional[str] = None):
+    """`AbstractT2RModel.train_grads`; over a data group the gradients
+    and the scalars are the rank's shares summed over the group, and
+    `grad_norm` is the whole gradient's (the stage-stacked leaves' part
+    summed over the stage ring)."""
+    spans, group = self._data_group()
+    pipelined = pipeline_lib.is_pipelined(self._mesh)
+    if pipelined and self.tx.reads_norms:
+      raise NotImplementedError(
+          "an optimizer that reads norms over whole leaves (clipping by "
+          "the global norm, lamb) on a stage rank, which holds one stage "
+          "of each stacked leaf (ROADMAP A11 rest)")
+    grads, new_stats, metrics = super().train_grads(
+        state, features, labels, axis_name=axis_name)
+    if not spans and not pipelined:
+      return grads, new_stats, metrics
+    if spans:
+      grads = collectives.all_reduce_sum_dict(grads, group)
+      shares = {k: v for k, v in metrics.items() if k != "grad_norm"}
+      metrics = {**collectives.all_reduce_sum_dict(shares, group),
+                 "grad_norm": metrics["grad_norm"]}
+    metrics["grad_norm"] = self._grad_norm(grads)
+    return grads, new_stats, metrics
+
+  def _grad_norm(self, grads) -> torch.Tensor:
+    """optax's `global_norm` of the whole gradient, where a stage rank
+    holds one stage of the stacked leaves."""
+    stacked = [k for k in grads if STAGE_PARAMS_NAME in k.split(".")]
+    if not pipeline_lib.is_pipelined(self._mesh) or not stacked:
+      return opt_lib.global_norm(grads)
+    rest = opt_lib.global_norm({k: v for k, v in grads.items()
+                                if k not in stacked})
+    local = opt_lib.global_norm({k: grads[k] for k in stacked})
+    ring = collectives.all_reduce_sum(local * local,
+                                      self._mesh.group(STAGE_AXIS))
+    return torch.sqrt(rest * rest + ring)
 
   def make_context_policy(self, state: TrainState,
                           context_length: Optional[int] = None,

@@ -20,10 +20,11 @@ which heartbeat went stale instead.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 from tensor2robot_tpu_torch.telemetry import core
 from tensor2robot_tpu_torch.telemetry import metrics
@@ -72,6 +73,20 @@ def dump(out_dir: str, reason: str,
     return path
   except OSError:
     return ""
+
+
+@contextlib.contextmanager
+def recorded(out_dir: str, role: str, what: str) -> Iterator[None]:
+  """Dumps a flight record naming `role` if the body raises, then
+  re-raises. For work a process does before `telemetry.configure` gives
+  it its role (a fleet child builds its model while the hosts come up);
+  with an empty `out_dir` nothing is written."""
+  try:
+    yield
+  except BaseException as e:
+    if out_dir:
+      dump(out_dir, f"{role}: {what} failed: {e!r}", role=role)
+    raise
 
 
 def read_dumps(out_dir: str) -> List[Dict[str, Any]]:

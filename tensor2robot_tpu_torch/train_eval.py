@@ -51,19 +51,37 @@ results dropped) and the card's peak is known.
 After training, each exporter of `create_exporters_fn(model)` exports
 the final state (`export/`), as the JAX trainer does.
 
-Not ported yet: meshes and sharding strategies (ROADMAP A11); they raise
-where they are asked for.
+A mesh (`parallel.mesh.create_mesh`) with `sharding_strategy="pipeline"`
+trains a model built on the same mesh (the pipeline gin's
+`VRGripperTransformerModel(mesh=..., pipeline_stages=...)`) as one rank
+of a gloo group: the model's state holds this rank's stage of the
+stage-stacked leaves (`parallel.sharding`), each rank reads the global
+batch from its own generator (a generator without a seed gets one from
+rank 0) and takes its data rows (`parallel.pipeline.data_rows`), the
+ranks compare a CRC-32 of each step's global batch before the step and
+raise on a mismatch (a stage rank would otherwise take features and
+labels from different batches), and the steps run eagerly (a collective
+cannot sit in a CUDA graph capture, ROADMAP trap 56). Rank 0 writes the records, the startup timings and
+the checkpoints, in the one-device layout (`utils.checkpoints.
+gather_state`); a resume slices that layout again. Hooks run on every
+rank (`after_checkpoint` on rank 0 only, with the one-device state);
+`perf.mfu` divides by the devices the group spans. Evaluation and
+exporters on such a mesh raise: a pipeline checkpoint serves mesh-free.
+The other meshes and strategies raise, naming ROADMAP A11 rest.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import logging
 import os
 import time
+import zlib
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
+import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import config as gin
@@ -76,6 +94,9 @@ from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
 from tensor2robot_tpu_torch.hooks import Hook, HookList
 from tensor2robot_tpu_torch.models.abstract_model import TrainState
 from tensor2robot_tpu_torch.models.model_interface import ModelInterface
+from tensor2robot_tpu_torch.parallel import collectives
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+from tensor2robot_tpu_torch.parallel import pipeline as pipeline_lib
 from tensor2robot_tpu_torch.startup import compile_cache, orchestrator
 from tensor2robot_tpu_torch.telemetry import metrics as tmetrics
 from tensor2robot_tpu_torch.telemetry import perf as perf_lib
@@ -126,14 +147,40 @@ def _flat(struct) -> Dict[str, Any]:
               else struct)
 
 
-def _packed(stream: Iterable) -> Iterator[Dict[str, Any]]:
+def _digest(packed: Dict[str, Any]) -> int:
+  """A CRC-32 of a packed host batch: each leaf's key, dtype, shape and
+  bytes, in key order."""
+  crc = 0
+  for key in sorted(packed):
+    value = packed[key]
+    if isinstance(value, torch.Tensor):
+      value = value.detach().cpu().numpy()
+    value = np.ascontiguousarray(value)
+    crc = zlib.crc32(f"{key}:{value.dtype}:{value.shape}".encode(), crc)
+    crc = zlib.crc32(value.reshape(-1).view(np.uint8), crc)
+  return crc
+
+
+def _packed(stream: Iterable,
+            rows: Optional[Callable[[int], Any]] = None,
+            digests: Optional[collections.deque] = None
+            ) -> Iterator[Dict[str, Any]]:
   """(features, labels) batches as one flat dict, keys prefixed by
-  their side, as the prefetcher and K-stacking take them. Closing it
-  closes `stream` (a data plane's workers end with it)."""
+  their side, as the prefetcher and K-stacking take them; with `rows`
+  (batch size → row indices) each leaf is taken at those rows, and with
+  `digests` each whole batch's `_digest` is appended to it first, in
+  order. Closing it closes `stream` (a data plane's workers end with
+  it)."""
   try:
     for features, labels in stream:
-      yield {**{_FEATURES + k: v for k, v in _flat(features).items()},
-             **{_LABELS + k: v for k, v in _flat(labels).items()}}
+      packed = {**{_FEATURES + k: v for k, v in _flat(features).items()},
+                **{_LABELS + k: v for k, v in _flat(labels).items()}}
+      if digests is not None:
+        digests.append(_digest(packed))
+      if rows is not None:
+        index = rows(len(next(iter(packed.values()))))
+        packed = {k: v[index] for k, v in packed.items()}
+      yield packed
   finally:
     closer = getattr(stream, "close", None)
     if callable(closer):
@@ -147,8 +194,11 @@ def _unpacked(batch: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
 
 
 def _device_batches(stream: Iterable, device: torch.device, k: int = 1,
-                    buffer_size: int = 2) -> prefetch_lib.DevicePrefetcher:
-  packed = _packed(stream)
+                    buffer_size: int = 2,
+                    rows: Optional[Callable[[int], Any]] = None,
+                    digests: Optional[collections.deque] = None
+                    ) -> prefetch_lib.DevicePrefetcher:
+  packed = _packed(stream, rows, digests)
   if k > 1:
     # Stacking keeps K batches at once: ring views must be copies.
     getattr(stream, "require_copies", lambda: None)()
@@ -244,12 +294,85 @@ def kernel_libraries(model: ModelInterface, device: torch.device) -> list:
 
 
 def _check_unported(mesh, sharding_strategy: str, min_size_to_shard: int):
-  if (mesh is not None or sharding_strategy != "replicated"
-      or min_size_to_shard != _DEFAULT_MIN_SIZE_TO_SHARD):
+  """Raises for a mesh or strategy the port does not run: it runs no
+  mesh with "replicated" or "pipeline" (which places nothing without a
+  stage axis), and the pipeline strategy over a `parallel.mesh` mesh."""
+  if mesh is None:
+    if (sharding_strategy in ("replicated", "pipeline")
+        and min_size_to_shard == _DEFAULT_MIN_SIZE_TO_SHARD):
+      return
+  elif (isinstance(mesh, mesh_lib.Mesh)
+        and sharding_strategy == "pipeline"):
+    return
+  raise NotImplementedError(
+      f"train_eval_model(mesh={getattr(mesh, 'shape', mesh)}, "
+      f"sharding_strategy={sharding_strategy!r}, min_size_to_shard="
+      f"{min_size_to_shard}): the port runs the pipeline strategy over a "
+      "parallel.mesh mesh only (ROADMAP A11 rest).")
+
+
+def _group_setup(model, mesh, input_generator_eval, create_exporters_fn,
+                 input_generator_train):
+  """Checks a pipeline mesh's run and gives every rank's generator one
+  seed; returns the rows function of this rank's data rows."""
+  if getattr(model, "mesh", None) is not mesh:
+    raise ValueError(
+        "train_eval_model(mesh=...) over several ranks needs the model "
+        "built on the same mesh: the model reduces its loss and "
+        "gradients over the mesh's groups (the pipeline gin binds both "
+        "to @create_mesh())")
+  if input_generator_eval is not None or create_exporters_fn is not None:
     raise NotImplementedError(
-        "train_eval_model(mesh=..., sharding_strategy=..., "
-        "min_size_to_shard=...): meshes and sharding strategies are not "
-        "ported yet (ROADMAP A11).")
+        "evaluation and exporters on a mesh of several ranks: evaluate "
+        "and export the one-device checkpoint with a mesh-free model "
+        "(ROADMAP A11 rest)")
+  if input_generator_train is not None:
+    input_generator_train.fix_seed(collectives.broadcast_object(
+        int(torch.randint(0, 2 ** 31 - 1, (1,))) if mesh.rank == 0
+        else None))
+  m = getattr(model, "pipeline_microbatches", 1)
+  d_size = mesh.axis_size(mesh_lib.DATA_AXIS)
+  d_index = mesh.axis_index(mesh_lib.DATA_AXIS)
+  return lambda batch: pipeline_lib.data_rows(batch, m, d_size, d_index)
+
+
+def _check_same_batches(digests: collections.deque, k: int,
+                        step: int) -> None:
+  """Raises on every rank of the group unless all ranks read the same
+  global batches for the dispatch at `step` (the next `k` digests)."""
+  mine = [digests.popleft() for _ in range(k)]
+  if not collectives.all_equal(mine):
+    raise ValueError(
+        f"the ranks read different global batches at step {step}: each "
+        "rank reads the global batch from its own generator, which must "
+        "give every rank the same batches in the same order (a seeded "
+        "generator with a fixed order)")
+
+
+def _warm_up(twin, twin_state, batch) -> None:
+  """One step of the model without its mesh on this rank's rows, its
+  results dropped, before the first collective step. A rank loads its
+  kernels (CUDA modules, lazily, at their first launch) inside its first
+  step; in a collective step a stage rank launches its first kernel only
+  once the stage before it has sent its activations, so the stage
+  ranks' loads run one after the other along the stage chain (44-87 s
+  for the pipeline gin's 8 ranks sharing one H100). Here each rank loads
+  them apart from the others."""
+  train_step_fn(twin)(twin_state, batch, ())
+
+
+def _group_step_flops(twin, twin_state, mesh, batch):
+  """The FLOPs of the group's global step: one step of the model without
+  its mesh (`model.without_mesh()`: every stage, no collective) on this
+  rank's rows, times the data axis's size; None if any rank could not
+  count."""
+  flops = profiling.train_step_flops(train_step_fn(twin), twin_state,
+                                     batch, ())
+  counts = collectives.all_gather_object(flops)
+  if None in counts:
+    return None
+  return float(sum(counts)) * mesh.axis_size(mesh_lib.DATA_AXIS) / len(
+      counts)
 
 
 @gin.configurable
@@ -288,13 +411,24 @@ def train_eval_model(
   `overlap_startup` runs the startup phases together (the module
   docstring); False runs them one after the other, the input phase at
   the loop's start. `init_batch_size` is accepted for the JAX signature:
-  the port builds its networks from their specs. Returns the final
-  state.
+  the port builds its networks from their specs. `mesh` with
+  `sharding_strategy="pipeline"`: this process is one rank of the mesh's
+  group (the module docstring). Returns the final state (on a pipeline
+  rank, its stage's slice).
   """
   _check_unported(mesh, sharding_strategy, min_size_to_shard)
   del init_batch_size
   compile_cache.configure_compilation_cache()
   device = resolve_device(device)
+  group = mesh is not None and mesh.world_size > 1
+  chief = not group or mesh.rank == 0
+  rows = None
+  # Each batch's digest, from the input thread to the loop (in order).
+  digests = collections.deque() if group else None
+  if group:
+    rows = _group_setup(model, mesh, input_generator_eval,
+                        create_exporters_fn, input_generator_train)
+    graphs = False  # a collective cannot sit in a capture (trap 56)
   k = prefetch_lib.validate_steps_per_dispatch(
       steps_per_dispatch,
       log_every_steps=log_every_steps,
@@ -313,13 +447,14 @@ def train_eval_model(
   will_train = input_generator_train is not None and max_train_steps > 0
 
   def restore_phase() -> TrainState:
-    return ckpt_lib.restore_state(model_dir, like=state, step=resume_step)
+    return ckpt_lib.restore_state(model_dir, like=state, step=resume_step,
+                                  mesh=mesh)
 
   def input_phase() -> prefetch_lib.DevicePrefetcher:
     return _device_batches(
         input_generator_train.create_dataset(Mode.TRAIN,
                                              batch_size=batch_size),
-        device, k)
+        device, k, rows=rows, digests=digests)
 
   phases: Dict[str, Callable[[], Any]] = {}
   if overlap_startup:
@@ -342,7 +477,8 @@ def train_eval_model(
     state = report.results.get("restore", state)
     train_prefetcher = report.results.get("input")
     try:
-      report.write(model_dir)
+      if chief:
+        report.write(model_dir)
     except OSError:
       log.warning("Could not write %s", orchestrator.STARTUP_TIMINGS_FILE,
                   exc_info=True)
@@ -355,9 +491,11 @@ def train_eval_model(
         f"Resumed at step {step}, not a multiple of "
         f"steps_per_dispatch={k}: boundaries would never align.")
 
-  metric_logger = MetricLogger(model_dir)
-  writer = ckpt_lib.CheckpointWriter(model_dir,
-                                     max_to_keep=max_checkpoints_to_keep)
+  # Only the chief writes the run's files.
+  metric_logger = MetricLogger(model_dir) if chief else None
+  writer = (ckpt_lib.CheckpointWriter(model_dir,
+                                      max_to_keep=max_checkpoints_to_keep)
+            if chief else None)
   evaluator = _Evaluator(model, device, graphs)
   eval_batch = eval_batch_size or batch_size
   prefetcher = train_prefetcher
@@ -365,15 +503,28 @@ def train_eval_model(
   registry = tmetrics.registry()
   perf_lib.start_resource_sampler(
       sources=[profiling.device_memory_source()])
-  watch_sentinel = sentinel_lib.build_for_run(model_dir)
-  # The step's FLOPs are counted on the first batch's shapes.
+  watch_sentinel = sentinel_lib.build_for_run(model_dir) if chief else None
+  # The step's FLOPs are counted on the first batch's shapes (a group's
+  # by `_group_step_flops`, after `_warm_up`), over the devices the ranks
+  # span (ranks sharing a card share its peak).
   perf_meter = perf_lib.PerfMeter(
-      peak_flops=profiling.device_peak_flops(device), devices=1)
+      peak_flops=profiling.device_peak_flops(device),
+      devices=collectives.distinct_devices(device) if group else 1)
 
   def current() -> TrainState:
     """The state as of `step`, a copy no later replay writes."""
     return (state if graphs_by_shape is None
             else _at_step(graphs_by_shape.carry_copy(), step))
+
+  def save(at: int, saved: TrainState) -> None:
+    """Writes `saved` at step `at` (in the one-device layout, from the
+    chief) and calls the hooks' `after_checkpoint` there."""
+    flat = ckpt_lib.gather_state(saved, mesh) if group else saved
+    if chief:
+      writer.save(at, flat)
+      hook_list.after_checkpoint(
+          at, ckpt_lib.unflatten_state(saved, flat) if group else saved,
+          model_dir)
 
   try:
     hook_list.begin(model, model_dir)
@@ -396,12 +547,22 @@ def train_eval_model(
         if step >= max_train_steps:
           break
         batch = _unpacked(packed)
+        if group:
+          _check_same_batches(digests, k, step)
         if not counted:
           one = batch if k == 1 else {side: {key: v[0] for key, v in
                                              leaves.items()}
                                       for side, leaves in batch.items()}
-          perf_meter.flops_per_step = profiling.train_step_flops(
-              train_step_fn(model), state, one, ())
+          if group:
+            twin = model.without_mesh()
+            twin_state = twin.create_train_state(seed=seed, device=device)
+            _warm_up(twin, twin_state, one)
+            perf_meter.flops_per_step = _group_step_flops(
+                twin, twin_state, mesh, one)
+            del twin, twin_state
+          else:
+            perf_meter.flops_per_step = profiling.train_step_flops(
+                train_step_fn(model), state, one, ())
           counted = True
         with perf_meter.dispatch("train.dispatch", step=step):
           if graphs_by_shape is not None:
@@ -411,7 +572,8 @@ def train_eval_model(
         step += k
         steps_since_log += k
         hook_list.after_step(step, metrics)
-        if step % log_every_steps == 0 or step == max_train_steps:
+        if chief and (step % log_every_steps == 0
+                      or step == max_train_steps):
           scalars = {key: v.item() for key, v in metrics.items()}
           dt = time.time() - t_last
           scalars["steps_per_sec"] = steps_since_log / max(
@@ -436,10 +598,8 @@ def train_eval_model(
           stall_secs = time.perf_counter() - t_write
         if step % save_checkpoints_steps == 0 or step == max_train_steps:
           t_save = time.perf_counter()
-          saved = current()
-          writer.save(step, saved)
+          save(step, current())
           last_saved = step
-          hook_list.after_checkpoint(step, saved, model_dir)
           stall_secs += time.perf_counter() - t_save
         if (input_generator_eval is not None and eval_every_steps
             and step % eval_every_steps == 0 and step != max_train_steps):
@@ -449,8 +609,7 @@ def train_eval_model(
           stall_secs += time.perf_counter() - t_eval
       state = current()
       if last_saved != step:
-        writer.save(step, state)
-        hook_list.after_checkpoint(step, state, model_dir)
+        save(step, state)
 
     state = current()
     if input_generator_eval is not None:
@@ -467,7 +626,8 @@ def train_eval_model(
       prefetcher.close()
     if watch_sentinel is not None:
       watch_sentinel.close()
-    metric_logger.close()
+    if metric_logger is not None:
+      metric_logger.close()
   return current()
 
 

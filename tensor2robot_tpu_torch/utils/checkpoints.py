@@ -13,6 +13,12 @@ payload; the port's predictors and warm starts read params and batch
 statistics out of the one state file (`restore_variables`,
 `restore_params`: a model_dir, a step directory or the file itself), so
 it is not written.
+
+A pipeline rank holds one stage of the stage-stacked leaves: its
+checkpoints are written in the one-device layout (`gather_state` on the
+stage ring, rank 0 writes) and resumed by slicing it again
+(`restore_state(..., mesh=)`), so a pipeline checkpoint serves on one
+device unchanged.
 """
 
 from __future__ import annotations
@@ -171,10 +177,43 @@ def _read(path: str) -> Dict[str, Any]:
 
 
 def restore_state(model_dir: str, like: Any,
-                  step: Optional[int] = None) -> Any:
+                  step: Optional[int] = None, mesh=None) -> Any:
   """The state saved at `step` (default: the latest), in `like`'s
-  structure, each tensor on its `like` leaf's device and dtype."""
-  return _rebuild(like, _load_leaves(model_dir, step))
+  structure, each tensor on its `like` leaf's device and dtype. With a
+  pipeline `mesh` (a `stage` axis above 1) the one-device layout is
+  sliced to this rank's stage (`parallel.sharding.shard_state`)."""
+  leaves = _load_leaves(model_dir, step)
+  if _pipelined(mesh):
+    from tensor2robot_tpu_torch.parallel import sharding
+    leaves = sharding.shard_state(leaves, mesh)
+  return _rebuild(like, leaves)
+
+
+def _pipelined(mesh) -> bool:
+  from tensor2robot_tpu_torch.parallel import pipeline
+  return pipeline.is_pipelined(mesh)
+
+
+def gather_state(state: Any, mesh) -> Optional[Dict[str, Any]]:
+  """A pipeline rank's state in the one-device layout, flat: on the
+  mesh's rank 0 `flatten_state` of the whole state, each stage-stacked
+  leaf (`parallel.sharding.is_stage_stacked`) concatenated over the
+  stage ring; None on every other rank. Collective over the stage ring
+  of data index 0: those ranks must all call it (the others return
+  None at once). Without a pipeline mesh, `flatten_state(state)`."""
+  flat = flatten_state(state)
+  if not _pipelined(mesh):
+    return flat
+  from tensor2robot_tpu_torch.parallel import collectives, sharding
+  if mesh.axis_index("data"):
+    return None
+  stacked = {k: v for k, v in flat.items() if sharding.is_stage_stacked(k)}
+  parts = collectives.all_gather_object(stacked, mesh.group("stage"))
+  if mesh.rank != 0:
+    return None
+  flat.update({k: torch.cat([part[k] for part in parts])
+               for k in stacked})
+  return flat
 
 
 def _find_params_path(path_or_model_dir: str,

@@ -387,7 +387,7 @@ def test_the_data_axis_mesh():
   assert mesh_lib.create_mesh({"data": -1}, devices=["cpu"]).size == 1
   with pytest.raises(ValueError, match="needs 2 devices"):
     mesh_lib.create_mesh({"data": 2}, devices=["cpu"])
-  for shapes, devices in (({"data": 1, "stage": 1}, ["cpu"]),
+  for shapes, devices in (({"data": 1, "fsdp": 1}, ["cpu"]),
                           ({"model": 1}, ["cpu"]),
                           (None, ["cpu", "cpu"])):
     with pytest.raises(NotImplementedError, match="A11 rest"):

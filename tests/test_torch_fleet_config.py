@@ -8,11 +8,13 @@ process is spawned here.
     defaults; for a table of invalid configs it raises JAX's exception
     type with JAX's message, and the shipped fleet gins parse into the
     same config in both registries.
-  * What the port does not run yet (the `mujoco_pose` env) is refused
-    at `Fleet` construction by a `FleetUnported` naming its ROADMAP item
-    (A10a only, beside pods or a learner group), before any process or
-    directory is made; front replicas, the control plane, Anakin pods
-    and learner groups are not.
+  * What the port does not run yet (the `mujoco_pose` env in process
+    actors) is refused at `Fleet` construction and in `scale_to` by a
+    `FleetUnported` naming its ROADMAP item (A10a only, beside pods or a
+    learner group), before any process or directory is made; front
+    replicas, the control plane, Anakin pods, learner groups and a
+    pods-only `mujoco_pose` fleet (pods collect on the `pose` family)
+    are not.
   * `_merge_fleet_metrics` and `_result_from_metrics` equal JAX's on the
     same seeded snapshot dicts.
 """
@@ -34,6 +36,7 @@ from tensor2robot_tpu_torch import config as port_gin  # noqa: E402
 from tensor2robot_tpu_torch.fleet import FleetError  # noqa: E402
 from tensor2robot_tpu_torch.fleet import faults  # noqa: E402
 from tensor2robot_tpu_torch.fleet import orchestrator as orch  # noqa: E402
+from tensor2robot_tpu_torch.fleet.pod import pod_env_family  # noqa: E402
 
 _CONFIGS = "tensor2robot_tpu/research/qtopt/configs/"
 # Fields of a run, not of its configuration.
@@ -175,6 +178,25 @@ def test_refusals_raise_before_anything_is_made(tmp_path, kwargs, item):
     orch.run_fleet(model_dir=model_dir, config=config)
   assert set(mp.active_children()) == children
   assert not os.path.exists(model_dir)
+
+
+def test_a_pods_only_physics_fleet_runs_on_the_pose_family(tmp_path):
+  """ROADMAP C7: only process actors would build the physics env (JAX's
+  `fleet/actor.py`); pods map `mujoco_pose` to the functional `pose`
+  family. A pods-only `mujoco_pose` fleet is accepted; one with actors,
+  and a `scale_to` onto actors (JAX holds it at one actor or more), are
+  refused naming A10a alone."""
+  pods_only = dict(env="mujoco_pose", num_actors=0, pod_hosts=1,
+                   device="cpu")
+  assert orch.unported(orch.FleetConfig(**pods_only)) == []
+  assert pod_env_family("mujoco_pose") == "pose"
+  fleet = orch.Fleet(orch.FleetConfig(**pods_only), str(tmp_path))
+  with pytest.raises(orch.FleetUnported, match=_A10A_ONLY):
+    fleet.scale_to(1)
+  with pytest.raises(orch.FleetUnported, match=_A10A_ONLY):
+    orch.Fleet(orch.FleetConfig(**{**pods_only, "num_actors": 1}),
+               str(tmp_path))
+  assert not os.listdir(tmp_path)
 
 
 def test_a_runnable_config_is_not_refused(tmp_path):

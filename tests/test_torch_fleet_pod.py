@@ -19,6 +19,8 @@ pins them (`TestPodUnits`, `TestHybridPodracer`).
     only, and the pod is respawned.
   * After rank 0's clean end, a learner rank that fails or hangs fails
     the run.
+  * A pod or learner rank whose build raises (before its telemetry is
+    configured) leaves a flight record naming its role (ROADMAP C6).
 
 Each fleet run has its own time limit (`run_timeout_secs`).
 """
@@ -294,3 +296,39 @@ def test_a_learner_rank_ending_badly_after_rank0_fails_the_run(
       if process.is_alive():
         process.kill()
       process.join(5.0)
+
+
+# ---- a build that raises leaves a flight record (ROADMAP C6) ----
+
+
+@pytest.mark.parametrize("role", ["pod-3", "learner", "learner-r1"])
+def test_a_build_that_raises_leaves_a_flight_record(tmp_path, monkeypatch,
+                                                    role):
+  """The pod and the learner rank build before their telemetry is
+  configured (while the hosts come up); a build that raises still dumps
+  a flight record naming the role, as JAX's do (they build inside the
+  `try` that dumps)."""
+  import threading
+
+  from tensor2robot_tpu_torch.fleet import learner as learner_lib
+  from tensor2robot_tpu_torch.telemetry import flightrec
+
+  def broken(config):
+    raise RuntimeError("no card for the build")
+
+  monkeypatch.setattr(host_lib, "_build_learner", broken)
+  # The children scrub the launch variables: keep the test process's.
+  monkeypatch.setattr(os, "environ", dict(os.environ))
+  dump_dir = str(tmp_path / "flightrec")
+  config = FleetConfig(**{**_TINY, "flightrec_dir": dump_dir})
+  with pytest.raises(RuntimeError, match="no card for the build"):
+    if role.startswith("pod"):
+      pod_lib.pod_main(config, 3, None, threading.Event(), None)
+    else:
+      world = 2 if role == "learner-r1" else 1
+      learner_lib.learner_main(config, str(tmp_path / "model"), None, None,
+                               world_size=world, rank=world - 1)
+  dumps = flightrec.read_dumps(dump_dir)
+  assert [d["role"] for d in dumps] == [role]
+  assert dumps[0]["reason"].startswith(f"{role}: build failed:")
+  assert "no card for the build" in dumps[0]["reason"]

@@ -363,12 +363,21 @@ def test_create_inference_state_defaults_to_the_card():
   assert 0.01 < state.params["trunk.positions"].std().item() < 0.03
 
 
-@pytest.mark.parametrize("kwargs", [dict(pipeline_stages=2),
-                                    dict(moe_experts=4, pipeline_stages=2),
-                                    dict(attention_impl="ring")])
+@pytest.mark.parametrize("kwargs", [
+    dict(pipeline_stages=2, attention_impl="ring"),
+    dict(moe_experts=4, pipeline_stages=2),
+    dict(attention_impl="ring")])
 def test_unported_options_raise_at_construction(kwargs):
-  """Pipelined trunks (with or without MoE) and ring attention are A11;
-  MoE on one device is ported (tests/test_torch_vrgripper_moe.py)."""
+  """Ring attention is A11. A pipelined trunk takes neither ring
+  attention nor MoE blocks (JAX's errors). MoE on one device and the
+  pipelined trunk are ported (tests/test_torch_vrgripper_moe.py,
+  tests/test_torch_pipelined_transformer.py)."""
+  if "pipeline_stages" in kwargs:
+    match = "pipeline stages" if "attention_impl" in kwargs else (
+        "mutually exclusive")
+    with pytest.raises(ValueError, match=match):
+      VRGripperTransformerModel(**dict(_SMALL, **kwargs))
+    return
   with pytest.raises(NotImplementedError, match="A11"):
     VRGripperTransformerModel(**dict(_SMALL, **kwargs))
 
