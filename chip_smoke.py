@@ -6223,7 +6223,8 @@ _GIN_SERVING_REPLICATED = ("tensor2robot_tpu/research/qtopt/configs/"
                            "qtopt_serving_replicated.gin")
 _GIN_FLEET_AUTOPILOT = ("tensor2robot_tpu/research/qtopt/configs/"
                         "qtopt_fleet_autopilot.gin")
-# The shipped fleet gins bind the physics env, which is ROADMAP A10a.
+# The shipped fleet gins bind the physics env (`MuJoCoPoseEnv`), and the
+# card's machine has no `mujoco`: these phases bind the kinematic one.
 _FLEET_POSE = 'FleetConfig.env = "pose"'
 _FLEET_CUT_STEPS = 200  # phases 60-62 and 64: the gins' 500 steps cut
 # Phase 63: the gin's 500 steps cut to 400 and its 10 s poll to 1 s, so
@@ -7703,19 +7704,23 @@ class _PipelineRun:
     self.proc = None
     self.thread = None
 
+  def command(self):
+    return [sys.executable, "-m",
+            "tensor2robot_tpu_torch.bin.run_t2r_trainer",
+            "--gin_configs", _GIN_PIPELINE,
+            "--gin_bindings",
+            f"train_eval_model.model_dir='{self.model_dir}'",
+            "--gin_bindings",
+            f"train/TFRecordEpisodeInputGenerator.file_patterns='{self.demos}'",
+            "--gin_bindings",
+            f"train_eval_model.max_train_steps={_PIPELINE_STEPS}",
+            "--gin_bindings",
+            "train_eval_model.hooks=[@PipelineProbeHook()]",
+            "--gin_bindings", f"PipelineProbeHook.out_dir='{self.probe_dir}'",
+            "--import_modules", _PIPE_PROBE_MODULE]
+
   def start(self):
-    cmd = [sys.executable, "-m", "tensor2robot_tpu_torch.bin.run_t2r_trainer",
-           "--gin_configs", _GIN_PIPELINE,
-           "--gin_bindings",
-           f"train_eval_model.model_dir='{self.model_dir}'",
-           "--gin_bindings",
-           f"train/TFRecordEpisodeInputGenerator.file_patterns='{self.demos}'",
-           "--gin_bindings",
-           f"train_eval_model.max_train_steps={_PIPELINE_STEPS}",
-           "--gin_bindings",
-           "train_eval_model.hooks=[@PipelineProbeHook()]",
-           "--gin_bindings", f"PipelineProbeHook.out_dir='{self.probe_dir}'",
-           "--import_modules", _PIPE_PROBE_MODULE]
+    cmd = self.command()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join((_REPO, self.tmp)))
     self.t_wall = time.time()
     self.t0 = time.perf_counter()
@@ -7877,6 +7882,841 @@ def phase_gin_pipeline(run):
   return traced
 
 
+# ---- phases 68-70: ring attention and the last model-side modules ----
+
+# The ring's block shapes: a data rank's 8 rows of the gin's batch 16, its
+# 4 heads of 32, T_local = 8 (T = 32 over seq 4, the gin) and 128 (a long
+# context, T = 512 over seq 4).
+_RING_BLOCKS = ((8, 8, 4, 32), (8, 128, 4, 32))
+_RING_SHAPES = {"data": 2, "seq": 4}
+_RING_WORLD = 8
+# train_vrgripper_transformer.gin's model (its widths) with the ring.
+_RING_MODEL = dict(image_size=48, action_dim=3, width=128, depth=4,
+                   num_heads=4, max_context_length=512)
+_RING_LR = 3e-4
+_RING_TIMED_STEPS = 5
+# The gin's 2000 steps cut (chip_smoke's time limit), logged every 10.
+_RING_STEPS = 40
+_RING_LOG_EVERY = 10
+# The whole ring against `attention_reference` on one device: B = 2 (a
+# row a data rank), H = 4, D = 32, T = 32 and 512 over seq 4.
+_RING_WHOLE = ((2, 32, 4, 32), (2, 512, 4, 32))
+_RING_PROBE_MODULE = "ring_probe"
+_RING_PROBE_SOURCE = """\
+from tensor2robot_tpu_torch import config as gin
+from tensor2robot_tpu_torch.hooks import Hook
+
+
+@gin.configurable
+class RingProbeHook(Hook):
+  \"\"\"Phases 68-69's rank side in each rank of the ring gin's run:
+  after the first training step (the rank's kernels loaded) the whole
+  ring against the reference and the parity steps, then the flash
+  launches of the trainer's own steps from there to the end, and the
+  probe forward after training.\"\"\"
+
+  def __init__(self, out_dir=gin.REQUIRED):
+    self._out_dir = out_dir
+    self._since = None
+
+  def begin(self, model, model_dir):
+    self._model = model
+
+  def after_step(self, step, metrics):
+    import chip_smoke
+    from tensor2robot_tpu_torch.ops import reset_launch_counts
+    if self._since is None:
+      chip_smoke.ring_parity_rank(self._model, self._out_dir)
+      self._since = step
+      reset_launch_counts()
+
+  def end(self, step, state, model_dir):
+    import chip_smoke
+    chip_smoke.ring_launches_rank(self._model, step - self._since,
+                                  self._out_dir)
+    chip_smoke.ring_probe(self._model, state, self._out_dir)
+"""
+
+
+def _ring_block_case(b, t, h, d, dtype, causal, seed):
+  """Phase 68's check of one block: the forward kernel against its plain
+  version, then the backward pair with a non-zero `dlse` (the merge's)
+  against theirs. Returns (forward errors, backward errors)."""
+  import torch
+  q, k, v = _flash_inputs(b, t, h, d, dtype, seed=seed)
+  g = torch.Generator(device="cuda").manual_seed(seed + 1)
+  do = torch.randn((b, t, h, d), generator=g, device="cuda").to(dtype)
+  dlse = torch.randn((b, h, t), generator=g, device="cuda")
+  name = f"ring block B={b} T={t} D={d} {dtype} causal={causal}"
+  fwd = check_flash(name, q, k, v, causal=causal)
+  bwd = check_flash_bwd(name, q, k, v, do, dlse, causal=causal)
+  return fwd, bwd
+
+
+def _check_ring_one_seq_rank():
+  """Phase 68: a mesh whose seq axis is 1 gives the ring one block, and
+  its flash blocks still run on the kernels: `MultiHeadAttention("ring")`
+  on a CUDA tensor over `create_mesh({"data": 1, "seq": 1})` (B = 2, T =
+  32, the gin's width 128, 4 heads of 32, bf16) launches the forward
+  once and dK/dV and dQ once each in its backward, and its output and
+  input gradient equal `"flash"`'s bit for bit."""
+  import torch
+  from tensor2robot_tpu_torch.layers import transformer
+  from tensor2robot_tpu_torch.ops import launch_counts
+  from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+  mesh = mesh_lib.create_mesh({"data": 1, "seq": 1}, devices=["cuda"])
+  g = torch.Generator(device="cuda").manual_seed(6802)
+  x = torch.randn((2, 32, 128), generator=g, device="cuda")
+  results = {}
+  for impl in ("ring", "flash"):
+    with torch.random.fork_rng(devices=[]):  # leaves the process RNG be
+      torch.manual_seed(6803)
+      layer = transformer.MultiHeadAttention(
+          128, 4, 32, attention_impl=impl, mesh=mesh).cuda()
+    xi = x.clone().requires_grad_()
+    before = launch_counts()
+    y = layer(xi)
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    results[impl] = (y.detach(), xi.grad,
+                     {k: after[k] - before[k] for k in _FLASH_KERNELS})
+  (y, dx, counts), (y_f, dx_f, _) = results["ring"], results["flash"]
+  if counts != {k: 1 for k in _FLASH_KERNELS}:
+    raise AssertionError(f"phase 68 seq: 1 mesh: 'ring' launched {counts}, "
+                         f"want one of each flash kernel")
+  if not (torch.equal(y, y_f) and torch.equal(dx, dx_f)):
+    raise AssertionError("phase 68 seq: 1 mesh: 'ring' differs from "
+                         "'flash'")
+  _log(f"phase 68 a seq: 1 mesh: MultiHeadAttention('ring') on the card "
+       f"launched {json.dumps(counts)} in a forward and backward, equal to "
+       f"'flash' bit for bit")
+
+
+def phase_ring_blocks():
+  """Phase 68 in this process: each flash kernel against its plain
+  version at the ring's block shapes (T_local = 8 and 128, B = 8, H = 4,
+  D = 32), the causal diagonal block and a full block, bf16 and f32, the
+  backward with a non-zero lse cotangent (the ring's merge gives one);
+  then a mesh whose seq axis is 1 (`_check_ring_one_seq_rank`); then
+  each kernel's device time at those shapes (bf16) beside its
+  plain version, its bound and SDPA (the backward's SDPA: fwd+bwd minus
+  fwd). Returns ({kernel: worst error}, {shape: {kernel: row}})."""
+  import torch
+  import torch.nn.functional as F
+  from tensor2robot_tpu_torch.bin import kernel_bounds
+  from tensor2robot_tpu_torch.ops.flash_attention import (
+      _delta,
+      flash_attention_bwd_dkdv,
+      flash_attention_bwd_dkdv_reference,
+      flash_attention_bwd_dq,
+      flash_attention_bwd_dq_reference,
+      flash_attention_reference,
+      flash_attention_with_lse,
+  )
+  worst = {name: 0.0 for name in _FLASH_KERNELS}
+  seed = 6800
+  for (b, t, h, d), causal, dtype in itertools.product(
+      _RING_BLOCKS, (True, False), (torch.bfloat16, torch.float32)):
+    (err_out, _), ((dkdv, dq), _, _) = _ring_block_case(
+        b, t, h, d, dtype, causal, seed)
+    seed += 2
+    worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"],
+                                       err_out)
+    worst["flash_attention_bwd_dkdv"] = max(
+        worst["flash_attention_bwd_dkdv"], dkdv)
+    worst["flash_attention_bwd_dq"] = max(worst["flash_attention_bwd_dq"],
+                                          dq)
+  _log(f"phase 68 kernel checks at the ring's blocks (B=8, H=4, D=32, "
+       f"T_local=8 and 128, causal diagonal and full, bf16 and f32, the "
+       f"backward with dlse != 0): max_abs_err {json.dumps(worst)}; "
+       f"tolerances forward {json.dumps(_FLASH_TOL)}, backward "
+       f"{json.dumps(_FLASH_BWD_TOL)} of each gradient's scale")
+  _check_ring_one_seq_rank()
+  rows = {}
+  for (b, t, h, d), causal in itertools.product(_RING_BLOCKS, (True, False)):
+    shape = f"B={b} T_local={t} H={h} D={d} causal={causal}"
+    q, k, v = _flash_inputs(b, t, h, d, torch.bfloat16, seed=6900 + t)
+    g = torch.Generator(device="cuda").manual_seed(6901 + t)
+    do = torch.randn((b, t, h, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    dlse = torch.randn((b, h, t), generator=g, device="cuda")
+    out, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    delta = _delta(out, do, dlse)
+    qt, kt, vt = (x.transpose(1, 2).requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    run_f = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal)
+    run_fb = lambda: torch.autograd.grad(  # noqa: E731
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
+        (qt, kt, vt), dot)
+    f_a, fb_a, fb_b, f_b = (_graph_ms(run_f), _graph_ms(run_fb),
+                            _graph_ms(run_fb), _graph_ms(run_f))
+    sdpa_fwd = statistics.median([f_a, f_b])
+    sdpa_bwd = statistics.median([fb_a, fb_b]) - sdpa_fwd
+    by_kernel = {}
+    for name, kern, plain, bound, lib in (
+        ("flash_attention_fwd",
+         lambda: flash_attention_with_lse(q, k, v, causal=causal),
+         lambda: flash_attention_reference(q, k, v, causal=causal),
+         lambda: kernel_bounds.flash_forward(b, t, h, d, 2, causal),
+         sdpa_fwd),
+        ("flash_attention_bwd_dkdv",
+         lambda: flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal),
+         lambda: flash_attention_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                                    causal),
+         lambda: kernel_bounds.flash_backward_dkdv(b, t, h, d, 2, causal),
+         sdpa_bwd),
+        ("flash_attention_bwd_dq",
+         lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
+         lambda: flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                  causal),
+         lambda: kernel_bounds.flash_backward_dq(b, t, h, d, 2, causal),
+         sdpa_bwd)):
+      plain_a, kern_a = _graph_ms(plain), _graph_ms(kern)
+      kern_b, plain_b = _graph_ms(kern), _graph_ms(plain)
+      bound_ms, bound_by = bound()
+      by_kernel[name] = dict(ms=statistics.median([kern_a, kern_b]),
+                             plain_ms=statistics.median([plain_a, plain_b]),
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=lib)
+      _log(f"timing {name} ring block {shape} bf16: device kernel_ms="
+           f"{kern_a},{kern_b} plain_ms={plain_a},{plain_b} | bound_ms="
+           f"{bound_ms} ({bound_by}) | SDPA {'fwd' if lib == sdpa_fwd else 'bwd'}"
+           f"_ms={lib}")
+    rows[shape] = by_kernel
+  return worst, rows
+
+
+def _ring_model(mesh, dtype):
+  import torch
+  from tensor2robot_tpu_torch.models import optimizers as opt_lib
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      VRGripperTransformerModel,
+  )
+  return VRGripperTransformerModel(
+      mesh=mesh, attention_impl="ring" if mesh is not None else "flash",
+      device_dtype=getattr(torch, dtype),
+      create_optimizer_fn=lambda: opt_lib.create_optimizer(
+          learning_rate=_RING_LR), **_RING_MODEL)
+
+
+def _ring_parity_steps(mesh, params):
+  """One train step of the gin's model per dtype on the card from the
+  one-device `params` (TF32 off; the f32 step with cuDNN off): over
+  `mesh` with `attention_impl="ring"` on this rank's data rows of
+  `_pipe_batch()`, or without a mesh with "flash" on the 16 rows. The
+  bf16 step runs under CUPTI tracing (`traced_launches`: the counters
+  must equal the card's kernel events). Returns ({dtype: (grads, new
+  params, metrics, the step's flash launches)} as numpy, ms a bf16 eager
+  step over `_RING_TIMED_STEPS` after one)."""
+  import dataclasses
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.ops import launch_counts, reset_launch_counts
+  from tensor2robot_tpu_torch.parallel import pipeline
+  flags = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  rows = np.arange(_PIPE_B)
+  if mesh is not None:
+    rows = pipeline.data_rows(_PIPE_B, 1, mesh.axis_size("data"),
+                              mesh.axis_index("data"))
+  features, labels = _pipe_batch(seed=68)
+  cuda = lambda d: {k: torch.from_numpy(v[rows]).cuda()  # noqa: E731
+                    for k, v in d.items()}
+  features, labels = cuda(features), cuda(labels)
+  host = lambda d: {k: v.detach().float().cpu().numpy()  # noqa: E731
+                    for k, v in d.items()}
+  results = {}
+  try:
+    for name in ("float32", "bfloat16"):
+      torch.backends.cudnn.enabled = name != "float32"
+      model = _ring_model(mesh, name)
+      like = model.create_inference_state(seed=0, device="cuda")
+      leaves = {k: params[k].cuda() for k in like.params}
+      state = dataclasses.replace(like, params=leaves,
+                                  opt_state=model.tx.init(leaves))
+      torch.cuda.synchronize()
+      if name == "bfloat16":
+        rank = mesh.rank if mesh is not None else "one process"
+        with traced_launches(f"phase 69 ring step, rank {rank}") as traced:
+          grads, stats, metrics = model.train_grads(state, features, labels)
+        counts = {k: traced[k] for k in _FLASH_KERNELS}
+      else:
+        reset_launch_counts()
+        grads, stats, metrics = model.train_grads(state, features, labels)
+        torch.cuda.synchronize()
+        counts = {k: launch_counts()[k] for k in _FLASH_KERNELS}
+      new = model.apply_gradients(state, grads, stats)
+      results[name] = (host(grads), host(new.params), host(metrics), counts)
+    for i in range(_RING_TIMED_STEPS + 1):
+      if i == 1:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+      state, _ = model.train_step(state, features, labels)
+    torch.cuda.synchronize()
+  finally:
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.enabled) = flags
+  return results, round((time.perf_counter() - t0) * 1e3
+                        / _RING_TIMED_STEPS, 3)
+
+
+def _ring_whole_inputs(b, t, h, d, dtype, seed):
+  """Seeded q, k, v and the cotangent r, on the CPU (the same on every
+  rank and in the reference)."""
+  import torch
+  g = torch.Generator().manual_seed(seed)
+  return [torch.randn((b, t, h, d), generator=g).to(dtype)
+          for _ in range(4)]
+
+
+def _ring_whole_cases():
+  import torch
+  return [(shape, causal, dtype)
+          for shape in _RING_WHOLE for causal in (True, False)
+          for dtype in (torch.float32, torch.bfloat16)]
+
+
+def ring_parity_rank(model, out_dir):
+  """Phases 68-69's rank side, run by the probe hook after the first
+  training step in each of phase 69's 8 ranks: the whole ring on the
+  card (`ring_attention`, flash blocks) on `_RING_WHOLE`'s seeded inputs
+  with the gradients of sum(out · r), then `_ring_parity_steps` from
+  `<out_dir>/params.pt`; written to `<out_dir>/ring_r<rank>.pt` with the
+  rank's coordinates and seconds (the whole ring's outputs from ranks 0
+  and 7 only)."""
+  import torch
+  from tensor2robot_tpu_torch.parallel.ring_attention import ring_attention
+  t0 = time.perf_counter()
+  mesh = model.mesh
+  whole = []
+  for i, ((b, t, h, d), causal, dtype) in enumerate(_ring_whole_cases()):
+    leaves = [x.cuda().requires_grad_() for x in _ring_whole_inputs(
+        b, t, h, d, dtype, seed=6810 + i)]
+    r = leaves.pop()
+    r.requires_grad_(False)
+    y = ring_attention(*leaves, mesh=mesh, causal=causal,
+                       block_impl="flash")
+    (y.float() * r.float()).sum().backward()
+    whole.append([x.detach().float().cpu() for x in [y] + [
+        z.grad for z in leaves]])
+  t_whole = time.perf_counter() - t0
+  params = torch.load(os.path.join(out_dir, "params.pt"), weights_only=True)
+  results, ms = _ring_parity_steps(mesh, params)
+  torch.save((dict(mesh.coords), results, ms,
+              whole if mesh.rank in (0, _RING_WORLD - 1) else None,
+              (t_whole, time.perf_counter() - t0)),
+             os.path.join(out_dir, f"ring_r{mesh.rank}.pt"))
+
+
+def ring_launches_rank(model, steps, out_dir):
+  """Writes the rank's flash launches since the counts were reset, over
+  the trainer's last `steps` steps, to `<out_dir>/launches_r<rank>.json`."""
+  from tensor2robot_tpu_torch.ops import launch_counts
+  counts = {k: launch_counts()[k] for k in _FLASH_KERNELS}
+  with open(os.path.join(out_dir, f"launches_r{model.mesh.rank}.json"),
+            "w") as f:
+    json.dump({"steps": steps, "counts": counts}, f)
+
+
+def ring_probe(model, state, out_dir):
+  """The probe a rank of phase 69's run makes at the run's end: the
+  trained state's forward on `_pipe_batch(69)`'s features in f32 (the
+  gin's model with `device_dtype` f32 over the same mesh and the ring,
+  TF32 off) on the rank's data rows; the seq-0 rank of each data row
+  writes `<out_dir>/probe_d<d>.npz` (rows, actions)."""
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.parallel import pipeline
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  mesh = model.mesh
+  f32 = _ring_model(mesh, "float32")
+  rows = pipeline.data_rows(_PIPE_B, 1, mesh.axis_size("data"),
+                            mesh.axis_index("data"))
+  features, _ = _pipe_batch(seed=69)
+  features = {k: torch.from_numpy(v[rows]).cuda()
+              for k, v in features.items() if k != "sequence_length"}
+  actions = f32.predict_step(state, features)["action"].cpu().numpy()
+  if mesh.axis_index("seq") == 0:
+    np.savez(os.path.join(out_dir, f"probe_d{mesh.axis_index('data')}.npz"),
+             rows=rows, actions=actions)
+
+
+def _check_ring_whole(got):
+  """Phase 68 across the ranks: the whole ring's output and gradients
+  (ranks 0 and 7, every case) against `attention_reference` on one
+  device: f32 within 2e-5 of max|out| and 5e-5 of each gradient's scale
+  (the CPU tests' tolerances), bf16 within 2e-2 of the output's scale
+  and 5e-2 of each gradient's (the blocks round p and each partial to
+  bf16 and autograd sums the blocks' bf16 gradients; the reference keeps
+  p in f32)."""
+  import torch
+  from tensor2robot_tpu_torch.parallel.ring_attention import (
+      attention_reference,
+  )
+  report = {}
+  for i, ((b, t, h, d), causal, dtype) in enumerate(_ring_whole_cases()):
+    leaves = [x.cuda().requires_grad_() for x in _ring_whole_inputs(
+        b, t, h, d, dtype, seed=6810 + i)]
+    r = leaves.pop()
+    y = attention_reference(*leaves, causal=causal)
+    (y.float() * r.float()).sum().backward()
+    want = [x.detach().float().cpu() for x in [y] + [z.grad for z in leaves]]
+    f32 = dtype == torch.float32
+    tol = (2e-5, 5e-5) if f32 else (2e-2, 5e-2)
+    errs = []
+    for rank_whole in got:
+      for j, (a, w) in enumerate(zip(rank_whole[i], want)):
+        err = float((a - w).abs().max()) / max(float(w.abs().max()), 1e-12)
+        errs.append(err)
+        if err > tol[j > 0]:
+          raise AssertionError(f"phase 68 whole ring T={t} causal={causal} "
+                               f"{dtype}: {'out dq dk dv'.split()[j]} "
+                               f"{err} > {tol[j > 0]}")
+    report[f"T={t} causal={causal} {str(dtype)[6:]}"] = max(errs)
+  _log(f"phase 68 the whole ring on 8 gloo ranks (data 2 x seq 4, flash "
+       f"blocks) vs attention_reference on one device, worst scaled error "
+       f"of out, dq, dk, dv: {json.dumps(report)}")
+  return report
+
+
+def _check_ring_parity(out_dir, params):
+  """Phase 69's parity: the one train step the 8 ranks of the ring gin's
+  run took after their first training step (`data 2 x seq 4`, each its
+  data rows of B = 16 x T = 32 seeded rows, lengths 8-32, the ring over
+  its seq group) against one process's step on the 16 rows with
+  `attention_impl="flash"` (TF32 off): f32 the loss to 1e-5 relative,
+  every gradient within 1e-5 of its leaf's scale, the post-Adam params
+  within 1e-5 where |g| is not tiny (2·lr below); bf16 every gradient's
+  cosine ≥ 0.999. A data row's four seq ranks equal bit for bit. Each
+  rank's flash launches in a step: 4 layers × (1 + its seq index) of
+  each kernel (the counters, equal to CUPTI's in the bf16 step), 40 over
+  a data row's 4 ranks; the reference's 4. Returns the whole ring's
+  ranks' outputs."""
+  import numpy as np
+  import torch
+  got, coords, rank_ms, rank_s, whole = {}, {}, {}, {}, []
+  for r in range(_RING_WORLD):
+    coords[r], got[r], rank_ms[r], w, rank_s[r] = torch.load(
+        os.path.join(out_dir, f"ring_r{r}.pt"), weights_only=False)
+    if w is not None:
+      whole.append(w)
+  ref, ref_ms = _ring_parity_steps(None, params)
+  report = {}
+  for name in ("float32", "bfloat16"):
+    ref_grads, ref_params, ref_metrics, ref_counts = ref[name]
+    if ref_counts != {k: 4 for k in _FLASH_KERNELS}:
+      raise AssertionError(f"phase 69 {name}: reference {ref_counts}")
+    for r in range(_RING_WORLD):
+      want = {k: 4 * (1 + coords[r]["seq"]) for k in _FLASH_KERNELS}
+      if got[r][name][3] != want:
+        raise AssertionError(f"phase 69 {name}: rank {r} launched "
+                             f"{got[r][name][3]}, want {want}")
+      first = min(q for q in range(_RING_WORLD)
+                  if coords[q]["data"] == coords[r]["data"])
+      for a, b in zip(got[r][name][:3], got[first][name][:3]):
+        for k in a:
+          if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"phase 69 {name}: ranks {r} and {first} "
+                                 f"differ at {k}")
+    grads, new_params, metrics = got[0][name][:3]
+    scale = lambda x: max(float(np.abs(x).max()), 1e-12)  # noqa: E731
+    loss_err = float(abs(metrics["loss"] - ref_metrics["loss"])
+                     / abs(ref_metrics["loss"]))
+    if name == "bfloat16":
+      cos = min(float(np.dot(grads[k].ravel(), ref_grads[k].ravel())
+                      / max(np.linalg.norm(grads[k])
+                            * np.linalg.norm(ref_grads[k]), 1e-30))
+                for k in ref_grads if np.linalg.norm(ref_grads[k]) > 0)
+      report[name] = dict(min_grad_cosine=round(cos, 6),
+                          loss_rel_err=loss_err)
+      if cos < 0.999:
+        raise AssertionError(f"phase 69 bf16: {report[name]}")
+      continue
+    grad_err = max(float(np.abs(grads[k] - ref_grads[k]).max())
+                   / scale(ref_grads[k]) for k in ref_grads)
+    far = near = 0.0
+    for k in ref_params:
+      small = np.abs(ref_grads[k]) < 1e-4 * scale(ref_grads[k])
+      diff = np.abs(new_params[k] - ref_params[k])
+      far = max(far, float(diff[~small].max(initial=0.0))
+                / scale(ref_params[k]))
+      near = max(near, float(diff[small].max(initial=0.0)))
+    report[name] = dict(loss_rel_err=loss_err, grad_err=grad_err,
+                        param_err=far, param_err_small_grad=near)
+    if (loss_err > 1e-5 or grad_err > 1e-5 or far > 1e-5
+        or near > 2 * _RING_LR + 1e-7):
+      raise AssertionError(f"phase 69 f32: {report[name]}")
+  ms = [rank_ms[r] for r in range(_RING_WORLD)]
+  _log(f"phase 69: the 8 gloo ranks of the ring gin's run on cuda:0 (data "
+       f"2 x seq 4, attention_impl='ring', flash blocks) against one "
+       f"process with 'flash', one step of the gin's model on 16 x 32 "
+       f"rows: {json.dumps(report)}; flash launches a step by rank (each "
+       f"kernel; counters = CUPTI): "
+       f"{json.dumps({r: got[r]['bfloat16'][3]['flash_attention_fwd'] for r in range(_RING_WORLD)})}"
+       f", the reference 4; bf16 ms an eager step: ranks {ms} (all 8 at "
+       f"once), reference {ref_ms} alone; a rank's whole-ring check and "
+       f"parity work s {json.dumps([rank_s[r] for r in range(_RING_WORLD)])}")
+  return whole
+
+
+def _check_ring_launches(out_dir):
+  """Phase 69: each rank's flash launches over the trainer's own steps
+  after its first are 4 × (1 + its seq index) of each kernel a step.
+  Returns ({rank: its forward launches}, {kernel: the 8 ranks' sum})."""
+  launches, total = {}, {k: 0 for k in _FLASH_KERNELS}
+  for r in range(_RING_WORLD):
+    with open(os.path.join(out_dir, f"launches_r{r}.json")) as f:
+      got = json.load(f)
+    seq = r % _RING_SHAPES["seq"]
+    want = {k: 4 * (1 + seq) * got["steps"] for k in _FLASH_KERNELS}
+    if got["steps"] != _RING_STEPS - 1 or got["counts"] != want:
+      raise AssertionError(f"phase 69: rank {r} launched {got['counts']} "
+                           f"in {got['steps']} trainer steps; the ring "
+                           f"launches {want} in {_RING_STEPS - 1}")
+    launches[r] = got["counts"]["flash_attention_fwd"]
+    for k in _FLASH_KERNELS:
+      total[k] += got["counts"][k]
+  return launches, total
+
+
+class _RingRun(_PipelineRun):
+  """Phase 69's binary: `train_vrgripper_transformer.gin` with the ring
+  bound, started in the background (`start`) beside phases 44-48 and
+  checked in the foreground (`phase_gin_ring`)."""
+
+  def __init__(self):
+    import tempfile
+    import torch
+    from tensor2robot_tpu_torch.research.vrgripper import (
+        collect_demo_episodes,
+    )
+    self.tmp = tempfile.mkdtemp(prefix="t2r_ring_")
+    self.demos = collect_demo_episodes(os.path.join(self.tmp,
+                                                    "demos.tfrecord"))
+    self.model_dir = os.path.join(self.tmp, "run")
+    self.probe_dir = os.path.join(self.tmp, "probe")
+    os.makedirs(self.model_dir)
+    os.makedirs(self.probe_dir)
+    with open(os.path.join(self.tmp, _RING_PROBE_MODULE + ".py"), "w") as f:
+      f.write(_RING_PROBE_SOURCE)
+    self.params = _ring_model(None, "float32").create_inference_state(
+        seed=22, device="cpu").params
+    torch.save(self.params, os.path.join(self.probe_dir, "params.pt"))
+    self.seen = {}
+    self.log_path = os.path.join(self.model_dir, "trainer.log")
+    self.proc = None
+    self.thread = None
+
+  def command(self):
+    return [sys.executable, "-m", "tensor2robot_tpu_torch.bin.run_t2r_trainer",
+            "--gin_configs", _GIN_VRGRIPPER,
+            "--gin_bindings", f"train_eval_model.model_dir='{self.model_dir}'",
+            "--gin_bindings",
+            f"train/TFRecordEpisodeInputGenerator.file_patterns='{self.demos}'",
+            "--gin_bindings",
+            f"create_mesh.axis_shapes = {json.dumps(_RING_SHAPES)}",
+            "--gin_bindings", "train_eval_model.mesh = @create_mesh()",
+            "--gin_bindings", "VRGripperTransformerModel.mesh = @create_mesh()",
+            "--gin_bindings",
+            "VRGripperTransformerModel.attention_impl = 'ring'",
+            "--gin_bindings",
+            f"train_eval_model.max_train_steps={_RING_STEPS}",
+            "--gin_bindings",
+            f"train_eval_model.log_every_steps={_RING_LOG_EVERY}",
+            "--gin_bindings", "train_eval_model.hooks=[@RingProbeHook()]",
+            "--gin_bindings", f"RingProbeHook.out_dir='{self.probe_dir}'",
+            "--import_modules", _RING_PROBE_MODULE]
+
+
+def phase_gin_ring(run):
+  """Phases 68-69 across the ranks: `train_vrgripper_transformer.gin` at
+  its widths with `create_mesh.axis_shapes = {"data": 2, "seq": 4}`,
+  `train_eval_model.mesh` and the model's `mesh` bound to it and
+  `attention_impl = "ring"` (JAX's default "replicated" strategy),
+  through the trainer binary (`run`, a started `_RingRun`): 8 gloo ranks
+  on the card, cut to `_RING_STEPS` steps. After its first step each
+  rank runs the whole ring against the reference (68, checked by
+  `_check_ring_whole`) and the parity steps (69, `_check_ring_parity`).
+  Gates: exit 0 from the binary and every rank; a valid envelope every
+  `_RING_LOG_EVERY` steps; finite losses whose last is below the first;
+  the final checkpoint in the one-device layout; the 8 ranks, and no
+  other process of the run, hold the card; each rank's flash launches
+  over the trainer's own steps 2-N (`_check_ring_launches`). Then the
+  checkpoint served mesh-free in this process (the gin's model with
+  "flash", f32, TF32 off): its forward on the probe batch equals the
+  ranks' f32 ring forward to 1e-4 of the largest |action|. Returns the
+  8 ranks' launches of each flash kernel over the trainer's own steps
+  2-N (the traced parity step only checks the counters against
+  CUPTI)."""
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.utils import checkpoints as ckpt_lib
+  try:
+    run.thread.join(timeout=700)
+    if run.thread.is_alive():
+      raise AssertionError("phase 69: the binary outlived 700 s")
+    seen, wall, code = run.seen, run.wall, run.code
+    with open(run.log_path) as f:
+      tail = f.read().splitlines()[-15:]
+    if code != 0 or seen.get("exited") != [0] * _RING_WORLD:
+      raise AssertionError(f"phase 69: exit {code}, ranks "
+                           f"{seen.get('exited')}:\n" + "\n".join(tail))
+    times = _log_times(run.log_path, run.t_wall)
+    times["ranks_line"] = round(seen["t_ranks"] - run.t_wall, 2)
+    whole = _check_ring_parity(run.probe_dir, run.params)
+    _check_ring_whole(whole)
+    rank_launches, trainer_total = _check_ring_launches(run.probe_dir)
+    pids = set(seen["ranks"]["pids"])
+    if seen.get("held") != pids or seen.get("others"):
+      raise AssertionError(f"phase 69: the card held by ranks "
+                           f"{seen.get('held')} of {pids}, others "
+                           f"{seen.get('others')}")
+    raw = _checked_records(os.path.join(run.model_dir, "metrics_train.jsonl"))
+    steps = [r["step"] for r in raw]
+    losses = [r["payload"]["loss"] for r in raw]
+    rates = [r["payload"]["steps_per_sec"] for r in raw]
+    if steps != list(range(_RING_LOG_EVERY, _RING_STEPS + 1,
+                           _RING_LOG_EVERY)):
+      raise AssertionError(f"phase 69: record steps {steps}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+      raise AssertionError(f"phase 69: losses {losses}")
+    ckpts = ckpt_lib.list_steps(run.model_dir)
+    if ckpts != [_RING_STEPS]:
+      raise AssertionError(f"phase 69: checkpoints {ckpts}")
+    _log(f"phase 69 gin train_vrgripper_transformer with the ring (data 2 "
+         f"x seq 4, cut to {_RING_STEPS} steps, 8 ranks): exit {code} in "
+         f"{wall:.2f} s, ranks exited {seen['exited']}; s after the "
+         f"binary's start {json.dumps(times)}; steps {steps}; loss "
+         f"{losses}; steps_per_sec {rates}; checkpoints {ckpts}; the card "
+         f"held by the 8 ranks only; flash forward launches of the "
+         f"trainer's steps 2-{_RING_STEPS} by rank "
+         f"{json.dumps(rank_launches)} (dK/dV and dQ the same)")
+    probe = {}
+    for d in range(2):
+      with np.load(os.path.join(run.probe_dir, f"probe_d{d}.npz")) as z:
+        probe.update(zip(z["rows"].tolist(), z["actions"]))
+    ranks_actions = np.stack([probe[r] for r in range(_PIPE_B)])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+      serving = _ring_model(None, "float32")
+      state = serving.create_inference_state(seed=0, device="cuda")
+      variables = ckpt_lib.restore_variables(
+          run.model_dir, like={"params": state.params,
+                               "batch_stats": state.batch_stats})
+      state = state.__class__(step=_RING_STEPS, params=variables["params"],
+                              batch_stats=variables["batch_stats"])
+      features, _ = _pipe_batch(seed=69)
+      feats = {k: torch.from_numpy(v).cuda() for k, v in features.items()
+               if k != "sequence_length"}
+      mesh_free = serving.predict_step(state, feats)["action"].cpu().numpy()
+    finally:
+      torch.backends.cudnn.allow_tf32 = True  # torch's default
+    tol = 1e-4 * max(float(np.abs(ranks_actions).max()), 1e-12)
+    err = float(np.abs(mesh_free - ranks_actions).max())
+    _log(f"phase 69 serving: the checkpoint mesh-free ('flash', f32) vs "
+         f"the ranks' f32 ring forward, max |diff| {err:.3e} (tolerance "
+         f"{tol:.3e})")
+    if err > tol:
+      raise AssertionError(f"phase 69: serving differs from the ranks "
+                           f"({err} > {tol})")
+  finally:
+    run.stop()
+  return trainer_total
+
+
+def phase_small_modules():
+  """Phase 70: the last model-side modules on the card.
+  * Dropout in a captured step: a graph of the mock classifier's
+    train-mode forward (dropout 0.3, the model's generator registered)
+    replayed twice on the same inputs draws different masks; over 50
+    replays of a [4096] dropout the keep rate is 0.7 ± 0.01; and
+    `train_eval_model` trains it graphed 20 steps (finite losses).
+  * `remat_policy` "full" and "dots" equal "none" bit for bit (cuDNN's
+    deterministic algorithms): two steps of the classifier with dropout
+    and of the default transformer (bf16, flash attention).
+  * Bellman steps of `QTOptLearner` over `MockCriticModel` (the tiled
+    critic, the lax select: no cem_select launch), finite, the loss
+    falling over 30 steps on a fixed batch.
+  * The image preprocessor on CUDA tensors against the same calls on the
+    CPU: EVAL mode, and the crop, distortion and resize functions on the
+    same draws, within 1e-5."""
+  import tempfile
+  import numpy as np
+  import torch
+  from tensor2robot_tpu_torch.data import Mode
+  from tensor2robot_tpu_torch.data.abstract_input_generator import (
+      AbstractInputGenerator,
+  )
+  from tensor2robot_tpu_torch.layers import core
+  from tensor2robot_tpu_torch.ops import launch_counts
+  from tensor2robot_tpu_torch.preprocessors import (
+      ImagePreprocessor,
+      image_transformations as imt,
+  )
+  from tensor2robot_tpu_torch.research.qtopt import QTOptLearner
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      VRGripperTransformerModel,
+  )
+  from tensor2robot_tpu_torch.specs import ExtendedTensorSpec
+  from tensor2robot_tpu_torch.specs import TensorSpecStruct
+  from tensor2robot_tpu_torch.train_eval import train_eval_model
+  from tensor2robot_tpu_torch.utils import mocks
+  from tensor2robot_tpu_torch.utils.step_graph import StepGraph
+  report = {}
+  rng = np.random.default_rng(70)
+  x = torch.from_numpy(rng.standard_normal((64, 4)).astype(np.float32))
+  label = torch.from_numpy(rng.integers(0, 3, (64, 1)))
+  model = mocks.MockClassificationModel(dropout_rate=0.3,
+                                        hidden_sizes=(256, 256))
+  state = model.create_train_state(seed=0, device="cuda")
+  gen = model.generator("cuda").manual_seed(7)
+
+  def forward(carry, inputs, generators):
+    params = carry.params
+    _, _, outputs, _, _ = model._apply_network(
+        params, {}, {"x": inputs["x"]}, {"label": inputs["label"]},
+        Mode.TRAIN)
+    return carry, outputs["logits"]
+
+  graph = StepGraph(forward, state, {"x": x, "label": label}, "cuda",
+                    generators=[gen])
+  first, second = graph.replay(), graph.replay()
+  if not graph.captured or torch.equal(first, second):
+    raise AssertionError("phase 70: two replays of the dropout graph drew "
+                         "the same masks")
+  ones = torch.ones(4096, device="cuda")
+
+  def drop(carry, inputs, generators):
+    with core.random_stream(generators[0]):
+      return carry, core.dropout(inputs, 0.3, train=True)
+
+  drops = StepGraph(drop, {}, ones, "cuda", generators=[gen])
+  keep = float(np.mean([float((drops.replay() != 0).float().mean())
+                        for _ in range(50)]))
+  if abs(keep - 0.7) > 0.01:
+    raise AssertionError(f"phase 70: dropout keep rate {keep}")
+
+  class _Batches(AbstractInputGenerator):
+
+    def _create_dataset(self, mode, batch_size):
+      while True:
+        yield {"x": x.numpy()}, {"label": label.numpy()}
+
+    def create_dataset(self, mode, batch_size=None):
+      return self._create_dataset(mode, batch_size)
+
+  with tempfile.TemporaryDirectory() as d:
+    trained = train_eval_model(model, d, _Batches(), max_train_steps=20,
+                               save_checkpoints_steps=20, log_every_steps=10,
+                               seed=0)
+    losses = [r["payload"]["loss"] for r in _checked_records(
+        os.path.join(d, "metrics_train.jsonl"))]
+  if trained.step != 20 or not all(np.isfinite(losses)):
+    raise AssertionError(f"phase 70: graphed dropout training {losses}")
+  report["dropout"] = dict(replays_differ=True, keep_rate=keep,
+                           graphed_losses=losses)
+
+  torch.backends.cudnn.deterministic = True
+  try:
+    episodes = {"image": torch.from_numpy(rng.integers(
+        0, 256, (4, 32, 48, 48, 3), dtype=np.uint8)).cuda(),
+                "gripper_pose": torch.from_numpy(rng.standard_normal(
+                    (4, 32, 3)).astype(np.float32)).cuda()}
+    actions = {"action": torch.from_numpy(rng.standard_normal(
+        (4, 32, 3)).astype(np.float32)).cuda()}
+    cases = (
+        ("classifier", lambda remat: mocks.MockClassificationModel(
+            dropout_rate=0.3, hidden_sizes=(256, 256), remat_policy=remat),
+         {"x": x.cuda()}, {"label": label.cuda()}),
+        ("transformer", lambda remat: VRGripperTransformerModel(
+            remat_policy=remat), episodes, actions))
+    for name, make, f, lab in cases:
+      for policy in ("full", "dots"):
+        runs = []
+        for remat in ("none", policy):
+          m = make(remat)
+          s = m.create_train_state(seed=0, device="cuda")
+          if m.draws_random:
+            m.generator("cuda").manual_seed(11)
+          steps = []
+          for _ in range(2):
+            grads, stats, metrics = m.train_grads(s, f, lab)
+            s = m.apply_gradients(s, grads, stats)
+            steps.append((grads, metrics))
+          runs.append(steps)
+        for (g0, m0), (g1, m1) in zip(*runs):
+          bad = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+          bad += [k for k in m0 if not torch.equal(m0[k], m1[k])]
+          if bad:
+            raise AssertionError(f"phase 70 remat {policy} {name}: differs "
+                                 f"from none at {bad[:5]}")
+      report[f"remat {name}"] = "full and dots equal none bit for bit"
+  finally:
+    torch.backends.cudnn.deterministic = False
+
+  learner = QTOptLearner(mocks.MockCriticModel(hidden_sizes=(64, 64)),
+                         cem_population=64, cem_iterations=2, cem_elites=6)
+  qstate = learner.create_state(0)
+  batch = {"state": torch.randn(256, 4, device="cuda"),
+           "action": torch.rand(256, 2, device="cuda") * 2 - 1,
+           "reward": torch.rand(256, 1, device="cuda").round(),
+           "done": torch.ones(256, 1, device="cuda"),
+           "next_state": torch.randn(256, 4, device="cuda")}
+  _reset_counts()
+  g = torch.Generator(device="cuda").manual_seed(3)
+  losses = []
+  for _ in range(30):
+    qstate, metrics = learner.train_step(qstate, batch, generator=g)
+    losses.append(float(metrics["loss"]))
+  if (launch_counts()["cem_select"] != 0 or not all(np.isfinite(losses))
+      or not losses[-1] < losses[0]):
+    raise AssertionError(f"phase 70: generic-critic Bellman losses "
+                         f"{losses[::10]}, cem_select "
+                         f"{launch_counts()['cem_select']}")
+  report["generic critic"] = dict(loss_first=losses[0], loss_last=losses[-1],
+                                  cem_select_launches=0)
+
+  def specs(mode):
+    st = TensorSpecStruct()
+    st.image = ExtendedTensorSpec(shape=(40, 48, 3), dtype=np.float32,
+                                  name="image")
+    return st
+
+  pre = ImagePreprocessor(specs, lambda mode: None, src_height=48,
+                          src_width=64)
+  wire = torch.from_numpy(rng.integers(0, 256, (8, 48, 64, 3),
+                                       dtype=np.uint8))
+  errs = {}
+  got, _ = pre.preprocess({"image": wire.cuda()}, None, Mode.EVAL)
+  want, _ = pre.preprocess({"image": wire}, None, Mode.EVAL)
+  errs["eval"] = float((got["image"].cpu() - want["image"]).abs().max())
+  images = imt.to_float(wire)
+  tops, lefts = (torch.from_numpy(rng.integers(0, n, (8,)))
+                 for n in (9, 17))
+  draws = {k: torch.from_numpy(rng.uniform(lo, hi, (8,)).astype(np.float32))
+           for k, lo, hi in (("delta", -0.1, 0.1), ("saturation", 0.5, 1.5),
+                             ("hue", -0.2, 0.2), ("contrast", 0.5, 1.5))}
+  for name, fn in (
+      ("crop_at", lambda im, dev: imt.crop_at(im, tops.to(dev),
+                                              lefts.to(dev), 40, 48)),
+      ("photometric", lambda im, dev: imt.photometric(
+          im, **{k: v.to(dev) for k, v in draws.items()})),
+      ("resize down", lambda im, dev: imt.resize(im, 24, 32)),
+      ("resize up", lambda im, dev: imt.resize(im, 96, 128))):
+    errs[name] = float((fn(images.cuda(), "cuda").cpu()
+                        - fn(images, "cpu")).abs().max())
+  if max(errs.values()) > 1e-5:
+    raise AssertionError(f"phase 70: preprocessing card vs CPU {errs}")
+  report["image preprocessing card vs CPU max |diff|"] = errs
+  _log(f"phase 70 the small modules on the card: {json.dumps(report)}")
+
+
 _PHASE_S = {}
 
 
@@ -7986,14 +8826,28 @@ def main():
        f"{time.perf_counter() - t_pipeline:.2f}; the binary's wall "
        f"{pipeline_run.wall:.2f} s; flash forward launches serving the "
        f"pipeline gin's checkpoint {pipe_launches['flash_attention_fwd']}")
+  # Phase 68's kernel checks and timings run on a quiet card; phase 69's
+  # binary (8 ranks, which also run 68's whole ring) runs beside phases
+  # 44-48 (37-43 host the pipeline's 8 ranks); its checks follow 48.
+  ring_err, _ = _timed(phase_ring_blocks)
+  ring_run = _RingRun().start()
   t_anakin = time.perf_counter()
-  _timed(phase_envs_card_vs_cpu)
-  anakin_err, _ = _timed(phase_anakin_select_kernels)
-  anakin_launches = _timed(phase_gin_qtopt_anakin)
-  _timed(phase_gin_qtopt_anakin_pod)
-  _timed(phase_success_protocol, seedcheck)
-  _log(f"phases 44-48 s (envs, Anakin, the success protocol): "
-       f"{time.perf_counter() - t_anakin:.2f}")
+  try:
+    _timed(phase_envs_card_vs_cpu)
+    anakin_err, _ = _timed(phase_anakin_select_kernels)
+    anakin_launches = _timed(phase_gin_qtopt_anakin)
+    _timed(phase_gin_qtopt_anakin_pod)
+    _timed(phase_success_protocol, seedcheck)
+  except BaseException:
+    ring_run.stop()
+    raise
+  _log(f"phases 44-48 s (envs, Anakin, the success protocol; phase 69's "
+       f"8 ranks beside): {time.perf_counter() - t_anakin:.2f}")
+  ring_launches = _timed(phase_gin_ring, ring_run)
+  _log(f"phases 44-48 with 68-69's ranks beside, their checks included s: "
+       f"{time.perf_counter() - t_anakin:.2f}; the binary's wall "
+       f"{ring_run.wall:.2f} s")
+  _timed(phase_small_modules)
   t_slice = time.perf_counter()
   _timed(phase_moe_card_vs_cpu)
   moe_launches = _timed(phase_gin_vrgripper_moe)
@@ -8054,8 +8908,8 @@ def main():
       "route": "cuda",
       "source": "tensor2robot_tpu_torch/csrc/flash_attention.cu",
       "replaces": "tensor2robot_tpu/ops/flash_attention.py:211",
-      "launches": flash_launches,
-      "max_abs_err": flash_err,
+      "launches": flash_launches + ring_launches["flash_attention_fwd"],
+      "max_abs_err": max(flash_err, ring_err["flash_attention_fwd"]),
       "ms": flash_row["ms"],
       "plain_ms": flash_row["plain_ms"],
       "bound_ms": flash_row["bound_ms"],
@@ -8066,8 +8920,8 @@ def main():
       "route": "cuda",
       "source": "tensor2robot_tpu_torch/csrc/flash_attention_bwd.cu",
       "replaces": replaces,
-      "launches": train_launches[name],
-      "max_abs_err": err,
+      "launches": train_launches[name] + ring_launches[name],
+      "max_abs_err": max(err, ring_err[name]),
       **{key: bwd_rows[name][key] for key in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")},
   } for name, replaces, err in (

@@ -13,8 +13,9 @@ card; on the CPU add ``--gin_bindings "train_eval_model.device='cpu'"``
 (``--trainer=qtopt`` and ``--trainer=anakin``) or
 ``"FleetConfig.device='cpu'"`` (``--trainer=fleet``, which also needs
 ``"run_fleet.model_dir='...'"``; the shipped fleet configs bind
-``FleetConfig.env = "mujoco_pose"``, which is ROADMAP A10a, so bind
-``FleetConfig.env = "pose"`` on top).
+``FleetConfig.env = "mujoco_pose"``, whose actors need `mujoco`: where
+it is missing, as on the card's machine, bind ``FleetConfig.env =
+"pose"`` on top).
 
 The flags keep the JAX binary's names. `--validate_only` resolves every
 statement of each config against the port's registry (the JAX rules

@@ -14,8 +14,8 @@ interlace raise ValueError saying so. Chunk CRCs are checked.
 Channel conversion is that of `decode_image(channels=c)`: c=0 keeps the
 file's channels (a palette becomes RGB, or RGBA when it has alpha);
 grey becomes RGB by replication; alpha is dropped when c has none and
-added opaque when c has one. Colour to grey (libpng's weighted sum) is
-not ported and raises.
+added opaque when c has one. Colour to grey is libpng's truncated
+weighted sum with TF's weights (`_rgb_to_grey`).
 
 Encoding writes filter 1 (Sub) rows, deflated by `zlib`, chunk CRCs by
 `zlib.crc32`.
@@ -125,6 +125,22 @@ def _natural(head: _Header, pixels: np.ndarray) -> np.ndarray:
   return np.concatenate([rgb, alpha[index][..., None]], axis=-1)
 
 
+# libpng's `png_set_rgb_to_gray(png_ptr, 1, 0.299, 0.587)` weights in
+# 15-bit fixed point (each truncated from the fixed-point 29900 and 58700;
+# blue takes the rest), as TF's `decode_png(channels=1)` sets them.
+_GREY_WEIGHTS = (9797, 19234, 32768 - 9797 - 19234)
+
+
+def _rgb_to_grey(image: np.ndarray) -> np.ndarray:
+  """libpng's colour-to-grey of 8-bit RGB(A) [h, w, 3|4] → [h, w, 1]:
+  (r·9797 + g·19234 + b·3737) >> 15, truncated (a grey pixel keeps its
+  value); alpha dropped."""
+  rgb = image[..., :3].astype(np.uint32)
+  r, g, b = _GREY_WEIGHTS
+  grey = (rgb[..., 0] * r + rgb[..., 1] * g + rgb[..., 2] * b) >> 15
+  return grey.astype(np.uint8)[..., None]
+
+
 def _convert(image: np.ndarray, channels: int) -> np.ndarray:
   have = image.shape[-1]
   if channels not in (0, 1, 3, 4):
@@ -134,8 +150,7 @@ def _convert(image: np.ndarray, channels: int) -> np.ndarray:
   grey = have <= 2
   if channels == 1:
     if not grey:
-      raise PNGError("colour PNG to 1 channel: the colour-to-grey "
-                     "conversion is not ported")
+      return _rgb_to_grey(image)
     return np.ascontiguousarray(image[..., :1])
   colour = np.repeat(image[..., :1], 3, axis=-1) if grey else image[..., :3]
   if channels == 3:

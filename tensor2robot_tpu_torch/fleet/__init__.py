@@ -32,8 +32,8 @@ the learner's ranks and the pods touch the card.
   * `rpc` / `transport`: loopback and TCP request/response.
   * `faults`: the deterministic fault plan.
 
-Not ported: the `mujoco_pose` env in process actors (ROADMAP A10a); a
-pods-only `mujoco_pose` fleet runs on the functional `pose` family.
+Process actors build the `mujoco_pose` env over `MuJoCoPoseEnv` (it
+needs `mujoco`); pods collect on the functional `pose` family for it.
 
 This package init stays light: `run_t2r_trainer` imports it for gin
 registration in every mode, `--validate_only` included.

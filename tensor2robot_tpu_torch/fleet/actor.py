@@ -167,10 +167,8 @@ def build_env(config, actor_index: int):
 
   `pose` is `GraspActor` driving the numpy `PoseEnv` through the
   `PoseGraspBandit` adapter; `toy_grasp` is the original QT-Opt bandit.
-  `mujoco_pose` (the JAX fleet's default) wants the physics-backed
-  `MuJoCoPoseEnv`, which is not ported (ROADMAP A10a):
-  `PoseGraspBandit(physics=True)` raises, and the orchestrator refuses
-  that env before it spawns anything.
+  `mujoco_pose` (the JAX fleet's default) is the same adapter over the
+  physics-backed `MuJoCoPoseEnv` (which needs `mujoco`).
   """
   seed = config.seed + 1009 * (actor_index + 1)
   if config.env == "toy_grasp":

@@ -26,12 +26,10 @@ Lifecycle contract (the JAX package's):
     --validate_only` runs as a pre-spawn subprocess, so a typo'd binding
     fails the launch in seconds. It runs no t2rcheck (the JAX package's
     source lints cover JAX code only).
-  * Refusals: what the port does not run yet is refused at `Fleet`
-    construction, before anything is spawned, by a `FleetUnported`
-    naming its ROADMAP item: `env="mujoco_pose"` with process actors
-    (A10a), at construction and in `scale_to`. A pods-only
-    `mujoco_pose` fleet runs: pods collect on the functional `pose`
-    family.
+  * Envs: process actors build `env="mujoco_pose"` (the JAX default)
+    as `PoseGraspBandit(physics=True)` over `MuJoCoPoseEnv`, which needs
+    `mujoco` in the actors' environment; pods collect on the functional
+    `pose` family for it, as JAX's do.
   * Learner groups (`learner_hosts > 1`): N learner processes adopt one
     orchestrator-issued coordinator address and join one gloo group;
     any rank's death tears the collective and is fatal.
@@ -119,10 +117,6 @@ PEER_EXIT_SECS = 60.0
 
 class FleetError(RuntimeError):
   """A latched fleet failure (child death, hang, launch-gate reject)."""
-
-
-class FleetUnported(FleetError, NotImplementedError):
-  """A configuration the port does not run yet; names its ROADMAP item."""
 
 
 # ---- broadcast tree shape ----
@@ -425,30 +419,11 @@ class FleetResult:
       default_factory=list)
 
 
-def unported(config: FleetConfig) -> List[str]:
-  """What of `config` the port does not run yet, each naming its
-  ROADMAP item ([] when the port runs it)."""
-  out = []
-  if config.env == "mujoco_pose" and config.num_actors > 0:
-    out.append(_A10A_ACTORS)
-  return out
-
-
-# Only process actors build the physics env: pods map `mujoco_pose` to
-# the functional `pose` family (`pod.pod_env_family`), as JAX's do.
-_A10A_ACTORS = ("env='mujoco_pose' needs MuJoCoPoseEnv (ROADMAP A10a); "
-                "bind FleetConfig.env = 'pose' for the numpy PoseEnv")
-
-
 class Fleet:
   """Launches, supervises, and tears down one learner/actor fleet."""
 
   def __init__(self, config: FleetConfig, model_dir: str,
                gin_configs: Sequence[str] = ()):
-    refused = unported(config)
-    if refused:
-      raise FleetUnported(
-          "the port does not run this fleet yet: " + "; ".join(refused))
     self.config = config
     # The per-run resolved copy (telemetry/flight-record dirs filled
     # in) is built at launch(); until then fall back to the caller's.
@@ -1609,9 +1584,6 @@ class Fleet:
     """
     if num_actors < 1:
       raise ValueError(f"num_actors must be >= 1, got {num_actors}")
-    if self.config.env == "mujoco_pose":
-      raise FleetUnported(
-          "the port does not run this fleet yet: " + _A10A_ACTORS)
     with self._scale_lock:
       # Checked under the lock shutdown() closes the fleet under: a
       # scale-up can never slip between the `_closed` flip and the
@@ -2263,8 +2235,6 @@ def run_fleet(model_dir: str = gin.REQUIRED,
   fleet to completion, writes its `FleetResult` to
   `<model_dir>/fleet_result.json` and returns it."""
   config = config or FleetConfig()
-  # Construction refuses what the port does not run before anything is
-  # made or spawned.
   fleet = Fleet(config, model_dir, gin_configs=gin_configs)
   os.makedirs(model_dir, exist_ok=True)
   result = fleet.run()

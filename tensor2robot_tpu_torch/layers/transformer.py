@@ -10,7 +10,13 @@ under any of them:
     on a CUDA tensor, its plain version on a CPU tensor;
   * "auto": flash on a CUDA tensor, reference on the CPU (the JAX rule
     is "flash on TPU");
-  * "ring" / "ring_flash" wait for ROADMAP A11.
+  * "ring": sequence parallelism over the `mesh`'s `seq` ranks
+    (`parallel.ring_attention`; requires `mesh`): flash blocks on a CUDA
+    tensor, as JAX's ring runs them on a TPU, reference blocks on the
+    CPU; the layer's rows are already the rank's data rows, so only the
+    time axis splits;
+  * "ring_flash": the ring with flash blocks forced (the plain flash
+    version on the CPU).
 
 MoE blocks (`moe_experts > 0`): every `moe_every`-th block, counted from
 1, swaps its dense MLP for a `parallel.moe.MoEMLP` of that many routed
@@ -43,11 +49,12 @@ from tensor2robot_tpu_torch.ops.flash_attention import (
 from tensor2robot_tpu_torch.parallel.moe import MoEMLP, collect_aux_losses
 from tensor2robot_tpu_torch.parallel.ring_attention import (
     attention_reference,
+    ring_attention,
 )
 from tensor2robot_tpu_torch.utils import profiling
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default (torch's is 1e-5)
-_IMPLS = ("auto", "flash", "reference")
+_IMPLS = ("auto", "flash", "reference", "ring", "ring_flash")
 
 
 def _counted(q, k, v, count) -> torch.Tensor:
@@ -69,16 +76,26 @@ def _counted(q, k, v, count) -> torch.Tensor:
   return out
 
 
-def _attend(q, k, v, *, impl: str) -> torch.Tensor:
+def _attend(q, k, v, *, impl: str, mesh=None) -> torch.Tensor:
   """Causal [B, T, H, D] attention on the chosen backend (`impl` was
   checked by `MultiHeadAttention`)."""
   count = profiling.attention_count()
   if count is not None:
     return _counted(q, k, v, count)
+  on_card = q.device.type == "cuda"
   if impl == "auto":
-    impl = "flash" if q.device.type == "cuda" else "reference"
+    impl = "flash" if on_card else "reference"
   if impl == "flash":
     return flash_attention(q, k, v, causal=True)
+  if impl in ("ring", "ring_flash"):
+    if mesh is None:
+      raise ValueError(
+          f"attention_impl={impl!r} needs a device mesh with a "
+          "'seq' axis; pass mesh= (models: the mesh constructor "
+          "argument) or use 'flash'/'reference' single-device.")
+    use_flash = on_card or impl == "ring_flash"
+    return ring_attention(q, k, v, mesh=mesh, causal=True, shard_batch=False,
+                          block_impl="flash" if use_flash else "reference")
   return attention_reference(q, k, v, causal=True)
 
 
@@ -106,21 +123,19 @@ class LayerNorm(nn.Module):
 
 class MultiHeadAttention(nn.Module):
   """QKV projection (no bias) → exact causal attention → output
-  projection."""
+  projection. `mesh`: the ring's mesh ("ring" / "ring_flash"); no
+  parameters depend on it."""
 
   def __init__(self, width: int, num_heads: int, head_dim: int,
                attention_impl: str = "reference",
-               dtype: torch.dtype = torch.bfloat16):
+               dtype: torch.dtype = torch.bfloat16, mesh=None):
     super().__init__()
-    if attention_impl in ("ring", "ring_flash"):
-      raise NotImplementedError(
-          f"attention_impl={attention_impl!r}: ring attention is not "
-          "ported yet (ROADMAP A11).")
     if attention_impl not in _IMPLS:
       raise ValueError(f"Unknown attention impl: {attention_impl!r}")
     self.num_heads = num_heads
     self.head_dim = head_dim
     self.attention_impl = attention_impl
+    self.mesh = mesh
     self.dtype = dtype
     self.qkv = nn.Linear(width, 3 * num_heads * head_dim, bias=False)
     self.proj = nn.Linear(num_heads * head_dim, width)
@@ -128,7 +143,7 @@ class MultiHeadAttention(nn.Module):
   def kernel_libraries(self, device: torch.device) -> Dict[str, Callable]:
     """{name: loader} of the kernel libraries this layer launches on
     `device` (a trainer's startup loads them before the first step)."""
-    if device.type == "cuda" and self.attention_impl in ("auto", "flash"):
+    if device.type == "cuda" and self.attention_impl != "reference":
       return {"flash_attention": load_flash_libraries}
     return {}
 
@@ -140,7 +155,7 @@ class MultiHeadAttention(nn.Module):
     # output columns, k the next, v the last. The splits are strided
     # views the flash kernel reads in place.
     q, k, v = qkv.reshape(b, t, 3 * h, d).split(h, dim=2)
-    out = _attend(q, k, v, impl=self.attention_impl)
+    out = _attend(q, k, v, impl=self.attention_impl, mesh=self.mesh)
     return dense(self.proj, out.reshape(b, t, h * d), self.dtype)
 
 
@@ -161,7 +176,7 @@ class TransformerBlock(nn.Module):
     self.ln_attn = LayerNorm(width, dtype)
     self.attn = MultiHeadAttention(width, num_heads, head_dim,
                                    attention_impl=attention_impl,
-                                   dtype=dtype)
+                                   dtype=dtype, mesh=mesh)
     self.ln_mlp = LayerNorm(width, dtype)
     if moe_experts:
       self.moe = MoEMLP(width, moe_experts, width * 4, k=moe_k,

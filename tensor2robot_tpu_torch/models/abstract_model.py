@@ -40,8 +40,22 @@ The JAX model draws a dummy init batch from the preprocessor's
 out-specs for `flax.init`; the port builds its networks from their
 constructor arguments and needs none.
 
-Not ported yet: `remat_policy` and `axis_name` (ROADMAP A11). Each
-raises where it is asked for.
+Stochastic layers (dropout, `layers.core`) and a preprocessor's random
+crops and distortions draw from the model's explicit generator
+(`generator(device)`) in TRAIN mode only; the trainer seeds it and, on
+the card, registers it with each captured step's graph, so every replay
+draws fresh numbers.
+
+`remat_policy` ("none", "full", "dots", "dots_no_batch"; JAX's
+`jax.checkpoint` policies) recomputes the loss's forward in the backward
+(`torch.utils.checkpoint` around `loss_fn`, with a selective policy that
+saves what the JAX policy saves: nothing for "full", every matmul for
+"dots", the matmuls without batch dims for "dots_no_batch"). Every
+policy also saves the random draws, so the recomputed forward sees the
+same dropout masks and the gradients equal "none"'s bit for bit.
+
+Not ported yet: `axis_name` (ROADMAP A11). It raises where it is asked
+for.
 """
 
 from __future__ import annotations
@@ -50,15 +64,18 @@ import abc
 import copy
 
 import dataclasses
+import functools
 import math
 import weakref
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.device import DeviceLike, resolve_device
+from tensor2robot_tpu_torch.layers import core
 from tensor2robot_tpu_torch.layers.vision_layers import collect_batch_stats
 from tensor2robot_tpu_torch.models import optimizers as opt_lib
 from tensor2robot_tpu_torch.models.model_interface import ModelInterface
@@ -68,6 +85,26 @@ from tensor2robot_tpu_torch.preprocessors.noop_preprocessor import (
 from tensor2robot_tpu_torch.specs import TensorSpecStruct
 
 Metrics = Dict[str, torch.Tensor]
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_MATMULS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+# What each policy saves besides the random draws (JAX's
+# `checkpoint_policies`: "full" none, "dots" every dot, "dots_no_batch" the
+# dots without batch dims).
+REMAT_POLICIES = {"full": (), "dots": _MATMULS + _BATCHED_MATMULS,
+                  "dots_no_batch": _MATMULS}
+
+
+def _remat_policy(saved, ctx, op, *args, **kwargs):
+  """Selective checkpointing's policy: save `saved` ops' outputs and every
+  seeded random draw (recomputing a draw would redraw it), recompute the
+  rest."""
+  del ctx, args, kwargs
+  policy = torch.utils.checkpoint.CheckpointPolicy
+  if op in saved or torch.Tag.nondeterministic_seeded in getattr(
+      op, "tags", ()):
+    return policy.MUST_SAVE
+  return policy.PREFER_RECOMPUTE
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -168,10 +205,14 @@ class AbstractT2RModel(ModelInterface):
     directory or a state file): params present there override the fresh
     initializers, batch statistics ride along
     (`maybe_init_from_checkpoint`)."""
-    if remat_policy not in (None, "none"):
-      raise NotImplementedError(
-          f"remat_policy={remat_policy!r}: rematerialization is not ported "
-          "yet (ROADMAP A11).")
+    if remat_policy not in (None, "none") and (
+        remat_policy not in REMAT_POLICIES):
+      raise ValueError(
+          f"remat_policy={remat_policy!r} not in "
+          f"{['none'] + sorted(REMAT_POLICIES)}")
+    self._remat_policy = (None if remat_policy in (None, "none")
+                          else remat_policy)
+    self._generators: Dict[str, torch.Generator] = {}
     self._device_dtype = device_dtype
     self._aux_loss_weight = aux_loss_weight
     self._create_optimizer_fn = create_optimizer_fn
@@ -215,7 +256,34 @@ class AbstractT2RModel(ModelInterface):
     twin._mesh = None
     twin._train_network = None
     twin._bound = weakref.WeakKeyDictionary()
+    twin._generators = {}
     return twin
+
+  def generator(self, device: DeviceLike) -> torch.Generator:
+    """The model's explicit generator on `device` (made once, seeded 0;
+    a trainer reseeds it): dropout masks and the preprocessor's random
+    draws in TRAIN mode come from it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+      # "cuda" and "cuda:0" name one generator (a trainer's device and
+      # its parameters' device).
+      device = torch.device("cuda", torch.cuda.current_device())
+    key = str(device)
+    if key not in self._generators:
+      self._generators[key] = torch.Generator(device=device).manual_seed(0)
+    return self._generators[key]
+
+  @property
+  def draws_random(self) -> bool:
+    """Whether a TRAIN step draws random numbers: a dropout layer with a
+    rate above 0, or a preprocessor that draws (`draws_random`)."""
+    if getattr(self.preprocessor, "draws_random", False):
+      return True
+    if self._train_network is None:
+      with torch.device("meta"):
+        self._train_network = self.create_network()
+    return any(getattr(m, "dropout_rate", 0.0) > 0
+               for m in self._train_network.modules())
 
   @property
   def preprocessor(self):
@@ -309,12 +377,16 @@ class AbstractT2RModel(ModelInterface):
         self._train_network = self.create_network()
     train = mode == Mode.TRAIN
     self._train_network.train(train)
+    generator = None
+    if train and self.draws_random:
+      generator = self.generator(next(iter(params.values())).device)
     features, labels = self.preprocessor.preprocess(
-        _flat(features), _flat(labels), mode)
+        _flat(features), _flat(labels), mode, generator)
     features = self.network_inputs_from_labels(features, labels, mode)
-    outputs = torch.func.functional_call(
-        self._train_network, {**params, **batch_stats}, (features,),
-        strict=True)
+    with core.random_stream(generator):
+      outputs = torch.func.functional_call(
+          self._train_network, {**params, **batch_stats}, (features,),
+          strict=True)
     new_stats = collect_batch_stats(self._train_network)
     # Popped before the model's fns: they never see the private key.
     aux = (outputs.pop(self.AUX_LOSS_OUTPUT, None)
@@ -347,6 +419,21 @@ class AbstractT2RModel(ModelInterface):
       scalars = self._with_aux(scalars, aux, "model_train_fn")
     return loss, (scalars, new_stats)
 
+  def _loss_for_grad(self) -> Callable:
+    """`loss_fn`, under `torch.utils.checkpoint` per `remat_policy` (the
+    module docstring)."""
+    if self._remat_policy is None:
+      return self.loss_fn
+    context_fn = functools.partial(
+        torch.utils.checkpoint.create_selective_checkpoint_contexts,
+        functools.partial(_remat_policy, REMAT_POLICIES[self._remat_policy]))
+
+    def loss(*args):
+      return torch.utils.checkpoint.checkpoint(
+          self.loss_fn, *args, use_reentrant=False, context_fn=context_fn)
+
+    return loss
+
   def eval_step(self, state: TrainState, features, labels) -> Metrics:
     """Eval metrics of `state` on a batch (`model_eval_fn`), the network
     in eval mode, without autograd. With an auxiliary loss: `aux_loss`
@@ -374,7 +461,7 @@ class AbstractT2RModel(ModelInterface):
     params = {k: v.detach().requires_grad_() for k, v in
               state.params.items()}
     with torch.enable_grad():
-      loss, (scalars, new_stats) = self.loss_fn(
+      loss, (scalars, new_stats) = self._loss_for_grad()(
           params, state.batch_stats, features, labels, Mode.TRAIN)
       leaves = list(params.values())
       # A parameter the loss does not reach gets a zero gradient, as
@@ -399,8 +486,8 @@ class AbstractT2RModel(ModelInterface):
   def train_step(self, state: TrainState, features, labels,
                  axis_name: Optional[str] = None
                  ) -> Tuple[TrainState, Metrics]:
-    """One optimizer step on a batch: (new state, metrics). The port's
-    networks have no stochastic layers yet, so it takes no rng."""
+    """One optimizer step on a batch: (new state, metrics). Where JAX
+    takes an rng, the port draws from the model's `generator`."""
     grads, new_stats, metrics = self.train_grads(state, features, labels,
                                                  axis_name=axis_name)
     return self.apply_gradients(state, grads, new_stats), metrics

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -61,6 +62,14 @@ class CriticModel(AbstractT2RModel):
   @property
   def sigmoid_q(self) -> bool:
     return self._sigmoid_q
+
+  @property
+  def action_dim(self) -> int:
+    """The action's width, from the TRAIN feature spec under
+    `action_key` (what `QTOptLearner`'s CEM samples)."""
+    spec = self.get_feature_specification(Mode.TRAIN).to_flat_dict()[
+        self._action_key]
+    return int(np.prod(spec.shape))
 
   def create_network(self) -> nn.Module:
     """The default MLP critic; torch needs its input width up front, so

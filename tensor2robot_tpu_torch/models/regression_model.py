@@ -5,6 +5,8 @@ features, the default loss MSE against `labels[label_key]`. The network
 returns a dict with key `inference_output` (the serving signature's
 name). The MLP sits under the name ``backbone``, flax's path for the
 JAX network's `_DictOutput(backbone=MLP(...))`, so converted weights map.
+`dropout_rate` puts dropout after each hidden activation in train mode
+(`layers.core.dropout`, masks from the model's generator).
 """
 
 from __future__ import annotations
@@ -50,14 +52,11 @@ class RegressionModel(AbstractT2RModel):
                label_key: str = "target",
                dropout_rate: float = 0.0,
                **kwargs):
-    if dropout_rate:
-      raise NotImplementedError(
-          f"dropout_rate={dropout_rate}: the port's networks have no "
-          "stochastic layers yet (ROADMAP A10).")
     super().__init__(**kwargs)
     self._output_size = output_size
     self._hidden_sizes = tuple(hidden_sizes)
     self._label_key = label_key
+    self._dropout_rate = dropout_rate
 
   @property
   def label_key(self) -> str:
@@ -67,7 +66,8 @@ class RegressionModel(AbstractT2RModel):
     width = float_feature_width(self.get_feature_specification(Mode.TRAIN))
     return _DictOutput(MLP(width, self._hidden_sizes,
                            output_size=self._output_size,
-                           dtype=self.device_dtype))
+                           dtype=self.device_dtype,
+                           dropout_rate=self._dropout_rate))
 
   def model_train_fn(self, features, labels, outputs, mode
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

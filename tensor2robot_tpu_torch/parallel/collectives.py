@@ -29,6 +29,9 @@ only the flat reduction runs on the host. A failed collective raises
     group; `StageShift`, `StageBroadcast`, `StageReplicate`: the stage
     ring's hops and edges (`parallel.pipeline`), each an
     `autograd.Function` whose backward runs the hop in reverse.
+  * `RingShift`, `SeqShard`, `SeqGather`, `RingAnchor`: the seq ring's
+    hops (`parallel.ring_attention`), paired so that every layer outside
+    attention computes the same values and gradients on every seq rank.
 
 Outside `data_parallel`, or in a group of one process, nothing changes.
 """
@@ -163,6 +166,19 @@ def _wire(tensor: torch.Tensor) -> torch.Tensor:
   return host.view(torch.int16) if host.dtype == torch.bfloat16 else host
 
 
+def _meta(x: torch.Tensor):
+  """What `_zeros` needs to remake a tensor like `x` in a backward."""
+  return x.shape, x.dtype, x.device
+
+
+def _zeros(meta) -> torch.Tensor:
+  """The zero cotangent of a tensor `_meta` described: it anchors a
+  rank's chain of hops to its loss, so their backwards run on every
+  rank in one order."""
+  shape, dtype, device = meta
+  return torch.zeros(shape, dtype=dtype, device=device)
+
+
 def _exact_sum(tensor: torch.Tensor, group) -> torch.Tensor:
   """`all_reduce_sum` in f32 for a bf16 tensor (one rank's value plus
   zeros, so exact), in the tensor's own dtype otherwise."""
@@ -228,13 +244,12 @@ class StageBroadcast(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, out, tail, group):
-    ctx.tail = (tail.shape, tail.dtype, tail.device)
+    ctx.tail = _meta(tail)
     return _exact_sum(out, group)
 
   @staticmethod
   def backward(ctx, grad):
-    shape, dtype, device = ctx.tail
-    return grad, torch.zeros(shape, dtype=dtype, device=device), None
+    return grad, _zeros(ctx.tail), None
 
 
 class StageReplicate(torch.autograd.Function):
@@ -251,6 +266,105 @@ class StageReplicate(torch.autograd.Function):
   @staticmethod
   def backward(ctx, grad):
     return _exact_sum(grad.contiguous(), ctx.group), None
+
+
+# ---- the seq ring (parallel.ring_attention) ----
+#
+# Outside attention every seq rank of a data row holds the whole time
+# axis (the value is replicated over `seq`, as JAX's GSPMD program treats
+# it). `SeqShard` takes this rank's T-slice into the ring and gathers the
+# slices' cotangents back in the backward, so the cotangent upstream is
+# the whole one on every rank; `SeqGather` gathers the ring's output
+# slices and passes this rank's slice of the (replicated) cotangent back.
+# `RingShift` rotates K/V blocks one step along the ring; its backward
+# rotates the cotangents the other way, so each block's dK/dV arrive at
+# the rank that holds the block. `RingAnchor` hangs the last rotation on
+# the output, so every rank runs every rotation's backward, in one order,
+# whichever blocks it attended (trap 65's pairing holds in the backward).
+
+
+def _all_gather_cat(tensor: torch.Tensor, dim: int, group) -> torch.Tensor:
+  """Every rank's `tensor` of `group`, concatenated along `dim` in group
+  rank order, on `tensor`'s device: one host all-gather of its `_wire`
+  copy (bf16 as its 2 bytes an element: gloo gathers no int16, and the
+  bytes of an element stay together along any `dim`)."""
+  import torch.distributed as dist
+
+  wire = _wire(tensor)
+  if wire.dtype == torch.int16:
+    wire = wire.view(torch.uint8)
+  parts = [torch.empty_like(wire) for _ in range(group_size(group))]
+  dist.all_gather(parts, wire, group=group)
+  return torch.cat(parts, dim=dim).view(tensor.dtype).to(tensor.device)
+
+
+class SeqShard(torch.autograd.Function):
+  """This rank's slice `index` of `size` equal slices of `x` along `dim`
+  (x replicated over `group`). The backward all-gathers the slices'
+  cotangents over `group`: the whole cotangent, on every rank."""
+
+  @staticmethod
+  def forward(ctx, x, dim, index, size, group):
+    ctx.dim, ctx.group = dim, group
+    chunk = x.shape[dim] // size
+    return x.narrow(dim, index * chunk, chunk).contiguous()
+
+  @staticmethod
+  def backward(ctx, grad):
+    return (_all_gather_cat(grad.contiguous(), ctx.dim, ctx.group),
+            None, None, None, None)
+
+
+class SeqGather(torch.autograd.Function):
+  """The slices of `group` (this rank's is `x`, slice `index`)
+  concatenated along `dim`, on every rank. The backward takes this
+  rank's slice of the (replicated) cotangent."""
+
+  @staticmethod
+  def forward(ctx, x, dim, index, group):
+    ctx.dim, ctx.index, ctx.chunk = dim, index, x.shape[dim]
+    return _all_gather_cat(x.contiguous(), dim, group)
+
+  @staticmethod
+  def backward(ctx, grad):
+    return (grad.narrow(ctx.dim, ctx.index * ctx.chunk, ctx.chunk)
+            .contiguous(), None, None, None)
+
+
+class RingShift(torch.autograd.Function):
+  """One step of the ring: sends (k, v) to global rank `dst` (seq index
+  j − 1) and returns the blocks received from `src` (seq index j + 1),
+  in one buffer. The backward is the transpose of JAX's `ppermute`: the
+  received blocks' cotangents go back to `src`, and the sent blocks'
+  cotangents come from `dst`."""
+
+  @staticmethod
+  def forward(ctx, k, v, dst, src):
+    ctx.dst, ctx.src = dst, src
+    both = torch.stack([k, v])
+    got = exchange(both, dst, both, src)
+    return got[0], got[1]
+
+  @staticmethod
+  def backward(ctx, grad_k, grad_v):
+    both = torch.stack([grad_k, grad_v])
+    got = exchange(both, ctx.src, both, ctx.dst)
+    return got[0], got[1], None, None
+
+
+class RingAnchor(torch.autograd.Function):
+  """`out` as it is, hung on the ring's last blocks: the backward gives
+  them zero cotangents, so every rotation's backward runs on every rank
+  even where the blocks were skipped."""
+
+  @staticmethod
+  def forward(ctx, out, k, v):
+    ctx.k, ctx.v = _meta(k), _meta(v)
+    return out.view_as(out)
+
+  @staticmethod
+  def backward(ctx, grad):
+    return grad, _zeros(ctx.k), _zeros(ctx.v)
 
 
 def broadcast_object(obj, src: int = 0, group=None):

@@ -1,5 +1,5 @@
-"""Device mesh over a process group: the `data` and `stage` axes (port of
-`parallel/mesh.py`).
+"""Device mesh over a process group: the `data`, `stage` and `seq` axes
+(port of `parallel/mesh.py`).
 
 The JAX package's mesh names axes over every device of a slice
 (``data``, ``fsdp``, ``model``, ``seq``, ``expert``, ``stage``) and jits
@@ -11,14 +11,17 @@ two axes:
     (`parallel.collectives.data_parallel` for `train_qtopt`; the pipeline
     sums its gradients over the data group);
   * ``stage``: the GPipe schedule of `parallel.pipeline` over the stage
-    ring, each rank holding one stage's weights.
+    ring, each rank holding one stage's weights;
+  * ``seq``: ring attention (`parallel.ring_attention`) over the seq
+    ring, each rank holding one slice of the time axis inside attention.
 
 A rank's coordinates follow JAX's row-major device order over the axes'
 order: in ``{"data": D, "stage": S}`` rank r is at data r // S, stage
-r % S. For each axis the mesh carries the process group of the ranks
-that differ from this one only along it (`Mesh.group`): the stage ring
-(same data index) and the data group (same stage index). A mesh with one
-axis uses the default group. `create_mesh` is collective when it makes
+r % S (and in ``{"data": D, "seq": P}`` at data r // P, seq r % P). For
+each axis the mesh carries the process group of the ranks that differ
+from this one only along it (`Mesh.group`): the stage or seq ring (same
+data index) and the data group (same stage or seq index). A mesh with
+one axis uses the default group. `create_mesh` is collective when it makes
 subgroups (every rank makes every group, in one order:
 `distributed.new_subgroups`), and equal calls in one process return the
 same mesh, so gin's two `@create_mesh()` references make the groups once
@@ -39,9 +42,11 @@ from tensor2robot_tpu_torch import config as gin
 
 DATA_AXIS = "data"
 STAGE_AXIS = "stage"
-_PORTED_AXES = (DATA_AXIS, STAGE_AXIS)
+SEQ_AXIS = "seq"
+_PORTED_AXES = (DATA_AXIS, STAGE_AXIS, SEQ_AXIS)
 
-_A11 = "(ROADMAP A11 rest: the port's mesh has the data and stage axes only)"
+_A11 = ("(ROADMAP A11 rest: the port's mesh has the data, stage and seq "
+        "axes only)")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -107,8 +112,8 @@ def create_mesh(
 
   Args:
     axis_shapes: ordered {axis_name: size}; one axis may be -1 (absorbs
-      the rest). Default: every device of the group on `data`. The `data`
-      and `stage` axes are ported.
+      the rest). Default: every device of the group on `data`. The
+      `data`, `stage` and `seq` axes are ported.
     devices: this process's local devices; default its one device, as
       the trainer that computes on the mesh resolves it (its `device`
       argument: the card unless the CPU is asked for). The mesh's devices
@@ -156,6 +161,18 @@ def create_mesh(
                 world_size=world, rank=rank, coords=coords, groups=groups)
     _MESHES[key] = mesh
   return mesh
+
+
+def local_batch_size(mesh: Mesh, global_batch_size: int) -> int:
+  """The rows of a global batch one rank holds: the batch divided by
+  the `data` axis only (a `stage` or `seq` rank of a data row holds all
+  of the row's examples); raises JAX's error when it does not divide."""
+  shards = mesh.axis_size(DATA_AXIS)
+  if global_batch_size % shards != 0:
+    raise ValueError(
+        f"Global batch {global_batch_size} not divisible by {shards} "
+        f"data shards.")
+  return global_batch_size // shards
 
 
 def shard_map_compat(body, mesh: Mesh, *, in_specs, out_specs):

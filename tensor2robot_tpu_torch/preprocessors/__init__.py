@@ -7,5 +7,11 @@ from tensor2robot_tpu_torch.preprocessors.abstract_preprocessor import (
 from tensor2robot_tpu_torch.preprocessors.noop_preprocessor import (
     NoOpPreprocessor,
 )
+from tensor2robot_tpu_torch.preprocessors.image_preprocessor import (
+    ImagePreprocessor,
+    TPUCompatPreprocessorWrapper,
+)
+from tensor2robot_tpu_torch.preprocessors import image_transformations
 
-__all__ = ["AbstractPreprocessor", "NoOpPreprocessor"]
+__all__ = ["AbstractPreprocessor", "ImagePreprocessor", "NoOpPreprocessor",
+           "TPUCompatPreprocessorWrapper", "image_transformations"]

@@ -12,10 +12,9 @@ bridges them with QT-Opt's reward structure:
   * reward: 1 when the grasp point lands within `success_threshold`
     WORLD units of the block pose, else 0.
 
-Numpy over the env. `physics=True` (the JAX default) wants the
-physics-backed `MuJoCoPoseEnv`, which is not ported (ROADMAP A10a): it
-raises unless an `env` is given; `physics=False` uses the numpy
-`PoseEnv`.
+Numpy over the env. `physics=True` (the JAX default) builds the
+physics-backed `MuJoCoPoseEnv` (which needs `mujoco`); `physics=False`
+uses the numpy `PoseEnv`.
 """
 
 from __future__ import annotations
@@ -61,7 +60,7 @@ class PoseGraspBandit:
         point, extras ride along unused.
       success_threshold: max grasp-point error in WORLD units (the
         workspace box spans ±0.4; 0.1 gives a ~5% random baseline).
-      physics: True → `MuJoCoPoseEnv` (not ported: raises); False → the
+      physics: True → `MuJoCoPoseEnv` (needs `mujoco`); False → the
         numpy `PoseEnv`.
       env: an already-constructed pose env (overrides `physics`).
       **env_kwargs: forwarded to the env constructor.
@@ -74,9 +73,11 @@ class PoseGraspBandit:
     if env is not None:
       self._env = env
     elif physics:
-      raise NotImplementedError(
-          "PoseGraspBandit(physics=True) needs MuJoCoPoseEnv, which is not "
-          "ported yet (ROADMAP A10a); pass physics=False or an env.")
+      from tensor2robot_tpu_torch.research.pose_env.mujoco_pose_env import (
+          MuJoCoPoseEnv,
+      )
+      self._env = MuJoCoPoseEnv(image_size=image_size, seed=seed,
+                                **env_kwargs)
     else:
       from tensor2robot_tpu_torch.research.pose_env.pose_env import PoseEnv
       self._env = PoseEnv(image_size=image_size, seed=seed, **env_kwargs)

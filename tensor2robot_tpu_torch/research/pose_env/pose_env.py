@@ -8,8 +8,8 @@ JAX package's, so a seed gives the same images and poses bit for bit.
 `evaluate_pose_model` scores a predictor by its mean pose error and
 success rate. `collect_random_episodes` writes TFRecords of {image,
 target_pose} with the port's record writer (the same bytes as the JAX
-package's for a seed); the physics-backed `MuJoCoPoseEnv` is ROADMAP
-A10a.
+package's for a seed); the physics-backed `MuJoCoPoseEnv` is in
+`mujoco_pose_env`.
 """
 
 from __future__ import annotations

@@ -97,6 +97,29 @@ def draw_noise(generator: torch.Generator, iterations: int, batch_size: int,
                       for _ in range(iterations)])
 
 
+def make_q_score_fn(network, state_features, q_key: str = "q_value"
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+  """Score fn over any Q-network (a bound module without the
+  encode/head split): the state features are tiled over the population
+  ([B, ...] → [B·P, ...], each row repeated P times), the candidates
+  folded into the batch under "action", and one network call scores the
+  whole population; `outputs[q_key]` reshaped to [B, P]."""
+  flat_state = dict(state_features.to_flat_dict()
+                    if hasattr(state_features, "to_flat_dict")
+                    else state_features)
+
+  def score_fn(actions: torch.Tensor) -> torch.Tensor:
+    b, p, a = actions.shape
+    features = {k: v.repeat_interleave(p, dim=0)
+                for k, v in flat_state.items()}
+    features["action"] = actions.reshape(b * p, a)
+    outputs = network(features)
+    q = outputs[q_key] if isinstance(outputs, dict) else outputs
+    return q.reshape(b, p)
+
+  return score_fn
+
+
 def make_encoded_q_score_fn(network, state_features
                             ) -> Callable[[torch.Tensor], torch.Tensor]:
   """Score fn over an encode/head-split Q-network (a bound module).

@@ -41,6 +41,7 @@ from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
 from tensor2robot_tpu_torch.device import resolve_device
 from tensor2robot_tpu_torch.models import optimizers as opt_lib
 from tensor2robot_tpu_torch.models.abstract_model import Metrics, TrainState
+from tensor2robot_tpu_torch.models.critic_model import Q_VALUE
 from tensor2robot_tpu_torch.ops import fused_cem_select
 from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.research.qtopt import cem
@@ -276,8 +277,14 @@ class QTOptLearner:
     (requantizing the network's weights here, on every call); "fused"
     routes the scoring tail through `ops.fused_cem_select` via the
     select seam (the kernel applies the sigmoid of a `sigmoid_q` model
-    itself).
+    itself). A network without the encode/head split (a generic critic,
+    `MockCriticModel`) is scored by tiling the state features over the
+    population (`cem.make_q_score_fn`) and runs the lax select, as JAX's
+    does: no `cem_select` launch.
     """
+    if not (hasattr(network, "encode") and hasattr(network, "head")):
+      return cem.make_q_score_fn(network, state_features,
+                                 q_key=Q_VALUE), None
     if self._cem_inference == "bf16" and self._cem_select == "lax":
       return cem.make_encoded_q_score_fn(network, state_features), None
     flat_state = dict(state_features.to_flat_dict()

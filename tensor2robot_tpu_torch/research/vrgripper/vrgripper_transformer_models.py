@@ -24,8 +24,16 @@ device. On a mesh of more than one rank the masked loss keeps JAX's
 global denominator (ROADMAP trap 63): each rank's loss is its rows'
 share, sum(sq·mask) over its rows / max(sum(mask) over the data group,
 1), the data group sums the shares' gradients, and the reported loss and
-scalars are the shares summed over the group. Expert parallelism and
-ring attention wait for ROADMAP A11 rest.
+scalars are the shares summed over the group.
+
+`attention_impl="ring"` (or "ring_flash") with a `mesh` whose `seq` axis
+is above 1 splits each attention layer's time axis over the seq ranks
+(`parallel.ring_attention`); every other layer runs whole on every seq
+rank of a data row, so their gradients need no sum over `seq`. The
+model without its mesh (`without_mesh`, a trainer's warm-up step, and
+serving a checkpoint on one device) runs the same function on one
+device: "ring" becomes "auto" and "ring_flash" "flash" (no parameter
+depends on the backend). Expert parallelism waits for ROADMAP A11 rest.
 """
 
 from __future__ import annotations
@@ -90,7 +98,7 @@ class _EpisodeTransformerNet(nn.Module):
       self.trunk = CausalTransformer(
           embedding_size, width=width, depth=depth, num_heads=num_heads,
           max_len=max_len, attention_impl=attention_impl, dtype=dtype,
-          moe_experts=moe_experts, moe_every=moe_every)
+          moe_experts=moe_experts, moe_every=moe_every, mesh=mesh)
     self.action_head = nn.Linear(width, action_dim)
 
   def forward(self, features) -> Dict[str, torch.Tensor]:
@@ -185,6 +193,16 @@ class VRGripperTransformerModel(AbstractT2RModel):
   @property
   def depth(self) -> int:
     return self._depth
+
+  def without_mesh(self) -> "VRGripperTransformerModel":
+    """`AbstractT2RModel.without_mesh`, the ring's backends mapped to
+    their one-device equivalents ("ring" → "auto", "ring_flash" →
+    "flash")."""
+    twin = super().without_mesh()
+    if twin is not self:
+      twin._attention_impl = {"ring": "auto", "ring_flash": "flash"}.get(
+          self._attention_impl, self._attention_impl)
+    return twin
 
   @property
   def pipeline_microbatches(self) -> int:

@@ -51,13 +51,17 @@ results dropped) and the card's peak is known.
 After training, each exporter of `create_exporters_fn(model)` exports
 the final state (`export/`), as the JAX trainer does.
 
-A mesh (`parallel.mesh.create_mesh`) with `sharding_strategy="pipeline"`
-trains a model built on the same mesh (the pipeline gin's
-`VRGripperTransformerModel(mesh=..., pipeline_stages=...)`) as one rank
-of a gloo group: the model's state holds this rank's stage of the
-stage-stacked leaves (`parallel.sharding`), each rank reads the global
-batch from its own generator (a generator without a seed gets one from
-rank 0) and takes its data rows (`parallel.pipeline.data_rows`), the
+A mesh (`parallel.mesh.create_mesh`) of several ranks trains a model
+built on the same mesh as one rank of a gloo group: with
+`sharding_strategy="pipeline"` the pipeline gin's
+`VRGripperTransformerModel(mesh=..., pipeline_stages=...)`, whose state
+holds this rank's stage of the stage-stacked leaves (`parallel.sharding`);
+with "replicated" (JAX's default; "fsdp" is the same on a mesh without
+an `fsdp` axis, as JAX's `ShardLargest` over no axis places nothing) a
+model whose every leaf is whole on every rank, such as the transformer
+over a `data × seq` mesh with `attention_impl="ring"`. Each rank reads
+the global batch from its own generator (a generator without a seed
+gets one from rank 0) and takes its data rows (`parallel.pipeline.data_rows`), the
 ranks compare a CRC-32 of each step's global batch before the step and
 raise on a mismatch (a stage rank would otherwise take features and
 labels from different batches), and the steps run eagerly (a collective
@@ -66,8 +70,18 @@ the checkpoints, in the one-device layout (`utils.checkpoints.
 gather_state`); a resume slices that layout again. Hooks run on every
 rank (`after_checkpoint` on rank 0 only, with the one-device state);
 `perf.mfu` divides by the devices the group spans. Evaluation and
-exporters on such a mesh raise: a pipeline checkpoint serves mesh-free.
+exporters on such a mesh raise: its checkpoint serves mesh-free.
 The other meshes and strategies raise, naming ROADMAP A11 rest.
+
+A model whose TRAIN step draws random numbers (dropout, a distorting
+preprocessor: `draws_random`) draws from its explicit generator
+(`model.generator(device)`), seeded `seed + 1 + the first step` (JAX's
+step key is `fold_in(PRNGKey(seed + 1), step)`; `draw_seed`) and
+registered with each captured train step's graph, so every replay draws
+anew. On a mesh the seed also takes the rank's data index: the seq and
+stage ranks of a data row compute the same rows and draw alike, while
+the data ranks hold different rows and draw apart, as JAX's one key
+draws apart for every row of the global batch.
 """
 
 from __future__ import annotations
@@ -294,33 +308,40 @@ def kernel_libraries(model: ModelInterface, device: torch.device) -> list:
 
 
 def _check_unported(mesh, sharding_strategy: str, min_size_to_shard: int):
-  """Raises for a mesh or strategy the port does not run: it runs no
-  mesh with "replicated" or "pipeline" (which places nothing without a
-  stage axis), and the pipeline strategy over a `parallel.mesh` mesh."""
+  """Raises for a mesh or strategy the port does not run. Without a
+  mesh: "replicated" or "pipeline" (which places nothing without a stage
+  axis). Over a `parallel.mesh` mesh: "pipeline", and "replicated" or
+  "fsdp" (nothing placed: the port's mesh has no `fsdp` axis) where no
+  stage axis holds one stage a rank."""
   if mesh is None:
     if (sharding_strategy in ("replicated", "pipeline")
         and min_size_to_shard == _DEFAULT_MIN_SIZE_TO_SHARD):
       return
-  elif (isinstance(mesh, mesh_lib.Mesh)
-        and sharding_strategy == "pipeline"):
-    return
+  elif isinstance(mesh, mesh_lib.Mesh):
+    if sharding_strategy == "pipeline":
+      return
+    if (sharding_strategy in ("replicated", "fsdp")
+        and not pipeline_lib.is_pipelined(mesh)):
+      return
   raise NotImplementedError(
       f"train_eval_model(mesh={getattr(mesh, 'shape', mesh)}, "
       f"sharding_strategy={sharding_strategy!r}, min_size_to_shard="
-      f"{min_size_to_shard}): the port runs the pipeline strategy over a "
-      "parallel.mesh mesh only (ROADMAP A11 rest).")
+      f"{min_size_to_shard}): over a parallel.mesh mesh the port runs the "
+      "pipeline strategy, and the replicated one (or fsdp, which places "
+      "nothing without an fsdp axis) without a stage axis; without a "
+      "mesh the replicated and pipeline ones (ROADMAP A11 rest).")
 
 
 def _group_setup(model, mesh, input_generator_eval, create_exporters_fn,
                  input_generator_train):
-  """Checks a pipeline mesh's run and gives every rank's generator one
-  seed; returns the rows function of this rank's data rows."""
+  """Checks a mesh's run and gives every rank's generator one seed;
+  returns the rows function of this rank's data rows."""
   if getattr(model, "mesh", None) is not mesh:
     raise ValueError(
         "train_eval_model(mesh=...) over several ranks needs the model "
         "built on the same mesh: the model reduces its loss and "
-        "gradients over the mesh's groups (the pipeline gin binds both "
-        "to @create_mesh())")
+        "gradients over the mesh's groups (the mesh gins bind both to "
+        "@create_mesh())")
   if input_generator_eval is not None or create_exporters_fn is not None:
     raise NotImplementedError(
         "evaluation and exporters on a mesh of several ranks: evaluate "
@@ -334,6 +355,18 @@ def _group_setup(model, mesh, input_generator_eval, create_exporters_fn,
   d_size = mesh.axis_size(mesh_lib.DATA_AXIS)
   d_index = mesh.axis_index(mesh_lib.DATA_AXIS)
   return lambda batch: pipeline_lib.data_rows(batch, m, d_size, d_index)
+
+
+# The data ranks' seeds differ by this stride (any nonzero stride gives
+# them different streams).
+_DATA_SEED_STRIDE = 7919
+
+
+def draw_seed(seed: int, step: int, mesh=None) -> int:
+  """The seed of the model's generator for a run from `step`: `seed + 1
+  + step`, plus a stride for each data index of `mesh`'s rank."""
+  data = 0 if mesh is None else mesh.axis_index(mesh_lib.DATA_AXIS)
+  return seed + 1 + step + _DATA_SEED_STRIDE * data
 
 
 def _check_same_batches(digests: collections.deque, k: int,
@@ -411,10 +444,10 @@ def train_eval_model(
   `overlap_startup` runs the startup phases together (the module
   docstring); False runs them one after the other, the input phase at
   the loop's start. `init_batch_size` is accepted for the JAX signature:
-  the port builds its networks from their specs. `mesh` with
-  `sharding_strategy="pipeline"`: this process is one rank of the mesh's
-  group (the module docstring). Returns the final state (on a pipeline
-  rank, its stage's slice).
+  the port builds its networks from their specs. `mesh` of several
+  ranks: this process is one rank of the mesh's group (the module
+  docstring). Returns the final state (on a pipeline rank, its stage's
+  slice).
   """
   _check_unported(mesh, sharding_strategy, min_size_to_shard)
   del init_batch_size
@@ -485,6 +518,10 @@ def train_eval_model(
   elif resume_step is not None:
     state = restore_phase()
   step = int(state.step)
+  generators = []
+  if getattr(model, "draws_random", False):
+    generators = [model.generator(device).manual_seed(
+        draw_seed(seed, step, mesh))]
   if k > 1 and step % k and step < max_train_steps:
     orchestrator.close_quietly(train_prefetcher)
     raise ValueError(
@@ -533,7 +570,8 @@ def train_eval_model(
         prefetcher = input_phase()
       train_fn = train_step_fn(model, k)
       if graphs:
-        graphs_by_shape = GraphCache(train_fn, state, device)
+        graphs_by_shape = GraphCache(train_fn, state, device,
+                                     generators=generators)
       t_last = time.time()
       steps_since_log = 0
       # Wall spent in checkpoint saves, interleaved evaluations and

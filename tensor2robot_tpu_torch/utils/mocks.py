@@ -1,10 +1,9 @@
 """Mock models for framework tests (port of `utils/mocks.py`).
 
-`MockT2RModel` and `MockCriticModel` let the trainer's tests run
-without real data or real networks, with the JAX package's specs and
-network names, so flax weights carry across (`models.convert`).
-`MockClassificationModel` waits for the classification base (ROADMAP
-A10).
+`MockT2RModel`, `MockClassificationModel` and `MockCriticModel` let the
+trainer's tests run without real data or real networks, with the JAX
+package's specs and network names, so flax weights carry across
+(`models.convert`).
 """
 
 from __future__ import annotations
@@ -13,6 +12,9 @@ import numpy as np
 
 from tensor2robot_tpu_torch import config as gin
 from tensor2robot_tpu_torch.data.abstract_input_generator import Mode
+from tensor2robot_tpu_torch.models.classification_model import (
+    ClassificationModel,
+)
 from tensor2robot_tpu_torch.models.critic_model import CriticModel
 from tensor2robot_tpu_torch.models.regression_model import RegressionModel
 from tensor2robot_tpu_torch.specs import ExtendedTensorSpec, TensorSpecStruct
@@ -35,6 +37,26 @@ class MockT2RModel(RegressionModel):
     st = TensorSpecStruct()
     st.target = ExtendedTensorSpec(shape=(2,), dtype=np.float32,
                                    name="target")
+    return st
+
+
+@gin.configurable
+class MockClassificationModel(ClassificationModel):
+  """Tiny classifier: {x: (4,)} → label in [0, num_classes)."""
+
+  def __init__(self, num_classes: int = 3, hidden_sizes=(8,), **kwargs):
+    super().__init__(num_classes=num_classes, hidden_sizes=hidden_sizes,
+                     **kwargs)
+
+  def get_feature_specification(self, mode: Mode) -> TensorSpecStruct:
+    st = TensorSpecStruct()
+    st.x = ExtendedTensorSpec(shape=(4,), dtype=np.float32, name="x")
+    return st
+
+  def get_label_specification(self, mode: Mode) -> TensorSpecStruct:
+    st = TensorSpecStruct()
+    st.label = ExtendedTensorSpec(shape=(1,), dtype=np.int64,
+                                  name="label")
     return st
 
 

@@ -153,7 +153,8 @@ class StepGraph:
   def __init__(self, fn: StepFn, carry: Any, inputs: Any,
                device: torch.device, num_generators: int = 0,
                carries: bool = True, warmup: int = 1,
-               own_carry: bool = True):
+               own_carry: bool = True,
+               generators: Sequence[torch.Generator] = ()):
     """Args:
       fn: `(carry, inputs, generators) -> (new_carry, outputs)`.
       carry: the state the step carries (copied into static buffers).
@@ -166,6 +167,9 @@ class StepGraph:
       own_carry: False reads `carry`'s own tensors (already on `device`)
         as the static carry instead of copying them: several graphs can
         then share one state that their owner rewrites between replays.
+      generators: generators of the caller's that `fn` draws from (a
+        model's dropout generator), registered with the graph after the
+        `num_generators` new ones.
     """
     self._fn = fn
     self._device = torch.device(device)
@@ -175,7 +179,7 @@ class StepGraph:
     self.inputs = copy_tree(map_tensors(lambda t: t.to(self._device), inputs))
     self._input_leaves = tensors(self.inputs)
     self.generators = [torch.Generator(device=self._device)
-                       for _ in range(num_generators)]
+                       for _ in range(num_generators)] + list(generators)
     self.replays = 0
     self._launches_per_replay: Dict[Callable, int] = {}
     self._graph: Optional[torch.cuda.CUDAGraph] = None

@@ -67,8 +67,16 @@ def test_build_env_equals_jax(env, index):
 
 
 def test_physics_env_names_a10a():
-  with pytest.raises(NotImplementedError, match="A10a"):
-    actor.build_env(orch.FleetConfig(env="mujoco_pose", **_KW), 0)
+  """`mujoco_pose` (A10a, ported) builds the physics bandit, JAX's for the
+  same actor seed: the same settled poses and images. (The name is kept
+  from when the port refused it naming A10a.)"""
+  port_env = actor.build_env(orch.FleetConfig(env="mujoco_pose", **_KW), 1)
+  jax_env = jax_actor.build_env(jax_orch.FleetConfig(env="mujoco_pose",
+                                                     **_KW), 1)
+  port_obs, port_pos = port_env.reset_batch(2)
+  jax_obs, jax_pos = jax_env.reset_batch(2)
+  np.testing.assert_array_equal(port_pos, jax_pos)
+  np.testing.assert_array_equal(port_obs["image"], jax_obs["image"])
 
 
 class _Stub:

@@ -8,13 +8,12 @@ process is spawned here.
     defaults; for a table of invalid configs it raises JAX's exception
     type with JAX's message, and the shipped fleet gins parse into the
     same config in both registries.
-  * What the port does not run yet (the `mujoco_pose` env in process
-    actors) is refused at `Fleet` construction and in `scale_to` by a
-    `FleetUnported` naming its ROADMAP item (A10a only, beside pods or a
-    learner group), before any process or directory is made; front
-    replicas, the control plane, Anakin pods, learner groups and a
-    pods-only `mujoco_pose` fleet (pods collect on the `pose` family)
-    are not.
+  * Nothing is refused any more: the `mujoco_pose` env in process
+    actors (A10a) is ported, so `Fleet` builds every config of the
+    former refusal table (beside fronts, the control plane, pods or a
+    learner group) without making any process or directory before
+    `launch`; a pods-only `mujoco_pose` fleet collects on the `pose`
+    family.
   * `_merge_fleet_metrics` and `_result_from_metrics` equal JAX's on the
     same seeded snapshot dicts.
 """
@@ -22,7 +21,6 @@ process is spawned here.
 import dataclasses
 import multiprocessing as mp
 import os
-import re
 
 import numpy as np
 import pytest
@@ -148,9 +146,8 @@ def test_shipped_gins_parse_to_jax_configs(gin_file):
   assert port is not None and jax is not None
 
 
-# The physics env is the one refusal left: beside fronts, the control
-# plane, pods or a learner group, the message names A10a alone.
-_A10A_ONLY = r"yet: env='mujoco_pose' needs MuJoCoPoseEnv \(ROADMAP A10a\)"
+# The configs the physics env was refused in (A10a, now ported): each
+# builds, beside fronts, the control plane, pods or a learner group.
 _REFUSED = [
     (dict(), "A10a"),  # the JAX default env: mujoco_pose
     (dict(front_hosts=2, pod_hosts=1), "A10a beside fronts and pods"),
@@ -165,50 +162,46 @@ _REFUSED = [
 @pytest.mark.parametrize("kwargs,item", _REFUSED,
                          ids=[item for _, item in _REFUSED])
 def test_refusals_raise_before_anything_is_made(tmp_path, kwargs, item):
+  """The physics env is no longer refused: the fleet builds, and nothing
+  is spawned or written before `launch`. (The name is kept from when
+  these configurations were refused; it now checks that they build.)"""
   config = orch.FleetConfig(**kwargs)
+  assert config.env == "mujoco_pose"
   children = set(mp.active_children())
   model_dir = str(tmp_path / "fleet")
-  with pytest.raises(orch.FleetUnported, match=_A10A_ONLY) as info:
-    orch.Fleet(config, model_dir)
-  assert not re.search("front|control|pod|learner|A11|A13",
-                       str(info.value))
-  assert isinstance(info.value, FleetError)
-  assert isinstance(info.value, NotImplementedError)
-  with pytest.raises(orch.FleetUnported, match=_A10A_ONLY):
-    orch.run_fleet(model_dir=model_dir, config=config)
+  fleet = orch.Fleet(config, model_dir)
+  assert fleet.num_actors == 0
+  with pytest.raises(FleetError, match="launched"):
+    fleet.scale_to(config.num_actors + 1)
   assert set(mp.active_children()) == children
   assert not os.path.exists(model_dir)
 
 
 def test_a_pods_only_physics_fleet_runs_on_the_pose_family(tmp_path):
-  """ROADMAP C7: only process actors would build the physics env (JAX's
-  `fleet/actor.py`); pods map `mujoco_pose` to the functional `pose`
-  family. A pods-only `mujoco_pose` fleet is accepted; one with actors,
-  and a `scale_to` onto actors (JAX holds it at one actor or more), are
-  refused naming A10a alone."""
+  """Only process actors build the physics env (JAX's `fleet/actor.py`);
+  pods map `mujoco_pose` to the functional `pose` family. A pods-only
+  `mujoco_pose` fleet and one with actors both build; `scale_to` waits
+  for the launch, as JAX's does."""
   pods_only = dict(env="mujoco_pose", num_actors=0, pod_hosts=1,
                    device="cpu")
-  assert orch.unported(orch.FleetConfig(**pods_only)) == []
   assert pod_env_family("mujoco_pose") == "pose"
   fleet = orch.Fleet(orch.FleetConfig(**pods_only), str(tmp_path))
-  with pytest.raises(orch.FleetUnported, match=_A10A_ONLY):
+  with pytest.raises(FleetError, match="launched"):
     fleet.scale_to(1)
-  with pytest.raises(orch.FleetUnported, match=_A10A_ONLY):
-    orch.Fleet(orch.FleetConfig(**{**pods_only, "num_actors": 1}),
-               str(tmp_path))
+  orch.Fleet(orch.FleetConfig(**{**pods_only, "num_actors": 1}),
+             str(tmp_path))
   assert not os.listdir(tmp_path)
 
 
 def test_a_runnable_config_is_not_refused(tmp_path):
-  assert orch.unported(orch.FleetConfig(env="pose")) == []
-  assert orch.unported(orch.FleetConfig(
-      env="toy_grasp", transport="tcp", serving_hosts=2,
-      replay_hosts=2)) == []
-  assert orch.unported(orch.FleetConfig(
-      env="pose", front_hosts=2, front_spread=2, control=True)) == []
-  assert orch.unported(orch.FleetConfig(
-      env="pose", pod_hosts=1, learner_hosts=2, transport="tcp",
-      serving_hosts=2, replay_hosts=2)) == []
+  for kwargs in (dict(env="pose"),
+                 dict(env="toy_grasp", transport="tcp", serving_hosts=2,
+                      replay_hosts=2),
+                 dict(env="pose", front_hosts=2, front_spread=2,
+                      control=True),
+                 dict(env="pose", pod_hosts=1, learner_hosts=2,
+                      transport="tcp", serving_hosts=2, replay_hosts=2)):
+    orch.Fleet(orch.FleetConfig(**kwargs), str(tmp_path / "unused"))
   fleet = orch.Fleet(orch.FleetConfig(env="pose", device="cpu"),
                      str(tmp_path))
   assert fleet.num_actors == 0  # nothing spawned before launch()

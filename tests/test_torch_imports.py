@@ -1,6 +1,7 @@
 """The PyTorch port imports neither JAX, nor absl, TensorFlow,
-protobuf, PIL or ml_dtypes (the card's machine has none of them), nor
-anything of the JAX package.
+protobuf, PIL, ml_dtypes or mujoco (the card's machine has none of
+them; `MuJoCoPoseEnv` imports mujoco when it is built), nor anything of
+the JAX package.
 
 A subprocess imports every module of `tensor2robot_tpu_torch`, then
 lists what landed in `sys.modules`; `chip_smoke.py`'s own imports are
@@ -22,7 +23,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _FORBIDDEN = r"""
 _PACKAGES = ("jax", "flax", "absl", "tensor2robot_tpu", "tensorflow",
-             "google.protobuf", "PIL", "ml_dtypes")
+             "google.protobuf", "PIL", "ml_dtypes", "mujoco")
 def forbidden(m):
     return m in _PACKAGES or m.startswith(tuple(p + "." for p in _PACKAGES))
 """
@@ -85,6 +86,9 @@ _EXPECTED = (
     "control.controller", "telemetry.merge", "telemetry.report",
     "telemetry.prometheus", "fleet.pod", "parallel.distributed",
     "parallel.mesh", "parallel.collectives",
+    "models.classification_model", "preprocessors.image_preprocessor",
+    "preprocessors.image_transformations",
+    "research.pose_env.mujoco_pose_env",
 )
 
 

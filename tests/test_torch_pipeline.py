@@ -202,7 +202,7 @@ def test_mesh_coordinates_and_groups_follow_jax_order():
   assert one.coords == {"data": 0, "stage": 0} and not one.groups
   assert not pipeline.is_pipelined(one)
   with pytest.raises(NotImplementedError, match="A11 rest"):
-    mesh_lib.create_mesh({"data": 1, "seq": 1}, devices=["cpu"])
+    mesh_lib.create_mesh({"data": 1, "expert": 1}, devices=["cpu"])
 
 
 def test_state_sharding_is_jax_pipeline_sharding():

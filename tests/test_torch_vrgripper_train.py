@@ -286,8 +286,12 @@ def test_positions_past_the_batch_get_no_update():
 
 
 def test_unported_training_options_raise_naming_the_roadmap_item():
-  with pytest.raises(NotImplementedError, match="A11"):
-    VRGripperTransformerModel(remat_policy="full", **_SMALL)
+  """`axis_name` is A11; `remat_policy` is ported (an unknown policy
+  raises JAX's ValueError; tests/test_torch_classification.py holds every
+  policy to "none")."""
+  with pytest.raises(ValueError, match="not in"):
+    VRGripperTransformerModel(remat_policy="checkpoint_all", **_SMALL)
+  VRGripperTransformerModel(remat_policy="full", **_SMALL)
   _, model, state = _models("reference")
   (features, labels), = _batches(model, 1)
   with pytest.raises(NotImplementedError, match="A11"):

@@ -368,18 +368,24 @@ def test_create_inference_state_defaults_to_the_card():
     dict(moe_experts=4, pipeline_stages=2),
     dict(attention_impl="ring")])
 def test_unported_options_raise_at_construction(kwargs):
-  """Ring attention is A11. A pipelined trunk takes neither ring
-  attention nor MoE blocks (JAX's errors). MoE on one device and the
-  pipelined trunk are ported (tests/test_torch_vrgripper_moe.py,
-  tests/test_torch_pipelined_transformer.py)."""
+  """A pipelined trunk takes neither ring attention nor MoE blocks
+  (JAX's errors). MoE on one device, the pipelined trunk and ring
+  attention are ported (tests/test_torch_vrgripper_moe.py,
+  tests/test_torch_pipelined_transformer.py,
+  tests/test_torch_ring_attention.py): a ring model builds, and mesh-free
+  it runs "auto" (no parameter depends on the backend)."""
   if "pipeline_stages" in kwargs:
     match = "pipeline stages" if "attention_impl" in kwargs else (
         "mutually exclusive")
     with pytest.raises(ValueError, match=match):
       VRGripperTransformerModel(**dict(_SMALL, **kwargs))
     return
-  with pytest.raises(NotImplementedError, match="A11"):
-    VRGripperTransformerModel(**dict(_SMALL, **kwargs))
+  model = VRGripperTransformerModel(**dict(_SMALL, **kwargs))
+  assert model.without_mesh() is model  # no mesh: itself, impl "ring"
+  state = model.create_inference_state(0, device="cpu")
+  auto = VRGripperTransformerModel(**_SMALL)
+  assert set(state.params) == set(auto.create_inference_state(
+      0, device="cpu").params)
 
 
 # ---- the closed-loop policy and the env ----
